@@ -7,24 +7,31 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the Hopper kernels from `lwsnet_tpu_torch/csrc/` and drives the
 port's main path, the 368x1232 batch-1 bf16 4-stage inference forward, on
-seeded random weights. Phases, in order; any failure exits non-zero:
+seeded random weights, under each stage-4 refinement engine: the shipped
+`rows_dw="mxu"`, then "vpu" with `rows_paired` True and False, and
+"chain". Phases, in order; any failure exits non-zero:
 
   1. the card's name and power limit;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
      memory lines;
-  3. every kernel against its plain PyTorch version at each shape the main
-     path gives it, in float32 (TF32 off; atol 2e-4, rtol 1e-3) and bf16
-     (mean |delta| < 2 % of the plain output's span);
-  4. the full forward through `make_forward` (kernels) against the module
-     path on the card: bf16 per-stage mean |delta| < 2 % of span, float32
-     max |delta| < 1e-3 x span; the launch counters of the bf16 kernel run
-     must be conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3 11
-     (1 of them two-input);
-  5. `InferenceEngine` answers 4 seeded requests at num_stages 1..4, with
-     per-stage latency from CUDA events after a warm-up, and one
-     torch.profiler window gives the 4-stage forward's device busy share;
-  6. each kernel timed at its main-path shapes beside its plain version and
-     one cuDNN call, and its bound from bytes and operations.
+  3. every kernel against its plain PyTorch version at each shape a path
+     gives it, in float32 (TF32 off; atol 2e-4, rtol 1e-3) and bf16 (mean
+     |delta| < 2 % of the plain output's span);
+  4. for each engine, the full forward through `make_forward` (kernels)
+     against the module path on the card: bf16 per-stage mean |delta| < 2 %
+     of span, float32 max |delta| < 1e-3 x span; the launch counters of
+     the bf16 kernel run, set to 0 just before it, must equal
+     `want_counts` (the shipped engine: conv3d_bn_relu 15,
+     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input);
+  5. `InferenceEngine` answers 4 seeded requests at num_stages 1..4 under
+     the shipped engine, with per-stage latency from CUDA events after a
+     warm-up, and one torch.profiler window gives the 4-stage forward's
+     device busy share; under each other engine it answers one request at
+     num_stages 1..4, and its 4-stage latency is timed the same way;
+  6. each kernel timed at its path's shapes beside its plain version, its
+     bound from bytes and operations, and one cuDNN call that computes the
+     same function where there is one (else the sum of per-layer cuDNN
+     calls).
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -89,7 +96,47 @@ def event_ms(fn):
     return statistics.median(event_times(fn))
 
 
-PORT_KERNELS = ("conv3d_bn_relu", "skip_softargmin", "dense3x3")
+PORT_KERNELS = ("conv3d_bn_relu", "skip_softargmin", "dense3x3", "dwsep3x3",
+                "chain3x3")
+
+# The stage-4 refinement engines: (rows_dw, rows_paired); "mxu" is shipped.
+ENGINES = {"mxu": ("mxu", True), "vpu-paired": ("vpu", True),
+           "vpu-unpaired": ("vpu", False), "chain": ("chain", True)}
+# Launches per 368x1232 batch-1 forward beyond stages 1-3's
+# (conv3d_bn_relu 15, conv3d_skip_softargmin 3).
+REFINE_LAUNCHES = {
+    "mxu": {"dense3x3": 11, "dense3x3[dual]": 1},
+    "vpu-paired": {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3_pair": 4},
+    "vpu-unpaired": {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3": 8},
+    "chain": {"chain3x3": 2, "chain3x3[dual]": 1},
+}
+# The engine whose forward runs each kernel, for the kernels line.
+ENGINE_OF = {"conv3d_bn_relu": "mxu", "conv3d_skip_softargmin": "mxu",
+             "dense3x3": "mxu", "dwsep3x3": "vpu-unpaired",
+             "dwsep3x3_pair": "vpu-paired", "chain3x3": "chain"}
+REPLACES = {
+    "conv3d_bn_relu": "lwsnet_tpu/ops/pallas/costfilter.py:138 "
+                      "(_dgrid_kernel); lwsnet_tpu/ops/pallas/"
+                      "costfilter.py:345 (_folded_kernel)",
+    "conv3d_skip_softargmin": "lwsnet_tpu/ops/pallas/costfilter.py:382 "
+                              "(_folded_last_kernel)",
+    "dense3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:243 "
+                "(_dense_kernel); lwsnet_tpu/ops/pallas/"
+                "refine_rows.py:271 (_dense2_kernel)",
+    "dwsep3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:170 (_dwsep_kernel)",
+    "dwsep3x3_pair": "lwsnet_tpu/ops/pallas/refine_rows.py:193 "
+                     "(_dwsep2_kernel)",
+    "chain3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:503 (_chain_kernel)",
+}
+
+
+def want_counts(engine, zero):
+    """Launch counts of one bf16 forward under `engine`; `zero` holds every
+    counter's name."""
+    counts = dict.fromkeys(zero, 0)
+    counts.update(conv3d_bn_relu=15, conv3d_skip_softargmin=3)
+    counts.update(REFINE_LAUNCHES[engine])
+    return counts
 
 
 def device_profile(fn, reps=5):
@@ -166,9 +213,61 @@ def main_path_calls(cfg):
     return calls
 
 
+def variant_calls(cfg):
+    """Every distinct call of the kernels that only the other refinement
+    engines run (368x1232 batch 1): (kernel, label, shape dict, launches
+    per forward under the engine that runs it)."""
+    from lwsnet_tpu_torch.models.refinement import (HEAD_DENSE_DILATION,
+                                                    HEAD_DILATIONS,
+                                                    TOWER_DILATIONS)
+    c = cfg.refine_channels
+    tower = dict(H=H, W=W, C=c, B=2, G=2)
+    head = dict(H=H, W=W, C=c, B=1, G=1)
+    calls = [("dwsep3x3", f"tower d={d} G=2", dict(tower, d=d), 1)
+             for d in TOWER_DILATIONS]
+    calls += [("dwsep3x3", f"head d={d}", dict(head, d=d), 1)
+              for d in HEAD_DILATIONS]
+    for geo, dils, name in ((tower, TOWER_DILATIONS, "tower"),
+                            (head, HEAD_DILATIONS, "head")):
+        for i in (0, 2):
+            d1, d2 = dils[i], dils[i + 1]
+            calls.append(("dwsep3x3_pair", f"{name} ({d1},{d2}) G={geo['G']}",
+                          dict(geo, d1=d1, d2=d2), 1))
+    calls.append(("chain3x3", "tower 3->32, d=1,2,4,8,16, G=2",
+                  dict(tower, Ci0=3, dils=(1,) + TOWER_DILATIONS,
+                       aff=(False,) + (True,) * 4, dual=False, co_last=c,
+                       f32_out=False), 1))
+    dils = (HEAD_DENSE_DILATION,) + HEAD_DILATIONS + (1,)
+    calls.append(("chain3x3", f"head 2x32->32->1, d={dils}, f32 out",
+                  dict(head, Ci0=c, dils=dils, aff=(True,) * 5 + (False,),
+                       dual=True, co_last=1, f32_out=True), 1))
+    return calls
+
+
+def _conv(inp, wt, d):
+    """One cuDNN conv of inp with wt (G, Co, Ci, 3, 3), batch b with set
+    b // (B / G), padding = dilation: the timing yardstick of a layer."""
+    import torch.nn.functional as F
+    G, B = wt.shape[0], inp.shape[0]
+    if G == 1:
+        return lambda: F.conv2d(inp, wt[0], padding=d, dilation=d)
+    xg = inp.reshape(B // G, G * inp.shape[1], *inp.shape[2:])
+    wg = wt.reshape(-1, *wt.shape[2:])
+    return lambda: F.conv2d(xg, wg, padding=d, dilation=d, groups=G)
+
+
+def _composed(dw, pw):
+    """A dw-sep layer's weights (G, C, 3, 3), (G, Co, C) as the dense
+    (G, Co, C, 3, 3) kernel pw . dw, formed in float32: a conv over it
+    computes pointwise(depthwise(x)) exactly, by associativity."""
+    return (pw.float()[:, :, :, None, None] * dw.float()[:, None]).to(
+        dw.dtype)
+
+
 def make_call(kernel, p, dtype, rng, dev):
-    """(kernel fn, plain fn, library fn, bytes, operations) on seeded random
-    operands for one main-path call."""
+    """One call on seeded random operands: {kernel, plain, library} fns
+    (library None where no one PyTorch call computes the function; then
+    `layers` times one cuDNN call per layer), bytes and operations."""
     import torch
     import torch.nn.functional as F
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
@@ -177,7 +276,73 @@ def make_call(kernel, p, dtype, rng, dev):
     def t(a, dt=dtype):
         return torch.as_tensor(a, dtype=torch.float32).to(dev, dt)
 
+    def affine(G, C):
+        return t(np.stack([rng.uniform(0.5, 1.5, (G, C)),
+                           rng.normal(0, 0.5, (G, C))], 1), torch.float32)
+
+    def call(kernel_fn, plain_fn, library, nbytes, ops, layers=None):
+        return dict(kernel=kernel_fn, plain=plain_fn, library=library,
+                    layers=layers, bytes=nbytes, ops=ops)
+
     es = torch.tensor([], dtype=dtype).element_size()
+    if kernel in ("dwsep3x3", "dwsep3x3_pair"):
+        B, G, C, h, w = (p[k] for k in ("B", "G", "C", "H", "W"))
+        x = t(rng.standard_normal((B, C, h, w)))
+        pair = kernel == "dwsep3x3_pair"
+        layers = [(t(rng.standard_normal((G, C, 3, 3)) / 3),
+                   t(rng.standard_normal((G, C, C)) / np.sqrt(C)),
+                   affine(G, C)) for _ in range(2 if pair else 1)]
+        n_w = sum(dw.numel() + pw.numel() for dw, pw, _ in layers)
+        nbytes = (2 * B * C * h * w + n_w) * es + 8 * G * C * len(layers)
+        ops = 2 * B * h * w * (9 * C + C * C) * len(layers)
+        if not pair:
+            (dw, pw, aff), = layers
+            kw = dict(dilation=p["d"], affine=aff)
+            return call(lambda: RR.dwsep(x, dw, pw, **kw),
+                        lambda: RR.dwsep_plain(x, dw, pw, **kw),
+                        _conv(x, _composed(dw, pw), p["d"]), nbytes, ops)
+        (dw1, pw1, a1), (dw2, pw2, a2) = layers
+        kw = dict(dilation1=p["d1"], dilation2=p["d2"], affine1=a1,
+                  affine2=a2)
+        convs = [_conv(x, _composed(dw1, pw1), p["d1"]),
+                 _conv(x, _composed(dw2, pw2), p["d2"])]
+        return call(lambda: RR.dwsep2(x, dw1, pw1, dw2, pw2, **kw),
+                    lambda: RR.dwsep2_plain(x, dw1, pw1, dw2, pw2, **kw),
+                    None, nbytes, ops, lambda: [c() for c in convs])
+    if kernel == "chain3x3":
+        B, G, C, h, w = (p[k] for k in ("B", "G", "C", "H", "W"))
+        dils, n, dual = p["dils"], len(p["dils"]), p["dual"]
+        out_dt = torch.float32 if p["f32_out"] else dtype
+        cis = [p["Ci0"]] + [C] * (n - 1)
+        cos = [C] * (n - 1) + [p["co_last"]]
+        fan = [(2 if dual and i == 0 else 1) * cis[i] for i in range(n)]
+        wts = [t(rng.standard_normal((G, cos[i], cis[i], 3, 3))
+                 * np.sqrt(2 / (9 * fan[i]))) for i in range(n)]
+        affs = [affine(G, cis[i]) if p["aff"][i] else None for i in range(n)]
+        x = t(rng.standard_normal((B, cis[0], h, w)))
+        kw = dict(dilations=dils, out_dtype=out_dt)
+        inner = t(rng.standard_normal((B, C, h, w)))  # yardstick operand
+        convs = [_conv(inner, wts[i], dils[i]) for i in range(1, n)]
+        n_w = sum(wt.numel() for wt in wts)
+        if dual:
+            x2 = t(rng.standard_normal((B, cis[0], h, w)))
+            wt2 = t(rng.standard_normal(tuple(wts[0].shape))
+                    * np.sqrt(2 / (9 * fan[0])))
+            kw.update(x2=x2, wt2=wt2, aff2=affine(G, cis[0]))
+            both = torch.cat([x, x2], 1)
+            wcat = torch.cat([wts[0], wt2], 2)
+            convs.insert(0, _conv(both, wcat, dils[0]))
+            n_w += wt2.numel()
+        else:
+            convs.insert(0, _conv(x, wts[0], dils[0]))
+        out_es = torch.tensor([], dtype=out_dt).element_size()
+        n_px = B * h * w
+        nbytes = (((2 if dual else 1) * cis[0] * n_px + n_w) * es
+                  + cos[-1] * n_px * out_es)
+        ops = sum(2 * 9 * fan[i] * cos[i] * n_px for i in range(n))
+        return call(lambda: RR.chain(x, wts, affs, **kw),
+                    lambda: RR.chain_plain(x, wts, affs, **kw), None,
+                    nbytes, ops, lambda: [c() for c in convs])
     if kernel == "conv3d_bn_relu":
         B, Ci, Co, D, h, w = (p[k] for k in ("B", "Ci", "Co", "D", "H", "W"))
         x = t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0))
@@ -185,11 +350,11 @@ def make_call(kernel, p, dtype, rng, dev):
         shift = t(rng.normal(0, 0.1, Co), torch.float32)
         n_in = B * Ci * D * h * w
         n_out = B * Co * D * h * w
-        return (lambda: CF.conv3d_bn_relu(x, wt, shift),
-                lambda: CF.conv3d_bn_relu_plain(x, wt, shift),
-                lambda: F.conv3d(x, wt, padding=1),
-                (n_in + n_out + wt.numel()) * es + 4 * Co,
-                2 * 27 * Ci * n_out)
+        return call(lambda: CF.conv3d_bn_relu(x, wt, shift),
+                    lambda: CF.conv3d_bn_relu_plain(x, wt, shift),
+                    lambda: F.conv3d(x, wt, padding=1),
+                    (n_in + n_out + wt.numel()) * es + 4 * Co,
+                    2 * 27 * Ci * n_out)
     if kernel == "conv3d_skip_softargmin":
         B, Ci, D, h, w = (p[k] for k in ("B", "Ci", "D", "H", "W"))
         x = t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0))
@@ -197,46 +362,36 @@ def make_call(kernel, p, dtype, rng, dev):
         vol = t(rng.standard_normal((B, D, h, w)) * 2)
         start = p["start"]
         n_vox = B * D * h * w
-        return (lambda: CF.conv3d_skip_softargmin(x, wt, vol, start),
-                lambda: CF.conv3d_skip_softargmin_plain(x, wt, vol, start),
-                lambda: F.conv3d(x, wt, padding=1),
-                (B * Ci * D * h * w + n_vox + wt.numel()) * es + 4 * B * h * w,
-                2 * 27 * Ci * n_vox + 5 * n_vox)
+        return call(lambda: CF.conv3d_skip_softargmin(x, wt, vol, start),
+                    lambda: CF.conv3d_skip_softargmin_plain(x, wt, vol,
+                                                            start),
+                    lambda: F.conv3d(x, wt, padding=1),
+                    (B * Ci * D * h * w + n_vox + wt.numel()) * es
+                    + 4 * B * h * w,
+                    2 * 27 * Ci * n_vox + 5 * n_vox)
     B, G, Ci, Co, d, h, w = (p[k] for k in ("B", "G", "Ci", "Co", "d", "H",
                                             "W"))
     dual = p.get("dual", False)
     out_dt = torch.float32 if p.get("f32_out") else dtype
     x = t(rng.standard_normal((B, Ci, h, w)))
     wt = t(rng.standard_normal((G, Co, Ci, 3, 3)) * np.sqrt(2 / (9 * Ci)))
-    aff = None
-    if p["aff"]:
-        aff = t(np.stack([rng.uniform(0.5, 1.5, (G, Ci)),
-                          rng.normal(0, 0.5, (G, Ci))], 1), torch.float32)
+    aff = affine(G, Ci) if p["aff"] else None
     kw = dict(dilation=d, affine=aff, out_dtype=out_dt)
     if dual:
         x2 = t(rng.standard_normal((B, Ci, h, w)))
         wt2 = t(rng.standard_normal((G, Co, Ci, 3, 3)) * np.sqrt(2 / (9 * Ci)))
-        aff2 = t(np.stack([rng.uniform(0.5, 1.5, (G, Ci)),
-                           rng.normal(0, 0.5, (G, Ci))], 1), torch.float32)
-        kw.update(x2=x2, wt2=wt2, affine2=aff2)
-        both = torch.cat([x, x2], 1)  # yardstick operand, built once
-        wcat = torch.cat([wt[0], wt2[0]], 1)
-        library = lambda: F.conv2d(both, wcat, padding=d, dilation=d)  # noqa
-    elif G > 1:
-        xg = x.reshape(B // G, G * Ci, h, w)
-        wg = wt.reshape(G * Co, Ci, 3, 3)
-        library = lambda: F.conv2d(xg, wg, padding=d, dilation=d,  # noqa
-                                   groups=G)
+        kw.update(x2=x2, wt2=wt2, affine2=affine(G, Ci))
+        library = _conv(torch.cat([x, x2], 1), torch.cat([wt, wt2], 2), d)
     else:
-        library = lambda: F.conv2d(x, wt[0], padding=d, dilation=d)  # noqa
+        library = _conv(x, wt, d)
     n_in = (2 if dual else 1) * B * Ci * h * w
     n_out = B * Co * h * w
     out_es = torch.tensor([], dtype=out_dt).element_size()
-    return (lambda: RR.dense3x3(x, wt, **kw),
-            lambda: RR.dense3x3_plain(x, wt, **kw),
-            library,
-            (n_in + (2 if dual else 1) * wt.numel()) * es + n_out * out_es,
-            2 * 9 * Ci * n_out * (2 if dual else 1))
+    return call(lambda: RR.dense3x3(x, wt, **kw),
+                lambda: RR.dense3x3_plain(x, wt, **kw), library,
+                (n_in + (2 if dual else 1) * wt.numel()) * es
+                + n_out * out_es,
+                2 * 9 * Ci * n_out * (2 if dual else 1))
 
 
 def check_close(got, want, dtype, what):
@@ -303,167 +458,197 @@ def main():
                 print(f"[2] {src}: {line.strip()}")
 
     cfg = ModelConfig()
-    calls = main_path_calls(cfg)
+    calls = main_path_calls(cfg) + variant_calls(cfg)
 
     # 3. kernels against their plain versions
     checks = {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (kernel, label, p, _) in enumerate(calls):
             rng = np.random.default_rng(1000 + i)
-            k_fn, plain_fn, _, _, _ = make_call(kernel, p, dtype, rng, dev)
-            got = k_fn()
-            want = plain_fn()
+            c = make_call(kernel, p, dtype, rng, dev)
+            got = c["kernel"]()
+            want = c["plain"]()
             torch.cuda.synchronize()
             what = f"{kernel} [{label}] {str(dtype)[6:]}"
             err, span = check_close(got, want, dtype, what)
             checks.setdefault(kernel, {})[(label, str(dtype)[6:])] = err
             print(f"[3] ok {what}: max |delta| {err:.3g}, span {span:.4g}")
-    build.reset_launch_counts()
+            del c, got, want
 
-    # 4. the whole forward, kernels vs module path
+    # 4. the whole forward under each engine, kernels vs module path
     left_np = np.random.default_rng(1).standard_normal((1, H, W, 3))
     right_np = np.random.default_rng(2).standard_normal((1, H, W, 3))
-    counts = None
+    left = torch.as_tensor(left_np, dtype=torch.float32, device=dev)
+    right = torch.as_tensor(right_np, dtype=torch.float32, device=dev)
+    build.reset_launch_counts()
+    zero = build.launch_counts()
+    counts = {}
     forward_report = {}
     for dt in ("bfloat16", "float32"):
-        cfg_dt = ModelConfig(compute_dtype=dt)
-        model = LWSNet(cfg_dt, device=dev, seed=0)
-        jitter_batchnorm(model, np.random.default_rng(3))
-        left = torch.as_tensor(left_np, dtype=torch.float32, device=dev)
-        right = torch.as_tensor(right_np, dtype=torch.float32, device=dev)
-        plain = make_forward(model, use_pallas=False, device=dev)(left, right)
-        fwd = make_forward(model, use_pallas=True, device=dev)
-        build.reset_launch_counts()
-        got = fwd(left, right)
-        torch.cuda.synchronize()
-        if dt == "bfloat16":
-            counts = build.launch_counts()
-        rows = []
-        for s, (a, b) in enumerate(zip(plain, got)):
-            require(tuple(b.shape) == (1, H, W, 1), f"stage {s + 1} shape")
-            require(torch.isfinite(b).all().item(), f"stage {s + 1} finite")
-            span = (a.max() - a.min()).item() + 1.0
-            delta = (a - b).abs()
-            mean, mx = delta.mean().item(), delta.max().item()
-            rows.append(dict(stage=s + 1, span=span, mean_abs=mean,
-                             max_abs=mx))
-            print(f"[4] {dt} stage {s + 1}: span {span:.4g}, mean |delta| "
-                  f"{mean:.4g} ({100 * mean / span:.3f} %), max |delta| "
-                  f"{mx:.4g} ({100 * mx / span:.3f} %)")
+        plain = None
+        for engine, (rows_dw, paired) in ENGINES.items():
+            model = LWSNet(ModelConfig(compute_dtype=dt, rows_dw=rows_dw,
+                                       rows_paired=paired), device=dev,
+                           seed=0)
+            jitter_batchnorm(model, np.random.default_rng(3))
+            if plain is None:  # the module path runs no refinement kernel
+                plain = make_forward(model, use_pallas=False,
+                                     device=dev)(left, right)
+            fwd = make_forward(model, use_pallas=True, device=dev)
+            build.reset_launch_counts()
+            got = fwd(left, right)
+            torch.cuda.synchronize()
             if dt == "bfloat16":
-                require(mean < 0.02 * span, f"bf16 stage {s + 1}: mean "
-                        f"|delta| >= 2% of span")
-            else:
-                require(mx < 1e-3 * span, f"f32 stage {s + 1}: max |delta| "
-                        f">= 1e-3 x span")
-        forward_report[dt] = rows
-        del model, plain, got
-    print(f"[4] launch counts of the bf16 kernel forward: {counts}")
-    want_counts = {"conv3d_bn_relu": 15, "conv3d_skip_softargmin": 3,
-                   "dense3x3": 11, "dense3x3[dual]": 1}
-    require(counts == want_counts, f"launch counts {counts} != {want_counts}")
+                counts[engine] = build.launch_counts()
+            rows = []
+            for s, (a, b) in enumerate(zip(plain, got)):
+                what = f"{dt} {engine} stage {s + 1}"
+                require(tuple(b.shape) == (1, H, W, 1), f"{what}: shape")
+                require(torch.isfinite(b).all().item(), f"{what}: finite")
+                span = (a.max() - a.min()).item() + 1.0
+                delta = (a - b).abs()
+                mean, mx = delta.mean().item(), delta.max().item()
+                rows.append(dict(stage=s + 1, span=span, mean_abs=mean,
+                                 max_abs=mx))
+                print(f"[4] {what}: span {span:.4g}, mean |delta| "
+                      f"{mean:.4g} ({100 * mean / span:.3f} %), max |delta| "
+                      f"{mx:.4g} ({100 * mx / span:.3f} %)")
+                if dt == "bfloat16":
+                    require(mean < 0.02 * span, f"{what}: mean |delta| >= "
+                            f"2% of span")
+                else:
+                    require(mx < 1e-3 * span, f"{what}: max |delta| >= "
+                            f"1e-3 x span")
+            forward_report[f"{dt} {engine}"] = rows
+            del model, got
+        del plain
+    for engine in ENGINES:
+        want = want_counts(engine, zero)
+        print(f"[4] launch counts of the bf16 {engine} kernel forward: "
+              f"{counts[engine]}")
+        require(counts[engine] == want,
+                f"{engine} launch counts {counts[engine]} != {want}")
     report["forward"] = forward_report
     report["launch_counts"] = counts
 
-    # 5. the inference engine: 4 seeded requests, num_stages 1..4
+    # 5. the inference engine: 4 seeded requests, num_stages 1..4, under the
+    # shipped engine; one request and the 4-stage latency under each other
     model = LWSNet(cfg, device="cpu", seed=0)
     jitter_batchnorm(model, np.random.default_rng(3))
-    engine = InferenceEngine(cfg, model.state_dict(), device=dev)
+    state = model.state_dict()
+    del model
     latency = {}
-    for req in range(4):
-        rng = np.random.default_rng(100 + req)
-        l_img = rng.uniform(0, 1, (375, 1242, 3)).astype(np.float32)
-        r_img = rng.uniform(0, 1, (375, 1242, 3)).astype(np.float32)
-        l, r = engine.preprocess(l_img, r_img)
-        full = engine(l, r, num_stages=4)
-        for stages in (1, 2, 3, 4):
-            outs = engine(l, r, num_stages=stages)
-            require(len(outs) == stages, "stage count")
-            for s, o in enumerate(outs):
-                require(o.shape == (1, H, W) and np.isfinite(o).all(),
-                        f"request {req} stages {stages}: stage {s + 1}")
-                span = float(full[s].max() - full[s].min()) + 1.0
-                require(np.abs(o - full[s]).mean() < 1e-3 * span,
-                        f"request {req}: stages={stages} is not a prefix")
-    l, r = engine.preprocess(l_img, r_img)
-    for stages in (1, 2, 3, 4):
-        fwd = make_forward(engine.model, num_stages=stages, device=dev)
-        plain = make_forward(engine.model, num_stages=stages,
-                             use_pallas=False, device=dev)
-        kt, pt = event_times(lambda: fwd(l, r)), event_times(
-            lambda: plain(l, r))
-        latency[stages] = dict(
-            kernels_ms=statistics.median(kt), kernels_max_ms=kt[-1],
-            plain_ms=statistics.median(pt), plain_max_ms=pt[-1],
-            samples=len(kt))
-        print(f"[5] num_stages={stages}: kernel path median "
-              f"{latency[stages]['kernels_ms']:.3f} ms (max {kt[-1]:.3f}), "
-              f"module path median {latency[stages]['plain_ms']:.3f} ms "
-              f"(max {pt[-1]:.3f}) over {len(kt)} 368x1232 bf16 batch-1 "
-              f"forwards ({smi})")
-    print("[5] InferenceEngine answered 4 requests at num_stages 1..4")
+    for engine, (rows_dw, paired) in ENGINES.items():
+        ecfg = ModelConfig(rows_dw=rows_dw, rows_paired=paired)
+        eng = InferenceEngine(ecfg, state, device=dev)
+        for req in range(4 if engine == "mxu" else 1):
+            rng = np.random.default_rng(100 + req)
+            l_img = rng.uniform(0, 1, (375, 1242, 3)).astype(np.float32)
+            r_img = rng.uniform(0, 1, (375, 1242, 3)).astype(np.float32)
+            l, r = eng.preprocess(l_img, r_img)
+            full = eng(l, r, num_stages=4)
+            for stages in (1, 2, 3, 4):
+                outs = eng(l, r, num_stages=stages)
+                require(len(outs) == stages, "stage count")
+                for s, o in enumerate(outs):
+                    require(o.shape == (1, H, W) and np.isfinite(o).all(),
+                            f"{engine} request {req} stages {stages}: "
+                            f"stage {s + 1}")
+                    span = float(full[s].max() - full[s].min()) + 1.0
+                    require(np.abs(o - full[s]).mean() < 1e-3 * span,
+                            f"{engine} request {req}: stages={stages} is "
+                            f"not a prefix")
+        print(f"[5] {engine}: InferenceEngine answered "
+              f"{4 if engine == 'mxu' else 1} request(s) at num_stages 1..4")
+        l, r = eng.preprocess(l_img, r_img)
+        for stages in ((1, 2, 3, 4) if engine == "mxu" else (4,)):
+            fwd = make_forward(eng.model, num_stages=stages, device=dev)
+            kt = event_times(lambda: fwd(l, r))
+            row = dict(kernels_ms=statistics.median(kt),
+                       kernels_max_ms=kt[-1], samples=len(kt))
+            msg = (f"[5] {engine} num_stages={stages}: kernel path median "
+                   f"{row['kernels_ms']:.3f} ms (max {kt[-1]:.3f})")
+            if engine == "mxu":
+                plain = make_forward(eng.model, num_stages=stages,
+                                     use_pallas=False, device=dev)
+                pt = event_times(lambda: plain(l, r))
+                row.update(plain_ms=statistics.median(pt),
+                           plain_max_ms=pt[-1])
+                msg += (f", module path median {row['plain_ms']:.3f} ms "
+                        f"(max {pt[-1]:.3f})")
+            latency.setdefault(engine, {})[stages] = row
+            print(f"{msg} over {len(kt)} 368x1232 bf16 batch-1 forwards "
+                  f"({smi})")
+        if engine == "mxu":
+            shipped = (make_forward(eng.model, num_stages=4, device=dev),
+                       l, r)
+        del eng
     report["latency_ms"] = latency
-    fwd = make_forward(engine.model, num_stages=4, device=dev)
+    # The profiler window comes after every latency: forwards timed after
+    # it read slower (PERF.md, PR 2).
+    fwd, l, r = shipped
     prof = device_profile(lambda: fwd(l, r))
     report["profile_4_stages"] = prof
     if prof is None:
         print("[5] device busy share: not measured (the profiler recorded "
               "no device activity)")
     else:
-        print(f"[5] profiled 4-stage kernel forward: host clock "
+        print(f"[5] profiled 4-stage mxu kernel forward: host clock "
               f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} "
               f"ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), of "
               f"which the port's kernels {prof['port_kernels_ms']:.3f} ms "
               f"and other kernels {prof['other_kernels_ms']:.3f} ms")
         for n, t in prof["top_other"]:
             print(f"[5]   other kernel {t:.3f} ms: {n}")
-    del engine, model
+    del shipped, fwd
 
-    # 6. kernel times at the main-path shapes
+    # 6. kernel times at the paths' shapes
     per_shape = []
     totals = {}
     for i, (kernel, label, p, n) in enumerate(calls):
         rng = np.random.default_rng(2000 + i)
-        k_fn, plain_fn, lib_fn, nbytes, ops = make_call(
-            kernel, p, torch.bfloat16, rng, dev)
-        ms = event_ms(k_fn)
-        plain_ms = event_ms(plain_fn)
-        lib_ms = event_ms(lib_fn)
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = ops / PEAK_BF16 * 1e3
-        row = dict(kernel=kernel, label=label, launches=n, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
-                   operations=ops, bound_ms=max(t_bytes, t_ops),
+        c = make_call(kernel, p, torch.bfloat16, rng, dev)
+        t_bytes = c["bytes"] / PEAK_BYTES * 1e3
+        t_ops = c["ops"] / PEAK_BF16 * 1e3
+        row = dict(kernel=kernel, label=label, launches=n,
+                   ms=event_ms(c["kernel"]), plain_ms=event_ms(c["plain"]),
+                   library_ms=(None if c["library"] is None
+                               else event_ms(c["library"])),
+                   layers_cudnn_ms=(None if c["layers"] is None
+                                    else event_ms(c["layers"])),
+                   bytes=c["bytes"], operations=c["ops"],
+                   bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        del c
         per_shape.append(row)
-        tot = totals.setdefault(kernel, dict(ms=0.0, plain_ms=0.0,
-                                             library_ms=0.0, bytes_ms=0.0,
-                                             ops_ms=0.0, bound_ms=0.0))
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        tot = totals.setdefault(kernel, dict(
+            ms=0.0, plain_ms=0.0, library_ms=0.0, layers_cudnn_ms=0.0,
+            bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0))
+        for k in ("ms", "plain_ms", "bound_ms"):
             tot[k] += n * row[k]
+        for k in ("library_ms", "layers_cudnn_ms"):
+            if row[k] is None or tot[k] is None:
+                tot[k] = None
+            else:
+                tot[k] += n * row[k]
         tot["bytes_ms" if row["bound_by"] == "bytes" else "ops_ms"] += \
             n * row["bound_ms"]
-        print(f"[6] {kernel} [{label}] x{n}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound "
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        layers = ("" if row["layers_cudnn_ms"] is None else
+                  f", per-layer cuDNN sum {row['layers_cudnn_ms']:.4f} ms")
+        print(f"[6] {kernel} [{label}] x{n}: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, cuDNN {lib}{layers}, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     report["per_shape"] = per_shape
 
-    replaces = {
-        "conv3d_bn_relu": "lwsnet_tpu/ops/pallas/costfilter.py:138 "
-                          "(_dgrid_kernel); lwsnet_tpu/ops/pallas/"
-                          "costfilter.py:345 (_folded_kernel)",
-        "conv3d_skip_softargmin": "lwsnet_tpu/ops/pallas/costfilter.py:382 "
-                                  "(_folded_last_kernel)",
-        "dense3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:243 "
-                    "(_dense_kernel); lwsnet_tpu/ops/pallas/"
-                    "refine_rows.py:271 (_dense2_kernel)",
-    }
     line = []
     for k in build.KERNELS:
         tot = totals[k.name]
         line.append(dict(
             name=k.name, route="cuda", source=k.source,
-            replaces=replaces[k.name], launches=counts[k.name],
+            replaces=REPLACES[k.name],
+            launches=counts[ENGINE_OF[k.name]][k.name],
             max_abs_err=max(v for (_, d), v in checks[k.name].items()
                             if d == "bfloat16"),
             ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -472,13 +657,14 @@ def main():
                       else "operations"),
             library_ms=tot["library_ms"]))
     report["kernels"] = line
+    report["totals"] = totals
     report["seconds"] = time.time() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(f"[6] per forward (ms are launches x per-launch time; "
-          f"bound from {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 and "
-          f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+    print(f"[6] per forward under each kernel's engine (ms are launches x "
+          f"per-launch time; bound from {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 "
+          f"and {PEAK_BYTES / 1e12:.2f} TB/s); {report['seconds']:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

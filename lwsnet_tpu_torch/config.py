@@ -36,13 +36,15 @@ class ModelConfig:
     # True: the inference forward runs the cost filters and the refinement
     # through the Hopper kernels. False: the plain module path.
     use_pallas: bool = True
-    # Refinement kernel granularity. Only "rows" is ported.
+    # Refinement kernel granularity. Only "rows" is ported; "layers"
+    # raises NotImplementedError.
     pallas_mode: str = "rows"
-    # Kept for field parity with the JAX config; it only selects between
-    # "rows" variants that are not ported ("vpu").
+    # With rows_dw="vpu": two dw-sep layers per dwsep3x3 launch (True) or
+    # one (False). Ignored by "mxu" and "chain".
     rows_paired: bool = True
-    # "rows" refinement engine. Only "mxu" (every dw-sep layer as one dense
-    # 3x3 over the composed rank-1 kernel) is ported.
+    # "rows" refinement engine: "mxu" (every dw-sep layer as one dense3x3
+    # over the composed rank-1 kernel), "vpu" (dw-sep layers on dwsep3x3)
+    # or "chain" (each tower stack and the head as one chain3x3 launch).
     rows_dw: str = "mxu"
     # All conv3d formulations of the JAX package compute the same function;
     # the port has one.

@@ -25,4 +25,6 @@ constexpr int TILE_W = 32;
 constexpr int TILE_H = 8;
 constexpr int THREADS = TILE_W * TILE_H;
 
-static inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}

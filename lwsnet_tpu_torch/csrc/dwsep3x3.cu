@@ -1,0 +1,257 @@
+// dwsep3x3: depthwise-separable dilated 3x3 layers over NCHW, one layer
+// (solo) or two consecutive layers in one launch (pair), with weight
+// groups: batch b uses weight set g = b / (B / G).
+//
+// Replaces two TPU kernels of the JAX package's stage-4 refinement
+// (rows_dw="vpu"):
+//   lwsnet_tpu/ops/pallas/refine_rows.py:_dwsep_kernel  (solo)
+//   lwsnet_tpu/ops/pallas/refine_rows.py:_dwsep2_kernel (pair)
+// Their row canvas and mask row are TPU layout devices. A layer here is,
+// per pixel, with zero padding applied after the activation:
+//   act  = relu(x * a + s), rounded to the compute dtype;
+//   dw_c = sum of the 9 dilated taps of channel c of act, accumulated in
+//          float32 and rounded once to the compute dtype (the module path
+//          rounds the depthwise conv's output there);
+//   y    = pw . dw, accumulated in float32, rounded to the compute dtype.
+// A pair computes layer 1 over the tile plus layer 2's halo, rounds it,
+// applies layer 2's BN-affine + ReLU, rounds again and zeroes it outside
+// the image, so that layer 2's zero padding surrounds the activated
+// intermediate, then runs layer 2 on it: the result equals two solo
+// launches, and the intermediate never reaches device memory.
+//
+// Bound on the H100: memory for the solo layer at 368x1232 (the grouped
+// tower layer moves 116 MB for 1.9 GFLOP); the pair's recompute of its
+// intermediate over the halo (PERF.md gives the factor per pair) adds
+// operations, not bytes.
+//
+// Design: a block of 256 threads owns a 16 x 32 output tile and all Co
+// output channels, two pixels per thread, Co float32 accumulators each.
+// Per pass over a chunk of `mk` channels of the last layer's input it
+// stages that input, activated, over the tile plus a d-pixel halo in
+// dynamic shared memory (raised with cudaFuncSetAttribute), in the
+// compute dtype; in a solo it is the
+// activated input read from device memory, in a pair it is layer 1's
+// output computed there (layer 1's taps read the input through L1). Then
+// each thread runs the 9 taps of each staged channel for its pixels and
+// the pointwise product on CUDA cores, weights broadcast from shared
+// memory. A pair whose intermediate takes more than one pass (the (8,16)
+// pair in float32 takes two) computes layer 1's depthwise taps once per
+// pass.
+#include "common.cuh"
+
+namespace {
+
+constexpr int TH = 16, TW = 32;       // output tile
+constexpr int NT = 256;               // threads; (tx, ty) = (t % 32, t / 32)
+constexpr int PX = TH * TW / NT;      // output pixels per thread
+constexpr int MAXC = 32;              // channel limit of every operand
+// Staged-activation budget: 100 KB lets two blocks share an SM; a pair,
+// which recomputes layer 1's taps on every pass, takes 200 KB and one pass.
+constexpr int ACT_BYTES = 100 * 1024;
+
+struct Args {
+  const void* x;      // (B, C, H, W), C = Cs for a solo
+  const float* aff0;  // pair's layer 1: (G, 2, C)
+  const void* dw0;    //                 (G, C, 9)
+  const void* pw0;    //                 (G, Cs, C)
+  const float* aff;   // last layer: (G, 2, Cs)
+  const void* dw;     //             (G, Cs, 9)
+  const void* pw;     //             (G, Co, Cs)
+  void* y;            // (B, Co, H, W)
+  int B, G, C, Cs, Co, H, W, d0, d, mk;
+};
+
+template <typename T>
+__device__ __forceinline__ float act_round(float v, float a, float s) {
+  return to_f(from_f<T>(fmaxf(fmaf(v, a, s), 0.f)));
+}
+
+template <typename T, bool PAIR>
+__global__ void __launch_bounds__(NT, 2) dwsep3x3_kernel(Args a) {
+  // Pointwise weights with the output channel innermost, so a thread's
+  // loop over output channels reads 16-byte vectors.
+  __shared__ __align__(16) float s_pw[MAXC * MAXC];   // [m][co]
+  __shared__ __align__(16) float s_pw0[PAIR ? MAXC * MAXC : 1];  // [c][m]
+  __shared__ float s_dw[MAXC * 9], s_aff[2 * MAXC];
+  __shared__ float s_dw0[PAIR ? MAXC * 9 : 1], s_aff0[PAIR ? 2 * MAXC : 1];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  T* act = (T*)dyn;  // [mk][IH * IW]
+
+  const int d = a.d, IW = TW + 2 * d, NI = (TH + 2 * d) * IW;
+  const int n_tx = ceil_div(a.W, TW), n_ty = ceil_div(a.H, TH);
+  const int w0 = (blockIdx.x % n_tx) * TW;
+  const int h0 = ((blockIdx.x / n_tx) % n_ty) * TH;
+  const int b = blockIdx.x / (n_tx * n_ty);
+  const int g = b / (a.B / a.G);
+  const int tid = threadIdx.x, tx = tid % TW, ty = tid / TW;
+  const int Cs = a.Cs, Co = a.Co, C = a.C;
+  const size_t plane = (size_t)a.H * a.W;
+
+  {
+    const T* dw = (const T*)a.dw + (size_t)g * Cs * 9;
+    const T* pw = (const T*)a.pw + (size_t)g * Co * Cs;
+    for (int i = tid; i < Cs * 9; i += NT) s_dw[i] = to_f(dw[i]);
+    for (int i = tid; i < Co * Cs; i += NT)  // s_pw[m][co]
+      s_pw[(i % Cs) * MAXC + i / Cs] = to_f(pw[i]);
+    for (int i = tid; i < 2 * Cs; i += NT)
+      s_aff[(i / Cs) * MAXC + i % Cs] = a.aff[(size_t)g * 2 * Cs + i];
+    if constexpr (PAIR) {
+      const T* dw0 = (const T*)a.dw0 + (size_t)g * C * 9;
+      const T* pw0 = (const T*)a.pw0 + (size_t)g * Cs * C;
+      for (int i = tid; i < C * 9; i += NT) s_dw0[i] = to_f(dw0[i]);
+      for (int i = tid; i < Cs * C; i += NT)  // s_pw0[c][m]
+        s_pw0[(i % C) * MAXC + i / C] = to_f(pw0[i]);
+      for (int i = tid; i < 2 * C; i += NT)
+        s_aff0[(i / C) * MAXC + i % C] = a.aff0[(size_t)g * 2 * C + i];
+    }
+  }
+
+  float acc[PX][MAXC];
+#pragma unroll
+  for (int p = 0; p < PX; ++p)
+#pragma unroll
+    for (int co = 0; co < MAXC; ++co) acc[p][co] = 0.f;
+
+  const T* x = (const T*)a.x + (size_t)b * C * plane;
+  for (int m0 = 0; m0 < Cs; m0 += a.mk) {
+    const int nk = min(a.mk, Cs - m0);
+    __syncthreads();  // weights staged; the last pass's readers are done
+    // Stage channels m0 .. m0+nk of the last layer's activated input over
+    // the tile and its d-pixel halo; zero outside the image.
+    for (int q = tid; q < NI; q += NT) {
+      const int hh = h0 - d + q / IW, ww = w0 - d + q % IW;
+      if (hh < 0 || hh >= a.H || ww < 0 || ww >= a.W) {
+        for (int k = 0; k < nk; ++k) act[k * NI + q] = from_f<T>(0.f);
+        continue;
+      }
+      if constexpr (!PAIR) {
+        for (int k = 0; k < nk; ++k) {
+          const int m = m0 + k;
+          const float v = to_f(x[(size_t)m * plane + (size_t)hh * a.W + ww]);
+          act[k * NI + q] = from_f<T>(act_round<T>(v, s_aff[m],
+                                                   s_aff[MAXC + m]));
+        }
+      } else {
+        const int d0 = a.d0;
+        float inter[MAXC];
+#pragma unroll
+        for (int k = 0; k < MAXC; ++k) inter[k] = 0.f;
+        for (int c = 0; c < C; ++c) {
+          const T* xc = x + (size_t)c * plane;
+          const float a0 = s_aff0[c], s0 = s_aff0[MAXC + c];
+          float v = 0.f;
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            const int hy = hh + (ky - 1) * d0;
+            if (hy < 0 || hy >= a.H) continue;
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx) {
+              const int wx = ww + (kx - 1) * d0;
+              if (wx < 0 || wx >= a.W) continue;
+              v = fmaf(s_dw0[c * 9 + ky * 3 + kx],
+                       act_round<T>(to_f(xc[(size_t)hy * a.W + wx]), a0, s0),
+                       v);
+            }
+          }
+          v = to_f(from_f<T>(v));
+#pragma unroll
+          for (int k = 0; k < MAXC; ++k)
+            if (k < nk)
+              inter[k] = fmaf(s_pw0[c * MAXC + m0 + k], v, inter[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < MAXC; ++k) {
+          if (k < nk) {
+            const int m = m0 + k;
+            act[k * NI + q] = from_f<T>(act_round<T>(
+                to_f(from_f<T>(inter[k])), s_aff[m], s_aff[MAXC + m]));
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // The last layer's depthwise taps and pointwise product on the staged
+    // channels.
+    for (int k = 0; k < nk; ++k) {
+      const int m = m0 + k;
+      const T* ak = act + k * NI;
+      float wk[9];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) wk[t] = s_dw[m * 9 + t];
+#pragma unroll
+      for (int p = 0; p < PX; ++p) {
+        const int oy = ty + p * (NT / TW);
+        float v = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const int r = oy + (t / 3) * d, col = tx + (t % 3) * d;
+          v = fmaf(wk[t], to_f(ak[r * IW + col]), v);
+        }
+        v = to_f(from_f<T>(v));
+#pragma unroll
+        for (int co = 0; co < MAXC; ++co)
+          if (co < Co)
+            acc[p][co] = fmaf(s_pw[m * MAXC + co], v, acc[p][co]);
+      }
+    }
+  }
+
+  const int w = w0 + tx;
+#pragma unroll
+  for (int p = 0; p < PX; ++p) {
+    const int h = h0 + ty + p * (NT / TW);
+    if (h >= a.H || w >= a.W) continue;
+    T* yb = (T*)a.y + (size_t)b * Co * plane + (size_t)h * a.W + w;
+#pragma unroll
+    for (int co = 0; co < MAXC; ++co)
+      if (co < Co) yb[co * plane] = from_f<T>(acc[p][co]);
+  }
+}
+
+template <typename T, bool PAIR>
+int launch(Args a, void* stream) {
+  if (a.G < 1 || a.B % a.G != 0 || a.d < 1 || (PAIR && a.d0 < 1) ||
+      a.C < 1 || a.C > MAXC || a.Cs < 1 || a.Cs > MAXC || a.Co < 1 ||
+      a.Co > MAXC)
+    return (int)cudaErrorInvalidValue;
+  const size_t ni = (size_t)(TH + 2 * a.d) * (TW + 2 * a.d);
+  const size_t budget = PAIR ? 2 * ACT_BYTES : ACT_BYTES;
+  int mk = a.Cs;
+  while (mk > 1 && mk * ni * sizeof(T) > budget) mk = (mk + 1) / 2;
+  const size_t smem = mk * ni * sizeof(T);
+  if (smem > budget) return (int)cudaErrorInvalidValue;
+  a.mk = mk;
+  auto kernel = dwsep3x3_kernel<T, PAIR>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ceil_div(a.W, TW) * ceil_div(a.H, TH) * a.B;
+  kernel<<<tiles, NT, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define DWSEP_ENTRY(NAME, T)                                                 \
+  extern "C" int NAME(const void* x, const void* aff, const void* dw,        \
+                      const void* pw, void* y, int B, int G, int C, int Co,  \
+                      int H, int W, int d, void* stream) {                   \
+    const Args a{x, nullptr, nullptr, nullptr, (const float*)aff, dw, pw, y, \
+                 B, G, C, C, Co, H, W, 0, d, 0};                             \
+    return launch<T, false>(a, stream);                                      \
+  }
+
+#define DWSEP_PAIR_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const void* x, const void* aff1, const void* dw1,      \
+                      const void* pw1, const void* aff2, const void* dw2,    \
+                      const void* pw2, void* y, int B, int G, int C, int Cm, \
+                      int Co, int H, int W, int d1, int d2, void* stream) {  \
+    const Args a{x, (const float*)aff1, dw1, pw1, (const float*)aff2, dw2,   \
+                 pw2, y, B, G, C, Cm, Co, H, W, d1, d2, 0};                  \
+    return launch<T, true>(a, stream);                                       \
+  }
+
+DWSEP_ENTRY(dwsep3x3_f32, float)
+DWSEP_ENTRY(dwsep3x3_bf16, bf16)
+DWSEP_PAIR_ENTRY(dwsep3x3_pair_f32, float)
+DWSEP_PAIR_ENTRY(dwsep3x3_pair_bf16, bf16)

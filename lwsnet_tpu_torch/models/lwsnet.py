@@ -105,7 +105,8 @@ class LWSNet(nn.Module):
 
         if stages == 4:
             if kernels:
-                res = refine_residual(self, left, preds[-1], dtype=dtype)
+                res = refine_residual(self, left, preds[-1], dtype=dtype,
+                                      paired=cfg.rows_paired)
             else:
                 tower_l = self.RefinementTower_0(
                     left.permute(0, 3, 1, 2).to(dtype))

@@ -1,18 +1,25 @@
 """Stage-4 refinement on the Hopper kernels (inference only).
 
-Counterpart of the JAX package's `models/refine_pallas.py` in its shipped
-configuration, `pallas_mode="rows"`, `rows_dw="mxu"`: every layer of both
-towers and of the head runs as one `dense3x3` launch, 11 in all.
+Counterpart of the JAX package's `models/refine_pallas.py` under
+`pallas_mode="rows"`, in each of its three engines (`rows_dw`):
 
-* BatchNorm folds into a per-channel affine applied before each layer.
-* Each depthwise-separable layer becomes one dense 3x3 over the composed
-  rank-1 kernel k[co, ci] = dw[ci] * pw[co, ci], formed in float32 and
-  cast once to the compute dtype.
-* The two towers run as one 2B batch with two weight groups; the disparity
-  tower's 1-channel input and entry kernel are zero-padded to 3 channels,
-  which is exact.
-* The head's 64-channel entry reads the two tower halves without forming
-  the concat (the dual-input `dense2_layer`).
+* "mxu" (shipped): every layer of both towers and of the head runs as one
+  `dense3x3` launch, 11 in all; each depthwise-separable layer becomes one
+  dense 3x3 over the composed rank-1 kernel
+  k[co, ci] = dw[ci] * pw[co, ci], formed in float32 and cast once to the
+  compute dtype.
+* "vpu": the dw-sep layers run as they are on the `dwsep3x3` kernel, two
+  per launch with `rows_paired` (4 launches) or one (8), the depthwise and
+  pointwise weights each cast to the compute dtype; the entries and the
+  output conv stay on `dense3x3` (3 launches).
+* "chain": the whole tower stack and the whole head run as one `chain3x3`
+  launch each, over the composed kernels as in "mxu".
+
+In every engine BatchNorm folds into a per-channel affine applied before
+each layer; the two towers run as one 2B batch with two weight groups, the
+disparity tower's 1-channel input and entry kernel zero-padded to 3
+channels, which is exact; and the head's 64-channel entry reads the two
+tower halves without forming the concat.
 """
 
 from __future__ import annotations
@@ -26,7 +33,11 @@ from lwsnet_tpu_torch.models.blocks import BatchNorm, PreConvDW, bn_affine
 from lwsnet_tpu_torch.models.refinement import (HEAD_DENSE_DILATION,
                                                 HEAD_DILATIONS,
                                                 TOWER_DILATIONS)
-from lwsnet_tpu_torch.ops.cuda.refine_rows import dense2_layer, dense_layer
+from lwsnet_tpu_torch.ops.cuda.refine_rows import (chain_layer, dense2_layer,
+                                                   dense_layer, dwsep2_layer,
+                                                   dwsep_layer)
+
+ENGINES = ("mxu", "vpu", "chain")
 
 
 def fold_bn(bn: BatchNorm) -> torch.Tensor:
@@ -45,53 +56,106 @@ def _compose_dwsep(block: PreConvDW) -> torch.Tensor:
     return pw[:, :, None, None] * dw[None]
 
 
+def _dwsep_weights(block: PreConvDW):
+    """(affine, depthwise (C, 1, 3, 3), pointwise (Co, C)) of a dw-sep
+    layer, float32; the layer functions cast each to the compute dtype."""
+    return (fold_bn(block.BatchNorm_0), block.dw_weight,
+            block.Conv_0.weight[:, :, 0, 0])
+
+
 def refine_residual(model, left: torch.Tensor, disp: torch.Tensor, *,
                     dtype: Optional[torch.dtype] = None,
                     mode: Optional[str] = None,
-                    dw: Optional[str] = None) -> torch.Tensor:
+                    dw: Optional[str] = None,
+                    paired: Optional[bool] = None) -> torch.Tensor:
     """The stage-4 residual, equal to RefinementTower(left) ++
     RefinementTower(disp) -> RefinementHead in eval mode.
 
     model: an `LWSNet` (its towers and head hold the weights). left:
     (B, H, W, 3) normalized image; disp: (B, H, W, 1) stage-3 disparity.
-    dtype, mode, dw default to the model's config. Returns (B, H, W, 1)
+    dtype, mode, dw and paired default to the model's config (compute
+    dtype, `pallas_mode`, `rows_dw`, `rows_paired`). Returns (B, H, W, 1)
     float32.
     """
     cfg = model.cfg
     dtype = dtype or cfg.dtype
     mode = mode or cfg.pallas_mode
     dw = dw or cfg.rows_dw
+    paired = cfg.rows_paired if paired is None else paired
     if mode != "rows":
         raise NotImplementedError(
             f'pallas_mode="{mode}" not yet ported, see ROADMAP.md')
-    if dw != "mxu":
-        raise NotImplementedError(
-            f'rows_dw="{dw}" not yet ported, see ROADMAP.md')
+    if dw not in ENGINES:
+        raise ValueError(f'rows_dw="{dw}": expected one of {ENGINES}')
     tl, td = model.RefinementTower_0, model.RefinementTower_1
     head = model.RefinementHead_0
+    tower = [(getattr(tl, f"PreConvDW_{i}"), getattr(td, f"PreConvDW_{i}"))
+             for i in range(len(TOWER_DILATIONS))]
+    head_dw = [getattr(head, f"PreConvDW_{i}")
+               for i in range(len(HEAD_DILATIONS))]
+    pre = head.PreConv_0
 
     x = torch.cat([left.permute(0, 3, 1, 2).to(dtype),
                    F.pad(disp.permute(0, 3, 1, 2).to(dtype),
                          (0, 0, 0, 0, 0, 2))], 0).contiguous()
     entries = torch.stack([tl.Conv_0.weight,
                            F.pad(td.Conv_0.weight, (0, 0, 0, 0, 0, 2))])
-    y = dense_layer(x, entries, dilation=1, groups=2)
-    for i, d in enumerate(TOWER_DILATIONS):
-        bl = getattr(tl, f"PreConvDW_{i}")
-        bd = getattr(td, f"PreConvDW_{i}")
-        y = dense_layer(
-            y, torch.stack([_compose_dwsep(bl), _compose_dwsep(bd)]),
-            dilation=d, groups=2,
-            affine=torch.stack([fold_bn(bl.BatchNorm_0),
-                                fold_bn(bd.BatchNorm_0)]))
 
-    pre = head.PreConv_0
+    if dw == "chain":
+        y = chain_layer(
+            x, [entries] + [torch.stack([_compose_dwsep(bl),
+                                         _compose_dwsep(bd)])
+                            for bl, bd in tower],
+            [None] + [torch.stack([fold_bn(bl.BatchNorm_0),
+                                   fold_bn(bd.BatchNorm_0)])
+                      for bl, bd in tower],
+            dilations=(1,) + TOWER_DILATIONS, groups=2)
+        y = chain_layer(
+            y, [pre.Conv_0.weight] + [_compose_dwsep(b) for b in head_dw]
+            + [head.out_weight],
+            [fold_bn(pre.BatchNorm_0)] + [fold_bn(b.BatchNorm_0)
+                                          for b in head_dw] + [None],
+            dilations=(HEAD_DENSE_DILATION,) + HEAD_DILATIONS + (1,),
+            two_input=True, out_dtype=torch.float32)
+        return y.permute(0, 2, 3, 1)
+
+    def grouped(i):
+        """Tower layer i's (affine, dw, pw), stacked left, disparity."""
+        return [torch.stack(w) for w in zip(_dwsep_weights(tower[i][0]),
+                                            _dwsep_weights(tower[i][1]))]
+
+    y = dense_layer(x, entries, dilation=1, groups=2)
+    if dw == "mxu":
+        for (bl, bd), d in zip(tower, TOWER_DILATIONS):
+            y = dense_layer(
+                y, torch.stack([_compose_dwsep(bl), _compose_dwsep(bd)]),
+                dilation=d, groups=2,
+                affine=torch.stack([fold_bn(bl.BatchNorm_0),
+                                    fold_bn(bd.BatchNorm_0)]))
+    elif paired:
+        for i in (0, 2):  # pairs (2, 4) and (8, 16)
+            y = dwsep2_layer(y, *grouped(i), *grouped(i + 1),
+                             dilation1=TOWER_DILATIONS[i],
+                             dilation2=TOWER_DILATIONS[i + 1], groups=2)
+    else:
+        for i, d in enumerate(TOWER_DILATIONS):
+            y = dwsep_layer(y, *grouped(i), dilation=d, groups=2)
+
     y = dense2_layer(y, pre.Conv_0.weight, dilation=HEAD_DENSE_DILATION,
                      affine=fold_bn(pre.BatchNorm_0))
-    for i, d in enumerate(HEAD_DILATIONS):
-        blk = getattr(head, f"PreConvDW_{i}")
-        y = dense_layer(y, _compose_dwsep(blk), dilation=d,
-                        affine=fold_bn(blk.BatchNorm_0))
+    if dw == "mxu":
+        for blk, d in zip(head_dw, HEAD_DILATIONS):
+            y = dense_layer(y, _compose_dwsep(blk), dilation=d,
+                            affine=fold_bn(blk.BatchNorm_0))
+    elif paired:
+        for i in (0, 2):  # pairs (8, 4) and (2, 1)
+            y = dwsep2_layer(y, *_dwsep_weights(head_dw[i]),
+                             *_dwsep_weights(head_dw[i + 1]),
+                             dilation1=HEAD_DILATIONS[i],
+                             dilation2=HEAD_DILATIONS[i + 1])
+    else:
+        for blk, d in zip(head_dw, HEAD_DILATIONS):
+            y = dwsep_layer(y, *_dwsep_weights(blk), dilation=d)
     y = dense_layer(y, head.out_weight.to(dtype), dilation=1,
                     out_dtype=torch.float32)
     return y.permute(0, 2, 3, 1)

@@ -3,13 +3,16 @@
 Each source in `lwsnet_tpu_torch/csrc/` is compiled by `nvcc` for `sm_90a`
 into a shared library with a plain C interface, under `build/kernels/` at
 the repository root, at first use. All sources build at once, one `nvcc`
-process each. A library's file name carries a digest of its sources and
-flags, so an edited source builds anew. The libraries are loaded with
-`ctypes`; every C entry point launches on the caller's stream and returns
-`cudaGetLastError()`.
+process each. A library's file name carries a digest of its source, of
+every header in `csrc/` and of the flags, so an edited source or header
+builds anew. The libraries are loaded with `ctypes`; every C entry point
+launches on the caller's stream and returns `cudaGetLastError()` (or the
+error of a refused launch).
 
 Each kernel keeps a launch counter: a wrapper adds one where it launches,
 and nowhere else, so a run can show which kernels its path went through.
+One source may hold several kernels (`dwsep3x3.cu`: the solo and the pair
+layer), each with its own counter.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("conv3d_bn_relu", "conv3d_skip_softargmin", "dense3x3")
+SOURCES = ("conv3d_bn_relu", "conv3d_skip_softargmin", "dense3x3",
+           "dwsep3x3", "chain3x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +48,9 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / "common.cuh").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update((CSRC / f"{name}.cu").read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -81,12 +87,14 @@ def build_all() -> Dict[str, str]:
 
 
 class Kernel:
-    """One CUDA source: its C entry points and its launch counters
-    (`launches` counts all; `dual_launches` those of a two-input call)."""
+    """One kernel of a CUDA source: its C entry points and its launch
+    counters (`launches` counts all; `dual_launches` those of a two-input
+    call)."""
 
-    def __init__(self, name: str, argtypes):
+    def __init__(self, name: str, argtypes, source: str = ""):
         self.name = name
-        self.source = f"lwsnet_tpu_torch/csrc/{name}.cu"
+        self.lib_name = source or name
+        self.source = f"lwsnet_tpu_torch/csrc/{self.lib_name}.cu"
         self.argtypes = argtypes
         self.launches = 0
         self.dual_launches = 0
@@ -96,7 +104,7 @@ class Kernel:
     def _fn(self, symbol: str):
         if symbol not in self._fns:
             if self._lib is None:
-                path = _library_path(self.name)
+                path = _library_path(self.lib_name)
                 if not path.exists():
                     build_all()
                 self._lib = ctypes.CDLL(str(path))
@@ -126,13 +134,25 @@ CONV3D_SKIP_SOFTARGMIN = Kernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P])
 DENSE3X3 = Kernel(
     "dense3x3", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
-KERNELS = (CONV3D_BN_RELU, CONV3D_SKIP_SOFTARGMIN, DENSE3X3)
+DWSEP3X3 = Kernel(
+    "dwsep3x3", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+DWSEP3X3_PAIR = Kernel(
+    "dwsep3x3_pair", [_P] * 8 + [_I] * 9 + [_P], source="dwsep3x3")
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_IP = ctypes.POINTER(ctypes.c_int)
+CHAIN3X3 = Kernel(
+    "chain3x3", [_I, _PP, _PP, _PP, _P, _P, _P, _PP, _IP, _IP, _IP, _I, _I,
+                 _I, _I, _P])
+KERNELS = (CONV3D_BN_RELU, CONV3D_SKIP_SOFTARGMIN, DENSE3X3, DWSEP3X3,
+           DWSEP3X3_PAIR, CHAIN3X3)
 
 
 def launch_counts() -> Dict[str, int]:
-    """{kernel: launches}, plus "dense3x3[dual]" for two-input launches."""
+    """{kernel: launches}, plus "dense3x3[dual]" and "chain3x3[dual]" for
+    two-input launches."""
     counts = {k.name: k.launches for k in KERNELS}
-    counts["dense3x3[dual]"] = DENSE3X3.dual_launches
+    for k in (DENSE3X3, CHAIN3X3):
+        counts[f"{k.name}[dual]"] = k.dual_launches
     return counts
 
 

@@ -1,21 +1,27 @@
-"""Dense dilated 3x3 convs of the stage-4 refinement on the Hopper kernel.
+"""The stage-4 refinement layers on the Hopper kernels.
 
-Counterpart of `dense_layer` and `dense2_layer` in the JAX package's
-`ops/pallas/refine_rows.py`. The JAX row canvas exists for the TPU's
-layout; here activations are plain NCHW tensors.
+Counterpart of the JAX package's `ops/pallas/refine_rows.py`:
+`dense_layer`, `dense2_layer`, `dwsep_layer`, `dwsep2_layer` and
+`chain_layer`, with the JAX arguments on plain NCHW tensors. The JAX row
+canvas, mask row, canvas geometry and block rows exist for the TPU's
+layout and have no counterpart here.
 
-`dense3x3` is the kernel wrapper: it launches the CUDA kernel for a CUDA
-tensor and runs `dense3x3_plain`, beside it here, for a CPU tensor.
+`dense3x3`, `dwsep`, `dwsep2` and `chain` are the kernel wrappers: each
+launches its CUDA kernel for a CUDA tensor and runs its `*_plain` twin,
+beside it here, for a CPU tensor. Weight groups follow the JAX rule:
+batch b uses weight set b // (B // G).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from lwsnet_tpu_torch.ops.cuda.build import (DENSE3X3, check, on_card,
+from lwsnet_tpu_torch.ops.cuda.build import (CHAIN3X3, DENSE3X3, DWSEP3X3,
+                                             DWSEP3X3_PAIR, check, on_card,
                                              symbol_suffix)
 
 
@@ -74,9 +80,7 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
     dev, dt = x.device, x.dtype
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
-    if out_dtype != dt and not (dt == torch.bfloat16
-                                and out_dtype == torch.float32):
-        raise TypeError(f"no {dt} -> {out_dtype} dense3x3 kernel")
+    _check_out_dtype(dt, out_dtype, "dense3x3")
 
     def operands(xi, wi, ai, name):
         """(x, affine, weight) pointers; the weight re-laid (G, Ci, 9, Co)."""
@@ -84,7 +88,7 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
         check(wi, f"{name} weight", (G, Co, Ci, 3, 3), dt, dev)
         if ai is not None:
             check(ai, f"{name} affine", (G, 2, Ci), torch.float32, dev)
-        wk = wi.permute(0, 2, 3, 4, 1).reshape(G, Ci, 9, Co).contiguous()
+        wk = _relayout(wi)
         return wk, (xi.data_ptr(), None if ai is None else ai.data_ptr(),
                     wk.data_ptr())
 
@@ -98,6 +102,194 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
         symbol += "_f32out"
     DENSE3X3.launch(symbol, dev, *first, *second, y.data_ptr(),
                     B, G, Ci, Co, H, W, dilation, dual=x2 is not None)
+    return y
+
+
+def _check_out_dtype(dt: torch.dtype, out_dtype: torch.dtype,
+                     kernel: str) -> None:
+    if out_dtype != dt and not (dt == torch.bfloat16
+                                and out_dtype == torch.float32):
+        raise TypeError(f"no {dt} -> {out_dtype} {kernel} kernel")
+
+
+def _relayout(wt: torch.Tensor) -> torch.Tensor:
+    """(G, Co, Ci, 3, 3) -> the kernels' (G, Ci, 9, Co)."""
+    G, Co, Ci = wt.shape[:3]
+    return wt.permute(0, 2, 3, 4, 1).reshape(G, Ci, 9, Co).contiguous()
+
+
+def dwsep_plain(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
+                dilation: int, affine: torch.Tensor) -> torch.Tensor:
+    """One depthwise-separable layer: act = relu(x * a + s) rounded to x's
+    dtype, zero-padded; the dilated depthwise 3x3 of act in float32,
+    rounded to x's dtype (the module path's rounding); the pointwise 1x1 in
+    float32; result in x's dtype. Batch b uses weight set b // (B // G).
+
+    x: (B, C, H, W); dw: (G, C, 3, 3) and pw: (G, Co, C) in x's dtype;
+    affine: (G, 2, C) float32. Returns (B, Co, H, W).
+    """
+    G, C = dw.shape[0], dw.shape[1]
+    per = x.shape[0] // G
+    outs = []
+    for g in range(G):
+        a, s = affine[g, 0].view(1, -1, 1, 1), affine[g, 1].view(1, -1, 1, 1)
+        act = F.relu(x[g * per:(g + 1) * per].float() * a + s)
+        act = act.to(x.dtype).float()
+        t = F.conv2d(act, dw[g].float()[:, None], padding=dilation,
+                     dilation=dilation, groups=C)
+        t = t.to(x.dtype).float()
+        outs.append(F.conv2d(t, pw[g].float()[:, :, None, None]))
+    return torch.cat(outs, 0).to(x.dtype)
+
+
+def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
+          dilation: int, affine: torch.Tensor) -> torch.Tensor:
+    """The dwsep3x3 kernel (one layer); arguments as `dwsep_plain`."""
+    if not on_card(x):
+        return dwsep_plain(x, dw, pw, dilation=dilation, affine=affine)
+    B, C, H, W = x.shape
+    G, Co = pw.shape[0], pw.shape[1]
+    dev, dt = x.device, x.dtype
+    if B % G:
+        raise ValueError(f"batch {B} not divisible by {G} weight groups")
+    check(x, "x", (B, C, H, W), dt, dev)
+    check(dw, "dw", (G, C, 3, 3), dt, dev)
+    check(pw, "pw", (G, Co, C), dt, dev)
+    check(affine, "affine", (G, 2, C), torch.float32, dev)
+    y = torch.empty((B, Co, H, W), dtype=dt, device=dev)
+    DWSEP3X3.launch(f"dwsep3x3_{symbol_suffix(dt)}", dev, x.data_ptr(),
+                    affine.data_ptr(), dw.data_ptr(), pw.data_ptr(),
+                    y.data_ptr(), B, G, C, Co, H, W, dilation)
+    return y
+
+
+def dwsep2_plain(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
+                 dw2: torch.Tensor, pw2: torch.Tensor, *, dilation1: int,
+                 dilation2: int, affine1: torch.Tensor,
+                 affine2: torch.Tensor) -> torch.Tensor:
+    """Two consecutive `dwsep_plain` layers."""
+    y = dwsep_plain(x, dw1, pw1, dilation=dilation1, affine=affine1)
+    return dwsep_plain(y, dw2, pw2, dilation=dilation2, affine=affine2)
+
+
+def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
+           dw2: torch.Tensor, pw2: torch.Tensor, *, dilation1: int,
+           dilation2: int, affine1: torch.Tensor,
+           affine2: torch.Tensor) -> torch.Tensor:
+    """The dwsep3x3 pair kernel: both layers in one launch, the
+    intermediate kept in shared memory; arguments as `dwsep2_plain`."""
+    if not on_card(x):
+        return dwsep2_plain(x, dw1, pw1, dw2, pw2, dilation1=dilation1,
+                            dilation2=dilation2, affine1=affine1,
+                            affine2=affine2)
+    B, C, H, W = x.shape
+    G, Cm, Co = pw1.shape[0], pw1.shape[1], pw2.shape[1]
+    dev, dt = x.device, x.dtype
+    if B % G:
+        raise ValueError(f"batch {B} not divisible by {G} weight groups")
+    check(x, "x", (B, C, H, W), dt, dev)
+    check(dw1, "dw1", (G, C, 3, 3), dt, dev)
+    check(pw1, "pw1", (G, Cm, C), dt, dev)
+    check(affine1, "affine1", (G, 2, C), torch.float32, dev)
+    check(dw2, "dw2", (G, Cm, 3, 3), dt, dev)
+    check(pw2, "pw2", (G, Co, Cm), dt, dev)
+    check(affine2, "affine2", (G, 2, Cm), torch.float32, dev)
+    y = torch.empty((B, Co, H, W), dtype=dt, device=dev)
+    DWSEP3X3_PAIR.launch(
+        f"dwsep3x3_pair_{symbol_suffix(dt)}", dev, x.data_ptr(),
+        affine1.data_ptr(), dw1.data_ptr(), pw1.data_ptr(),
+        affine2.data_ptr(), dw2.data_ptr(), pw2.data_ptr(), y.data_ptr(),
+        B, G, C, Cm, Co, H, W, dilation1, dilation2)
+    return y
+
+
+def chain_plain(x: torch.Tensor, wts: Sequence[torch.Tensor],
+                affs: Sequence[Optional[torch.Tensor]], *,
+                dilations: Sequence[int], x2: Optional[torch.Tensor] = None,
+                wt2: Optional[torch.Tensor] = None,
+                aff2: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """N `dense3x3_plain` layers: layer i convolves the previous layer's
+    output, rounded to x's dtype, with wts[i] at dilations[i] after the
+    pre-activation affs[i] (none when None); layer 0 also sums the second
+    input (x2, wt2, aff2) when x2 is given; the last layer's result is in
+    `out_dtype` (default x's). Shapes as `dense3x3_plain`, per layer."""
+    y, n = x, len(wts)
+    for i in range(n):
+        second = dict(x2=x2, wt2=wt2, affine2=aff2) if i == 0 else {}
+        y = dense3x3_plain(y, wts[i], dilation=dilations[i], affine=affs[i],
+                           out_dtype=out_dtype if i == n - 1 else None,
+                           **second)
+    return y
+
+
+def _pointers(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def chain(x: torch.Tensor, wts: Sequence[torch.Tensor],
+          affs: Sequence[Optional[torch.Tensor]], *,
+          dilations: Sequence[int], x2: Optional[torch.Tensor] = None,
+          wt2: Optional[torch.Tensor] = None,
+          aff2: Optional[torch.Tensor] = None,
+          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The chain3x3 kernel: every layer in one cooperative launch, the
+    intermediates in two ping-pong scratch tensors of x's dtype; arguments
+    as `chain_plain`."""
+    if not on_card(x):
+        return chain_plain(x, wts, affs, dilations=dilations, x2=x2,
+                           wt2=wt2, aff2=aff2, out_dtype=out_dtype)
+    n = len(wts)
+    if not 1 <= n == len(affs) == len(dilations):
+        raise ValueError(f"{n} weights, {len(affs)} affines and "
+                         f"{len(dilations)} dilations for one chain")
+    out_dtype = out_dtype or x.dtype
+    B, _, H, W = x.shape
+    G = wts[0].shape[0]
+    dev, dt = x.device, x.dtype
+    if B % G:
+        raise ValueError(f"batch {B} not divisible by {G} weight groups")
+    _check_out_dtype(dt, out_dtype, "chain3x3")
+    check(x, "x", (B, wts[0].shape[2], H, W), dt, dev)
+    cis, cos, wks, aps = [], [], [], []
+    for i, (wt, aff) in enumerate(zip(wts, affs)):
+        Co, Ci = wt.shape[1], wt.shape[2]
+        check(wt, f"weight {i}", (G, Co, Ci, 3, 3), dt, dev)
+        if i and Ci != cos[-1]:
+            raise ValueError(f"layer {i} takes {Ci} channels, layer {i - 1} "
+                             f"gives {cos[-1]}")
+        if aff is not None:
+            check(aff, f"affine {i}", (G, 2, Ci), torch.float32, dev)
+        cis.append(Ci)
+        cos.append(Co)
+        wks.append(_relayout(wt))
+        aps.append(None if aff is None else aff.data_ptr())
+    second = (None, None, None)
+    if x2 is not None:
+        check(x2, "x2", tuple(x.shape), dt, dev)
+        check(wt2, "weight 0, second input", tuple(wts[0].shape), dt, dev)
+        if aff2 is not None:
+            check(aff2, "affine 0, second input", (G, 2, cis[0]),
+                  torch.float32, dev)
+        wk2 = _relayout(wt2)
+        second = (x2.data_ptr(), None if aff2 is None else aff2.data_ptr(),
+                  wk2.data_ptr())
+    scratch = [torch.empty(B * max(cos[:-1]) * H * W, dtype=dt, device=dev)
+               for _ in range(min(2, n - 1))]
+    y = torch.empty((B, cos[-1], H, W), dtype=out_dtype, device=dev)
+    outs = [scratch[i % 2] for i in range(n - 1)] + [y]
+    ins = [x] + outs[:-1]
+    symbol = f"chain3x3_{symbol_suffix(dt)}"
+    if out_dtype != dt:
+        symbol += "_f32out"
+    ptrs = [_pointers(ctypes.c_void_p, v) for v in (
+        [t.data_ptr() for t in ins], aps, [w.data_ptr() for w in wks])]
+    CHAIN3X3.launch(
+        symbol, dev, n, *ptrs, *second,
+        _pointers(ctypes.c_void_p, [t.data_ptr() for t in outs]),
+        _pointers(ctypes.c_int, cis), _pointers(ctypes.c_int, cos),
+        _pointers(ctypes.c_int, list(dilations)), B, G, H, W,
+        dual=x2 is not None)
     return y
 
 
@@ -145,3 +337,66 @@ def dense2_layer(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
         affine=aff[None, :, :Ci].contiguous(), x2=x[B:],
         wt2=wt[None, :, Ci:].contiguous(),
         affine2=aff[None, :, Ci:].contiguous(), out_dtype=out_dtype)
+
+
+def dwsep_layer(x: torch.Tensor, affine: torch.Tensor, dwk: torch.Tensor,
+                pwk: torch.Tensor, *, dilation: int,
+                groups: int = 1) -> torch.Tensor:
+    """Folded BN-affine + ReLU + depthwise dilated 3x3 + pointwise 1x1.
+    x: (B, C, H, W); affine: ([G,] 2, C); dwk: ([G,] C, 1, 3, 3) and pwk:
+    ([G,] Co, C), each cast on its own to x's dtype. Returns
+    (B, Co, H, W)."""
+    return dwsep(x, _grouped(dwk, 4, groups)[:, :, 0].to(x.dtype).contiguous(),
+                 _grouped(pwk, 2, groups).to(x.dtype).contiguous(),
+                 dilation=dilation,
+                 affine=_grouped(affine, 2, groups).float().contiguous())
+
+
+def dwsep2_layer(x: torch.Tensor, affine1: torch.Tensor, dwk1: torch.Tensor,
+                 pwk1: torch.Tensor, affine2: torch.Tensor,
+                 dwk2: torch.Tensor, pwk2: torch.Tensor, *, dilation1: int,
+                 dilation2: int, groups: int = 1) -> torch.Tensor:
+    """Two consecutive dw-sep layers in one launch; arguments as
+    `dwsep_layer`, twice. Returns (B, Co2, H, W)."""
+    def prep(aff, dwk, pwk):
+        return (_grouped(dwk, 4, groups)[:, :, 0].to(x.dtype).contiguous(),
+                _grouped(pwk, 2, groups).to(x.dtype).contiguous(),
+                _grouped(aff, 2, groups).float().contiguous())
+
+    dw1, pw1, a1 = prep(affine1, dwk1, pwk1)
+    dw2, pw2, a2 = prep(affine2, dwk2, pwk2)
+    return dwsep2(x, dw1, pw1, dw2, pw2, dilation1=dilation1,
+                  dilation2=dilation2, affine1=a1, affine2=a2)
+
+
+def chain_layer(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+                affines: Sequence[Optional[torch.Tensor]], *,
+                dilations: Sequence[int], groups: int = 1,
+                two_input: bool = False,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """N dense dilated 3x3 layers in one launch, each preceded by its
+    folded BN-affine + ReLU (none where affines[i] is None).
+    x: (B, Ci0, H, W); kernels[i]: ([G,] Co, Ci, 3, 3), any float dtype,
+    cast once to x's; affines[i]: ([G,] 2, Ci). With `two_input` (G = 1)
+    the first layer is `dense2_layer`'s: kernels[0] is (Co, 2*Ci0, 3, 3)
+    over the channel concatenation of the two batch halves of x and
+    affines[0] is (2, 2*Ci0). Returns (B or B/2, Co_last, H, W) in
+    `out_dtype` (default x's)."""
+    wts = [_grouped(k, 4, groups).to(x.dtype) for k in kernels]
+    affs = [None if a is None else _grouped(a, 2, groups).float()
+            for a in affines]
+    second = {}
+    if two_input:
+        if groups != 1 or x.shape[0] % 2:
+            raise ValueError(f"two_input takes one weight group and an even "
+                             f"batch, got {groups} and {x.shape[0]}")
+        B, Ci = x.shape[0] // 2, x.shape[1]
+        second = dict(x2=x[B:], wt2=wts[0][:, :, Ci:].contiguous(),
+                      aff2=None if affs[0] is None
+                      else affs[0][:, :, Ci:].contiguous())
+        wts[0] = wts[0][:, :, :Ci]
+        affs[0] = None if affs[0] is None else affs[0][:, :, :Ci]
+        x = x[:B]
+    return chain(x, [w.contiguous() for w in wts],
+                 [None if a is None else a.contiguous() for a in affs],
+                 dilations=dilations, out_dtype=out_dtype, **second)

@@ -9,8 +9,9 @@ installed; `--noconftest` keeps pytest from loading the JAX test setup:
 
 Shapes are small and ragged (no dimension a multiple of a block's tile),
 so the kernels' edge masks are exercised. float32 runs with TF32 off at
-atol 2e-4 / rtol 1e-3; bf16 outputs may differ from the plain version by
-one rounding step, so bf16 runs at atol 1e-2 / rtol 1e-2.
+atol 2e-4 / rtol 1e-3; bf16 outputs of one layer may differ from the plain
+version by one rounding step, so they run at atol 1e-2 / rtol 1e-2, and
+bf16 outputs of several fused layers at the mean bar of `_check`.
 """
 
 import pytest
@@ -61,7 +62,8 @@ def test_kernels_match_plain_on_card(rnd):
     torch.cuda.synchronize()
     assert build.launch_counts() == {
         "conv3d_bn_relu": 1, "conv3d_skip_softargmin": 1, "dense3x3": 1,
-        "dense3x3[dual]": 1}
+        "dwsep3x3": 0, "dwsep3x3_pair": 0, "chain3x3": 0,
+        "dense3x3[dual]": 1, "chain3x3[dual]": 0}
 
 
 @pytest.mark.parametrize("d", [1, 16])
@@ -85,3 +87,74 @@ def test_tensor_core_routes_match_plain_on_card(rnd, d):
             trr.dense3x3(xs, wt, dilation=d, **kw),
             trr.dense3x3_plain(xs, wt, dilation=d, **kw),
             atol=1e-2, rtol=1e-2)
+
+
+def _check(got, want, dtype):
+    """float32: atol 2e-4 / rtol 1e-3. bf16, where one rounding step in a
+    staged intermediate spreads through the next layer: mean |delta| below
+    2 % of the plain output's span, the bar of chip_smoke.py."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    span = (want.max() - want.min()).item()
+    assert (got - want).abs().mean().item() < 0.02 * span
+
+
+def _dwsep_operands(rnd, G, C, Co, dtype):
+    dw = (rnd(G, C, 3, 3) * 0.3).to(dtype)
+    pw = (rnd(G, Co, C) * 0.2).to(dtype)
+    aff = torch.stack([rnd(G, C).abs() + 0.5, rnd(G, C)], 1)
+    return dw, pw, aff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwsep_kernels_match_plain_on_card(rnd, dtype):
+    """The solo and pair dw-sep kernels, two weight groups, the widest
+    pair (8, 16), on a ragged 37 x 75 plane; each launch counted."""
+    build.reset_launch_counts()
+    x = rnd(2, 32, 37, 75, dtype=dtype)
+    dw, pw, aff = _dwsep_operands(rnd, 2, 32, 32, dtype)
+    for d in (1, 16):
+        _check(trr.dwsep(x, dw, pw, dilation=d, affine=aff),
+               trr.dwsep_plain(x, dw, pw, dilation=d, affine=aff), dtype)
+    dw2, pw2, aff2 = _dwsep_operands(rnd, 2, 32, 32, dtype)
+    for d1, d2 in ((8, 16), (2, 1)):
+        kw = dict(dilation1=d1, dilation2=d2, affine1=aff, affine2=aff2)
+        _check(trr.dwsep2(x, dw, pw, dw2, pw2, **kw),
+               trr.dwsep2_plain(x, dw, pw, dw2, pw2, **kw), dtype)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert (counts["dwsep3x3"], counts["dwsep3x3_pair"]) == (2, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_kernel_matches_plain_on_card(rnd, dtype):
+    """The tower chain (3 -> 32 entry, two weight groups) and the head chain
+    (two-input entry, 32 -> 1 float32 output) on a ragged 29 x 150 plane."""
+    build.reset_launch_counts()
+
+    def w(G, co, ci):
+        return (rnd(G, co, ci, 3, 3) * (2 / (9 * ci)) ** 0.5).to(dtype)
+
+    def a(G, c):
+        return torch.stack([rnd(G, c).abs() + 0.5, rnd(G, c) * 0.1], 1)
+
+    x = rnd(2, 3, 29, 150, dtype=dtype)
+    wts = [w(2, 32, 3)] + [w(2, 32, 32) for _ in range(4)]
+    affs = [None] + [a(2, 32) for _ in range(4)]
+    kw = dict(dilations=(1, 2, 4, 8, 16))
+    tower = trr.chain(x, wts, affs, **kw)
+    _check(tower, trr.chain_plain(x, wts, affs, **kw), dtype)
+    wts = [w(1, 32, 32) for _ in range(5)] + [w(1, 1, 32)]
+    affs = [a(1, 32) for _ in range(5)] + [None]
+    kw = dict(dilations=(8, 8, 4, 2, 1, 1), x2=tower[1:], wt2=w(1, 32, 32),
+              aff2=a(1, 32), out_dtype=torch.float32)
+    head = trr.chain(tower[:1], wts, affs, **kw)
+    assert head.dtype == torch.float32 and head.shape == (1, 1, 29, 150)
+    _check(head, trr.chain_plain(tower[:1], wts, affs, **kw), dtype)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert (counts["chain3x3"], counts["chain3x3[dual]"]) == (2, 1)

@@ -17,6 +17,9 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from lwsnet_tpu import LWSNet as JLWSNet  # noqa: E402
+from lwsnet_tpu import ModelConfig as JConfig  # noqa: E402
+from lwsnet_tpu.inference import make_forward as jmake_forward  # noqa: E402
 from lwsnet_tpu_torch import (InferenceEngine, LWSNet,  # noqa: E402
                               ModelConfig, make_forward)
 from lwsnet_tpu_torch.data import png  # noqa: E402
@@ -33,6 +36,24 @@ def test_kernel_path_matches_jax(setup):  # noqa: F811
         variables, jnp.asarray(left), jnp.asarray(right))
     got = make_forward(model, use_pallas=True, device="cpu")(
         torch.from_numpy(left), torch.from_numpy(right))
+    _span_check(got, want)
+
+
+@pytest.mark.parametrize("dw,paired", [("vpu", True), ("vpu", False),
+                                       ("chain", True)])
+def test_engine_variants_match_jax(setup, dw, paired):  # noqa: F811
+    """The 4-stage kernel path under the other refinement engines against
+    the JAX kernel path (its Pallas kernels in interpret mode) of the same
+    configuration, on the same bridged weights."""
+    _, variables, model, left, right = setup
+    kw = dict(compute_dtype="float32", rows_dw=dw, rows_paired=paired)
+    want = jax.jit(jmake_forward(JLWSNet(JConfig(**kw)), use_pallas=True,
+                                 interpret=True))(
+        variables, jnp.asarray(left), jnp.asarray(right))
+    port = LWSNet(ModelConfig(**kw), device="cpu")
+    port.load_state_dict(model.state_dict(), strict=True)
+    got = make_forward(port, device="cpu")(torch.from_numpy(left),
+                                           torch.from_numpy(right))
     _span_check(got, want)
 
 

@@ -138,19 +138,26 @@ def test_dense2_layer():
                                rtol=1e-4)
 
 
-def test_refine_residual():
-    """The whole stage-4 kernel path (rows, mxu) at 48x96."""
+ENGINES = {"mxu": ("mxu", True), "vpu-paired": ("vpu", True),
+           "vpu-unpaired": ("vpu", False), "chain": ("chain", True)}
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_refine_residual(engine):
+    """The whole stage-4 kernel path (rows, each engine) at 48x96."""
+    dw, paired = ENGINES[engine]
     H, W = 48, 96
     rng = np.random.default_rng(11)
-    model = LWSNet(ModelConfig(compute_dtype="float32"), device="cpu")
+    model = LWSNet(ModelConfig(compute_dtype="float32", rows_dw=dw,
+                               rows_paired=paired), device="cpu")
     variables = jitter(to_jax_variables(model.state_dict()), rng)
     model.load_state_dict(from_jax_variables(variables), strict=True)
     left = rng.standard_normal((1, H, W, 3)).astype(np.float32)
     disp = rng.uniform(0, 20, (1, H, W, 1)).astype(np.float32)
     want = np.asarray(jax.jit(functools.partial(
         refine_pallas.refine_residual, dtype=f32, interpret=True,
-        mode="rows", dw="mxu"))(variables, jnp.asarray(left),
-                                jnp.asarray(disp)))
+        mode="rows", dw=dw, paired=paired))(variables, jnp.asarray(left),
+                                            jnp.asarray(disp)))
     with torch.no_grad():
         got = refine_residual(model, torch.from_numpy(left),
                               torch.from_numpy(disp)).numpy()
@@ -159,14 +166,20 @@ def test_refine_residual():
     assert np.abs(got - want).max() < 1e-4 * span
 
 
-@pytest.mark.parametrize("what", ["layers", "vpu", "chain"])
+@pytest.mark.parametrize("what", ["layers"])
 def test_unported_selectors_raise(what):
-    cfg = (ModelConfig(compute_dtype="float32", pallas_mode="layers")
-           if what == "layers" else
-           ModelConfig(compute_dtype="float32", rows_dw=what))
+    cfg = ModelConfig(compute_dtype="float32", pallas_mode=what)
     model = LWSNet(cfg, device="cpu")
     x = torch.zeros(1, 16, 16, 3)
     with pytest.raises(NotImplementedError, match="not yet ported"):
+        refine_residual(model, x, torch.zeros(1, 16, 16, 1))
+
+
+def test_unknown_engine_raises():
+    model = LWSNet(ModelConfig(compute_dtype="float32", rows_dw="tpu"),
+                   device="cpu")
+    x = torch.zeros(1, 16, 16, 3)
+    with pytest.raises(ValueError, match="rows_dw"):
         refine_residual(model, x, torch.zeros(1, 16, 16, 1))
 
 
@@ -179,4 +192,16 @@ def test_wrappers_take_no_other_device():
     with pytest.raises(ValueError, match="no kernel or plain version"):
         trr.dense3x3(torch.empty(1, 3, 8, 8, device="meta"),
                      torch.empty(1, 8, 3, 3, 3, device="meta"), dilation=1)
+    meta = torch.empty(1, 8, 8, 8, device="meta")
+    w = torch.empty(1, 8, 3, 3, device="meta")
+    pw = torch.empty(1, 8, 8, device="meta")
+    aff = torch.empty(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        trr.dwsep(meta, w, pw, dilation=1, affine=aff)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        trr.dwsep2(meta, w, pw, w, pw, dilation1=1, dilation2=2,
+                   affine1=aff, affine2=aff)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        trr.chain(meta, [torch.empty(1, 8, 8, 3, 3, device="meta")], [None],
+                  dilations=(1,))
 
