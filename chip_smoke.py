@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the Hopper kernels from `lwsnet_tpu_torch/csrc/` and drives the
 port's main path, the 368x1232 batch-1 bf16 4-stage inference forward, on
 seeded random weights, under each stage-4 refinement engine: the shipped
-`rows_dw="mxu"`, then "vpu" with `rows_paired` True and False, and
-"chain". Phases, in order; any failure exits non-zero:
+`rows_dw="mxu"`, then "vpu" with `rows_paired` True and False, "chain",
+and the planar `pallas_mode="layers"`; then the rows microbench. Phases,
+in order; any failure exits non-zero:
 
   1. the card's name and power limit;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
@@ -22,7 +23,10 @@ seeded random weights, under each stage-4 refinement engine: the shipped
      of span, float32 max |delta| < 1e-3 x span; the launch counters of
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
-     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input);
+     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input); then the
+     "layers" refinement alone at 96x3712, where the (8, 16) tower pair
+     splits into two solo layers, against the module path's towers + head
+     at the same bars, with its own launch counts;
   5. `InferenceEngine` answers 4 seeded requests at num_stages 1..4 under
      the shipped engine, with per-stage latency from CUDA events after a
      warm-up, and one torch.profiler window gives the 4-stage forward's
@@ -31,7 +35,10 @@ seeded random weights, under each stage-4 refinement engine: the shipped
   6. each kernel timed at its path's shapes beside its plain version, its
      bound from bytes and operations, and one cuDNN call that computes the
      same function where there is one (else the sum of per-layer cuDNN
-     calls).
+     calls);
+  7. the rows microbench (`lwsnet_tpu_torch.tools.microbench_rows`) once,
+     its counters set to 0 just before: its probe must print OK, which
+     launches `lane_broadcast`.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -40,13 +47,13 @@ written to chiprun_out/chip_smoke.json.
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 
 H, W = 368, 1232          # KITTI eval window
+WIDE_H, WIDE_W = 96, 3712  # a width where the layers path splits a pair
 PEAK_BF16 = 989e12        # H100 SXM dense tensor-core FLOP/s (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 
@@ -75,33 +82,15 @@ def jitter_batchnorm(model, rng):
                     t.copy_(torch.as_tensor(v, dtype=torch.float32))
 
 
-def event_times(fn, reps=20, warmup=3):
-    """Device milliseconds of each of `reps` runs of fn(), each between its
-    own pair of CUDA events, after `warmup` runs."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for begin, end in pairs:
-        begin.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sorted(begin.elapsed_time(end) for begin, end in pairs)
-
-
-def event_ms(fn):
-    """Median of `event_times`."""
-    return statistics.median(event_times(fn))
-
-
 PORT_KERNELS = ("conv3d_bn_relu", "skip_softargmin", "dense3x3", "dwsep3x3",
                 "chain3x3")
 
-# The stage-4 refinement engines: (rows_dw, rows_paired); "mxu" is shipped.
-ENGINES = {"mxu": ("mxu", True), "vpu-paired": ("vpu", True),
-           "vpu-unpaired": ("vpu", False), "chain": ("chain", True)}
+# The stage-4 refinement engines as ModelConfig fields; "mxu" is shipped.
+ENGINES = {"mxu": dict(rows_dw="mxu"),
+           "vpu-paired": dict(rows_dw="vpu", rows_paired=True),
+           "vpu-unpaired": dict(rows_dw="vpu", rows_paired=False),
+           "chain": dict(rows_dw="chain"),
+           "layers": dict(pallas_mode="layers")}
 # Launches per 368x1232 batch-1 forward beyond stages 1-3's
 # (conv3d_bn_relu 15, conv3d_skip_softargmin 3).
 REFINE_LAUNCHES = {
@@ -109,11 +98,15 @@ REFINE_LAUNCHES = {
     "vpu-paired": {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3_pair": 4},
     "vpu-unpaired": {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3": 8},
     "chain": {"chain3x3": 2, "chain3x3[dual]": 1},
+    "layers": {"dense3x3": 5, "dwsep3x3_pair": 6},
 }
-# The engine whose forward runs each kernel, for the kernels line.
+# Launches of the layers refinement alone at WIDE_H x WIDE_W.
+WIDE_LAUNCHES = {"dense3x3": 5, "dwsep3x3": 4, "dwsep3x3_pair": 4}
+# The path whose run gives each kernel's launches on the kernels line.
 ENGINE_OF = {"conv3d_bn_relu": "mxu", "conv3d_skip_softargmin": "mxu",
              "dense3x3": "mxu", "dwsep3x3": "vpu-unpaired",
-             "dwsep3x3_pair": "vpu-paired", "chain3x3": "chain"}
+             "dwsep3x3_pair": "vpu-paired", "chain3x3": "chain",
+             "lane_broadcast": "microbench"}
 REPLACES = {
     "conv3d_bn_relu": "lwsnet_tpu/ops/pallas/costfilter.py:138 "
                       "(_dgrid_kernel); lwsnet_tpu/ops/pallas/"
@@ -122,11 +115,16 @@ REPLACES = {
                               "(_folded_last_kernel)",
     "dense3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:243 "
                 "(_dense_kernel); lwsnet_tpu/ops/pallas/"
-                "refine_rows.py:271 (_dense2_kernel)",
-    "dwsep3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:170 (_dwsep_kernel)",
+                "refine_rows.py:271 (_dense2_kernel); lwsnet_tpu/ops/"
+                "pallas/refine.py:336 (_dense_stack_layer_kernel), :354 "
+                "(_dense_acc_layer_kernel), :374 (_dense_vpu_layer_kernel)",
+    "dwsep3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:170 (_dwsep_kernel); "
+                "lwsnet_tpu/ops/pallas/refine.py:183 (_dwsep_layer_kernel)",
     "dwsep3x3_pair": "lwsnet_tpu/ops/pallas/refine_rows.py:193 "
-                     "(_dwsep2_kernel)",
+                     "(_dwsep2_kernel); lwsnet_tpu/ops/pallas/refine.py:244 "
+                     "(_dwsep2_layer_kernel)",
     "chain3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:503 (_chain_kernel)",
+    "lane_broadcast": "examples/microbench_rows.py:184 (bkernel)",
 }
 
 
@@ -180,7 +178,7 @@ def device_profile(fn, reps=5):
 
 def main_path_calls(cfg):
     """Every distinct kernel call of the 368x1232 batch-1 forward:
-    (kernel, label, shape dict, launches per forward)."""
+    (kernel, label, shape dict, launches per forward, engine)."""
     calls = []
     for s in range(3):
         h, w = H // 8 * 2 ** s, W // 8 * 2 ** s
@@ -188,59 +186,91 @@ def main_path_calls(cfg):
         C = cfg.channels_3d * cfg.growth_rate[s]
         geo = dict(B=1, D=D, H=h, W=w)
         calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C}",
-                      dict(geo, Ci=1, Co=C), 1))
+                      dict(geo, Ci=1, Co=C), 1, "mxu"))
         calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}",
-                      dict(geo, Ci=C, Co=C), cfg.layers_3d))
+                      dict(geo, Ci=C, Co=C), cfg.layers_3d, "mxu"))
         calls.append(("conv3d_skip_softargmin", f"stage{s + 1} {C}->1",
                       dict(geo, Ci=C, start=0 if s == 0 else
-                           -cfg.max_disp_list[s] + 1), 1))
+                           -cfg.max_disp_list[s] + 1), 1, "mxu"))
     c = cfg.refine_channels
     geo = dict(H=H, W=W)
     calls.append(("dense3x3", "tower entry 3->32 G=2",
-                  dict(geo, B=2, G=2, Ci=3, Co=c, d=1, aff=False), 1))
+                  dict(geo, B=2, G=2, Ci=3, Co=c, d=1, aff=False), 1, "mxu"))
     for d in (2, 4, 8, 16):
         calls.append(("dense3x3", f"tower 32->32 d={d} G=2",
-                      dict(geo, B=2, G=2, Ci=c, Co=c, d=d, aff=True), 1))
+                      dict(geo, B=2, G=2, Ci=c, Co=c, d=d, aff=True), 1,
+                      "mxu"))
     calls.append(("dense3x3", "head entry 2x32->32 d=8 (dual)",
                   dict(geo, B=1, G=1, Ci=c, Co=c, d=8, aff=True, dual=True),
-                  1))
+                  1, "mxu"))
     for d in (8, 4, 2, 1):
         calls.append(("dense3x3", f"head 32->32 d={d}",
-                      dict(geo, B=1, G=1, Ci=c, Co=c, d=d, aff=True), 1))
+                      dict(geo, B=1, G=1, Ci=c, Co=c, d=d, aff=True), 1,
+                      "mxu"))
     calls.append(("dense3x3", "out 32->1 f32 out",
                   dict(geo, B=1, G=1, Ci=c, Co=1, d=1, aff=False,
-                       f32_out=True), 1))
+                       f32_out=True), 1, "mxu"))
     return calls
 
 
 def variant_calls(cfg):
-    """Every distinct call of the kernels that only the other refinement
+    """Every distinct call of the kernels that only the other "rows"
     engines run (368x1232 batch 1): (kernel, label, shape dict, launches
-    per forward under the engine that runs it)."""
+    per forward under the engine that runs it, that engine)."""
     from lwsnet_tpu_torch.models.refinement import (HEAD_DENSE_DILATION,
                                                     HEAD_DILATIONS,
                                                     TOWER_DILATIONS)
     c = cfg.refine_channels
     tower = dict(H=H, W=W, C=c, B=2, G=2)
     head = dict(H=H, W=W, C=c, B=1, G=1)
-    calls = [("dwsep3x3", f"tower d={d} G=2", dict(tower, d=d), 1)
-             for d in TOWER_DILATIONS]
-    calls += [("dwsep3x3", f"head d={d}", dict(head, d=d), 1)
-              for d in HEAD_DILATIONS]
+    calls = [("dwsep3x3", f"tower d={d} G=2", dict(tower, d=d), 1,
+              "vpu-unpaired") for d in TOWER_DILATIONS]
+    calls += [("dwsep3x3", f"head d={d}", dict(head, d=d), 1,
+               "vpu-unpaired") for d in HEAD_DILATIONS]
     for geo, dils, name in ((tower, TOWER_DILATIONS, "tower"),
                             (head, HEAD_DILATIONS, "head")):
         for i in (0, 2):
             d1, d2 = dils[i], dils[i + 1]
             calls.append(("dwsep3x3_pair", f"{name} ({d1},{d2}) G={geo['G']}",
-                          dict(geo, d1=d1, d2=d2), 1))
+                          dict(geo, d1=d1, d2=d2), 1, "vpu-paired"))
     calls.append(("chain3x3", "tower 3->32, d=1,2,4,8,16, G=2",
                   dict(tower, Ci0=3, dils=(1,) + TOWER_DILATIONS,
                        aff=(False,) + (True,) * 4, dual=False, co_last=c,
-                       f32_out=False), 1))
+                       f32_out=False), 1, "chain"))
     dils = (HEAD_DENSE_DILATION,) + HEAD_DILATIONS + (1,)
     calls.append(("chain3x3", f"head 2x32->32->1, d={dils}, f32 out",
                   dict(head, Ci0=c, dils=dils, aff=(True,) * 5 + (False,),
-                       dual=True, co_last=1, f32_out=True), 1))
+                       dual=True, co_last=1, f32_out=True), 1, "chain"))
+    return calls
+
+
+def layers_calls(cfg):
+    """Every distinct kernel call of the planar "layers" refinement, each
+    tower on its own at batch 1 with one weight set: engine "layers" at
+    368x1232, where every dw-sep pair fuses, and "layers-wide" at
+    WIDE_H x WIDE_W for the solo layers of the split (8, 16) tower pair;
+    then the rows microbench's probe (engine "microbench"). Tuples as
+    `main_path_calls`."""
+    c = cfg.refine_channels
+    geo = dict(H=H, W=W, B=1, G=1)
+    calls = [
+        ("dense3x3", "layers entry 3->32 G=1",
+         dict(geo, Ci=3, Co=c, d=1, aff=False), 1, "layers"),
+        ("dense3x3", "layers entry 1->32",
+         dict(geo, Ci=1, Co=c, d=1, aff=False), 1, "layers"),
+        ("dense3x3", "layers head half 32->32 d=8",
+         dict(geo, Ci=c, Co=c, d=8, aff=True), 2, "layers"),
+        ("dense3x3", "layers out 32->1 bf16 out",
+         dict(geo, Ci=c, Co=1, d=1, aff=False), 1, "layers")]
+    for (d1, d2), n in (((2, 4), 2), ((8, 16), 2), ((8, 4), 1), ((2, 1), 1)):
+        calls.append(("dwsep3x3_pair", f"layers ({d1},{d2}) G=1",
+                      dict(geo, C=c, d1=d1, d2=d2), n, "layers"))
+    wide = dict(H=WIDE_H, W=WIDE_W, B=1, G=1, C=c)
+    for d in (8, 16):
+        calls.append(("dwsep3x3", f"layers d={d} G=1 at {WIDE_H}x{WIDE_W}",
+                      dict(wide, d=d), 2, "layers-wide"))
+    calls.append(("lane_broadcast", "probe (32,1)->(32,1024)",
+                  dict(C=32, N=1024), 1, "microbench"))
     return calls
 
 
@@ -271,6 +301,7 @@ def make_call(kernel, p, dtype, rng, dev):
     import torch
     import torch.nn.functional as F
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    from lwsnet_tpu_torch.ops.cuda import probe as PR
     from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
 
     def t(a, dt=dtype):
@@ -285,6 +316,12 @@ def make_call(kernel, p, dtype, rng, dev):
                     layers=layers, bytes=nbytes, ops=ops)
 
     es = torch.tensor([], dtype=dtype).element_size()
+    if kernel == "lane_broadcast":
+        C, N = p["C"], p["N"]
+        v = t(rng.standard_normal((C, 1)))
+        return call(lambda: PR.lane_broadcast(v, N),
+                    lambda: PR.lane_broadcast_plain(v, N),
+                    lambda: v.repeat(1, N), (C + C * N) * es, 0)
     if kernel in ("dwsep3x3", "dwsep3x3_pair"):
         B, G, C, h, w = (p[k] for k in ("B", "G", "C", "H", "W"))
         x = t(rng.standard_normal((B, C, h, w)))
@@ -413,11 +450,24 @@ def check_close(got, want, dtype, what):
     return delta.max().item(), span
 
 
-def nvidia_smi():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+def compare(what, want, got, dtype, shape):
+    """Phase-4 bar of one output against the module path's: finite, of
+    `shape`; bf16 mean |delta| < 2 % of span, float32 max |delta| <
+    1e-3 x span (span = the module output's range + 1)."""
+    import torch
+    require(tuple(got.shape) == shape, f"{what}: shape {tuple(got.shape)}")
+    require(torch.isfinite(got).all().item(), f"{what}: finite")
+    span = (want.max() - want.min()).item() + 1.0
+    delta = (want - got).abs()
+    mean, mx = delta.mean().item(), delta.max().item()
+    print(f"[4] {what}: span {span:.4g}, mean |delta| {mean:.4g} "
+          f"({100 * mean / span:.3f} %), max |delta| {mx:.4g} "
+          f"({100 * mx / span:.3f} %)")
+    if dtype == "bfloat16":
+        require(mean < 0.02 * span, f"{what}: mean |delta| >= 2% of span")
+    else:
+        require(mx < 1e-3 * span, f"{what}: max |delta| >= 1e-3 x span")
+    return dict(span=span, mean_abs=mean, max_abs=mx)
 
 
 def main():
@@ -429,14 +479,18 @@ def main():
     import lwsnet_tpu_torch  # noqa: F401  (fails outside the repository)
     from lwsnet_tpu_torch import InferenceEngine, LWSNet, ModelConfig
     from lwsnet_tpu_torch import make_forward
+    from lwsnet_tpu_torch.models.refine_kernels import refine_residual
     from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.tools import microbench_rows
+    from lwsnet_tpu_torch.utils.timing import card, event_ms, event_times
 
     dev = torch.device("cuda")
     report = {}
     t_start = time.time()
+    os.makedirs("chiprun_out", exist_ok=True)
 
     # 1. the card
-    smi = nvidia_smi()
+    smi = card()
     name = torch.cuda.get_device_name(0)
     print(f"[1] card: {smi}")
     print(f"[1] torch.cuda.get_device_name(0): {name}; torch "
@@ -458,12 +512,12 @@ def main():
                 print(f"[2] {src}: {line.strip()}")
 
     cfg = ModelConfig()
-    calls = main_path_calls(cfg) + variant_calls(cfg)
+    calls = main_path_calls(cfg) + variant_calls(cfg) + layers_calls(cfg)
 
     # 3. kernels against their plain versions
     checks = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (kernel, label, p, _) in enumerate(calls):
+        for i, (kernel, label, p, _, _) in enumerate(calls):
             rng = np.random.default_rng(1000 + i)
             c = make_call(kernel, p, dtype, rng, dev)
             got = c["kernel"]()
@@ -486,10 +540,9 @@ def main():
     forward_report = {}
     for dt in ("bfloat16", "float32"):
         plain = None
-        for engine, (rows_dw, paired) in ENGINES.items():
-            model = LWSNet(ModelConfig(compute_dtype=dt, rows_dw=rows_dw,
-                                       rows_paired=paired), device=dev,
-                           seed=0)
+        for engine, fields in ENGINES.items():
+            model = LWSNet(ModelConfig(compute_dtype=dt, **fields),
+                           device=dev, seed=0)
             jitter_batchnorm(model, np.random.default_rng(3))
             if plain is None:  # the module path runs no refinement kernel
                 plain = make_forward(model, use_pallas=False,
@@ -500,26 +553,10 @@ def main():
             torch.cuda.synchronize()
             if dt == "bfloat16":
                 counts[engine] = build.launch_counts()
-            rows = []
-            for s, (a, b) in enumerate(zip(plain, got)):
-                what = f"{dt} {engine} stage {s + 1}"
-                require(tuple(b.shape) == (1, H, W, 1), f"{what}: shape")
-                require(torch.isfinite(b).all().item(), f"{what}: finite")
-                span = (a.max() - a.min()).item() + 1.0
-                delta = (a - b).abs()
-                mean, mx = delta.mean().item(), delta.max().item()
-                rows.append(dict(stage=s + 1, span=span, mean_abs=mean,
-                                 max_abs=mx))
-                print(f"[4] {what}: span {span:.4g}, mean |delta| "
-                      f"{mean:.4g} ({100 * mean / span:.3f} %), max |delta| "
-                      f"{mx:.4g} ({100 * mx / span:.3f} %)")
-                if dt == "bfloat16":
-                    require(mean < 0.02 * span, f"{what}: mean |delta| >= "
-                            f"2% of span")
-                else:
-                    require(mx < 1e-3 * span, f"{what}: max |delta| >= "
-                            f"1e-3 x span")
-            forward_report[f"{dt} {engine}"] = rows
+            forward_report[f"{dt} {engine}"] = [
+                dict(stage=s + 1, **compare(f"{dt} {engine} stage {s + 1}",
+                                            a, b, dt, (1, H, W, 1)))
+                for s, (a, b) in enumerate(zip(plain, got))]
             del model, got
         del plain
     for engine in ENGINES:
@@ -528,8 +565,41 @@ def main():
               f"{counts[engine]}")
         require(counts[engine] == want,
                 f"{engine} launch counts {counts[engine]} != {want}")
+
+    # the layers refinement alone at a width where its (8, 16) tower pair
+    # splits: the only run of the path's solo branch
+    rng = np.random.default_rng(4)
+    wide_left = torch.as_tensor(rng.standard_normal((1, WIDE_H, WIDE_W, 3)),
+                                dtype=torch.float32, device=dev)
+    wide_disp = torch.as_tensor(rng.uniform(0, 60, (1, WIDE_H, WIDE_W, 1)),
+                                dtype=torch.float32, device=dev)
+    for dt in ("bfloat16", "float32"):
+        model = LWSNet(ModelConfig(compute_dtype=dt, pallas_mode="layers"),
+                       device=dev, seed=0)
+        jitter_batchnorm(model, np.random.default_rng(3))
+        with torch.inference_mode():
+            both = torch.cat([
+                model.RefinementTower_0(
+                    wide_left.permute(0, 3, 1, 2).to(model.cfg.dtype)),
+                model.RefinementTower_1(
+                    wide_disp.permute(0, 3, 1, 2).to(model.cfg.dtype))], 1)
+            want = model.RefinementHead_0(both).permute(0, 2, 3, 1).float()
+            del both
+            build.reset_launch_counts()
+            got = refine_residual(model, wide_left, wide_disp)
+            torch.cuda.synchronize()
+        if dt == "bfloat16":
+            counts["layers-wide"] = build.launch_counts()
+        forward_report[f"{dt} layers-wide residual"] = compare(
+            f"{dt} layers residual at {WIDE_H}x{WIDE_W}", want, got, dt,
+            (1, WIDE_H, WIDE_W, 1))
+        del model, want, got
+    want = dict(zero, **WIDE_LAUNCHES)
+    print(f"[4] launch counts of the bf16 layers refinement at "
+          f"{WIDE_H}x{WIDE_W}: {counts['layers-wide']}")
+    require(counts["layers-wide"] == want,
+            f"layers-wide launch counts {counts['layers-wide']} != {want}")
     report["forward"] = forward_report
-    report["launch_counts"] = counts
 
     # 5. the inference engine: 4 seeded requests, num_stages 1..4, under the
     # shipped engine; one request and the 4-stage latency under each other
@@ -538,9 +608,8 @@ def main():
     state = model.state_dict()
     del model
     latency = {}
-    for engine, (rows_dw, paired) in ENGINES.items():
-        ecfg = ModelConfig(rows_dw=rows_dw, rows_paired=paired)
-        eng = InferenceEngine(ecfg, state, device=dev)
+    for engine, fields in ENGINES.items():
+        eng = InferenceEngine(ModelConfig(**fields), state, device=dev)
         for req in range(4 if engine == "mxu" else 1):
             rng = np.random.default_rng(100 + req)
             l_img = rng.uniform(0, 1, (375, 1242, 3)).astype(np.float32)
@@ -602,15 +671,15 @@ def main():
             print(f"[5]   other kernel {t:.3f} ms: {n}")
     del shipped, fwd
 
-    # 6. kernel times at the paths' shapes
+    # 6. kernel times at the paths' shapes; totals per (kernel, engine)
     per_shape = []
     totals = {}
-    for i, (kernel, label, p, n) in enumerate(calls):
+    for i, (kernel, label, p, n, engine) in enumerate(calls):
         rng = np.random.default_rng(2000 + i)
         c = make_call(kernel, p, torch.bfloat16, rng, dev)
         t_bytes = c["bytes"] / PEAK_BYTES * 1e3
         t_ops = c["ops"] / PEAK_BF16 * 1e3
-        row = dict(kernel=kernel, label=label, launches=n,
+        row = dict(kernel=kernel, label=label, engine=engine, launches=n,
                    ms=event_ms(c["kernel"]), plain_ms=event_ms(c["plain"]),
                    library_ms=(None if c["library"] is None
                                else event_ms(c["library"])),
@@ -621,9 +690,10 @@ def main():
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         del c
         per_shape.append(row)
-        tot = totals.setdefault(kernel, dict(
-            ms=0.0, plain_ms=0.0, library_ms=0.0, layers_cudnn_ms=0.0,
-            bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0))
+        tot = totals.setdefault((kernel, engine), dict(
+            launches=0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+            layers_cudnn_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0))
+        tot["launches"] += n
         for k in ("ms", "plain_ms", "bound_ms"):
             tot[k] += n * row[k]
         for k in ("library_ms", "layers_cudnn_ms"):
@@ -641,14 +711,40 @@ def main():
               f"{row['plain_ms']:.4f} ms, cuDNN {lib}{layers}, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     report["per_shape"] = per_shape
+    for (kernel, engine), tot in totals.items():
+        lib = [f"{tot[k]:.4f}" if tot[k] is not None else "none"
+               for k in ("library_ms", "layers_cudnn_ms")]
+        print(f"[6] per forward: {kernel} under {engine}, {tot['launches']} "
+              f"launches: {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} "
+              f"ms, cuDNN {lib[0]} (per-layer sum {lib[1]}), bound "
+              f"{tot['bound_ms']:.4f} ms")
+    report["totals"] = {f"{k} under {e}": tot
+                        for (k, e), tot in totals.items()}
+
+    # 7. the rows microbench, whose probe is the one launch of
+    # lane_broadcast on a user's path
+    build.reset_launch_counts()
+    bench = microbench_rows.main(
+        ["--json", os.path.join("chiprun_out", "microbench_rows.json")])
+    torch.cuda.synchronize()
+    counts["microbench"] = build.launch_counts()
+    require(bench["probe"] == "OK", "microbench probe did not print OK")
+    require(counts["microbench"]["lane_broadcast"] >= 1,
+            "the microbench launched no lane_broadcast")
+    print(f"[7] microbench_rows: probe OK, lane_broadcast launched "
+          f"{counts['microbench']['lane_broadcast']} time(s)")
+    report["microbench_rows"] = bench
+    report["launch_counts"] = counts
 
     line = []
     for k in build.KERNELS:
-        tot = totals[k.name]
+        engine = ENGINE_OF[k.name]
+        tot = totals[(k.name, engine)]
+        launches = counts[engine][k.name]
+        require(launches > 0, f"{k.name}: launched no time under {engine}")
         line.append(dict(
             name=k.name, route="cuda", source=k.source,
-            replaces=REPLACES[k.name],
-            launches=counts[ENGINE_OF[k.name]][k.name],
+            replaces=REPLACES[k.name], launches=launches,
             max_abs_err=max(v for (_, d), v in checks[k.name].items()
                             if d == "bfloat16"),
             ms=tot["ms"], plain_ms=tot["plain_ms"],
@@ -657,9 +753,7 @@ def main():
                       else "operations"),
             library_ms=tot["library_ms"]))
     report["kernels"] = line
-    report["totals"] = totals
     report["seconds"] = time.time() - t_start
-    os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(f"[6] per forward under each kernel's engine (ms are launches x "

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PALLAS_MODES = ("rows", "layers")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,8 +37,10 @@ class ModelConfig:
     # True: the inference forward runs the cost filters and the refinement
     # through the Hopper kernels. False: the plain module path.
     use_pallas: bool = True
-    # Refinement kernel granularity. Only "rows" is ported; "layers"
-    # raises NotImplementedError.
+    # Stage-4 refinement path: "rows" (the two towers as one 2B batch, an
+    # engine picked by `rows_dw`) or "layers" (each tower on its own,
+    # dw-sep layers paired as the JAX planar path pairs them; `rows_dw` and
+    # `rows_paired` are ignored). Any other value raises ValueError.
     pallas_mode: str = "rows"
     # With rows_dw="vpu": two dw-sep layers per dwsep3x3 launch (True) or
     # one (False). Ignored by "mxu" and "chain".
@@ -50,6 +53,11 @@ class ModelConfig:
     # the port has one.
     conv3d_impl: str = "auto"
     num_stages: int = 4
+
+    def __post_init__(self):
+        if self.pallas_mode not in PALLAS_MODES:
+            raise ValueError(f'pallas_mode="{self.pallas_mode}": expected '
+                             f'one of {PALLAS_MODES}')
 
     @property
     def dtype(self) -> torch.dtype:

@@ -20,6 +20,16 @@ each layer; the two towers run as one 2B batch with two weight groups, the
 disparity tower's 1-channel input and entry kernel zero-padded to 3
 channels, which is exact; and the head's 64-channel entry reads the two
 tower halves without forming the concat.
+
+Under `pallas_mode="layers"` (`_layers_mode`) it mirrors the JAX planar
+path instead, through `ops/cuda/refine.py`: each tower runs alone at batch
+B with its own weights, the disparity tower on its 1-channel input; the
+dw-sep layers pair as `layer_plan` says (all pairs at 368x1232, 6 pair
+launches); the head's entry runs as two single-input convs, one per tower,
+each rounded to the compute dtype and summed in it; and the output conv
+writes the compute dtype, so the residual is rounded to it before it
+becomes float32. The weights are cast to the compute dtype, the folded BN
+affines stay float32.
 """
 
 from __future__ import annotations
@@ -29,10 +39,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from lwsnet_tpu_torch.config import PALLAS_MODES
 from lwsnet_tpu_torch.models.blocks import BatchNorm, PreConvDW, bn_affine
 from lwsnet_tpu_torch.models.refinement import (HEAD_DENSE_DILATION,
                                                 HEAD_DILATIONS,
                                                 TOWER_DILATIONS)
+from lwsnet_tpu_torch.ops.cuda.refine import (fused_dense, fused_dwsep,
+                                              fused_dwsep2, layer_plan)
 from lwsnet_tpu_torch.ops.cuda.refine_rows import (chain_layer, dense2_layer,
                                                    dense_layer, dwsep2_layer,
                                                    dwsep_layer)
@@ -82,9 +95,11 @@ def refine_residual(model, left: torch.Tensor, disp: torch.Tensor, *,
     mode = mode or cfg.pallas_mode
     dw = dw or cfg.rows_dw
     paired = cfg.rows_paired if paired is None else paired
-    if mode != "rows":
-        raise NotImplementedError(
-            f'pallas_mode="{mode}" not yet ported, see ROADMAP.md')
+    if mode not in PALLAS_MODES:
+        raise ValueError(f'pallas_mode="{mode}": expected one of '
+                         f'{PALLAS_MODES}')
+    if mode == "layers":
+        return _layers_mode(model, left, disp, dtype)
     if dw not in ENGINES:
         raise ValueError(f'rows_dw="{dw}": expected one of {ENGINES}')
     tl, td = model.RefinementTower_0, model.RefinementTower_1
@@ -159,3 +174,58 @@ def refine_residual(model, left: torch.Tensor, disp: torch.Tensor, *,
     y = dense_layer(y, head.out_weight.to(dtype), dilation=1,
                     out_dtype=torch.float32)
     return y.permute(0, 2, 3, 1)
+
+
+def _hwio(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3) -> the JAX (3, 3, Ci, Co)."""
+    return weight.permute(2, 3, 1, 0)
+
+
+def _planar_dwsep(block: PreConvDW):
+    """(affine (2, C), taps (3, 3, 1, C), pointwise (Co, C)) of a dw-sep
+    layer in the JAX planar path's layout."""
+    return (fold_bn(block.BatchNorm_0), _hwio(block.dw_weight),
+            block.Conv_0.weight[:, :, 0, 0])
+
+
+def _dwsep_chain(y: torch.Tensor, blocks, dilations) -> torch.Tensor:
+    """A dw-sep chain, one launch per entry of `layer_plan`: a pair where
+    the JAX chunk holds the joint halo, else a solo."""
+    k = 0
+    for step in layer_plan(y.shape[2], y.shape[3], dilations):
+        if len(step) == 2:
+            y = fused_dwsep2(y, *_planar_dwsep(blocks[k]),
+                             *_planar_dwsep(blocks[k + 1]),
+                             dilation1=step[0], dilation2=step[1])
+        else:
+            y = fused_dwsep(y, *_planar_dwsep(blocks[k]), dilation=step[0])
+        k += len(step)
+    return y
+
+
+def _layers_mode(model, left: torch.Tensor, disp: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The counterpart of the JAX `refine_residual(mode="layers")`."""
+    tl, td = model.RefinementTower_0, model.RefinementTower_1
+    head = model.RefinementHead_0
+    n = len(TOWER_DILATIONS)
+
+    def tower(t, x):
+        y = fused_dense(x.permute(0, 3, 1, 2).to(dtype).contiguous(),
+                        _hwio(t.Conv_0.weight), dilation=1)
+        return _dwsep_chain(y, [getattr(t, f"PreConvDW_{i}")
+                                for i in range(n)], TOWER_DILATIONS)
+
+    y_l, y_d = tower(tl, left), tower(td, disp)
+    pre = head.PreConv_0
+    dense, aff0 = _hwio(pre.Conv_0.weight), fold_bn(pre.BatchNorm_0)
+    c = y_l.shape[1]
+    y = (fused_dense(y_l, dense[:, :, :c], dilation=HEAD_DENSE_DILATION,
+                     affine=aff0[:, :c])
+         + fused_dense(y_d, dense[:, :, c:], dilation=HEAD_DENSE_DILATION,
+                       affine=aff0[:, c:]))
+    y = _dwsep_chain(y, [getattr(head, f"PreConvDW_{i}")
+                         for i in range(len(HEAD_DILATIONS))],
+                     HEAD_DILATIONS)
+    y = fused_dense(y, _hwio(head.out_weight), dilation=1)
+    return y.permute(0, 2, 3, 1).float()

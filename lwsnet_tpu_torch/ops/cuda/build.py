@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("conv3d_bn_relu", "conv3d_skip_softargmin", "dense3x3",
-           "dwsep3x3", "chain3x3")
+           "dwsep3x3", "chain3x3", "lane_broadcast")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -143,8 +143,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 CHAIN3X3 = Kernel(
     "chain3x3", [_I, _PP, _PP, _PP, _P, _P, _P, _PP, _IP, _IP, _IP, _I, _I,
                  _I, _I, _P])
+LANE_BROADCAST = Kernel("lane_broadcast", [_P, _P, _I, _I, _P])
 KERNELS = (CONV3D_BN_RELU, CONV3D_SKIP_SOFTARGMIN, DENSE3X3, DWSEP3X3,
-           DWSEP3X3_PAIR, CHAIN3X3)
+           DWSEP3X3_PAIR, CHAIN3X3, LANE_BROADCAST)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -19,6 +19,7 @@ import torch
 
 from lwsnet_tpu_torch.ops.cuda import build
 from lwsnet_tpu_torch.ops.cuda import costfilter as tcf
+from lwsnet_tpu_torch.ops.cuda import probe
 from lwsnet_tpu_torch.ops.cuda import refine_rows as trr
 
 pytestmark = pytest.mark.gpu
@@ -63,7 +64,7 @@ def test_kernels_match_plain_on_card(rnd):
     assert build.launch_counts() == {
         "conv3d_bn_relu": 1, "conv3d_skip_softargmin": 1, "dense3x3": 1,
         "dwsep3x3": 0, "dwsep3x3_pair": 0, "chain3x3": 0,
-        "dense3x3[dual]": 1, "chain3x3[dual]": 0}
+        "lane_broadcast": 0, "dense3x3[dual]": 1, "chain3x3[dual]": 0}
 
 
 @pytest.mark.parametrize("d", [1, 16])
@@ -158,3 +159,58 @@ def test_chain_kernel_matches_plain_on_card(rnd, dtype):
     torch.cuda.synchronize()
     counts = build.launch_counts()
     assert (counts["chain3x3"], counts["chain3x3[dual]"]) == (2, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layers_dense_shapes_match_plain_on_card(rnd, dtype):
+    """The dense3x3 shapes of the planar "layers" path at batch 1, one
+    weight set: the 1- and 3-channel tower entries (the CUDA-core route's
+    channel loop with a 1-channel tail), a head half (32 -> 32, d = 8, with
+    affine) and the 32 -> 1 output conv in the compute dtype."""
+    build.reset_launch_counts()
+    for ci, co, d, aff in ((1, 32, 1, False), (3, 32, 1, False),
+                           (32, 32, 8, True), (32, 1, 1, False)):
+        x = rnd(1, ci, 37, 75, dtype=dtype)
+        wt = (rnd(1, co, ci, 3, 3) * (2 / (9 * ci)) ** 0.5).to(dtype)
+        kw = dict(dilation=d)
+        if aff:
+            kw["affine"] = torch.stack([rnd(1, ci).abs() + 0.5,
+                                        rnd(1, ci)], 1)
+        got = trr.dense3x3(x, wt, **kw)
+        assert got.dtype == dtype and got.shape == (1, co, 37, 75)
+        _check(got, trr.dense3x3_plain(x, wt, **kw), dtype)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["dense3x3"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwsep_one_group_matches_plain_on_card(rnd, dtype):
+    """The dw-sep kernels as the "layers" path runs them, batch 1 and one
+    weight set: the (8, 16) pair, whose intermediate fills 196 KB of
+    shared memory, and the solo layers of the wide-image split."""
+    build.reset_launch_counts()
+    x = rnd(1, 32, 37, 75, dtype=dtype)
+    dw, pw, aff = _dwsep_operands(rnd, 1, 32, 32, dtype)
+    dw2, pw2, aff2 = _dwsep_operands(rnd, 1, 32, 32, dtype)
+    kw = dict(dilation1=8, dilation2=16, affine1=aff, affine2=aff2)
+    _check(trr.dwsep2(x, dw, pw, dw2, pw2, **kw),
+           trr.dwsep2_plain(x, dw, pw, dw2, pw2, **kw), dtype)
+    for d in (8, 16):
+        _check(trr.dwsep(x, dw, pw, dilation=d, affine=aff),
+               trr.dwsep_plain(x, dw, pw, dilation=d, affine=aff), dtype)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert (counts["dwsep3x3"], counts["dwsep3x3_pair"]) == (2, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_broadcast_matches_plain_on_card(rnd, dtype):
+    """The probe's (C, 1) -> (C, N) broadcast, exact, at the microbench's
+    N = 1024 (16-byte stores) and a ragged N = 1000 (element stores)."""
+    build.reset_launch_counts()
+    v = rnd(32, 1, dtype=dtype)
+    for n in (1024, 1000):
+        assert torch.equal(probe.lane_broadcast(v, n),
+                           probe.lane_broadcast_plain(v, n))
+    torch.cuda.synchronize()
+    assert build.launch_counts()["lane_broadcast"] == 2

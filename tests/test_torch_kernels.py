@@ -166,13 +166,17 @@ def test_refine_residual(engine):
     assert np.abs(got - want).max() < 1e-4 * span
 
 
-@pytest.mark.parametrize("what", ["layers"])
-def test_unported_selectors_raise(what):
-    cfg = ModelConfig(compute_dtype="float32", pallas_mode=what)
-    model = LWSNet(cfg, device="cpu")
+@pytest.mark.parametrize("where", ["config", "call"])
+def test_unknown_pallas_mode_raises(where):
+    """Only "rows" and "layers" exist, in the config and per call."""
+    if where == "config":
+        with pytest.raises(ValueError, match="pallas_mode"):
+            ModelConfig(pallas_mode="planar")
+        return
+    model = LWSNet(ModelConfig(compute_dtype="float32"), device="cpu")
     x = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        refine_residual(model, x, torch.zeros(1, 16, 16, 1))
+    with pytest.raises(ValueError, match="pallas_mode"):
+        refine_residual(model, x, torch.zeros(1, 16, 16, 1), mode="planar")
 
 
 def test_unknown_engine_raises():
