@@ -15,15 +15,18 @@ in order; any failure exits non-zero:
   1. the card's name and power limit;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
      memory lines;
-  3. every kernel against its plain PyTorch version at each shape a path
-     gives it, in float32 (TF32 off; atol 2e-4, rtol 1e-3) and bf16 (mean
-     |delta| < 2 % of the plain output's span);
+  3. every kernel against its plain PyTorch version at each shape and
+     memory layout a path gives it, and the tensor-core routes of dense3x3
+     and conv3d_bn_relu at ragged shapes from both layouts (NCHW /
+     channels-last), in float32 (TF32 off; atol 2e-4, rtol 1e-3) and bf16
+     (mean |delta| < 2 % of the plain output's span);
   4. for each engine, the full forward through `make_forward` (kernels)
      against the module path on the card: bf16 per-stage mean |delta| < 2 %
      of span, float32 max |delta| < 1e-3 x span; the launch counters of
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
-     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input); then the
+     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), and the
+     wrappers' layout copies `WANT_COPIES` (one under "mxu"); then the
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
      at the same bars, with its own launch counts;
@@ -32,10 +35,13 @@ in order; any failure exits non-zero:
      warm-up, and one torch.profiler window gives the 4-stage forward's
      device busy share; under each other engine it answers one request at
      num_stages 1..4, and its 4-stage latency is timed the same way;
-  6. each kernel timed at its path's shapes beside its plain version, its
-     bound from bytes and operations, and one cuDNN call that computes the
-     same function where there is one (else the sum of per-layer cuDNN
-     calls);
+  6. each kernel timed at its path's shapes and layouts beside its plain
+     version, its bound from bytes and operations, and one cuDNN call that
+     computes the same function on the same inputs where there is one
+     (else the sum of per-layer cuDNN calls), with the cuDNN call on NCHW
+     copies beside it for the channels-last shapes, and its wrapper's host
+     time a call; then each layout copy a path makes, timed beside its
+     bound; after phase 7, each kernel's device time from the profiler;
   7. the rows microbench (`lwsnet_tpu_torch.tools.microbench_rows`) once,
      its counters set to 0 just before: its probe must print OK, which
      launches `lane_broadcast`.
@@ -45,6 +51,7 @@ written to chiprun_out/chip_smoke.json.
 """
 
 import json
+import math
 import os
 import statistics
 import sys
@@ -100,6 +107,29 @@ REFINE_LAUNCHES = {
     "chain": {"chain3x3": 2, "chain3x3[dual]": 1},
     "layers": {"dense3x3": 5, "dwsep3x3_pair": 6},
 }
+# Layout copies the wrappers make per forward (build.LAYOUT_COPIES): the
+# tensor-core routes read channels-last, every other kernel the default
+# layout (the CUDA cores of dense3x3 either). Every path copies stage 1's
+# activation for conv3d_skip_softargmin; "vpu" copies the dw-sep pair
+# output into the head entry and the entry's output back, "layers" its two
+# head halves' inputs and their sum. Alone at WIDE_H x WIDE_W the "layers"
+# refinement makes its three.
+WANT_COPIES = {
+    "mxu": {"to channels-last": 0, "to contiguous": 1},
+    "vpu-paired": {"to channels-last": 1, "to contiguous": 2},
+    "vpu-unpaired": {"to channels-last": 1, "to contiguous": 2},
+    "chain": {"to channels-last": 0, "to contiguous": 1},
+    "layers": {"to channels-last": 2, "to contiguous": 2},
+    "layers-wide": {"to channels-last": 2, "to contiguous": 1},
+}
+# The copies of WANT_COPIES, batch 1: (label, logical shape, to
+# channels-last).
+COPIES = [("stage-1 activation into the fused last layer",
+           (1, 32, 24, 46, 154), False),
+          ("head entry output (vpu), head halves' sum (layers)",
+           (1, 32, 368, 1232), False),
+          ("vpu head entry input (both halves)", (2, 32, 368, 1232), True),
+          ("layers head half input (each of 2)", (1, 32, 368, 1232), True)]
 # Launches of the layers refinement alone at WIDE_H x WIDE_W.
 WIDE_LAUNCHES = {"dense3x3": 5, "dwsep3x3": 4, "dwsep3x3_pair": 4}
 # The path whose run gives each kernel's launches on the kernels line.
@@ -174,11 +204,69 @@ def device_profile(fn, reps=5):
                 top_other=[(n[:80], t / reps / 1e3) for n, t in top])
 
 
+# Substring of each kernel's CUDA function names, for the profiler.
+KERNEL_NAMES = {"conv3d_bn_relu": "conv3d_bn_relu",
+                "conv3d_skip_softargmin": "skip_softargmin",
+                "dense3x3": "dense3x3", "dwsep3x3": "dwsep",
+                "dwsep3x3_pair": "dwsep", "chain3x3": "chain3x3",
+                "lane_broadcast": "lane_broadcast"}
+
+
+def kernel_device_ms(fn, name, reps=10):
+    """Device ms per call of fn() spent in kernels whose name holds
+    `name`, from one torch.profiler window over `reps` calls after a
+    warm-up: the kernel alone, without the wrapper's host time that a
+    pair of events around one call also counts. None when the profiler
+    recorded no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    return us / reps / 1e3 if us else None
+
+
+def host_us(fn, reps=50):
+    """Host microseconds per call of fn() while its launches queue on the
+    card (no synchronisation between calls): the wrapper's own cost, which
+    a pair of events around one call adds to the kernel's time when it is
+    the larger."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def layout_copy(shape, to_cl, dev):
+    """The copy `build.in_layout` makes of a bf16 tensor of logical `shape`
+    into channels-last memory (to_cl) or back: a function that makes it."""
+    import torch
+    cl = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+    x = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+    if not to_cl:
+        x = x.contiguous(memory_format=cl)
+    fmt = cl if to_cl else torch.contiguous_format
+    return lambda: x.contiguous(memory_format=fmt)
+
+
 # --- the kernels' main-path calls ------------------------------------------
 
 def main_path_calls(cfg):
     """Every distinct kernel call of the 368x1232 batch-1 forward:
-    (kernel, label, shape dict, launches per forward, engine)."""
+    (kernel, label, shape dict, launches per forward, engine). `cl`: the
+    input lies channels-last, as the path hands it over; `cl_out`: the
+    CUDA-core route is asked to write channels-last."""
     calls = []
     for s in range(3):
         h, w = H // 8 * 2 ** s, W // 8 * 2 ** s
@@ -187,29 +275,31 @@ def main_path_calls(cfg):
         geo = dict(B=1, D=D, H=h, W=w)
         calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C}",
                       dict(geo, Ci=1, Co=C), 1, "mxu"))
+        cl = C == 32  # the layout conv3d_bn_relu writes a bf16 32-channel
         calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}",
-                      dict(geo, Ci=C, Co=C), cfg.layers_3d, "mxu"))
+                      dict(geo, Ci=C, Co=C, cl=cl), cfg.layers_3d, "mxu"))
         calls.append(("conv3d_skip_softargmin", f"stage{s + 1} {C}->1",
-                      dict(geo, Ci=C, start=0 if s == 0 else
+                      dict(geo, Ci=C, cl=cl, start=0 if s == 0 else
                            -cfg.max_disp_list[s] + 1), 1, "mxu"))
     c = cfg.refine_channels
     geo = dict(H=H, W=W)
     calls.append(("dense3x3", "tower entry 3->32 G=2",
-                  dict(geo, B=2, G=2, Ci=3, Co=c, d=1, aff=False), 1, "mxu"))
+                  dict(geo, B=2, G=2, Ci=3, Co=c, d=1, aff=False,
+                       cl_out=True), 1, "mxu"))
     for d in (2, 4, 8, 16):
         calls.append(("dense3x3", f"tower 32->32 d={d} G=2",
-                      dict(geo, B=2, G=2, Ci=c, Co=c, d=d, aff=True), 1,
-                      "mxu"))
+                      dict(geo, B=2, G=2, Ci=c, Co=c, d=d, aff=True,
+                           cl=True), 1, "mxu"))
     calls.append(("dense3x3", "head entry 2x32->32 d=8 (dual)",
-                  dict(geo, B=1, G=1, Ci=c, Co=c, d=8, aff=True, dual=True),
-                  1, "mxu"))
+                  dict(geo, B=1, G=1, Ci=c, Co=c, d=8, aff=True, dual=True,
+                       cl=True), 1, "mxu"))
     for d in (8, 4, 2, 1):
         calls.append(("dense3x3", f"head 32->32 d={d}",
-                      dict(geo, B=1, G=1, Ci=c, Co=c, d=d, aff=True), 1,
-                      "mxu"))
+                      dict(geo, B=1, G=1, Ci=c, Co=c, d=d, aff=True,
+                           cl=True), 1, "mxu"))
     calls.append(("dense3x3", "out 32->1 f32 out",
                   dict(geo, B=1, G=1, Ci=c, Co=1, d=1, aff=False,
-                       f32_out=True), 1, "mxu"))
+                       f32_out=True, cl=True), 1, "mxu"))
     return calls
 
 
@@ -259,7 +349,7 @@ def layers_calls(cfg):
         ("dense3x3", "layers entry 1->32",
          dict(geo, Ci=1, Co=c, d=1, aff=False), 1, "layers"),
         ("dense3x3", "layers head half 32->32 d=8",
-         dict(geo, Ci=c, Co=c, d=8, aff=True), 2, "layers"),
+         dict(geo, Ci=c, Co=c, d=8, aff=True, cl=True), 2, "layers"),
         ("dense3x3", "layers out 32->1 bf16 out",
          dict(geo, Ci=c, Co=1, d=1, aff=False), 1, "layers")]
     for (d1, d2), n in (((2, 4), 2), ((8, 16), 2), ((8, 4), 1), ((2, 1), 1)):
@@ -274,14 +364,41 @@ def layers_calls(cfg):
     return calls
 
 
+def ragged_calls():
+    """Phase 3 only: the tensor-core routes of dense3x3 and conv3d_bn_relu
+    at shapes no tile divides (W = 75 and 37, H = 37 not a multiple of
+    R * d = 4d, D = 7, H = 11), two weight groups at batch 2, the
+    two-input form, from NCHW (one counted copy) and channels-last input.
+    Tuples as `main_path_calls` (launches and engine unused)."""
+    calls = []
+    for cl in (False, True):
+        tag = "channels-last" if cl else "NCHW"
+        for d in (1, 16):
+            calls.append(("dense3x3", f"ragged 32->32 d={d} G=2 {tag}",
+                          dict(H=37, W=75, B=2, G=2, Ci=32, Co=32, d=d,
+                               aff=True, cl=cl), 0, None))
+        calls.append(("dense3x3", f"ragged 2x32->32 d=8 (dual) {tag}",
+                      dict(H=37, W=75, B=1, G=1, Ci=32, Co=32, d=8, aff=True,
+                           dual=True, cl=cl), 0, None))
+        calls.append(("conv3d_bn_relu", f"ragged 32->32 B=2 7x11x37 {tag}",
+                      dict(B=2, Ci=32, Co=32, D=7, H=11, W=37, cl=cl), 0,
+                      None))
+    return calls
+
+
 def _conv(inp, wt, d):
     """One cuDNN conv of inp with wt (G, Co, Ci, 3, 3), batch b with set
-    b // (B / G), padding = dilation: the timing yardstick of a layer."""
+    b // (B / G), padding = dilation: the timing yardstick of a layer. With
+    groups, the (B / G, G * Ci, H, W) input keeps inp's memory format."""
+    import torch
     import torch.nn.functional as F
     G, B = wt.shape[0], inp.shape[0]
     if G == 1:
         return lambda: F.conv2d(inp, wt[0], padding=d, dilation=d)
-    xg = inp.reshape(B // G, G * inp.shape[1], *inp.shape[2:])
+    fmt = (torch.channels_last if not inp.is_contiguous()
+           else torch.contiguous_format)
+    xg = inp.reshape(B // G, G * inp.shape[1], *inp.shape[2:]).contiguous(
+        memory_format=fmt)
     wg = wt.reshape(-1, *wt.shape[2:])
     return lambda: F.conv2d(xg, wg, padding=d, dilation=d, groups=G)
 
@@ -297,7 +414,9 @@ def _composed(dw, pw):
 def make_call(kernel, p, dtype, rng, dev):
     """One call on seeded random operands: {kernel, plain, library} fns
     (library None where no one PyTorch call computes the function; then
-    `layers` times one cuDNN call per layer), bytes and operations."""
+    `layers` times one cuDNN call per layer; `library_nchw` the library
+    call on NCHW copies of channels-last inputs), bytes and operations.
+    p["cl"]: the activation input lies channels-last in memory."""
     import torch
     import torch.nn.functional as F
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
@@ -311,9 +430,18 @@ def make_call(kernel, p, dtype, rng, dev):
         return t(np.stack([rng.uniform(0.5, 1.5, (G, C)),
                            rng.normal(0, 0.5, (G, C))], 1), torch.float32)
 
-    def call(kernel_fn, plain_fn, library, nbytes, ops, layers=None):
+    def call(kernel_fn, plain_fn, library, nbytes, ops, layers=None,
+             library_nchw=None):
         return dict(kernel=kernel_fn, plain=plain_fn, library=library,
-                    layers=layers, bytes=nbytes, ops=ops)
+                    layers=layers, bytes=nbytes, ops=ops,
+                    library_nchw=library_nchw)
+
+    def lay(a):
+        """a channels-last in memory where p["cl"] says so."""
+        if not p.get("cl"):
+            return a
+        return a.contiguous(memory_format=torch.channels_last if a.dim() == 4
+                            else torch.channels_last_3d)
 
     es = torch.tensor([], dtype=dtype).element_size()
     if kernel == "lane_broadcast":
@@ -382,19 +510,22 @@ def make_call(kernel, p, dtype, rng, dev):
                     nbytes, ops, lambda: [c() for c in convs])
     if kernel == "conv3d_bn_relu":
         B, Ci, Co, D, h, w = (p[k] for k in ("B", "Ci", "Co", "D", "H", "W"))
-        x = t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0))
+        x = lay(t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0)))
         wt = t(rng.standard_normal((Co, Ci, 3, 3, 3)) * np.sqrt(2 / (27 * Ci)))
         shift = t(rng.normal(0, 0.1, Co), torch.float32)
         n_in = B * Ci * D * h * w
         n_out = B * Co * D * h * w
+        xn = x.contiguous()
         return call(lambda: CF.conv3d_bn_relu(x, wt, shift),
                     lambda: CF.conv3d_bn_relu_plain(x, wt, shift),
                     lambda: F.conv3d(x, wt, padding=1),
                     (n_in + n_out + wt.numel()) * es + 4 * Co,
-                    2 * 27 * Ci * n_out)
+                    2 * 27 * Ci * n_out,
+                    library_nchw=(lambda: F.conv3d(xn, wt, padding=1))
+                    if p.get("cl") else None)
     if kernel == "conv3d_skip_softargmin":
         B, Ci, D, h, w = (p[k] for k in ("B", "Ci", "D", "H", "W"))
-        x = t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0))
+        x = lay(t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0)))
         wt = t(rng.standard_normal((1, Ci, 3, 3, 3)) * np.sqrt(2 / (27 * Ci)))
         vol = t(rng.standard_normal((B, D, h, w)) * 2)
         start = p["start"]
@@ -410,25 +541,30 @@ def make_call(kernel, p, dtype, rng, dev):
                                             "W"))
     dual = p.get("dual", False)
     out_dt = torch.float32 if p.get("f32_out") else dtype
-    x = t(rng.standard_normal((B, Ci, h, w)))
+    x = lay(t(rng.standard_normal((B, Ci, h, w))))
     wt = t(rng.standard_normal((G, Co, Ci, 3, 3)) * np.sqrt(2 / (9 * Ci)))
     aff = affine(G, Ci) if p["aff"] else None
     kw = dict(dilation=d, affine=aff, out_dtype=out_dt)
     if dual:
-        x2 = t(rng.standard_normal((B, Ci, h, w)))
+        x2 = lay(t(rng.standard_normal((B, Ci, h, w))))
         wt2 = t(rng.standard_normal((G, Co, Ci, 3, 3)) * np.sqrt(2 / (9 * Ci)))
         kw.update(x2=x2, wt2=wt2, affine2=affine(G, Ci))
-        library = _conv(torch.cat([x, x2], 1), torch.cat([wt, wt2], 2), d)
+        both, wboth = torch.cat([x, x2], 1), torch.cat([wt, wt2], 2)
+        library = _conv(both, wboth, d)
+        library_nchw = _conv(both.contiguous(), wboth, d)
     else:
         library = _conv(x, wt, d)
+        library_nchw = _conv(x.contiguous(), wt, d)
     n_in = (2 if dual else 1) * B * Ci * h * w
     n_out = B * Co * h * w
     out_es = torch.tensor([], dtype=out_dt).element_size()
-    return call(lambda: RR.dense3x3(x, wt, **kw),
+    kkw = dict(kw, channels_last=True) if p.get("cl_out") else kw
+    return call(lambda: RR.dense3x3(x, wt, **kkw),
                 lambda: RR.dense3x3_plain(x, wt, **kw), library,
                 (n_in + (2 if dual else 1) * wt.numel()) * es
                 + n_out * out_es,
-                2 * 9 * Ci * n_out * (2 if dual else 1))
+                2 * 9 * Ci * n_out * (2 if dual else 1),
+                library_nchw=library_nchw if p.get("cl") else None)
 
 
 def check_close(got, want, dtype, what):
@@ -508,7 +644,7 @@ def main():
     for src, log in logs.items():
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill")):
+                                       "spill", "wgmma")):
                 print(f"[2] {src}: {line.strip()}")
 
     cfg = ModelConfig()
@@ -517,7 +653,7 @@ def main():
     # 3. kernels against their plain versions
     checks = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (kernel, label, p, _, _) in enumerate(calls):
+        for i, (kernel, label, p, _, _) in enumerate(calls + ragged_calls()):
             rng = np.random.default_rng(1000 + i)
             c = make_call(kernel, p, dtype, rng, dev)
             got = c["kernel"]()
@@ -536,7 +672,7 @@ def main():
     right = torch.as_tensor(right_np, dtype=torch.float32, device=dev)
     build.reset_launch_counts()
     zero = build.launch_counts()
-    counts = {}
+    counts, copies = {}, {}
     forward_report = {}
     for dt in ("bfloat16", "float32"):
         plain = None
@@ -553,6 +689,7 @@ def main():
             torch.cuda.synchronize()
             if dt == "bfloat16":
                 counts[engine] = build.launch_counts()
+                copies[engine] = dict(build.LAYOUT_COPIES)
             forward_report[f"{dt} {engine}"] = [
                 dict(stage=s + 1, **compare(f"{dt} {engine} stage {s + 1}",
                                             a, b, dt, (1, H, W, 1)))
@@ -565,6 +702,11 @@ def main():
               f"{counts[engine]}")
         require(counts[engine] == want,
                 f"{engine} launch counts {counts[engine]} != {want}")
+        print(f"[4] layout copies of the bf16 {engine} kernel forward: "
+              f"{copies[engine]}")
+        require(copies[engine] == WANT_COPIES[engine],
+                f"{engine} layout copies {copies[engine]} != "
+                f"{WANT_COPIES[engine]}")
 
     # the layers refinement alone at a width where its (8, 16) tower pair
     # splits: the only run of the path's solo branch
@@ -590,6 +732,7 @@ def main():
             torch.cuda.synchronize()
         if dt == "bfloat16":
             counts["layers-wide"] = build.launch_counts()
+            copies["layers-wide"] = dict(build.LAYOUT_COPIES)
         forward_report[f"{dt} layers-wide residual"] = compare(
             f"{dt} layers residual at {WIDE_H}x{WIDE_W}", want, got, dt,
             (1, WIDE_H, WIDE_W, 1))
@@ -599,7 +742,12 @@ def main():
           f"{WIDE_H}x{WIDE_W}: {counts['layers-wide']}")
     require(counts["layers-wide"] == want,
             f"layers-wide launch counts {counts['layers-wide']} != {want}")
+    print(f"[4] layout copies of the bf16 layers refinement at "
+          f"{WIDE_H}x{WIDE_W}: {copies['layers-wide']}")
+    require(copies["layers-wide"] == WANT_COPIES["layers-wide"],
+            f"layers-wide layout copies {copies['layers-wide']}")
     report["forward"] = forward_report
+    report["layout_copies"] = copies
 
     # 5. the inference engine: 4 seeded requests, num_stages 1..4, under the
     # shipped engine; one request and the 4-stage latency under each other
@@ -680,9 +828,12 @@ def main():
         t_bytes = c["bytes"] / PEAK_BYTES * 1e3
         t_ops = c["ops"] / PEAK_BF16 * 1e3
         row = dict(kernel=kernel, label=label, engine=engine, launches=n,
-                   ms=event_ms(c["kernel"]), plain_ms=event_ms(c["plain"]),
+                   ms=event_ms(c["kernel"]), host_us=host_us(c["kernel"]),
+                   plain_ms=event_ms(c["plain"]),
                    library_ms=(None if c["library"] is None
                                else event_ms(c["library"])),
+                   library_nchw_ms=(None if c["library_nchw"] is None
+                                    else event_ms(c["library_nchw"])),
                    layers_cudnn_ms=(None if c["layers"] is None
                                     else event_ms(c["layers"])),
                    bytes=c["bytes"], operations=c["ops"],
@@ -705,9 +856,12 @@ def main():
             n * row["bound_ms"]
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
+        if row["library_nchw_ms"] is not None:
+            lib += f" (on NCHW copies {row['library_nchw_ms']:.4f} ms)"
         layers = ("" if row["layers_cudnn_ms"] is None else
                   f", per-layer cuDNN sum {row['layers_cudnn_ms']:.4f} ms")
-        print(f"[6] {kernel} [{label}] x{n}: {row['ms']:.4f} ms, plain "
+        print(f"[6] {kernel} [{label}] x{n}: {row['ms']:.4f} ms (host "
+              f"{row['host_us']:.1f} us a call), plain "
               f"{row['plain_ms']:.4f} ms, cuDNN {lib}{layers}, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     report["per_shape"] = per_shape
@@ -720,7 +874,18 @@ def main():
               f"{tot['bound_ms']:.4f} ms")
     report["totals"] = {f"{k} under {e}": tot
                         for (k, e), tot in totals.items()}
-
+    # the layout copies the other paths make (WANT_COPIES), each timed
+    copy_rows = []
+    for label, shape, to_cl in COPIES:
+        row = dict(label=label, shape=shape, to_cl=to_cl,
+                   ms=event_ms(layout_copy(shape, to_cl, dev)),
+                   bound_ms=2 * 2 * math.prod(shape) / PEAK_BYTES * 1e3)
+        copy_rows.append(row)
+        print(f"[6] layout copy [{label}, {shape} bf16 to "
+              f"{'channels-last' if to_cl else 'the default layout'}]: "
+              f"{row['ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
+              f"(bytes)")
+    report["layout_copies_ms"] = copy_rows
     # 7. the rows microbench, whose probe is the one launch of
     # lane_broadcast on a user's path
     build.reset_launch_counts()
@@ -735,6 +900,39 @@ def main():
           f"{counts['microbench']['lane_broadcast']} time(s)")
     report["microbench_rows"] = bench
     report["launch_counts"] = counts
+
+    # 6, continued: the kernels alone on the device, from the profiler,
+    # after every event timing (phase 7's too), since timings taken after a
+    # profiler window read slower (PERF.md, PR 2).
+    for i, (row, (kernel, label, p, _, _)) in enumerate(zip(per_shape,
+                                                           calls)):
+        c = make_call(kernel, p, torch.bfloat16,
+                      np.random.default_rng(2000 + i), dev)
+        row["device_ms"] = kernel_device_ms(c["kernel"], KERNEL_NAMES[kernel])
+        row["library_device_ms"] = (None if c["library"] is None else
+                                    kernel_device_ms(c["library"], ""))
+        del c
+        dev_ms = ("not measured" if row["device_ms"] is None
+                  else f"{row['device_ms']:.4f} ms")
+        lib = ("" if row["library_device_ms"] is None else
+               f", the cuDNN call {row['library_device_ms']:.4f} ms")
+        print(f"[6] {kernel} [{label}]: kernel alone on the device {dev_ms}"
+              f"{lib} (events around the call {row['ms']:.4f} ms)")
+
+    for row in copy_rows:
+        row["device_ms"] = kernel_device_ms(
+            layout_copy(row["shape"], row["to_cl"], dev), "")
+        print(f"[6] layout copy [{row['label']}]: on the device "
+              f"{row['device_ms']:.4f} ms (events {row['ms']:.4f} ms)")
+    for (kernel, engine), tot in totals.items():
+        rows = [(r["device_ms"], r["launches"]) for r in per_shape
+                if (r["kernel"], r["engine"]) == (kernel, engine)]
+        tot["device_ms"] = (None if any(t is None for t, _ in rows)
+                            else sum(t * n for t, n in rows))
+        if tot["device_ms"] is not None:
+            print(f"[6] per forward: {kernel} under {engine} alone on the "
+                  f"device {tot['device_ms']:.4f} ms (events "
+                  f"{tot['ms']:.4f} ms)")
 
     line = []
     for k in build.KERNELS:

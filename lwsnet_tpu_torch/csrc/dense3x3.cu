@@ -1,37 +1,46 @@
-// dense3x3: a dense dilated 3x3 conv (padding = dilation) over NCHW, with
-// an optional per-input-channel pre-activation, optional weight groups, and
-// an optional second input summed into the same accumulator.
+// dense3x3: a dense dilated 3x3 conv (padding = dilation), with an optional
+// per-input-channel pre-activation, optional weight groups, and an optional
+// second input summed into the same accumulator.
 //
 // Replaces two TPU kernels of the JAX package's stage-4 refinement:
 //   lwsnet_tpu/ops/pallas/refine_rows.py:_dense_kernel  (one input)
 //   lwsnet_tpu/ops/pallas/refine_rows.py:_dense2_kernel (two inputs)
-// Their row canvas, mask row and 128-lane padding are TPU layout devices;
-// here the layer is the one `dense3x3.cuh` describes, one block per tile.
+// Their row canvas, mask row and 128-lane padding are TPU layout devices.
 // The two-input form is conv(concat(x, x2)) without the concat ever being
 // written.
 //
 // Bound on the H100: memory for every refinement layer at 368x1232 (the
 // 32->32 tower layer moves 116 MB for 16.7 GFLOP).
 //
-// Design: the two routes of `dense3x3.cuh`, WMMA tensor cores for the bf16
-// 32->32 layers and CUDA cores for the rest.
-#include "dense3x3.cuh"
+// Two routes, picked by shape:
+// * bf16 32->32 layers (`dense_tc::use`): `dense3x3_tc.cuh`, wgmma tensor
+//   cores on channels-last activations with resident weights, multi-row
+//   tiles and a ring of TMA-staged rows; x, x2 and y channels-last.
+// * everything else (float32, the 3- and 1-channel entries, the 32->1
+//   output conv): the CUDA-core tiles of `dense3x3.cuh`, one block per
+//   8 x 32 pixel tile, reading and writing NCHW or channels-last.
+#include "dense3x3_tc.cuh"
 
 namespace {
 
 using dense::Args;
 
-template <typename T, typename TO, int CO_T>
+template <typename T, typename TO, int CO_T, bool XCL>
 __global__ void __launch_bounds__(THREADS) dense3x3_kernel(Args a) {
   __shared__ float smem[dense::cuda_smem<CO_T>() / 4];
-  dense::cuda_tile<T, TO, CO_T>(a, smem, blockIdx.x);
+  dense::cuda_tile<T, TO, CO_T, XCL>(a, smem, blockIdx.x);
 }
 
-template <typename TO>
-__global__ void __launch_bounds__(dense::MMA_THREADS)
-dense3x3_mma_kernel(Args a) {
-  __shared__ __align__(32) unsigned char smem[dense::MMA_SMEM];
-  dense::mma_tile<TO>(a, smem, blockIdx.x);
+template <typename T, typename TO, bool XCL>
+void launch_cuda(const Args& a, cudaStream_t s) {
+  const int co_t = dense::co_tile(a.Co);
+  const int n = dense::cuda_tiles(a, co_t);
+  if (co_t == 32)
+    dense3x3_kernel<T, TO, 32, XCL><<<n, THREADS, 0, s>>>(a);
+  else if (co_t == 8)
+    dense3x3_kernel<T, TO, 8, XCL><<<n, THREADS, 0, s>>>(a);
+  else
+    dense3x3_kernel<T, TO, 1, XCL><<<n, THREADS, 0, s>>>(a);
 }
 
 template <typename T, typename TO>
@@ -39,19 +48,21 @@ int launch(const Args& a, void* stream) {
   if (a.G < 1 || a.B % a.G != 0 || a.Ci < 1 || a.Co < 1 || a.d < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dense::use_mma(sizeof(T), a.Ci, a.Co, a.d)) {
-    dense3x3_mma_kernel<TO><<<dense::mma_tiles(a), dense::MMA_THREADS, 0,
-                              s>>>(a);
-    return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    if (dense_tc::use(2, a.Ci, a.Co, a.d, dense_tc::inputs(a), a.G)) {
+      // The route reads and writes channels-last only.
+      if (!a.x_cl || !a.y_cl) return (int)cudaErrorInvalidValue;
+      return a.Ci % 32 == 0 ? dense_tc::launch<32, TO>(a, s)
+                            : dense_tc::launch<16, TO>(a, s);
+    }
   }
-  const int co_t = dense::co_tile(a.Co);
-  const int n = dense::cuda_tiles(a, co_t);
-  if (co_t == 32)
-    dense3x3_kernel<T, TO, 32><<<n, THREADS, 0, s>>>(a);
-  else if (co_t == 8)
-    dense3x3_kernel<T, TO, 8><<<n, THREADS, 0, s>>>(a);
-  else
-    dense3x3_kernel<T, TO, 1><<<n, THREADS, 0, s>>>(a);
+  if (!a.x_cl) {
+    launch_cuda<T, TO, false>(a, s);
+  } else {
+    // channels-last reads take whole 16-byte vectors of 8 channels
+    if (a.Ci % 8 != 0) return (int)cudaErrorInvalidValue;
+    launch_cuda<T, TO, true>(a, s);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -61,9 +72,9 @@ int launch(const Args& a, void* stream) {
   extern "C" int NAME(const void* x, const void* aff, const void* wt,        \
                       const void* x2, const void* aff2, const void* wt2,     \
                       void* y, int B, int G, int Ci, int Co, int H, int W,   \
-                      int d, void* stream) {                                 \
-    const Args a{x, (const float*)aff, wt, x2, (const float*)aff2, wt2, y,   \
-                 B, G, Ci, Co, H, W, d};                                     \
+                      int d, int x_cl, int y_cl, void* stream) {             \
+    const Args a{x,    (const float*)aff, wt, x2, (const float*)aff2, wt2,   \
+                 y,    B, G,  Ci, Co, H, W, d, x_cl, y_cl};                  \
     return launch<T, TO>(a, stream);                                         \
   }
 

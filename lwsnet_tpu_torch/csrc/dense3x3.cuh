@@ -1,9 +1,9 @@
-// The tile code of a dense dilated 3x3 conv (padding = dilation) over NCHW,
-// with an optional per-input-channel pre-activation, optional weight groups
-// and an optional second input summed into the same accumulator. One tile
-// is the work of one 256-thread block; `dense3x3.cu` launches one block
-// per tile, `chain3x3.cu` walks the tiles of several layers in one
-// cooperative launch. The layer computed is
+// The tile code of a dense dilated 3x3 conv (padding = dilation), with an
+// optional per-input-channel pre-activation, optional weight groups and an
+// optional second input summed into the same accumulator. One tile is the
+// work of one 256-thread block; `dense3x3.cu` launches one block per tile
+// on the CUDA-core route, `chain3x3.cu` walks the tiles of several layers
+// in one cooperative launch. The layer computed is
 //   y[b,co,h,w] = sum_{ci,ky,kx} act(x[b,ci,h+(ky-1)d,w+(kx-1)d])
 //                 * wt[g,ci,ky*3+kx,co]        (+ the same over x2, wt2)
 // with act(v) = relu(v * a[g,ci] + s[g,ci]) when an affine is given, else
@@ -12,9 +12,12 @@
 // activation, as the TPU mask row enforces. Batch b uses weight set
 // g = b / (B / G).
 //
-// Two routes picked by shape (`use_mma`):
+// Two routes picked by shape (`use_mma`); the WMMA route reads and writes
+// NCHW, the CUDA-core route also reads and writes channels-last
+// (B, H, W, C) memory (`Args::x_cl`, `Args::y_cl`):
 // * bf16 with Ci % 16 == 0, Co == 32 and d <= 16 (every 32->32 layer):
-//   tensor cores through WMMA (mma.sync m16n16k16, float32 accumulate). A
+//   tensor cores through WMMA (mma.sync m16n16k16, float32 accumulate),
+//   the route `chain3x3.cu` runs (`dense3x3.cu` runs `dense3x3_tc.cuh`). A
 //   tile is 128 pixels of one image row and all 32 output channels. Per
 //   chunk of 16 input channels it stages the three input rows the taps
 //   read (activated once, zero-padded, channels innermost) and the chunk's
@@ -23,11 +26,13 @@
 // * otherwise (float32, the 3-channel entry, the 1-channel output): the
 //   CUDA cores. A tile is 8 x 32 pixels, one pixel per thread, with CO_T
 //   output channels in float32 registers; weights and affines go through
-//   shared memory in chunks of CI_CHUNK input channels.
+//   shared memory in chunks of CI_CHUNK input channels. From channels-last
+//   input a thread reads its taps 8 channels per 16-byte load.
 #pragma once
 
 #include <mma.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -35,8 +40,11 @@
 namespace dense {
 
 // One layer's operands. x, x2: (B, Ci, H, W) in the compute dtype; wt, wt2:
-// (G, Ci, 9, Co) in the compute dtype; aff, aff2: (G, 2, Ci) float32 or
-// null; y: (B, Co, H, W) in the output dtype. x2 == null: one input.
+// (G, Ci, 9, Co) in the compute dtype (B images on the tensor-core route
+// of `dense3x3_tc.cuh`); aff, aff2: (G, 2, Ci) float32 or null; y:
+// (B, Co, H, W) in the output dtype. x2 == null: one input. x_cl / y_cl:
+// the inputs / y lie channels-last in memory (not on the WMMA route; on
+// the CUDA cores x_cl needs Ci % 8 == 0).
 struct Args {
   const void* x;
   const float* aff;
@@ -46,6 +54,7 @@ struct Args {
   const void* wt2;
   void* y;
   int B, G, Ci, Co, H, W, d;
+  int x_cl = 0, y_cl = 0;
 };
 
 constexpr int CI_CHUNK = 16;
@@ -91,7 +100,25 @@ __device__ __forceinline__ float activate(float v, float a, float s) {
 
 // ---- CUDA-core route ------------------------------------------------------
 
-template <typename T, int CO_T>
+// Eight consecutive channels of one pixel of a channels-last input: one
+// 16-byte vector in bf16, two in float32.
+template <typename T>
+struct Px8 {
+  uint4 v[8 * sizeof(T) / 16];
+};
+
+__device__ __forceinline__ float px8_at(const Px8<bf16>& p, int c) {
+  const uint32_t w = reinterpret_cast<const uint32_t*>(p.v)[c / 2];
+  return __uint_as_float(c % 2 ? w & 0xffff0000u : w << 16);
+}
+__device__ __forceinline__ float px8_at(const Px8<float>& p, int c) {
+  return reinterpret_cast<const float*>(p.v)[c];
+}
+
+// XCL: x lies channels-last (Ci % 8 == 0); each thread then loads its
+// pixel's taps 8 channels at a time and sums in the same order as from
+// NCHW, so the two layouts give the same bits.
+template <typename T, int CO_T, bool XCL>
 __device__ __forceinline__ void accumulate(
     float (&acc)[CO_T], float* ws, float* as, const T* __restrict__ x,
     const float* __restrict__ aff, const T* __restrict__ wt, int b, int g,
@@ -110,6 +137,35 @@ __device__ __forceinline__ void accumulate(
     }
     __syncthreads();
     if (!active) continue;
+    if constexpr (XCL) {
+      const T* xb = x + (size_t)b * plane * Ci + ci0;
+      for (int c8 = 0; c8 < nci; c8 += 8) {
+        Px8<T> px[9];
+        bool in[9];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int hh = h + (tap / 3 - 1) * d, ww = w + (tap % 3 - 1) * d;
+          in[tap] = hh >= 0 && hh < H && ww >= 0 && ww < W;
+          if (in[tap])
+            px[tap] = *reinterpret_cast<const Px8<T>*>(
+                xb + ((size_t)hh * W + ww) * Ci + c8);
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int cl = c8 + c;
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) {
+            if (!in[tap]) continue;
+            float v = px8_at(px[tap], c);
+            if (aff != nullptr) v = activate<T>(v, as[cl], as[nci + cl]);
+            const float* wp = ws + (cl * 9 + tap) * CO_T;
+#pragma unroll
+            for (int o = 0; o < CO_T; ++o) acc[o] = fmaf(v, wp[o], acc[o]);
+          }
+        }
+      }
+      continue;
+    }
     for (int cl = 0; cl < nci; ++cl) {
       const T* xc = x + ((size_t)b * Ci + ci0 + cl) * plane;
 #pragma unroll
@@ -132,8 +188,8 @@ __device__ __forceinline__ void accumulate(
 }
 
 // Tile `tile` of `cuda_tiles(a, CO_T)`; smem holds `cuda_smem<CO_T>()`
-// bytes.
-template <typename T, typename TO, int CO_T>
+// bytes. XCL: x and x2 lie channels-last (`Args::x_cl`).
+template <typename T, typename TO, int CO_T, bool XCL = false>
 __device__ void cuda_tile(const Args& a, float* smem, int tile) {
   float* ws = smem;
   float* as = smem + CI_CHUNK * 9 * CO_T;
@@ -152,17 +208,35 @@ __device__ void cuda_tile(const Args& a, float* smem, int tile) {
   float acc[CO_T];
 #pragma unroll
   for (int c = 0; c < CO_T; ++c) acc[c] = 0.f;
-  accumulate<T, CO_T>(acc, ws, as, (const T*)a.x, a.aff, (const T*)a.wt, b,
-                      g, a.Ci, a.Co, co0, a.H, a.W, a.d, h, w, active);
+  accumulate<T, CO_T, XCL>(acc, ws, as, (const T*)a.x, a.aff,
+                           (const T*)a.wt, b, g, a.Ci, a.Co, co0, a.H, a.W,
+                           a.d, h, w, active);
   if (a.x2 != nullptr)
-    accumulate<T, CO_T>(acc, ws, as, (const T*)a.x2, a.aff2,
-                        (const T*)a.wt2, b, g, a.Ci, a.Co, co0, a.H, a.W,
-                        a.d, h, w, active);
+    accumulate<T, CO_T, XCL>(acc, ws, as, (const T*)a.x2, a.aff2,
+                             (const T*)a.wt2, b, g, a.Ci, a.Co, co0, a.H,
+                             a.W, a.d, h, w, active);
   if (!active) return;
   const size_t plane = (size_t)a.H * a.W;
-  TO* yb = (TO*)a.y + ((size_t)b * a.Co + co0) * plane + (size_t)h * a.W + w;
+  if (!a.y_cl) {
+    TO* yb = (TO*)a.y + ((size_t)b * a.Co + co0) * plane + (size_t)h * a.W + w;
 #pragma unroll
-  for (int c = 0; c < CO_T; ++c) yb[c * plane] = from_f<TO>(acc[c]);
+    for (int c = 0; c < CO_T; ++c) yb[c * plane] = from_f<TO>(acc[c]);
+    return;
+  }
+  TO* yb = (TO*)a.y + ((size_t)b * plane + (size_t)h * a.W + w) * a.Co + co0;
+  if constexpr (CO_T % 8 == 0) {  // 16-byte vectors of CO_T channels
+    constexpr int VEC = 16 / sizeof(TO);
+#pragma unroll
+    for (int c0 = 0; c0 < CO_T; c0 += VEC) {
+      __align__(16) TO v[VEC];
+#pragma unroll
+      for (int c = 0; c < VEC; ++c) v[c] = from_f<TO>(acc[c0 + c]);
+      *reinterpret_cast<uint4*>(yb + c0) = *reinterpret_cast<const uint4*>(v);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < CO_T; ++c) yb[c] = from_f<TO>(acc[c]);
+  }
 }
 
 // ---- tensor-core route (bf16, Ci % 16 == 0, Co == 32, d <= 16) -----------

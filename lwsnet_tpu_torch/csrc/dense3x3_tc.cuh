@@ -1,0 +1,439 @@
+// The tensor-core route of dense3x3, redesigned for Hopper: bf16, Co = 32,
+// Ci % 16 == 0, d <= 16, with the weights of every input and weight group
+// resident (Ci x inputs x G <= 128). It computes the layer of
+// `dense3x3.cuh`,
+//   y[b,h,w,co] = sum_{ci,ky,kx} act(x[b,h+(ky-1)d,w+(kx-1)d,ci])
+//                 * wt[g,ci,ky*3+kx,co]      (+ the same over x2, wt2)
+// on channels-last (B, H, W, C) activations, in and out.
+//
+// Replaces the TPU kernels lwsnet_tpu/ops/pallas/refine_rows.py:
+// _dense_kernel and _dense2_kernel (and the 32->32 layers of
+// lwsnet_tpu/ops/pallas/refine.py:_dense_acc_layer_kernel). Bound on the
+// H100: bytes. A 368x1232 tower layer (B = 2) moves 116 MB (34.66 us at
+// 3.35 TB/s) for 16.7 GFLOP (16.9 us at 989 TFLOP/s).
+//
+// Design (all on the H100's 227 KB of shared memory a block may opt into):
+// * Persistent blocks, one per SM, each walking tiles blockIdx.x,
+//   + gridDim.x, ... Four warpgroups, specialized: warp 0 copies (one
+//   thread issues TMA), warps 1-7 activate, warpgroups 2 and 3 multiply
+//   and write, taking the block's tiles in turn, so that one's epilogue
+//   overlaps the other's products and both overlap the next tiles' copies.
+//   `setmaxnreg` gives the staging warps 88 registers a thread and the
+//   product warps 168.
+// * Resident weights: every (group, input, 16-channel chunk, tap) 16 x 32
+//   slice as a 1 KB wgmma B image (`tc.cuh`; laid out by the wrapper), 18
+//   KB per 32-channel input and weight group, 36 KB for the towers' two
+//   groups or the head entry's two inputs, one bulk copy per set, with
+//   the float32 affines, once per block.
+// * Tile: R = 4 output rows spaced d apart (h, h+d, h+2d, h+3d) by TW = 64
+//   pixels, all 32 output channels: four m64n32 accumulators, 64 float32
+//   registers a product thread. The four rows read R + 2 = 6 staged input
+//   rows (h-d .. h+4d) where one row per tile read 3 each, 12 in all, and
+//   64 + 2d columns (rounded up to 8 pixels so that each row starts on a
+//   512-byte swizzle boundary). R = 4 keeps a product thread within its
+//   168 registers and a stage at 6 x 96 x 64 B = 36 KB for d = 16, so a
+//   ring of 5 stages (7 at d = 2) fits beside 36 KB of weights; rows are
+//   tiled within each class h mod d, so H need not be a multiple of R * d.
+// * Staging: per job (tile, input, channel slab of SC = 32 or 16) the copy
+//   thread decodes the job once into the stage's Job slot and issues one
+//   TMA box per staged row (zeros outside the image, the 64-byte swizzle
+//   the products' ldmatrix reads conflict-free); it runs ahead as far as
+//   the ring's free stages allow. Three mbarriers per stage order the
+//   roles: landed (TMA), full (activated), empty (read).
+// * The pre-activation relu(v * a + s), rounded to bf16, is applied once
+//   per staged element in shared memory, inside the image only, since the
+//   zero padding comes after the activation; the seven activating warps
+//   and the product warpgroup that takes the job share it (224 + 128
+//   threads); on the staging warps alone it held the products back.
+// * Products: per (channel chunk, staged row, kx) one ldmatrix.x4 per warp
+//   loads the A fragment at pixel offset kx * d, and up to three wgmma
+//   m64n32k16 (one per output row that reads this staged row) use it with
+//   the resident B of tap (ky, kx): 36 A loads for 72 wgmma per 32
+//   channels. Each fragment is loaded while the previous group's wgmma
+//   issue. (A read by descriptor from the swizzled rows, which wgmma
+//   accepts at any pixel offset, re-reads A for each of the three wgmma
+//   and ran slower on the H100.)
+// * Epilogue: each accumulator row is rounded, transposed within its quad
+//   of lanes by shuffles, and written as 16-byte channels-last vectors.
+//   Ragged rows (h >= H) and columns (w >= W) are masked at the store.
+// Registers and spills (ptxas, `chip_smoke.py` phase 2 on the H100): 128
+// registers a thread at launch (the 65536 / 512 of `__launch_bounds__`,
+// redistributed by `setmaxnreg`), no spills, in all four instances.
+#pragma once
+
+#include <algorithm>
+
+#include "dense3x3.cuh"
+#include "tc.cuh"
+
+namespace dense_tc {
+
+using dense::Args;
+
+constexpr int R = 4;          // output rows per tile, d apart
+constexpr int TW = 64;        // output pixels per tile row: the wgmma M
+constexpr int STAGERS = 256;  // two staging warpgroups: a copy warp
+constexpr int ACTIVATORS = STAGERS - 32;  // and seven activating warps,
+constexpr int WORKERS = ACTIVATORS + 128;  // with a product warpgroup
+constexpr int THREADS = STAGERS + 256;  // and two product warpgroups
+constexpr int STAGER_REGS = 88, PRODUCT_REGS = 168;  // 65536 / 256 in all
+constexpr int MIN_STAGES = 4, MAX_STAGES = 8;  // staged jobs in the ring
+constexpr int SMEM_MAX = 232448;                // per block, opted in
+constexpr int MAX_D = 16;
+constexpr int MAX_K = 128;    // Ci x inputs x groups of resident weights
+
+__host__ __device__ inline int inputs(const Args& a) {
+  return a.x2 != nullptr ? 2 : 1;
+}
+
+// The route's shapes; everything else takes dense3x3's CUDA-core route.
+__host__ __device__ inline bool use(int elem_bytes, int Ci, int Co, int d,
+                                    int nin, int G) {
+  return elem_bytes == 2 && Co == tc::N && Ci % 16 == 0 && d >= 1 &&
+         d <= MAX_D && Ci * nin * G <= MAX_K;
+}
+
+__host__ __device__ inline int row_tiles(const Args& a) {
+  return ceil_div(ceil_div(a.H, a.d), R);
+}
+__host__ __device__ inline int col_tiles(const Args& a) {
+  return ceil_div(a.W, TW);
+}
+__host__ __device__ inline int tiles(const Args& a) {
+  return a.B * a.d * row_tiles(a) * col_tiles(a);
+}
+// Staged pixels of a row: 64 + 2d, rounded up to 8 so that every row
+// starts on a 512-byte swizzle boundary.
+__host__ __device__ inline int row_pixels(int d) {
+  return (TW + 2 * d + 7) / 8 * 8;
+}
+template <int SC>
+__host__ __device__ inline int stage_bytes(int d) {
+  return (R + 2) * row_pixels(d) * SC * 2;
+}
+__host__ __device__ inline int weight_bytes(const Args& a) {
+  return a.G * inputs(a) * 9 * a.Ci * tc::N * 2;
+}
+__host__ __device__ inline int affine_floats(const Args& a) {
+  return a.G * inputs(a) * 2 * a.Ci;
+}
+// Weights, affines, 3 x MAX_STAGES + 1 mbarriers (256 B), a Job per stage
+// (256 B); the stage ring starts at the next 1024-byte boundary.
+__host__ __device__ inline int fixed_bytes(const Args& a) {
+  return weight_bytes(a) + affine_floats(a) * 4 + 512;
+}
+// As many stages as fit, up to MAX_STAGES (fewer than MIN_STAGES: none).
+template <int SC>
+__host__ __device__ inline int stages(const Args& a) {
+  const int n = (SMEM_MAX - fixed_bytes(a) - 1024) / stage_bytes<SC>(a.d);
+  return n < MIN_STAGES ? 0 : (n > MAX_STAGES ? MAX_STAGES : n);
+}
+
+// One staged job: tile (batch b, row class c = h mod d, row tile k in the
+// class, first column w0), weight group g, input i, channel slab s. The
+// copy thread decodes it once and leaves it beside its stage.
+struct Job {
+  int b, c, k, w0, g, i, s, pad;
+};
+
+__device__ __forceinline__ Job job_of(const Args& a, int tile, int j,
+                                      int nslab) {
+  const int ncx = col_tiles(a), nk = row_tiles(a);
+  Job r;
+  r.w0 = (tile % ncx) * TW;
+  tile /= ncx;
+  r.k = tile % nk;
+  tile /= nk;
+  r.c = tile % a.d;
+  r.b = tile / a.d;
+  r.g = r.b / (a.B / a.G);
+  r.i = j / nslab;
+  r.s = j % nslab;
+  r.pad = 0;
+  return r;
+}
+
+// Image row of staged row r (0 .. R+1) or output row r - 1.
+__device__ __forceinline__ int image_row(const Args& a, const Job& t, int r) {
+  return t.c + (t.k * R + r - 1) * a.d;
+}
+
+// Every group's weights of every input into shared memory by bulk copies on
+// `bar` (one thread), as B images (g, i, ci / 16, tap): a.wt / a.wt2 hold
+// (G, Ci / 16, 9) images each (`_wgmma_images` in ops/cuda/refine_rows.py).
+// The affines (g, i, {scale, shift}, ci) by every thread.
+__device__ void load_weights(const Args& a, uint32_t wsm, float* asm_,
+                             uint32_t bar) {
+  const int nin = inputs(a), Ci = a.Ci;
+  const int set = Ci / 16 * 9 * tc::B_SLICE;  // one group of one input
+  if (threadIdx.x == 0) {
+    tc::mbar_expect_tx(bar, a.G * nin * set);
+    for (int gi = 0; gi < a.G * nin; ++gi)
+      tc::bulk_load(wsm + gi * set,
+                    (const unsigned char*)(gi % nin ? a.wt2 : a.wt) +
+                        (size_t)(gi / nin) * set,
+                    set, bar);
+  }
+  for (int gi = 0; gi < a.G * nin; ++gi) {
+    const float* aff = gi % nin ? a.aff2 : a.aff;
+    if (aff != nullptr)
+      for (int e = threadIdx.x; e < 2 * Ci; e += THREADS)
+        asm_[gi * 2 * Ci + e] = aff[(size_t)(gi / nin) * 2 * Ci + e];
+  }
+}
+
+// relu(v * a + s) of the 8 channels in u, in float32 with one bf16
+// rounding per element.
+__device__ __forceinline__ uint4 activate8(uint4 u, const float (&sa)[8],
+                                           const float (&ss)[8]) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float lo = __uint_as_float(w[m] << 16);
+    const float hi = __uint_as_float(w[m] & 0xffff0000u);
+    w[m] = tc::pack_bf16(fmaxf(fmaf(lo, sa[2 * m], ss[2 * m]), 0.f),
+                         fmaxf(fmaf(hi, sa[2 * m + 1], ss[2 * m + 1]), 0.f));
+  }
+  return u;
+}
+
+// Worker w (of WORKERS) activates its chunks of a staged job in `buf`:
+// relu(v * a + s) in float32 with one bf16 rounding, inside the image
+// only, since the zeros TMA fills in outside it are the padding, which
+// comes after the activation. Chunk e = w + k * WORKERS of a row is pixel
+// e / CPP, channels (e % CPP) * 8 ..; two rows' chunks are loaded before
+// any is written back, so their latencies overlap.
+template <int SC>
+__device__ __forceinline__ void activate_job(const Args& a, const Job& t,
+                                             const float* asm_,
+                                             unsigned char* buf, int w) {
+  constexpr int CPP = SC / 8, ROW_PX = SC * 2;
+  constexpr int KS = ((TW + 2 * MAX_D) * CPP + WORKERS - 1) / WORKERS;
+  constexpr int RB = 2;  // rows a batch
+  const int d = a.d, Ci = a.Ci, ROW = row_pixels(d) * ROW_PX;
+  const int cc = w % CPP;  // this worker's 8 channels (WORKERS % CPP == 0)
+  const float* av =
+      asm_ + (t.g * inputs(a) + t.i) * 2 * Ci + t.s * SC + cc * 8;
+  float sa[8], ss[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    sa[m] = av[m];
+    ss[m] = av[Ci + m];
+  }
+#pragma unroll
+  for (int r0 = 0; r0 < R + 2; r0 += RB) {
+    uint4 u[RB][KS];
+    bool in[RB][KS];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int hh = image_row(a, t, r0 + r);
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        const int q = (w + k * WORKERS) / CPP, ww = t.w0 - d + q;
+        in[r][k] = q < TW + 2 * d && hh >= 0 && hh < a.H && ww >= 0 &&
+                   ww < a.W;
+        if (in[r][k])
+          u[r][k] = *(const uint4*)(buf + (r0 + r) * ROW +
+                                    tc::chunk_offset<SC>(q, cc));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        if (in[r][k])
+          *(uint4*)(buf + (r0 + r) * ROW +
+                    tc::chunk_offset<SC>((w + k * WORKERS) / CPP, cc)) =
+              activate8(u[r][k], sa, ss);
+  }
+}
+
+// S: the ring's stages, `stages<SC>(a)`. map_x / map_x2: TMA maps of the
+// inputs (`launch`).
+template <int SC, typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+    dense3x3_tc_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_x2, Args a,
+                       int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int CPP = SC / 8, KC = SC / 16, PX = SC * 2;
+  const int d = a.d, H = a.H, W = a.W, Ci = a.Ci;
+  const int LP = row_pixels(d), ROW = LP * PX;
+  const int nin = inputs(a), nslab = Ci / SC, jobs = nin * nslab;
+  const int sbytes = stage_bytes<SC>(d);
+  unsigned char* wsm = smem;
+  float* asm_ = (float*)(wsm + weight_bytes(a));
+  const uint32_t wbase = tc::smem_addr(wsm);
+  const uint32_t bars = tc::smem_addr(asm_ + affine_floats(a));
+  const uint32_t stage0 = (tc::smem_addr(smem) + fixed_bytes(a) + 1023) &
+                          ~1023u;
+  unsigned char* stage0_p = smem + (stage0 - tc::smem_addr(smem));
+  // Per stage: copies landed, staged (activated), read by the products;
+  // and its Job.
+  auto landed = [&](int n) { return bars + 8 * (n % S); };
+  auto full = [&](int n) { return bars + 8 * (MAX_STAGES + n % S); };
+  auto empty = [&](int n) { return bars + 8 * (2 * MAX_STAGES + n % S); };
+  const uint32_t weights = bars + 8 * 3 * MAX_STAGES;
+  Job* jobs_at = (Job*)(asm_ + affine_floats(a) + 64);
+  const int ntiles = tiles(a);
+  const int my_tiles = (int)blockIdx.x < ntiles
+                           ? (ntiles - 1 - (int)blockIdx.x) / gridDim.x + 1
+                           : 0;
+  const int njobs = my_tiles * jobs;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      tc::mbar_init(landed(s), 1);
+      tc::mbar_init(full(s), WORKERS);
+      tc::mbar_init(empty(s), 128);
+    }
+    tc::mbar_init(weights, 1);
+  }
+  __syncthreads();
+  load_weights(a, wbase, asm_, weights);
+  __syncthreads();  // the affines
+
+  if (threadIdx.x < STAGERS) {
+    tc::setmaxnreg_dec<STAGER_REGS>();
+    if (threadIdx.x < 32) {
+      // The copy warp: one thread keeps the TMA copies of every job in
+      // flight as soon as its stage is free.
+      if (threadIdx.x == 0)
+        for (int n = 0; n < njobs; ++n) {
+          if (n >= S) tc::mbar_wait(empty(n), ((n / S) & 1) ^ 1);
+          const Job t =
+              job_of(a, blockIdx.x + n / jobs * gridDim.x, n % jobs, nslab);
+          jobs_at[n % S] = t;  // published by the arrive below
+          const uint32_t buf = stage0 + (n % S) * sbytes;
+          tc::mbar_expect_tx(landed(n), sbytes);
+#pragma unroll
+          for (int r = 0; r < R + 2; ++r)
+            tc::tma_load_4d(buf + r * ROW, t.i ? &map_x2 : &map_x, landed(n),
+                            t.s * SC, t.w0 - d, image_row(a, t, r), t.b);
+        }
+      return;
+    }
+    // The activating warps: their share of job n once its copies have
+    // landed; the product warpgroup that takes the job does the rest.
+    for (int n = 0; n < njobs; ++n) {
+      tc::mbar_wait(landed(n), (n / S) & 1);
+      const Job t = jobs_at[n % S];
+      if ((t.i ? a.aff2 : a.aff) != nullptr)
+        activate_job<SC>(a, t, asm_, stage0_p + (n % S) * sbytes,
+                         threadIdx.x - 32);
+      tc::mbar_arrive(full(n));
+    }
+    return;
+  }
+
+  // Product warpgroups: product warpgroup p = wg - 2 takes the block's
+  // tiles p, p + 2, ...: its share of each job's activation, then the
+  // products, A from the staged rows, B from the resident weights.
+  tc::setmaxnreg_inc<PRODUCT_REGS>();
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const uint64_t desc0 = tc::b_desc(wbase);
+  uint32_t ao[KC][3];  // this lane's A row at (kc, kx) in any staged row
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+      ao[kc][kx] = tc::chunk_offset<SC>(warp * 16 + lane % 16 + kx * d,
+                                        kc * 2 + lane / 16);
+  tc::mbar_wait(weights, 0);
+  tc::Acc acc[R];
+  for (int m = wg - 2; m < my_tiles; m += 2) {
+    Job t;
+#pragma unroll
+    for (int o = 0; o < R; ++o) tc::zero(acc[o]);
+    for (int j = 0; j < jobs; ++j) {
+      const int n = m * jobs + j;
+      tc::mbar_wait(landed(n), (n / S) & 1);
+      t = jobs_at[n % S];
+      if ((t.i ? a.aff2 : a.aff) != nullptr)  // this warpgroup's share
+        activate_job<SC>(a, t, asm_, stage0_p + (n % S) * sbytes,
+                         ACTIVATORS + threadIdx.x % 128);
+      tc::mbar_arrive(full(n));
+      tc::mbar_wait(full(n), (n / S) & 1);
+      const uint32_t buf = stage0 + (n % S) * sbytes;
+      const uint64_t dj =
+          desc0 + (uint64_t)((t.g * nin + t.i) * (Ci / 16) + t.s * KC) * 9 *
+                      (tc::B_SLICE >> 4);
+      // Group q: channel chunk kc, staged row r, tap column kx: one A
+      // fragment (ldmatrix) for up to three wgmma, loaded while group
+      // q - 1's wgmma issue; four register buffers.
+      constexpr int NG = KC * (R + 2) * 3, NBUF = 4;
+      auto load = [&](uint32_t (&f)[4], int q) {
+        const int kc = q / ((R + 2) * 3), r = q / 3 % (R + 2), kx = q % 3;
+        tc::ldsm_x4(f, buf + r * ROW + ao[kc][kx]);
+      };
+      uint32_t af[NBUF][4];
+      load(af[0], 0);
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        if (q + 1 < NG) {
+          if (q + 1 >= NBUF) tc::wgmma_wait<NBUF - 2>();
+          load(af[(q + 1) % NBUF], q + 1);
+        }
+        tc::wgmma_fence();
+        const int kc = q / ((R + 2) * 3), r = q / 3 % (R + 2), kx = q % 3;
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          const int o = r - ky;
+          if (o < 0 || o >= R) continue;
+          tc::wgmma_m64n32k16(
+              acc[o], af[q % NBUF],
+              dj + (kc * 9 + ky * 3 + kx) * (tc::B_SLICE >> 4));
+        }
+        tc::wgmma_commit();
+      }
+      tc::wgmma_wait<0>();
+      tc::mbar_arrive(empty(n));  // the job's wgmma have read the stage
+    }
+#pragma unroll
+    for (int o = 0; o < R; ++o) tc::fence_operand(acc[o]);
+    TO* y = (TO*)a.y;
+#pragma unroll
+    for (int o = 0; o < R; ++o) {
+      const int h = image_row(a, t, o + 1);
+      const bool hv = h < H;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int w = t.w0 + warp * 16 + lane / 4 + 8 * half;
+        const bool ok = hv && w < W;
+        TO* px = y + (((size_t)t.b * H + (hv ? h : 0)) * W + (ok ? w : 0)) *
+                         tc::N;
+        tc::store_row<TO>(acc[o], half, px, ok);
+      }
+    }
+  }
+}
+
+// Launch on `stream`: one persistent block per SM, at most one per tile,
+// with all the shared memory a block may have. Returns a cudaError_t (or
+// the CUresult of a refused TMA map).
+template <int SC, typename TO>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kernel = dense3x3_tc_kernel<SC, TO>;
+  const int S = stages<SC>(a);
+  if (S == 0) return (int)cudaErrorInvalidValue;
+  const int smem = fixed_bytes(a) + 1024 + S * stage_bytes<SC>(a.d);
+  CUtensorMap maps[2];
+  const cuuint64_t dims[4] = {(cuuint64_t)a.Ci, (cuuint64_t)a.W,
+                              (cuuint64_t)a.H, (cuuint64_t)a.B};
+  for (int i = 0; i < inputs(a); ++i) {
+    const int rc = tc::make_map(&maps[i], i ? a.x2 : a.x, 4, dims, SC,
+                                row_pixels(a.d));
+    if (rc != 0) return rc;
+  }
+  if (inputs(a) == 1) maps[1] = maps[0];
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
+  const int grid = std::min(tiles(a), tc::sm_count());
+  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], a, S);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dense_tc

@@ -1,0 +1,323 @@
+// Hopper building blocks of the port's tensor-core routes
+// (`dense3x3_tc.cuh`, `conv3d_bn_relu.cu`): TMA copies of channels-last
+// rows into swizzled shared memory, mbarriers, bulk copies of the resident
+// weights, ldmatrix A fragments, wgmma m64n32k16 with A in registers and
+// B (the resident weights) read from shared memory through a descriptor,
+// and an epilogue that writes 16-byte channels-last vectors straight from
+// the accumulator registers.
+//
+// Staged rows. A row of pixels holds each pixel's SC channels (SC = 16
+// or 32) as SC * 2 contiguous bytes, CPP = SC / 8 chunks of 16 bytes, the
+// chunk order XOR-swizzled by the pixel index: TMA's 64-byte (SC = 32) or
+// 32-byte (SC = 16) swizzle, which it applies to the absolute address, so
+// rows start on a 512-byte boundary. Eight consecutive pixels' same chunk
+// then fall in eight distinct 16-byte bank groups: ldmatrix can start a
+// tap at any pixel offset (k * d) without a bank conflict. (wgmma itself
+// also reads A through a swizzled descriptor at any pixel offset, with no
+// base offset; both routes ran faster on the H100 with register A, which
+// one ldmatrix fragment feeds to up to three or four wgmma.)
+//
+// Weights. One 16 (K) x 32 (N) bf16 slice of B is a 1 KB image in the
+// canonical K-major layout without swizzle: eight 8 x 8 core matrices of
+// 128 contiguous bytes, core (n / 8, k / 8) at (n / 8) * 256 + (k / 8) *
+// 128, a core row (one n) 16 bytes of 8 consecutive k. The descriptor's
+// leading offset is the K step (128 B), its stride offset the N step
+// (256 B). The wrappers lay the weights out in global memory as these
+// images, so a block copies them to shared memory in one bulk copy.
+#pragma once
+
+#include <cuda.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace tc {
+
+constexpr int N = 32;                 // output channels of every route
+constexpr int B_SLICE = 16 * N * 2;   // bytes of one K=16 slice of B
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of chunk c (8 channels) of pixel p in a staged row.
+template <int SC>
+__device__ __forceinline__ uint32_t chunk_offset(int p, int c) {
+  constexpr int CPP = SC / 8;
+  return p * (SC * 2) + ((c ^ ((p / (8 / CPP)) % CPP)) << 4);
+}
+
+// The A fragment of one warp: 16 pixels x 16 channels, four 8 x 8
+// matrices (pixels 0-7 / 8-15 x channels 0-7 / 8-15), the register layout
+// of mma.m16n8k16 and of wgmma's register A. `addr` is this lane's row:
+// pixel lane % 16, channel half lane / 16.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// K-major B descriptor without swizzle (see the note at the top).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  constexpr uint64_t LBO = 128, SBO = 256;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((LBO >> 4) << 16) |
+         ((SBO >> 4) << 32);
+}
+
+// A 64 x 32 float32 accumulator: thread (warp w, lane l) holds rows
+// 16w + l/4 (v[4j], v[4j+1]) and 16w + l/4 + 8 (v[4j+2], v[4j+3]) at
+// columns 8j + 2(l%4) + {0, 1}.
+struct Acc {
+  float v[16];
+};
+
+__device__ __forceinline__ void zero(Acc& a) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a.v[i] = 0.f;
+}
+
+// Keep the compiler from moving accumulator accesses across wgmma.
+__device__ __forceinline__ void fence_operand(Acc& a) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(a.v[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
+               : "memory");
+}
+
+// d += a (64 x 16, registers, across the warpgroup) * b (16 x 32, shared).
+__device__ __forceinline__ void wgmma_m64n32k16(Acc& d,
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]),
+        "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+        "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]),
+        "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// Within each quad of lanes (one accumulator row), lane t holds word j of
+// column block j; afterwards it holds word i of lane i's block t, i.e.
+// its block's words in column order. A 4 x 4 transpose in two butterfly
+// rounds: swap the off-diagonal 2 x 2 blocks with lane t ^ 2, then the
+// off-diagonal words of each 2 x 2 block with lane t ^ 1.
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4]) {
+  const bool hi = threadIdx.x & 2, odd = threadIdx.x & 1;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
+  if (hi) {
+    v[0] = r0;
+    v[1] = r1;
+  } else {
+    v[2] = r0;
+    v[3] = r1;
+  }
+  r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  r1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  if (odd) {
+    v[0] = r0;
+    v[2] = r1;
+  } else {
+    v[1] = r0;
+    v[3] = r1;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Write the accumulator's rows `half` (0: l/4, 1: l/4 + 8) as channels-last
+// vectors: row pixel -> out_row + 32 channels; channels 8t .. 8t+7 of the
+// row go to this lane (t = l % 4). Every lane of the warp must call it;
+// `store` masks the write.
+template <typename TO>
+__device__ __forceinline__ void store_row(const Acc& a, int half, TO* px,
+                                          bool store);
+
+template <>
+__device__ __forceinline__ void store_row<bf16>(const Acc& a, int half,
+                                                bf16* px, bool store) {
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = pack_bf16(a.v[4 * j + 2 * half], a.v[4 * j + 2 * half + 1]);
+  quad_transpose(v);
+  if (store)
+    *reinterpret_cast<uint4*>(px + 8 * (threadIdx.x % 4)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+template <>
+__device__ __forceinline__ void store_row<float>(const Acc& a, int half,
+                                                 float* px, bool store) {
+  uint32_t lo[4], hi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = __float_as_uint(a.v[4 * j + 2 * half]);
+    hi[j] = __float_as_uint(a.v[4 * j + 2 * half + 1]);
+  }
+  quad_transpose(lo);
+  quad_transpose(hi);
+  if (store) {
+    float4* p = reinterpret_cast<float4*>(px + 8 * (threadIdx.x % 4));
+    p[0] = make_float4(__uint_as_float(lo[0]), __uint_as_float(hi[0]),
+                       __uint_as_float(lo[1]), __uint_as_float(hi[1]));
+    p[1] = make_float4(__uint_as_float(lo[2]), __uint_as_float(hi[2]),
+                       __uint_as_float(lo[3]), __uint_as_float(hi[3]));
+  }
+}
+
+// mbarriers in shared memory: `count` arrivals complete a phase; a waiter
+// names the parity of the phase it waits for.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// Hand registers back to / take them from the block's pool, per thread,
+// for the rest of a warpgroup's run (all its threads execute it).
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// Arrive on `bar` and expect `bytes` more of asynchronous copies on it.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// One TMA box of `map` at coordinates (innermost first) into shared
+// memory at `dst`, completing `bytes` of `bar`'s transaction count;
+// positions outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, completing that many bytes of `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A TMA map of a channels-last bf16 tensor whose dims[0] = C channels
+// are innermost (dims and byte strides innermost first, `rank` <= 5):
+// boxes of SC channels x `pixels` pixels x 1 of every outer dim, swizzled
+// as the staged rows are (see the note at the top), zeros outside the
+// tensor. Returns a CUresult.
+inline int make_map(CUtensorMap* map, const void* base, int rank,
+                    const cuuint64_t* dims, int SC, int pixels) {
+  typedef CUresult (*Encode)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (int)CUDA_ERROR_NOT_FOUND;
+    encode = (Encode)fn;
+  }
+  cuuint64_t strides[4];
+  cuuint64_t stride = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
+  const cuuint32_t box[5] = {(cuuint32_t)SC, (cuuint32_t)pixels, 1, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                     const_cast<void*>(base), dims, strides, box, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     SC == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Number of SMs of the current device (read once).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+}  // namespace tc

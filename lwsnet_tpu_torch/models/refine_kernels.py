@@ -7,7 +7,9 @@ Counterpart of the JAX package's `models/refine_pallas.py` under
   `dense3x3` launch, 11 in all; each depthwise-separable layer becomes one
   dense 3x3 over the composed rank-1 kernel
   k[co, ci] = dw[ci] * pw[co, ci], formed in float32 and cast once to the
-  compute dtype.
+  compute dtype. On the card in bf16 the activations from the entry to
+  the output conv lie channels-last in memory, as the tensor-core route
+  reads them.
 * "vpu": the dw-sep layers run as they are on the `dwsep3x3` kernel, two
   per launch with `rows_paired` (4 launches) or one (8), the depthwise and
   pointwise weights each cast to the compute dtype; the entries and the
@@ -139,7 +141,10 @@ def refine_residual(model, left: torch.Tensor, disp: torch.Tensor, *,
         return [torch.stack(w) for w in zip(_dwsep_weights(tower[i][0]),
                                             _dwsep_weights(tower[i][1]))]
 
-    y = dense_layer(x, entries, dilation=1, groups=2)
+    # Under bf16 "mxu" every later layer but the output conv runs on the
+    # tensor-core route, which reads channels-last: the entry writes it.
+    y = dense_layer(x, entries, dilation=1, groups=2,
+                    channels_last=dw == "mxu" and dtype == torch.bfloat16)
     if dw == "mxu":
         for (bl, bd), d in zip(tower, TOWER_DILATIONS):
             y = dense_layer(

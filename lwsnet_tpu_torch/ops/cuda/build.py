@@ -13,6 +13,12 @@ Each kernel keeps a launch counter: a wrapper adds one where it launches,
 and nowhere else, so a run can show which kernels its path went through.
 One source may hold several kernels (`dwsep3x3.cu`: the solo and the pair
 layer), each with its own counter.
+
+Layouts. A kernel reads and writes either the default (contiguous) layout
+or channels-last memory ((B, H, W, C) / (B, D, H, W, C) under the logical
+(B, C, ...) shape); the tensor-core routes take channels-last only. Where
+a caller hands a kernel a layout it does not read, its wrapper makes one
+copy with `in_layout`, which counts it in `LAYOUT_COPIES`.
 """
 
 from __future__ import annotations
@@ -127,13 +133,11 @@ class Kernel:
         self.dual_launches += dual
 
 
-CONV3D_BN_RELU = Kernel(
-    "conv3d_bn_relu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+CONV3D_BN_RELU = Kernel("conv3d_bn_relu", [_P] * 4 + [_I] * 8 + [_P])
 CONV3D_SKIP_SOFTARGMIN = Kernel(
     "conv3d_skip_softargmin",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P])
-DENSE3X3 = Kernel(
-    "dense3x3", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+DENSE3X3 = Kernel("dense3x3", [_P] * 7 + [_I] * 9 + [_P])
 DWSEP3X3 = Kernel(
     "dwsep3x3", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
 DWSEP3X3_PAIR = Kernel(
@@ -157,10 +161,47 @@ def launch_counts() -> Dict[str, int]:
     return counts
 
 
+# Copies the wrappers made to hand a kernel the layout it reads.
+LAYOUT_COPIES = {"to channels-last": 0, "to contiguous": 0}
+
+
 def reset_launch_counts() -> None:
+    """Set every launch counter and `LAYOUT_COPIES` to 0."""
     for k in KERNELS:
         k.launches = 0
         k.dual_launches = 0
+    for k in LAYOUT_COPIES:
+        LAYOUT_COPIES[k] = 0
+
+
+def _format(ndim: int, channels_last: bool) -> torch.memory_format:
+    if not channels_last:
+        return torch.contiguous_format
+    return torch.channels_last if ndim == 4 else torch.channels_last_3d
+
+
+def lies_channels_last(t: torch.Tensor) -> bool:
+    """Whether t lies channels-last in memory and not also contiguous."""
+    return (not t.is_contiguous()
+            and t.is_contiguous(memory_format=_format(t.dim(), True)))
+
+
+def in_layout(t: torch.Tensor, channels_last: bool) -> torch.Tensor:
+    """t itself where it already lies channels-last (or contiguous), else
+    one copy that does, counted in `LAYOUT_COPIES`."""
+    fmt = _format(t.dim(), channels_last)
+    if t.is_contiguous(memory_format=fmt):
+        return t
+    LAYOUT_COPIES["to channels-last" if channels_last
+                  else "to contiguous"] += 1
+    return t.contiguous(memory_format=fmt)
+
+
+def empty(shape, dtype: torch.dtype, device: torch.device,
+          channels_last: bool) -> torch.Tensor:
+    """An output tensor of logical `shape`, channels-last in memory or not."""
+    return torch.empty(shape, dtype=dtype, device=device,
+                       memory_format=_format(len(shape), channels_last))
 
 
 def symbol_suffix(dtype: torch.dtype) -> str:
@@ -172,9 +213,9 @@ def symbol_suffix(dtype: torch.dtype) -> str:
 
 
 def check(t: torch.Tensor, name: str, shape, dtype: torch.dtype,
-          device: torch.device) -> None:
-    """Raise unless `t` is a contiguous tensor of this shape, dtype and
-    device."""
+          device: torch.device, channels_last: bool = False) -> None:
+    """Raise unless `t` is a tensor of this shape, dtype and device, dense
+    in the default layout (or channels-last)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -182,8 +223,9 @@ def check(t: torch.Tensor, name: str, shape, dtype: torch.dtype,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    if not t.is_contiguous(memory_format=_format(t.dim(), channels_last)):
+        raise ValueError(f"{name}: not "
+                         f"{'channels-last' if channels_last else 'contiguous'}")
 
 
 def on_card(x: torch.Tensor) -> bool:

@@ -15,6 +15,15 @@ compute the same function).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs
 its plain PyTorch version, beside it here, for a CPU tensor.
+
+Layout on the card: a bf16 32-channel activation lies channels-last-3d in
+memory, (B, D, H, W, 32) under its logical (B, 32, D, H, W) shape, because
+the tensor-core route of `conv3d_bn_relu` (`conv3d_tensor_core_route`)
+reads and writes it so. At stage 1 the 1 -> 32 entry writes it and the
+four 32 -> 32 layers read and write it; `conv3d_skip_softargmin`, like
+every CUDA-core kernel, reads the default layout, so stage 1 hands it
+over through one copy. Stages 2-3 (8 channels) and float32 stay in the
+default layout. Each copy is `build.in_layout`'s, counted.
 """
 
 from __future__ import annotations
@@ -27,7 +36,14 @@ import torch.nn.functional as F
 from lwsnet_tpu_torch.models.blocks import bn_affine
 from lwsnet_tpu_torch.ops.cuda.build import (CONV3D_BN_RELU,
                                              CONV3D_SKIP_SOFTARGMIN, check,
-                                             on_card, symbol_suffix)
+                                             empty, in_layout, on_card,
+                                             symbol_suffix)
+
+
+def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
+    """Whether `conv3d_bn_relu` runs its wgmma route, which reads and
+    writes channels-last only (`use_tc` in csrc/conv3d_bn_relu.cu)."""
+    return dtype == torch.bfloat16 and Co == 32 and Ci in (16, 32)
 
 
 def conv3d_bn_relu_plain(x: torch.Tensor, wt: torch.Tensor,
@@ -41,20 +57,33 @@ def conv3d_bn_relu_plain(x: torch.Tensor, wt: torch.Tensor,
 
 def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor,
                    shift: torch.Tensor) -> torch.Tensor:
-    """One BN-folded conv3d layer; see `conv3d_bn_relu_plain`."""
+    """One BN-folded conv3d layer; see `conv3d_bn_relu_plain`. On the card
+    the tensor-core route reads channels-last and the CUDA cores NCDHW (x
+    is copied where it lies otherwise); the result lies channels-last
+    where a layer of its width takes the tensor-core route (bf16, 32
+    channels)."""
     if not on_card(x):
         return conv3d_bn_relu_plain(x, wt, shift)
     B, Ci, D, H, W = x.shape
     Co = wt.shape[0]
-    check(x, "x", (B, Ci, D, H, W), x.dtype, x.device)
+    x_cl = tensor_core = conv3d_tensor_core_route(x.dtype, Ci, Co)
+    x = in_layout(x, x_cl)
+    y_cl = conv3d_tensor_core_route(x.dtype, Co, Co)
+    check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, x_cl)
     check(wt, "wt", (Co, Ci, 3, 3, 3), x.dtype, x.device)
     check(shift, "shift", (Co,), torch.float32, x.device)
-    wk = wt.permute(1, 2, 3, 4, 0).reshape(Ci, 27, Co).contiguous()
-    y = torch.empty((B, Co, D, H, W), dtype=x.dtype, device=x.device)
+    if tensor_core:
+        # resident B images: per (ci // 16, tap) a 16 x 32 K-major slice
+        # as 8 x 8 core matrices (csrc/tc.cuh)
+        wk = wt.reshape(Co // 8, 8, Ci // 16, 2, 8, 27).permute(
+            2, 5, 0, 3, 1, 4).contiguous()
+    else:  # (Ci, 27, Co)
+        wk = wt.permute(1, 2, 3, 4, 0).reshape(Ci, 27, Co).contiguous()
+    y = empty((B, Co, D, H, W), x.dtype, x.device, y_cl)
     CONV3D_BN_RELU.launch(
         f"conv3d_bn_relu_{symbol_suffix(x.dtype)}", x.device,
         x.data_ptr(), wk.data_ptr(), shift.data_ptr(), y.data_ptr(),
-        B, Ci, Co, D, H, W)
+        B, Ci, Co, D, H, W, x_cl, y_cl)
     return y
 
 
@@ -78,6 +107,7 @@ def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
     if not on_card(x):
         return conv3d_skip_softargmin_plain(x, wt, vol, start)
     B, Ci, D, H, W = x.shape
+    x = in_layout(x, False)  # stage 1 hands over channels-last: one copy
     check(x, "x", (B, Ci, D, H, W), x.dtype, x.device)
     check(wt, "wt", (1, Ci, 3, 3, 3), x.dtype, x.device)
     check(vol, "vol", (B, D, H, W), x.dtype, x.device)

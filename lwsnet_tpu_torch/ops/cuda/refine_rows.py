@@ -10,6 +10,15 @@ layout and have no counterpart here.
 launches its CUDA kernel for a CUDA tensor and runs its `*_plain` twin,
 beside it here, for a CPU tensor. Weight groups follow the JAX rule:
 batch b uses weight set b // (B // G).
+
+Layout on the card: `dense3x3`'s tensor-core route
+(`dense_tensor_core_route`) reads and writes channels-last memory,
+(B, H, W, C) under the logical (B, C, H, W) shape; its CUDA-core route
+reads either layout (channels-last where Ci % 8 == 0) and writes
+channels-last when asked. Under the shipped bf16 "mxu" engine the entry
+writes channels-last and every later layer, the output conv included,
+reads it; `dwsep`, `dwsep2` and `chain` read the default layout. Each copy
+is `build.in_layout`'s, counted. The plain versions take any layout.
 """
 
 from __future__ import annotations
@@ -21,8 +30,20 @@ import torch
 import torch.nn.functional as F
 
 from lwsnet_tpu_torch.ops.cuda.build import (CHAIN3X3, DENSE3X3, DWSEP3X3,
-                                             DWSEP3X3_PAIR, check, on_card,
-                                             symbol_suffix)
+                                             DWSEP3X3_PAIR, check, empty,
+                                             in_layout, lies_channels_last,
+                                             on_card, symbol_suffix)
+
+
+def dense_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int,
+                            dilation: int, inputs: int = 1,
+                            groups: int = 1) -> bool:
+    """Whether `dense3x3` runs its wgmma route, which reads and writes
+    channels-last only (`dense_tc::use` in csrc/dense3x3_tc.cuh): bf16,
+    32 output channels, whole 16-channel chunks, a dilation the staged halo
+    holds, and weights that stay resident in shared memory."""
+    return (dtype == torch.bfloat16 and Co == 32 and Ci % 16 == 0
+            and 1 <= dilation <= 16 and Ci * inputs * groups <= 128)
 
 
 def _conv_plain(x, wt, affine, dilation):
@@ -69,8 +90,13 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
              x2: Optional[torch.Tensor] = None,
              wt2: Optional[torch.Tensor] = None,
              affine2: Optional[torch.Tensor] = None,
-             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The dense3x3 kernel; arguments as `dense3x3_plain`."""
+             out_dtype: Optional[torch.dtype] = None,
+             channels_last: bool = False) -> torch.Tensor:
+    """The dense3x3 kernel; arguments as `dense3x3_plain`. On the card the
+    tensor-core route reads channels-last, the CUDA cores x's layout where
+    Ci % 8 == 0 and NCHW otherwise (x and x2 are copied where they lie
+    otherwise); the result lies channels-last where the tensor-core route
+    computes it or `channels_last` asks."""
     if not on_card(x):
         return dense3x3_plain(x, wt, dilation=dilation, affine=affine, x2=x2,
                               wt2=wt2, affine2=affine2, out_dtype=out_dtype)
@@ -81,27 +107,36 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
     _check_out_dtype(dt, out_dtype, "dense3x3")
+    tensor_core = dense_tensor_core_route(
+        dt, Ci, Co, dilation, 1 if x2 is None else 2, G)
+    x_cl = tensor_core or (Ci % 8 == 0 and lies_channels_last(x))
+    y_cl = tensor_core or channels_last
 
     def operands(xi, wi, ai, name):
-        """(x, affine, weight) pointers; the weight re-laid (G, Ci, 9, Co)."""
-        check(xi, name, (B, Ci, H, W), dt, dev)
+        """The tensors (x in the route's layout, the weight re-laid for
+        the route), kept alive until the launch, and the (x, affine,
+        weight) pointers."""
+        xi = in_layout(xi, x_cl)
+        check(xi, name, (B, Ci, H, W), dt, dev, x_cl)
         check(wi, f"{name} weight", (G, Co, Ci, 3, 3), dt, dev)
         if ai is not None:
             check(ai, f"{name} affine", (G, 2, Ci), torch.float32, dev)
-        wk = _relayout(wi)
-        return wk, (xi.data_ptr(), None if ai is None else ai.data_ptr(),
-                    wk.data_ptr())
+        wk = _wgmma_images(wi) if tensor_core else _relayout(wi)
+        return (xi, wk), (xi.data_ptr(),
+                          None if ai is None else ai.data_ptr(),
+                          wk.data_ptr())
 
-    wk1, first = operands(x, wt, affine, "x")
-    wk2, second = None, (None, None, None)
+    keep1, first = operands(x, wt, affine, "x")
+    keep2, second = None, (None, None, None)
     if x2 is not None:
-        wk2, second = operands(x2, wt2, affine2, "x2")
-    y = torch.empty((B, Co, H, W), dtype=out_dtype, device=dev)
+        keep2, second = operands(x2, wt2, affine2, "x2")
+    y = empty((B, Co, H, W), out_dtype, dev, y_cl)
     symbol = f"dense3x3_{symbol_suffix(dt)}"
     if out_dtype != dt:
         symbol += "_f32out"
     DENSE3X3.launch(symbol, dev, *first, *second, y.data_ptr(),
-                    B, G, Ci, Co, H, W, dilation, dual=x2 is not None)
+                    B, G, Ci, Co, H, W, dilation, x_cl, y_cl,
+                    dual=x2 is not None)
     return y
 
 
@@ -113,9 +148,18 @@ def _check_out_dtype(dt: torch.dtype, out_dtype: torch.dtype,
 
 
 def _relayout(wt: torch.Tensor) -> torch.Tensor:
-    """(G, Co, Ci, 3, 3) -> the kernels' (G, Ci, 9, Co)."""
+    """(G, Co, Ci, 3, 3) -> the CUDA-core kernels' (G, Ci, 9, Co)."""
     G, Co, Ci = wt.shape[:3]
     return wt.permute(0, 2, 3, 4, 1).reshape(G, Ci, 9, Co).contiguous()
+
+
+def _wgmma_images(wt: torch.Tensor) -> torch.Tensor:
+    """(G, 32, Ci, 3, 3) -> the tensor-core route's resident B images:
+    per (g, ci // 16, tap) a 16 x 32 K-major slice as 8 x 8 core matrices,
+    (G, Ci/16, 9, co // 8, ci % 16 // 8, co % 8, ci % 8) (csrc/tc.cuh)."""
+    G, Co, Ci = wt.shape[:3]
+    return wt.reshape(G, Co // 8, 8, Ci // 16, 2, 8, 9).permute(
+        0, 3, 6, 1, 4, 2, 5).contiguous()
 
 
 def dwsep_plain(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
@@ -152,6 +196,7 @@ def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
     dev, dt = x.device, x.dtype
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
+    x = in_layout(x, False)
     check(x, "x", (B, C, H, W), dt, dev)
     check(dw, "dw", (G, C, 3, 3), dt, dev)
     check(pw, "pw", (G, Co, C), dt, dev)
@@ -187,6 +232,7 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
     dev, dt = x.device, x.dtype
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
+    x = in_layout(x, False)
     check(x, "x", (B, C, H, W), dt, dev)
     check(dw1, "dw1", (G, C, 3, 3), dt, dev)
     check(pw1, "pw1", (G, Cm, C), dt, dev)
@@ -307,15 +353,17 @@ def _grouped(t: torch.Tensor, base_ndim: int, groups: int) -> torch.Tensor:
 
 def dense_layer(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
                 affine: Optional[torch.Tensor] = None, groups: int = 1,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                out_dtype: Optional[torch.dtype] = None,
+                channels_last: bool = False) -> torch.Tensor:
     """Dense dilated 3x3 conv, optionally preceded by a folded BN affine +
     ReLU. x: (B, Ci, H, W); kernel: ([G,] Co, Ci, 3, 3), any float dtype,
-    cast once to x's; affine: ([G,] 2, Ci). Returns (B, Co, H, W)."""
+    cast once to x's; affine: ([G,] 2, Ci). Returns (B, Co, H, W), on the
+    card channels-last in memory as `dense3x3` says."""
     wt = _grouped(kernel, 4, groups).to(x.dtype)
     if affine is not None:
         affine = _grouped(affine, 2, groups).float().contiguous()
     return dense3x3(x, wt.contiguous(), dilation=dilation, affine=affine,
-                    out_dtype=out_dtype)
+                    out_dtype=out_dtype, channels_last=channels_last)
 
 
 def dense2_layer(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
@@ -330,6 +378,9 @@ def dense2_layer(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
     if B2 % 2:
         raise ValueError(f"batch {B2} is not two halves")
     B = B2 // 2
+    if on_card(x) and dense_tensor_core_route(x.dtype, Ci, kernel.shape[0],
+                                              dilation, 2):
+        x = in_layout(x, True)  # one copy for both halves, if any
     wt = kernel.to(x.dtype)
     aff = affine.float()
     return dense3x3(

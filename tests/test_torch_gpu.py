@@ -90,6 +90,104 @@ def test_tensor_core_routes_match_plain_on_card(rnd, d):
             atol=1e-2, rtol=1e-2)
 
 
+def _channels_last(x, on):
+    """x in channels-last memory (4-D or 5-D) when `on`, else as it is."""
+    if not on:
+        return x
+    fmt = torch.channels_last if x.dim() == 4 else torch.channels_last_3d
+    return x.contiguous(memory_format=fmt)
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("d", [1, 16])
+def test_dense3x3_wgmma_route_ragged_on_card(rnd, d, channels_last):
+    """The wgmma route of dense3x3 at ragged shapes: W = 75 (a 64-pixel
+    tile and a partial one), H = 37 (not a multiple of R * d = 4d), two
+    weight groups at B = 2, the two-input form, a float32 output and the
+    16-channel slab (Ci = 16, 48); input NCHW (one counted copy each) or
+    channels-last. The result lies channels-last."""
+    bf = torch.bfloat16
+    build.reset_launch_counts()
+    x = _channels_last(rnd(2, 32, 37, 75, dtype=bf), channels_last)
+    ws = (rnd(2, 32, 32, 3, 3) * 0.06).to(bf)
+    aff = torch.stack([rnd(2, 32).abs() + 0.5, rnd(2, 32)], 1)
+    cases = [(x, ws, dict(affine=aff)),
+             (x[:1], ws[:1], dict(affine=aff[:1], x2=x[1:], wt2=ws[1:],
+                                  affine2=aff[1:])),
+             (x, ws, dict(out_dtype=torch.float32))]
+    for ci in (16, 48):
+        xc = _channels_last(rnd(1, ci, 37, 75, dtype=bf), channels_last)
+        wc = (rnd(1, 32, ci, 3, 3) * (2 / (9 * ci)) ** 0.5).to(bf)
+        ac = torch.stack([rnd(1, ci).abs() + 0.5, rnd(1, ci)], 1)
+        cases.append((xc, wc, dict(affine=ac)))
+    for xi, wt, kw in cases:
+        got = trr.dense3x3(xi, wt, dilation=d, **kw)
+        assert got.shape == (xi.shape[0], 32, 37, 75)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        torch.testing.assert_close(
+            got, trr.dense3x3_plain(xi, wt, dilation=d, **kw),
+            atol=1e-2, rtol=1e-2)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["dense3x3"] == 5
+    copies = 0 if channels_last else 6  # x, x[:1], x[1:], x (f32), 2 slabs
+    assert build.LAYOUT_COPIES["to channels-last"] == copies
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_conv3d_wgmma_route_ragged_on_card(rnd, channels_last):
+    """The wgmma route of conv3d_bn_relu at B = 2, D = 7, H = 11, W = 37
+    (no dimension a multiple of its 2 x 2 x 64 tile), Ci = 32 and 16, from
+    NCDHW or channels-last-3d input; the result lies channels-last-3d, and
+    the fused last layer reads it."""
+    bf = torch.bfloat16
+    for ci in (32, 16):
+        x = _channels_last(rnd(2, ci, 7, 11, 37, dtype=bf).relu(),
+                           channels_last)
+        w = (rnd(32, ci, 3, 3, 3) * (2 / (27 * ci)) ** 0.5).to(bf)
+        shift = rnd(32) * 0.1
+        got = tcf.conv3d_bn_relu(x, w, shift)
+        assert got.shape == (2, 32, 7, 11, 37)
+        assert got.is_contiguous(memory_format=torch.channels_last_3d)
+        torch.testing.assert_close(got, tcf.conv3d_bn_relu_plain(x, w, shift),
+                                   atol=1e-2, rtol=1e-2)
+    w1 = (rnd(1, 32, 3, 3, 3) * 0.05).to(bf)
+    vol = rnd(2, 7, 11, 37, dtype=bf)
+    _check(tcf.conv3d_skip_softargmin(got, w1, vol, -3),
+           tcf.conv3d_skip_softargmin_plain(got, w1, vol, -3), bf)
+
+
+def test_channels_last_cuda_core_routes_on_card(rnd):
+    """The CUDA-core routes read channels-last input (no layout copy) and
+    write channels-last output where asked: the 3 -> 32 entry, the 32 -> 1
+    output conv, and a float32 32 -> 32 layer, against their plain
+    versions."""
+    build.reset_launch_counts()
+    x3 = rnd(2, 3, 29, 70, dtype=torch.bfloat16)
+    we = (rnd(2, 32, 3, 3, 3) * 0.2).to(torch.bfloat16)
+    y = trr.dense3x3(x3, we, dilation=1, channels_last=True)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y, trr.dense3x3_plain(x3, we, dilation=1),
+                               atol=1e-2, rtol=1e-2)
+    wo = (rnd(2, 1, 32, 3, 3) * 0.1).to(torch.bfloat16)
+    torch.testing.assert_close(
+        trr.dense3x3(y, wo, dilation=1, out_dtype=torch.float32),
+        trr.dense3x3_plain(y, wo, dilation=1, out_dtype=torch.float32),
+        atol=1e-2, rtol=1e-2)
+    xf = _channels_last(rnd(2, 32, 29, 70), True)
+    wf = rnd(2, 32, 32, 3, 3) * 0.06
+    torch.testing.assert_close(trr.dense3x3(xf, wf, dilation=2),
+                               trr.dense3x3_plain(xf, wf, dilation=2),
+                               atol=2e-4, rtol=1e-3)
+    xv = rnd(1, 1, 6, 9, 40, dtype=torch.bfloat16).relu()
+    wv = (rnd(32, 1, 3, 3, 3) * 0.3).to(torch.bfloat16)
+    sv = rnd(32) * 0.1
+    got = tcf.conv3d_bn_relu(xv, wv, sv)
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    torch.testing.assert_close(got, tcf.conv3d_bn_relu_plain(xv, wv, sv),
+                               atol=1e-2, rtol=1e-2)
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
 def _check(got, want, dtype):
     """float32: atol 2e-4 / rtol 1e-3. bf16, where one rounding step in a
     staged intermediate spreads through the next layer: mean |delta| below

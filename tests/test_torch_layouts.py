@@ -1,0 +1,141 @@
+"""Memory layouts in the port, on the CPU.
+
+On the card the tensor-core routes of `dense3x3` and `conv3d_bn_relu` read
+and write channels-last memory under the logical (B, C, H, W) /
+(B, C, D, H, W) shapes. Here the wrappers run their plain versions, so
+these tests hold what the layout must not change: a channels-last input
+gives the result of its contiguous twin, at the same logical shape. They
+also pin the routing rules that decide which layout a kernel takes (the
+tensor-core routes channels-last only), and `build.in_layout`, which makes
+and counts the one copy a wrapper makes for a tensor in a layout its
+kernel does not read.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lwsnet_tpu_torch.models.blocks import CostFilter3D, init_params
+from lwsnet_tpu_torch.ops.cuda import build
+from lwsnet_tpu_torch.ops.cuda import costfilter as tcf
+from lwsnet_tpu_torch.ops.cuda import refine_rows as trr
+
+CL, CL3 = torch.channels_last, torch.channels_last_3d
+
+
+def _rand(rng, *shape, scale=1.0):
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+def _affine(rng, *lead, c):
+    return torch.from_numpy(np.stack(
+        [rng.uniform(0.5, 1.5, lead + (c,)), rng.normal(0, 0.5, lead + (c,))],
+        len(lead)).astype(np.float32))
+
+
+@pytest.mark.parametrize("ci,co,d,affine,groups", [
+    (3, 32, 1, False, 2),    # the "mxu" tower entry, asked for channels-last
+    (32, 32, 4, True, 2),    # a grouped tower layer
+    (32, 32, 16, True, 1),   # a head layer at the widest dilation
+    (32, 1, 1, False, 1),    # the output conv
+])
+def test_dense_layer_channels_last_input(ci, co, d, affine, groups):
+    rng = np.random.default_rng(ci + d)
+    x = _rand(rng, 2, ci, 19, 37)
+    lead = (groups,) if groups > 1 else ()
+    kernel = _rand(rng, *lead, co, ci, 3, 3, scale=(9 * ci) ** -0.5)
+    aff = _affine(rng, *lead, c=ci) if affine else None
+    kw = dict(dilation=d, affine=aff, groups=groups)
+    want = trr.dense_layer(x, kernel, **kw)
+    got = trr.dense_layer(x.contiguous(memory_format=CL), kernel,
+                          channels_last=True, **kw)
+    assert got.shape == want.shape == (2, co, 19, 37)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_dense2_layer_channels_last_input():
+    rng = np.random.default_rng(5)
+    x = _rand(rng, 2, 32, 19, 37)
+    kernel = _rand(rng, 32, 64, 3, 3, scale=(9 * 64) ** -0.5)
+    aff = _affine(rng, c=64)
+    want = trr.dense2_layer(x, kernel, dilation=8, affine=aff)
+    got = trr.dense2_layer(x.contiguous(memory_format=CL), kernel,
+                           dilation=8, affine=aff)
+    assert got.shape == want.shape == (1, 32, 19, 37)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_filter_soft_argmin_channels_last_input(dtype):
+    """The stage-1 filter (4 mid layers of 32 channels) on a cost volume
+    laid out channels-last in memory."""
+    B, H, W, D, layers, channels = 1, 6, 11, 8, 4, 32
+    rng = np.random.default_rng(9)
+    cost = _rand(rng, B, H, W, D)
+    port = CostFilter3D(layers, channels)
+    init_params(port, torch.Generator().manual_seed(0))
+    params, stats = dict(port.named_parameters()), dict(port.named_buffers())
+    kw = dict(layers=layers, channels=channels, start=0, dtype=dtype)
+    with torch.no_grad():
+        want = tcf.filter_soft_argmin(cost, params, stats, **kw)
+        got = tcf.filter_soft_argmin(cost.contiguous(memory_format=CL),
+                                     params, stats, **kw)
+    assert got.shape == want.shape == (B, H, W, 1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_conv3d_bn_relu_channels_last_input():
+    rng = np.random.default_rng(2)
+    x = _rand(rng, 2, 32, 5, 6, 9).relu()
+    wt = _rand(rng, 32, 32, 3, 3, 3, scale=(27 * 32) ** -0.5)
+    shift = _rand(rng, 32, scale=0.1)
+    want = tcf.conv3d_bn_relu(x, wt, shift)
+    got = tcf.conv3d_bn_relu(x.contiguous(memory_format=CL3), wt, shift)
+    assert got.shape == want.shape == (2, 32, 5, 6, 9)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_tensor_core_route_rules():
+    """Which shapes the wgmma routes take (and so read channels-last);
+    the rest goes to the CUDA-core routes, never to a plain version."""
+    bf, f32 = torch.bfloat16, torch.float32
+    route = trr.dense_tensor_core_route
+    assert route(bf, 32, 32, 1) and route(bf, 32, 32, 16)
+    assert route(bf, 32, 32, 8, inputs=2)     # the head entry
+    assert route(bf, 16, 32, 2) and route(bf, 48, 32, 2)
+    assert not route(f32, 32, 32, 1)
+    assert not route(bf, 3, 32, 1)            # the tower entry
+    assert not route(bf, 32, 1, 1)            # the output conv
+    assert not route(bf, 32, 32, 17)          # beyond the staged halo
+    assert route(bf, 32, 32, 2, groups=2)     # the towers' two sets
+    assert not route(bf, 96, 32, 1, inputs=2)  # weights too large to stay
+    assert not route(bf, 64, 32, 1, inputs=2, groups=2)
+    assert tcf.conv3d_tensor_core_route(bf, 32, 32)
+    assert tcf.conv3d_tensor_core_route(bf, 16, 32)
+    for args in ((bf, 1, 32), (bf, 8, 8), (f32, 32, 32), (bf, 64, 32)):
+        assert not tcf.conv3d_tensor_core_route(*args)
+
+
+def test_in_layout_copies_once_and_counts():
+    build.reset_launch_counts()
+    x = torch.randn(2, 32, 5, 7)
+    y = build.in_layout(x, True)
+    assert y.is_contiguous(memory_format=CL) and not y.is_contiguous()
+    assert torch.equal(y, x)
+    assert build.in_layout(y, True) is y
+    assert build.in_layout(x, False) is x
+    z = build.in_layout(y, False)
+    assert z.is_contiguous() and torch.equal(z, x)
+    assert build.LAYOUT_COPIES == {"to channels-last": 1, "to contiguous": 1}
+    one = torch.randn(2, 1, 5, 7)  # one channel: the two layouts coincide
+    assert build.in_layout(one, True) is one
+    assert build.lies_channels_last(y) and not build.lies_channels_last(x)
+    assert not build.lies_channels_last(one)
+    v = torch.randn(1, 32, 3, 4, 5).contiguous(memory_format=CL3)
+    assert build.in_layout(v, True) is v
+    e = build.empty((1, 32, 3, 4, 5), torch.bfloat16, torch.device("cpu"),
+                    True)
+    assert e.is_contiguous(memory_format=CL3) and e.shape == (1, 32, 3, 4, 5)
+    build.reset_launch_counts()
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
