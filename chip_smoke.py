@@ -16,35 +16,41 @@ in order; any failure exits non-zero:
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
      memory lines;
   3. every kernel against its plain PyTorch version at each shape and
-     memory layout a path gives it, and the tensor-core routes of dense3x3
-     and conv3d_bn_relu at ragged shapes from both layouts (NCHW /
-     channels-last), in float32 (TF32 off; atol 2e-4, rtol 1e-3) and bf16
-     (mean |delta| < 2 % of the plain output's span);
+     memory layout a path gives it, and the tensor-core routes of
+     dense3x3, dwsep3x3 (solo and pair) and conv3d_bn_relu at ragged
+     shapes from both layouts (NCHW / channels-last), in float32 (TF32
+     off; atol 2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain
+     output's span);
   4. for each engine, the full forward through `make_forward` (kernels)
      against the module path on the card: bf16 per-stage mean |delta| < 2 %
      of span, float32 max |delta| < 1e-3 x span; the launch counters of
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
      conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), and the
-     wrappers' layout copies `WANT_COPIES` (one under "mxu"); then the
+     wrappers' layout copies `WANT_COPIES` (one on every path); then the
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
      at the same bars, with its own launch counts;
   5. `InferenceEngine` answers 4 seeded requests at num_stages 1..4 under
      the shipped engine, with per-stage latency from CUDA events after a
-     warm-up, and one torch.profiler window gives the 4-stage forward's
-     device busy share; under each other engine it answers one request at
-     num_stages 1..4, and its 4-stage latency is timed the same way;
+     warm-up; under each other engine it answers one request at
+     num_stages 1..4, and its 4-stage latency is timed the same way; then
+     one torch.profiler window each gives the 4-stage forward's device
+     busy share under "mxu", "vpu" paired and "layers";
   6. each kernel timed at its path's shapes and layouts beside its plain
      version, its bound from bytes and operations, and one cuDNN call that
      computes the same function on the same inputs where there is one
      (else the sum of per-layer cuDNN calls), with the cuDNN call on NCHW
      copies beside it for the channels-last shapes, and its wrapper's host
      time a call; then each layout copy a path makes, timed beside its
-     bound; after phase 7, each kernel's device time from the profiler;
+     bound; after phase 7, each kernel's device time from the profiler,
+     for the dw-sep launches beside their bound, the cuDNN call(s) over
+     the composed rank-1 kernels on the device and the wrapper's host time;
   7. the rows microbench (`lwsnet_tpu_torch.tools.microbench_rows`) once,
      its counters set to 0 just before: its probe must print OK, which
-     launches `lane_broadcast`.
+     launches `lane_broadcast`; then `lane_broadcast`, `Tensor.repeat` of
+     the same and an empty kernel, 1000 each in one profiler window
+     (median and spread of each kernel's device time).
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -91,6 +97,8 @@ def jitter_batchnorm(model, rng):
 
 PORT_KERNELS = ("conv3d_bn_relu", "skip_softargmin", "dense3x3", "dwsep3x3",
                 "chain3x3")
+# The engines whose 4-stage forward phase 5 profiles for device busy time.
+PROFILED = ("mxu", "vpu-paired", "layers")
 
 # The stage-4 refinement engines as ModelConfig fields; "mxu" is shipped.
 ENGINES = {"mxu": dict(rows_dw="mxu"),
@@ -108,28 +116,24 @@ REFINE_LAUNCHES = {
     "layers": {"dense3x3": 5, "dwsep3x3_pair": 6},
 }
 # Layout copies the wrappers make per forward (build.LAYOUT_COPIES): the
-# tensor-core routes read channels-last, every other kernel the default
-# layout (the CUDA cores of dense3x3 either). Every path copies stage 1's
-# activation for conv3d_skip_softargmin; "vpu" copies the dw-sep pair
-# output into the head entry and the entry's output back, "layers" its two
-# head halves' inputs and their sum. Alone at WIDE_H x WIDE_W the "layers"
-# refinement makes its three.
+# tensor-core routes (dense3x3's, dwsep3x3's, conv3d_bn_relu's) read and
+# write channels-last, every other kernel the default layout (the CUDA
+# cores of dense3x3 either). Every path copies stage 1's activation for
+# conv3d_skip_softargmin; the bf16 refinement entries write channels-last
+# for every later layer, so the refinement itself copies nothing, alone
+# at WIDE_H x WIDE_W too.
 WANT_COPIES = {
     "mxu": {"to channels-last": 0, "to contiguous": 1},
-    "vpu-paired": {"to channels-last": 1, "to contiguous": 2},
-    "vpu-unpaired": {"to channels-last": 1, "to contiguous": 2},
+    "vpu-paired": {"to channels-last": 0, "to contiguous": 1},
+    "vpu-unpaired": {"to channels-last": 0, "to contiguous": 1},
     "chain": {"to channels-last": 0, "to contiguous": 1},
-    "layers": {"to channels-last": 2, "to contiguous": 2},
-    "layers-wide": {"to channels-last": 2, "to contiguous": 1},
+    "layers": {"to channels-last": 0, "to contiguous": 1},
+    "layers-wide": {"to channels-last": 0, "to contiguous": 0},
 }
 # The copies of WANT_COPIES, batch 1: (label, logical shape, to
 # channels-last).
 COPIES = [("stage-1 activation into the fused last layer",
-           (1, 32, 24, 46, 154), False),
-          ("head entry output (vpu), head halves' sum (layers)",
-           (1, 32, 368, 1232), False),
-          ("vpu head entry input (both halves)", (2, 32, 368, 1232), True),
-          ("layers head half input (each of 2)", (1, 32, 368, 1232), True)]
+           (1, 32, 24, 46, 154), False)]
 # Launches of the layers refinement alone at WIDE_H x WIDE_W.
 WIDE_LAUNCHES = {"dense3x3": 5, "dwsep3x3": 4, "dwsep3x3_pair": 4}
 # The path whose run gives each kernel's launches on the kernels line.
@@ -213,23 +217,73 @@ KERNEL_NAMES = {"conv3d_bn_relu": "conv3d_bn_relu",
 
 
 def kernel_device_ms(fn, name, reps=10):
-    """Device ms per call of fn() spent in kernels whose name holds
-    `name`, from one torch.profiler window over `reps` calls after a
-    warm-up: the kernel alone, without the wrapper's host time that a
-    pair of events around one call also counts. None when the profiler
-    recorded no such kernel."""
+    """Device ms per call of fn() in kernels whose name holds `name` (""
+    for all), from one torch.profiler window over `reps` calls after a
+    warm-up: the sum over kernel names of each name's median duration
+    times its launches a call. The kernel alone, without the wrapper's host
+    time that a pair of events around one call also counts. The profiler
+    may drop a few of a window's kernels, or most of them: a window in
+    which no name shows 90 % of its launches is run again, over 5 x `reps`
+    calls, twice at most; None when none was whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    for n in (reps, 5 * reps, 5 * reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and name in e.name:
+                spans.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        if spans and max(len(v) for v in spans.values()) >= 0.9 * n:
+            return sum(statistics.median(v) * max(1, round(len(v) / n))
+                       for v in spans.values() if len(v) >= 0.5 * n) / 1e3
+    return None
+
+
+def launch_floor(dev, n=1000):
+    """`lane_broadcast` (32, 1) -> (32, 1024) bf16, `Tensor.repeat` of the
+    same, and an empty kernel (`torch.cuda._sleep(0)`, the launch floor),
+    each called n times in one torch.profiler window: {what: device us of
+    each of its kernels, as median, p10, p90, min, max and count}. The
+    kernels are told apart by name (`lane_broadcast`, `spin`, the rest)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lwsnet_tpu_torch.ops.cuda import probe as PR
+    v = torch.randn(32, 1, device=dev, dtype=torch.bfloat16)
+    fns = (lambda: PR.lane_broadcast(v, 1024), lambda: v.repeat(1, 1024),
+           lambda: torch.cuda._sleep(0))
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name)
-    return us / reps / 1e3 if us else None
+        for f in fns:
+            for _ in range(n):
+                f()
+            torch.cuda.synchronize()
+    times = {"lane_broadcast": [], "Tensor.repeat": [], "empty kernel": []}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        what = ("lane_broadcast" if "lane_broadcast" in e.name else
+                "empty kernel" if "spin" in e.name else "Tensor.repeat")
+        times[what].append(e.time_range.end - e.time_range.start)
+    out = {}
+    for what, ts in times.items():
+        # the profiler may drop a few of a long window's kernels
+        require(len(ts) >= 0.9 * n, f"launch floor: {len(ts)} {what} "
+                f"kernels recorded of {n}")
+        q = np.percentile(ts, [10, 50, 90])
+        out[what] = dict(median=float(q[1]), p10=float(q[0]),
+                         p90=float(q[2]), min=float(min(ts)),
+                         max=float(max(ts)), count=len(ts))
+    return out
 
 
 def host_us(fn, reps=50):
@@ -313,16 +367,17 @@ def variant_calls(cfg):
     c = cfg.refine_channels
     tower = dict(H=H, W=W, C=c, B=2, G=2)
     head = dict(H=H, W=W, C=c, B=1, G=1)
-    calls = [("dwsep3x3", f"tower d={d} G=2", dict(tower, d=d), 1,
-              "vpu-unpaired") for d in TOWER_DILATIONS]
-    calls += [("dwsep3x3", f"head d={d}", dict(head, d=d), 1,
+    calls = [("dwsep3x3", f"tower d={d} G=2", dict(tower, d=d, cl=True),
+              1, "vpu-unpaired") for d in TOWER_DILATIONS]
+    calls += [("dwsep3x3", f"head d={d}", dict(head, d=d, cl=True), 1,
                "vpu-unpaired") for d in HEAD_DILATIONS]
     for geo, dils, name in ((tower, TOWER_DILATIONS, "tower"),
                             (head, HEAD_DILATIONS, "head")):
         for i in (0, 2):
             d1, d2 = dils[i], dils[i + 1]
             calls.append(("dwsep3x3_pair", f"{name} ({d1},{d2}) G={geo['G']}",
-                          dict(geo, d1=d1, d2=d2), 1, "vpu-paired"))
+                          dict(geo, d1=d1, d2=d2, cl=True), 1,
+                          "vpu-paired"))
     calls.append(("chain3x3", "tower 3->32, d=1,2,4,8,16, G=2",
                   dict(tower, Ci0=3, dils=(1,) + TOWER_DILATIONS,
                        aff=(False,) + (True,) * 4, dual=False, co_last=c,
@@ -354,8 +409,8 @@ def layers_calls(cfg):
          dict(geo, Ci=c, Co=1, d=1, aff=False), 1, "layers")]
     for (d1, d2), n in (((2, 4), 2), ((8, 16), 2), ((8, 4), 1), ((2, 1), 1)):
         calls.append(("dwsep3x3_pair", f"layers ({d1},{d2}) G=1",
-                      dict(geo, C=c, d1=d1, d2=d2), n, "layers"))
-    wide = dict(H=WIDE_H, W=WIDE_W, B=1, G=1, C=c)
+                      dict(geo, C=c, d1=d1, d2=d2, cl=True), n, "layers"))
+    wide = dict(H=WIDE_H, W=WIDE_W, B=1, G=1, C=c, cl=True)
     for d in (8, 16):
         calls.append(("dwsep3x3", f"layers d={d} G=1 at {WIDE_H}x{WIDE_W}",
                       dict(wide, d=d), 2, "layers-wide"))
@@ -365,14 +420,24 @@ def layers_calls(cfg):
 
 
 def ragged_calls():
-    """Phase 3 only: the tensor-core routes of dense3x3 and conv3d_bn_relu
-    at shapes no tile divides (W = 75 and 37, H = 37 not a multiple of
-    R * d = 4d, D = 7, H = 11), two weight groups at batch 2, the
-    two-input form, from NCHW (one counted copy) and channels-last input.
-    Tuples as `main_path_calls` (launches and engine unused)."""
+    """Phase 3 only: the tensor-core routes of dense3x3, dwsep3x3 (solo and
+    pair) and conv3d_bn_relu at shapes no tile divides (W = 75 and 37,
+    H = 37 and 11 not a multiple of R * d = 4d, D = 7), two weight groups
+    at batch 2, C = 16 -> 32 dw-sep layers, the two-input form, from NCHW
+    (one counted copy) and channels-last input. Tuples as
+    `main_path_calls` (launches and engine unused)."""
     calls = []
     for cl in (False, True):
         tag = "channels-last" if cl else "NCHW"
+        for (h, w, b, g) in ((37, 75, 2, 2), (11, 37, 1, 1)):
+            for d in (1, 16):
+                for c in (32, 16):
+                    geo = dict(H=h, W=w, B=b, G=g, C=c, Co=32, cl=cl)
+                    calls.append(("dwsep3x3", f"ragged {c}->32 d={d} G={g} "
+                                  f"{h}x{w} {tag}", dict(geo, d=d), 0, None))
+                    calls.append(("dwsep3x3_pair", f"ragged {c}->32->32 "
+                                  f"({17 - d},{d}) G={g} {h}x{w} {tag}",
+                                  dict(geo, d1=17 - d, d2=d), 0, None))
         for d in (1, 16):
             calls.append(("dense3x3", f"ragged 32->32 d={d} G=2 {tag}",
                           dict(H=37, W=75, B=2, G=2, Ci=32, Co=32, d=d,
@@ -451,26 +516,35 @@ def make_call(kernel, p, dtype, rng, dev):
                     lambda: PR.lane_broadcast_plain(v, N),
                     lambda: v.repeat(1, N), (C + C * N) * es, 0)
     if kernel in ("dwsep3x3", "dwsep3x3_pair"):
+        # C -> Co (solo) or C -> Co -> Co (pair); the path's layers are
+        # 32 -> 32, the ragged checks also 16 -> 32.
         B, G, C, h, w = (p[k] for k in ("B", "G", "C", "H", "W"))
-        x = t(rng.standard_normal((B, C, h, w)))
+        Co = p.get("Co", C)
         pair = kernel == "dwsep3x3_pair"
-        layers = [(t(rng.standard_normal((G, C, 3, 3)) / 3),
-                   t(rng.standard_normal((G, C, C)) / np.sqrt(C)),
-                   affine(G, C)) for _ in range(2 if pair else 1)]
+        chans = [(C, Co), (Co, Co)] if pair else [(C, Co)]
+        x = lay(t(rng.standard_normal((B, C, h, w))))
+        layers = [(t(rng.standard_normal((G, ci, 3, 3)) / 3),
+                   t(rng.standard_normal((G, co, ci)) / np.sqrt(ci)),
+                   affine(G, ci)) for ci, co in chans]
         n_w = sum(dw.numel() + pw.numel() for dw, pw, _ in layers)
-        nbytes = (2 * B * C * h * w + n_w) * es + 8 * G * C * len(layers)
-        ops = 2 * B * h * w * (9 * C + C * C) * len(layers)
+        nbytes = ((C + Co) * B * h * w + n_w) * es + sum(
+            8 * G * ci for ci, _ in chans)
+        ops = sum(2 * B * h * w * (9 * ci + ci * co) for ci, co in chans)
         if not pair:
             (dw, pw, aff), = layers
             kw = dict(dilation=p["d"], affine=aff)
+            k = _composed(dw, pw)
             return call(lambda: RR.dwsep(x, dw, pw, **kw),
                         lambda: RR.dwsep_plain(x, dw, pw, **kw),
-                        _conv(x, _composed(dw, pw), p["d"]), nbytes, ops)
+                        _conv(x, k, p["d"]), nbytes, ops,
+                        library_nchw=(_conv(x.contiguous(), k, p["d"])
+                                      if p.get("cl") else None))
         (dw1, pw1, a1), (dw2, pw2, a2) = layers
         kw = dict(dilation1=p["d1"], dilation2=p["d2"], affine1=a1,
                   affine2=a2)
+        inner = lay(t(rng.standard_normal((B, Co, h, w))))  # yardstick
         convs = [_conv(x, _composed(dw1, pw1), p["d1"]),
-                 _conv(x, _composed(dw2, pw2), p["d2"])]
+                 _conv(inner, _composed(dw2, pw2), p["d2"])]
         return call(lambda: RR.dwsep2(x, dw1, pw1, dw2, pw2, **kw),
                     lambda: RR.dwsep2_plain(x, dw1, pw1, dw2, pw2, **kw),
                     None, nbytes, ops, lambda: [c() for c in convs])
@@ -755,7 +829,7 @@ def main():
     jitter_batchnorm(model, np.random.default_rng(3))
     state = model.state_dict()
     del model
-    latency = {}
+    latency, profiled = {}, {}
     for engine, fields in ENGINES.items():
         eng = InferenceEngine(ModelConfig(**fields), state, device=dev)
         for req in range(4 if engine == "mxu" else 1):
@@ -796,28 +870,29 @@ def main():
             latency.setdefault(engine, {})[stages] = row
             print(f"{msg} over {len(kt)} 368x1232 bf16 batch-1 forwards "
                   f"({smi})")
-        if engine == "mxu":
-            shipped = (make_forward(eng.model, num_stages=4, device=dev),
-                       l, r)
+        if engine in PROFILED:
+            profiled[engine] = (make_forward(eng.model, num_stages=4,
+                                             device=dev), l, r)
         del eng
     report["latency_ms"] = latency
-    # The profiler window comes after every latency: forwards timed after
-    # it read slower (PERF.md, PR 2).
-    fwd, l, r = shipped
-    prof = device_profile(lambda: fwd(l, r))
-    report["profile_4_stages"] = prof
-    if prof is None:
-        print("[5] device busy share: not measured (the profiler recorded "
-              "no device activity)")
-    else:
-        print(f"[5] profiled 4-stage mxu kernel forward: host clock "
+    # The profiler windows come after every latency: forwards timed after
+    # one read slower (PERF.md, PR 2).
+    report["profile_4_stages"] = {}
+    for engine, (fwd, l, r) in profiled.items():
+        prof = device_profile(lambda: fwd(l, r))
+        report["profile_4_stages"][engine] = prof
+        if prof is None:
+            print(f"[5] {engine} device busy share: not measured (the "
+                  f"profiler recorded no device activity)")
+            continue
+        print(f"[5] profiled 4-stage {engine} kernel forward: host clock "
               f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} "
               f"ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), of "
               f"which the port's kernels {prof['port_kernels_ms']:.3f} ms "
               f"and other kernels {prof['other_kernels_ms']:.3f} ms")
         for n, t in prof["top_other"]:
             print(f"[5]   other kernel {t:.3f} ms: {n}")
-    del shipped, fwd
+    del profiled
 
     # 6. kernel times at the paths' shapes; totals per (kernel, engine)
     per_shape = []
@@ -900,6 +975,13 @@ def main():
           f"{counts['microbench']['lane_broadcast']} time(s)")
     report["microbench_rows"] = bench
     report["launch_counts"] = counts
+    floor = launch_floor(dev)
+    report["launch_floor_us"] = floor
+    for what, st in floor.items():
+        print(f"[7] {what}: {st['count']} kernels in one profiler window, "
+              f"device us each: median {st['median']:.3f}, p10 "
+              f"{st['p10']:.3f}, p90 {st['p90']:.3f}, min {st['min']:.3f}, "
+              f"max {st['max']:.3f}")
 
     # 6, continued: the kernels alone on the device, from the profiler,
     # after every event timing (phase 7's too), since timings taken after a
@@ -911,13 +993,28 @@ def main():
         row["device_ms"] = kernel_device_ms(c["kernel"], KERNEL_NAMES[kernel])
         row["library_device_ms"] = (None if c["library"] is None else
                                     kernel_device_ms(c["library"], ""))
+        row["layers_device_ms"] = (None if c["layers"] is None else
+                                   kernel_device_ms(c["layers"], ""))
         del c
         dev_ms = ("not measured" if row["device_ms"] is None
                   else f"{row['device_ms']:.4f} ms")
         lib = ("" if row["library_device_ms"] is None else
                f", the cuDNN call {row['library_device_ms']:.4f} ms")
+        if row["layers_device_ms"] is not None:
+            lib += (f", the per-layer cuDNN calls "
+                    f"{row['layers_device_ms']:.4f} ms")
         print(f"[6] {kernel} [{label}]: kernel alone on the device {dev_ms}"
               f"{lib} (events around the call {row['ms']:.4f} ms)")
+        if kernel.startswith("dwsep"):
+            yard = (row["library_device_ms"] if row["layers_device_ms"] is None
+                    else row["layers_device_ms"])
+            per = "" if row["layers_device_ms"] is None else ", per layer,"
+            print(f"[6] {kernel} [{label}] on the device: kernel {dev_ms}, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"cuDNN over the composed rank-1 kernel{per} on the same "
+                  f"channels-last input "
+                  f"{'not measured' if yard is None else f'{yard:.4f} ms'}, "
+                  f"wrapper host {row['host_us']:.1f} us a call")
 
     for row in copy_rows:
         row["device_ms"] = kernel_device_ms(

@@ -4,15 +4,24 @@
 Run from the repository root on a machine with a card:
 
     python3 kernel_device_times.py [--package-root DIR] [--nchw]
-                                   [--json PATH]
+                                   [--forwards] [--json PATH]
 
 For every kernel call of `chip_smoke.py` (phases 3 and 6: the 368x1232
-batch-1 bf16 forward under each refinement path, the "layers" refinement
-at 96x3712) it builds the same seeded operands and prints the device time
-of the kernel alone, from one torch.profiler window over 10 calls after a
-warm-up (`chip_smoke.kernel_device_ms`): without the wrapper's host time,
+batch-1 bf16 forward under each refinement path, every dw-sep solo and
+pair shape among them, the "layers" refinement at 96x3712) it builds the
+same seeded operands and prints the device time of the kernel alone,
+from one torch.profiler window over 10 calls after a warm-up
+(`chip_smoke.kernel_device_ms`, which runs a window again where the
+profiler dropped most of its kernels): without the wrapper's host time,
 which a pair of events around one call also counts, and without the
-wrappers' layout copies and weight re-layouts, which are separate kernels.
+wrappers' layout copies and weight re-layouts, which are separate
+kernels.
+
+--forwards also profiles the 368x1232 batch-1 bf16
+4-stage forward (`make_forward`, seeded random weights) under each engine
+of `chip_smoke.PROFILED` over one torch.profiler window of 5 forwards
+(`chip_smoke.device_profile`): its device busy time, the union of kernel
+intervals.
 
 --package-root DIR imports `lwsnet_tpu_torch` from another checkout (for
 instance the parent commit unpacked with `git archive`), so two trees can
@@ -31,6 +40,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--package-root", default=None)
     ap.add_argument("--nchw", action="store_true")
+    ap.add_argument("--forwards", action="store_true")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     import numpy as np
@@ -64,10 +74,30 @@ def main(argv=None):
                          launches=n, device_ms=ms))
         print(f"{kernel} [{label}] x{n} ({engine}): "
               f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+    forwards = {}
+    if args.forwards:
+        from lwsnet_tpu_torch import LWSNet, make_forward
+        rng = np.random.default_rng(1)
+        left, right = (torch.as_tensor(rng.standard_normal((1, cs.H, cs.W, 3)),
+                                       dtype=torch.float32, device=dev)
+                       for _ in range(2))
+        for engine in cs.PROFILED:
+            model = LWSNet(ModelConfig(**cs.ENGINES[engine]), device=dev,
+                           seed=0)
+            cs.jitter_batchnorm(model, np.random.default_rng(3))
+            fwd = make_forward(model, device=dev)
+            prof = cs.device_profile(lambda: fwd(left, right))
+            forwards[engine] = prof
+            print(f"4-stage {engine} forward: " + (
+                "device busy not measured" if prof is None else
+                f"device busy {prof['busy_ms']:.4f} ms, of which the port's "
+                f"kernels {prof['port_kernels_ms']:.4f} ms"))
+            del model, fwd
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(dict(card=card(), rows=rows), f, indent=1)
+            json.dump(dict(card=card(), rows=rows, forwards=forwards), f,
+                      indent=1)
     return 0
 
 

@@ -182,21 +182,6 @@ __device__ void load_weights(const Args& a, uint32_t wsm, float* asm_,
   }
 }
 
-// relu(v * a + s) of the 8 channels in u, in float32 with one bf16
-// rounding per element.
-__device__ __forceinline__ uint4 activate8(uint4 u, const float (&sa)[8],
-                                           const float (&ss)[8]) {
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float lo = __uint_as_float(w[m] << 16);
-    const float hi = __uint_as_float(w[m] & 0xffff0000u);
-    w[m] = tc::pack_bf16(fmaxf(fmaf(lo, sa[2 * m], ss[2 * m]), 0.f),
-                         fmaxf(fmaf(hi, sa[2 * m + 1], ss[2 * m + 1]), 0.f));
-  }
-  return u;
-}
-
 // Worker w (of WORKERS) activates its chunks of a staged job in `buf`:
 // relu(v * a + s) in float32 with one bf16 rounding, inside the image
 // only, since the zeros TMA fills in outside it are the padding, which
@@ -244,7 +229,7 @@ __device__ __forceinline__ void activate_job(const Args& a, const Job& t,
         if (in[r][k])
           *(uint4*)(buf + (r0 + r) * ROW +
                     tc::chunk_offset<SC>((w + k * WORKERS) / CPP, cc)) =
-              activate8(u[r][k], sa, ss);
+              tc::activate8(u[r][k], sa, ss);
   }
 }
 

@@ -1,11 +1,12 @@
-// dwsep3x3: depthwise-separable dilated 3x3 layers over NCHW, one layer
-// (solo) or two consecutive layers in one launch (pair), with weight
-// groups: batch b uses weight set g = b / (B / G).
+// dwsep3x3: depthwise-separable dilated 3x3 layers, one layer (solo) or
+// two consecutive layers in one launch (pair), with weight groups: batch b
+// uses weight set g = b / (B / G).
 //
 // Replaces two TPU kernels of the JAX package's stage-4 refinement
-// (rows_dw="vpu"):
+// (rows_dw="vpu"), and the planar path's two (pallas_mode="layers"):
 //   lwsnet_tpu/ops/pallas/refine_rows.py:_dwsep_kernel  (solo)
 //   lwsnet_tpu/ops/pallas/refine_rows.py:_dwsep2_kernel (pair)
+//   lwsnet_tpu/ops/pallas/refine.py:_dwsep_layer_kernel, _dwsep2_layer_kernel
 // Their row canvas and mask row are TPU layout devices. A layer here is,
 // per pixel, with zero padding applied after the activation:
 //   act  = relu(x * a + s), rounded to the compute dtype;
@@ -13,21 +14,31 @@
 //          float32 and rounded once to the compute dtype (the module path
 //          rounds the depthwise conv's output there);
 //   y    = pw . dw, accumulated in float32, rounded to the compute dtype.
-// A pair computes layer 1 over the tile plus layer 2's halo, rounds it,
-// applies layer 2's BN-affine + ReLU, rounds again and zeroes it outside
-// the image, so that layer 2's zero padding surrounds the activated
-// intermediate, then runs layer 2 on it: the result equals two solo
-// launches, and the intermediate never reaches device memory.
+// A pair's result equals two solo launches: layer 1's output rounded,
+// layer 2's BN-affine + ReLU applied to it, rounded again and zero
+// outside the image, so that layer 2's zero padding surrounds the
+// activated intermediate. The CUDA-core pair computes layer 1 over the
+// tile plus layer 2's halo, so its intermediate never reaches device
+// memory.
 //
 // Bound on the H100: memory for the solo layer at 368x1232 (the grouped
-// tower layer moves 116 MB for 1.9 GFLOP); the pair's recompute of its
-// intermediate over the halo (PERF.md gives the factor per pair) adds
-// operations, not bytes.
+// tower layer moves 116 MB for 1.2 GFLOP); the pair's recompute of its
+// intermediate over the halo adds operations, not bytes.
 //
-// Design: a block of 256 threads owns a 16 x 32 output tile and all Co
-// output channels, two pixels per thread, Co float32 accumulators each.
-// Per pass over a chunk of `mk` channels of the last layer's input it
-// stages that input, activated, over the tile plus a d-pixel halo in
+// Two routes, picked by shape:
+// * bf16, C = 16 or 32 -> (Cm = 32 ->) Co = 32, d <= 16, G <= 2
+//   (`dwsep_tc::use`): `dwsep3x3_tc.cuh`, TMA-staged channels-last rows,
+//   the depthwise taps on CUDA cores, the pointwise product on wgmma
+//   tensor cores; x and y channels-last. Its pair runs both layers in one
+//   cooperative launch through a channels-last scratch tensor `mid` (the
+//   wrapper's) with a grid-wide barrier between them.
+// * everything else (float32, other widths): the CUDA-core tiles below,
+//   on NCHW.
+//
+// CUDA-core design: a block of 256 threads owns a 16 x 32 output tile and
+// all Co output channels, two pixels per thread, Co float32 accumulators
+// each. Per pass over a chunk of `mk` channels of the last layer's input
+// it stages that input, activated, over the tile plus a d-pixel halo in
 // dynamic shared memory (raised with cudaFuncSetAttribute), in the
 // compute dtype; in a solo it is the
 // activated input read from device memory, in a pair it is layer 1's
@@ -37,7 +48,7 @@
 // memory. A pair whose intermediate takes more than one pass (the (8,16)
 // pair in float32 takes two) computes layer 1's depthwise taps once per
 // pass.
-#include "common.cuh"
+#include "dwsep3x3_tc.cuh"
 
 namespace {
 
@@ -230,25 +241,45 @@ int launch(Args a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The bf16 tensor-core route where it takes the shape (x, y and the
+// pair's scratch `mid` channels-last, pw as wgmma B images), else the
+// CUDA-core tiles (NCHW).
+template <typename T, bool PAIR>
+int entry(const Args& a, void* mid, int cl, void* stream) {
+  if (sizeof(T) == 2 &&
+      dwsep_tc::use(2, a.C, PAIR ? a.Cs : 0, a.Co, a.d0, a.d, a.G)) {
+    if (!cl) return (int)cudaErrorInvalidValue;
+    // A solo is layer 0 of dwsep_tc::Args.
+    const dwsep_tc::Args t{
+        a.x, {PAIR ? a.aff0 : a.aff, a.aff}, {PAIR ? a.dw0 : a.dw, a.dw},
+        {PAIR ? a.pw0 : a.pw, a.pw}, mid, a.y, a.B, a.G, a.C, a.H, a.W,
+        {PAIR ? a.d0 : a.d, a.d}, PAIR ? 2 : 1};
+    return dwsep_tc::launch_any(t, (cudaStream_t)stream);
+  }
+  if (cl) return (int)cudaErrorInvalidValue;
+  return launch<T, PAIR>(a, stream);
+}
+
 }  // namespace
 
 #define DWSEP_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const void* x, const void* aff, const void* dw,        \
                       const void* pw, void* y, int B, int G, int C, int Co,  \
-                      int H, int W, int d, void* stream) {                   \
+                      int H, int W, int d, int cl, void* stream) {           \
     const Args a{x, nullptr, nullptr, nullptr, (const float*)aff, dw, pw, y, \
                  B, G, C, C, Co, H, W, 0, d, 0};                             \
-    return launch<T, false>(a, stream);                                      \
+    return entry<T, false>(a, nullptr, cl, stream);                          \
   }
 
 #define DWSEP_PAIR_ENTRY(NAME, T)                                            \
   extern "C" int NAME(const void* x, const void* aff1, const void* dw1,      \
                       const void* pw1, const void* aff2, const void* dw2,    \
                       const void* pw2, void* y, int B, int G, int C, int Cm, \
-                      int Co, int H, int W, int d1, int d2, void* stream) {  \
+                      int Co, int H, int W, int d1, int d2, void* mid,       \
+                      int cl, void* stream) {                                \
     const Args a{x, (const float*)aff1, dw1, pw1, (const float*)aff2, dw2,   \
                  pw2, y, B, G, C, Cm, Co, H, W, d1, d2, 0};                  \
-    return launch<T, true>(a, stream);                                       \
+    return entry<T, true>(a, mid, cl, stream);                               \
   }
 
 DWSEP_ENTRY(dwsep3x3_f32, float)

@@ -148,6 +148,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+// relu(v * a + s) of the 8 bf16 channels in u, in float32 with one bf16
+// rounding per element.
+__device__ __forceinline__ uint4 activate8(uint4 u, const float (&sa)[8],
+                                           const float (&ss)[8]) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float lo = __uint_as_float(w[m] << 16);
+    const float hi = __uint_as_float(w[m] & 0xffff0000u);
+    w[m] = pack_bf16(fmaxf(fmaf(lo, sa[2 * m], ss[2 * m]), 0.f),
+                     fmaxf(fmaf(hi, sa[2 * m + 1], ss[2 * m + 1]), 0.f));
+  }
+  return u;
+}
+
+// The 8 bf16 channels in u as float32.
+__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    v[2 * m] = __uint_as_float(w[m] << 16);
+    v[2 * m + 1] = __uint_as_float(w[m] & 0xffff0000u);
+  }
+}
+
+// Order this thread's (and, after a barrier, the block's) generic-proxy
+// accesses to shared memory before later asynchronous (TMA) copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Write the accumulator's rows `half` (0: l/4, 1: l/4 + 8) as channels-last
 // vectors: row pixel -> out_row + 32 channels; channels 8t .. 8t+7 of the
 // row go to this lane (t = l % 4). Every lane of the warp must call it;

@@ -28,10 +28,11 @@ path instead, through `ops/cuda/refine.py`: each tower runs alone at batch
 B with its own weights, the disparity tower on its 1-channel input; the
 dw-sep layers pair as `layer_plan` says (all pairs at 368x1232, 6 pair
 launches); the head's entry runs as two single-input convs, one per tower,
-each rounded to the compute dtype and summed in it; and the output conv
-writes the compute dtype, so the residual is rounded to it before it
-becomes float32. The weights are cast to the compute dtype, the folded BN
-affines stay float32.
+each rounded to the compute dtype and summed in it (in bf16 all of it
+channels-last in memory, as the tensor-core routes read it); and the
+output conv writes the compute dtype, so the residual is rounded to it
+before it becomes float32. The weights are cast to the compute dtype, the
+folded BN affines stay float32.
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ from lwsnet_tpu_torch.ops.cuda.refine import (fused_dense, fused_dwsep,
                                               fused_dwsep2, layer_plan)
 from lwsnet_tpu_torch.ops.cuda.refine_rows import (chain_layer, dense2_layer,
                                                    dense_layer, dwsep2_layer,
-                                                   dwsep_layer)
+                                                   dwsep_layer,
+                                                   dwsep_tensor_core_route)
 
 ENGINES = ("mxu", "vpu", "chain")
 
@@ -141,10 +143,14 @@ def refine_residual(model, left: torch.Tensor, disp: torch.Tensor, *,
         return [torch.stack(w) for w in zip(_dwsep_weights(tower[i][0]),
                                             _dwsep_weights(tower[i][1]))]
 
-    # Under bf16 "mxu" every later layer but the output conv runs on the
-    # tensor-core route, which reads channels-last: the entry writes it.
+    # Under bf16 "mxu" and "vpu" every later layer but the output conv runs
+    # on a tensor-core route, which reads channels-last: the entry writes
+    # it.
+    c = cfg.refine_channels
     y = dense_layer(x, entries, dilation=1, groups=2,
-                    channels_last=dw == "mxu" and dtype == torch.bfloat16)
+                    channels_last=(dw == "mxu" and dtype == torch.bfloat16)
+                    or (dw == "vpu" and dwsep_tensor_core_route(
+                        dtype, (c, c), TOWER_DILATIONS[:1], 2)))
     if dw == "mxu":
         for (bl, bd), d in zip(tower, TOWER_DILATIONS):
             y = dense_layer(
@@ -215,9 +221,13 @@ def _layers_mode(model, left: torch.Tensor, disp: torch.Tensor,
     head = model.RefinementHead_0
     n = len(TOWER_DILATIONS)
 
+    # The bf16 dw-sep layers read channels-last: the entries write it.
+    c = model.cfg.refine_channels
+    cl = dwsep_tensor_core_route(dtype, (c, c), TOWER_DILATIONS[:1])
+
     def tower(t, x):
         y = fused_dense(x.permute(0, 3, 1, 2).to(dtype).contiguous(),
-                        _hwio(t.Conv_0.weight), dilation=1)
+                        _hwio(t.Conv_0.weight), dilation=1, channels_last=cl)
         return _dwsep_chain(y, [getattr(t, f"PreConvDW_{i}")
                                 for i in range(n)], TOWER_DILATIONS)
 

@@ -12,6 +12,10 @@ computes its function, so no kernel of its own is needed:
 * `fused_dwsep` -> `dwsep3x3`;
 * `fused_dwsep2` -> the `dwsep3x3` pair kernel.
 
+On the card the bf16 dw-sep layers read and write channels-last memory
+(`dwsep_tensor_core_route`), so the "layers" path asks the tower entries to
+write it (`fused_dense(channels_last=True)`).
+
 The JAX layer canvas (`layer_canvas`, `layer_uncanvas`: a top pad of one
 row chunk, 128-lane aligned width, garbage rows outside the image that
 every kernel masks) is a TPU layout device and has no counterpart here:
@@ -83,15 +87,19 @@ def _dwsep_operands(x: torch.Tensor, affine: torch.Tensor,
 
 
 def fused_dense(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
-                affine: Optional[torch.Tensor] = None) -> torch.Tensor:
+                affine: Optional[torch.Tensor] = None,
+                channels_last: bool = False) -> torch.Tensor:
     """[BN-affine + ReLU +] dense dilated 3x3 conv, padding = dilation.
 
     x: (B, Ci, H, W); kernel: (3, 3, Ci, Co) HWIO, cast to x's dtype;
     affine: optional (2, Ci) folded BN. Returns (B, Co, H, W) in x's dtype,
-    as every JAX body writes it (the Co = 1 output conv included)."""
+    as every JAX body writes it (the Co = 1 output conv included); on the
+    card channels-last in memory where `dense3x3` computes it so or
+    `channels_last` asks."""
     return dense3x3(x, _dense_weight(kernel, x.dtype), dilation=dilation,
                     affine=(None if affine is None
-                            else affine[None].float().contiguous()))
+                            else affine[None].float().contiguous()),
+                    channels_last=channels_last)
 
 
 def fused_dwsep(x: torch.Tensor, affine: torch.Tensor, dwk: torch.Tensor,
@@ -108,9 +116,8 @@ def fused_dwsep2(x: torch.Tensor, affine1: torch.Tensor, dwk1: torch.Tensor,
                  pwk1: torch.Tensor, affine2: torch.Tensor,
                  dwk2: torch.Tensor, pwk2: torch.Tensor, *, dilation1: int,
                  dilation2: int) -> torch.Tensor:
-    """Two `fused_dwsep` layers in one launch, the intermediate kept in
-    shared memory; arguments as `fused_dwsep`, twice. Returns
-    (B, Co2, H, W) in x's dtype."""
+    """Two `fused_dwsep` layers in one launch (`dwsep2`); arguments as
+    `fused_dwsep`, twice. Returns (B, Co2, H, W) in x's dtype."""
     dw1, pw1, a1 = _dwsep_operands(x, affine1, dwk1, pwk1)
     dw2, pw2, a2 = _dwsep_operands(x, affine2, dwk2, pwk2)
     return dwsep2(x, dw1, pw1, dw2, pw2, dilation1=dilation1,

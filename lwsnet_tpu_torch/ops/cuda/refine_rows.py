@@ -11,14 +11,16 @@ launches its CUDA kernel for a CUDA tensor and runs its `*_plain` twin,
 beside it here, for a CPU tensor. Weight groups follow the JAX rule:
 batch b uses weight set b // (B // G).
 
-Layout on the card: `dense3x3`'s tensor-core route
-(`dense_tensor_core_route`) reads and writes channels-last memory,
-(B, H, W, C) under the logical (B, C, H, W) shape; its CUDA-core route
-reads either layout (channels-last where Ci % 8 == 0) and writes
-channels-last when asked. Under the shipped bf16 "mxu" engine the entry
+Layout on the card: the tensor-core routes of `dense3x3`
+(`dense_tensor_core_route`) and of `dwsep` / `dwsep2`
+(`dwsep_tensor_core_route`) read and write channels-last memory,
+(B, H, W, C) under the logical (B, C, H, W) shape; `dense3x3`'s CUDA-core
+route reads either layout (channels-last where Ci % 8 == 0) and writes
+channels-last when asked. Under bf16 the "mxu" and "vpu" engines' entry
 writes channels-last and every later layer, the output conv included,
-reads it; `dwsep`, `dwsep2` and `chain` read the default layout. Each copy
-is `build.in_layout`'s, counted. The plain versions take any layout.
+reads it; the CUDA-core routes of `dwsep` / `dwsep2` and `chain` read the
+default layout. Each copy is `build.in_layout`'s, counted. The plain
+versions take any layout.
 """
 
 from __future__ import annotations
@@ -44,6 +46,22 @@ def dense_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int,
     holds, and weights that stay resident in shared memory."""
     return (dtype == torch.bfloat16 and Co == 32 and Ci % 16 == 0
             and 1 <= dilation <= 16 and Ci * inputs * groups <= 128)
+
+
+def dwsep_tensor_core_route(dtype: torch.dtype, channels: Sequence[int],
+                            dilations: Sequence[int],
+                            groups: int = 1) -> bool:
+    """Whether `dwsep` (channels (C, Co), dilations (d,)) or `dwsep2`
+    ((C, Cm, Co), (d1, d2)) runs its wgmma route, which reads and writes
+    channels-last only (`dwsep_tc::use` in csrc/dwsep3x3_tc.cuh): bf16, C
+    = 16 or 32, a 32-channel intermediate, 32 outputs, dilations the staged
+    halo holds, and at most two weight groups resident in shared
+    memory."""
+    C, *mid, Co = channels
+    return (dtype == torch.bfloat16 and C in (16, 32) and Co == 32
+            and all(m == 32 for m in mid)
+            and len(dilations) == len(channels) - 1
+            and all(1 <= d <= 16 for d in dilations) and 1 <= groups <= 2)
 
 
 def _conv_plain(x, wt, affine, dilation):
@@ -162,6 +180,15 @@ def _wgmma_images(wt: torch.Tensor) -> torch.Tensor:
         0, 3, 6, 1, 4, 2, 5).contiguous()
 
 
+def _pw_images(pw: torch.Tensor) -> torch.Tensor:
+    """(G, 32, C) pointwise weights -> the dw-sep tensor-core route's
+    resident B images: per (g, c // 16) a 16 x 32 K-major slice,
+    (G, C/16, co // 8, c % 16 // 8, co % 8, c % 8), as `_wgmma_images`."""
+    G, Co, C = pw.shape
+    return pw.reshape(G, Co // 8, 8, C // 16, 2, 8).permute(
+        0, 3, 1, 4, 2, 5).contiguous()
+
+
 def dwsep_plain(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
                 dilation: int, affine: torch.Tensor) -> torch.Tensor:
     """One depthwise-separable layer: act = relu(x * a + s) rounded to x's
@@ -188,7 +215,9 @@ def dwsep_plain(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
 
 def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
           dilation: int, affine: torch.Tensor) -> torch.Tensor:
-    """The dwsep3x3 kernel (one layer); arguments as `dwsep_plain`."""
+    """The dwsep3x3 kernel (one layer); arguments as `dwsep_plain`. On
+    the card the tensor-core route reads and writes channels-last, the
+    CUDA-core route NCHW (x is copied where it lies otherwise)."""
     if not on_card(x):
         return dwsep_plain(x, dw, pw, dilation=dilation, affine=affine)
     B, C, H, W = x.shape
@@ -196,15 +225,17 @@ def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
     dev, dt = x.device, x.dtype
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
-    x = in_layout(x, False)
-    check(x, "x", (B, C, H, W), dt, dev)
+    cl = dwsep_tensor_core_route(dt, (C, Co), (dilation,), G)
+    x = in_layout(x, cl)
+    check(x, "x", (B, C, H, W), dt, dev, cl)
     check(dw, "dw", (G, C, 3, 3), dt, dev)
     check(pw, "pw", (G, Co, C), dt, dev)
     check(affine, "affine", (G, 2, C), torch.float32, dev)
-    y = torch.empty((B, Co, H, W), dtype=dt, device=dev)
+    pk = _pw_images(pw) if cl else pw
+    y = empty((B, Co, H, W), dt, dev, cl)
     DWSEP3X3.launch(f"dwsep3x3_{symbol_suffix(dt)}", dev, x.data_ptr(),
-                    affine.data_ptr(), dw.data_ptr(), pw.data_ptr(),
-                    y.data_ptr(), B, G, C, Co, H, W, dilation)
+                    affine.data_ptr(), dw.data_ptr(), pk.data_ptr(),
+                    y.data_ptr(), B, G, C, Co, H, W, dilation, cl)
     return y
 
 
@@ -221,8 +252,11 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
            dw2: torch.Tensor, pw2: torch.Tensor, *, dilation1: int,
            dilation2: int, affine1: torch.Tensor,
            affine2: torch.Tensor) -> torch.Tensor:
-    """The dwsep3x3 pair kernel: both layers in one launch, the
-    intermediate kept in shared memory; arguments as `dwsep2_plain`."""
+    """The dwsep3x3 pair kernel: both layers in one launch; arguments as
+    `dwsep2_plain`. The layouts as `dwsep`'s. The tensor-core route passes
+    the intermediate through a channels-last scratch tensor (one
+    cooperative launch, a grid-wide barrier between the layers); the
+    CUDA-core route keeps it in shared memory."""
     if not on_card(x):
         return dwsep2_plain(x, dw1, pw1, dw2, pw2, dilation1=dilation1,
                             dilation2=dilation2, affine1=affine1,
@@ -232,20 +266,25 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
     dev, dt = x.device, x.dtype
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
-    x = in_layout(x, False)
-    check(x, "x", (B, C, H, W), dt, dev)
+    cl = dwsep_tensor_core_route(dt, (C, Cm, Co), (dilation1, dilation2),
+                                 G)
+    x = in_layout(x, cl)
+    check(x, "x", (B, C, H, W), dt, dev, cl)
     check(dw1, "dw1", (G, C, 3, 3), dt, dev)
     check(pw1, "pw1", (G, Cm, C), dt, dev)
     check(affine1, "affine1", (G, 2, C), torch.float32, dev)
     check(dw2, "dw2", (G, Cm, 3, 3), dt, dev)
     check(pw2, "pw2", (G, Co, Cm), dt, dev)
     check(affine2, "affine2", (G, 2, Cm), torch.float32, dev)
-    y = torch.empty((B, Co, H, W), dtype=dt, device=dev)
+    pk1, pk2 = (_pw_images(pw1), _pw_images(pw2)) if cl else (pw1, pw2)
+    mid = empty((B, Cm, H, W), dt, dev, True) if cl else None
+    y = empty((B, Co, H, W), dt, dev, cl)
     DWSEP3X3_PAIR.launch(
         f"dwsep3x3_pair_{symbol_suffix(dt)}", dev, x.data_ptr(),
-        affine1.data_ptr(), dw1.data_ptr(), pw1.data_ptr(),
-        affine2.data_ptr(), dw2.data_ptr(), pw2.data_ptr(), y.data_ptr(),
-        B, G, C, Cm, Co, H, W, dilation1, dilation2)
+        affine1.data_ptr(), dw1.data_ptr(), pk1.data_ptr(),
+        affine2.data_ptr(), dw2.data_ptr(), pk2.data_ptr(), y.data_ptr(),
+        B, G, C, Cm, Co, H, W, dilation1, dilation2,
+        None if mid is None else mid.data_ptr(), cl)
     return y
 
 

@@ -212,7 +212,8 @@ def _dwsep_operands(rnd, G, C, Co, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dwsep_kernels_match_plain_on_card(rnd, dtype):
     """The solo and pair dw-sep kernels, two weight groups, the widest
-    pair (8, 16), on a ragged 37 x 75 plane; each launch counted."""
+    pair (8, 16), on a ragged 37 x 75 plane; each launch counted (bf16 on
+    the tensor-core route, from NCHW input)."""
     build.reset_launch_counts()
     x = rnd(2, 32, 37, 75, dtype=dtype)
     dw, pw, aff = _dwsep_operands(rnd, 2, 32, 32, dtype)
@@ -312,3 +313,136 @@ def test_lane_broadcast_matches_plain_on_card(rnd, dtype):
                            probe.lane_broadcast_plain(v, n))
     torch.cuda.synchronize()
     assert build.launch_counts()["lane_broadcast"] == 2
+
+
+def _assert_two_steps(got, want):
+    """bf16 within two rounding steps of the plain version: every element
+    within 2 bf16 ulps of the plain value (2 * 2**-8 relative) plus 2e-2
+    of the output's largest magnitude for sums that cancel."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+    bad = ((got - want).abs() > tol).sum().item()
+    assert bad == 0, f"{bad} elements beyond two rounding steps"
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("d", [1, 16])
+def test_dwsep_wgmma_route_ragged_on_card(rnd, d, channels_last):
+    """The tensor-core route of dwsep3x3 (solo and pair) at ragged shapes:
+    W = 75 (a 64-pixel tile and a partial one) and 37, H = 37 and 11 (not
+    multiples of R * d = 4d), two weight groups at B = 2, C = 16 -> 32
+    (C != Co), from NCHW (one counted copy a call) or channels-last
+    input; the result lies channels-last."""
+    bf = torch.bfloat16
+    assert trr.dwsep_tensor_core_route(bf, (32, 32), (d,), 2)
+    assert trr.dwsep_tensor_core_route(bf, (16, 32, 32), (d, 17 - d), 2)
+    build.reset_launch_counts()
+    calls = 0
+    for (B, G, H, W) in ((2, 2, 37, 75), (1, 1, 11, 37)):
+        for C in (32, 16):
+            x = _channels_last(rnd(B, C, H, W, dtype=bf), channels_last)
+            dw, pw, aff = _dwsep_operands(rnd, G, C, 32, bf)
+            got = trr.dwsep(x, dw, pw, dilation=d, affine=aff)
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            _assert_two_steps(got, trr.dwsep_plain(x, dw, pw, dilation=d,
+                                                   affine=aff))
+            dw2, pw2, aff2 = _dwsep_operands(rnd, G, 32, 32, bf)
+            kw = dict(dilation1=17 - d, dilation2=d, affine1=aff,
+                      affine2=aff2)
+            got = trr.dwsep2(x, dw, pw, dw2, pw2, **kw)
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            _check(got, trr.dwsep2_plain(x, dw, pw, dw2, pw2, **kw), bf)
+            calls += 1
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert (counts["dwsep3x3"], counts["dwsep3x3_pair"]) == (calls, calls)
+    assert build.LAYOUT_COPIES == {
+        "to channels-last": 0 if channels_last else 2 * calls,
+        "to contiguous": 0}
+
+
+@pytest.mark.parametrize("d1,d2,G", [(2, 4, 2), (8, 16, 2), (8, 4, 1),
+                                     (2, 1, 1)])
+def test_dwsep_pair_shapes_of_the_path_on_card(rnd, d1, d2, G):
+    """Every pair shape of the refinement paths (the towers' (2, 4) and
+    (8, 16) with two weight groups at B = 2, the head's (8, 4) and (2, 1)
+    at B = 1), channels-last, against two plain solo layers; and the solo
+    layers of the same dilations."""
+    bf = torch.bfloat16
+    build.reset_launch_counts()
+    x = _channels_last(rnd(G, 32, 45, 150, dtype=bf), True)
+    dw, pw, aff = _dwsep_operands(rnd, G, 32, 32, bf)
+    dw2, pw2, aff2 = _dwsep_operands(rnd, G, 32, 32, bf)
+    kw = dict(dilation1=d1, dilation2=d2, affine1=aff, affine2=aff2)
+    _check(trr.dwsep2(x, dw, pw, dw2, pw2, **kw),
+           trr.dwsep2_plain(x, dw, pw, dw2, pw2, **kw), bf)
+    for d, (w, p, a) in ((d1, (dw, pw, aff)), (d2, (dw2, pw2, aff2))):
+        _assert_two_steps(trr.dwsep(x, w, p, dilation=d, affine=a),
+                          trr.dwsep_plain(x, w, p, dilation=d, affine=a))
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert (counts["dwsep3x3"], counts["dwsep3x3_pair"]) == (2, 1)
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+def test_dwsep_cuda_core_route_off_the_tensor_cores_on_card(rnd):
+    """bf16 shapes the tensor-core route does not take (Co = 8, C = 24,
+    d = 17) run on the CUDA cores from NCHW: a channels-last input is
+    copied once, the result lies in the default layout."""
+    bf = torch.bfloat16
+    build.reset_launch_counts()
+    for C, Co, d in ((32, 8, 2), (24, 32, 1), (32, 32, 17)):
+        assert not trr.dwsep_tensor_core_route(bf, (C, Co), (d,), 1)
+        x = _channels_last(rnd(1, C, 21, 40, dtype=bf), True)
+        dw, pw, aff = _dwsep_operands(rnd, 1, C, Co, bf)
+        got = trr.dwsep(x, dw, pw, dilation=d, affine=aff)
+        assert got.is_contiguous()
+        _assert_two_steps(got, trr.dwsep_plain(x, dw, pw, dilation=d,
+                                               affine=aff))
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 3}
+
+
+@pytest.mark.parametrize("fields,want", [
+    (dict(rows_dw="vpu", rows_paired=True),
+     {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3_pair": 4}),
+    (dict(rows_dw="vpu", rows_paired=False),
+     {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3": 8}),
+    (dict(pallas_mode="layers"), {"dense3x3": 5, "dwsep3x3_pair": 6}),
+])
+def test_refinement_layout_copies_on_card(rnd, fields, want):
+    """The bf16 stage-4 refinement under "vpu" (paired, unpaired) and
+    "layers" makes no layout copy: the entries write channels-last, and
+    every later layer reads it; launch counts as a forward's. The whole
+    4-stage forward copies once, stage 1's activation into the fused last
+    layer."""
+    import numpy as np
+    from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
+    from lwsnet_tpu_torch.models.refine_kernels import refine_residual
+    rng = np.random.default_rng(0)
+    left = torch.as_tensor(rng.standard_normal((1, 48, 160, 3)),
+                           dtype=torch.float32, device="cuda")
+    disp = torch.as_tensor(rng.uniform(0, 20, (1, 48, 160, 1)),
+                           dtype=torch.float32, device="cuda")
+    model = LWSNet(ModelConfig(compute_dtype="bfloat16", **fields),
+                   device="cuda", seed=0)
+    build.reset_launch_counts()
+    with torch.inference_mode():
+        got = refine_residual(model, left, disp)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 48, 160, 1) and torch.isfinite(got).all()
+    counts = {k: v for k, v in build.launch_counts().items() if v}
+    assert counts == want
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    left, right = (torch.as_tensor(rng.standard_normal((1, 64, 96, 3)),
+                                   dtype=torch.float32, device="cuda")
+                   for _ in range(2))
+    build.reset_launch_counts()
+    with torch.inference_mode():
+        outs = make_forward(model, device="cuda")(left, right)
+    torch.cuda.synchronize()
+    assert len(outs) == 4
+    assert all(torch.isfinite(o).all() for o in outs)
+    counts = {k: v for k, v in build.launch_counts().items() if v}
+    assert counts == dict(want, conv3d_bn_relu=15, conv3d_skip_softargmin=3)
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}

@@ -1,23 +1,26 @@
 """Memory layouts in the port, on the CPU.
 
-On the card the tensor-core routes of `dense3x3` and `conv3d_bn_relu` read
-and write channels-last memory under the logical (B, C, H, W) /
-(B, C, D, H, W) shapes. Here the wrappers run their plain versions, so
-these tests hold what the layout must not change: a channels-last input
-gives the result of its contiguous twin, at the same logical shape. They
-also pin the routing rules that decide which layout a kernel takes (the
-tensor-core routes channels-last only), and `build.in_layout`, which makes
-and counts the one copy a wrapper makes for a tensor in a layout its
-kernel does not read.
+On the card the tensor-core routes of `dense3x3`, `dwsep3x3` and
+`conv3d_bn_relu` read and write channels-last memory under the logical
+(B, C, H, W) / (B, C, D, H, W) shapes. Here the wrappers run their plain
+versions, so these tests hold what the layout must not change: a
+channels-last input gives the result of its contiguous twin, at the same
+logical shape. They also pin the routing rules that decide which layout a
+kernel takes (the tensor-core routes channels-last only), and
+`build.in_layout`, which makes and counts the one copy a wrapper makes for
+a tensor in a layout its kernel does not read.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from lwsnet_tpu_torch import LWSNet, ModelConfig
 from lwsnet_tpu_torch.models.blocks import CostFilter3D, init_params
+from lwsnet_tpu_torch.models.refine_kernels import refine_residual
 from lwsnet_tpu_torch.ops.cuda import build
 from lwsnet_tpu_torch.ops.cuda import costfilter as tcf
+from lwsnet_tpu_torch.ops.cuda import refine as trf
 from lwsnet_tpu_torch.ops.cuda import refine_rows as trr
 
 CL, CL3 = torch.channels_last, torch.channels_last_3d
@@ -139,3 +142,140 @@ def test_in_layout_copies_once_and_counts():
     assert e.is_contiguous(memory_format=CL3) and e.shape == (1, 32, 3, 4, 5)
     build.reset_launch_counts()
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+def _dwsep_set(rng, *lead, c, co):
+    """(affine ([G,] 2, C), depthwise ([G,] C, 1, 3, 3), pointwise
+    ([G,] Co, C)) as `dwsep_layer` takes them."""
+    return (_affine(rng, *lead, c=c),
+            _rand(rng, *lead, c, 1, 3, 3, scale=0.3),
+            _rand(rng, *lead, co, c, scale=c ** -0.5))
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("d", [1, 16])
+def test_dwsep_layer_channels_last_input(groups, d):
+    rng = np.random.default_rng(20 + groups + d)
+    x = _rand(rng, 2, 32, 19, 37)
+    lead = (groups,) if groups > 1 else ()
+    w = _dwsep_set(rng, *lead, c=32, co=32)
+    want = trr.dwsep_layer(x, *w, dilation=d, groups=groups)
+    got = trr.dwsep_layer(x.contiguous(memory_format=CL), *w, dilation=d,
+                          groups=groups)
+    assert got.shape == want.shape == (2, 32, 19, 37)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("d1,d2", [(16, 1), (1, 16)])
+def test_dwsep2_layer_channels_last_input(groups, d1, d2):
+    rng = np.random.default_rng(30 + groups + d1)
+    x = _rand(rng, 2, 16, 19, 37)  # C = 16 -> 32 -> 32
+    lead = (groups,) if groups > 1 else ()
+    w1 = _dwsep_set(rng, *lead, c=16, co=32)
+    w2 = _dwsep_set(rng, *lead, c=32, co=32)
+    kw = dict(dilation1=d1, dilation2=d2, groups=groups)
+    want = trr.dwsep2_layer(x, *w1, *w2, **kw)
+    got = trr.dwsep2_layer(x.contiguous(memory_format=CL), *w1, *w2, **kw)
+    assert got.shape == want.shape == (2, 32, 19, 37)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _planar_set(rng, c, co):
+    """(affine (2, C), taps (3, 3, 1, C), pointwise (Co, C)) as
+    `fused_dwsep` takes them."""
+    return (_affine(rng, c=c), _rand(rng, 3, 3, 1, c, scale=0.3),
+            _rand(rng, co, c, scale=c ** -0.5))
+
+
+@pytest.mark.parametrize("d", [1, 16])
+def test_fused_dwsep_channels_last_input(d):
+    rng = np.random.default_rng(40 + d)
+    x = _rand(rng, 1, 32, 23, 41)
+    w = _planar_set(rng, 32, 32)
+    want = trf.fused_dwsep(x, *w, dilation=d)
+    got = trf.fused_dwsep(x.contiguous(memory_format=CL), *w, dilation=d)
+    assert got.shape == want.shape == (1, 32, 23, 41)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d1,d2", [(16, 1), (1, 16)])
+def test_fused_dwsep2_channels_last_input(d1, d2):
+    rng = np.random.default_rng(50 + d1)
+    x = _rand(rng, 1, 32, 23, 41)
+    w1, w2 = _planar_set(rng, 32, 32), _planar_set(rng, 32, 32)
+    kw = dict(dilation1=d1, dilation2=d2)
+    want = trf.fused_dwsep2(x, *w1, *w2, **kw)
+    got = trf.fused_dwsep2(x.contiguous(memory_format=CL), *w1, *w2, **kw)
+    assert got.shape == want.shape == (1, 32, 23, 41)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_dense_channels_last_flag():
+    """`channels_last` asks the card for a channels-last result; it never
+    changes the values (here the plain version runs)."""
+    rng = np.random.default_rng(60)
+    x = _rand(rng, 1, 3, 19, 37)
+    k = _rand(rng, 3, 3, 3, 32, scale=0.2)
+    torch.testing.assert_close(
+        trf.fused_dense(x, k, dilation=1, channels_last=True),
+        trf.fused_dense(x, k, dilation=1), atol=0, rtol=0)
+
+
+def test_dwsep_tensor_core_route_rule():
+    """Which dw-sep shapes take the wgmma route (and so read and write
+    channels-last): bf16, C 16 or 32, a 32-channel intermediate, 32
+    outputs, 1 <= d <= 16, at most two weight groups."""
+    bf, f32 = torch.bfloat16, torch.float32
+    route = trr.dwsep_tensor_core_route
+    for d in (1, 2, 4, 8, 16):
+        assert route(bf, (32, 32), (d,), 2)           # "vpu" tower solo
+        assert route(bf, (32, 32), (d,))              # head, "layers"
+    for d1, d2 in ((2, 4), (8, 16), (8, 4), (2, 1)):  # every path pair
+        assert route(bf, (32, 32, 32), (d1, d2), 2)
+        assert route(bf, (32, 32, 32), (d1, d2))
+    assert route(bf, (16, 32), (3,)) and route(bf, (16, 32, 32), (1, 16))
+    assert not route(f32, (32, 32), (2,))             # float32: CUDA cores
+    assert not route(bf, (32, 16), (2,))              # Co != 32
+    assert not route(bf, (24, 32), (2,))              # C not 16 or 32
+    assert not route(bf, (8, 32), (2,))
+    assert not route(bf, (32, 16, 32), (2, 4))        # intermediate != 32
+    assert not route(bf, (32, 32), (17,))             # beyond the halo
+    assert not route(bf, (32, 32, 32), (17, 1))
+    assert not route(bf, (32, 32), (0,))
+    assert not route(bf, (32, 32), (2,), groups=3)    # weights resident
+    assert not route(bf, (32, 32, 32), (2,))          # one dilation a layer
+
+
+@pytest.fixture(scope="module")
+def refine_inputs():
+    rng = np.random.default_rng(70)
+    left = torch.from_numpy(
+        rng.standard_normal((1, 24, 40, 3)).astype(np.float32))
+    disp = torch.from_numpy(
+        rng.uniform(0, 20, (1, 24, 40, 1)).astype(np.float32))
+    return left, disp
+
+
+@pytest.mark.parametrize("fields", [
+    dict(rows_dw="vpu", rows_paired=True),
+    dict(rows_dw="vpu", rows_paired=False),
+    dict(pallas_mode="layers"),
+])
+def test_refine_residual_channels_last_inputs(refine_inputs, fields):
+    """The stage-4 residual under "vpu" (paired, unpaired) and "layers" is
+    unchanged when its (B, H, W, C) inputs lie channels-last, i.e. as
+    NCHW memory viewed as NHWC, so that every layer downstream sees the
+    other layout."""
+    left, disp = refine_inputs
+    model = LWSNet(ModelConfig(compute_dtype="float32", **fields),
+                   device="cpu")
+
+    def nchw_memory(t):
+        return t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+    with torch.no_grad():
+        want = refine_residual(model, left, disp)
+        got = refine_residual(model, nchw_memory(left), nchw_memory(disp))
+    assert got.shape == want.shape == (1, 24, 40, 1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
