@@ -17,10 +17,10 @@ in order; any failure exits non-zero:
      memory lines;
   3. every kernel against its plain PyTorch version at each shape and
      memory layout a path gives it, and the tensor-core routes of
-     dense3x3, dwsep3x3 (solo and pair) and conv3d_bn_relu at ragged
-     shapes from both layouts (NCHW / channels-last), in float32 (TF32
-     off; atol 2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain
-     output's span);
+     dense3x3, dwsep3x3 (solo and pair), chain3x3 (tower and head) and
+     conv3d_bn_relu at ragged shapes from both layouts (NCHW /
+     channels-last), in float32 (TF32 off; atol 2e-4, rtol 1e-3) and bf16
+     (mean |delta| < 2 % of the plain output's span);
   4. for each engine, the full forward through `make_forward` (kernels)
      against the module path on the card: bf16 per-stage mean |delta| < 2 %
      of span, float32 max |delta| < 1e-3 x span; the launch counters of
@@ -36,7 +36,7 @@ in order; any failure exits non-zero:
      warm-up; under each other engine it answers one request at
      num_stages 1..4, and its 4-stage latency is timed the same way; then
      one torch.profiler window each gives the 4-stage forward's device
-     busy share under "mxu", "vpu" paired and "layers";
+     busy share under "mxu", "vpu" paired, "chain" and "layers";
   6. each kernel timed at its path's shapes and layouts beside its plain
      version, its bound from bytes and operations, and one cuDNN call that
      computes the same function on the same inputs where there is one
@@ -45,7 +45,10 @@ in order; any failure exits non-zero:
      time a call; then each layout copy a path makes, timed beside its
      bound; after phase 7, each kernel's device time from the profiler,
      for the dw-sep launches beside their bound, the cuDNN call(s) over
-     the composed rank-1 kernels on the device and the wrapper's host time;
+     the composed rank-1 kernels on the device and the wrapper's host time,
+     for the chain3x3 launches beside their bound, the per-layer cuDNN
+     calls on the same channels-last input, the same layers as "mxu"'s
+     dense3x3 launches on the device and the wrapper's host time;
   7. the rows microbench (`lwsnet_tpu_torch.tools.microbench_rows`) once,
      its counters set to 0 just before: its probe must print OK, which
      launches `lane_broadcast`; then `lane_broadcast`, `Tensor.repeat` of
@@ -98,7 +101,7 @@ def jitter_batchnorm(model, rng):
 PORT_KERNELS = ("conv3d_bn_relu", "skip_softargmin", "dense3x3", "dwsep3x3",
                 "chain3x3")
 # The engines whose 4-stage forward phase 5 profiles for device busy time.
-PROFILED = ("mxu", "vpu-paired", "layers")
+PROFILED = ("mxu", "vpu-paired", "chain", "layers")
 
 # The stage-4 refinement engines as ModelConfig fields; "mxu" is shipped.
 ENGINES = {"mxu": dict(rows_dw="mxu"),
@@ -385,7 +388,8 @@ def variant_calls(cfg):
     dils = (HEAD_DENSE_DILATION,) + HEAD_DILATIONS + (1,)
     calls.append(("chain3x3", f"head 2x32->32->1, d={dils}, f32 out",
                   dict(head, Ci0=c, dils=dils, aff=(True,) * 5 + (False,),
-                       dual=True, co_last=1, f32_out=True), 1, "chain"))
+                       dual=True, co_last=1, f32_out=True, cl=True), 1,
+                  "chain"))
     return calls
 
 
@@ -421,14 +425,30 @@ def layers_calls(cfg):
 
 def ragged_calls():
     """Phase 3 only: the tensor-core routes of dense3x3, dwsep3x3 (solo and
-    pair) and conv3d_bn_relu at shapes no tile divides (W = 75 and 37,
-    H = 37 and 11 not a multiple of R * d = 4d, D = 7), two weight groups
-    at batch 2, C = 16 -> 32 dw-sep layers, the two-input form, from NCHW
-    (one counted copy) and channels-last input. Tuples as
+    pair), chain3x3 and conv3d_bn_relu at shapes no tile divides (W = 150,
+    75 and 37, H = 37, 29 and 11 not a multiple of R * d = 4d, D = 7), two
+    weight groups at batch 2, C = 16 -> 32 dw-sep layers, the two-input
+    form, the chain's tower and head at every dilation of the path, from
+    NCHW (one counted copy) and channels-last input. Tuples as
     `main_path_calls` (launches and engine unused)."""
+    from lwsnet_tpu_torch.models.refinement import (HEAD_DENSE_DILATION,
+                                                    HEAD_DILATIONS,
+                                                    TOWER_DILATIONS)
     calls = []
     for cl in (False, True):
         tag = "channels-last" if cl else "NCHW"
+        dils = (HEAD_DENSE_DILATION,) + HEAD_DILATIONS + (1,)
+        for (h, w) in ((29, 150), (11, 75)):
+            geo = dict(H=h, W=w, C=32, cl=cl)
+            calls.append(("chain3x3", f"ragged tower {h}x{w} {tag}",
+                          dict(geo, B=2, G=2, Ci0=3,
+                               dils=(1,) + TOWER_DILATIONS,
+                               aff=(False,) + (True,) * 4, dual=False,
+                               co_last=32, f32_out=False), 0, None))
+            calls.append(("chain3x3", f"ragged head {h}x{w} {tag}",
+                          dict(geo, B=1, G=1, Ci0=32, dils=dils,
+                               aff=(True,) * 5 + (False,), dual=True,
+                               co_last=1, f32_out=True), 0, None))
         for (h, w, b, g) in ((37, 75, 2, 2), (11, 37, 1, 1)):
             for d in (1, 16):
                 for c in (32, 16):
@@ -480,7 +500,8 @@ def make_call(kernel, p, dtype, rng, dev):
     """One call on seeded random operands: {kernel, plain, library} fns
     (library None where no one PyTorch call computes the function; then
     `layers` times one cuDNN call per layer; `library_nchw` the library
-    call on NCHW copies of channels-last inputs), bytes and operations.
+    call on NCHW copies of channels-last inputs; for chain3x3 `mxu` runs
+    the same layers as "mxu"'s dense3x3 launches), bytes and operations.
     p["cl"]: the activation input lies channels-last in memory."""
     import torch
     import torch.nn.functional as F
@@ -496,10 +517,10 @@ def make_call(kernel, p, dtype, rng, dev):
                            rng.normal(0, 0.5, (G, C))], 1), torch.float32)
 
     def call(kernel_fn, plain_fn, library, nbytes, ops, layers=None,
-             library_nchw=None):
+             library_nchw=None, mxu=None):
         return dict(kernel=kernel_fn, plain=plain_fn, library=library,
                     layers=layers, bytes=nbytes, ops=ops,
-                    library_nchw=library_nchw)
+                    library_nchw=library_nchw, mxu=mxu)
 
     def lay(a):
         """a channels-last in memory where p["cl"] says so."""
@@ -558,13 +579,15 @@ def make_call(kernel, p, dtype, rng, dev):
         wts = [t(rng.standard_normal((G, cos[i], cis[i], 3, 3))
                  * np.sqrt(2 / (9 * fan[i]))) for i in range(n)]
         affs = [affine(G, cis[i]) if p["aff"][i] else None for i in range(n)]
-        x = t(rng.standard_normal((B, cis[0], h, w)))
+        x = lay(t(rng.standard_normal((B, cis[0], h, w))))
         kw = dict(dilations=dils, out_dtype=out_dt)
-        inner = t(rng.standard_normal((B, C, h, w)))  # yardstick operand
+        # yardstick operand, channels-last as the route's scratch
+        inner = t(rng.standard_normal((B, C, h, w))).contiguous(
+            memory_format=torch.channels_last)
         convs = [_conv(inner, wts[i], dils[i]) for i in range(1, n)]
         n_w = sum(wt.numel() for wt in wts)
         if dual:
-            x2 = t(rng.standard_normal((B, cis[0], h, w)))
+            x2 = lay(t(rng.standard_normal((B, cis[0], h, w))))
             wt2 = t(rng.standard_normal(tuple(wts[0].shape))
                     * np.sqrt(2 / (9 * fan[0])))
             kw.update(x2=x2, wt2=wt2, aff2=affine(G, cis[0]))
@@ -579,9 +602,22 @@ def make_call(kernel, p, dtype, rng, dev):
         nbytes = (((2 if dual else 1) * cis[0] * n_px + n_w) * es
                   + cos[-1] * n_px * out_es)
         ops = sum(2 * 9 * fan[i] * cos[i] * n_px for i in range(n))
+
+        def mxu():
+            """The same layers as "mxu" runs them: one dense3x3 launch
+            each, the entry writing channels-last."""
+            y = x
+            for i in range(n):
+                extra = dict(x2=x2, wt2=wt2, affine2=kw["aff2"]) \
+                    if dual and i == 0 else {}
+                y = RR.dense3x3(y, wts[i], dilation=dils[i], affine=affs[i],
+                                out_dtype=out_dt if i == n - 1 else None,
+                                channels_last=i == 0, **extra)
+            return y
+
         return call(lambda: RR.chain(x, wts, affs, **kw),
                     lambda: RR.chain_plain(x, wts, affs, **kw), None,
-                    nbytes, ops, lambda: [c() for c in convs])
+                    nbytes, ops, lambda: [c() for c in convs], mxu=mxu)
     if kernel == "conv3d_bn_relu":
         B, Ci, Co, D, h, w = (p[k] for k in ("B", "Ci", "Co", "D", "H", "W"))
         x = lay(t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0)))
@@ -660,6 +696,18 @@ def check_close(got, want, dtype, what):
     return delta.max().item(), span
 
 
+def two_steps(got, want, what):
+    """The chain's bar on the card: every bf16 element within two rounding
+    steps of the plain value (2 * 2**-8 relative) plus 2e-2 of the plain
+    output's largest magnitude for sums that cancel, as
+    tests/test_torch_gpu.py holds it."""
+    got, want = got.float(), want.float()
+    tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+    bad = ((got - want).abs() > tol).sum().item()
+    require(bad == 0, f"{what}: {bad} elements beyond two bf16 rounding "
+            f"steps")
+
+
 def compare(what, want, got, dtype, shape):
     """Phase-4 bar of one output against the module path's: finite, of
     `shape`; bf16 mean |delta| < 2 % of span, float32 max |delta| <
@@ -718,7 +766,8 @@ def main():
     for src, log in logs.items():
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
-                                       "spill", "wgmma")):
+                                       "spill", "wgmma", "setmaxnreg",
+                                       "warning")):
                 print(f"[2] {src}: {line.strip()}")
 
     cfg = ModelConfig()
@@ -735,6 +784,8 @@ def main():
             torch.cuda.synchronize()
             what = f"{kernel} [{label}] {str(dtype)[6:]}"
             err, span = check_close(got, want, dtype, what)
+            if kernel == "chain3x3" and dtype == torch.bfloat16:
+                two_steps(got, want, what)
             checks.setdefault(kernel, {})[(label, str(dtype)[6:])] = err
             print(f"[3] ok {what}: max |delta| {err:.3g}, span {span:.4g}")
             del c, got, want
@@ -1005,6 +1056,19 @@ def main():
                     f"{row['layers_device_ms']:.4f} ms")
         print(f"[6] {kernel} [{label}]: kernel alone on the device {dev_ms}"
               f"{lib} (events around the call {row['ms']:.4f} ms)")
+        if kernel == "chain3x3":
+            row["mxu_device_ms"] = kernel_device_ms(
+                make_call(kernel, p, torch.bfloat16,
+                          np.random.default_rng(2000 + i), dev)["mxu"],
+                KERNEL_NAMES["dense3x3"])
+            yard, mxu = (("not measured" if v is None else f"{v:.4f} ms")
+                         for v in (row["layers_device_ms"],
+                                   row["mxu_device_ms"]))
+            print(f"[6] {kernel} [{label}] on the device: kernel {dev_ms}, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"per-layer cuDNN on the same channels-last input {yard}, "
+                  f"the same layers as \"mxu\" dense3x3 launches {mxu}, "
+                  f"wrapper host {row['host_us']:.1f} us a call")
         if kernel.startswith("dwsep"):
             yard = (row["library_device_ms"] if row["layers_device_ms"] is None
                     else row["layers_device_ms"])

@@ -15,7 +15,11 @@ from one torch.profiler window over 10 calls after a warm-up
 profiler dropped most of its kernels): without the wrapper's host time,
 which a pair of events around one call also counts, and without the
 wrappers' layout copies and weight re-layouts, which are separate
-kernels.
+kernels. Each `chain3x3` stack is also timed cut after its first k layers,
+k = 2 .. n (the same operands, the cut layer writing the compute dtype):
+the step from k - 1 to k layers is layer k's time in the launch, its grid
+barrier and set-up included, to hold beside the same layer's `dense3x3`
+launch alone.
 
 --forwards also profiles the 368x1232 batch-1 bf16
 4-stage forward (`make_forward`, seeded random weights) under each engine
@@ -74,6 +78,24 @@ def main(argv=None):
                          launches=n, device_ms=ms))
         print(f"{kernel} [{label}] x{n} ({engine}): "
               f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+    prefixes = []
+    for i, (kernel, label, p, n, engine) in enumerate(calls):
+        if kernel != "chain3x3":
+            continue
+        if args.nchw:
+            p = {k: v for k, v in p.items() if k != "cl"}
+        layers = len(p["dils"])
+        for k in range(2, layers + 1):
+            cut = dict(p, dils=p["dils"][:k], aff=p["aff"][:k])
+            if k < layers:
+                cut.update(co_last=p["C"], f32_out=False)
+            c = cs.make_call(kernel, cut, torch.bfloat16,
+                             np.random.default_rng(2000 + i), dev)
+            ms = cs.kernel_device_ms(c["kernel"], cs.KERNEL_NAMES[kernel])
+            del c
+            prefixes.append(dict(label=label, layers=k, device_ms=ms))
+            print(f"{kernel} [{label}] first {k} of {layers} layers: "
+                  f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
     forwards = {}
     if args.forwards:
         from lwsnet_tpu_torch import LWSNet, make_forward
@@ -96,8 +118,8 @@ def main(argv=None):
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(dict(card=card(), rows=rows, forwards=forwards), f,
-                      indent=1)
+            json.dump(dict(card=card(), rows=rows, forwards=forwards,
+                           chain_prefixes=prefixes), f, indent=1)
     return 0
 
 

@@ -56,6 +56,11 @@
 // * Epilogue: each accumulator row is rounded, transposed within its quad
 //   of lanes by shuffles, and written as 16-byte channels-last vectors.
 //   Ragged rows (h >= H) and columns (w >= W) are masked at the store.
+// * One layer's body (`ring`, `begin_layer`, the roles `stage_layer` and
+//   `multiply_layer`, `end_layer`) is also what `chain3x3.cu` runs for
+//   each layer of its stacks, its set-up and barriers reachable from each
+//   role's own code; there `multiply_layer` also takes a last layer of at
+//   most 8 outputs (N = 8, m64n8k16), written (B, Co, H, W).
 // Registers and spills (ptxas, `chip_smoke.py` phase 2 on the H100): 128
 // registers a thread at launch (the 65536 / 512 of `__launch_bounds__`,
 // redistributed by `setmaxnreg`), no spills, in all four instances.
@@ -111,8 +116,17 @@ template <int SC>
 __host__ __device__ inline int stage_bytes(int d) {
   return (R + 2) * row_pixels(d) * SC * 2;
 }
+// Output channels of the B images: 32, or 8 for a narrow layer (Co <= 8,
+// zero-padded by the wrapper; only `chain3x3.cu` runs one).
+__host__ __device__ inline int image_n(const Args& a) {
+  return a.Co <= 8 ? 8 : tc::N;
+}
+// Bytes of one 16-deep slice of B.
+__host__ __device__ inline int slice_bytes(const Args& a) {
+  return 16 * image_n(a) * 2;
+}
 __host__ __device__ inline int weight_bytes(const Args& a) {
-  return a.G * inputs(a) * 9 * a.Ci * tc::N * 2;
+  return a.G * inputs(a) * 9 * a.Ci / 16 * slice_bytes(a);
 }
 __host__ __device__ inline int affine_floats(const Args& a) {
   return a.G * inputs(a) * 2 * a.Ci;
@@ -162,10 +176,10 @@ __device__ __forceinline__ int image_row(const Args& a, const Job& t, int r) {
 // `bar` (one thread), as B images (g, i, ci / 16, tap): a.wt / a.wt2 hold
 // (G, Ci / 16, 9) images each (`_wgmma_images` in ops/cuda/refine_rows.py).
 // The affines (g, i, {scale, shift}, ci) by every thread.
-__device__ void load_weights(const Args& a, uint32_t wsm, float* asm_,
-                             uint32_t bar) {
+__device__ __forceinline__ void load_weights(const Args& a, uint32_t wsm,
+                                             float* asm_, uint32_t bar) {
   const int nin = inputs(a), Ci = a.Ci;
-  const int set = Ci / 16 * 9 * tc::B_SLICE;  // one group of one input
+  const int set = Ci / 16 * 9 * slice_bytes(a);  // one group of one input
   if (threadIdx.x == 0) {
     tc::mbar_expect_tx(bar, a.G * nin * set);
     for (int gi = 0; gi < a.G * nin; ++gi)
@@ -233,91 +247,145 @@ __device__ __forceinline__ void activate_job(const Args& a, const Job& t,
   }
 }
 
-// S: the ring's stages, `stages<SC>(a)`. map_x / map_x2: TMA maps of the
-// inputs (`launch`).
-template <int SC, typename TO>
-__global__ void __launch_bounds__(THREADS, 1)
-    dense3x3_tc_kernel(const __grid_constant__ CUtensorMap map_x,
-                       const __grid_constant__ CUtensorMap map_x2, Args a,
-                       int S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int CPP = SC / 8, KC = SC / 16, PX = SC * 2;
-  const int d = a.d, H = a.H, W = a.W, Ci = a.Ci;
-  const int LP = row_pixels(d), ROW = LP * PX;
-  const int nin = inputs(a), nslab = Ci / SC, jobs = nin * nslab;
-  const int sbytes = stage_bytes<SC>(d);
-  unsigned char* wsm = smem;
-  float* asm_ = (float*)(wsm + weight_bytes(a));
-  const uint32_t wbase = tc::smem_addr(wsm);
-  const uint32_t bars = tc::smem_addr(asm_ + affine_floats(a));
-  const uint32_t stage0 = (tc::smem_addr(smem) + fixed_bytes(a) + 1023) &
-                          ~1023u;
-  unsigned char* stage0_p = smem + (stage0 - tc::smem_addr(smem));
-  // Per stage: copies landed, staged (activated), read by the products;
-  // and its Job.
-  auto landed = [&](int n) { return bars + 8 * (n % S); };
-  auto full = [&](int n) { return bars + 8 * (MAX_STAGES + n % S); };
-  auto empty = [&](int n) { return bars + 8 * (2 * MAX_STAGES + n % S); };
-  const uint32_t weights = bars + 8 * 3 * MAX_STAGES;
-  Job* jobs_at = (Job*)(asm_ + affine_floats(a) + 64);
-  const int ntiles = tiles(a);
-  const int my_tiles = (int)blockIdx.x < ntiles
-                           ? (ntiles - 1 - (int)blockIdx.x) / gridDim.x + 1
-                           : 0;
-  const int njobs = my_tiles * jobs;
-  const int wg = threadIdx.x / 128;
+// One layer's shared memory, from the base of the block's dynamic shared
+// memory: weights, affines, the mbarriers, a Job per stage, then the ring
+// of S stages at the next 1024-byte boundary. Per stage three mbarriers:
+// copies landed, staged (activated), read by the products; and one more
+// for the weights.
+struct Ring {
+  unsigned char* stage0_p;  // the first stage (generic address)
+  float* asm_;              // the affines
+  Job* jobs;                // a Job per stage
+  uint32_t wbase;           // the weights (shared address)
+  uint32_t bars;            // the mbarriers (shared address)
+  uint32_t stage0;          // the first stage (shared address)
+  int S;                    // stages, `stages<SC>(a)`
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      tc::mbar_init(landed(s), 1);
-      tc::mbar_init(full(s), WORKERS);
-      tc::mbar_init(empty(s), 128);
-    }
-    tc::mbar_init(weights, 1);
+  __device__ __forceinline__ uint32_t landed(int n) const {
+    return bars + 8 * (n % S);
   }
-  __syncthreads();
-  load_weights(a, wbase, asm_, weights);
-  __syncthreads();  // the affines
+  __device__ __forceinline__ uint32_t full(int n) const {
+    return bars + 8 * (MAX_STAGES + n % S);
+  }
+  __device__ __forceinline__ uint32_t empty(int n) const {
+    return bars + 8 * (2 * MAX_STAGES + n % S);
+  }
+  __device__ __forceinline__ uint32_t weights() const {
+    return bars + 8 * 3 * MAX_STAGES;
+  }
+};
 
-  if (threadIdx.x < STAGERS) {
-    tc::setmaxnreg_dec<STAGER_REGS>();
-    if (threadIdx.x < 32) {
-      // The copy warp: one thread keeps the TMA copies of every job in
-      // flight as soon as its stage is free.
-      if (threadIdx.x == 0)
-        for (int n = 0; n < njobs; ++n) {
-          if (n >= S) tc::mbar_wait(empty(n), ((n / S) & 1) ^ 1);
-          const Job t =
-              job_of(a, blockIdx.x + n / jobs * gridDim.x, n % jobs, nslab);
-          jobs_at[n % S] = t;  // published by the arrive below
-          const uint32_t buf = stage0 + (n % S) * sbytes;
-          tc::mbar_expect_tx(landed(n), sbytes);
+__device__ __forceinline__ Ring ring(const Args& a, unsigned char* smem,
+                                     int S) {
+  Ring r;
+  r.asm_ = (float*)(smem + weight_bytes(a));
+  r.jobs = (Job*)(r.asm_ + affine_floats(a) + 64);
+  r.wbase = tc::smem_addr(smem);
+  r.bars = tc::smem_addr(r.asm_ + affine_floats(a));
+  r.stage0 = (r.wbase + fixed_bytes(a) + 1023) & ~1023u;
+  r.stage0_p = smem + (r.stage0 - r.wbase);
+  r.S = S;
+  return r;
+}
+
+// Every thread of the block, before its role's part of the layer (each
+// role may run its own copy of this step): the ring's mbarriers
+// initialised, the layer's weights on their way by bulk copy, its affines
+// in shared memory.
+__device__ __forceinline__ void begin_layer(const Args& a, const Ring& r) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < r.S; ++s) {
+      tc::mbar_init(r.landed(s), 1);
+      tc::mbar_init(r.full(s), WORKERS);
+      tc::mbar_init(r.empty(s), 128);
+    }
+    tc::mbar_init(r.weights(), 1);
+  }
+  tc::cta_sync();
+  load_weights(a, r.wbase, r.asm_, r.weights());
+  tc::cta_sync();  // the affines
+}
+
+// Every thread of the block, after its role's part of the layer: once all
+// have arrived, the mbarriers invalidated, so that their memory may hold
+// anything next.
+__device__ __forceinline__ void end_layer(const Ring& r) {
+  tc::cta_sync();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < r.S; ++s) {
+      tc::mbar_inval(r.landed(s));
+      tc::mbar_inval(r.full(s));
+      tc::mbar_inval(r.empty(s));
+    }
+    tc::mbar_inval(r.weights());
+  }
+}
+
+// Jobs of this block: my_tiles x jobs a tile.
+__device__ __forceinline__ int block_tiles(const Args& a) {
+  const int ntiles = tiles(a);
+  return (int)blockIdx.x < ntiles
+             ? (ntiles - 1 - (int)blockIdx.x) / gridDim.x + 1
+             : 0;
+}
+
+// The staging role (threads 0 .. STAGERS-1, STAGER_REGS registers): the
+// copy warp, whose one thread keeps the TMA copies of every job in flight
+// as soon as its stage is free, and the activating warps, which take their
+// share of job n once its copies have landed (the product warpgroup that
+// takes the job does the rest). map_x / map_x2: TMA maps of the inputs.
+template <int SC>
+__device__ __forceinline__ void stage_layer(const CUtensorMap* map_x,
+                                            const CUtensorMap* map_x2,
+                                            const Args& a, const Ring& r) {
+  const int d = a.d, S = r.S;
+  const int ROW = row_pixels(d) * SC * 2, sbytes = stage_bytes<SC>(d);
+  const int nslab = a.Ci / SC, jobs = inputs(a) * nslab;
+  const int njobs = block_tiles(a) * jobs;
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0)
+      for (int n = 0; n < njobs; ++n) {
+        if (n >= S) tc::mbar_wait(r.empty(n), ((n / S) & 1) ^ 1);
+        const Job t =
+            job_of(a, blockIdx.x + n / jobs * gridDim.x, n % jobs, nslab);
+        r.jobs[n % S] = t;  // published by the arrive below
+        const uint32_t buf = r.stage0 + (n % S) * sbytes;
+        tc::mbar_expect_tx(r.landed(n), sbytes);
 #pragma unroll
-          for (int r = 0; r < R + 2; ++r)
-            tc::tma_load_4d(buf + r * ROW, t.i ? &map_x2 : &map_x, landed(n),
-                            t.s * SC, t.w0 - d, image_row(a, t, r), t.b);
-        }
-      return;
-    }
-    // The activating warps: their share of job n once its copies have
-    // landed; the product warpgroup that takes the job does the rest.
-    for (int n = 0; n < njobs; ++n) {
-      tc::mbar_wait(landed(n), (n / S) & 1);
-      const Job t = jobs_at[n % S];
-      if ((t.i ? a.aff2 : a.aff) != nullptr)
-        activate_job<SC>(a, t, asm_, stage0_p + (n % S) * sbytes,
-                         threadIdx.x - 32);
-      tc::mbar_arrive(full(n));
-    }
+        for (int k = 0; k < R + 2; ++k)
+          tc::tma_load_4d(buf + k * ROW, t.i ? map_x2 : map_x, r.landed(n),
+                          t.s * SC, t.w0 - d, image_row(a, t, k), t.b);
+      }
     return;
   }
+  for (int n = 0; n < njobs; ++n) {
+    tc::mbar_wait(r.landed(n), (n / S) & 1);
+    const Job t = r.jobs[n % S];
+    if ((t.i ? a.aff2 : a.aff) != nullptr)
+      activate_job<SC>(a, t, r.asm_, r.stage0_p + (n % S) * sbytes,
+                       threadIdx.x - 32);
+    tc::mbar_arrive(r.full(n));
+  }
+}
 
-  // Product warpgroups: product warpgroup p = wg - 2 takes the block's
-  // tiles p, p + 2, ...: its share of each job's activation, then the
-  // products, A from the staged rows, B from the resident weights.
-  tc::setmaxnreg_inc<PRODUCT_REGS>();
+// The product role (threads STAGERS .. THREADS-1, PRODUCT_REGS registers):
+// product warpgroup p = wg - 2 takes the block's tiles p, p + 2, ...: its
+// share of each job's activation, then the products, A from the staged
+// rows, B from the resident weights, and the channels-last epilogue. N = 8:
+// a narrow layer (Co <= 8, m64n8k16), written (B, Co, H, W).
+template <int SC, typename TO, int N = tc::N>
+__device__ __forceinline__ void multiply_layer(const Args& a,
+                                               const Ring& r) {
+  using Acc = typename std::conditional<N == tc::N, tc::Acc, tc::Acc8>::type;
+  constexpr int SLICE = 16 * N * 2 >> 4;  // descriptor step of a slice
+  constexpr int KC = SC / 16;
+  const int d = a.d, H = a.H, W = a.W, Ci = a.Ci, S = r.S;
+  const int ROW = row_pixels(d) * SC * 2, sbytes = stage_bytes<SC>(d);
+  const int nin = inputs(a), jobs = nin * (Ci / SC);
+  const int my_tiles = block_tiles(a);
+  const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const uint64_t desc0 = tc::b_desc(wbase);
+  const uint64_t desc0 = tc::b_desc(r.wbase);
   uint32_t ao[KC][3];  // this lane's A row at (kc, kx) in any staged row
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc)
@@ -325,32 +393,32 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int kx = 0; kx < 3; ++kx)
       ao[kc][kx] = tc::chunk_offset<SC>(warp * 16 + lane % 16 + kx * d,
                                         kc * 2 + lane / 16);
-  tc::mbar_wait(weights, 0);
-  tc::Acc acc[R];
+  tc::mbar_wait(r.weights(), 0);
+  Acc acc[R];
   for (int m = wg - 2; m < my_tiles; m += 2) {
     Job t;
 #pragma unroll
     for (int o = 0; o < R; ++o) tc::zero(acc[o]);
     for (int j = 0; j < jobs; ++j) {
       const int n = m * jobs + j;
-      tc::mbar_wait(landed(n), (n / S) & 1);
-      t = jobs_at[n % S];
+      tc::mbar_wait(r.landed(n), (n / S) & 1);
+      t = r.jobs[n % S];
       if ((t.i ? a.aff2 : a.aff) != nullptr)  // this warpgroup's share
-        activate_job<SC>(a, t, asm_, stage0_p + (n % S) * sbytes,
+        activate_job<SC>(a, t, r.asm_, r.stage0_p + (n % S) * sbytes,
                          ACTIVATORS + threadIdx.x % 128);
-      tc::mbar_arrive(full(n));
-      tc::mbar_wait(full(n), (n / S) & 1);
-      const uint32_t buf = stage0 + (n % S) * sbytes;
+      tc::mbar_arrive(r.full(n));
+      tc::mbar_wait(r.full(n), (n / S) & 1);
+      const uint32_t buf = r.stage0 + (n % S) * sbytes;
       const uint64_t dj =
           desc0 + (uint64_t)((t.g * nin + t.i) * (Ci / 16) + t.s * KC) * 9 *
-                      (tc::B_SLICE >> 4);
-      // Group q: channel chunk kc, staged row r, tap column kx: one A
+                      SLICE;
+      // Group q: channel chunk kc, staged row k, tap column kx: one A
       // fragment (ldmatrix) for up to three wgmma, loaded while group
       // q - 1's wgmma issue; four register buffers.
       constexpr int NG = KC * (R + 2) * 3, NBUF = 4;
       auto load = [&](uint32_t (&f)[4], int q) {
-        const int kc = q / ((R + 2) * 3), r = q / 3 % (R + 2), kx = q % 3;
-        tc::ldsm_x4(f, buf + r * ROW + ao[kc][kx]);
+        const int kc = q / ((R + 2) * 3), k = q / 3 % (R + 2), kx = q % 3;
+        tc::ldsm_x4(f, buf + k * ROW + ao[kc][kx]);
       };
       uint32_t af[NBUF][4];
       load(af[0], 0);
@@ -361,19 +429,21 @@ __global__ void __launch_bounds__(THREADS, 1)
           load(af[(q + 1) % NBUF], q + 1);
         }
         tc::wgmma_fence();
-        const int kc = q / ((R + 2) * 3), r = q / 3 % (R + 2), kx = q % 3;
+        const int kc = q / ((R + 2) * 3), k = q / 3 % (R + 2), kx = q % 3;
 #pragma unroll
         for (int ky = 0; ky < 3; ++ky) {
-          const int o = r - ky;
+          const int o = k - ky;
           if (o < 0 || o >= R) continue;
-          tc::wgmma_m64n32k16(
-              acc[o], af[q % NBUF],
-              dj + (kc * 9 + ky * 3 + kx) * (tc::B_SLICE >> 4));
+          const uint64_t b = dj + (kc * 9 + ky * 3 + kx) * SLICE;
+          if constexpr (N == tc::N)
+            tc::wgmma_m64n32k16(acc[o], af[q % NBUF], b);
+          else
+            tc::wgmma_m64n8k16(acc[o], af[q % NBUF], b);
         }
         tc::wgmma_commit();
       }
       tc::wgmma_wait<0>();
-      tc::mbar_arrive(empty(n));  // the job's wgmma have read the stage
+      tc::mbar_arrive(r.empty(n));  // the job's wgmma have read the stage
     }
 #pragma unroll
     for (int o = 0; o < R; ++o) tc::fence_operand(acc[o]);
@@ -386,11 +456,41 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int half = 0; half < 2; ++half) {
         const int w = t.w0 + warp * 16 + lane / 4 + 8 * half;
         const bool ok = hv && w < W;
-        TO* px = y + (((size_t)t.b * H + (hv ? h : 0)) * W + (ok ? w : 0)) *
-                         tc::N;
-        tc::store_row<TO>(acc[o], half, px, ok);
+        if constexpr (N == tc::N) {
+          TO* px = y + (((size_t)t.b * H + (hv ? h : 0)) * W +
+                        (ok ? w : 0)) * tc::N;
+          tc::store_row<TO>(acc[o], half, px, ok);
+        } else {  // this lane's columns 2 (lane % 4) + {0, 1}, if < Co
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = 2 * (lane % 4) + e;
+            if (ok && co < a.Co)
+              y[(((size_t)t.b * a.Co + co) * H + h) * W + w] =
+                  from_f<TO>(acc[o].v[2 * half + e]);
+          }
+        }
       }
     }
+  }
+}
+
+// S: the ring's stages, `stages<SC>(a)`. map_x / map_x2: TMA maps of the
+// inputs (`launch`). Each warp keeps its role, and with it its register
+// count, for the whole launch.
+template <int SC, typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+    dense3x3_tc_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_x2, Args a,
+                       int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring r = ring(a, smem, S);
+  begin_layer(a, r);
+  if (threadIdx.x < STAGERS) {
+    tc::setmaxnreg_dec<STAGER_REGS>();
+    stage_layer<SC>(&map_x, &map_x2, a, r);
+  } else {
+    tc::setmaxnreg_inc<PRODUCT_REGS>();
+    multiply_layer<SC, TO>(a, r);
   }
 }
 

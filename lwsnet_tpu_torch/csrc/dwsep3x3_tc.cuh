@@ -255,28 +255,6 @@ __device__ __forceinline__ void depthwise(const unsigned char* in, int ROW,
   }
 }
 
-// acc = the A tile at `a_tile` (64 pixels x SC channels) times the group's
-// pointwise B images starting at descriptor `desc`; one warpgroup.
-template <int SC>
-__device__ __forceinline__ void pointwise(tc::Acc& acc, uint32_t a_tile,
-                                          uint64_t desc) {
-  constexpr int KC = SC / 16;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  uint32_t f[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-    tc::ldsm_x4(f[kc], a_tile + tc::chunk_offset<SC>(warp * 16 + lane % 16,
-                                                     kc * 2 + lane / 16));
-  tc::zero(acc);
-  tc::wgmma_fence();
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
-    tc::wgmma_m64n32k16(acc, f[kc], desc + kc * (tc::B_SLICE >> 4));
-  tc::wgmma_commit();
-  tc::wgmma_wait<0>();
-  tc::fence_operand(acc);
-}
-
 // Output row h of the tile from `acc`, channels-last into y.
 __device__ __forceinline__ void store_out(const Args& a, const Tile& t,
                                           const tc::Acc& acc, int h,
@@ -349,8 +327,8 @@ __device__ __forceinline__ int run_layer(const Args& a, int i,
 #pragma unroll 1
     for (int oo = 0; oo < R / 2; ++oo) {
       const int o = wg * (R / 2) + oo;
-      pointwise<SC>(acc, base + L.a + o * A_TILE,
-                    desc + t.g * (SC / 16) * (tc::B_SLICE >> 4));
+      tc::tile_product<SC>(acc, base + L.a + o * A_TILE,
+                           desc + t.g * (SC / 16) * (tc::B_SLICE >> 4));
       store_out(a, t, acc, image_row(t, d, o + 1), out);
     }
   }

@@ -1,10 +1,12 @@
 // Hopper building blocks of the port's tensor-core routes
-// (`dense3x3_tc.cuh`, `conv3d_bn_relu.cu`): TMA copies of channels-last
-// rows into swizzled shared memory, mbarriers, bulk copies of the resident
-// weights, ldmatrix A fragments, wgmma m64n32k16 with A in registers and
-// B (the resident weights) read from shared memory through a descriptor,
-// and an epilogue that writes 16-byte channels-last vectors straight from
-// the accumulator registers.
+// (`dense3x3_tc.cuh`, `dwsep3x3_tc.cuh`, `conv3d_bn_relu.cu`,
+// `chain3x3.cu`): TMA copies of channels-last rows into swizzled shared
+// memory, mbarriers, bulk copies of the resident weights, ldmatrix A
+// fragments, wgmma m64n32k16 (and m64n8k16) with A in registers and B (the
+// resident weights) read from shared memory through a descriptor, an
+// epilogue that writes 16-byte channels-last vectors straight from the
+// accumulator registers, and block and grid barriers that warp-specialized
+// roles reach from their own code.
 //
 // Staged rows. A row of pixels holds each pixel's SC channels (SC = 16
 // or 32) as SC * 2 contiguous bytes, CPP = SC / 8 chunks of 16 bytes, the
@@ -22,8 +24,10 @@
 // 128 contiguous bytes, core (n / 8, k / 8) at (n / 8) * 256 + (k / 8) *
 // 128, a core row (one n) 16 bytes of 8 consecutive k. The descriptor's
 // leading offset is the K step (128 B), its stride offset the N step
-// (256 B). The wrappers lay the weights out in global memory as these
-// images, so a block copies them to shared memory in one bulk copy.
+// (256 B). A 16 x 8 slice (m64n8k16, a layer of at most 8 outputs) is
+// the first 256 bytes of the same layout. The wrappers lay the weights out
+// in global memory as these images, so a block copies them to shared
+// memory in one bulk copy.
 #pragma once
 
 #include <cuda.h>
@@ -116,6 +120,61 @@ __device__ __forceinline__ void wgmma_m64n32k16(Acc& d,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
 }
 
+// A 64 x 8 float32 accumulator: thread (warp w, lane l) holds rows
+// 16w + l/4 (v[0], v[1]) and 16w + l/4 + 8 (v[2], v[3]) at columns
+// 2(l%4) + {0, 1}.
+struct Acc8 {
+  float v[4];
+};
+
+__device__ __forceinline__ void zero(Acc8& a) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a.v[i] = 0.f;
+}
+
+__device__ __forceinline__ void fence_operand(Acc8& a) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(a.v[i])::"memory");
+}
+
+// d += a (64 x 16, registers) * b (16 x 8, shared: one core matrix column
+// of the K-major image, 256 bytes a 16-deep slice).
+__device__ __forceinline__ void wgmma_m64n8k16(Acc8& d, const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// acc = the A tile at `a_tile` (64 pixels x SC channels, swizzled as a
+// staged row) times the SC / 16 B images from descriptor `desc` on; one
+// warpgroup (the dw-sep route's pointwise product, the chain's entry).
+template <int SC>
+__device__ __forceinline__ void tile_product(Acc& acc, uint32_t a_tile,
+                                             uint64_t desc) {
+  constexpr int KC = SC / 16;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  uint32_t f[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    ldsm_x4(f[kc], a_tile + chunk_offset<SC>(warp * 16 + lane % 16,
+                                             kc * 2 + lane / 16));
+  zero(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    wgmma_m64n32k16(acc, f[kc], desc + kc * (B_SLICE >> 4));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(acc);
+}
+
 // Within each quad of lanes (one accumulator row), lane t holds word j of
 // column block j; afterwards it holds word i of lane i's block t, i.e.
 // its block's words in column order. A 4 x 4 transpose in two butterfly
@@ -179,6 +238,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The same for global memory: this thread's generic-proxy writes before
+// later TMA reads (after a grid-wide barrier, on any SM).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // Write the accumulator's rows `half` (0: l/4, 1: l/4 + 8) as channels-last
 // vectors: row pixel -> out_row + 32 channels; channels 8t .. 8t+7 of the
 // row go to this lane (t = l % 4). Every lane of the warp must call it;
@@ -226,6 +291,11 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count));
 }
+// Before the memory of an mbarrier holds anything else (or a new one).
+__device__ __forceinline__ void mbar_inval(uint32_t bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile(
       "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
@@ -242,6 +312,40 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+}
+
+// A barrier of every thread of the block that threads may reach from
+// different places in the code (warp-specialized roles each running their
+// own copy of a step): the non-aligned form of __syncthreads.
+__device__ __forceinline__ void cta_sync() {
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+}
+
+// A barrier of every thread of every block of a cooperative launch (all
+// blocks resident), reachable from different places in the code as
+// `cta_sync`. `bar`: two words in global memory, arrivals and generation,
+// the arrivals 0 before the first barrier on them (each barrier leaves
+// them so); one pair per stream, so that launches on it never overlap.
+// Memory ordering: every thread's earlier writes reach every thread's
+// later reads, through the block barriers and thread 0's fences around
+// its arrival, as cooperative_groups' grid barrier orders them.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  cta_sync();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) {
+      }
+    }
+    __threadfence();
+  }
+  cta_sync();
 }
 
 // Hand registers back to / take them from the block's pool, per thread,

@@ -15,7 +15,9 @@ Counterpart of the JAX package's `models/refine_pallas.py` under
   pointwise weights each cast to the compute dtype; the entries and the
   output conv stay on `dense3x3` (3 launches).
 * "chain": the whole tower stack and the whole head run as one `chain3x3`
-  launch each, over the composed kernels as in "mxu".
+  launch each, over the composed kernels as in "mxu". On the card in bf16
+  the tower reads its 3-channel input NCHW and writes channels-last, and
+  the head reads its two halves from that (`x[:B]`, `x[B:]`).
 
 In every engine BatchNorm folds into a per-channel affine applied before
 each layer; the two towers run as one 2B batch with two weight groups, the
@@ -121,6 +123,8 @@ def refine_residual(model, left: torch.Tensor, disp: torch.Tensor, *,
                            F.pad(td.Conv_0.weight, (0, 0, 0, 0, 0, 2))])
 
     if dw == "chain":
+        # In bf16 on the card y lies channels-last; the head's two halves
+        # are views of it in the same layout.
         y = chain_layer(
             x, [entries] + [torch.stack([_compose_dwsep(bl),
                                          _compose_dwsep(bd)])

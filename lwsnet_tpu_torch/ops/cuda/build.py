@@ -145,7 +145,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
 CHAIN3X3 = Kernel(
     "chain3x3", [_I, _PP, _PP, _PP, _P, _P, _P, _PP, _IP, _IP, _IP, _I, _I,
-                 _I, _I, _P])
+                 _I, _I, _I, _P, _P])
 LANE_BROADCAST = Kernel("lane_broadcast", [_P, _P, _I, _I, _P])
 KERNELS = (CONV3D_BN_RELU, CONV3D_SKIP_SOFTARGMIN, DENSE3X3, DWSEP3X3,
            DWSEP3X3_PAIR, CHAIN3X3, LANE_BROADCAST)

@@ -12,13 +12,15 @@ beside it here, for a CPU tensor. Weight groups follow the JAX rule:
 batch b uses weight set b // (B // G).
 
 Layout on the card: the tensor-core routes of `dense3x3`
-(`dense_tensor_core_route`) and of `dwsep` / `dwsep2`
-(`dwsep_tensor_core_route`) read and write channels-last memory,
-(B, H, W, C) under the logical (B, C, H, W) shape; `dense3x3`'s CUDA-core
-route reads either layout (channels-last where Ci % 8 == 0) and writes
-channels-last when asked. Under bf16 the "mxu" and "vpu" engines' entry
-writes channels-last and every later layer, the output conv included,
-reads it; the CUDA-core routes of `dwsep` / `dwsep2` and `chain` read the
+(`dense_tensor_core_route`), of `dwsep` / `dwsep2`
+(`dwsep_tensor_core_route`) and of `chain` (`chain_tensor_core_route`)
+read and write channels-last memory, (B, H, W, C) under the logical
+(B, C, H, W) shape; `dense3x3`'s CUDA-core route reads either layout
+(channels-last where Ci % 8 == 0) and writes channels-last when asked.
+Under bf16 the "mxu" and "vpu" engines' entry writes channels-last and
+every later layer, the output conv included, reads it; "chain"'s tower
+reads its 3-channel input NCHW and writes channels-last, which the head
+reads. The CUDA-core routes of `dwsep` / `dwsep2` and `chain` read the
 default layout. Each copy is `build.in_layout`'s, counted. The plain
 versions take any layout.
 """
@@ -62,6 +64,38 @@ def dwsep_tensor_core_route(dtype: torch.dtype, channels: Sequence[int],
             and all(m == 32 for m in mid)
             and len(dilations) == len(channels) - 1
             and all(1 <= d <= 16 for d in dilations) and 1 <= groups <= 2)
+
+
+def _narrow_entry(cis: Sequence[int], cos: Sequence[int],
+                  two_input: bool) -> bool:
+    """Whether a `chain` stack opens with a narrow entry: one input of at
+    most 3 channels (its taps fit one K = 32 product), 32 outputs."""
+    return not two_input and cis[0] * 9 <= 32 and cos[0] == 32
+
+
+def chain_tensor_core_route(dtype: torch.dtype, cis: Sequence[int],
+                            cos: Sequence[int], dilations: Sequence[int],
+                            groups: int = 1, two_input: bool = False) -> bool:
+    """Whether `chain` runs the stack (layer i: cis[i] -> cos[i] channels
+    at dilations[i]) on its tensor-core route, one cooperative launch on
+    channels-last scratch (`chain_tc::use` in csrc/chain3x3.cu): bf16, 2
+    to 8 layers, each with whole 32-channel input slabs on `dense3x3`'s
+    tensor-core shapes, with 32 outputs or, in the last layer, at most 8
+    (the head's 32 -> 1, zero-padded to 8), but a narrow entry first (the
+    tower's 3 -> 32)."""
+    n = len(cis)
+    if dtype != torch.bfloat16 or not 2 <= n <= 8:
+        return False
+    for i, (ci, co, d) in enumerate(zip(cis, cos, dilations)):
+        inputs = 2 if two_input and i == 0 else 1
+        if ((co == 32 or (i == n - 1 and co <= 8)) and ci % 32 == 0
+                and dense_tensor_core_route(dtype, ci, 32, d, inputs,
+                                            groups)):
+            continue
+        if i == 0 and d >= 1 and _narrow_entry(cis, cos, two_input):
+            continue
+        return False
+    return True
 
 
 def _conv_plain(x, wt, affine, dilation):
@@ -178,6 +212,21 @@ def _wgmma_images(wt: torch.Tensor) -> torch.Tensor:
     G, Co, Ci = wt.shape[:3]
     return wt.reshape(G, Co // 8, 8, Ci // 16, 2, 8, 9).permute(
         0, 3, 6, 1, 4, 2, 5).contiguous()
+
+
+def _pad_outputs(wt: torch.Tensor) -> torch.Tensor:
+    """(G, Co, Ci, 3, 3) with Co <= 8 zero-padded to 8 outputs, the
+    narrowest wgmma B image (m64n8k16); other widths as they are."""
+    Co = wt.shape[1]
+    return wt if Co >= 8 else F.pad(wt, (0, 0, 0, 0, 0, 0, 0, 8 - Co))
+
+
+def _entry_images(wt: torch.Tensor) -> torch.Tensor:
+    """A narrow entry's (G, 32, Ci, 3, 3), Ci <= 3, as the B images of the
+    (G, 32, K) pointwise kernel over its taps, K = ci * 9 + tap, padded
+    with zeros to 32 (csrc/chain3x3.cu: `entry_run`)."""
+    G, Co, Ci = wt.shape[:3]
+    return _pw_images(F.pad(wt.reshape(G, Co, Ci * 9), (0, 32 - Ci * 9)))
 
 
 def _pw_images(pw: torch.Tensor) -> torch.Tensor:
@@ -312,6 +361,19 @@ def _pointers(ctype, values):
     return (ctype * len(values))(*values)
 
 
+# The grid barrier words of `chain3x3`'s tensor-core route, one pair per
+# (device, stream), so that launches sharing them never overlap; each
+# barrier leaves them as it found the first (csrc/tc.cuh: `grid_sync`).
+_GRID_BARRIERS = {}
+
+
+def _grid_barrier(dev: torch.device) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _GRID_BARRIERS:
+        _GRID_BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _GRID_BARRIERS[key]
+
+
 def chain(x: torch.Tensor, wts: Sequence[torch.Tensor],
           affs: Sequence[Optional[torch.Tensor]], *,
           dilations: Sequence[int], x2: Optional[torch.Tensor] = None,
@@ -320,7 +382,11 @@ def chain(x: torch.Tensor, wts: Sequence[torch.Tensor],
           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The chain3x3 kernel: every layer in one cooperative launch, the
     intermediates in two ping-pong scratch tensors of x's dtype; arguments
-    as `chain_plain`."""
+    as `chain_plain`. On the tensor-core route (`chain_tensor_core_route`)
+    the scratch is channels-last; the first layer reads x and x2
+    channels-last, or NCHW where it is a narrow entry; a last layer of 32
+    outputs writes channels-last. Elsewhere every tensor is NCHW. x and x2
+    are copied where they lie otherwise."""
     if not on_card(x):
         return chain_plain(x, wts, affs, dilations=dilations, x2=x2,
                            wt2=wt2, aff2=aff2, out_dtype=out_dtype)
@@ -335,8 +401,7 @@ def chain(x: torch.Tensor, wts: Sequence[torch.Tensor],
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
     _check_out_dtype(dt, out_dtype, "chain3x3")
-    check(x, "x", (B, wts[0].shape[2], H, W), dt, dev)
-    cis, cos, wks, aps = [], [], [], []
+    cis, cos = [], []
     for i, (wt, aff) in enumerate(zip(wts, affs)):
         Co, Ci = wt.shape[1], wt.shape[2]
         check(wt, f"weight {i}", (G, Co, Ci, 3, 3), dt, dev)
@@ -347,21 +412,37 @@ def chain(x: torch.Tensor, wts: Sequence[torch.Tensor],
             check(aff, f"affine {i}", (G, 2, Ci), torch.float32, dev)
         cis.append(Ci)
         cos.append(Co)
-        wks.append(_relayout(wt))
-        aps.append(None if aff is None else aff.data_ptr())
+    tc = chain_tensor_core_route(dt, cis, cos, dilations, G,
+                                 x2 is not None)
+    entry = tc and _narrow_entry(cis, cos, x2 is not None)
+    if tc:
+        wks = [_entry_images(wt) if entry and i == 0
+               else _wgmma_images(_pad_outputs(wt))
+               for i, wt in enumerate(wts)]
+    else:
+        wks = [_relayout(wt) for wt in wts]
+    aps = [None if aff is None else aff.data_ptr() for aff in affs]
+    x_cl = tc and not entry
+    x = in_layout(x, x_cl)
+    check(x, "x", (B, cis[0], H, W), dt, dev, x_cl)
     second = (None, None, None)
     if x2 is not None:
-        check(x2, "x2", tuple(x.shape), dt, dev)
+        x2 = in_layout(x2, x_cl)
+        check(x2, "x2", tuple(x.shape), dt, dev, x_cl)
         check(wt2, "weight 0, second input", tuple(wts[0].shape), dt, dev)
         if aff2 is not None:
             check(aff2, "affine 0, second input", (G, 2, cis[0]),
                   torch.float32, dev)
-        wk2 = _relayout(wt2)
+        wk2 = _wgmma_images(wt2) if tc else _relayout(wt2)
         second = (x2.data_ptr(), None if aff2 is None else aff2.data_ptr(),
                   wk2.data_ptr())
-    scratch = [torch.empty(B * max(cos[:-1]) * H * W, dtype=dt, device=dev)
-               for _ in range(min(2, n - 1))]
-    y = torch.empty((B, cos[-1], H, W), dtype=out_dtype, device=dev)
+    if tc:
+        scratch = [empty((B, cos[0], H, W), dt, dev, True)
+                   for _ in range(min(2, n - 1))]
+    else:
+        scratch = [torch.empty(B * max(cos[:-1]) * H * W, dtype=dt,
+                               device=dev) for _ in range(min(2, n - 1))]
+    y = empty((B, cos[-1], H, W), out_dtype, dev, tc and cos[-1] > 8)
     outs = [scratch[i % 2] for i in range(n - 1)] + [y]
     ins = [x] + outs[:-1]
     symbol = f"chain3x3_{symbol_suffix(dt)}"
@@ -373,8 +454,8 @@ def chain(x: torch.Tensor, wts: Sequence[torch.Tensor],
         symbol, dev, n, *ptrs, *second,
         _pointers(ctypes.c_void_p, [t.data_ptr() for t in outs]),
         _pointers(ctypes.c_int, cis), _pointers(ctypes.c_int, cos),
-        _pointers(ctypes.c_int, list(dilations)), B, G, H, W,
-        dual=x2 is not None)
+        _pointers(ctypes.c_int, list(dilations)), B, G, H, W, int(tc),
+        _grid_barrier(dev).data_ptr() if tc else None, dual=x2 is not None)
     return y
 
 

@@ -409,13 +409,14 @@ def test_dwsep_cuda_core_route_off_the_tensor_cores_on_card(rnd):
     (dict(rows_dw="vpu", rows_paired=False),
      {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3": 8}),
     (dict(pallas_mode="layers"), {"dense3x3": 5, "dwsep3x3_pair": 6}),
+    (dict(rows_dw="chain"), {"chain3x3": 2, "chain3x3[dual]": 1}),
 ])
 def test_refinement_layout_copies_on_card(rnd, fields, want):
-    """The bf16 stage-4 refinement under "vpu" (paired, unpaired) and
-    "layers" makes no layout copy: the entries write channels-last, and
-    every later layer reads it; launch counts as a forward's. The whole
-    4-stage forward copies once, stage 1's activation into the fused last
-    layer."""
+    """The bf16 stage-4 refinement under "vpu" (paired, unpaired), "layers"
+    and "chain" makes no layout copy: the entries write channels-last, and
+    every later layer reads it; launch counts as a forward's (one
+    `chain3x3` launch per stack). The whole 4-stage forward copies once,
+    stage 1's activation into the fused last layer."""
     import numpy as np
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.models.refine_kernels import refine_residual
@@ -446,3 +447,113 @@ def test_refinement_layout_copies_on_card(rnd, fields, want):
     counts = {k: v for k, v in build.launch_counts().items() if v}
     assert counts == dict(want, conv3d_bn_relu=15, conv3d_skip_softargmin=3)
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
+
+
+def _chain_operands(rnd, dtype):
+    """The tower stack (3 -> 32 entry, four 32 -> 32 layers, two weight
+    groups) and the head stack (two-input 32 -> 32 entry, four 32 -> 32
+    layers, 32 -> 1), at the refinement's dilations:
+    ((wts, affs, dils), (wts, affs, dils, wt2, aff2))."""
+    def w(G, co, ci, fan=None):
+        return (rnd(G, co, ci, 3, 3) * (2 / (9 * (fan or ci))) ** 0.5).to(
+            dtype)
+
+    def a(G, c):
+        return torch.stack([rnd(G, c).abs() + 0.5, rnd(G, c) * 0.1], 1)
+
+    tower = ([w(2, 32, 3)] + [w(2, 32, 32) for _ in range(4)],
+             [None] + [a(2, 32) for _ in range(4)], (1, 2, 4, 8, 16))
+    head = ([w(1, 32, 32, 64)] + [w(1, 32, 32) for _ in range(4)]
+            + [w(1, 1, 32)], [a(1, 32) for _ in range(5)] + [None],
+            (8, 8, 4, 2, 1, 1), w(1, 32, 32, 64), a(1, 32))
+    return tower, head
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_chain_wgmma_route_ragged_on_card(rnd, channels_last):
+    """The tensor-core route of chain3x3 at ragged planes (29 x 150, 11 x
+    75: no multiple of the 64-pixel tile, nor of R * d = 4d), every
+    dilation of both stacks: the tower (3 -> 32 entry from NCHW as one
+    K = 32 product, two weight groups) writes channels-last, the head
+    (two-input entry, 32 -> 1 float32 output on m64n8k16) reads its
+    halves. Inputs in either layout (one counted copy each where the route
+    reads the other); one launch per stack; within two bf16 rounding steps
+    of `chain_plain`."""
+    bf = torch.bfloat16
+    build.reset_launch_counts()
+    planes = ((29, 150), (11, 75))
+    for H, W in planes:
+        (tw, ta, td), (hw, ha, hd, w2, a2) = _chain_operands(rnd, bf)
+        assert trr.chain_tensor_core_route(bf, [3] + [32] * 4, [32] * 5, td,
+                                           2)
+        assert trr.chain_tensor_core_route(bf, [32] * 6, [32] * 5 + [1], hd,
+                                           1, True)
+        x = _channels_last(rnd(2, 3, H, W, dtype=bf), channels_last)
+        tower = trr.chain(x, tw, ta, dilations=td)
+        assert tower.shape == (2, 32, H, W)
+        assert tower.is_contiguous(memory_format=torch.channels_last)
+        _assert_two_steps(tower, trr.chain_plain(x, tw, ta, dilations=td))
+        hx = tower if channels_last else tower.contiguous()
+        kw = dict(dilations=hd, x2=hx[1:], wt2=w2, aff2=a2,
+                  out_dtype=torch.float32)
+        head = trr.chain(hx[:1], hw, ha, **kw)
+        assert head.dtype == torch.float32 and head.shape == (1, 1, H, W)
+        _assert_two_steps(head, trr.chain_plain(hx[:1], hw, ha, **kw))
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    n = len(planes)
+    assert (counts["chain3x3"], counts["chain3x3[dual]"]) == (2 * n, n)
+    # the entry reads NCHW, the head's tensor-core entry channels-last
+    assert build.LAYOUT_COPIES == (
+        {"to channels-last": 0, "to contiguous": n} if channels_last
+        else {"to channels-last": 2 * n, "to contiguous": 0})
+
+
+def test_chain_off_the_tensor_cores_on_card(rnd):
+    """bf16 stacks the tensor-core route does not take (a dilation of 17, a
+    16-channel layer) run on the first design, NCHW throughout: a
+    channels-last input is copied once, the result lies in the default
+    layout."""
+    bf = torch.bfloat16
+    build.reset_launch_counts()
+    (tw, ta, _), _ = _chain_operands(rnd, bf)
+    w16 = (rnd(2, 16, 32, 3, 3) * (2 / 288) ** 0.5).to(bf)
+    w_in16 = (rnd(2, 32, 16, 3, 3) * (2 / 144) ** 0.5).to(bf)
+    a16 = torch.stack([rnd(2, 16).abs() + 0.5, rnd(2, 16) * 0.1], 1)
+    stacks = [(tw[:3], ta[:3], (1, 17, 2)),
+              ([tw[0], w16, w_in16], [None, ta[1], a16], (1, 2, 4))]
+    for wts, affs, dils in stacks:
+        assert not trr.chain_tensor_core_route(
+            bf, [w.shape[2] for w in wts], [w.shape[1] for w in wts], dils, 2)
+        x = _channels_last(rnd(2, 3, 21, 40, dtype=bf), True)
+        got = trr.chain(x, wts, affs, dilations=dils)
+        assert got.is_contiguous()
+        _check(got, trr.chain_plain(x, wts, affs, dilations=dils), bf)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["chain3x3"] == 2
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 2}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_chain_narrow_outputs_on_card(rnd, out_dtype):
+    """Stacks ending in 1, 3 or 8 outputs (m64n8k16, the B images padded to
+    8) at a ragged 37 x 75 plane, two weight groups at batch 2: every
+    output channel in the (B, Co, H, W) result, within two bf16 rounding
+    steps of `chain_plain`."""
+    bf = torch.bfloat16
+    build.reset_launch_counts()
+    x = _channels_last(rnd(2, 32, 37, 75, dtype=bf), True)
+    for co in (1, 3, 8):
+        wts = [(rnd(2, 32, 32, 3, 3) * (2 / 288) ** 0.5).to(bf),
+               (rnd(2, co, 32, 3, 3) * (2 / 288) ** 0.5).to(bf)]
+        affs = [torch.stack([rnd(2, 32).abs() + 0.5, rnd(2, 32) * 0.1], 1)
+                for _ in range(2)]
+        assert trr.chain_tensor_core_route(bf, [32, 32], [32, co], (4, 1), 2)
+        kw = dict(dilations=(4, 1), out_dtype=out_dtype)
+        got = trr.chain(x, wts, affs, **kw)
+        assert got.shape == (2, co, 37, 75) and got.dtype == out_dtype
+        assert got.is_contiguous()
+        _assert_two_steps(got, trr.chain_plain(x, wts, affs, **kw))
+    torch.cuda.synchronize()
+    assert build.launch_counts()["chain3x3"] == 3
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}

@@ -1,7 +1,7 @@
 """Memory layouts in the port, on the CPU.
 
-On the card the tensor-core routes of `dense3x3`, `dwsep3x3` and
-`conv3d_bn_relu` read and write channels-last memory under the logical
+On the card the tensor-core routes of `dense3x3`, `dwsep3x3`, `chain3x3`
+and `conv3d_bn_relu` read and write channels-last memory under the logical
 (B, C, H, W) / (B, C, D, H, W) shapes. Here the wrappers run their plain
 versions, so these tests hold what the layout must not change: a
 channels-last input gives the result of its contiguous twin, at the same
@@ -279,3 +279,110 @@ def test_refine_residual_channels_last_inputs(refine_inputs, fields):
         got = refine_residual(model, nchw_memory(left), nchw_memory(disp))
     assert got.shape == want.shape == (1, 24, 40, 1)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _chain_stack(rng, stack, d):
+    """(x, kernels, affines, chain_layer keywords) of a small tower (3 ->
+    32 entry, two weight groups) or head (two-input entry, 32 -> 1 float32
+    output), interior dilation d."""
+    if stack == "tower":
+        x = _rand(rng, 2, 3, 19, 37)
+        kernels = [_rand(rng, 2, 32, 3, 3, 3, scale=27 ** -0.5)] + [
+            _rand(rng, 2, 32, 32, 3, 3, scale=288 ** -0.5) for _ in range(2)]
+        affines = [None, _affine(rng, 2, c=32), _affine(rng, 2, c=32)]
+        return x, kernels, affines, dict(dilations=(1, d, 2), groups=2)
+    x = _rand(rng, 2, 32, 19, 37)
+    kernels = [_rand(rng, 32, 64, 3, 3, scale=576 ** -0.5),
+               _rand(rng, 32, 32, 3, 3, scale=288 ** -0.5),
+               _rand(rng, 1, 32, 3, 3, scale=288 ** -0.5)]
+    affines = [_affine(rng, c=64), _affine(rng, c=32), None]
+    return x, kernels, affines, dict(dilations=(d, d, 1), two_input=True,
+                                     out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("stack", ["tower", "head"])
+@pytest.mark.parametrize("d", [1, 16])
+def test_chain_layer_channels_last_input(stack, d):
+    """`chain_layer` on a channels-last input gives its contiguous twin's
+    result: the tower's 3-channel input, and the head's two halves read
+    from a channels-last tower output (`x[:B]`, `x[B:]`)."""
+    rng = np.random.default_rng(80 + d)
+    x, kernels, affines, kw = _chain_stack(rng, stack, d)
+    want = trr.chain_layer(x, kernels, affines, **kw)
+    got = trr.chain_layer(x.contiguous(memory_format=CL), kernels, affines,
+                          **kw)
+    shape = (2, 32, 19, 37) if stack == "tower" else (1, 1, 19, 37)
+    assert got.shape == want.shape == shape
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_chain_tensor_core_route_rule():
+    """Which stacks `chain3x3` runs on its tensor-core route (channels-last
+    scratch, wgmma): bf16, every layer on dense3x3's tensor-core shapes
+    with whole 32-channel input slabs, 32 outputs or at most 8 in the last
+    layer, but a narrow entry of at most 3 channels first."""
+    bf, f32 = torch.bfloat16, torch.float32
+    route = trr.chain_tensor_core_route
+    tower = ([3] + [32] * 4, [32] * 5, (1, 2, 4, 8, 16))
+    head = ([32] * 6, [32] * 5 + [1], (8, 8, 4, 2, 1, 1))
+    assert route(bf, *tower, groups=2)
+    assert route(bf, *head, two_input=True)
+    assert route(bf, [1] + [32] * 4, [32] * 5, tower[2])   # a 1-channel one
+    assert not route(bf, [4] + [32] * 4, [32] * 5, tower[2])  # 36 taps
+    assert not route(f32, *tower, groups=2)              # float32
+    assert not route(f32, *head, two_input=True)
+    assert not route(bf, [3, 32, 16, 32], [32, 16, 32, 32], (1, 2, 4, 8),
+                     groups=2)                           # Co != 32 inside
+    assert not route(bf, [3, 32, 32], [32, 32, 32], (1, 17, 2),
+                     groups=2)                           # d > 16
+    assert not route(bf, *head[:2], (8, 8, 4, 2, 32, 1), two_input=True)
+    assert not route(bf, *tower, groups=5)               # G * Ci > 128
+    assert not route(bf, [96, 32, 32], [32, 32, 1], (8, 4, 1),
+                     two_input=True)                     # 2 x 96 > 128
+    assert not route(bf, [16, 32], [32, 32], (1, 2))     # a 16-channel slab
+    assert route(bf, [3, 32], [32, 1], (1, 1))           # entry + output
+    assert route(bf, [32, 32], [32, 8], (1, 1))          # 8 outputs
+    assert not route(bf, [32, 32], [32, 16], (1, 1))     # 16 outputs
+    assert not route(bf, [32, 32, 32], [32, 1, 32], (1, 1, 1))  # inside
+    assert not route(bf, [32] * 9, [32] * 9, (1,) * 9)   # over 8 layers
+    assert not route(bf, [32], [32], (1,))               # one layer
+
+
+@pytest.mark.parametrize("where", ["inputs", "tower"])
+def test_refine_residual_chain_channels_last(refine_inputs, monkeypatch,
+                                             where):
+    """The stage-4 residual under "chain" is unchanged when its (B, H, W,
+    C) inputs lie as NCHW memory ("inputs"), and when the tower's output
+    lies channels-last, as the tensor-core route writes it on the card
+    ("tower"), so that the head reads both halves in that layout."""
+    left, disp = refine_inputs
+    model = LWSNet(ModelConfig(compute_dtype="float32", rows_dw="chain"),
+                   device="cpu")
+    with torch.no_grad():
+        want = refine_residual(model, left, disp)
+    if where == "inputs":
+        left, disp = (t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                      for t in (left, disp))
+    else:
+        chain, laid = trr.chain, []
+
+        def channels_last_out(x, *args, **kw):
+            y = chain(x, *args, **kw).contiguous(memory_format=CL)
+            laid.append(build.lies_channels_last(y))
+            return y
+
+        monkeypatch.setattr(trr, "chain", channels_last_out)
+    with torch.no_grad():
+        got = refine_residual(model, left, disp)
+    assert got.shape == want.shape == (1, 24, 40, 1)
+    if where == "inputs":
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        return
+    assert laid == [True, False]  # the tower's; the head's has 1 channel
+    # The CPU convolutions of the six head layers take another algorithm,
+    # and so another float32 summation order, for channels-last input; on
+    # this residual (span about 250) that moves the result by tens of
+    # float32 steps, hence 2e-6 of the span.
+    span = (want.max() - want.min()).item()
+    torch.testing.assert_close(got, want, atol=2e-6 * span, rtol=1e-5)
