@@ -18,9 +18,11 @@ in order; any failure exits non-zero:
   3. every kernel against its plain PyTorch version at each shape and
      memory layout a path gives it, and the tensor-core routes of
      dense3x3, dwsep3x3 (solo and pair), chain3x3 (tower and head) and
-     conv3d_bn_relu at ragged shapes from both layouts (NCHW /
-     channels-last), in float32 (TF32 off; atol 2e-4, rtol 1e-3) and bf16
-     (mean |delta| < 2 % of the plain output's span);
+     conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout) at ragged
+     shapes from both layouts (NCHW / channels-last), in float32 (TF32
+     off; atol 2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain
+     output's span; chain3x3 and the 8-channel conv3d_bn_relu layers also
+     every element within two rounding steps);
   4. for each engine, the full forward through `make_forward` (kernels)
      against the module path on the card: bf16 per-stage mean |delta| < 2 %
      of span, float32 max |delta| < 1e-3 x span; the launch counters of
@@ -323,7 +325,9 @@ def main_path_calls(cfg):
     """Every distinct kernel call of the 368x1232 batch-1 forward:
     (kernel, label, shape dict, launches per forward, engine). `cl`: the
     input lies channels-last, as the path hands it over; `cl_out`: the
-    CUDA-core route is asked to write channels-last."""
+    kernel is asked to write channels-last, `ncdhw_out` NCDHW (a stage's
+    last conv3d_bn_relu, for conv3d_skip_softargmin, where its route
+    can)."""
     calls = []
     for s in range(3):
         h, w = H // 8 * 2 ** s, W // 8 * 2 ** s
@@ -331,12 +335,21 @@ def main_path_calls(cfg):
         C = cfg.channels_3d * cfg.growth_rate[s]
         geo = dict(B=1, D=D, H=h, W=w)
         calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C}",
-                      dict(geo, Ci=1, Co=C), 1, "mxu"))
-        cl = C == 32  # the layout conv3d_bn_relu writes a bf16 32-channel
-        calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}",
-                      dict(geo, Ci=C, Co=C, cl=cl), cfg.layers_3d, "mxu"))
+                      dict(geo, Ci=1, Co=C, cl_out=True), 1, "mxu"))
+        # the bf16 C -> C layers read and write channels-last; the last
+        # writes NCDHW for the skip layer where its route can (C = 8, not
+        # the 32-channel route: `costfilter.conv3d_writes_ncdhw`; a rule
+        # of its own here, so that `kernel_device_times.py` can run these
+        # calls on an older checkout of the package)
+        mid = dict(geo, Ci=C, Co=C, cl=True)
+        ncdhw = C == 8
+        calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}", mid,
+                      cfg.layers_3d - ncdhw, "mxu"))
+        if ncdhw:
+            calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C} last, "
+                          f"NCDHW out", dict(mid, ncdhw_out=True), 1, "mxu"))
         calls.append(("conv3d_skip_softargmin", f"stage{s + 1} {C}->1",
-                      dict(geo, Ci=C, cl=cl, start=0 if s == 0 else
+                      dict(geo, Ci=C, cl=not ncdhw, start=0 if s == 0 else
                            -cfg.max_disp_list[s] + 1), 1, "mxu"))
     c = cfg.refine_channels
     geo = dict(H=H, W=W)
@@ -468,6 +481,11 @@ def ragged_calls():
         calls.append(("conv3d_bn_relu", f"ragged 32->32 B=2 7x11x37 {tag}",
                       dict(B=2, Ci=32, Co=32, D=7, H=11, W=37, cl=cl), 0,
                       None))
+        for out, to in (("cl_out", "channels-last"), ("ncdhw_out", "NCDHW")):
+            calls.append(("conv3d_bn_relu",
+                          f"ragged 8->8 B=2 7x11x37 {tag} to {to}",
+                          dict(B=2, Ci=8, Co=8, D=7, H=11, W=37, cl=cl,
+                               **{out: True}), 0, None))
     return calls
 
 
@@ -626,7 +644,9 @@ def make_call(kernel, p, dtype, rng, dev):
         n_in = B * Ci * D * h * w
         n_out = B * Co * D * h * w
         xn = x.contiguous()
-        return call(lambda: CF.conv3d_bn_relu(x, wt, shift),
+        out = ({"channels_last": True} if p.get("cl_out") else
+               {"channels_last": False} if p.get("ncdhw_out") else {})
+        return call(lambda: CF.conv3d_bn_relu(x, wt, shift, **out),
                     lambda: CF.conv3d_bn_relu_plain(x, wt, shift),
                     lambda: F.conv3d(x, wt, padding=1),
                     (n_in + n_out + wt.numel()) * es + 4 * Co,
@@ -697,7 +717,8 @@ def check_close(got, want, dtype, what):
 
 
 def two_steps(got, want, what):
-    """The chain's bar on the card: every bf16 element within two rounding
+    """The bar of chain3x3 and of conv3d_bn_relu's 8-channel layers on the
+    card: every bf16 element within two rounding
     steps of the plain value (2 * 2**-8 relative) plus 2e-2 of the plain
     output's largest magnitude for sums that cancel, as
     tests/test_torch_gpu.py holds it."""
@@ -784,7 +805,9 @@ def main():
             torch.cuda.synchronize()
             what = f"{kernel} [{label}] {str(dtype)[6:]}"
             err, span = check_close(got, want, dtype, what)
-            if kernel == "chain3x3" and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and (
+                    kernel == "chain3x3"
+                    or (kernel == "conv3d_bn_relu" and p["Co"] == 8)):
                 two_steps(got, want, what)
             checks.setdefault(kernel, {})[(label, str(dtype)[6:])] = err
             print(f"[3] ok {what}: max |delta| {err:.3g}, span {span:.4g}")

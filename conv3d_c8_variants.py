@@ -1,0 +1,349 @@
+#!/usr/bin/env python3
+"""Variants of conv3d_bn_relu's 8 -> 8 tensor-core route, timed on one GPU.
+
+Run from the repository root on a machine with a card:
+
+    python3 conv3d_c8_variants.py [--json PATH]
+
+Each variant is `lwsnet_tpu_torch/csrc/conv3d_bn_relu.cu` with a few
+textual changes to its `c8` namespace, written beside copies of the
+headers to build/c8_variants/<name>/ and built with the port's nvcc flags,
+all at once. Each is held against `conv3d_bn_relu_plain` at the stage-3
+shape of the 368x1232 forward (every bf16 element within two rounding
+steps) and timed alone on the device (`chip_smoke.kernel_device_ms`) at
+the stage-2 and stage-3 shapes, writing channels-last and NCDHW, beside
+the repository's own library, in one process:
+
+  groups1 .. groups3  1-3 product warpgroups a block (the route has 4);
+  mma_sync            mma.sync.m16n8k16 per warp from the same ldmatrix
+                      fragments, the 18 B slices as register fragments,
+                      in place of wgmma m64n8k16;
+  n32_rows            output rows on N: per (staged row, j) one wgmma
+                      m64n32k16 per output depth against B banded over
+                      the tile's 4 rows (zero where a row's tap falls
+                      outside), 108 products a tile for 216;
+  kw2_pairs           the kw = 2 taps of staged rows h and h + 1 in one
+                      K = 16 slice (A's second half from the next row),
+                      in place of kw = 2 beside a zero fourth tap: 15
+                      products an output row for 18;
+  channel_runs        the TMA map with the 8 channels as the innermost
+                      dimension (16-byte runs) in place of the voxel map;
+  clock               clock64() per role: the staging thread's waits for
+                      free stages, each product warpgroup's waits for
+                      landed stages, products and epilogue (median over
+                      the blocks of one stage-3 and one stage-2 launch).
+
+Exits 1 without CUDA, 2 if a variant fails to build or its check.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SHAPES = {"stage3": (1, 9, 184, 616), "stage2": (1, 9, 92, 308)}
+
+_CLOCK_READ = '''
+extern "C" int c8_clock_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, c8::clk, sizeof(c8::clk));
+}
+'''
+
+VARIANTS = {
+    **{f"groups{g}": [("constexpr int GROUPS = 4;",
+                       f"constexpr int GROUPS = {g};")] for g in (1, 2, 3)},
+    "mma_sync": [
+        ("  tc::Acc8 acc[TD * TH];", """  uint32_t bf[18][2];  // B fragments: k = 2 (lane % 4) + {0, 1} (+ 8)
+#pragma unroll
+  for (int i = 0; i < 18; ++i) {
+    const unsigned char* sl = smem + i * SLICE + lane / 4 * 16 + lane % 4 * 4;
+    bf[i][0] = *reinterpret_cast<const uint32_t*>(sl);
+    bf[i][1] = *reinterpret_cast<const uint32_t*>(sl + 128);
+  }
+  tc::Acc8 acc[TD * TH];"""),
+        ("""        tc::wgmma_m64n8k16(acc[o], af[q % NBUF],
+                           desc0 + ((kd * 3 + kh) * 2 + j) * (SLICE >> 4));""",
+         """        const uint32_t* b = bf[(kd * 3 + kh) * 2 + j];
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\\n"
+            : "+f"(acc[o].v[0]), "+f"(acc[o].v[1]), "+f"(acc[o].v[2]),
+              "+f"(acc[o].v[3])
+            : "r"(af[q % NBUF][0]), "r"(af[q % NBUF][1]),
+              "r"(af[q % NBUF][2]), "r"(af[q % NBUF][3]), "r"(b[0]),
+              "r"(b[1]));"""),
+        ("        if (q + 1 >= NBUF) tc::wgmma_wait<NBUF - 2>();", ""),
+        ("      tc::wgmma_fence();\n", ""),
+        ("      tc::wgmma_commit();\n", ""),
+        ("    tc::wgmma_wait<0>();\n", ""),
+    ],
+    "n32_rows": [
+        ("constexpr int FIXED = WBYTES + 256 + 128;",
+         "constexpr int IMG = 36 * 1024;  // per (sh, kd, j): N = oh * 8 + co\n"
+         "constexpr int FIXED = WBYTES + IMG + 256 + 128;"),
+        ("  const uint32_t bars = wbase + WBYTES;",
+         "  const uint32_t bars = wbase + WBYTES + IMG;"),
+        ("  const uint64_t desc0 = tc::b_desc(wbase);",
+         "  const uint64_t desc0 = tc::b_desc(wbase + WBYTES);"),
+        ("  tc::mbar_wait(weights, 0);\n", """  tc::mbar_wait(weights, 0);
+  for (int i = threadIdx.x - 128; i < 36 * 64; i += 128 * GROUPS) {
+    const int chunk = i % 16, blk = i / 16 % 4, img = i / 64;
+    const int j = img % 2, kd = img / 2 % 3, sh = img / 6, kh = sh - blk;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (kh >= 0 && kh <= 2)
+      v = *reinterpret_cast<const uint4*>(
+          smem + ((kd * 3 + kh) * 2 + j) * SLICE + chunk * 16);
+    *reinterpret_cast<uint4*>(smem + WBYTES + img * 1024 + blk * 256 +
+                              chunk * 16) = v;
+  }
+  tc::fence_proxy_async();
+  asm volatile("bar.sync 1, %0;\\n" ::"r"(128 * GROUPS) : "memory");
+"""),
+        ("  tc::Acc8 acc[TD * TH];", "  tc::Acc acc[TD];"),
+        ("    for (int o = 0; o < TD * TH; ++o) {\n      tc::zero(acc[o]);",
+         "    for (int o = 0; o < TD; ++o) {\n      tc::zero(acc[o]);"),
+        ("""      for (int o = 0; o < TD * TH; ++o) {
+        const int kd = sd - o / TH, kh = sh - o % TH;
+        if (kd < 0 || kd > 2 || kh < 0 || kh > 2) continue;
+        tc::wgmma_m64n8k16(acc[o], af[q % NBUF],
+                           desc0 + ((kd * 3 + kh) * 2 + j) * (SLICE >> 4));
+      }""", """      for (int od = 0; od < TD; ++od) {
+        const int kd = sd - od;
+        if (kd < 0 || kd > 2) continue;
+        tc::wgmma_m64n32k16(acc[od], af[q % NBUF],
+                            desc0 + ((sh * 3 + kd) * 2 + j) * (1024 >> 4));
+      }"""),
+        ("      tc::fence_operand(acc[o]);\n",
+         "      if (o % TH == 0) tc::fence_operand(acc[o / TH]);\n"),
+        ("acc[o].v[2 * half] + s0", "acc[o / TH].v[4 * (o % TH) + 2 * half] + s0"),
+        ("acc[o].v[2 * half + 1] + s1",
+         "acc[o / TH].v[4 * (o % TH) + 2 * half + 1] + s1"),
+    ],
+    "kw2_pairs": [
+        ("constexpr int FIXED = WBYTES + 256 + 128;",
+         "constexpr int FIXED = WBYTES + 3 * SLICE + 256 + 128;"),
+        ("  const uint32_t bars = wbase + WBYTES;",
+         "  const uint32_t bars = wbase + WBYTES + 3 * SLICE;"),
+        ("  const uint32_t ao = (warp * 16 + lane % 16 + lane / 16) * 16;\n"
+         "  tc::mbar_wait(weights, 0);\n",
+         """  const uint32_t ao = (warp * 16 + lane % 16 + lane / 16) * 16;
+  // the kw = 2 pair slice: lanes 16-31 read the next staged row (h + 1)
+  const uint32_t ao2_last = (warp * 16 + lane % 16 + 2) * 16;
+  const uint32_t ao2 = ao2_last + lane / 16 * ROW;
+  tc::mbar_wait(weights, 0);
+  // P(kd): k < 8 the kw = 2 taps of (kd, 0), k >= 8 those of (kd, 1)
+  for (int i = threadIdx.x - 128; i < 3 * 16; i += 128 * GROUPS) {
+    const int kd = i / 16, chunk = i % 16;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        smem + ((kd * 3 + chunk / 8) * 2 + 1) * SLICE + chunk % 8 * 16);
+    *reinterpret_cast<uint4*>(smem + WBYTES + kd * SLICE + chunk * 16) = v;
+  }
+  tc::fence_proxy_async();
+  asm volatile("bar.sync 1, %0;\\n" ::"r"(128 * GROUPS) : "memory");
+"""),
+        ("                    buf + (q + 1) / 2 * ROW + ao + (q + 1) % 2 * 32);",
+         """                    buf + (q + 1) / 2 * ROW +
+                        ((q + 1) % 2 == 0 ? ao
+                         : (q + 1) / 2 % SH < SH - 1 ? ao2 : ao2_last));"""),
+        ("""      for (int o = 0; o < TD * TH; ++o) {
+        const int kd = sd - o / TH, kh = sh - o % TH;
+        if (kd < 0 || kd > 2 || kh < 0 || kh > 2) continue;
+        tc::wgmma_m64n8k16(acc[o], af[q % NBUF],
+                           desc0 + ((kd * 3 + kh) * 2 + j) * (SLICE >> 4));
+      }""", """      for (int o = 0; o < TD * TH; ++o) {
+        const int kd = sd - o / TH, kh = sh - o % TH;
+        if (kd < 0 || kd > 2 || kh < 0 || kh > 2) continue;
+        if (j == 0)
+          tc::wgmma_m64n8k16(acc[o], af[q % NBUF],
+                             desc0 + (kd * 3 + kh) * 2 * (SLICE >> 4));
+        else if (kh == 0)  // taps (kd, 0, 2) and (kd, 1, 2)
+          tc::wgmma_m64n8k16(acc[o], af[q % NBUF],
+                             desc0 + (18 + kd) * (SLICE >> 4));
+        else if (kh == 2)  // tap (kd, 2, 2), the next row's weights zero
+          tc::wgmma_m64n8k16(acc[o], af[q % NBUF],
+                             desc0 + ((kd * 3 + 2) * 2 + 1) * (SLICE >> 4));
+      }"""),
+    ],
+    "channel_runs": [
+        ("""        tc::tma_load_4d(stage0 + (n % STAGES) * SB, &map_x, landed(n),
+                        2 * (t.w0 - 1), t.h0 - 1, t.d0 - 1, t.b);""",
+         """        tc::tma_load_5d(stage0 + (n % STAGES) * SB, &map_x, landed(n),
+                        0, t.w0 - 1, t.h0 - 1, t.d0 - 1, t.b);"""),
+        ("  const int rc = tc::make_voxel_map(&map, x, B, D, H, W, LP, SH, SD);",
+         """  const cuuint64_t dims[5] = {8, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {16, 16ull * W, 16ull * W * H,
+                                 16ull * W * H * D};
+  const cuuint32_t box[5] = {8, LP, SH, SD, 1}, ones[5] = {1, 1, 1, 1, 1};
+  const int rc = tc::encode_tiled() == nullptr ? (int)CUDA_ERROR_NOT_FOUND
+      : (int)tc::encode_tiled()(
+            &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);"""),
+    ],
+    "clock": [
+        ("__global__ void __launch_bounds__(THREADS, 1)\nconv3d_bn_relu_c8_kernel(",
+         "__device__ unsigned long long clk[132 * 8 * 8];  // block, role\n"
+         "__global__ void __launch_bounds__(THREADS, 1)\n"
+         "conv3d_bn_relu_c8_kernel("),
+        ("    if (threadIdx.x == 0)\n      for (int n = 0; n < my_tiles; ++n) {\n"
+         "        if (n >= STAGES) tc::mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);",
+         "    long long pw = 0;\n"
+         "    if (threadIdx.x == 0)\n      for (int n = 0; n < my_tiles; ++n) {\n"
+         "        const long long a = clock64();\n"
+         "        if (n >= STAGES) tc::mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);\n"
+         "        pw += clock64() - a;"),
+        ("                        2 * (t.w0 - 1), t.h0 - 1, t.d0 - 1, t.b);\n"
+         "      }\n    return;",
+         "                        2 * (t.w0 - 1), t.h0 - 1, t.d0 - 1, t.b);\n"
+         "      }\n"
+         "    if (threadIdx.x == 0 && blockIdx.x < 132) {\n"
+         "      clk[blockIdx.x * 64] = pw;\n"
+         "      clk[blockIdx.x * 64 + 1] = my_tiles;\n    }\n    return;"),
+        ("  for (int m = wg - 1; m < my_tiles; m += GROUPS) {\n"
+         "    tc::mbar_wait(landed(m), (m / STAGES) & 1);",
+         "  long long t_wait = 0, t_mma = 0, t_epi = 0;\n"
+         "  for (int m = wg - 1; m < my_tiles; m += GROUPS) {\n"
+         "    const long long c0 = clock64();\n"
+         "    tc::mbar_wait(landed(m), (m / STAGES) & 1);\n"
+         "    const long long c1 = clock64();\n    t_wait += c1 - c0;"),
+        ("    tc::wgmma_wait<0>();\n",
+         "    tc::wgmma_wait<0>();\n    const long long c2 = clock64();\n"
+         "    t_mma += c2 - c1;\n"),
+        ("          p[vol] = from_f<bf16>(v1);\n        }\n      }\n    }\n  }\n}\n",
+         "          p[vol] = from_f<bf16>(v1);\n        }\n      }\n    }\n"
+         "    t_epi += clock64() - c2;\n  }\n"
+         "  if (threadIdx.x % 128 == 0 && blockIdx.x < 132) {\n"
+         "    unsigned long long* c = clk + blockIdx.x * 64 + wg * 8;\n"
+         "    c[0] = t_wait; c[1] = t_mma; c[2] = t_epi;\n  }\n}\n"),
+    ],
+}
+
+
+def write_variant(name, edits, out_dir):
+    """The variant's sources in out_dir; raises where an edit's anchor is
+    not found exactly once in the route's namespace."""
+    csrc = os.path.join(ROOT, "lwsnet_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "conv3d_bn_relu.cu")).read()
+    head, body = src.split("namespace c8 {", 1)
+    for old, new in edits:
+        if body.count(old) != 1:
+            raise RuntimeError(f"{name}: anchor found {body.count(old)} "
+                               f"times: {old[:60]!r}")
+        body = body.replace(old, new)
+    if name == "clock":
+        body += _CLOCK_READ
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(csrc):
+        if f.endswith(".cuh"):
+            shutil.copy(os.path.join(csrc, f), out_dir)
+    with open(os.path.join(out_dir, "conv3d_bn_relu.cu"), "w") as f:
+        f.write(head + "namespace c8 {" + body)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("conv3d_c8_variants: no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    from lwsnet_tpu_torch.utils.timing import card
+
+    dev = torch.device("cuda")
+    print(f"card: {card()}")
+    build.build_all()
+    base = os.path.join(ROOT, "build", "c8_variants")
+    jobs = {}
+    for name, edits in VARIANTS.items():
+        d = os.path.join(base, name)
+        write_variant(name, edits, d)
+        so = os.path.join(d, "libconv3d_bn_relu.so")
+        jobs[name] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so,
+             os.path.join(d, "conv3d_bn_relu.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, rc = {"repo": None}, 0
+    for name, (so, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            print(f"{name}: build failed\n{out}")
+            rc = 2
+            continue
+        libs[name] = ctypes.CDLL(so)
+
+    def operands(B, D, H, W):
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(np.maximum(rng.standard_normal((B, 8, D, H, W)),
+                                       0), dtype=torch.float32)
+        x = x.to(dev, torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        wt = torch.as_tensor(rng.standard_normal((8, 8, 3, 3, 3))
+                             * np.sqrt(2 / 216), dtype=torch.float32)
+        sh = torch.as_tensor(rng.normal(0, 0.1, 8), dtype=torch.float32)
+        return x, wt.to(dev, torch.bfloat16), sh.to(dev)
+
+    build.CONV3D_BN_RELU._fn("conv3d_bn_relu_bf16")  # loads the library
+    repo_lib = build.CONV3D_BN_RELU._lib
+    report = {"card": card(), "variants": {}}
+    for name, lib in libs.items():
+        build.CONV3D_BN_RELU._lib = repo_lib if lib is None else lib
+        build.CONV3D_BN_RELU._fns = {}
+        row = {}
+        x, wt, sh = operands(*SHAPES["stage3"])
+        want = CF.conv3d_bn_relu_plain(x, wt, sh).float()
+        got = CF.conv3d_bn_relu(x, wt, sh).float()
+        tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+        bad = int(((got - want).abs() > tol).sum())
+        if bad:
+            print(f"{name}: {bad} elements beyond two rounding steps")
+            rc = 2
+        for shape, (B, D, H, W) in SHAPES.items():
+            x, wt, sh = operands(B, D, H, W)
+            for out_cl in (True, False):
+                ms = cs.kernel_device_ms(
+                    lambda: CF.conv3d_bn_relu(x, wt, sh,
+                                              channels_last=out_cl),
+                    "conv3d_bn_relu")
+                key = f"{shape} {'channels-last' if out_cl else 'NCDHW'} out"
+                row[key] = ms
+                print(f"{name}: {key}: "
+                      f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+            if name == "clock":
+                CF.conv3d_bn_relu(x, wt, sh)
+                torch.cuda.synchronize()
+                clk = np.zeros(132 * 64, np.uint64)
+                lib.c8_clock_read(ctypes.c_void_p(clk.ctypes.data))
+                c = clk.reshape(132, 8, 8).astype(np.int64)
+                split = dict(staging_free_wait=float(np.median(c[:, 0, 0])),
+                             tiles_a_block=float(np.median(c[:, 0, 1])))
+                for k, what in enumerate(("landed_wait", "products",
+                                          "epilogue")):
+                    split[what] = float(np.median(c[:, 1:5, k]))
+                row[f"{shape} clock64"] = split
+                print(f"{name}: {shape} clock64 medians over the blocks "
+                      f"(the staging thread; each product warpgroup): {split}")
+        report["variants"][name] = row
+    build.CONV3D_BN_RELU._lib = repo_lib
+    build.CONV3D_BN_RELU._fns = {}
+    if args.json:
+        os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=1)
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

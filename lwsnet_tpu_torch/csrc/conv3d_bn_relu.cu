@@ -18,9 +18,10 @@
 // Bound on the H100: the stage-1 32->32 layer is compute bound (9.40 GFLOP
 // per launch at 368x1232: 9.51 us at 989 TFLOP/s, against 21.8 MB of
 // input and output, 6.5 us at 3.35 TB/s); the stage-2/3 8->8 layers are
-// memory bound.
+// bound by their bytes (32.6 MB a launch at stage 3: 9.7 us), but their
+// route is held by its narrow products (below).
 //
-// Two routes picked by shape:
+// Three routes picked by shape:
 // * bf16, Co == 32, Ci == 16 or 32 (the stage-1 32->32 layers), channels-
 //   last in and out: tensor cores through wgmma m64n32k16, Hopper's
 //   warpgroup product (helpers in `tc.cuh`).
@@ -54,14 +55,47 @@
 //     channels-last stores from the registers, ragged D, H and W masked.
 //   Registers and spills (ptxas, `chip_smoke.py` phase 2 on the H100): 127
 //   a thread at Ci = 32, 124 at Ci = 16, no spills.
-// * otherwise (float32, Ci = 1 entries, the C = 8 layers of stages 2-3):
-//   the CUDA cores. A block takes an 8 x 32 pixel tile of one (b, d)
-//   slice, one pixel per thread, with CO_T output channels in float32
-//   registers. Weights go through shared memory in chunks of CI_CHUNK
-//   input channels (27 * 8 * 32 floats = 27 KB); input taps are read
-//   straight from global memory, each voxel's 27 uses within a block
-//   hitting L1. A channels-last output of 8k channels is written in
-//   16-byte vectors.
+// * bf16, Ci == Co == 8 (the stage-2/3 8->8 layers): the same persistent
+//   TMA + mbarrier + wgmma design on 16-byte voxels (`c8` below). On the
+//   CUDA cores this layer cannot reach its bound: 27 x 8 x 8 float32 FMAs
+//   a voxel take about 52 us at stage 3 (1.02 M voxels) against 9.7 us of
+//   bytes, where the tensor cores at their peak do them in under 4 us.
+//   - Input channels-last, one voxel's 8 channels one 16-byte vector. A
+//     staged row is 72 pixels x 8 channels of one (d, h), 1152 bytes,
+//     unswizzled: eight consecutive pixels are 128 contiguous bytes, which
+//     ldmatrix reads without a bank conflict. A tile's 30 staged rows are
+//     one TMA box of the voxel map (`tc::make_voxel_map`: 1152-byte runs).
+//   - No im2col: in a channels-last row the 16 elements from pixel p + 2j
+//     on are pixels p + 2j and p + 2j + 1, i.e. taps kw = 2j and 2j + 1 of
+//     output pixel p. So per staged row (kd, kh) two K = 16 slices, j = 0
+//     and 1, cover the three kw taps and a fourth whose weights are zero:
+//     one ldmatrix.x4 a slice, one wgmma m64n8k16 per output row that
+//     reads the staged row, against the resident 16 x 8 B slice of (kd,
+//     kh, j). The 18 slices are 4.6 KB, laid out by the wrapper.
+//   - Tile: TD = 3 depths (D = 9 splits with no tail) x TH = 4 rows x TW =
+//     64 pixels: 12 m64n8 accumulators (48 registers) a product thread,
+//     30 staged rows (34.6 KB) a stage, six stages. The halo re-reads
+//     come from L2. Four product warpgroups take a block's tiles in turn.
+//   - What holds it (H100, `conv3d_c8_variants.py`): about 25 us at stage
+//     3, 2.5x its bytes bound. The product warpgroups are busy (products
+//     about half their time, the epilogue a third) while the staging
+//     thread mostly waits for free stages, so they set the pace; yet 17 %
+//     fewer products (the kw = 2 taps of two rows in one slice) gained
+//     6 %, half as many wider ones (rows banded on N, m64n32k16) 2-4 %,
+//     and mma.sync in place of wgmma nothing: which resource they share
+//     holds them is open. 16-byte TMA runs cost 24 %. 95 registers a
+//     thread, no spills.
+//   - Output channels-last (4 bytes, two channels, a lane; 128 contiguous
+//     bytes a warp) or NCDHW (`y_cl` = 0, for the stage's last layer,
+//     which `conv3d_skip_softargmin` reads NCDHW: 2-byte stores, eight
+//     lanes on eight consecutive pixels of one channel).
+// * otherwise (float32, the Ci = 1 entries): the CUDA cores. A block takes
+//   an 8 x 32 pixel tile of one (b, d) slice, one pixel per thread, with
+//   CO_T output channels in float32 registers. Weights go through shared
+//   memory in chunks of CI_CHUNK input channels (27 * 8 * 32 floats = 27
+//   KB); input taps are read straight from global memory, each voxel's 27
+//   uses within a block hitting L1. A channels-last output of 8k channels
+//   is written in 16-byte vectors.
 #include <algorithm>
 
 #include "tc.cuh"
@@ -158,8 +192,11 @@ constexpr int TC_THREADS = 384;              // staging + 2 product groups
 constexpr int MAX_STAGES = 8;
 constexpr int SMEM_MAX = 232448;             // per block, opted in
 
+// The tensor-core routes (mirrored by `conv3d_tensor_core_route` in
+// ops/cuda/costfilter.py).
 bool use_tc(int elem_bytes, int Ci, int Co) {
-  return elem_bytes == 2 && Co == tc::N && (Ci == 16 || Ci == 32);
+  return elem_bytes == 2 &&
+         ((Co == tc::N && (Ci == 16 || Ci == 32)) || (Ci == 8 && Co == 8));
 }
 
 template <int SC>
@@ -345,6 +382,180 @@ int launch_tc(const void* x, const void* wt, const void* shift, void* y,
   return (int)cudaGetLastError();
 }
 
+// ---- the C = 8 tensor-core route ------------------------------------------
+
+namespace c8 {
+
+constexpr int TD = 3, TH = 4, TW = 64;   // output tile
+constexpr int SD = TD + 2, SH = TH + 2;  // staged depths and rows
+constexpr int SROWS = SD * SH;           // 30 staged rows
+constexpr int LP = 72;                   // their pixels: TW + 3, to 8
+constexpr int ROW = LP * 16;             // 16 bytes a voxel
+constexpr int SB = SROWS * ROW;          // bytes a stage
+constexpr int SLICE = 16 * 8 * 2;        // one 16 x 8 B slice
+constexpr int WBYTES = 9 * 2 * SLICE;    // per (kd, kh, j)
+constexpr int GROUPS = 4;                // product warpgroups
+constexpr int THREADS = 128 * (1 + GROUPS);
+constexpr int FIXED = WBYTES + 256 + 128;  // weights, mbarriers, alignment
+constexpr int STAGES = (SMEM_MAX - FIXED) / SB < MAX_STAGES
+                           ? (SMEM_MAX - FIXED) / SB
+                           : MAX_STAGES;
+constexpr int SMEM = FIXED + STAGES * SB;
+static_assert(STAGES >= 2, "two stages must fit");
+
+// map_x: the voxel map of x (`tc::make_voxel_map`); wt: the 18 B slices (the
+// wrapper lays them out); y channels-last (y_cl) or NCDHW.
+__global__ void __launch_bounds__(THREADS, 1)
+conv3d_bn_relu_c8_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const bf16* __restrict__ wt,
+                         const float* __restrict__ shift,
+                         bf16* __restrict__ y, int B, int D, int H, int W,
+                         int y_cl) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t wbase = tc::smem_addr(smem);
+  const uint32_t bars = wbase + WBYTES;
+  const uint32_t stage0 = (bars + 256 + 127) & ~127u;
+  auto landed = [&](int n) { return bars + 8 * (n % STAGES); };
+  auto empty = [&](int n) { return bars + 8 * (MAX_STAGES + n % STAGES); };
+  const uint32_t weights = bars + 8 * 2 * MAX_STAGES;
+  const int wg = threadIdx.x / 128;
+  const int nd = ceil_div(D, TD), nh = ceil_div(H, TH), ncx = ceil_div(W, TW);
+  const int ntiles = B * nd * nh * ncx;
+  const int my_tiles = (int)blockIdx.x < ntiles
+                           ? (ntiles - 1 - (int)blockIdx.x) / gridDim.x + 1
+                           : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      tc::mbar_init(landed(s), 1);
+      tc::mbar_init(empty(s), 128);
+    }
+    tc::mbar_init(weights, 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // resident weights: one bulk copy
+    tc::mbar_expect_tx(weights, WBYTES);
+    tc::bulk_load(wbase, wt, WBYTES, weights);
+  }
+
+  struct Tile {
+    int b, d0, h0, w0;
+  };
+  auto tile_of = [&](int n) {
+    int t = blockIdx.x + n * gridDim.x;
+    Tile r;
+    r.w0 = (t % ncx) * TW;
+    t /= ncx;
+    r.h0 = (t % nh) * TH;
+    t /= nh;
+    r.d0 = (t % nd) * TD;
+    r.b = t / nd;
+    return r;
+  };
+
+  if (wg == 0) {
+    // Staging: one thread issues tile n's copy, its 30 staged rows in one
+    // TMA box, into stage n % STAGES, once the products have read what it
+    // held.
+    if (threadIdx.x == 0)
+      for (int n = 0; n < my_tiles; ++n) {
+        if (n >= STAGES) tc::mbar_wait(empty(n), ((n / STAGES) & 1) ^ 1);
+        const Tile t = tile_of(n);
+        tc::mbar_expect_tx(landed(n), SB);
+        tc::tma_load_4d(stage0 + (n % STAGES) * SB, &map_x, landed(n),
+                        2 * (t.w0 - 1), t.h0 - 1, t.d0 - 1, t.b);
+      }
+    return;
+  }
+
+  // Product warpgroups: warpgroup wg takes the block's tiles wg - 1,
+  // wg - 1 + GROUPS, ...; per (staged row, j) one A fragment, this lane's
+  // row at pixel warp * 16 + lane % 16 + 2j + lane / 16 (the k half
+  // lane / 16 is the next pixel), used by every output row that reads
+  // that staged row.
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const uint64_t desc0 = tc::b_desc(wbase);
+  const uint32_t ao = (warp * 16 + lane % 16 + lane / 16) * 16;
+  tc::mbar_wait(weights, 0);
+  const float s0 = shift[2 * (lane % 4)], s1 = shift[2 * (lane % 4) + 1];
+  const size_t vol = (size_t)D * H * W;
+  tc::Acc8 acc[TD * TH];
+  for (int m = wg - 1; m < my_tiles; m += GROUPS) {
+    tc::mbar_wait(landed(m), (m / STAGES) & 1);
+    const uint32_t buf = stage0 + (m % STAGES) * SB;
+#pragma unroll
+    for (int o = 0; o < TD * TH; ++o) {
+      tc::zero(acc[o]);
+      tc::fence_operand(acc[o]);  // the zeros before the first wgmma
+    }
+    constexpr int NG = SROWS * 2, NBUF = 4;
+    uint32_t af[NBUF][4];
+    tc::ldsm_x4(af[0], buf + ao);
+#pragma unroll
+    for (int q = 0; q < NG; ++q) {
+      if (q + 1 < NG) {
+        if (q + 1 >= NBUF) tc::wgmma_wait<NBUF - 2>();
+        tc::ldsm_x4(af[(q + 1) % NBUF],
+                    buf + (q + 1) / 2 * ROW + ao + (q + 1) % 2 * 32);
+      }
+      tc::wgmma_fence();
+      const int sd = q / 2 / SH, sh = q / 2 % SH, j = q % 2;
+#pragma unroll
+      for (int o = 0; o < TD * TH; ++o) {
+        const int kd = sd - o / TH, kh = sh - o % TH;
+        if (kd < 0 || kd > 2 || kh < 0 || kh > 2) continue;
+        tc::wgmma_m64n8k16(acc[o], af[q % NBUF],
+                           desc0 + ((kd * 3 + kh) * 2 + j) * (SLICE >> 4));
+      }
+      tc::wgmma_commit();
+    }
+    tc::wgmma_wait<0>();
+    tc::mbar_arrive(empty(m));  // the tile's wgmma have read the stage
+    const Tile t = tile_of(m);
+#pragma unroll
+    for (int o = 0; o < TD * TH; ++o) {
+      tc::fence_operand(acc[o]);
+      const int dz = t.d0 + o / TH, h = t.h0 + o % TH;
+      if (dz >= D || h >= H) continue;
+      const size_t row = (((size_t)t.b * D + dz) * H + h) * W;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int w = t.w0 + warp * 16 + lane / 4 + 8 * half;
+        if (w >= W) continue;
+        const float v0 = fmaxf(acc[o].v[2 * half] + s0, 0.f);
+        const float v1 = fmaxf(acc[o].v[2 * half + 1] + s1, 0.f);
+        if (y_cl) {  // this lane's two channels of pixel w
+          *reinterpret_cast<uint32_t*>(y + (row + w) * 8 + 2 * (lane % 4)) =
+              tc::pack_bf16(v0, v1);
+        } else {  // planes of channels 2 (lane % 4) and the next
+          bf16* p = y + ((size_t)t.b * 8 + 2 * (lane % 4)) * vol +
+                    ((size_t)dz * H + h) * W + w;
+          p[0] = from_f<bf16>(v0);
+          p[vol] = from_f<bf16>(v1);
+        }
+      }
+    }
+  }
+}
+
+int launch(const void* x, const void* wt, const void* shift, void* y, int B,
+           int D, int H, int W, int y_cl, cudaStream_t s) {
+  auto kernel = conv3d_bn_relu_c8_kernel;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const int rc = tc::make_voxel_map(&map, x, B, D, H, W, LP, SH, SD);
+  if (rc != 0) return rc;
+  const int tiles = B * ceil_div(D, TD) * ceil_div(H, TH) * ceil_div(W, TW);
+  kernel<<<std::min(tiles, tc::sm_count()), THREADS, SMEM, s>>>(
+      map, (const bf16*)wt, (const float*)shift, (bf16*)y, B, D, H, W, y_cl);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace c8
+
 template <typename T>
 int launch(const void* x, const void* wt, const void* shift, void* y, int B,
            int Ci, int Co, int D, int H, int W, int x_cl, int y_cl,
@@ -353,8 +564,11 @@ int launch(const void* x, const void* wt, const void* shift, void* y, int B,
   if (co_t == 0 || Ci < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_tc(sizeof(T), Ci, Co)) {
-    // The route reads and writes channels-last only.
-    if (!x_cl || !y_cl) return (int)cudaErrorInvalidValue;
+    // The routes read channels-last only; the 32-channel one writes it
+    // only, the 8-channel one either layout.
+    if (!x_cl) return (int)cudaErrorInvalidValue;
+    if (Co == 8) return c8::launch(x, wt, shift, y, B, D, H, W, y_cl, s);
+    if (!y_cl) return (int)cudaErrorInvalidValue;
     return Ci == 32 ? launch_tc<32>(x, wt, shift, y, B, D, H, W, s)
                     : launch_tc<16>(x, wt, shift, y, B, D, H, W, s);
   }

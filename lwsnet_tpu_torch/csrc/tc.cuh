@@ -406,6 +406,27 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (no link to libcuda); nullptr where it is missing.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      encode = (EncodeTiled)fn;
+  }
+  return encode;
+}
+
 // A TMA map of a channels-last bf16 tensor whose dims[0] = C channels
 // are innermost (dims and byte strides innermost first, `rank` <= 5):
 // boxes of SC channels x `pixels` pixels x 1 of every outer dim, swizzled
@@ -413,21 +434,8 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 // tensor. Returns a CUresult.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const cuuint64_t* dims, int SC, int pixels) {
-  typedef CUresult (*Encode)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return (int)CUDA_ERROR_NOT_FOUND;
-    encode = (Encode)fn;
-  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t strides[4];
   cuuint64_t stride = 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
@@ -438,6 +446,33 @@ inline int make_map(CUtensorMap* map, const void* base, int rank,
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
                      SC == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                               : CU_TENSOR_MAP_SWIZZLE_32B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A TMA map of a channels-last bf16 tensor of 8 channels, (B, D, H, W, 8),
+// whose boxes are `depths` x `rows` staged rows of `pixels` voxels each,
+// dense in that order, unswizzled, zeros outside the tensor. Each voxel's
+// 16 bytes go as two 8-byte elements of one innermost run of W * 2: TMA
+// moves a box one innermost run at a time, and with the 8 channels as
+// their own innermost dimension those runs are 16 bytes each (the
+// stage-3 8->8 launch ran about 19 % slower so on the H100,
+// `conv3d_c8_variants.py`). A box's innermost dimension is at most 256
+// elements: 128 voxels. Returns a CUresult.
+inline int make_voxel_map(CUtensorMap* map, const void* base, int B, int D,
+                          int H, int W, int pixels, int rows, int depths) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)W * 2, (cuuint64_t)H,
+                              (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {dims[0] * 8, dims[0] * 8 * H,
+                                 dims[0] * 8 * H * D};
+  const cuuint32_t box[4] = {(cuuint32_t)pixels * 2, (cuuint32_t)rows,
+                             (cuuint32_t)depths, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT64, 4,
+                     const_cast<void*>(base), dims, strides, box, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

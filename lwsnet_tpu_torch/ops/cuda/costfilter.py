@@ -16,19 +16,21 @@ compute the same function).
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs
 its plain PyTorch version, beside it here, for a CPU tensor.
 
-Layout on the card: a bf16 32-channel activation lies channels-last-3d in
-memory, (B, D, H, W, 32) under its logical (B, 32, D, H, W) shape, because
-the tensor-core route of `conv3d_bn_relu` (`conv3d_tensor_core_route`)
-reads and writes it so. At stage 1 the 1 -> 32 entry writes it and the
-four 32 -> 32 layers read and write it; `conv3d_skip_softargmin`, like
-every CUDA-core kernel, reads the default layout, so stage 1 hands it
-over through one copy. Stages 2-3 (8 channels) and float32 stay in the
-default layout. Each copy is `build.in_layout`'s, counted.
+Layout on the card: a bf16 activation of 32 or 8 channels lies
+channels-last-3d in memory, (B, D, H, W, C) under its logical
+(B, C, D, H, W) shape, because the tensor-core routes of `conv3d_bn_relu`
+(`conv3d_tensor_core_route`) read it so. The 1 -> C entry writes it (for
+one input channel the two layouts are the same memory) and the C -> C
+layers read and write it. `conv3d_skip_softargmin`, like every CUDA-core
+kernel, reads the default layout: at stages 2-3 the last 8 -> 8 layer
+writes it NCDHW; the 32-channel route writes channels-last only, so stage
+1 hands over through one copy. float32 stays in the default layout. Each
+copy is `build.in_layout`'s, counted.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,9 +43,28 @@ from lwsnet_tpu_torch.ops.cuda.build import (CONV3D_BN_RELU,
 
 
 def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
-    """Whether `conv3d_bn_relu` runs its wgmma route, which reads and
-    writes channels-last only (`use_tc` in csrc/conv3d_bn_relu.cu)."""
-    return dtype == torch.bfloat16 and Co == 32 and Ci in (16, 32)
+    """Whether `conv3d_bn_relu` runs a wgmma route (`use_tc` in
+    csrc/conv3d_bn_relu.cu): bf16 32 -> 32 (or 16 -> 32), which reads and
+    writes channels-last only, or bf16 8 -> 8, which reads channels-last
+    and writes either layout."""
+    return dtype == torch.bfloat16 and (
+        (Co == 32 and Ci in (16, 32)) or (Ci == 8 and Co == 8))
+
+
+def conv3d_writes_ncdhw(dtype: torch.dtype, Ci: int, Co: int) -> bool:
+    """Whether `conv3d_bn_relu` can write NCDHW: every route but the
+    32-channel tensor-core one."""
+    return not (conv3d_tensor_core_route(dtype, Ci, Co) and Co == 32)
+
+
+def c8_images(wt: torch.Tensor) -> torch.Tensor:
+    """(8, 8, 3, 3, 3) -> the 8 -> 8 route's resident B images: per
+    (kd, kh, j) a 16 x 8 K-major slice whose k < 8 are the input channels
+    at tap kw = 2j and k >= 8 those at kw = 2j + 1 (zero for kw = 3), as
+    (kd, kh, j, k // 8, co, ci) (csrc/tc.cuh)."""
+    Co, Ci = wt.shape[:2]
+    return F.pad(wt, (0, 1)).reshape(Co, Ci, 3, 3, 2, 2).permute(
+        2, 3, 4, 5, 0, 1).contiguous()
 
 
 def conv3d_bn_relu_plain(x: torch.Tensor, wt: torch.Tensor,
@@ -55,24 +76,31 @@ def conv3d_bn_relu_plain(x: torch.Tensor, wt: torch.Tensor,
     return F.relu(y + shift.view(1, -1, 1, 1, 1)).to(x.dtype)
 
 
-def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor,
-                   shift: torch.Tensor) -> torch.Tensor:
+def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
+                   channels_last: Optional[bool] = None) -> torch.Tensor:
     """One BN-folded conv3d layer; see `conv3d_bn_relu_plain`. On the card
-    the tensor-core route reads channels-last and the CUDA cores NCDHW (x
-    is copied where it lies otherwise); the result lies channels-last
-    where a layer of its width takes the tensor-core route (bf16, 32
-    channels)."""
+    the tensor-core routes read channels-last and the CUDA cores NCDHW (x
+    is copied where it lies otherwise). The result lies channels-last
+    where asked (`channels_last`) or, by default, where the next layer of
+    its width takes a tensor-core route (bf16, 32 or 8 channels); the
+    32-channel route writes nothing else."""
     if not on_card(x):
         return conv3d_bn_relu_plain(x, wt, shift)
     B, Ci, D, H, W = x.shape
     Co = wt.shape[0]
     x_cl = tensor_core = conv3d_tensor_core_route(x.dtype, Ci, Co)
     x = in_layout(x, x_cl)
-    y_cl = conv3d_tensor_core_route(x.dtype, Co, Co)
+    y_cl = (conv3d_tensor_core_route(x.dtype, Co, Co)
+            if channels_last is None else channels_last)
+    if not (y_cl or conv3d_writes_ncdhw(x.dtype, Ci, Co)):
+        raise ValueError("the 32-channel tensor-core route writes "
+                         "channels-last only")
     check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, x_cl)
     check(wt, "wt", (Co, Ci, 3, 3, 3), x.dtype, x.device)
     check(shift, "shift", (Co,), torch.float32, x.device)
-    if tensor_core:
+    if tensor_core and Co == 8:
+        wk = c8_images(wt)
+    elif tensor_core:
         # resident B images: per (ci // 16, tap) a 16 x 32 K-major slice
         # as 8 x 8 core matrices (csrc/tc.cuh)
         wk = wt.reshape(Co // 8, 8, Ci // 16, 2, 8, 27).permute(
@@ -152,10 +180,16 @@ def filter_soft_argmin(cost: torch.Tensor, params: Dict[str, torch.Tensor],
     vol = cost.permute(0, 3, 1, 2).to(dtype).contiguous()  # (B, D, H, W)
     a0, b0 = affs[0]
     act = F.relu(vol.float() * a0 + b0).to(dtype)[:, None]
+    # The last conv3d_bn_relu hands over to conv3d_skip_softargmin, which
+    # reads NCDHW: it writes that layout where its route can (not the bf16
+    # 32-channel one, whose output the skip layer copies once).
+    last_cl = (False if conv3d_writes_ncdhw(dtype, channels, channels)
+               else None)
     for i in range(n - 1):
         a_next, b_next = affs[i + 1]
         wt = params[f"BNReLUConv3D_{i}.weight"].float() \
             * a_next.view(-1, 1, 1, 1, 1)
-        act = conv3d_bn_relu(act, wt.to(dtype), b_next)
+        act = conv3d_bn_relu(act, wt.to(dtype), b_next,
+                             channels_last=last_cl if i == n - 2 else None)
     wt = params[f"BNReLUConv3D_{n - 1}.weight"].to(dtype)
     return conv3d_skip_softargmin(act, wt, vol, start)[..., None]

@@ -156,6 +156,93 @@ def test_conv3d_wgmma_route_ragged_on_card(rnd, channels_last):
            tcf.conv3d_skip_softargmin_plain(got, w1, vol, -3), bf)
 
 
+@pytest.mark.parametrize("out_cl", [True, False])
+@pytest.mark.parametrize("shape", [(2, 7, 11, 37), (1, 9, 12, 70)])
+def test_conv3d_c8_route_on_card(rnd, shape, out_cl):
+    """The 8 -> 8 tensor-core route of conv3d_bn_relu (stages 2-3) at a
+    ragged shape (no dimension a multiple of its 3 x 4 x 64 tile) and at
+    D = 9, from channels-last-3d input, writing channels-last (the inner
+    layers) or NCDHW (a stage's last layer, for the fused skip layer):
+    every element within two bf16 rounding steps of the plain version;
+    no layout copy, one launch each."""
+    bf = torch.bfloat16
+    B, D, H, W = shape
+    build.reset_launch_counts()
+    x = _channels_last(rnd(B, 8, D, H, W, dtype=bf).relu(), True)
+    w = (rnd(8, 8, 3, 3, 3) * (2 / 216) ** 0.5).to(bf)
+    shift = rnd(8) * 0.1
+    got = tcf.conv3d_bn_relu(x, w, shift, channels_last=out_cl)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 8, D, H, W)
+    assert build.lies_channels_last(got) == out_cl
+    assert got.is_contiguous() != out_cl
+    _assert_two_steps(got, tcf.conv3d_bn_relu_plain(x, w, shift))
+    assert build.launch_counts()["conv3d_bn_relu"] == 1
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+def test_conv3d_c8_stage_on_card(rnd):
+    """A stage-2/3 filter's layers as the path runs them: the 1 -> 8 entry
+    on the CUDA cores writing channels-last, three 8 -> 8 layers on the
+    tensor cores, the last writing NCDHW, which conv3d_skip_softargmin
+    reads without a copy; each layer against its plain version from the
+    same input."""
+    bf = torch.bfloat16
+    build.reset_launch_counts()
+    act = rnd(1, 1, 9, 13, 70, dtype=bf).relu()
+    w = (rnd(8, 1, 3, 3, 3) * (2 / 27) ** 0.5).to(bf)
+    shift = rnd(8) * 0.1
+    y = tcf.conv3d_bn_relu(act, w, shift)
+    assert build.lies_channels_last(y)
+    torch.testing.assert_close(y, tcf.conv3d_bn_relu_plain(act, w, shift),
+                               atol=1e-2, rtol=1e-2)
+    for last in (False, False, False, True):
+        w = (rnd(8, 8, 3, 3, 3) * (2 / 216) ** 0.5).to(bf)
+        shift = rnd(8) * 0.1
+        out = tcf.conv3d_bn_relu(y, w, shift,
+                                 channels_last=False if last else None)
+        assert build.lies_channels_last(out) != last
+        _assert_two_steps(out, tcf.conv3d_bn_relu_plain(y, w, shift))
+        y = out
+    assert y.is_contiguous()
+    w1 = (rnd(1, 8, 3, 3, 3) * 0.1).to(bf)
+    vol = rnd(1, 9, 13, 70, dtype=bf)
+    _check(tcf.conv3d_skip_softargmin(y, w1, vol, -4),
+           tcf.conv3d_skip_softargmin_plain(y, w1, vol, -4), bf)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in build.launch_counts().items() if v}
+    assert counts == {"conv3d_bn_relu": 5, "conv3d_skip_softargmin": 1}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+def test_conv3d_float32_c8_on_cuda_cores_on_card(rnd):
+    """float32 8 -> 8 layers stay on the CUDA cores, which read NCDHW: a
+    channels-last input is copied once, and the result lies NCDHW unless
+    channels-last is asked for."""
+    build.reset_launch_counts()
+    x = rnd(1, 8, 9, 12, 20).relu()
+    w, shift = rnd(8, 8, 3, 3, 3) * 0.2, rnd(8)
+    assert not tcf.conv3d_tensor_core_route(torch.float32, 8, 8)
+    want = tcf.conv3d_bn_relu_plain(x, w, shift)
+    got = tcf.conv3d_bn_relu(_channels_last(x, True), w, shift)
+    assert got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+    got = tcf.conv3d_bn_relu(x, w, shift, channels_last=True)
+    assert build.lies_channels_last(got)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["conv3d_bn_relu"] == 2
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
+
+
+def test_conv3d_32_route_refuses_ncdhw_out_on_card(rnd):
+    """The 32-channel tensor-core route writes channels-last only."""
+    x = _channels_last(rnd(1, 32, 3, 4, 70, dtype=torch.bfloat16), True)
+    w = rnd(32, 32, 3, 3, 3).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last only"):
+        tcf.conv3d_bn_relu(x, w, rnd(32), channels_last=False)
+
+
 def test_channels_last_cuda_core_routes_on_card(rnd):
     """The CUDA-core routes read channels-last input (no layout copy) and
     write channels-last output where asked: the 3 -> 32 entry, the 32 -> 1
