@@ -17,19 +17,23 @@ in order; any failure exits non-zero:
      memory lines;
   3. every kernel against its plain PyTorch version at each shape and
      memory layout a path gives it, and the tensor-core routes of
-     dense3x3, dwsep3x3 (solo and pair), chain3x3 (tower and head) and
-     conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout) at ragged
-     shapes from both layouts (NCHW / channels-last), in float32 (TF32
-     off; atol 2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain
-     output's span; chain3x3 and the 8-channel conv3d_bn_relu layers also
-     every element within two rounding steps);
+     dense3x3, dwsep3x3 (solo and pair), chain3x3 (tower and head),
+     conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout) and
+     conv3d_skip_softargmin (32 and 8 channels) at ragged shapes from both
+     layouts (NCHW / channels-last), in float32 (TF32 off; atol 2e-4, rtol
+     1e-3) and bf16 (mean |delta| < 2 % of the plain output's span;
+     chain3x3, the 8-channel conv3d_bn_relu layers and
+     conv3d_skip_softargmin also every element within two rounding steps);
+     conv3d_skip_softargmin's copies: none for bf16 channels-last input,
+     one to channels-last for bf16 NCDHW, one to the default layout for
+     float32 channels-last (its CUDA-core kernel reads NCDHW);
   4. for each engine, the full forward through `make_forward` (kernels)
      against the module path on the card: bf16 per-stage mean |delta| < 2 %
      of span, float32 max |delta| < 1e-3 x span; the launch counters of
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
      conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), and the
-     wrappers' layout copies `WANT_COPIES` (one on every path); then the
+     wrappers' layout copies `WANT_COPIES` (none on any path); then the
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
      at the same bars, with its own launch counts;
@@ -44,8 +48,8 @@ in order; any failure exits non-zero:
      computes the same function on the same inputs where there is one
      (else the sum of per-layer cuDNN calls), with the cuDNN call on NCHW
      copies beside it for the channels-last shapes, and its wrapper's host
-     time a call; then each layout copy a path makes, timed beside its
-     bound; after phase 7, each kernel's device time from the profiler,
+     time a call (no path makes a layout copy left to time); after phase
+     7, each kernel's device time from the profiler,
      for the dw-sep launches beside their bound, the cuDNN call(s) over
      the composed rank-1 kernels on the device and the wrapper's host time,
      for the chain3x3 launches beside their bound, the per-layer cuDNN
@@ -62,7 +66,6 @@ written to chiprun_out/chip_smoke.json.
 """
 
 import json
-import math
 import os
 import statistics
 import sys
@@ -121,24 +124,14 @@ REFINE_LAUNCHES = {
     "layers": {"dense3x3": 5, "dwsep3x3_pair": 6},
 }
 # Layout copies the wrappers make per forward (build.LAYOUT_COPIES): the
-# tensor-core routes (dense3x3's, dwsep3x3's, conv3d_bn_relu's) read and
-# write channels-last, every other kernel the default layout (the CUDA
-# cores of dense3x3 either). Every path copies stage 1's activation for
-# conv3d_skip_softargmin; the bf16 refinement entries write channels-last
-# for every later layer, so the refinement itself copies nothing, alone
-# at WIDE_H x WIDE_W too.
-WANT_COPIES = {
-    "mxu": {"to channels-last": 0, "to contiguous": 1},
-    "vpu-paired": {"to channels-last": 0, "to contiguous": 1},
-    "vpu-unpaired": {"to channels-last": 0, "to contiguous": 1},
-    "chain": {"to channels-last": 0, "to contiguous": 1},
-    "layers": {"to channels-last": 0, "to contiguous": 1},
-    "layers-wide": {"to channels-last": 0, "to contiguous": 0},
-}
-# The copies of WANT_COPIES, batch 1: (label, logical shape, to
-# channels-last).
-COPIES = [("stage-1 activation into the fused last layer",
-           (1, 32, 24, 46, 154), False)]
+# tensor-core routes (dense3x3's, dwsep3x3's, conv3d_bn_relu's,
+# conv3d_skip_softargmin's) read and write channels-last, every other
+# kernel the default layout (the CUDA cores of dense3x3 either). Every
+# bf16 layer, the cost filters' fused last one too, reads the layout the
+# layer before it writes: no path copies, nor the refinement alone at
+# WIDE_H x WIDE_W.
+WANT_COPIES = {engine: {"to channels-last": 0, "to contiguous": 0}
+               for engine in (*ENGINES, "layers-wide")}
 # Launches of the layers refinement alone at WIDE_H x WIDE_W.
 WIDE_LAUNCHES = {"dense3x3": 5, "dwsep3x3": 4, "dwsep3x3_pair": 4}
 # The path whose run gives each kernel's launches on the kernels line.
@@ -307,27 +300,14 @@ def host_us(fn, reps=50):
     return us
 
 
-def layout_copy(shape, to_cl, dev):
-    """The copy `build.in_layout` makes of a bf16 tensor of logical `shape`
-    into channels-last memory (to_cl) or back: a function that makes it."""
-    import torch
-    cl = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
-    x = torch.randn(shape, device=dev, dtype=torch.bfloat16)
-    if not to_cl:
-        x = x.contiguous(memory_format=cl)
-    fmt = cl if to_cl else torch.contiguous_format
-    return lambda: x.contiguous(memory_format=fmt)
-
-
 # --- the kernels' main-path calls ------------------------------------------
 
 def main_path_calls(cfg):
     """Every distinct kernel call of the 368x1232 batch-1 forward:
     (kernel, label, shape dict, launches per forward, engine). `cl`: the
     input lies channels-last, as the path hands it over; `cl_out`: the
-    kernel is asked to write channels-last, `ncdhw_out` NCDHW (a stage's
-    last conv3d_bn_relu, for conv3d_skip_softargmin, where its route
-    can)."""
+    kernel is asked to write channels-last (`ncdhw_out`, in the ragged
+    checks only: NCDHW)."""
     calls = []
     for s in range(3):
         h, w = H // 8 * 2 ** s, W // 8 * 2 ** s
@@ -336,20 +316,12 @@ def main_path_calls(cfg):
         geo = dict(B=1, D=D, H=h, W=w)
         calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C}",
                       dict(geo, Ci=1, Co=C, cl_out=True), 1, "mxu"))
-        # the bf16 C -> C layers read and write channels-last; the last
-        # writes NCDHW for the skip layer where its route can (C = 8, not
-        # the 32-channel route: `costfilter.conv3d_writes_ncdhw`; a rule
-        # of its own here, so that `kernel_device_times.py` can run these
-        # calls on an older checkout of the package)
-        mid = dict(geo, Ci=C, Co=C, cl=True)
-        ncdhw = C == 8
-        calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}", mid,
-                      cfg.layers_3d - ncdhw, "mxu"))
-        if ncdhw:
-            calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C} last, "
-                          f"NCDHW out", dict(mid, ncdhw_out=True), 1, "mxu"))
+        # the bf16 C -> C layers read and write channels-last, and the
+        # fused last layer reads it
+        calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}",
+                      dict(geo, Ci=C, Co=C, cl=True), cfg.layers_3d, "mxu"))
         calls.append(("conv3d_skip_softargmin", f"stage{s + 1} {C}->1",
-                      dict(geo, Ci=C, cl=not ncdhw, start=0 if s == 0 else
+                      dict(geo, Ci=C, cl=True, start=0 if s == 0 else
                            -cfg.max_disp_list[s] + 1), 1, "mxu"))
     c = cfg.refine_channels
     geo = dict(H=H, W=W)
@@ -438,8 +410,9 @@ def layers_calls(cfg):
 
 def ragged_calls():
     """Phase 3 only: the tensor-core routes of dense3x3, dwsep3x3 (solo and
-    pair), chain3x3 and conv3d_bn_relu at shapes no tile divides (W = 150,
-    75 and 37, H = 37, 29 and 11 not a multiple of R * d = 4d, D = 7), two
+    pair), chain3x3, conv3d_bn_relu and conv3d_skip_softargmin at shapes
+    no tile divides (W = 150, 75, 70 and 37, H = 37, 29, 11 and 5 not a
+    multiple of R * d = 4d or of the skip route's two rows, D = 7), two
     weight groups at batch 2, C = 16 -> 32 dw-sep layers, the two-input
     form, the chain's tower and head at every dilation of the path, from
     NCHW (one counted copy) and channels-last input. Tuples as
@@ -486,6 +459,12 @@ def ragged_calls():
                           f"ragged 8->8 B=2 7x11x37 {tag} to {to}",
                           dict(B=2, Ci=8, Co=8, D=7, H=11, W=37, cl=cl,
                                **{out: True}), 0, None))
+        calls.append(("conv3d_skip_softargmin", f"ragged 32->1 B=2 24x3x70 "
+                      f"{tag}", dict(B=2, Ci=32, D=24, H=3, W=70, cl=cl,
+                                     start=-4), 0, None))
+        calls.append(("conv3d_skip_softargmin", f"ragged 8->1 B=2 9x5x37 "
+                      f"{tag}", dict(B=2, Ci=8, D=9, H=5, W=37, cl=cl,
+                                     start=0), 0, None))
     return calls
 
 
@@ -717,8 +696,8 @@ def check_close(got, want, dtype, what):
 
 
 def two_steps(got, want, what):
-    """The bar of chain3x3 and of conv3d_bn_relu's 8-channel layers on the
-    card: every bf16 element within two rounding
+    """The bar of chain3x3, of conv3d_bn_relu's 8-channel layers and of
+    conv3d_skip_softargmin on the card: every element within two rounding
     steps of the plain value (2 * 2**-8 relative) plus 2e-2 of the plain
     output's largest magnitude for sums that cancel, as
     tests/test_torch_gpu.py holds it."""
@@ -760,6 +739,7 @@ def main():
     from lwsnet_tpu_torch import make_forward
     from lwsnet_tpu_torch.models.refine_kernels import refine_residual
     from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
     from lwsnet_tpu_torch.tools import microbench_rows
     from lwsnet_tpu_torch.utils.timing import card, event_ms, event_times
 
@@ -800,15 +780,27 @@ def main():
         for i, (kernel, label, p, _, _) in enumerate(calls + ragged_calls()):
             rng = np.random.default_rng(1000 + i)
             c = make_call(kernel, p, dtype, rng, dev)
+            build.reset_launch_counts()
             got = c["kernel"]()
+            made = dict(build.LAYOUT_COPIES)
             want = c["plain"]()
             torch.cuda.synchronize()
             what = f"{kernel} [{label}] {str(dtype)[6:]}"
             err, span = check_close(got, want, dtype, what)
             if dtype == torch.bfloat16 and (
-                    kernel == "chain3x3"
+                    kernel in ("chain3x3", "conv3d_skip_softargmin")
                     or (kernel == "conv3d_bn_relu" and p["Co"] == 8)):
                 two_steps(got, want, what)
+            if kernel == "conv3d_skip_softargmin":
+                # bf16 reads channels-last (its tensor-core route), float32
+                # NCDHW (the CUDA-core kernel): one counted copy otherwise
+                bf = dtype == torch.bfloat16
+                require(CF.skip_tensor_core_route(dtype, p["Ci"]) == bf,
+                        f"{what}: route rule")
+                cl = bool(p.get("cl"))
+                require(made == {"to channels-last": int(bf and not cl),
+                                 "to contiguous": int(cl and not bf)},
+                        f"{what}: layout copies {made}")
             checks.setdefault(kernel, {})[(label, str(dtype)[6:])] = err
             print(f"[3] ok {what}: max |delta| {err:.3g}, span {span:.4g}")
             del c, got, want
@@ -1023,18 +1015,8 @@ def main():
               f"{tot['bound_ms']:.4f} ms")
     report["totals"] = {f"{k} under {e}": tot
                         for (k, e), tot in totals.items()}
-    # the layout copies the other paths make (WANT_COPIES), each timed
-    copy_rows = []
-    for label, shape, to_cl in COPIES:
-        row = dict(label=label, shape=shape, to_cl=to_cl,
-                   ms=event_ms(layout_copy(shape, to_cl, dev)),
-                   bound_ms=2 * 2 * math.prod(shape) / PEAK_BYTES * 1e3)
-        copy_rows.append(row)
-        print(f"[6] layout copy [{label}, {shape} bf16 to "
-              f"{'channels-last' if to_cl else 'the default layout'}]: "
-              f"{row['ms']:.4f} ms, bound {row['bound_ms'] * 1e3:.2f} us "
-              f"(bytes)")
-    report["layout_copies_ms"] = copy_rows
+    print("[6] layout copies: none remains on any path (phase 4: "
+          "WANT_COPIES), so none is timed")
     # 7. the rows microbench, whose probe is the one launch of
     # lane_broadcast on a user's path
     build.reset_launch_counts()
@@ -1103,11 +1085,6 @@ def main():
                   f"{'not measured' if yard is None else f'{yard:.4f} ms'}, "
                   f"wrapper host {row['host_us']:.1f} us a call")
 
-    for row in copy_rows:
-        row["device_ms"] = kernel_device_ms(
-            layout_copy(row["shape"], row["to_cl"], dev), "")
-        print(f"[6] layout copy [{row['label']}]: on the device "
-              f"{row['device_ms']:.4f} ms (events {row['ms']:.4f} ms)")
     for (kernel, engine), tot in totals.items():
         rows = [(r["device_ms"], r["launches"]) for r in per_shape
                 if (r["kernel"], r["engine"]) == (kernel, engine)]

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Variants of conv3d_bn_relu's 8 -> 8 tensor-core route, timed on one GPU.
+"""Variants of conv3d_bn_relu's 8 -> 8 tensor-core route (and, with --skip,
+of conv3d_skip_softargmin's), timed on one GPU.
 
 Run from the repository root on a machine with a card:
 
-    python3 conv3d_c8_variants.py [--json PATH]
+    python3 conv3d_c8_variants.py [--skip] [--json PATH]
 
 Each variant is `lwsnet_tpu_torch/csrc/conv3d_bn_relu.cu` with a few
 textual changes to its `c8` namespace, written beside copies of the
@@ -32,6 +33,27 @@ the repository's own library, in one process:
                       free stages, each product warpgroup's waits for
                       landed stages, products and epilogue (median over
                       the blocks of one stage-3 and one stage-2 launch).
+
+--skip times conv3d_skip_softargmin's tensor-core route instead (its `tcr`
+namespace in `csrc/conv3d_skip_softargmin.cu`), each variant held against
+`conv3d_skip_softargmin_plain` (every element within two bf16 rounding
+steps) and timed at the three stage shapes of the 368x1232 forward and at
+two small ones (one row of two tiles, each tile's block alone on its SM):
+
+  c32_rows2           2 output rows a C = 32 tile (the route has 1): 69
+                      tiles for 138, N = 24 for 16;
+  c32_stages4         a ring of 4 staged planes at C = 32 (the route has 6);
+  c32_acc1            one accumulator a plane at C = 32 (the route has two);
+  c8_stages4          a ring of 4 at C = 8 (the route has 3; then six
+                      blocks fit an SM, not seven);
+  c8_acc2             two accumulators a plane at C = 8 (the route has one);
+  clock               clock64() marks of a block (thread 0 of the products
+                      and the staging thread): weights and first plane
+                      landed, waits for landed planes, products done, end,
+                      the last copy issued, waits for free stages (medians
+                      over the blocks of each launch), and the spread of
+                      the blocks' starts, the launch's span and the most
+                      blocks one SM ran, from %globaltimer and %smid.
 
 Exits 1 without CUDA, 2 if a variant fails to build or its check.
 """
@@ -226,30 +248,212 @@ VARIANTS = {
 }
 
 
-def write_variant(name, edits, out_dir):
+_SKIP_CLOCK_READ = '''
+extern "C" int skip_clock_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, tcr::clk, sizeof(tcr::clk));
+}
+extern "C" int skip_clock_reset() {
+  static long long zero[sizeof(tcr::clk) / sizeof(long long)];
+  return (int)cudaMemcpyToSymbol(tcr::clk, zero, sizeof(tcr::clk));
+}
+'''
+SKIP_SHAPES = {"stage1": (1, 32, 24, 46, 154, 0),
+               "stage2": (1, 8, 9, 92, 308, -4),
+               "stage3": (1, 8, 9, 184, 616, -4),
+               "one tile, C = 32": (1, 32, 24, 1, 64, 0),
+               "one tile, C = 8": (1, 8, 9, 2, 64, -4)}
+SKIP_BLOCKS = 2048  # blocks whose clocks are kept
+# clock64() slots of a block (clocks from its start, thread 0 of the
+# product warpgroups unless marked; slot 5 marks a block that wrote): the
+# weights landed, the first plane landed, waits for landed planes, its
+# products and sums done, end; the staging thread's last copy issued and
+# its waits for free stages; the block's wall time (globaltimer, ns).
+# Slot 0 holds the start's globaltimer and slot 6 the SM.
+SKIP_ROLES = {"weights_at": 1, "first_plane_at": 2, "landed_waits": 7,
+              "products_done_at": 3, "end_at": 4, "last_copy_issued_at": 8,
+              "staging_free_waits": 9, "wall_ns": 10}
+
+SKIP_VARIANTS = {
+    "c32_rows2": [("static constexpr int TH = 1, KP = 2,",
+                   "static constexpr int TH = 2, KP = 2,"),
+                  ("ACC = 2, BLOCKS = 2;", "ACC = 2, BLOCKS = 1;")],
+    "c32_stages4": [("LP = 64, STAGES = 6,", "LP = 64, STAGES = 4,")],
+    "c32_acc1": [("ACC = 2, BLOCKS = 2;", "ACC = 1, BLOCKS = 2;")],
+    "c8_stages4": [("LP = 72, STAGES = 3,", "LP = 72, STAGES = 4,")],
+    "c8_acc2": [("ACC = 1, BLOCKS = 7;", "ACC = 2, BLOCKS = 7;")],
+    "clock": [
+        ("template <int SC>\n__global__ void __launch_bounds__(THREADS, "
+         "Route<SC>::BLOCKS)\n",
+         f"__device__ long long clk[{SKIP_BLOCKS} * 16];\n"
+         "__device__ __forceinline__ long long gtime() {\n"
+         "  long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n"
+         "  return t;\n}\n"
+         "template <int SC>\n__global__ void __launch_bounds__(THREADS, "
+         "Route<SC>::BLOCKS)\n"),
+        ("  const int w0 = blockIdx.x * TW, h0 = blockIdx.y * TH, "
+         "b = blockIdx.z;\n",
+         "  const int w0 = blockIdx.x * TW, h0 = blockIdx.y * TH, "
+         "b = blockIdx.z;\n  const long long t0 = clock64(), g0 = gtime();\n"
+         "  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
+         " + blockIdx.x;\n"
+         f"  long long* ck = clk + (blk < {SKIP_BLOCKS} ? blk : 0) * 16;\n"
+         "  long long t_land = 0, t_free = 0;\n"),
+        ("        if (p >= S) tc::mbar_wait(empty(s), ((p / S) & 1) ^ 1);\n",
+         "        const long long e0 = clock64();\n"
+         "        if (p >= S) tc::mbar_wait(empty(s), ((p / S) & 1) ^ 1);\n"
+         "        t_free += clock64() - e0;\n"),
+        ("                          h0 - 1, p, b);\n      }\n    }\n"
+         "    return;\n",
+         "                          h0 - 1, p, b);\n      }\n"
+         "      ck[8] = clock64() - t0;\n      ck[9] = t_free;\n    }\n"
+         "    return;\n"),
+        ("  tc::mbar_wait(weights, 0);\n",
+         "  tc::mbar_wait(weights, 0);\n"
+         "  if (threadIdx.x == 0) ck[1] = clock64() - t0;\n"),
+        ("    tc::mbar_wait(landed(p % S), (p / S) & 1);\n",
+         "    const long long l0 = clock64();\n"
+         "    tc::mbar_wait(landed(p % S), (p / S) & 1);\n"
+         "    t_land += clock64() - l0;\n"
+         "    if (p == 0 && threadIdx.x == 0) ck[2] = clock64() - t0;\n"),
+        ("\n  // Soft-argmin of this thread's pixel",
+         "\n  if (threadIdx.x == 0) { ck[3] = clock64() - t0; ck[7] = t_land; }"
+         "\n  // Soft-argmin of this thread's pixel"),
+        ("  out[((size_t)b * H + h) * W + w] = num / den;\n}\n",
+         "  out[((size_t)b * H + h) * W + w] = num / den;\n"
+         "  if (threadIdx.x == 0) {\n    ck[4] = clock64() - t0; ck[0] = g0;"
+         " ck[10] = gtime() - g0; ck[5] = 1;\n"
+         "    unsigned sm;\n"
+         "    asm volatile(\"mov.u32 %0, %smid;\" : \"=r\"(sm));\n"
+         "    ck[6] = sm;\n  }\n}\n"),
+    ],
+}
+
+
+def write_variant(name, edits, out_dir, source="conv3d_bn_relu",
+                  namespace="namespace c8 {", tail=""):
     """The variant's sources in out_dir; raises where an edit's anchor is
-    not found exactly once in the route's namespace."""
+    not found exactly once in the route's namespace. `tail` is appended."""
     csrc = os.path.join(ROOT, "lwsnet_tpu_torch", "csrc")
-    src = open(os.path.join(csrc, "conv3d_bn_relu.cu")).read()
-    head, body = src.split("namespace c8 {", 1)
+    src = open(os.path.join(csrc, f"{source}.cu")).read()
+    head, body = src.split(namespace, 1)
     for old, new in edits:
         if body.count(old) != 1:
             raise RuntimeError(f"{name}: anchor found {body.count(old)} "
                                f"times: {old[:60]!r}")
         body = body.replace(old, new)
-    if name == "clock":
-        body += _CLOCK_READ
+    body += tail
     os.makedirs(out_dir, exist_ok=True)
     for f in os.listdir(csrc):
         if f.endswith(".cuh"):
             shutil.copy(os.path.join(csrc, f), out_dir)
-    with open(os.path.join(out_dir, "conv3d_bn_relu.cu"), "w") as f:
-        f.write(head + "namespace c8 {" + body)
+    with open(os.path.join(out_dir, f"{source}.cu"), "w") as f:
+        f.write(head + namespace + body)
+
+
+def build_variants(variants, base, source, namespace, tails):
+    """Write and build every variant at once; {name: CDLL} (and "repo":
+    None) and rc 2 if a build failed."""
+    from lwsnet_tpu_torch.ops.cuda import build
+    jobs = {}
+    for name, edits in variants.items():
+        d = os.path.join(base, name)
+        write_variant(name, edits, d, source, namespace, tails.get(name, ""))
+        so = os.path.join(d, f"lib{source}.so")
+        jobs[name] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so,
+             os.path.join(d, f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, rc = {"repo": None}, 0
+    for name, (so, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            print(f"{name}: build failed\n{out}")
+            rc = 2
+            continue
+        libs[name] = ctypes.CDLL(so)
+    return libs, rc
+
+
+def skip_variants(dev, report):
+    """The --skip family: each variant checked and timed at SKIP_SHAPES;
+    rc 2 if a build or a check failed."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    libs, rc = build_variants(
+        SKIP_VARIANTS, os.path.join(ROOT, "build", "skip_variants"),
+        "conv3d_skip_softargmin", "namespace tcr {",
+        {"clock": _SKIP_CLOCK_READ})
+
+    def operands(B, C, D, H, W):
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(np.maximum(rng.standard_normal(
+            (B, C, D, H, W)), 0), dtype=torch.float32).to(
+            dev, torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        wt = torch.as_tensor(rng.standard_normal((1, C, 3, 3, 3))
+                             * np.sqrt(2 / (27 * C)), dtype=torch.float32)
+        vol = torch.as_tensor(rng.standard_normal((B, D, H, W)) * 2,
+                              dtype=torch.float32)
+        return x, wt.to(dev, torch.bfloat16), vol.to(dev, torch.bfloat16)
+
+    kern = build.CONV3D_SKIP_SOFTARGMIN
+    kern._fn("conv3d_skip_softargmin_bf16")  # loads the library
+    repo_lib = kern._lib
+    for name, lib in libs.items():
+        kern._lib = repo_lib if lib is None else lib
+        kern._fns = {}
+        row = {}
+        for shape, (B, C, D, H, W, start) in SKIP_SHAPES.items():
+            x, wt, vol = operands(B, C, D, H, W)
+            want = CF.conv3d_skip_softargmin_plain(x, wt, vol, start)
+            got = CF.conv3d_skip_softargmin(x, wt, vol, start)
+            tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+            bad = int(((got - want).abs() > tol).sum())
+            if bad:
+                print(f"{name}: {shape}: {bad} elements beyond two rounding "
+                      f"steps")
+                rc = 2
+            ms = cs.kernel_device_ms(
+                lambda: CF.conv3d_skip_softargmin(x, wt, vol, start),
+                "skip_softargmin")
+            row[shape] = ms
+            print(f"{name}: {shape}: "
+                  f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+            if name.endswith("clock"):
+                torch.cuda.synchronize()
+                lib.skip_clock_reset()
+                CF.conv3d_skip_softargmin(x, wt, vol, start)
+                torch.cuda.synchronize()
+                clk = np.zeros(SKIP_BLOCKS * 16, np.int64)
+                lib.skip_clock_read(ctypes.c_void_p(clk.ctypes.data))
+                c = clk.reshape(SKIP_BLOCKS, 16)
+                c = c[c[:, 5] == 1]
+                split = {r: float(np.median(c[:, k]))
+                         for r, k in SKIP_ROLES.items()}
+                split["blocks"] = int(len(c))
+                starts = c[:, 0] - c[:, 0].min()
+                split["start_spread_ns"] = [float(np.percentile(starts, q))
+                                            for q in (50, 90, 100)]
+                split["span_ns"] = float((c[:, 0] + c[:, 10]).max()
+                                         - c[:, 0].min())
+                split["blocks_per_sm_max"] = int(np.bincount(c[:, 6]).max())
+                row[f"{shape} clock64"] = split
+                print(f"{name}: {shape} clock64 medians over the blocks "
+                      f"(thread 0): {split}")
+        report["variants"][name] = row
+    kern._lib = repo_lib
+    kern._fns = {}
+    return rc
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None)
+    ap.add_argument("--skip", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -265,24 +469,18 @@ def main(argv=None):
     dev = torch.device("cuda")
     print(f"card: {card()}")
     build.build_all()
-    base = os.path.join(ROOT, "build", "c8_variants")
-    jobs = {}
-    for name, edits in VARIANTS.items():
-        d = os.path.join(base, name)
-        write_variant(name, edits, d)
-        so = os.path.join(d, "libconv3d_bn_relu.so")
-        jobs[name] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", so,
-             os.path.join(d, "conv3d_bn_relu.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, rc = {"repo": None}, 0
-    for name, (so, proc) in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            print(f"{name}: build failed\n{out}")
-            rc = 2
-            continue
-        libs[name] = ctypes.CDLL(so)
+    report = {"card": card(), "variants": {}}
+    if args.skip:
+        rc = skip_variants(dev, report)
+        if args.json:
+            os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
+            with open(args.json, "w") as f:
+                json.dump(report, f, indent=1)
+        return rc
+    libs, rc = build_variants(VARIANTS, os.path.join(ROOT, "build",
+                                                     "c8_variants"),
+                              "conv3d_bn_relu", "namespace c8 {",
+                              {"clock": _CLOCK_READ})
 
     def operands(B, D, H, W):
         rng = np.random.default_rng(0)
@@ -297,7 +495,6 @@ def main(argv=None):
 
     build.CONV3D_BN_RELU._fn("conv3d_bn_relu_bf16")  # loads the library
     repo_lib = build.CONV3D_BN_RELU._lib
-    report = {"card": card(), "variants": {}}
     for name, lib in libs.items():
         build.CONV3D_BN_RELU._lib = repo_lib if lib is None else lib
         build.CONV3D_BN_RELU._fns = {}

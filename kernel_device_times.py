@@ -8,9 +8,9 @@ Run from the repository root on a machine with a card:
 
 For every kernel call of `chip_smoke.py` (phases 3 and 6: the 368x1232
 batch-1 bf16 forward under each refinement path, every dw-sep solo and
-pair shape among them, the "layers" refinement at 96x3712; at stages 2-3
-the 1->8 entry, the inner 8->8 layers and the last 8->8 layer, which
-writes NCDHW, each on its own) it builds the
+pair shape among them, the "layers" refinement at 96x3712; at each stage
+the entry, the C->C layers and the fused last layer, each on its own) it
+builds the
 same seeded operands and prints the device time of the kernel alone,
 from one torch.profiler window over 10 calls after a warm-up
 (`chip_smoke.kernel_device_ms`, which runs a window again where the
@@ -33,7 +33,8 @@ intervals.
 instance the parent commit unpacked with `git archive`), so two trees can
 be compared on one card in one run; --nchw hands every kernel NCHW
 operands (and leaves each layer's output layout to the wrapper), as a
-checkout without channels-last routes needs. Exits 1
+checkout without channels-last routes needs (a checkout whose
+conv3d_skip_softargmin reads NCDHW, for one). Exits 1
 without CUDA.
 """
 

@@ -86,8 +86,8 @@
 //     holds them is open. 16-byte TMA runs cost 24 %. 95 registers a
 //     thread, no spills.
 //   - Output channels-last (4 bytes, two channels, a lane; 128 contiguous
-//     bytes a warp) or NCDHW (`y_cl` = 0, for the stage's last layer,
-//     which `conv3d_skip_softargmin` reads NCDHW: 2-byte stores, eight
+//     bytes a warp) or NCDHW (`y_cl` = 0, for a caller that asks for it;
+//     the forward's layers all write channels-last: 2-byte stores, eight
 //     lanes on eight consecutive pixels of one channel).
 // * otherwise (float32, the Ci = 1 entries): the CUDA cores. A block takes
 //   an 8 x 32 pixel tile of one (b, d) slice, one pixel per thread, with

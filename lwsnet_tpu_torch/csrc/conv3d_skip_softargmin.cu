@@ -8,18 +8,77 @@
 //                   * wt[ci,kd*9+kh*3+kw] + vol[b,d,h,w]
 //   out[b,h,w]    = sum_d softmax_d(-cost[b,:,h,w]) * (start + d)
 // The skip reads the raw volume in the compute dtype it was built in,
-// widened to float32; the softmax subtracts the minimum cost first.
+// widened to float32; the softmax subtracts the minimum cost first, then
+// sums exp and exp * bin over d in order, in float32.
 //
-// Bound on the H100: memory (the Ci-channel activation is read once; the
-// stage-1 layer's 0.34 GFLOP is small beside 5.4 MB of reads).
+// Bound on the H100: the bytes. At 368x1232 the three launches read about
+// 35 MB (the activation once, the volume once): 3.4 / 1.4 / 5.6 us at
+// 3.35 TB/s for stages 1 / 2 / 3. Their products, 27 * Ci multiply-adds
+// an output (147 M at stage 1, 220 M at stage 3), would take about 12.6 us
+// on the CUDA cores' float32 peak alone, so the bf16 route runs them on
+// the tensor cores, where they cost next to nothing.
 //
-// Design: a block takes 32 pixels of one image row. Its 8 warps split the
-// D disparities between them: each thread forms one pixel's cost at its
-// disparities (reads coalesced along W) into shared memory; then one warp
-// runs the softmax over D for its 32 pixels. The Ci*27 weights sit in
-// shared memory. No cross-block state: every pixel's D costs live in one
-// block.
-#include "common.cuh"
+// Two routes, picked by dtype:
+// * bf16, Ci == 32 (stage 1) or Ci == 8 (stages 2-3), channels-last
+//   (B, D, H, W, C) in: tensor cores (`tcr` below, helpers in `tc.cuh`).
+//   - Tile: TH output rows x 62 pixels, every d (TH = 1 at Ci = 32, 2 at
+//     Ci = 8). A block is one product warpgroup and one staging warp; the
+//     staging thread walks the planes d' = 0 .. D-1 of the input, copying
+//     each plane's TH + 2 rows (h0 - 1 .. h0 + TH) of 64 (Ci = 32) or 72
+//     (Ci = 8) pixels from w0 - 1 in one TMA box into a ring of stages (6
+//     at Ci = 32, 3 at Ci = 8), zeros outside the volume: the conv's
+//     padding, since the input is already post-ReLU.
+//   - Split by kd, not im2col, and the taps in N: per plane one product
+//     per staged row (and channel half at Ci = 32): A = the staged row's
+//     64 pixels from pixel 0, read by wgmma from shared memory through a
+//     descriptor (the 64-byte swizzle at Ci = 32; at Ci = 8 a row's k >= 8
+//     are the next pixel's channels); B = a 16 x N slice whose columns are
+//     (output row o, kw, kd) at Ci = 32 and (o, tap pair t, kd) at Ci = 8
+//     (t = 0: taps kw = 0, 1 of pixels q, q + 1; t = 1: kw = 2 of pixel
+//     q + 2), zero where kh = sh - o falls outside 0..2. wgmma m64n16k16
+//     (N = 9 or 12 columns used). The output pixel q then sums columns of
+//     rows q + kw: its kd terms, and plane d' gives cost[d'+1] += kd 0,
+//     cost[d'] += kd 1, cost[d'-1] += kd 2. Each plane is read once a tile,
+//     each staged byte once a product (where kw offsets of A read it three
+//     times), and the 62 output pixels of a 64-row product are what the
+//     taps leave.
+//   - B as multiplied (3 or 2 KB) is built in the block from the wrapper's
+//     per-(kh, piece) 16 x 8 images (4.6 / 1.5 KB, one bulk copy), written
+//     through the generic proxy and fenced before wgmma reads them.
+//   - Two planes in flight: plane p's products run while plane p - 1's
+//     sums are formed, through two accumulator sets and two product
+//     buffers (one barrier of the warpgroup a plane).
+//   - Skip and softmax in the block: a thread owns one output pixel and
+//     row (q, o): it keeps cost[d'-1] and cost[d'] in registers and writes
+//     each cost once complete (after plane d + 1) to its private column of
+//     D float32 costs in shared memory (6 KB at D = 24); the volume (row,
+//     d, pixel) bf16 is
+//     loaded at the start, all of a warp's loads issued before any is
+//     stored, while the weights and the first plane land. At the end the
+//     owner runs the two passes, min and then the sums in order of d,
+//     and writes float32 (B, H, W), ragged H and W masked.
+//   - Filling the card: stage 1 has 46 x 3 = 138 tiles for 132 SMs. A
+//     block takes 94 KB (Ci = 32), so two fit an SM and all 138 are
+//     resident at once: the six extra tiles run beside others, not as a
+//     second wave. Stage 3 has 920 tiles of 30.4 KB and 56 registers a
+//     thread (launch bounds), so that seven fit an SM (with all of its
+//     shared memory as carveout): one wave. Stage 2: 230 tiles.
+//   - What holds it (H100, `conv3d_c8_variants.py --skip`): a lone block
+//     spends about 3K clocks before its first plane (the weights, B, the
+//     volume, the first copy) and about 430 clocks a plane, most of them
+//     in the product threads' own sums (a barrier and shared-memory round
+//     trips), not in the tensor cores or the copies; at stage 3 the first
+//     planes of 920 blocks land 3.5 us after the start; at stage 1 six SMs
+//     run two tiles. Earlier designs that ran slower: register A (ldmatrix)
+//     with N = 8 (the taps as K slices, three times the A bytes), a
+//     volume read by 2-byte loads that each waited, two product
+//     warpgroups splitting the planes, persistent blocks.
+// * otherwise (float32): the CUDA cores, NCDHW in. A block takes 32 pixels
+//   of one image row. Its 8 warps split the D disparities between them:
+//   each thread forms one pixel's cost at its disparities (reads coalesced
+//   along W) into shared memory; then one warp runs the softmax over D for
+//   its 32 pixels. The Ci*27 weights sit in shared memory.
+#include "tc.cuh"
 
 namespace {
 
@@ -27,10 +86,10 @@ constexpr int MAX_CI = 32;
 constexpr int MAX_D = 64;
 constexpr int D_LANES = THREADS / TILE_W;
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                       const T* __restrict__ vol, float* __restrict__ out,
+skip_softargmin_kernel(const float* __restrict__ x,
+                       const float* __restrict__ wt,
+                       const float* __restrict__ vol, float* __restrict__ out,
                        int Ci, int D, int H, int W, float start) {
   __shared__ float ws[MAX_CI * 27];
   __shared__ float cost[MAX_D][TILE_W];
@@ -38,17 +97,17 @@ skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   const int w = blockIdx.x * TILE_W + tx;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  for (int i = threadIdx.x; i < Ci * 27; i += THREADS) ws[i] = to_f(wt[i]);
+  for (int i = threadIdx.x; i < Ci * 27; i += THREADS) ws[i] = wt[i];
   __syncthreads();
 
   const size_t plane = (size_t)H * W;
   const size_t volume = (size_t)D * plane;
   if (w < W) {
-    const T* xb = x + (size_t)b * Ci * volume;
+    const float* xb = x + (size_t)b * Ci * volume;
     for (int d = ty; d < D; d += D_LANES) {
       float acc = 0.f;
       for (int ci = 0; ci < Ci; ++ci) {
-        const T* xc = xb + (size_t)ci * volume;
+        const float* xc = xb + (size_t)ci * volume;
         const float* wc = ws + ci * 27;
 #pragma unroll
         for (int kd = 0; kd < 3; ++kd) {
@@ -62,14 +121,14 @@ skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
             for (int kw = 0; kw < 3; ++kw) {
               const int ww = w + kw - 1;
               if (ww < 0 || ww >= W) continue;
-              acc = fmaf(to_f(xc[dd * plane + (size_t)hh * W + ww]),
+              acc = fmaf(xc[dd * plane + (size_t)hh * W + ww],
                          wc[kd * 9 + kh * 3 + kw], acc);
             }
           }
         }
       }
-      cost[d][tx] = acc + to_f(vol[(size_t)b * volume + d * plane +
-                                   (size_t)h * W + w]);
+      cost[d][tx] = acc + vol[(size_t)b * volume + d * plane +
+                              (size_t)h * W + w];
     }
   }
   __syncthreads();
@@ -85,17 +144,411 @@ skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   out[(size_t)b * plane + (size_t)h * W + w] = num / den;
 }
 
-template <typename T>
+// ---- the bf16 tensor-core route -------------------------------------------
+
+namespace tcr {
+
+constexpr int TM = 64;            // staged pixels a product row: wgmma's M
+constexpr int TW = TM - 2;        // output pixels a tile (taps kw reach 2)
+constexpr int VR = 6;             // volume rows a warp loads at once
+constexpr int SLICE = 16 * 8 * 2; // one 16 x 8 B image, as laid out
+constexpr int BARS = 256;         // bytes of mbarriers
+constexpr int THREADS = 128 + 32; // the product warpgroup, the staging warp
+
+// Per input width: output rows a tile, products a staged row (Ci = 32:
+// the channel halves; Ci = 8: one, k >= 8 the next pixel), bytes a staged
+// pixel, staged pixels a row from w0 - 1 (the products read TM, and at
+// Ci = 8 one more; to 8 at Ci = 8, one TMA run a row), staged planes,
+// accumulators a plane (independent chains of products), blocks an SM
+// (registers and shared memory sized for them).
+template <int SC>
+struct Route;
+template <>
+struct Route<32> {
+  static constexpr int TH = 1, KP = 2, PX = 64, LP = 64, STAGES = 6,
+                       ACC = 2, BLOCKS = 2;
+};
+template <>
+struct Route<8> {
+  static constexpr int TH = 2, KP = 1, PX = 16, LP = 72, STAGES = 3,
+                       ACC = 1, BLOCKS = 7;
+};
+
+template <int SC>
+struct Geometry {
+  static constexpr int TH = Route<SC>::TH, KP = Route<SC>::KP;
+  static constexpr int NR = TH + 2;              // staged rows a plane
+  static constexpr int LP = Route<SC>::LP;
+  static constexpr int ROW = LP * Route<SC>::PX; // bytes a staged row
+  static constexpr int SB = NR * ROW;            // bytes a stage
+  static constexpr int S = Route<SC>::STAGES, ACC = Route<SC>::ACC;
+  // columns a product: per output row, (kw, kd) at Ci = 32 and (t, kd) at
+  // Ci = 8 (`source_slice`); N of the product, in blocks of 8; floats a
+  // row of the product buffer (odd: consecutive rows in distinct banks)
+  static constexpr int NCOLS = TH * (SC == 32 ? 9 : 6);
+  static constexpr int NB = (NCOLS + 7) / 8;
+  static constexpr int PSTRIDE = NCOLS | 1;
+  static constexpr int BSLICE = 16 * 8 * NB * 2;      // one 16 x N B image
+  static constexpr int PIECES = SC == 32 ? 6 : 2;     // as laid out
+  static constexpr int WBYTES = 3 * PIECES * SLICE;   // per (kh, piece)
+  static constexpr int PBYTES = NR * KP * BSLICE;     // per (row, product)
+  // the 64-byte swizzle repeats every 512 bytes
+  static constexpr int ALIGN = SC == 32 ? 1024 : 128;
+  // weights as laid out and as multiplied, mbarriers, then the ring, then
+  // the costs (float32), two product buffers (float32), the volume (bf16)
+  static constexpr int RING = WBYTES + PBYTES + BARS + ALIGN;
+  static int smem(int D) {
+    return RING + S * SB + TH * D * TW * 4 + 2 * TM * PSTRIDE * 4 +
+           TH * D * TW * 2;
+  }
+  static_assert(TH * TW <= 128, "a product thread a pixel");
+  static_assert(NB == 2 || NB == 3, "N = 16 or 24");
+  static_assert(S >= 2, "a stage for the next plane");
+  static_assert(8 * (2 * S + 1) <= BARS, "the mbarriers fit");
+};
+
+// Column n of the product of staged row sh as the slice of the wrapper's
+// images whose column n % 3 (kd) it holds, or -1 where the column is zero.
+// Output row o reads staged row sh at kh = sh - o. Ci = 32 (product kc):
+// n = o * 9 + kw * 3 + kd from slice (kh, (kw, kc)). Ci = 8: n = o * 6 +
+// t * 3 + kd from slice (kh, j = t): t = 0 the taps kw = 0 (k < 8) and 1
+// (k >= 8) at pixel q, t = 1 the tap kw = 2 (k < 8) at pixel q + 2.
+template <int SC>
+__device__ __forceinline__ int source_slice(int sh, int kc, int n) {
+  constexpr int PER_ROW = SC == 32 ? 9 : 6;
+  const int o = n / PER_ROW, m = n % PER_ROW, kh = sh - o;
+  if (o >= Route<SC>::TH || kh < 0 || kh > 2) return -1;
+  return SC == 32 ? kh * 6 + m / 3 * 2 + kc : kh * 2 + m / 3;
+}
+
+// A 64 x 8NB float32 accumulator: thread (warp w, lane l) holds, per
+// column block j, rows 16w + l/4 (v[4j], v[4j+1]) and 16w + l/4 + 8
+// (v[4j+2], v[4j+3]) at columns 8j + 2(l%4) + {0, 1}.
+template <int NB>
+struct Acc {
+  float v[4 * NB];
+};
+
+template <int NB>
+__device__ __forceinline__ void zero(Acc<NB>& a) {
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) a.v[i] = 0.f;
+}
+
+template <int NB>
+__device__ __forceinline__ void fence_operand(Acc<NB>& a) {
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) asm volatile("" : "+f"(a.v[i])::"memory");
+}
+
+// d += a (64 x 16) * b (16 x 8NB), both read from shared memory through
+// descriptors.
+template <int NB>
+__device__ __forceinline__ void wgmma_ss(Acc<NB>& d, uint64_t a,
+                                         uint64_t b) {
+  if constexpr (NB == 2)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]),
+          "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7])
+        : "l"(a), "l"(b), "n"(1));
+  else
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %14, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, "
+        "1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]),
+          "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+          "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11])
+        : "l"(a), "l"(b), "n"(1));
+}
+
+// The A descriptor of 64 staged pixels from `addr` on, K-major: Ci = 32,
+// 64-byte rows under TMA's 64-byte swizzle (8-row groups 512 bytes apart);
+// Ci = 8, 16-byte voxels unswizzled, k >= 8 the next voxel (16 bytes on),
+// 8-row groups 128 bytes apart.
+template <int SC>
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  const uint64_t start = (addr & 0x3FFFF) >> 4;
+  if constexpr (SC == 32)
+    return start | (1ull << 16) | ((512ull >> 4) << 32) | (2ull << 62);
+  else
+    return start | ((16ull >> 4) << 16) | ((128ull >> 4) << 32);
+}
+
+// map_x: the TMA map of x, boxes of one plane's NR staged rows (Ci = 32:
+// `tc::make_map`; Ci = 8: `tc::make_voxel_map`); wt: the 3 * PIECES B
+// images, slice kh * PIECES + piece, column kd (the wrapper lays them
+// out); vol (B, D, H, W); out (B, H, W) float32.
+template <int SC>
+__global__ void __launch_bounds__(THREADS, Route<SC>::BLOCKS)
+skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const bf16* __restrict__ wt,
+                          const bf16* __restrict__ vol,
+                          float* __restrict__ out, int D, int H, int W,
+                          float start) {
+  using Geo = Geometry<SC>;
+  constexpr int TH = Geo::TH, KP = Geo::KP, NR = Geo::NR, ROW = Geo::ROW;
+  constexpr int SB = Geo::SB, S = Geo::S, ACC = Geo::ACC, NB = Geo::NB;
+  constexpr int NCOLS = Geo::NCOLS, PSTRIDE = Geo::PSTRIDE;
+  constexpr int BSLICE = Geo::BSLICE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t wbase = tc::smem_addr(smem);
+  const uint32_t packed = wbase + Geo::WBYTES;
+  const uint32_t bars = packed + Geo::PBYTES;
+  const uint32_t ring = (bars + BARS + Geo::ALIGN - 1) & ~(Geo::ALIGN - 1u);
+  // costs (row, d, pixel) float32, product buffers (2, TM, PSTRIDE)
+  // float32, the volume (row, d, pixel) bf16
+  float* costs = reinterpret_cast<float*>(smem + (ring - wbase) + S * SB);
+  float* pbufs = costs + TH * D * TW;
+  unsigned short* vols =
+      reinterpret_cast<unsigned short*>(pbufs + 2 * TM * PSTRIDE);
+  auto landed = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
+  const uint32_t weights = bars + 8 * 2 * S;
+  const int w0 = blockIdx.x * TW, h0 = blockIdx.y * TH, b = blockIdx.z;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      tc::mbar_init(landed(s), 1);
+      tc::mbar_init(empty(s), 128);
+    }
+    tc::mbar_init(weights, 1);
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // The staging warp: one thread copies the weights, then plane p's NR
+    // rows into stage p % S once the products have read what it held.
+    if (threadIdx.x == 128) {
+      tc::mbar_expect_tx(weights, Geo::WBYTES);
+      tc::bulk_load(wbase, wt, Geo::WBYTES, weights);
+      for (int p = 0; p < D; ++p) {
+        const int s = p % S;
+        if (p >= S) tc::mbar_wait(empty(s), ((p / S) & 1) ^ 1);
+        tc::mbar_expect_tx(landed(s), SB);
+        if constexpr (SC == 32)
+          tc::tma_load_5d(ring + s * SB, &map_x, landed(s), 0, w0 - 1,
+                          h0 - 1, p, b);
+        else
+          tc::tma_load_4d(ring + s * SB, &map_x, landed(s), 2 * (w0 - 1),
+                          h0 - 1, p, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // The skip: the volume (row, d, pixel), each warp rows warp, warp + 4,
+  // ..., a lane pixels lane and lane + 32. The loads of VR rows are issued
+  // together, at a valid address (masked after), the first ones now, so
+  // that they land while the weights and the first plane do.
+  const unsigned short* v16 = reinterpret_cast<const unsigned short*>(vol);
+  unsigned raw[VR][2], vok = 0;  // 32-bit: no packing after each load
+  auto load_volume = [&](int r0) {  // rows r0 + k * 4 + warp
+    vok = 0;
+#pragma unroll
+    for (int k = 0; k < VR; ++k) {
+      const int r = r0 + k * 4 + warp;
+      const int o = r / D, d = r % D, h = h0 + o;
+      const size_t row = (((size_t)b * D + d) * H + h) * W;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int x = lane + 32 * j, w = w0 + x;
+        const bool in = r < TH * D && h < H && x < TW && w < W;
+        vok |= (unsigned)in << (2 * k + j);
+        raw[k][j] = __ldg(v16 + (in ? row + w : 0));
+      }
+    }
+  };
+  auto store_volume = [&](int r0) {
+#pragma unroll
+    for (int k = 0; k < VR; ++k) {
+      const int r = r0 + k * 4 + warp;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (r < TH * D && lane + 32 * j < TW)
+          vols[r * TW + lane + 32 * j] =
+              vok >> (2 * k + j) & 1 ? raw[k][j] : 0u;
+    }
+  };
+  load_volume(0);
+
+  // The products' B, as multiplied: per (staged row, product) a 16 x N
+  // slice whose column n holds `source_slice`'s column kd (n % 3): every
+  // tap and output row that reads the staged row in one product. Copied
+  // as 16-byte core rows (8 k of one column).
+  tc::mbar_wait(weights, 0);
+  for (int i = threadIdx.x; i < NR * KP * 16 * NB; i += 128) {
+    const int slice = i / (16 * NB), half = i / (8 * NB) % 2,
+              n = i % (8 * NB);
+    const int src = source_slice<SC>(slice / KP, slice % KP, n);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (src >= 0)
+      v = *reinterpret_cast<const uint4*>(smem + src * SLICE + half * 128 +
+                                          n % 3 * 16);
+    *reinterpret_cast<uint4*>(smem + Geo::WBYTES + slice * BSLICE +
+                              n / 8 * 256 + half * 128 + n % 8 * 16) = v;
+  }
+  tc::fence_proxy_async();  // the writes above before wgmma reads them
+  store_volume(0);
+  for (int r0 = VR * 4; r0 < TH * D; r0 += VR * 4) {
+    load_volume(r0);
+    store_volume(r0);
+  }
+  // This thread's output pixel q and row o, and its private column of
+  // costs; cost[p - 1] and cost[p] so far while plane p is summed.
+  const int q = threadIdx.x % TM, o = threadIdx.x / TM;
+  const bool owner = o < TH && q < TW;
+  float* mine = costs + o * D * TW + q;
+  float open_a = 0.f, open_b = 0.f;
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  const uint64_t desc0 = tc::b_desc(packed);
+  // Two planes in flight: plane p's products run while the sums of plane
+  // p - 1 are formed, into accumulator sets a and b by turns, through
+  // product buffers a and b.
+  using Accs = Acc<NB>[ACC];
+  Accs acc_a, acc_b;
+  float* pbuf_a = pbufs;
+  float* pbuf_b = pbufs + TM * PSTRIDE;
+  // Plane p's products: one wgmma per (staged row, product) from pixel 0
+  // of the staged row; ACC independent chains.
+  auto issue = [&](int p, Accs& acc) {
+    tc::mbar_wait(landed(p % S), (p / S) & 1);
+    const uint32_t buf = ring + (p % S) * SB;
+#pragma unroll
+    for (int k = 0; k < ACC; ++k) {
+      zero(acc[k]);
+      fence_operand(acc[k]);
+    }
+    tc::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < NR * KP; ++i)
+      wgmma_ss(acc[i % ACC], a_desc<SC>(buf + i / KP * ROW + i % KP * 32),
+               desc0 + i * (BSLICE >> 4));
+    tc::wgmma_commit();
+  };
+  // Plane p's sums, once its products are done: the product rows into a
+  // buffer; then for this thread's pixel q and row o, P's columns of each
+  // kd summed over the taps (rows q + kw): cost[p+1] gets kd 0, cost[p]
+  // kd 1, cost[p-1] kd 2, which completes it.
+  auto sums = [&](int p, Accs& acc, float* pb) {
+    tc::mbar_arrive(empty(p % S));  // the products have read the stage
+    float v[4 * NB] = {};
+#pragma unroll
+    for (int k = 0; k < ACC; ++k) {
+      fence_operand(acc[k]);
+#pragma unroll
+      for (int i = 0; i < 4 * NB; ++i) v[i] += acc[k].v[i];
+    }
+    const int r = warp * 16 + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 4 * NB; ++i)
+      if (i / 4 * 8 + c + i % 2 < NCOLS)
+        pb[(r + i / 2 % 2 * 8) * PSTRIDE + i / 4 * 8 + c + i % 2] = v[i];
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+    if (!owner) return;
+    float kd[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if constexpr (SC == 32)
+        kd[k] = pb[q * PSTRIDE + o * 9 + k] +
+                pb[(q + 1) * PSTRIDE + o * 9 + 3 + k] +
+                pb[(q + 2) * PSTRIDE + o * 9 + 6 + k];
+      else
+        kd[k] = pb[q * PSTRIDE + o * 6 + k] +
+                pb[(q + 2) * PSTRIDE + o * 6 + 3 + k];
+    }
+    if (p > 0) mine[(p - 1) * TW] = open_a + kd[2];
+    open_a = open_b + kd[1];
+    open_b = kd[0];
+  };
+  issue(0, acc_a);
+  int p = 1;
+  for (; p + 1 < D; p += 2) {
+    issue(p, acc_b);
+    tc::wgmma_wait<1>();
+    sums(p - 1, acc_a, pbuf_a);
+    issue(p + 1, acc_a);
+    tc::wgmma_wait<1>();
+    sums(p, acc_b, pbuf_b);
+  }
+  if (p < D) {  // D even: the last plane in b
+    issue(p, acc_b);
+    tc::wgmma_wait<1>();
+    sums(p - 1, acc_a, pbuf_a);
+    tc::wgmma_wait<0>();
+    sums(p, acc_b, pbuf_b);
+  } else {
+    tc::wgmma_wait<0>();
+    sums(p - 1, acc_a, pbuf_a);
+  }
+
+  // Soft-argmin of this thread's pixel (its own column of costs), the
+  // skip added (the volume, stored by other threads before the barrier
+  // above).
+  const int h = h0 + o, w = w0 + q;
+  if (!owner || h >= H || w >= W) return;
+  mine[(D - 1) * TW] = open_a;
+  auto cost = [&](int d) {
+    return mine[d * TW] +
+           __uint_as_float((unsigned)vols[(o * D + d) * TW + q] << 16);
+  };
+  float m = cost(0);
+#pragma unroll 8
+  for (int d = 1; d < D; ++d) m = fminf(m, cost(d));
+  float den = 0.f, num = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float e = expf(m - cost(d));
+    den += e;
+    num = fmaf(e, start + (float)d, num);
+  }
+  out[((size_t)b * H + h) * W + w] = num / den;
+}
+
+template <int SC>
 int launch(const void* x, const void* wt, const void* vol, void* out, int B,
-           int Ci, int D, int H, int W, float start, void* stream) {
-  if (Ci < 1 || Ci > MAX_CI || D < 1 || D > MAX_D)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(ceil_div(W, TILE_W), H, B);
-  skip_softargmin_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)wt, (const T*)vol, (float*)out, Ci, D, H, W,
-      start);
+           int D, int H, int W, float start, cudaStream_t s) {
+  using G = Geometry<SC>;
+  auto kernel = skip_softargmin_tc_kernel<SC>;
+  const int smem = G::smem(D);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)  // all of the SM's shared memory, for BLOCKS blocks
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap map;
+  int rc;
+  if constexpr (SC == 32) {
+    const cuuint64_t dims[5] = {32, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)D, (cuuint64_t)B};
+    rc = tc::make_map(&map, x, 5, dims, 32, G::LP, G::NR);
+  } else {
+    rc = tc::make_voxel_map(&map, x, B, D, H, W, G::LP, G::NR, 1);
+  }
+  if (rc != 0) return rc;
+  const dim3 grid(ceil_div(W, TW), ceil_div(H, G::TH), B);
+  kernel<<<grid, THREADS, smem, s>>>(map, (const bf16*)wt,
+                                     (const bf16*)vol, (float*)out, D, H,
+                                     W, start);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tcr
 
 }  // namespace
 
@@ -103,12 +556,23 @@ extern "C" int conv3d_skip_softargmin_f32(const void* x, const void* wt,
                                           const void* vol, void* out, int B,
                                           int Ci, int D, int H, int W,
                                           float start, void* stream) {
-  return launch<float>(x, wt, vol, out, B, Ci, D, H, W, start, stream);
+  if (Ci < 1 || Ci > MAX_CI || D < 1 || D > MAX_D)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(ceil_div(W, TILE_W), H, B);
+  skip_softargmin_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)wt, (const float*)vol, (float*)out, Ci,
+      D, H, W, start);
+  return (int)cudaGetLastError();
 }
 
+// x channels-last; wt the B images of `costfilter.skip_images`.
 extern "C" int conv3d_skip_softargmin_bf16(const void* x, const void* wt,
                                            const void* vol, void* out, int B,
                                            int Ci, int D, int H, int W,
                                            float start, void* stream) {
-  return launch<bf16>(x, wt, vol, out, B, Ci, D, H, W, start, stream);
+  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (Ci == 32) return tcr::launch<32>(x, wt, vol, out, B, D, H, W, start, s);
+  if (Ci == 8) return tcr::launch<8>(x, wt, vol, out, B, D, H, W, start, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -429,17 +429,19 @@ inline EncodeTiled encode_tiled() {
 
 // A TMA map of a channels-last bf16 tensor whose dims[0] = C channels
 // are innermost (dims and byte strides innermost first, `rank` <= 5):
-// boxes of SC channels x `pixels` pixels x 1 of every outer dim, swizzled
-// as the staged rows are (see the note at the top), zeros outside the
-// tensor. Returns a CUresult.
+// boxes of SC channels x `pixels` pixels x `rows` of dims[2] x 1 of every
+// outer dim, swizzled as the staged rows are (see the note at the top),
+// zeros outside the tensor. Returns a CUresult.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
-                    const cuuint64_t* dims, int SC, int pixels) {
+                    const cuuint64_t* dims, int SC, int pixels,
+                    int rows = 1) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t strides[4];
   cuuint64_t stride = 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
-  const cuuint32_t box[5] = {(cuuint32_t)SC, (cuuint32_t)pixels, 1, 1, 1};
+  const cuuint32_t box[5] = {(cuuint32_t)SC, (cuuint32_t)pixels,
+                             (cuuint32_t)rows, 1, 1};
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                      const_cast<void*>(base), dims, strides, box, ones,

@@ -20,12 +20,11 @@ Layout on the card: a bf16 activation of 32 or 8 channels lies
 channels-last-3d in memory, (B, D, H, W, C) under its logical
 (B, C, D, H, W) shape, because the tensor-core routes of `conv3d_bn_relu`
 (`conv3d_tensor_core_route`) read it so. The 1 -> C entry writes it (for
-one input channel the two layouts are the same memory) and the C -> C
-layers read and write it. `conv3d_skip_softargmin`, like every CUDA-core
-kernel, reads the default layout: at stages 2-3 the last 8 -> 8 layer
-writes it NCDHW; the 32-channel route writes channels-last only, so stage
-1 hands over through one copy. float32 stays in the default layout. Each
-copy is `build.in_layout`'s, counted.
+one input channel the two layouts are the same memory), the C -> C layers
+read and write it, and the tensor-core route of `conv3d_skip_softargmin`
+(`skip_tensor_core_route`) reads it: a bf16 filter makes no layout copy.
+float32 stays in the default layout. A copy, where a caller hands a kernel
+the other layout, is `build.in_layout`'s, counted.
 """
 
 from __future__ import annotations
@@ -40,6 +39,9 @@ from lwsnet_tpu_torch.ops.cuda.build import (CONV3D_BN_RELU,
                                              CONV3D_SKIP_SOFTARGMIN, check,
                                              empty, in_layout, on_card,
                                              symbol_suffix)
+
+
+SKIP_MAX_D = 64  # costs a pixel (MAX_D in csrc/conv3d_skip_softargmin.cu)
 
 
 def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
@@ -65,6 +67,29 @@ def c8_images(wt: torch.Tensor) -> torch.Tensor:
     Co, Ci = wt.shape[:2]
     return F.pad(wt, (0, 1)).reshape(Co, Ci, 3, 3, 2, 2).permute(
         2, 3, 4, 5, 0, 1).contiguous()
+
+
+def skip_tensor_core_route(dtype: torch.dtype, Ci: int) -> bool:
+    """Whether `conv3d_skip_softargmin` runs its wgmma route (`tcr` in
+    csrc/conv3d_skip_softargmin.cu), which reads channels-last: bf16 at 32
+    (stage 1) or 8 (stages 2-3) input channels. Other bf16 widths raise on
+    the card; float32 takes the CUDA cores, which read NCDHW."""
+    return dtype == torch.bfloat16 and Ci in (8, 32)
+
+
+def skip_images(wt: torch.Tensor) -> torch.Tensor:
+    """(1, Ci, 3, 3, 3) -> the skip route's resident B images, one 16 x 8
+    K-major slice (csrc/tc.cuh) per (kh, piece) whose column n < 3 holds
+    the weights of kd = n (n >= 3 zero). Ci = 32: pieces (kw, channel
+    half), k the channel in the half, as (kh, kw, half, k // 8, n, k % 8);
+    Ci = 8: pieces j, k < 8 the channels at tap kw = 2j and k >= 8 those at
+    kw = 2j + 1 (zero for kw = 3), as (kh, j, k // 8, n, ci)."""
+    w = wt[0]
+    if w.shape[0] == 32:  # (ci, n, kh, kw)
+        w = F.pad(w, (0, 0, 0, 0, 0, 5)).reshape(2, 2, 8, 8, 3, 3)
+        return w.permute(4, 5, 0, 1, 3, 2).contiguous()
+    w = F.pad(w, (0, 1, 0, 0, 0, 5)).reshape(8, 8, 3, 2, 2)
+    return w.permute(2, 3, 4, 1, 0).contiguous()
 
 
 def conv3d_bn_relu_plain(x: torch.Tensor, wt: torch.Tensor,
@@ -131,18 +156,29 @@ def conv3d_skip_softargmin_plain(x: torch.Tensor, wt: torch.Tensor,
 
 def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
                            vol: torch.Tensor, start: int) -> torch.Tensor:
-    """Fused last layer + skip + soft-argmin; see the plain version."""
+    """Fused last layer + skip + soft-argmin; see the plain version. On the
+    card bf16 takes the tensor-core route, which reads channels-last (x is
+    copied where it lies otherwise), at Ci 8 or 32 and D <= 64; float32 the
+    CUDA cores, which read NCDHW."""
     if not on_card(x):
         return conv3d_skip_softargmin_plain(x, wt, vol, start)
     B, Ci, D, H, W = x.shape
-    x = in_layout(x, False)  # stage 1 hands over channels-last: one copy
-    check(x, "x", (B, Ci, D, H, W), x.dtype, x.device)
+    tensor_core = skip_tensor_core_route(x.dtype, Ci)
+    if x.dtype == torch.bfloat16 and not tensor_core:
+        raise ValueError(f"the bf16 route takes 8 or 32 input channels, "
+                         f"got {Ci}")
+    if not 1 <= D <= SKIP_MAX_D:
+        raise ValueError(f"D = {D}: the kernels hold at most {SKIP_MAX_D} "
+                         f"costs a pixel")
+    x = in_layout(x, tensor_core)
+    check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, tensor_core)
     check(wt, "wt", (1, Ci, 3, 3, 3), x.dtype, x.device)
     check(vol, "vol", (B, D, H, W), x.dtype, x.device)
+    wk = skip_images(wt) if tensor_core else wt
     out = torch.empty((B, H, W), dtype=torch.float32, device=x.device)
     CONV3D_SKIP_SOFTARGMIN.launch(
         f"conv3d_skip_softargmin_{symbol_suffix(x.dtype)}", x.device,
-        x.data_ptr(), wt.data_ptr(), vol.data_ptr(), out.data_ptr(),
+        x.data_ptr(), wk.data_ptr(), vol.data_ptr(), out.data_ptr(),
         B, Ci, D, H, W, float(start))
     return out
 
@@ -180,16 +216,12 @@ def filter_soft_argmin(cost: torch.Tensor, params: Dict[str, torch.Tensor],
     vol = cost.permute(0, 3, 1, 2).to(dtype).contiguous()  # (B, D, H, W)
     a0, b0 = affs[0]
     act = F.relu(vol.float() * a0 + b0).to(dtype)[:, None]
-    # The last conv3d_bn_relu hands over to conv3d_skip_softargmin, which
-    # reads NCDHW: it writes that layout where its route can (not the bf16
-    # 32-channel one, whose output the skip layer copies once).
-    last_cl = (False if conv3d_writes_ncdhw(dtype, channels, channels)
-               else None)
+    # Every layer hands on the layout the next one reads: channels-last in
+    # bf16, NCDHW in float32.
     for i in range(n - 1):
         a_next, b_next = affs[i + 1]
         wt = params[f"BNReLUConv3D_{i}.weight"].float() \
             * a_next.view(-1, 1, 1, 1, 1)
-        act = conv3d_bn_relu(act, wt.to(dtype), b_next,
-                             channels_last=last_cl if i == n - 2 else None)
+        act = conv3d_bn_relu(act, wt.to(dtype), b_next)
     wt = params[f"BNReLUConv3D_{n - 1}.weight"].to(dtype)
     return conv3d_skip_softargmin(act, wt, vol, start)[..., None]

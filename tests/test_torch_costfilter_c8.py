@@ -134,9 +134,9 @@ def test_c8_k_loop_emulation_matches_plain(B, D, H, W):
 def test_filter_soft_argmin_c8_layouts_match_jax(monkeypatch):
     """The stage-2/3 filter (four mid layers of 8 channels, D = 9, residual
     bins from -4), each conv3d_bn_relu handing its output on in the layout
-    the bf16 route writes on the card: the 1 -> 8 entry and the inner
-    8 -> 8 layers channels-last, the last 8 -> 8 layer NCDHW for
-    conv3d_skip_softargmin. The result matches the JAX package's."""
+    the bf16 route writes on the card: the 1 -> 8 entry and every 8 -> 8
+    layer channels-last, which conv3d_skip_softargmin's route reads. The
+    result matches the JAX package's."""
     B, H, W, D, layers, channels, start = 1, 6, 10, 9, 4, 8, -4
     rng = np.random.default_rng(11)
     cost = rng.standard_normal((B, H, W, D)).astype(np.float32)
@@ -161,7 +161,7 @@ def test_filter_soft_argmin_c8_layouts_match_jax(monkeypatch):
         return y.contiguous(memory_format=CL3) if out_cl else y
 
     def last(x, wt, vol, start):
-        seen.append(("skip", x.is_contiguous()))
+        seen.append(("skip", build.lies_channels_last(x)))
         return plain_last(x, wt, vol, start)
 
     monkeypatch.setattr(tcf, "conv3d_bn_relu", layer)
@@ -170,8 +170,8 @@ def test_filter_soft_argmin_c8_layouts_match_jax(monkeypatch):
         torch.from_numpy(cost), dict(port.named_parameters()),
         dict(port.named_buffers()), layers=layers, channels=channels,
         start=start, dtype=torch.float32)
-    assert seen == [(1, 8, False, True)] + [(8, 8, True, True)] * 3 + [
-        (8, 8, True, False), ("skip", True)]
+    assert seen == [(1, 8, False, True)] + [(8, 8, True, True)] * 4 + [
+        ("skip", True)]
     assert got.shape == (B, H, W, 1)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=2e-4, rtol=1e-3)

@@ -181,12 +181,14 @@ def test_conv3d_c8_route_on_card(rnd, shape, out_cl):
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
 
 
-def test_conv3d_c8_stage_on_card(rnd):
-    """A stage-2/3 filter's layers as the path runs them: the 1 -> 8 entry
-    on the CUDA cores writing channels-last, three 8 -> 8 layers on the
-    tensor cores, the last writing NCDHW, which conv3d_skip_softargmin
-    reads without a copy; each layer against its plain version from the
-    same input."""
+@pytest.mark.parametrize("last_ncdhw", [False, True])
+def test_conv3d_c8_stage_on_card(rnd, last_ncdhw):
+    """A stage-2/3 filter's layers: the 1 -> 8 entry on the CUDA cores
+    writing channels-last, four 8 -> 8 layers on the tensor cores, then
+    conv3d_skip_softargmin's tensor-core route; each layer against its
+    plain version from the same input. As the path runs them (every layer
+    channels-last, no layout copy), and with the last 8 -> 8 layer writing
+    NCDHW, which the skip layer copies once to channels-last."""
     bf = torch.bfloat16
     build.reset_launch_counts()
     act = rnd(1, 1, 9, 13, 70, dtype=bf).relu()
@@ -196,7 +198,7 @@ def test_conv3d_c8_stage_on_card(rnd):
     assert build.lies_channels_last(y)
     torch.testing.assert_close(y, tcf.conv3d_bn_relu_plain(act, w, shift),
                                atol=1e-2, rtol=1e-2)
-    for last in (False, False, False, True):
+    for last in (False, False, False, last_ncdhw):
         w = (rnd(8, 8, 3, 3, 3) * (2 / 216) ** 0.5).to(bf)
         shift = rnd(8) * 0.1
         out = tcf.conv3d_bn_relu(y, w, shift,
@@ -204,15 +206,70 @@ def test_conv3d_c8_stage_on_card(rnd):
         assert build.lies_channels_last(out) != last
         _assert_two_steps(out, tcf.conv3d_bn_relu_plain(y, w, shift))
         y = out
-    assert y.is_contiguous()
+    assert y.is_contiguous() == last_ncdhw
     w1 = (rnd(1, 8, 3, 3, 3) * 0.1).to(bf)
     vol = rnd(1, 9, 13, 70, dtype=bf)
-    _check(tcf.conv3d_skip_softargmin(y, w1, vol, -4),
-           tcf.conv3d_skip_softargmin_plain(y, w1, vol, -4), bf)
+    _assert_two_steps(tcf.conv3d_skip_softargmin(y, w1, vol, -4),
+                      tcf.conv3d_skip_softargmin_plain(y, w1, vol, -4))
     torch.cuda.synchronize()
     counts = {k: v for k, v in build.launch_counts().items() if v}
     assert counts == {"conv3d_bn_relu": 5, "conv3d_skip_softargmin": 1}
-    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    assert build.LAYOUT_COPIES == {"to channels-last": int(last_ncdhw),
+                                   "to contiguous": 0}
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 32, 24, 46, 154, 0),    # stage 1 of the 368x1232 forward
+    (1, 8, 9, 92, 308, -4),     # stage 2
+    (1, 8, 9, 184, 616, -4),    # stage 3
+    (2, 32, 24, 3, 70, -4),     # ragged: W = 70, H = 3
+    (2, 8, 9, 5, 37, 0),        # ragged: H = 5 (TH = 2), W = 37
+])
+def test_skip_softargmin_wgmma_route_on_card(rnd, shape, channels_last):
+    """The tensor-core route of conv3d_skip_softargmin at the path's three
+    shapes and at ragged ones, from channels-last input (no layout copy)
+    or NCDHW (one counted copy): within two bf16 rounding steps of the
+    plain version (`_assert_two_steps`), and, since both sum float32 from
+    the same bf16 operands, within atol 1e-3 / rtol 1e-4 of it."""
+    B, C, D, H, W, start = shape
+    bf = torch.bfloat16
+    assert tcf.skip_tensor_core_route(bf, C)
+    x = _channels_last(rnd(B, C, D, H, W, dtype=bf).relu(), channels_last)
+    wt = (rnd(1, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(bf)
+    vol = (rnd(B, D, H, W) * 2).to(bf)
+    build.reset_launch_counts()
+    got = tcf.conv3d_skip_softargmin(x, wt, vol, start)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["conv3d_skip_softargmin"] == 1
+    assert build.LAYOUT_COPIES == {
+        "to channels-last": 0 if channels_last else 1, "to contiguous": 0}
+    want = tcf.conv3d_skip_softargmin_plain(x, wt, vol, start)
+    assert got.shape == (B, H, W) and got.dtype == torch.float32
+    _assert_two_steps(got, want)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
+    """float32 stays on the CUDA cores, which read NCDHW: a channels-last
+    input is copied once to the default layout. bf16 at a width the route
+    does not take raises."""
+    build.reset_launch_counts()
+    x = _channels_last(rnd(1, 32, 24, 5, 70).relu(), True)
+    wt, vol = rnd(1, 32, 3, 3, 3) * 0.05, rnd(1, 24, 5, 70)
+    assert not tcf.skip_tensor_core_route(torch.float32, 32)
+    torch.testing.assert_close(
+        tcf.conv3d_skip_softargmin(x, wt, vol, 0),
+        tcf.conv3d_skip_softargmin_plain(x, wt, vol, 0), atol=2e-4,
+        rtol=1e-3)
+    torch.cuda.synchronize()
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
+    xb = rnd(1, 16, 9, 5, 70, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="8 or 32 input channels"):
+        tcf.conv3d_skip_softargmin(
+            xb, rnd(1, 16, 3, 3, 3, dtype=torch.bfloat16),
+            rnd(1, 9, 5, 70, dtype=torch.bfloat16), 0)
+    assert build.launch_counts()["conv3d_skip_softargmin"] == 1
 
 
 def test_conv3d_float32_c8_on_cuda_cores_on_card(rnd):
@@ -502,8 +559,8 @@ def test_refinement_layout_copies_on_card(rnd, fields, want):
     """The bf16 stage-4 refinement under "vpu" (paired, unpaired), "layers"
     and "chain" makes no layout copy: the entries write channels-last, and
     every later layer reads it; launch counts as a forward's (one
-    `chain3x3` launch per stack). The whole 4-stage forward copies once,
-    stage 1's activation into the fused last layer."""
+    `chain3x3` launch per stack). Nor does the whole 4-stage forward: every
+    cost filter layer, the fused last one too, reads channels-last."""
     import numpy as np
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.models.refine_kernels import refine_residual
@@ -533,7 +590,7 @@ def test_refinement_layout_copies_on_card(rnd, fields, want):
     assert all(torch.isfinite(o).all() for o in outs)
     counts = {k: v for k, v in build.launch_counts().items() if v}
     assert counts == dict(want, conv3d_bn_relu=15, conv3d_skip_softargmin=3)
-    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
 
 
 def _chain_operands(rnd, dtype):
