@@ -17,13 +17,16 @@ in order; any failure exits non-zero:
      memory lines;
   3. every kernel against its plain PyTorch version at each shape and
      memory layout a path gives it, and the tensor-core routes of
-     dense3x3, dwsep3x3 (solo and pair), chain3x3 (tower and head),
-     conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout) and
+     dense3x3 (32 outputs; the narrow entry, Ci 1 and 3, and the narrow
+     output, Co 1 and 8), dwsep3x3 (solo and pair), chain3x3 (tower and
+     head), conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout) and
      conv3d_skip_softargmin (32 and 8 channels) at ragged shapes from both
      layouts (NCHW / channels-last), in float32 (TF32 off; atol 2e-4, rtol
      1e-3) and bf16 (mean |delta| < 2 % of the plain output's span;
-     chain3x3, the 8-channel conv3d_bn_relu layers and
-     conv3d_skip_softargmin also every element within two rounding steps);
+     chain3x3, the 8-channel conv3d_bn_relu layers, conv3d_skip_softargmin
+     and dense3x3's narrow routes also every element within two rounding
+     steps, or, writing float32, atol 2e-4 / rtol 1e-3); each bf16
+     dense3x3 call on the route its shape picks (`dense_route`);
      conv3d_skip_softargmin's copies: none for bf16 channels-last input,
      one to channels-last for bf16 NCDHW, one to the default layout for
      float32 channels-last (its CUDA-core kernel reads NCDHW);
@@ -32,7 +35,8 @@ in order; any failure exits non-zero:
      of span, float32 max |delta| < 1e-3 x span; the launch counters of
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
-     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), and the
+     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), its
+     dense3x3 narrow-route launches `WANT_ROUTES`, and the
      wrappers' layout copies `WANT_COPIES` (none on any path); then the
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
@@ -134,6 +138,14 @@ WANT_COPIES = {engine: {"to channels-last": 0, "to contiguous": 0}
                for engine in (*ENGINES, "layers-wide")}
 # Launches of the layers refinement alone at WIDE_H x WIDE_W.
 WIDE_LAUNCHES = {"dense3x3": 5, "dwsep3x3": 4, "dwsep3x3_pair": 4}
+# dense3x3's narrow-route launches per bf16 forward (build.route_counts()):
+# every path but "chain" runs its tower entries (one at 2B with two weight
+# groups, or "layers"' two at batch 1) on the narrow-entry route and its
+# 32 -> 1 output conv on the narrow-output route.
+WANT_ROUTES = {engine: {"dense3x3[entry]": 2 if engine.startswith("layers")
+                        else 1, "dense3x3[output]": 1}
+               for engine in (*ENGINES, "layers-wide")}
+WANT_ROUTES["chain"] = {}
 # The path whose run gives each kernel's launches on the kernels line.
 ENGINE_OF = {"conv3d_bn_relu": "mxu", "conv3d_skip_softargmin": "mxu",
              "dense3x3": "mxu", "dwsep3x3": "vpu-unpaired",
@@ -158,6 +170,21 @@ REPLACES = {
     "chain3x3": "lwsnet_tpu/ops/pallas/refine_rows.py:503 (_chain_kernel)",
     "lane_broadcast": "examples/microbench_rows.py:184 (bkernel)",
 }
+
+
+def dense_route(p, dtype):
+    """The route dense3x3 takes for call `p` in `dtype` (its C++ rule,
+    mirrored by the predicates of ops/cuda/refine_rows.py): "entry",
+    "output", "tensor cores" or "CUDA cores"."""
+    from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
+    args = (dtype, p["Ci"], p["Co"], p["d"], 2 if p.get("dual") else 1,
+            p["G"])
+    if RR.dense_entry_route(*args):
+        return "entry"
+    if RR.dense_output_route(*args):
+        return "output"
+    return ("tensor cores" if RR.dense_tensor_core_route(*args)
+            else "CUDA cores")
 
 
 def want_counts(engine, zero):
@@ -395,7 +422,7 @@ def layers_calls(cfg):
         ("dense3x3", "layers head half 32->32 d=8",
          dict(geo, Ci=c, Co=c, d=8, aff=True, cl=True), 2, "layers"),
         ("dense3x3", "layers out 32->1 bf16 out",
-         dict(geo, Ci=c, Co=1, d=1, aff=False), 1, "layers")]
+         dict(geo, Ci=c, Co=1, d=1, aff=False, cl=True), 1, "layers")]
     for (d1, d2), n in (((2, 4), 2), ((8, 16), 2), ((8, 4), 1), ((2, 1), 1)):
         calls.append(("dwsep3x3_pair", f"layers ({d1},{d2}) G=1",
                       dict(geo, C=c, d1=d1, d2=d2, cl=True), n, "layers"))
@@ -409,13 +436,15 @@ def layers_calls(cfg):
 
 
 def ragged_calls():
-    """Phase 3 only: the tensor-core routes of dense3x3, dwsep3x3 (solo and
+    """Phase 3 only: the tensor-core routes of dense3x3 (32 outputs, the
+    narrow entry and the narrow output), dwsep3x3 (solo and
     pair), chain3x3, conv3d_bn_relu and conv3d_skip_softargmin at shapes
     no tile divides (W = 150, 75, 70 and 37, H = 37, 29, 11 and 5 not a
     multiple of R * d = 4d or of the skip route's two rows, D = 7), two
     weight groups at batch 2, C = 16 -> 32 dw-sep layers, the two-input
     form, the chain's tower and head at every dilation of the path, from
-    NCHW (one counted copy) and channels-last input. Tuples as
+    NCHW (one counted copy where the route reads channels-last) and
+    channels-last input (one where it reads NCHW). Tuples as
     `main_path_calls` (launches and engine unused)."""
     from lwsnet_tpu_torch.models.refinement import (HEAD_DENSE_DILATION,
                                                     HEAD_DILATIONS,
@@ -451,6 +480,18 @@ def ragged_calls():
         calls.append(("dense3x3", f"ragged 2x32->32 d=8 (dual) {tag}",
                       dict(H=37, W=75, B=1, G=1, Ci=32, Co=32, d=8, aff=True,
                            dual=True, cl=cl), 0, None))
+        for d in (1, 16):
+            for ci, b, g, (h, w) in ((3, 2, 2, (37, 75)), (1, 1, 1, (29, 70))):
+                calls.append(("dense3x3", f"ragged entry {ci}->32 d={d} "
+                              f"G={g} {h}x{w} {tag}",
+                              dict(H=h, W=w, B=b, G=g, Ci=ci, Co=32, d=d,
+                                   aff=False, cl=cl), 0, None))
+            for co, b, g, f32 in ((1, 1, 1, True), (8, 2, 2, False)):
+                calls.append(("dense3x3", f"ragged out 32->{co} d={d} G={g} "
+                              f"37x75 {'f32' if f32 else 'bf16'} out {tag}",
+                              dict(H=37, W=75, B=b, G=g, Ci=32, Co=co, d=d,
+                                   aff=co == 8, f32_out=f32, cl=cl), 0,
+                              None))
         calls.append(("conv3d_bn_relu", f"ragged 32->32 B=2 7x11x37 {tag}",
                       dict(B=2, Ci=32, Co=32, D=7, H=11, W=37, cl=cl), 0,
                       None))
@@ -783,13 +824,26 @@ def main():
             build.reset_launch_counts()
             got = c["kernel"]()
             made = dict(build.LAYOUT_COPIES)
+            routes = build.route_counts()
             want = c["plain"]()
             torch.cuda.synchronize()
             what = f"{kernel} [{label}] {str(dtype)[6:]}"
             err, span = check_close(got, want, dtype, what)
-            if dtype == torch.bfloat16 and (
+            narrow = None
+            if kernel == "dense3x3":
+                route = dense_route(p, dtype)
+                narrow = route if route in ("entry", "output") else None
+                require(routes == ({f"dense3x3[{narrow}]": 1} if narrow
+                                   else {}),
+                        f"{what}: route launches {routes}, want {route}")
+            if dtype == torch.bfloat16 and narrow and p.get("f32_out"):
+                require(((got - want).abs()
+                         <= 2e-4 + 1e-3 * want.abs()).all().item(),
+                        f"{what}: beyond atol 2e-4 / rtol 1e-3")
+            elif dtype == torch.bfloat16 and (
                     kernel in ("chain3x3", "conv3d_skip_softargmin")
-                    or (kernel == "conv3d_bn_relu" and p["Co"] == 8)):
+                    or (kernel == "conv3d_bn_relu" and p["Co"] == 8)
+                    or narrow):
                 two_steps(got, want, what)
             if kernel == "conv3d_skip_softargmin":
                 # bf16 reads channels-last (its tensor-core route), float32
@@ -812,7 +866,7 @@ def main():
     right = torch.as_tensor(right_np, dtype=torch.float32, device=dev)
     build.reset_launch_counts()
     zero = build.launch_counts()
-    counts, copies = {}, {}
+    counts, copies, routes = {}, {}, {}
     forward_report = {}
     for dt in ("bfloat16", "float32"):
         plain = None
@@ -830,6 +884,7 @@ def main():
             if dt == "bfloat16":
                 counts[engine] = build.launch_counts()
                 copies[engine] = dict(build.LAYOUT_COPIES)
+                routes[engine] = build.route_counts()
             forward_report[f"{dt} {engine}"] = [
                 dict(stage=s + 1, **compare(f"{dt} {engine} stage {s + 1}",
                                             a, b, dt, (1, H, W, 1)))
@@ -842,6 +897,11 @@ def main():
               f"{counts[engine]}")
         require(counts[engine] == want,
                 f"{engine} launch counts {counts[engine]} != {want}")
+        print(f"[4] dense3x3 narrow-route launches of the bf16 {engine} "
+              f"kernel forward: {routes[engine]}")
+        require(routes[engine] == WANT_ROUTES[engine],
+                f"{engine} narrow-route launches {routes[engine]} != "
+                f"{WANT_ROUTES[engine]}")
         print(f"[4] layout copies of the bf16 {engine} kernel forward: "
               f"{copies[engine]}")
         require(copies[engine] == WANT_COPIES[engine],
@@ -873,6 +933,7 @@ def main():
         if dt == "bfloat16":
             counts["layers-wide"] = build.launch_counts()
             copies["layers-wide"] = dict(build.LAYOUT_COPIES)
+            routes["layers-wide"] = build.route_counts()
         forward_report[f"{dt} layers-wide residual"] = compare(
             f"{dt} layers residual at {WIDE_H}x{WIDE_W}", want, got, dt,
             (1, WIDE_H, WIDE_W, 1))
@@ -882,12 +943,15 @@ def main():
           f"{WIDE_H}x{WIDE_W}: {counts['layers-wide']}")
     require(counts["layers-wide"] == want,
             f"layers-wide launch counts {counts['layers-wide']} != {want}")
+    require(routes["layers-wide"] == WANT_ROUTES["layers-wide"],
+            f"layers-wide narrow-route launches {routes['layers-wide']}")
     print(f"[4] layout copies of the bf16 layers refinement at "
           f"{WIDE_H}x{WIDE_W}: {copies['layers-wide']}")
     require(copies["layers-wide"] == WANT_COPIES["layers-wide"],
             f"layers-wide layout copies {copies['layers-wide']}")
     report["forward"] = forward_report
     report["layout_copies"] = copies
+    report["narrow_route_launches"] = routes
 
     # 5. the inference engine: 4 seeded requests, num_stages 1..4, under the
     # shipped engine; one request and the 4-stage latency under each other
@@ -969,6 +1033,8 @@ def main():
         t_bytes = c["bytes"] / PEAK_BYTES * 1e3
         t_ops = c["ops"] / PEAK_BF16 * 1e3
         row = dict(kernel=kernel, label=label, engine=engine, launches=n,
+                   route=(dense_route(p, torch.bfloat16)
+                          if kernel == "dense3x3" else None),
                    ms=event_ms(c["kernel"]), host_us=host_us(c["kernel"]),
                    plain_ms=event_ms(c["plain"]),
                    library_ms=(None if c["library"] is None
@@ -1001,7 +1067,8 @@ def main():
             lib += f" (on NCHW copies {row['library_nchw_ms']:.4f} ms)"
         layers = ("" if row["layers_cudnn_ms"] is None else
                   f", per-layer cuDNN sum {row['layers_cudnn_ms']:.4f} ms")
-        print(f"[6] {kernel} [{label}] x{n}: {row['ms']:.4f} ms (host "
+        route = "" if row["route"] is None else f" ({row['route']} route)"
+        print(f"[6] {kernel} [{label}]{route} x{n}: {row['ms']:.4f} ms (host "
               f"{row['host_us']:.1f} us a call), plain "
               f"{row['plain_ms']:.4f} ms, cuDNN {lib}{layers}, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")

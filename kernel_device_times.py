@@ -29,6 +29,11 @@ of `chip_smoke.PROFILED` over one torch.profiler window of 5 forwards
 (`chip_smoke.device_profile`): its device busy time, the union of kernel
 intervals.
 
+Then it lists dense3x3's narrow launches on their own, each with its
+wrapper's host time a call (`chip_smoke.host_us`): the "mxu" / "vpu"
+tower entry (3->32, G = 2) and 32->1 float32 output, and the "layers"
+entries (3->32, 1->32) and 32->1 bf16 output.
+
 --package-root DIR imports `lwsnet_tpu_torch` from another checkout (for
 instance the parent commit unpacked with `git archive`), so two trees can
 be compared on one card in one run; --nchw hands every kernel NCHW
@@ -78,11 +83,23 @@ def main(argv=None):
         c = cs.make_call(kernel, p, torch.bfloat16,
                          np.random.default_rng(2000 + i), dev)
         ms = cs.kernel_device_ms(c["kernel"], cs.KERNEL_NAMES[kernel])
+        layer = None
+        if kernel == "dense3x3" and (p["Ci"] * 9 <= 32 or p["Co"] <= 8):
+            layer = "entry" if p["Co"] == 32 else "output"
+        row = dict(kernel=kernel, label=label, engine=engine, launches=n,
+                   device_ms=ms, narrow=layer,
+                   host_us=cs.host_us(c["kernel"]) if layer else None)
         del c
-        rows.append(dict(kernel=kernel, label=label, engine=engine,
-                         launches=n, device_ms=ms))
+        rows.append(row)
         print(f"{kernel} [{label}] x{n} ({engine}): "
               f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+    for r in rows:
+        if r["narrow"]:
+            ms = r["device_ms"]
+            print(f"narrow {r['narrow']} [{r['label']}] x{r['launches']} "
+                  f"({r['engine']}): "
+                  f"{'not measured' if ms is None else f'{ms:.4f} ms'}, "
+                  f"wrapper host {r['host_us']:.1f} us a call")
     prefixes = []
     for i, (kernel, label, p, n, engine) in enumerate(calls):
         if kernel != "chain3x3":

@@ -12,13 +12,20 @@
 // Bound on the H100: memory for every refinement layer at 368x1232 (the
 // 32->32 tower layer moves 116 MB for 16.7 GFLOP).
 //
-// Two routes, picked by shape:
+// Four routes, picked by shape:
 // * bf16 32->32 layers (`dense_tc::use`): `dense3x3_tc.cuh`, wgmma tensor
 //   cores on channels-last activations with resident weights, multi-row
 //   tiles and a ring of TMA-staged rows; x, x2 and y channels-last.
-// * everything else (float32, the 3- and 1-channel entries, the 32->1
-//   output conv): the CUDA-core tiles of `dense3x3.cuh`, one block per
-//   8 x 32 pixel tile, reading and writing NCHW or channels-last.
+// * bf16 narrow outputs, Co <= 8 (`dense_tc::use_narrow`: the refinement's
+//   32->1 output conv): the same body on wgmma m64n8k16; x channels-last,
+//   y (B, Co, H, W).
+// * bf16 narrow entries, Ci x 9 <= 32 (`dense_entry::use`: the 3- and
+//   1-channel tower entries): `dense3x3_entry.cuh`, the taps of NCHW x as
+//   the K of one or two wgmma m64n32k16; y channels-last.
+// * everything else (float32 above all): the CUDA-core tiles of
+//   `dense3x3.cuh`, one block per 8 x 32 pixel tile, reading and writing
+//   NCHW or channels-last.
+#include "dense3x3_entry.cuh"
 #include "dense3x3_tc.cuh"
 
 namespace {
@@ -49,11 +56,23 @@ int launch(const Args& a, void* stream) {
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if constexpr (sizeof(T) == 2) {
-    if (dense_tc::use(2, a.Ci, a.Co, a.d, dense_tc::inputs(a), a.G)) {
+    const int nin = dense_tc::inputs(a);
+    if (dense_tc::use(2, a.Ci, a.Co, a.d, nin, a.G)) {
       // The route reads and writes channels-last only.
       if (!a.x_cl || !a.y_cl) return (int)cudaErrorInvalidValue;
       return a.Ci % 32 == 0 ? dense_tc::launch<32, TO>(a, s)
                             : dense_tc::launch<16, TO>(a, s);
+    }
+    if (dense_tc::use_narrow(2, a.Ci, a.Co, a.d, nin, a.G)) {
+      // Channels-last in, (B, Co, H, W) out only.
+      if (!a.x_cl || a.y_cl) return (int)cudaErrorInvalidValue;
+      return a.Ci % 32 == 0 ? dense_tc::launch<32, TO, 8>(a, s)
+                            : dense_tc::launch<16, TO, 8>(a, s);
+    }
+    if (dense_entry::use(2, a.Ci, a.Co, a.d, nin, a.G)) {
+      // NCHW in, channels-last out only.
+      if (a.x_cl || !a.y_cl) return (int)cudaErrorInvalidValue;
+      return dense_entry::launch<TO>(a, s);
     }
   }
   if (!a.x_cl) {

@@ -41,7 +41,8 @@ namespace dense {
 
 // One layer's operands. x, x2: (B, Ci, H, W) in the compute dtype; wt, wt2:
 // (G, Ci, 9, Co) in the compute dtype (B images on the tensor-core route
-// of `dense3x3_tc.cuh`); aff, aff2: (G, 2, Ci) float32 or null; y:
+// of `dense3x3_tc.cuh`; (G, Co, Ci, 3, 3) on dense3x3's narrow routes,
+// whose blocks lay out their own); aff, aff2: (G, 2, Ci) float32 or null; y:
 // (B, Co, H, W) in the output dtype. x2 == null: one input. x_cl / y_cl:
 // the inputs / y lie channels-last in memory (not on the WMMA route; on
 // the CUDA cores x_cl needs Ci % 8 == 0).

@@ -4,13 +4,17 @@
 // `dense3x3.cuh`,
 //   y[b,h,w,co] = sum_{ci,ky,kx} act(x[b,h+(ky-1)d,w+(kx-1)d,ci])
 //                 * wt[g,ci,ky*3+kx,co]      (+ the same over x2, wt2)
-// on channels-last (B, H, W, C) activations, in and out.
+// on channels-last (B, H, W, C) activations, in and out; and, on the same
+// shapes with one input and Co <= 8 (`use_narrow`), the narrow output
+// layer, written (B, Co, H, W).
 //
 // Replaces the TPU kernels lwsnet_tpu/ops/pallas/refine_rows.py:
 // _dense_kernel and _dense2_kernel (and the 32->32 layers of
-// lwsnet_tpu/ops/pallas/refine.py:_dense_acc_layer_kernel). Bound on the
-// H100: bytes. A 368x1232 tower layer (B = 2) moves 116 MB (34.66 us at
-// 3.35 TB/s) for 16.7 GFLOP (16.9 us at 989 TFLOP/s).
+// lwsnet_tpu/ops/pallas/refine.py:_dense_acc_layer_kernel; its 32->1
+// output, refine.py:_dense_vpu_layer_kernel). Bound on the H100: bytes. A
+// 368x1232 tower layer (B = 2) moves 116 MB (34.66 us at 3.35 TB/s) for
+// 16.7 GFLOP (16.9 us at 989 TFLOP/s); the 32->1 output (B = 1) reads 29
+// MB and writes 1.8 MB in float32 (9.20 us).
 //
 // Design (all on the H100's 227 KB of shared memory a block may opt into):
 // * Persistent blocks, one per SM, each walking tiles blockIdx.x,
@@ -59,11 +63,12 @@
 // * One layer's body (`ring`, `begin_layer`, the roles `stage_layer` and
 //   `multiply_layer`, `end_layer`) is also what `chain3x3.cu` runs for
 //   each layer of its stacks, its set-up and barriers reachable from each
-//   role's own code; there `multiply_layer` also takes a last layer of at
-//   most 8 outputs (N = 8, m64n8k16), written (B, Co, H, W).
+//   role's own code. `multiply_layer` also takes a layer of at most 8
+//   outputs (N = 8, m64n8k16), written (B, Co, H, W): the chain's last
+//   layer, and here the refinement's 32 -> 1 output (`use_narrow`).
 // Registers and spills (ptxas, `chip_smoke.py` phase 2 on the H100): 128
 // registers a thread at launch (the 65536 / 512 of `__launch_bounds__`,
-// redistributed by `setmaxnreg`), no spills, in all four instances.
+// redistributed by `setmaxnreg`), no spills, in all eight instances.
 #pragma once
 
 #include <algorithm>
@@ -91,11 +96,22 @@ __host__ __device__ inline int inputs(const Args& a) {
   return a.x2 != nullptr ? 2 : 1;
 }
 
-// The route's shapes; everything else takes dense3x3's CUDA-core route.
+// The route's shapes; everything else takes dense3x3's other routes.
 __host__ __device__ inline bool use(int elem_bytes, int Ci, int Co, int d,
                                     int nin, int G) {
   return elem_bytes == 2 && Co == tc::N && Ci % 16 == 0 && d >= 1 &&
          d <= MAX_D && Ci * nin * G <= MAX_K;
+}
+
+// The narrow-output shapes (mirrored by `dense_output_route` in
+// ops/cuda/refine_rows.py): one input, at most 8 outputs (the
+// refinement's 32 -> 1), the same body on m64n8k16 with the B images
+// zero-padded to 8 outputs (`layout_narrow_weights`), y written
+// (B, Co, H, W).
+__host__ __device__ inline bool use_narrow(int elem_bytes, int Ci, int Co,
+                                           int d, int nin, int G) {
+  return nin == 1 && Co >= 1 && Co <= 8 &&
+         use(elem_bytes, Ci, tc::N, d, nin, G);
 }
 
 __host__ __device__ inline int row_tiles(const Args& a) {
@@ -117,7 +133,8 @@ __host__ __device__ inline int stage_bytes(int d) {
   return (R + 2) * row_pixels(d) * SC * 2;
 }
 // Output channels of the B images: 32, or 8 for a narrow layer (Co <= 8,
-// zero-padded by the wrapper; only `chain3x3.cu` runs one).
+// zero-padded by the chain's wrapper, or by the block on dense3x3's
+// narrow-output route).
 __host__ __device__ inline int image_n(const Args& a) {
   return a.Co <= 8 ? 8 : tc::N;
 }
@@ -288,11 +305,41 @@ __device__ __forceinline__ Ring ring(const Args& a, unsigned char* smem,
   return r;
 }
 
+// Every thread of a narrow layer's block (one input, Co <= 8): its B
+// images (g, ci / 16, tap) of 16 x 8, zero beyond Co, laid out in `w`
+// from the weights as the caller has them, a.wt (G, Co, Ci, 3, 3), so
+// that the wrapper prepares nothing (host time a call): element
+// (k = ci % 16, n = co) of a 256-byte slice at (k / 8) 128 + n 16 +
+// (k % 8) 2 bytes, the images `_wgmma_images(_pad_outputs(wt))` in
+// ops/cuda/refine_rows.py would give: per 16-byte row (8 k of one n), the
+// loads in a batch, one store.
+__device__ __forceinline__ void layout_narrow_weights(const Args& a,
+                                                      unsigned char* w) {
+  const uint16_t* wt = (const uint16_t*)a.wt;
+  const int Ci = a.Ci;
+  for (int e = threadIdx.x; e < a.G * Ci / 16 * 9 * 16; e += THREADS) {
+    const int n = e % 8, half = e / 8 % 2, tap = e / 16 % 9;
+    const int slab = e / 144;  // g * Ci / 16 + ci / 16
+    const int g = slab / (Ci / 16), ci0 = slab % (Ci / 16) * 16 + half * 8;
+    uint32_t u[8] = {};
+    if (n < a.Co)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        u[j] = wt[((size_t)(g * a.Co + n) * Ci + ci0 + j) * 9 + tap];
+    *(uint4*)(w + (slab * 9 + tap) * 256 + half * 128 + n * 16) =
+        make_uint4(u[0] | u[1] << 16, u[2] | u[3] << 16, u[4] | u[5] << 16,
+                   u[6] | u[7] << 16);
+  }
+  tc::fence_proxy_async();  // generic stores before wgmma reads them
+}
+
 // Every thread of the block, before its role's part of the layer (each
 // role may run its own copy of this step): the ring's mbarriers
-// initialised, the layer's weights on their way by bulk copy, its affines
-// in shared memory.
-__device__ __forceinline__ void begin_layer(const Args& a, const Ring& r) {
+// initialised, the layer's weights on their way by bulk copy (or, for a
+// narrow layer of `dense3x3.cu`, `narrow`, laid out by the block), its
+// affines in shared memory.
+__device__ __forceinline__ void begin_layer(const Args& a, const Ring& r,
+                                            bool narrow = false) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < r.S; ++s) {
       tc::mbar_init(r.landed(s), 1);
@@ -302,8 +349,16 @@ __device__ __forceinline__ void begin_layer(const Args& a, const Ring& r) {
     tc::mbar_init(r.weights(), 1);
   }
   tc::cta_sync();
-  load_weights(a, r.wbase, r.asm_, r.weights());
-  tc::cta_sync();  // the affines
+  if (narrow) {
+    layout_narrow_weights(a, (unsigned char*)r.asm_ - weight_bytes(a));
+    if (a.aff != nullptr)  // (G, 2, Ci), as `load_weights` lays it out
+      for (int e = threadIdx.x; e < a.G * 2 * a.Ci; e += THREADS)
+        r.asm_[e] = a.aff[e];
+  } else {
+    load_weights(a, r.wbase, r.asm_, r.weights());
+  }
+  tc::cta_sync();  // the affines (and a narrow layer's weights)
+  if (narrow && threadIdx.x == 0) tc::mbar_arrive(r.weights());
 }
 
 // Every thread of the block, after its role's part of the layer: once all
@@ -475,31 +530,32 @@ __device__ __forceinline__ void multiply_layer(const Args& a,
 }
 
 // S: the ring's stages, `stages<SC>(a)`. map_x / map_x2: TMA maps of the
-// inputs (`launch`). Each warp keeps its role, and with it its register
-// count, for the whole launch.
-template <int SC, typename TO>
+// inputs (`launch`). N: 32, or 8 for a narrow layer (`use_narrow`), whose
+// block lays out its weights itself (a.wt as the caller has it). Each warp
+// keeps its role, and with it its register count, for the whole launch.
+template <int SC, typename TO, int N>
 __global__ void __launch_bounds__(THREADS, 1)
     dense3x3_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_x2, Args a,
                        int S) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Ring r = ring(a, smem, S);
-  begin_layer(a, r);
+  begin_layer(a, r, N == 8);
   if (threadIdx.x < STAGERS) {
     tc::setmaxnreg_dec<STAGER_REGS>();
     stage_layer<SC>(&map_x, &map_x2, a, r);
   } else {
     tc::setmaxnreg_inc<PRODUCT_REGS>();
-    multiply_layer<SC, TO>(a, r);
+    multiply_layer<SC, TO, N>(a, r);
   }
 }
 
 // Launch on `stream`: one persistent block per SM, at most one per tile,
 // with all the shared memory a block may have. Returns a cudaError_t (or
 // the CUresult of a refused TMA map).
-template <int SC, typename TO>
+template <int SC, typename TO, int N = tc::N>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = dense3x3_tc_kernel<SC, TO>;
+  auto kernel = dense3x3_tc_kernel<SC, TO, N>;
   const int S = stages<SC>(a);
   if (S == 0) return (int)cudaErrorInvalidValue;
   const int smem = fixed_bytes(a) + 1024 + S * stage_bytes<SC>(a.d);
@@ -512,9 +568,17 @@ int launch(const Args& a, cudaStream_t stream) {
     if (rc != 0) return rc;
   }
   if (inputs(a) == 1) maps[1] = maps[0];
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // The shared-memory opt-in, once per device and size (host time a call).
+  static int opted[16];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  if (dev >= 16 || opted[dev] < smem) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 16) opted[dev] = smem;
+  }
   if (tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
   const int grid = std::min(tiles(a), tc::sm_count());
   kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], a, S);

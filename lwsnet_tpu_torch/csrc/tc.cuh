@@ -244,30 +244,42 @@ __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
+// One 16-byte vector to global memory; `stream`: evict-first
+// (st.global.cs), for a write stream no later load of this launch reads.
+template <typename V>
+__device__ __forceinline__ void store16(V* p, V v, bool stream) {
+  if (stream)
+    __stcs(p, v);
+  else
+    *p = v;
+}
+
 // Write the accumulator's rows `half` (0: l/4, 1: l/4 + 8) as channels-last
 // vectors: row pixel -> out_row + 32 channels; channels 8t .. 8t+7 of the
 // row go to this lane (t = l % 4). Every lane of the warp must call it;
-// `store` masks the write.
+// `store` masks the write; `stream` as `store16`'s.
 template <typename TO>
 __device__ __forceinline__ void store_row(const Acc& a, int half, TO* px,
-                                          bool store);
+                                          bool store, bool stream = false);
 
 template <>
 __device__ __forceinline__ void store_row<bf16>(const Acc& a, int half,
-                                                bf16* px, bool store) {
+                                                bf16* px, bool store,
+                                                bool stream) {
   uint32_t v[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     v[j] = pack_bf16(a.v[4 * j + 2 * half], a.v[4 * j + 2 * half + 1]);
   quad_transpose(v);
   if (store)
-    *reinterpret_cast<uint4*>(px + 8 * (threadIdx.x % 4)) =
-        make_uint4(v[0], v[1], v[2], v[3]);
+    store16(reinterpret_cast<uint4*>(px + 8 * (threadIdx.x % 4)),
+            make_uint4(v[0], v[1], v[2], v[3]), stream);
 }
 
 template <>
 __device__ __forceinline__ void store_row<float>(const Acc& a, int half,
-                                                 float* px, bool store) {
+                                                 float* px, bool store,
+                                                 bool stream) {
   uint32_t lo[4], hi[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -278,10 +290,13 @@ __device__ __forceinline__ void store_row<float>(const Acc& a, int half,
   quad_transpose(hi);
   if (store) {
     float4* p = reinterpret_cast<float4*>(px + 8 * (threadIdx.x % 4));
-    p[0] = make_float4(__uint_as_float(lo[0]), __uint_as_float(hi[0]),
-                       __uint_as_float(lo[1]), __uint_as_float(hi[1]));
-    p[1] = make_float4(__uint_as_float(lo[2]), __uint_as_float(hi[2]),
-                       __uint_as_float(lo[3]), __uint_as_float(hi[3]));
+    store16(p, make_float4(__uint_as_float(lo[0]), __uint_as_float(hi[0]),
+                           __uint_as_float(lo[1]), __uint_as_float(hi[1])),
+            stream);
+    store16(p + 1,
+            make_float4(__uint_as_float(lo[2]), __uint_as_float(hi[2]),
+                        __uint_as_float(lo[3]), __uint_as_float(hi[3])),
+            stream);
   }
 }
 

@@ -29,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -95,7 +95,7 @@ def build_all() -> Dict[str, str]:
 class Kernel:
     """One kernel of a CUDA source: its C entry points and its launch
     counters (`launches` counts all; `dual_launches` those of a two-input
-    call)."""
+    call; `route_launches` those the wrapper names a route of, by route)."""
 
     def __init__(self, name: str, argtypes, source: str = ""):
         self.name = name
@@ -104,6 +104,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self.dual_launches = 0
+        self.route_launches: Dict[str, int] = {}
         self._lib = None
         self._fns = {}
 
@@ -121,9 +122,10 @@ class Kernel:
         return self._fns[symbol]
 
     def launch(self, symbol: str, device: torch.device, *args,
-               dual: bool = False) -> None:
+               dual: bool = False, route: Optional[str] = None) -> None:
         """Call `symbol` with `args` and the current stream of `device`;
-        raise if the launch was refused."""
+        raise if the launch was refused. `route`: the kernel's route the
+        wrapper chose, counted in `route_launches`."""
         fn = self._fn(symbol)
         with torch.cuda.device(device):
             rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -131,6 +133,8 @@ class Kernel:
             raise RuntimeError(f"{symbol}: launch failed, cudaError {rc}")
         self.launches += 1
         self.dual_launches += dual
+        if route is not None:
+            self.route_launches[route] = self.route_launches.get(route, 0) + 1
 
 
 CONV3D_BN_RELU = Kernel("conv3d_bn_relu", [_P] * 4 + [_I] * 8 + [_P])
@@ -160,6 +164,14 @@ def launch_counts() -> Dict[str, int]:
     return counts
 
 
+def route_counts() -> Dict[str, int]:
+    """{"kernel[route]": launches} of every route a wrapper named, e.g.
+    "dense3x3[entry]" and "dense3x3[output]" for dense3x3's narrow
+    routes."""
+    return {f"{k.name}[{r}]": n for k in KERNELS
+            for r, n in sorted(k.route_launches.items())}
+
+
 # Copies the wrappers made to hand a kernel the layout it reads.
 LAYOUT_COPIES = {"to channels-last": 0, "to contiguous": 0}
 
@@ -169,6 +181,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.dual_launches = 0
+        k.route_launches.clear()
     for k in LAYOUT_COPIES:
         LAYOUT_COPIES[k] = 0
 

@@ -15,14 +15,16 @@ Layout on the card: the tensor-core routes of `dense3x3`
 (`dense_tensor_core_route`), of `dwsep` / `dwsep2`
 (`dwsep_tensor_core_route`) and of `chain` (`chain_tensor_core_route`)
 read and write channels-last memory, (B, H, W, C) under the logical
-(B, C, H, W) shape; `dense3x3`'s CUDA-core route reads either layout
-(channels-last where Ci % 8 == 0) and writes channels-last when asked.
-Under bf16 the "mxu" and "vpu" engines' entry writes channels-last and
-every later layer, the output conv included, reads it; "chain"'s tower
-reads its 3-channel input NCHW and writes channels-last, which the head
-reads. The CUDA-core routes of `dwsep` / `dwsep2` and `chain` read the
-default layout. Each copy is `build.in_layout`'s, counted. The plain
-versions take any layout.
+(B, C, H, W) shape; `dense3x3`'s narrow-entry route (`dense_entry_route`)
+reads NCHW and writes channels-last, its narrow-output route
+(`dense_output_route`) reads channels-last and writes (B, Co, H, W), and
+its CUDA-core route reads either layout (channels-last where Ci % 8 == 0)
+and writes channels-last when asked. Under bf16 the "mxu" and "vpu"
+engines' entry writes channels-last and every later layer, the output
+conv included, reads it; "chain"'s tower reads its 3-channel input NCHW
+and writes channels-last, which the head reads. The CUDA-core routes of
+`dwsep` / `dwsep2` and `chain` read the default layout. Each copy is
+`build.in_layout`'s, counted. The plain versions take any layout.
 """
 
 from __future__ import annotations
@@ -48,6 +50,30 @@ def dense_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int,
     holds, and weights that stay resident in shared memory."""
     return (dtype == torch.bfloat16 and Co == 32 and Ci % 16 == 0
             and 1 <= dilation <= 16 and Ci * inputs * groups <= 128)
+
+
+def dense_entry_route(dtype: torch.dtype, Ci: int, Co: int, dilation: int,
+                      inputs: int = 1, groups: int = 1) -> bool:
+    """Whether `dense3x3` runs its narrow-entry route, which reads NCHW and
+    writes channels-last only (`dense_entry::use` in
+    csrc/dense3x3_entry.cuh): bf16, one input whose Ci x 9 taps fit one
+    K = 32 product (Ci <= 3), 32 outputs, a dilation the staged rows hold,
+    at most two weight groups."""
+    return (dtype == torch.bfloat16 and inputs == 1 and 1 <= Ci
+            and Ci * 9 <= 32 and Co == 32 and 1 <= dilation <= 16
+            and 1 <= groups <= 2)
+
+
+def dense_output_route(dtype: torch.dtype, Ci: int, Co: int, dilation: int,
+                       inputs: int = 1, groups: int = 1) -> bool:
+    """Whether `dense3x3` runs its narrow-output route, which reads
+    channels-last and writes (B, Co, H, W) only (`dense_tc::use_narrow` in
+    csrc/dense3x3_tc.cuh): the 32-output route's shapes with one input and
+    at most 8 outputs (wgmma m64n8k16, the weights zero-padded to 8 by
+    the kernel's blocks)."""
+    return (inputs == 1 and 1 <= Co <= 8
+            and dense_tensor_core_route(dtype, Ci, 32, dilation, inputs,
+                                        groups))
 
 
 def dwsep_tensor_core_route(dtype: torch.dtype, channels: Sequence[int],
@@ -145,10 +171,12 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
              out_dtype: Optional[torch.dtype] = None,
              channels_last: bool = False) -> torch.Tensor:
     """The dense3x3 kernel; arguments as `dense3x3_plain`. On the card the
-    tensor-core route reads channels-last, the CUDA cores x's layout where
-    Ci % 8 == 0 and NCHW otherwise (x and x2 are copied where they lie
-    otherwise); the result lies channels-last where the tensor-core route
-    computes it or `channels_last` asks."""
+    tensor-core and narrow-output routes read channels-last, the
+    narrow-entry route NCHW, the CUDA cores x's layout where Ci % 8 == 0
+    and NCHW otherwise (x and x2 are copied where they lie otherwise); the
+    result lies channels-last where the tensor-core or narrow-entry route
+    computes it or `channels_last` asks. The narrow-output route writes
+    (B, Co, H, W) only: asking it for channels-last raises where Co > 1."""
     if not on_card(x):
         return dense3x3_plain(x, wt, dilation=dilation, affine=affine, x2=x2,
                               wt2=wt2, affine2=affine2, out_dtype=out_dtype)
@@ -159,10 +187,16 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
     _check_out_dtype(dt, out_dtype, "dense3x3")
-    tensor_core = dense_tensor_core_route(
-        dt, Ci, Co, dilation, 1 if x2 is None else 2, G)
-    x_cl = tensor_core or (Ci % 8 == 0 and lies_channels_last(x))
-    y_cl = tensor_core or channels_last
+    inputs = 1 if x2 is None else 2
+    tensor_core = dense_tensor_core_route(dt, Ci, Co, dilation, inputs, G)
+    output = dense_output_route(dt, Ci, Co, dilation, inputs, G)
+    entry = dense_entry_route(dt, Ci, Co, dilation, inputs, G)
+    if output and channels_last and Co > 1:
+        raise ValueError("dense3x3: the narrow-output route writes "
+                         "(B, Co, H, W) only")
+    x_cl = tensor_core or output or (Ci % 8 == 0 and lies_channels_last(x))
+    y_cl = tensor_core or entry or (channels_last and not output)
+    route = "entry" if entry else "output" if output else None
 
     def operands(xi, wi, ai, name):
         """The tensors (x in the route's layout, the weight re-laid for
@@ -173,7 +207,10 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
         check(wi, f"{name} weight", (G, Co, Ci, 3, 3), dt, dev)
         if ai is not None:
             check(ai, f"{name} affine", (G, 2, Ci), torch.float32, dev)
-        wk = _wgmma_images(wi) if tensor_core else _relayout(wi)
+        if tensor_core:
+            wk = _wgmma_images(wi)
+        else:  # the narrow routes lay out their B images themselves
+            wk = wi if entry or output else _relayout(wi)
         return (xi, wk), (xi.data_ptr(),
                           None if ai is None else ai.data_ptr(),
                           wk.data_ptr())
@@ -188,7 +225,7 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
         symbol += "_f32out"
     DENSE3X3.launch(symbol, dev, *first, *second, y.data_ptr(),
                     B, G, Ci, Co, H, W, dilation, x_cl, y_cl,
-                    dual=x2 is not None)
+                    dual=x2 is not None, route=route)
     return y
 
 
@@ -224,7 +261,8 @@ def _pad_outputs(wt: torch.Tensor) -> torch.Tensor:
 def _entry_images(wt: torch.Tensor) -> torch.Tensor:
     """A narrow entry's (G, 32, Ci, 3, 3), Ci <= 3, as the B images of the
     (G, 32, K) pointwise kernel over its taps, K = ci * 9 + tap, padded
-    with zeros to 32 (csrc/chain3x3.cu: `entry_run`)."""
+    with zeros to 32 (csrc/chain3x3.cu: `entry_run`; dense3x3's
+    narrow-entry route lays out the same images in its blocks)."""
     G, Co, Ci = wt.shape[:3]
     return _pw_images(F.pad(wt.reshape(G, Co, Ci * 9), (0, 32 - Ci * 9)))
 

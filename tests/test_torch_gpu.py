@@ -301,22 +301,28 @@ def test_conv3d_32_route_refuses_ncdhw_out_on_card(rnd):
 
 
 def test_channels_last_cuda_core_routes_on_card(rnd):
-    """The CUDA-core routes read channels-last input (no layout copy) and
-    write channels-last output where asked: the 3 -> 32 entry, the 32 -> 1
-    output conv, and a float32 32 -> 32 layer, against their plain
-    versions."""
+    """Channels-last input (no layout copy) and channels-last output where
+    asked, against the plain versions: the bf16 3 -> 32 entry (the
+    narrow-entry route: NCHW in, channels-last out) and 32 -> 1 output conv
+    (the narrow-output route: channels-last in); the same two shapes in
+    float32 and a float32 32 -> 32 layer, which stay on the CUDA-core
+    tiles (the entry writing channels-last where asked, the output reading
+    it); and the 1 -> 32 entry of conv3d_bn_relu."""
     build.reset_launch_counts()
-    x3 = rnd(2, 3, 29, 70, dtype=torch.bfloat16)
-    we = (rnd(2, 32, 3, 3, 3) * 0.2).to(torch.bfloat16)
-    y = trr.dense3x3(x3, we, dilation=1, channels_last=True)
-    assert y.is_contiguous(memory_format=torch.channels_last)
-    torch.testing.assert_close(y, trr.dense3x3_plain(x3, we, dilation=1),
-                               atol=1e-2, rtol=1e-2)
-    wo = (rnd(2, 1, 32, 3, 3) * 0.1).to(torch.bfloat16)
-    torch.testing.assert_close(
-        trr.dense3x3(y, wo, dilation=1, out_dtype=torch.float32),
-        trr.dense3x3_plain(y, wo, dilation=1, out_dtype=torch.float32),
-        atol=1e-2, rtol=1e-2)
+    for dt in (torch.bfloat16, torch.float32):
+        x3 = rnd(2, 3, 29, 70, dtype=dt)
+        we = (rnd(2, 32, 3, 3, 3) * 0.2).to(dt)
+        y = trr.dense3x3(x3, we, dilation=1, channels_last=True)
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        torch.testing.assert_close(y, trr.dense3x3_plain(x3, we, dilation=1),
+                                   atol=1e-2, rtol=1e-2)
+        wo = (rnd(2, 1, 32, 3, 3) * 0.1).to(dt)
+        torch.testing.assert_close(
+            trr.dense3x3(y, wo, dilation=1, out_dtype=torch.float32),
+            trr.dense3x3_plain(y, wo, dilation=1, out_dtype=torch.float32),
+            atol=1e-2, rtol=1e-2)
+    assert build.route_counts() == {"dense3x3[entry]": 1,
+                                    "dense3x3[output]": 1}
     xf = _channels_last(rnd(2, 32, 29, 70), True)
     wf = rnd(2, 32, 32, 3, 3) * 0.06
     torch.testing.assert_close(trr.dense3x3(xf, wf, dilation=2),
@@ -407,9 +413,12 @@ def test_chain_kernel_matches_plain_on_card(rnd, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layers_dense_shapes_match_plain_on_card(rnd, dtype):
     """The dense3x3 shapes of the planar "layers" path at batch 1, one
-    weight set: the 1- and 3-channel tower entries (the CUDA-core route's
-    channel loop with a 1-channel tail), a head half (32 -> 32, d = 8, with
-    affine) and the 32 -> 1 output conv in the compute dtype."""
+    weight set: the 1- and 3-channel tower entries, a head half (32 -> 32,
+    d = 8, with affine) and the 32 -> 1 output conv in the compute dtype.
+    bf16 runs the entries on the narrow-entry route, the head half on the
+    32-output tensor-core route and the output on the narrow-output route;
+    float32 runs all four on the CUDA-core tiles (the entries' channel loop
+    with a 1-channel tail)."""
     build.reset_launch_counts()
     for ci, co, d, aff in ((1, 32, 1, False), (3, 32, 1, False),
                            (32, 32, 8, True), (32, 1, 1, False)):
@@ -424,6 +433,87 @@ def test_layers_dense_shapes_match_plain_on_card(rnd, dtype):
         _check(got, trr.dense3x3_plain(x, wt, **kw), dtype)
     torch.cuda.synchronize()
     assert build.launch_counts()["dense3x3"] == 4
+    assert build.route_counts() == (
+        {"dense3x3[entry]": 2, "dense3x3[output]": 1}
+        if dtype == torch.bfloat16 else {})
+
+
+@pytest.mark.parametrize("d", [1, 16])
+@pytest.mark.parametrize("ci,B,G", [(3, 2, 2), (1, 1, 1), (3, 1, 1),
+                                    (2, 2, 1)])
+def test_dense_entry_route_on_card(rnd, ci, B, G, d):
+    """The narrow-entry route of dense3x3 (the refinement's 3 -> 32 and
+    1 -> 32 tower entries) at ragged planes (W = 75 and 70: a 64-pixel
+    tile and a partial one; H = 37 and 29: odd, no multiple of R * d),
+    one and two weight groups: NCHW in as it lies, channels-last out, no
+    layout copy. bf16 out (with and without an affine) within two rounding
+    steps of the plain version; float32 out at atol 2e-4 / rtol 1e-3 (the
+    same exact products, summed in another order)."""
+    bf = torch.bfloat16
+    assert trr.dense_entry_route(bf, ci, 32, d, 1, G)
+    build.reset_launch_counts()
+    for H, W in ((37, 75), (29, 70)):
+        x = rnd(B, ci, H, W, dtype=bf)
+        wt = (rnd(G, 32, ci, 3, 3) * (2 / (9 * ci)) ** 0.5).to(bf)
+        aff = torch.stack([rnd(G, ci).abs() + 0.5, rnd(G, ci)], 1)
+        for kw in ({}, dict(affine=aff)):
+            got = trr.dense3x3(x, wt, dilation=d, **kw)
+            assert got.shape == (B, 32, H, W) and got.dtype == bf
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            _assert_two_steps(got, trr.dense3x3_plain(x, wt, dilation=d,
+                                                      **kw))
+        got = trr.dense3x3(x, wt, dilation=d, out_dtype=torch.float32)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        torch.testing.assert_close(
+            got, trr.dense3x3_plain(x, wt, dilation=d,
+                                    out_dtype=torch.float32),
+            atol=2e-4, rtol=1e-3)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["dense3x3"] == 6
+    assert build.route_counts() == {"dense3x3[entry]": 6}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("co,B,G,d", [(1, 1, 1, 1), (8, 2, 2, 16),
+                                      (1, 2, 2, 4), (3, 1, 1, 1)])
+def test_dense_output_route_on_card(rnd, co, B, G, d, channels_last):
+    """The narrow-output route of dense3x3 (the refinement's 32 -> 1
+    output conv; m64n8k16, the weights zero-padded to 8 outputs) at ragged
+    planes (37 x 75, 11 x 37), one and two weight groups, from
+    channels-last input (no copy) or NCHW (one counted copy a call):
+    (B, Co, H, W) out, float32 at atol 2e-4 / rtol 1e-3, bf16 within two
+    rounding steps; with an affine too. Asking it for channels-last
+    output raises where Co > 1."""
+    bf = torch.bfloat16
+    assert trr.dense_output_route(bf, 32, co, d, 1, G)
+    build.reset_launch_counts()
+    calls = 0
+    for H, W in ((37, 75), (11, 37)):
+        x = _channels_last(rnd(B, 32, H, W, dtype=bf), channels_last)
+        wt = (rnd(G, co, 32, 3, 3) * (2 / 288) ** 0.5).to(bf)
+        aff = torch.stack([rnd(G, 32).abs() + 0.5, rnd(G, 32)], 1)
+        for out in (torch.float32, bf):
+            for kw in ({}, dict(affine=aff)):
+                got = trr.dense3x3(x, wt, dilation=d, out_dtype=out, **kw)
+                calls += 1
+                assert got.shape == (B, co, H, W) and got.dtype == out
+                assert got.is_contiguous()
+                want = trr.dense3x3_plain(x, wt, dilation=d, out_dtype=out,
+                                          **kw)
+                if out == torch.float32:
+                    torch.testing.assert_close(got, want, atol=2e-4,
+                                               rtol=1e-3)
+                else:
+                    _assert_two_steps(got, want)
+    torch.cuda.synchronize()
+    assert build.route_counts() == {"dense3x3[output]": calls}
+    assert build.LAYOUT_COPIES == {
+        "to channels-last": 0 if channels_last else calls,
+        "to contiguous": 0}
+    if co > 1:
+        with pytest.raises(ValueError, match="narrow-output route"):
+            trr.dense3x3(x, wt, dilation=d, channels_last=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -564,6 +654,10 @@ def test_refinement_layout_copies_on_card(rnd, fields, want):
     import numpy as np
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.models.refine_kernels import refine_residual
+    # the narrow entries and the output conv on their routes, but "chain"
+    routes = {} if fields.get("rows_dw") == "chain" else {
+        "dense3x3[entry]": 2 if "pallas_mode" in fields else 1,
+        "dense3x3[output]": 1}
     rng = np.random.default_rng(0)
     left = torch.as_tensor(rng.standard_normal((1, 48, 160, 3)),
                            dtype=torch.float32, device="cuda")
@@ -578,6 +672,7 @@ def test_refinement_layout_copies_on_card(rnd, fields, want):
     assert got.shape == (1, 48, 160, 1) and torch.isfinite(got).all()
     counts = {k: v for k, v in build.launch_counts().items() if v}
     assert counts == want
+    assert build.route_counts() == routes
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
     left, right = (torch.as_tensor(rng.standard_normal((1, 64, 96, 3)),
                                    dtype=torch.float32, device="cuda")
@@ -590,6 +685,7 @@ def test_refinement_layout_copies_on_card(rnd, fields, want):
     assert all(torch.isfinite(o).all() for o in outs)
     counts = {k: v for k, v in build.launch_counts().items() if v}
     assert counts == dict(want, conv3d_bn_relu=15, conv3d_skip_softargmin=3)
+    assert build.route_counts() == routes
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
 
 
