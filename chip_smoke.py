@@ -19,14 +19,17 @@ in order; any failure exits non-zero:
      memory layout a path gives it, and the tensor-core routes of
      dense3x3 (32 outputs; the narrow entry, Ci 1 and 3, and the narrow
      output, Co 1 and 8), dwsep3x3 (solo and pair), chain3x3 (tower and
-     head), conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout) and
-     conv3d_skip_softargmin (32 and 8 channels) at ragged shapes from both
-     layouts (NCHW / channels-last), in float32 (TF32 off; atol 2e-4, rtol
-     1e-3) and bf16 (mean |delta| < 2 % of the plain output's span;
-     chain3x3, the 8-channel conv3d_bn_relu layers, conv3d_skip_softargmin
-     and dense3x3's narrow routes also every element within two rounding
-     steps, or, writing float32, atol 2e-4 / rtol 1e-3); each bf16
-     dense3x3 call on the route its shape picks (`dense_route`);
+     head), conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout; the
+     stage entries 1 -> 8 and 1 -> 32 with layer 0's BN + ReLU fused,
+     b0 > 0) and conv3d_skip_softargmin (32 and 8 channels) at ragged
+     shapes from both layouts (NCHW / channels-last), in float32 (TF32
+     off; atol 2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain
+     output's span; chain3x3, the 8-channel conv3d_bn_relu layers and the
+     entries, conv3d_skip_softargmin and dense3x3's narrow routes also
+     every element within two rounding steps, or, writing float32, atol
+     2e-4 / rtol 1e-3); each bf16 dense3x3 call on the route its shape
+     picks (`dense_route`), each conv3d_bn_relu entry counted as the
+     "entry" route and no other call;
      conv3d_skip_softargmin's copies: none for bf16 channels-last input,
      one to channels-last for bf16 NCDHW, one to the default layout for
      float32 channels-last (its CUDA-core kernel reads NCDHW);
@@ -36,7 +39,8 @@ in order; any failure exits non-zero:
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
      conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), its
-     dense3x3 narrow-route launches `WANT_ROUTES`, and the
+     route launches `WANT_ROUTES` (dense3x3's narrow routes, and the
+     three cost filters' entries on conv3d_bn_relu's), and the
      wrappers' layout copies `WANT_COPIES` (none on any path); then the
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
@@ -62,8 +66,9 @@ in order; any failure exits non-zero:
   7. the rows microbench (`lwsnet_tpu_torch.tools.microbench_rows`) once,
      its counters set to 0 just before: its probe must print OK, which
      launches `lane_broadcast`; then `lane_broadcast`, `Tensor.repeat` of
-     the same and an empty kernel, 1000 each in one profiler window
-     (median and spread of each kernel's device time).
+     the same and an empty kernel, 1000 each in a profiler window of its
+     own, run again (twice at most) when the profiler dropped over a tenth
+     of them (median and spread of each kernel's device time).
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -138,14 +143,18 @@ WANT_COPIES = {engine: {"to channels-last": 0, "to contiguous": 0}
                for engine in (*ENGINES, "layers-wide")}
 # Launches of the layers refinement alone at WIDE_H x WIDE_W.
 WIDE_LAUNCHES = {"dense3x3": 5, "dwsep3x3": 4, "dwsep3x3_pair": 4}
-# dense3x3's narrow-route launches per bf16 forward (build.route_counts()):
-# every path but "chain" runs its tower entries (one at 2B with two weight
-# groups, or "layers"' two at batch 1) on the narrow-entry route and its
-# 32 -> 1 output conv on the narrow-output route.
+# Route launches per bf16 forward (build.route_counts()): every path but
+# "chain" runs its tower entries (one at 2B with two weight groups, or
+# "layers"' two at batch 1) on dense3x3's narrow-entry route and its
+# 32 -> 1 output conv on the narrow-output route; every forward runs the
+# three cost filters' entries (1 -> 32, 1 -> 8, 1 -> 8) on conv3d_bn_relu's
+# entry route. The refinement alone ("layers-wide") runs no cost filter.
 WANT_ROUTES = {engine: {"dense3x3[entry]": 2 if engine.startswith("layers")
                         else 1, "dense3x3[output]": 1}
                for engine in (*ENGINES, "layers-wide")}
 WANT_ROUTES["chain"] = {}
+for _engine in ENGINES:
+    WANT_ROUTES[_engine]["conv3d_bn_relu[entry]"] = 3
 # The path whose run gives each kernel's launches on the kernels line.
 ENGINE_OF = {"conv3d_bn_relu": "mxu", "conv3d_skip_softargmin": "mxu",
              "dense3x3": "mxu", "dwsep3x3": "vpu-unpaired",
@@ -274,36 +283,37 @@ def kernel_device_ms(fn, name, reps=10):
 def launch_floor(dev, n=1000):
     """`lane_broadcast` (32, 1) -> (32, 1024) bf16, `Tensor.repeat` of the
     same, and an empty kernel (`torch.cuda._sleep(0)`, the launch floor),
-    each called n times in one torch.profiler window: {what: device us of
-    each of its kernels, as median, p10, p90, min, max and count}. The
-    kernels are told apart by name (`lane_broadcast`, `spin`, the rest)."""
+    each called n times in a torch.profiler window of its own: {what:
+    device us of each of its kernels, as median, p10, p90, min, max and
+    count}. The kernels are told apart by name (`lane_broadcast`, `spin`,
+    the rest). The profiler may drop some of a long window's kernels: a
+    window that recorded under 90 % of its n is run again, twice at most,
+    and the phase fails if none was."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from lwsnet_tpu_torch.ops.cuda import probe as PR
     v = torch.randn(32, 1, device=dev, dtype=torch.bfloat16)
-    fns = (lambda: PR.lane_broadcast(v, 1024), lambda: v.repeat(1, 1024),
-           lambda: torch.cuda._sleep(0))
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for f in fns:
-            for _ in range(n):
-                f()
-            torch.cuda.synchronize()
-    times = {"lane_broadcast": [], "Tensor.repeat": [], "empty kernel": []}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        what = ("lane_broadcast" if "lane_broadcast" in e.name else
-                "empty kernel" if "spin" in e.name else "Tensor.repeat")
-        times[what].append(e.time_range.end - e.time_range.start)
+    fns = {"lane_broadcast": lambda: PR.lane_broadcast(v, 1024),
+           "Tensor.repeat": lambda: v.repeat(1, 1024),
+           "empty kernel": lambda: torch.cuda._sleep(0)}
     out = {}
-    for what, ts in times.items():
-        # the profiler may drop a few of a long window's kernels
+    for what, f in fns.items():
+        f()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    f()
+                torch.cuda.synchronize()
+            ts = [e.time_range.end - e.time_range.start
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and ("lane_broadcast" if what == "lane_broadcast" else
+                       "spin" if what == "empty kernel" else "") in e.name]
+            if len(ts) >= 0.9 * n:
+                break
         require(len(ts) >= 0.9 * n, f"launch floor: {len(ts)} {what} "
-                f"kernels recorded of {n}")
+                f"kernels recorded of {n}, in each of three windows")
         q = np.percentile(ts, [10, 50, 90])
         out[what] = dict(median=float(q[1]), p10=float(q[0]),
                          p90=float(q[2]), min=float(min(ts)),
@@ -334,15 +344,16 @@ def main_path_calls(cfg):
     (kernel, label, shape dict, launches per forward, engine). `cl`: the
     input lies channels-last, as the path hands it over; `cl_out`: the
     kernel is asked to write channels-last (`ncdhw_out`, in the ragged
-    checks only: NCDHW)."""
+    checks only: NCDHW); `entry`: a stage's 1 -> C entry, layer 0's BN +
+    ReLU fused (`conv3d_entry`), which writes what the next layer reads."""
     calls = []
     for s in range(3):
         h, w = H // 8 * 2 ** s, W // 8 * 2 ** s
         D = cfg.max_disp_list[s] if s == 0 else 2 * cfg.max_disp_list[s] - 1
         C = cfg.channels_3d * cfg.growth_rate[s]
         geo = dict(B=1, D=D, H=h, W=w)
-        calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C}",
-                      dict(geo, Ci=1, Co=C, cl_out=True), 1, "mxu"))
+        calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C} entry",
+                      dict(geo, Ci=1, Co=C, entry=True), 1, "mxu"))
         # the bf16 C -> C layers read and write channels-last, and the
         # fused last layer reads it
         calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}",
@@ -438,9 +449,10 @@ def layers_calls(cfg):
 def ragged_calls():
     """Phase 3 only: the tensor-core routes of dense3x3 (32 outputs, the
     narrow entry and the narrow output), dwsep3x3 (solo and
-    pair), chain3x3, conv3d_bn_relu and conv3d_skip_softargmin at shapes
-    no tile divides (W = 150, 75, 70 and 37, H = 37, 29, 11 and 5 not a
-    multiple of R * d = 4d or of the skip route's two rows, D = 7), two
+    pair), chain3x3, conv3d_bn_relu (with its entries 1 -> 8 and 1 -> 32)
+    and conv3d_skip_softargmin at shapes no tile divides (W = 150, 75, 70
+    and 37, H = 37, 29, 11 and 5 not a multiple of R * d = 4d, of the skip
+    route's two rows or of the entries' four, D = 7), two
     weight groups at batch 2, C = 16 -> 32 dw-sep layers, the two-input
     form, the chain's tower and head at every dilation of the path, from
     NCHW (one counted copy where the route reads channels-last) and
@@ -506,6 +518,11 @@ def ragged_calls():
         calls.append(("conv3d_skip_softargmin", f"ragged 8->1 B=2 9x5x37 "
                       f"{tag}", dict(B=2, Ci=8, D=9, H=5, W=37, cl=cl,
                                      start=0), 0, None))
+    # the entries' one input channel lies the same in both layouts
+    for co in (8, 32):
+        calls.append(("conv3d_bn_relu", f"ragged 1->{co} entry B=2 7x11x37",
+                      dict(B=2, Ci=1, Co=co, D=7, H=11, W=37, entry=True), 0,
+                      None))
     return calls
 
 
@@ -656,6 +673,32 @@ def make_call(kernel, p, dtype, rng, dev):
         return call(lambda: RR.chain(x, wts, affs, **kw),
                     lambda: RR.chain_plain(x, wts, affs, **kw), None,
                     nbytes, ops, lambda: [c() for c in convs], mxu=mxu)
+    if kernel == "conv3d_bn_relu" and p.get("entry"):
+        # raw volume, layer 0's (a0, b0) with b0 > 0: relu(b0) > 0, so a
+        # padding that took the affine would show
+        B, Co, D, h, w = (p[k] for k in ("B", "Co", "D", "H", "W"))
+        vol = t(rng.standard_normal((B, D, h, w)))
+        a0b0 = t([rng.uniform(0.5, 1.5), rng.uniform(0.1, 0.5)],
+                 torch.float32)
+        wt = t(rng.standard_normal((Co, 1, 3, 3, 3)) * np.sqrt(2 / 27))
+        shift = t(rng.normal(0, 0.1, Co), torch.float32)
+
+        def act():  # layer 0's BN + ReLU as plain torch ops
+            return F.relu(vol.float() * a0b0[0] + a0b0[1]).to(dtype)[:, None]
+
+        n_vox = B * D * h * w
+        a1 = act()
+        # a checkout from before the fused entry: the torch ops, then the
+        # layer (its profiled kernel time is the layer's alone)
+        fused = hasattr(CF, "conv3d_entry")
+        return call((lambda: CF.conv3d_entry(vol, a0b0, wt, shift)) if fused
+                    else (lambda: CF.conv3d_bn_relu(act(), wt, shift)),
+                    (lambda: CF.conv3d_entry_plain(vol, a0b0, wt, shift))
+                    if fused
+                    else (lambda: CF.conv3d_bn_relu_plain(act(), wt, shift)),
+                    lambda: F.conv3d(a1, wt, padding=1),
+                    (n_vox * (1 + Co) + wt.numel()) * es + 4 * Co + 8,
+                    2 * 27 * Co * n_vox)
     if kernel == "conv3d_bn_relu":
         B, Ci, Co, D, h, w = (p[k] for k in ("B", "Ci", "Co", "D", "H", "W"))
         x = lay(t(np.maximum(rng.standard_normal((B, Ci, D, h, w)), 0)))
@@ -836,13 +879,18 @@ def main():
                 require(routes == ({f"dense3x3[{narrow}]": 1} if narrow
                                    else {}),
                         f"{what}: route launches {routes}, want {route}")
+            if kernel == "conv3d_bn_relu":
+                require(routes == ({"conv3d_bn_relu[entry]": 1}
+                                   if p.get("entry") else {}),
+                        f"{what}: route launches {routes}")
             if dtype == torch.bfloat16 and narrow and p.get("f32_out"):
                 require(((got - want).abs()
                          <= 2e-4 + 1e-3 * want.abs()).all().item(),
                         f"{what}: beyond atol 2e-4 / rtol 1e-3")
             elif dtype == torch.bfloat16 and (
                     kernel in ("chain3x3", "conv3d_skip_softargmin")
-                    or (kernel == "conv3d_bn_relu" and p["Co"] == 8)
+                    or (kernel == "conv3d_bn_relu"
+                        and (p["Co"] == 8 or p.get("entry")))
                     or narrow):
                 two_steps(got, want, what)
             if kernel == "conv3d_skip_softargmin":
@@ -897,10 +945,11 @@ def main():
               f"{counts[engine]}")
         require(counts[engine] == want,
                 f"{engine} launch counts {counts[engine]} != {want}")
-        print(f"[4] dense3x3 narrow-route launches of the bf16 {engine} "
-              f"kernel forward: {routes[engine]}")
+        print(f"[4] route launches (dense3x3's narrow routes, the cost "
+              f"filters' entries) of the bf16 {engine} kernel forward: "
+              f"{routes[engine]}")
         require(routes[engine] == WANT_ROUTES[engine],
-                f"{engine} narrow-route launches {routes[engine]} != "
+                f"{engine} route launches {routes[engine]} != "
                 f"{WANT_ROUTES[engine]}")
         print(f"[4] layout copies of the bf16 {engine} kernel forward: "
               f"{copies[engine]}")
@@ -1034,7 +1083,8 @@ def main():
         t_ops = c["ops"] / PEAK_BF16 * 1e3
         row = dict(kernel=kernel, label=label, engine=engine, launches=n,
                    route=(dense_route(p, torch.bfloat16)
-                          if kernel == "dense3x3" else None),
+                          if kernel == "dense3x3" else
+                          "entry" if p.get("entry") else None),
                    ms=event_ms(c["kernel"]), host_us=host_us(c["kernel"]),
                    plain_ms=event_ms(c["plain"]),
                    library_ms=(None if c["library"] is None
@@ -1101,7 +1151,7 @@ def main():
     floor = launch_floor(dev)
     report["launch_floor_us"] = floor
     for what, st in floor.items():
-        print(f"[7] {what}: {st['count']} kernels in one profiler window, "
+        print(f"[7] {what}: {st['count']} kernels in its profiler window, "
               f"device us each: median {st['median']:.3f}, p10 "
               f"{st['p10']:.3f}, p90 {st['p90']:.3f}, min {st['min']:.3f}, "
               f"max {st['max']:.3f}")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Variants of conv3d_bn_relu's 8 -> 8 tensor-core route (and, with --skip,
-of conv3d_skip_softargmin's), timed on one GPU.
+"""Variants of conv3d_bn_relu's 8 -> 8 tensor-core route (with --skip, of
+conv3d_skip_softargmin's; with --entry, of conv3d_bn_relu's 1 -> C entry
+route), timed on one GPU.
 
 Run from the repository root on a machine with a card:
 
-    python3 conv3d_c8_variants.py [--skip] [--json PATH]
+    python3 conv3d_c8_variants.py [--skip | --entry] [--json PATH]
 
 Each variant is `lwsnet_tpu_torch/csrc/conv3d_bn_relu.cu` with a few
 textual changes to its `c8` namespace, written beside copies of the
@@ -54,6 +55,35 @@ two small ones (one row of two tiles, each tile's block alone on its SM):
                       over the blocks of each launch), and the spread of
                       the blocks' starts, the launch's span and the most
                       blocks one SM ran, from %globaltimer and %smid.
+
+--entry times the stage entries' route instead (its `c1` namespace in
+`csrc/conv3d_bn_relu.cu`: layer 0's BN + ReLU and the 1 -> C layer), each
+variant held against `conv3d_entry_plain` (every bf16 element within two
+rounding steps) at the three stage shapes of the 368x1232 forward, and
+timed there alone and together with the stage's first C -> C layer
+reading its output (both kernels' device time a call):
+
+  evict_first         the output written with an L2 evict-first policy
+                      (st.global.cs at Co = 32, the TMA copy's cache hint
+                      at Co = 8), as dense3x3's narrow entry writes its
+                      58 MB; the route's plain stores leave it in L2 for
+                      the next layer;
+  blocks4             four blocks an SM (at most 128 registers a thread;
+                      the route has five, at most 102);
+  obufs3              three output buffers at Co = 8 (the route has two);
+  rolled              the loop over a tile's product groups not unrolled
+                      (a third or a sixth of the code);
+  pitch72             staged rows 72 pixels apart (the route has 74, at
+                      which no A read of a warp meets a bank conflict;
+                      at 72 they take 1.9-2 wavefronts on average:
+                      `a_read_wavefronts` in
+                      tests/test_torch_costfilter_entry.py);
+  clock               clock64() per block (thread 0): set-up (the B images,
+                      shift, offsets; within it, the images laid out, from
+                      the block's start), staging (a tile's stores and the
+                      block barrier), rows (its products and epilogue),
+                      tiles a block and the whole block (medians over the
+                      blocks of each launch, in clocks).
 
 Exits 1 without CUDA, 2 if a variant fails to build or its check.
 """
@@ -330,6 +360,65 @@ SKIP_VARIANTS = {
 }
 
 
+ENTRY_VARIANTS = {
+    "evict_first": [("constexpr bool STREAM = false;",
+                     "constexpr bool STREAM = true;")],
+    "pitch72": [("constexpr int P = 74;", "constexpr int P = 72;")],
+    "blocks4": [("constexpr int MIN_BLOCKS = 5;",
+                 "constexpr int MIN_BLOCKS = 4;")],
+    "obufs3": [("constexpr int OBUFS = 2;", "constexpr int OBUFS = 3;")],
+    "rolled": [("#pragma unroll\n    for (int g = 0; g < S::GROUPS;",
+                "#pragma unroll 1\n    for (int g = 0; g < S::GROUPS;")],
+    "clock": [
+        ("constexpr int TD = 3, TH = 4, TW = 64;",
+         "__device__ long long clk[4096][8];\n"
+         "constexpr int TD = 3, TH = 4, TW = 64;"),
+        ("  const int ntiles = tiles(a);\n  uint32_t v[NL];",
+         "  const long long c_start = clock64();\n"
+         "  long long c_stage = 0, c_rows = 0, c_tiles = 0;\n"
+         "  const int ntiles = tiles(a);\n  uint32_t v[NL];"),
+        ("  for (bool first = true; t < ntiles; t += gridDim.x, "
+         "first = false) {",
+         "  const long long c_setup = clock64();\n"
+         "  for (bool first = true; t < ntiles; t += gridDim.x, "
+         "first = false) {\n"
+         "    const long long c_top = clock64();"),
+        ("  tc::fence_proxy_async();  // generic stores before wgmma reads "
+         "them\n\n  // Offsets",
+         "  tc::fence_proxy_async();  // generic stores before wgmma reads "
+         "them\n  const long long c_img = clock64();\n\n  // Offsets"),
+        ("    __syncthreads();  // the tile staged (and, first, the weights)",
+         "    __syncthreads();  // the tile staged (and, first, the weights)\n"
+         "    const long long c_mid = clock64();\n"
+         "    c_stage += c_mid - c_top;"),
+        ("    tt = next;\n  }\n",
+         "    tt = next;\n"
+         "    c_rows += clock64() - c_mid;\n    ++c_tiles;\n  }\n"
+         "  if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
+         "    long long* ck = clk[blockIdx.x];\n"
+         "    ck[0] = c_setup - c_start; ck[1] = c_stage; ck[2] = c_rows;\n"
+         "    ck[3] = c_tiles; ck[4] = clock64() - c_start; ck[5] = 1;\n"
+         "    ck[6] = c_img - c_start;\n"
+         "  }\n"),
+    ],
+}
+_ENTRY_CLOCK = '''
+extern "C" int entry_clock_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, c1::clk, sizeof(c1::clk));
+}
+extern "C" int entry_clock_reset() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, c1::clk);
+  return e != cudaSuccess ? (int)e : (int)cudaMemset(p, 0, sizeof(c1::clk));
+}
+'''
+ENTRY_ROLES = {"setup": 0, "staging": 1, "rows": 2, "tiles": 3, "block": 4,
+               "images_laid": 6}
+# (B, Co, D, H, W) of the three entries of the 368x1232 forward.
+ENTRY_SHAPES = {"stage1": (1, 32, 24, 46, 154), "stage2": (1, 8, 9, 92, 308),
+                "stage3": (1, 8, 9, 184, 616)}
+
+
 def write_variant(name, edits, out_dir, source="conv3d_bn_relu",
                   namespace="namespace c8 {", tail=""):
     """The variant's sources in out_dir; raises where an edit's anchor is
@@ -450,10 +539,87 @@ def skip_variants(dev, report):
     return rc
 
 
+def entry_variants(dev, report):
+    """The --entry family: each variant checked and timed at ENTRY_SHAPES,
+    alone and with the stage's first C -> C layer; rc 2 if a build or a
+    check failed."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    libs, rc = build_variants(
+        ENTRY_VARIANTS, os.path.join(ROOT, "build", "entry_variants"),
+        "conv3d_bn_relu", "namespace c1 {", {"clock": _ENTRY_CLOCK})
+
+    def operands(B, Co, D, H, W):
+        rng = np.random.default_rng(0)
+
+        def t(a, dt=torch.bfloat16):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(
+                dev, dt)
+
+        return (t(rng.standard_normal((B, D, H, W))),
+                t([rng.uniform(0.5, 1.5), rng.uniform(0.1, 0.5)],
+                  torch.float32),
+                t(rng.standard_normal((Co, 1, 3, 3, 3)) * np.sqrt(2 / 27)),
+                t(rng.normal(0, 0.1, Co), torch.float32),
+                t(rng.standard_normal((Co, Co, 3, 3, 3))
+                  * np.sqrt(2 / (27 * Co))),
+                t(rng.normal(0, 0.1, Co), torch.float32))
+
+    kern = build.CONV3D_BN_RELU
+    kern._fn("conv3d_bn_relu_bf16")  # loads the library
+    repo_lib = kern._lib
+    for name, lib in libs.items():
+        kern._lib = repo_lib if lib is None else lib
+        kern._fns = {}
+        row = {}
+        for shape, dims in ENTRY_SHAPES.items():
+            vol, a0b0, wt, sh, wt2, sh2 = operands(*dims)
+            want = CF.conv3d_entry_plain(vol, a0b0, wt, sh).float()
+            got = CF.conv3d_entry(vol, a0b0, wt, sh).float()
+            tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+            bad = int(((got - want).abs() > tol).sum())
+            if bad:
+                print(f"{name}: {shape}: {bad} elements beyond two rounding "
+                      f"steps")
+                rc = 2
+            for key, fn in (
+                    ("entry", lambda: CF.conv3d_entry(vol, a0b0, wt, sh)),
+                    ("entry + C->C", lambda: CF.conv3d_bn_relu(
+                        CF.conv3d_entry(vol, a0b0, wt, sh), wt2, sh2))):
+                ms = cs.kernel_device_ms(fn, "conv3d_bn_relu")
+                row[f"{shape} {key}"] = ms
+                print(f"{name}: {shape} {key}: "
+                      f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+            if name == "clock":
+                torch.cuda.synchronize()
+                lib.entry_clock_reset()
+                CF.conv3d_entry(vol, a0b0, wt, sh)
+                torch.cuda.synchronize()
+                clk = np.zeros(4096 * 8, np.int64)
+                lib.entry_clock_read(ctypes.c_void_p(clk.ctypes.data))
+                c = clk.reshape(4096, 8)
+                c = c[c[:, 5] == 1]
+                split = {r: float(np.median(c[:, k]))
+                         for r, k in ENTRY_ROLES.items()}
+                split["blocks"] = int(len(c))
+                row[f"{shape} clock64"] = split
+                print(f"{name}: {shape} clock64 medians over the blocks "
+                      f"(thread 0, clocks): {split}")
+        report["variants"][name] = row
+    kern._lib = repo_lib
+    kern._fns = {}
+    return rc
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None)
-    ap.add_argument("--skip", action="store_true")
+    family = ap.add_mutually_exclusive_group()
+    family.add_argument("--skip", action="store_true")
+    family.add_argument("--entry", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -470,8 +636,8 @@ def main(argv=None):
     print(f"card: {card()}")
     build.build_all()
     report = {"card": card(), "variants": {}}
-    if args.skip:
-        rc = skip_variants(dev, report)
+    if args.skip or args.entry:
+        rc = (skip_variants if args.skip else entry_variants)(dev, report)
         if args.json:
             os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
             with open(args.json, "w") as f:

@@ -29,10 +29,15 @@ of `chip_smoke.PROFILED` over one torch.profiler window of 5 forwards
 (`chip_smoke.device_profile`): its device busy time, the union of kernel
 intervals.
 
-Then it lists dense3x3's narrow launches on their own, each with its
-wrapper's host time a call (`chip_smoke.host_us`): the "mxu" / "vpu"
-tower entry (3->32, G = 2) and 32->1 float32 output, and the "layers"
-entries (3->32, 1->32) and 32->1 bf16 output.
+Then it lists the narrow launches on their own, each with its wrapper's
+host time a call (`chip_smoke.host_us`): dense3x3's "mxu" / "vpu" tower
+entry (3->32, G = 2) and 32->1 float32 output, and the "layers" entries
+(3->32, 1->32) and 32->1 bf16 output; and the three cost filters'
+entries of conv3d_bn_relu (1->32, 1->8, 1->8; in a checkout from before
+the fused entry, the layer alone on the activated volume). Last, each
+stage's entry and its first C->C layer in one call (`entry_pairs`): the
+C->C layer reads what the entry just wrote, as in the forward, so the
+pair's time shows what the entry's stores cost the next layer.
 
 --package-root DIR imports `lwsnet_tpu_torch` from another checkout (for
 instance the parent commit unpacked with `git archive`), so two trees can
@@ -86,6 +91,8 @@ def main(argv=None):
         layer = None
         if kernel == "dense3x3" and (p["Ci"] * 9 <= 32 or p["Co"] <= 8):
             layer = "entry" if p["Co"] == 32 else "output"
+        if kernel == "conv3d_bn_relu" and p.get("entry"):
+            layer = "entry"
         row = dict(kernel=kernel, label=label, engine=engine, launches=n,
                    device_ms=ms, narrow=layer,
                    host_us=cs.host_us(c["kernel"]) if layer else None)
@@ -96,7 +103,8 @@ def main(argv=None):
     for r in rows:
         if r["narrow"]:
             ms = r["device_ms"]
-            print(f"narrow {r['narrow']} [{r['label']}] x{r['launches']} "
+            print(f"narrow {r['kernel']} {r['narrow']} [{r['label']}] "
+                  f"x{r['launches']} "
                   f"({r['engine']}): "
                   f"{'not measured' if ms is None else f'{ms:.4f} ms'}, "
                   f"wrapper host {r['host_us']:.1f} us a call")
@@ -118,6 +126,7 @@ def main(argv=None):
             prefixes.append(dict(label=label, layers=k, device_ms=ms))
             print(f"{kernel} [{label}] first {k} of {layers} layers: "
                   f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+    pairs = entry_pairs(cs, cfg, dev)
     forwards = {}
     if args.forwards:
         from lwsnet_tpu_torch import LWSNet, make_forward
@@ -141,8 +150,38 @@ def main(argv=None):
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=card(), rows=rows, forwards=forwards,
-                           chain_prefixes=prefixes), f, indent=1)
+                           chain_prefixes=prefixes, entry_pairs=pairs), f,
+                      indent=1)
     return 0
+
+
+def entry_pairs(cs, cfg, dev):
+    """Each stage's entry and its first C->C layer in one call, the layer
+    reading the entry's output: [{label, device_ms}], the two kernels'
+    device time a call (`chip_smoke.kernel_device_ms` over both)."""
+    import numpy as np
+    import torch
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    convs = [c for c in cs.main_path_calls(cfg) if c[0] == "conv3d_bn_relu"]
+    out = []
+    for i, (entry, layer) in enumerate(zip(convs[0::2], convs[1::2])):
+        rng = np.random.default_rng(3000 + i)
+        first = cs.make_call(entry[0], entry[2], torch.bfloat16, rng,
+                             dev)["kernel"]
+        C = layer[2]["Co"]
+        wt = torch.as_tensor(rng.standard_normal((C, C, 3, 3, 3))
+                             * np.sqrt(2 / (27 * C)), dtype=torch.float32)
+        wt = wt.to(dev, torch.bfloat16)
+        shift = torch.as_tensor(rng.normal(0, 0.1, C), dtype=torch.float32,
+                                device=dev)
+        ms = cs.kernel_device_ms(
+            lambda: CF.conv3d_bn_relu(first(), wt, shift),
+            cs.KERNEL_NAMES["conv3d_bn_relu"])
+        label = f"{entry[1]} + {layer[1]}"
+        out.append(dict(label=label, device_ms=ms))
+        print(f"entry pair [{label}]: "
+              f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+    return out
 
 
 if __name__ == "__main__":

@@ -5,23 +5,29 @@
 //   lwsnet_tpu/ops/pallas/costfilter.py:_folded_kernel (stages 2-3, D=9, C=8)
 // Their flat-HW lanes, banded (D+2)*C weights and mask rows are TPU layout
 // devices; here the layer is a plain conv over (B, C, D, H, W):
-//   y[b,co,d,h,w] = relu(sum_{ci,kd,kh,kw} x[b,ci,d+kd-1,h+kh-1,w+kw-1]
+//   y[b,co,d,h,w] = relu(sum_{ci,kd,kh,kw} act(x[b,ci,d+kd-1,h+kh-1,w+kw-1])
 //                        * wt[ci,kd*9+kh*3+kw,co] + shift[co])
 // with zero padding 1 in D, H and W. The next layer's BN scale is already
 // folded into wt (in float32, cast once to the compute dtype) and its shift
-// into `shift`; the caller applies layer 0's BN + ReLU before the first
-// launch, so padding is zero after the activation. x and y are each
-// NCDHW or channels-last-3d (B, D, H, W, C) in memory (`x_cl`, `y_cl`):
-// the tensor-core route reads and writes channels-last, the CUDA cores
-// read NCDHW and write either.
+// into `shift`. act is the identity, but at a stage's entry (Ci = 1), where
+// it is layer 0's BN + ReLU, relu(x * a0 + b0) rounded once to the compute
+// dtype, given as a pointer `aff` to (a0, b0): the JAX package applies it
+// to the raw volume before its kernels (costfilter.py:206-210, :480-484).
+// The padding is zero after the activation (relu(b0) != 0 where b0 > 0),
+// so act applies inside the volume only. x and y are each NCDHW or
+// channels-last-3d (B, D, H, W, C) in memory (`x_cl`, `y_cl`): the
+// tensor-core routes read and write channels-last, the CUDA cores read
+// NCDHW and write either.
 //
 // Bound on the H100: the stage-1 32->32 layer is compute bound (9.40 GFLOP
 // per launch at 368x1232: 9.51 us at 989 TFLOP/s, against 21.8 MB of
 // input and output, 6.5 us at 3.35 TB/s); the stage-2/3 8->8 layers are
 // bound by their bytes (32.6 MB a launch at stage 3: 9.7 us), but their
-// route is held by its narrow products (below).
+// route is held by its narrow products (below). The entries are bound by
+// their channels-last write stream: 10.9 MB at stage 1 (3.3 us), 4.1 and
+// 16.3 MB at stages 2 and 3 (1.4 and 5.4 us).
 //
-// Three routes picked by shape:
+// Four routes picked by shape:
 // * bf16, Co == 32, Ci == 16 or 32 (the stage-1 32->32 layers), channels-
 //   last in and out: tensor cores through wgmma m64n32k16, Hopper's
 //   warpgroup product (helpers in `tc.cuh`).
@@ -89,14 +95,53 @@
 //     bytes a warp) or NCDHW (`y_cl` = 0, for a caller that asks for it;
 //     the forward's layers all write channels-last: 2-byte stores, eight
 //     lanes on eight consecutive pixels of one channel).
-// * otherwise (float32, the Ci = 1 entries): the CUDA cores. A block takes
-//   an 8 x 32 pixel tile of one (b, d) slice, one pixel per thread, with
-//   CO_T output channels in float32 registers. Weights go through shared
-//   memory in chunks of CI_CHUNK input channels (27 * 8 * 32 floats = 27
-//   KB); input taps are read straight from global memory, each voxel's 27
-//   uses within a block hitting L1. A channels-last output of 8k channels
-//   is written in 16-byte vectors.
+// * bf16, Ci == 1, Co == 32 or 8 (the three stages' entries, 1->32 at
+//   stage 1, 1->8 at stages 2-3, layer 0's BN + ReLU fused): `c1` below,
+//   the 3D counterpart of dense3x3's narrow entry (`dense3x3_entry.cuh`).
+//   - Persistent blocks of one warpgroup, five an SM (at most 102
+//     registers a thread), each walking tiles of TD = 3 depths x TH = 4
+//     rows x 64 pixels of one batch image (D = 9 and 24 split with no
+//     tail); tile indices split by multiply and shift (`Div`).
+//   - Set-up, while the first tile's values fly: the shift, (a0, b0), and
+//     the B images (below), which each block gathers from the weights as
+//     the caller holds them, so the wrapper prepares nothing.
+//   - Staging: a tile reads (TD+2)(TH+2) = 30 rows of 66 pixels of the
+//     single plane, each thread one pixel of 15 rows (and 60 threads one
+//     halo pixel), in coalesced 2-byte loads, all issued before any is
+//     used: the next tile's while this tile multiplies (a register
+//     prefetch). Each value goes to the one staging buffer as act inside
+//     the volume and as 0 outside it. The rows' pitch, 74 pixels, spreads
+//     the A reads below over the banks without a conflict (72 would cost
+//     about 2 wavefronts a read: tests/test_torch_costfilter_entry.py).
+//   - Products: G output rows of one depth (G = 4 at Co = 8, 2 at 32) in
+//     one product group, the rows on N: N = G x Co = 32 or 64, column (r,
+//     co). K is the group's 9 (G + 2) staged values a pixel, k = (kd (G +
+//     2) + sh) 3 + kw, zero-padded to KC = 4 or 3 slices of 16, and B[k,
+//     (r, co)] = wt[co, kd, sh - r, kw] where 0 <= sh - r <= 2 (else 0):
+//     KC wgmma m64n32k16 or m64n64k16 a group. Per-row products (K = 27
+//     taps, N = Co: four times the wgmma at Co = 8 and twice the A reads)
+//     ran slower on the H100. Each thread holds the register A
+//     of its pixels (16w + l/4, + 8) read straight from the staged rows at
+//     offsets computed once a launch; columns beyond K read nothing. The
+//     accumulators start at the shift. The bf16 products are exact in
+//     float32; only the order of the float32 sums differs from the plain
+//     version.
+//   - Epilogue: relu and one bf16 rounding in one cvt a pair. Co = 32:
+//     `tc::store_row`'s quad transpose and 16-byte channels-last stores.
+//     Co = 8 channels-last: stmatrix into a shared buffer laid out as the
+//     group's box of y (4 rows x 64 pixels x 16 bytes), then one TMA copy
+//     of 1 KB runs (16-byte runs made TMA slow on the H100); two buffers
+//     in turn. Co = 8 NCDHW (not on the forward): 2-byte lane stores.
+// * otherwise (float32 above all): the CUDA cores. A block takes an 8 x 32
+//   pixel tile of one (b, d) slice, one pixel per thread, with CO_T output
+//   channels in float32 registers. Weights go through shared memory in
+//   chunks of CI_CHUNK input channels (27 * 8 * 32 floats = 27 KB); input
+//   taps are read straight from global memory, each voxel's 27 uses within
+//   a block hitting L1, the entry's act applied at the load (out-of-volume
+//   taps are skipped, so the padding stays zero). A channels-last output
+//   of 8k channels is written in 16-byte vectors.
 #include <algorithm>
+#include <type_traits>
 
 #include "tc.cuh"
 
@@ -104,10 +149,22 @@ namespace {
 
 constexpr int CI_CHUNK = 8;
 
-template <typename T, int CO_T>
+// Layer 0's BN + ReLU of one input value, rounded once to the compute
+// dtype: relu(v * a + b) with the product and the sum rounded apart, as the
+// plain version's float32 `vol * a0 + b0` (no fused multiply-add).
+template <typename T>
+__device__ __forceinline__ float act(float v, float a, float b) {
+  return to_f(from_f<T>(fmaxf(__fadd_rn(__fmul_rn(v, a), b), 0.f)));
+}
+
+// AFF: act is layer 0's BN + ReLU from aff (Ci = 1), else the identity (a
+// template argument: a run-time test in the tap loop cost the 32-channel
+// tiles spills).
+template <typename T, int CO_T, bool AFF>
 __global__ void __launch_bounds__(THREADS)
 conv3d_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                      const float* __restrict__ shift, T* __restrict__ y,
+                      const float* __restrict__ shift,
+                      const float* __restrict__ aff, T* __restrict__ y,
                       int Ci, int Co, int D, int H, int W, int y_cl) {
   __shared__ float ws[CI_CHUNK * 27 * CO_T];
   const int tx = threadIdx.x % TILE_W, ty = threadIdx.x / TILE_W;
@@ -127,6 +184,7 @@ conv3d_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   float acc[CO_T];
 #pragma unroll
   for (int c = 0; c < CO_T; ++c) acc[c] = 0.f;
+  const float a0 = AFF ? aff[0] : 1.f, b0 = AFF ? aff[1] : 0.f;
 
   for (int ci0 = 0; ci0 < Ci; ci0 += CI_CHUNK) {
     const int nci = min(CI_CHUNK, Ci - ci0);
@@ -151,7 +209,8 @@ conv3d_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ wt,
           for (int kw = 0; kw < 3; ++kw) {
             const int ww = w + kw - 1;
             if (ww < 0 || ww >= W) continue;
-            const float v = to_f(xc[dd * plane + (size_t)hh * W + ww]);
+            float v = to_f(xc[dd * plane + (size_t)hh * W + ww]);
+            if (AFF) v = act<T>(v, a0, b0);
             const float* wp = ws + (cl * 27 + kd * 9 + kh * 3 + kw) * CO_T;
 #pragma unroll
             for (int c = 0; c < CO_T; ++c) acc[c] = fmaf(v, wp[c], acc[c]);
@@ -193,10 +252,12 @@ constexpr int MAX_STAGES = 8;
 constexpr int SMEM_MAX = 232448;             // per block, opted in
 
 // The tensor-core routes (mirrored by `conv3d_tensor_core_route` in
-// ops/cuda/costfilter.py).
+// ops/cuda/costfilter.py): 32 -> 32 (or 16 -> 32), 8 -> 8 and the entries
+// 1 -> 32, 1 -> 8.
 bool use_tc(int elem_bytes, int Ci, int Co) {
   return elem_bytes == 2 &&
-         ((Co == tc::N && (Ci == 16 || Ci == 32)) || (Ci == 8 && Co == 8));
+         ((Co == tc::N && (Ci == 16 || Ci == 32)) || (Ci == 8 && Co == 8) ||
+          (Ci == 1 && (Co == tc::N || Co == 8)));
 }
 
 template <int SC>
@@ -556,19 +617,550 @@ int launch(const void* x, const void* wt, const void* shift, void* y, int B,
 
 }  // namespace c8
 
+// ---- the Ci = 1 entry route ------------------------------------------------
+
+namespace c1 {
+
+constexpr int TD = 3, TH = 4, TW = 64;   // output tile
+constexpr int SD = TD + 2, SH = TH + 2;  // staged depths and rows
+constexpr int SW = TW + 2;               // staged pixels a row
+constexpr int P = 74;                    // their pitch, elements
+constexpr int PLANE = SH * P;            // one staged depth
+constexpr int BUF = SD * PLANE;          // the staging buffer
+constexpr int THREADS = 128;             // one warpgroup
+constexpr int MIN_BLOCKS = 5;            // an SM: at most 102 registers
+constexpr bool STREAM = false;           // evict-first output copies
+constexpr int OBUFS = 2;                 // output buffers a block
+
+// The products of CO = 8 or 32 output channels: G output rows (oh0 ..
+// oh0 + G - 1 of one depth) a product group, as N = G x CO columns, (r,
+// co) at n = r CO + co; K = the group's KT = 9 (G + 2) staged values a
+// pixel, k = (kd (G + 2) + sh) 3 + kw (staged depth od + kd, row oh0 +
+// sh, pixel p + kw), zero-padded to KC slices of 16; B[k, (r, co)] =
+// wt[co, kd, sh - r, kw] where 0 <= sh - r <= 2, else 0.
+template <int CO>
+struct Shape {
+  static constexpr int G = CO == 8 ? 4 : 2;
+  static constexpr int N = G * CO;         // 32 or 64
+  static constexpr int KT = 9 * (G + 2);   // 54 or 36
+  static constexpr int KC = (KT + 15) / 16;  // 4 or 3
+  static constexpr int SLICE = 16 * N * 2;   // bytes of a K = 16 slice
+  static constexpr int GROUPS = TD * TH / G;  // 3 or 6 a tile
+  static_assert(TH % G == 0 && KT % 2 == 0, "groups");
+};
+
+// A 64 x 64 float32 accumulator, laid out as tc::Acc over 8 column
+// blocks.
+struct Acc64 {
+  float v[32];
+};
+
+__device__ __forceinline__ void fence_operand(Acc64& a) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(a.v[i])::"memory");
+}
+
+// d += a (64 x 16, registers, across the warpgroup) * b (16 x N, shared).
+__device__ __forceinline__ void mma(tc::Acc& d, const uint32_t (&a)[4],
+                                    uint64_t b) {
+  tc::wgmma_m64n32k16(d, a, b);
+}
+__device__ __forceinline__ void mma(Acc64& d, const uint32_t (&a)[4],
+                                    uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]),
+        "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7]),
+        "+f"(d.v[8]), "+f"(d.v[9]), "+f"(d.v[10]), "+f"(d.v[11]),
+        "+f"(d.v[12]), "+f"(d.v[13]), "+f"(d.v[14]), "+f"(d.v[15]),
+        "+f"(d.v[16]), "+f"(d.v[17]), "+f"(d.v[18]), "+f"(d.v[19]),
+        "+f"(d.v[20]), "+f"(d.v[21]), "+f"(d.v[22]), "+f"(d.v[23]),
+        "+f"(d.v[24]), "+f"(d.v[25]), "+f"(d.v[26]), "+f"(d.v[27]),
+        "+f"(d.v[28]), "+f"(d.v[29]), "+f"(d.v[30]), "+f"(d.v[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// relu of two float32 values, rounded once to bf16 and packed (lo in the
+// low half): one cvt.rn.relu.bf16x2.f32.
+__device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (m, s from the host:
+// s = ceil(log2 d) - 1, m = ceil(2^(32 + s) / d)), where a division by a
+// value known only at run time takes some twenty instructions.
+struct Div {
+  int d;
+  uint32_t m, s;
+  __device__ __forceinline__ int operator()(int n) const {
+    return d == 1 ? n : (int)(__umulhi((uint32_t)n, m) >> s);
+  }
+};
+
+inline Div make_div(int d) {
+  if (d == 1) return Div{1, 0u, 0u};
+  int l = 0;
+  while ((1LL << l) < d) ++l;  // ceil(log2 d)
+  return Div{d, (uint32_t)(((1ULL << (31 + l)) + d - 1) / d),
+             (uint32_t)(l - 1)};
+}
+
+// Four 8 x 8 bf16 matrices from registers to shared memory: lane l gives
+// the address of row l % 8 of matrix l / 8 and holds, in r[m], elements
+// (l / 4, 2 (l % 4) + {0, 1}) of matrix m (the accumulator's layout).
+__device__ __forceinline__ void stsm_x4(uint32_t addr,
+                                        const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// One TMA box of `map` from shared memory at `src` to the tensor at
+// coordinates (innermost first); positions outside the tensor are not
+// written. EVICT_FIRST: with an L2 evict-first hint (for a stream no later
+// load reads soon). Then the bulk-group bookkeeping of the issuing thread.
+template <bool EVICT_FIRST>
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  if (EVICT_FIRST)
+    asm volatile(
+        "{\n.reg .b64 pol;\n"
+        "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group.L2::cache_hint"
+        " [%0, {%1, %2, %3, %4}], [%5], pol;\n}\n" ::"l"(
+            reinterpret_cast<uint64_t>(map)),
+        "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, "
+        "%3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+        : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// At most PENDING committed copies have not read their shared memory yet.
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING)
+               : "memory");
+}
+
+struct Args {
+  const uint16_t* x;   // (B, D, H, W)
+  const uint16_t* wt;  // (Co, 1, 3, 3, 3)
+  const float* shift;  // (Co,)
+  const float* aff;    // (a0, b0), or null: act is the identity
+  bf16* y;
+  int B, D, H, W, y_cl;
+  Div ncx, nh, nd;  // tiles a row, a depth's rows, depths (`with_tiles`)
+};
+
+__host__ __device__ inline int tiles(const Args& a) {
+  return a.B * ceil_div(a.D, TD) * ceil_div(a.H, TH) * ceil_div(a.W, TW);
+}
+
+inline Args with_tiles(Args a) {
+  a.ncx = make_div(ceil_div(a.W, TW));
+  a.nh = make_div(ceil_div(a.H, TH));
+  a.nd = make_div(ceil_div(a.D, TD));
+  return a;
+}
+
+struct Tile {
+  int b, d0, h0, w0;
+};
+
+__device__ __forceinline__ Tile tile_of(const Args& a, int t) {
+  Tile r;
+  int q = a.ncx(t);
+  r.w0 = (t - q * a.ncx.d) * TW;
+  t = q;
+  q = a.nh(t);
+  r.h0 = (t - q * a.nh.d) * TH;
+  t = q;
+  q = a.nd(t);
+  r.d0 = (t - q * a.nd.d) * TD;
+  r.b = q;
+  return r;
+}
+
+// Staging: a tile's staged row r (0 .. SD SH - 1) is depth d0 - 1 + r / SH,
+// image row h0 - 1 + r % SH, pixels w0 - 1 .. w0 + 64 (staged columns 0 ..
+// 65). Threads 0-63 take pixel w0 + c - 1 (c = threadIdx.x % 64 + 1) of
+// rows 0 .. RH - 1, threads 64-127 the same pixel of rows RH .. 2 RH - 1
+// (a warp-uniform choice, so each half's rows are constants), and threads
+// below 2 SD SH one halo pixel more: w0 - 1 (even) or w0 + 64 (odd) of row
+// threadIdx.x / 2. A value outside the volume is not loaded: its register
+// holds OUT.
+constexpr int RH = SD * SH / 2;  // staged rows a half
+constexpr int NL = RH + 1;       // values a thread stages
+constexpr uint32_t OUT = 1u << 16;
+static_assert(2 * RH == SD * SH && TW == 64 && THREADS == 2 * TW, "halves");
+
+__device__ __forceinline__ int halo_col() {
+  return threadIdx.x % 2 ? SW - 1 : 0;
+}
+
+// Staged row R0 + i (i < RH) at pixel ww of tile tt, or OUT. The address
+// walks the rows: one image row on, or at a new depth a plane less SH - 1
+// rows on (it is formed outside the volume too, but read only inside).
+template <int R0>
+__device__ __forceinline__ void load_rows(const Args& a, const Tile& tt,
+                                          int ww, uint32_t (&v)[NL]) {
+  const bool w_in = ww < a.W;
+  const long long hw = (long long)a.H * a.W;
+  const uint16_t* p =
+      a.x + ((long long)tt.b * a.D + tt.d0 - 1 + R0 / SH) * hw +
+      (long long)(tt.h0 - 1 + R0 % SH) * a.W + ww;
+  const long long depth_step = hw - (long long)(SH - 1) * a.W;
+#pragma unroll
+  for (int i = 0; i < RH; ++i) {
+    const int r = R0 + i;
+    if (i > 0) p += r % SH == 0 ? depth_step : (long long)a.W;
+    const bool in = w_in && (unsigned)(tt.d0 - 1 + r / SH) < (unsigned)a.D &&
+                    (unsigned)(tt.h0 - 1 + r % SH) < (unsigned)a.H;
+    v[i] = in ? __ldg(p) : OUT;
+  }
+}
+
+// This thread's staged values of tile tt, as 16-bit values in 32-bit
+// registers; nothing is used here, so the loads are all in flight
+// together.
+__device__ __forceinline__ void load_tile(const Args& a, const Tile& tt,
+                                          uint32_t (&v)[NL]) {
+  const int ww = tt.w0 + (int)threadIdx.x % TW;
+  if (threadIdx.x < TW)
+    load_rows<0>(a, tt, ww, v);
+  else
+    load_rows<RH>(a, tt, ww, v);
+  if (threadIdx.x < 2 * SD * SH) {
+    const int r = threadIdx.x / 2, dd = tt.d0 - 1 + r / SH;
+    const int hh = tt.h0 - 1 + r % SH, w = tt.w0 - 1 + halo_col();
+    v[RH] = (unsigned)dd < (unsigned)a.D && (unsigned)hh < (unsigned)a.H &&
+                    (unsigned)w < (unsigned)a.W
+                ? __ldg(a.x + (((size_t)tt.b * a.D + dd) * a.H + hh) * a.W +
+                        w)
+                : OUT;
+  }
+}
+
+// One staged value: act inside the volume, zero outside it (the conv's
+// padding, which comes after the activation).
+__device__ __forceinline__ uint16_t staged_value(const Args& a, uint32_t u,
+                                                 float a0, float b0) {
+  if (u == OUT) return 0;
+  if (a.aff == nullptr) return (uint16_t)u;
+  return __bfloat16_as_ushort(
+      from_f<bf16>(act<bf16>(__uint_as_float(u << 16), a0, b0)));
+}
+
+// Tile t's loaded values into staging buffer s.
+__device__ __forceinline__ void store_tile(const uint32_t (&v)[NL],
+                                           const Args& a, uint16_t* s,
+                                           float a0, float b0) {
+  const int r0 = threadIdx.x < TW ? 0 : RH, c = threadIdx.x % TW + 1;
+#pragma unroll
+  for (int i = 0; i < RH; ++i)
+    s[(r0 + i) * P + c] = staged_value(a, v[i], a0, b0);
+  if (threadIdx.x < 2 * SD * SH)
+    s[threadIdx.x / 2 * P + halo_col()] = staged_value(a, v[RH], a0, b0);
+}
+
+// CO = 32 or 8 output channels, y channels-last (or, at CO = 8, NCDHW
+// where y_cl is 0). Shared memory: the KC slices of the B images, the
+// staging buffer and, at CO = 8, the output buffers.
+template <int CO>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    conv3d_bn_relu_entry_kernel(Args a,
+                                const __grid_constant__ CUtensorMap map_y) {
+  using S = Shape<CO>;
+  using Acc = std::conditional_t<S::N == tc::N, tc::Acc, Acc64>;
+  constexpr int G = S::G, KC = S::KC;
+  __shared__ __align__(128) unsigned char wsm[KC * S::SLICE];
+  __shared__ __align__(16) uint16_t stage[BUF];
+  // At CO = 8 written channels-last, a group's output goes to y by TMA
+  // from one of OBUFS shared buffers in turn.
+  constexpr int OGROUP = G * TW * CO * 2;
+  __shared__ __align__(128) unsigned char osm[CO == 8 ? OBUFS * OGROUP : 16];
+  int obuf = 0;
+
+  // The first tile's staged values in flight during the set-up.
+  const int ntiles = tiles(a);
+  uint32_t v[NL];
+  int t = blockIdx.x;
+  Tile tt = tile_of(a, t);
+  if (t < ntiles) load_tile(a, tt, v);
+  const float a0 = a.aff != nullptr ? a.aff[0] : 1.f;
+  const float b0 = a.aff != nullptr ? a.aff[1] : 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = lane % 4, p0 = warp * 16 + lane / 4;
+  float sh[CO / 4];  // this lane's output channels 8j + 2q + {0, 1}
+#pragma unroll
+  for (int j = 0; j < CO / 8; ++j) {
+    sh[2 * j] = a.shift[8 * j + 2 * q];
+    sh[2 * j + 1] = a.shift[8 * j + 2 * q + 1];
+  }
+
+  // The B images (tc.cuh): element (k, n) of slice k / 16 at (n / 8) 256
+  // + (k % 16 / 8) 128 + (n % 8) 16 + (k % 8) 2 bytes. Thread t writes
+  // column n = t % N of the 16-byte rows of 8 k from k0 = 8 kr, kr = t /
+  // N, + THREADS / N, ...: kr runs over constants (a warp-uniform test
+  // picks each thread's), so each k's (kd, sh, kw) is known to the
+  // compiler, and tap (kd, sh - r, kw) is wt's element co * 27 + kd * 9 +
+  // sh * 3 + kw - 3r, gathered from global memory, all of a row's loads
+  // in flight together. (The weights first copied into shared memory
+  // behind a block barrier ran slower on the H100.)
+  static_assert(THREADS % S::N == 0, "whole columns a pass");
+  {
+    const int n = threadIdx.x % S::N, r = n / CO, co = n % CO;
+#pragma unroll
+    for (int kr = 0; kr < 2 * KC; ++kr) {
+      if (kr % (THREADS / S::N) != (int)threadIdx.x / S::N) continue;
+      uint32_t u[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int k = 8 * kr + j, sh_k = k / 3 % (G + 2);
+        u[j] = k < S::KT && sh_k - r >= 0 && sh_k - r <= 2
+                   ? a.wt[co * 27 + k / (3 * (G + 2)) * 9 + sh_k * 3 +
+                          k % 3 - 3 * r]
+                   : 0u;
+      }
+      *(uint4*)(wsm + kr / 2 * S::SLICE + n / 8 * 256 + kr % 2 * 128 +
+                n % 8 * 16) =
+          make_uint4(u[0] | u[1] << 16, u[2] | u[3] << 16,
+                     u[4] | u[5] << 16, u[6] | u[7] << 16);
+    }
+  }
+  tc::fence_proxy_async();  // generic stores before wgmma reads them
+
+  // Offsets of this thread's columns k = kc * 16 + j / 2 * 8 + 2q + j % 2
+  // in a staged buffer, for group 0 and pixel 0. In the last slice the
+  // columns of j >= 2 are all beyond KT (zeros, not read), those of j < 2
+  // inside it where 2q < KT - 16 (KC - 1).
+  int off[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = kc * 16 + j / 2 * 8 + 2 * q + j % 2;
+      off[kc][j] = k < S::KT ? k / (3 * (G + 2)) * PLANE +
+                                   k / 3 % (G + 2) * P + k % 3
+                             : 0;
+    }
+  static_assert(S::KT - 16 * (KC - 1) <= 8, "last slice: j < 2 only");
+  const bool last_ok = 2 * q < S::KT - 16 * (KC - 1);
+  const uint64_t desc0 = tc::b_desc(tc::smem_addr(wsm));
+
+  // The register A of group g (depth g / (TH / G), rows from oh0 = g %
+  // (TH / G) * G) from the staging buffer.
+  auto load_a = [&](uint32_t (&af)[KC][4], int g) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // i: pixel half i % 2, k pair i / 2
+        const uint16_t* sp = stage + g / (TH / G) * PLANE +
+                             g % (TH / G) * G * P + p0 + 8 * (i % 2);
+        const int j = i / 2 * 2;
+        if (kc == KC - 1 && j == 2) {
+          af[kc][i] = 0u;
+        } else if (kc == KC - 1) {
+          af[kc][i] = last_ok ? (uint32_t)sp[off[kc][j]] |
+                                    (uint32_t)sp[off[kc][j + 1]] << 16
+                              : 0u;
+        } else {
+          af[kc][i] = (uint32_t)sp[off[kc][j]] |
+                      (uint32_t)sp[off[kc][j + 1]] << 16;
+        }
+      }
+  };
+  // A group's accumulators start at the shift of their columns (column
+  // 8 (e / 4) + 2q + e % 2 of v[e] is channel 8 (e / 4 % (CO / 8)) + 2q +
+  // e % 2), so that the epilogue is relu and one bf16 rounding, which
+  // commute: relu(bf16(x)) = bf16(relu(x)).
+  auto init = [&](Acc& acc) {
+#pragma unroll
+    for (int e = 0; e < S::N / 2; ++e)
+      acc.v[e] = sh[2 * (e / 4 % (CO / 8)) + e % 2];
+  };
+  // Group g of tile tt to y.
+  auto store = [&](Acc& acc, const Tile& tt, int g) {
+    fence_operand(acc);
+    const int dz = tt.d0 + g / (TH / G), h0 = tt.h0 + g % (TH / G) * G;
+    if (dz >= a.D) return;
+    if constexpr (CO == tc::N) {
+      // Row r is accumulator columns 32r ..: per pixel half, lane q holds
+      // word q of each 8-channel block j; a quad transpose gives it block
+      // q, one 16-byte store (tc::store_row's epilogue, with the relu).
+      const size_t plane = ((size_t)tt.b * a.D + dz) * a.H;
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t wd[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            wd[j] = relu_bf16x2(acc.v[16 * r + 4 * j + 2 * half],
+                                acc.v[16 * r + 4 * j + 2 * half + 1]);
+          tc::quad_transpose(wd);
+          const int w = tt.w0 + p0 + 8 * half;
+          if (h0 + r < a.H && w < a.W)
+            tc::store16(reinterpret_cast<uint4*>(
+                            a.y + ((plane + h0 + r) * a.W + w) * CO + 8 * q),
+                        make_uint4(wd[0], wd[1], wd[2], wd[3]), STREAM);
+        }
+    } else if (a.y_cl) {
+      // The group's G rows x 64 pixels x 8 channels into a shared buffer
+      // as y's TMA box lays them out, (r TW + p) 16 bytes: matrix m = 2r
+      // + half of warp w (pixels 16w + 8 half .. + 7 of row r,
+      // accumulator columns 8r ..) by stmatrix, whose fragment is the
+      // accumulator's; four matrices, 2 x 256 contiguous bytes, a
+      // stmatrix. Then one thread copies the box to y; rows beyond H and
+      // pixels beyond W stay unwritten.
+      const uint32_t ob = tc::smem_addr(osm) + obuf * OGROUP;
+#pragma unroll
+      for (int m0 = 0; m0 < 2 * G; m0 += 4) {
+        uint32_t wd[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          wd[i] = relu_bf16x2(acc.v[2 * (m0 + i)], acc.v[2 * (m0 + i) + 1]);
+        const int m = m0 + lane / 8;
+        stsm_x4(ob + (m / 2 * TW + warp * 16 + 8 * (m % 2) + lane % 8) * 16,
+                wd);
+      }
+      tc::fence_proxy_async();  // the writes before the copy reads them
+      // The copy of the next buffer, issued OBUFS - 1 groups ago, has read
+      // it before the barrier: the next group may write it.
+      if (threadIdx.x == 0) bulk_wait_read<OBUFS - 2>();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        tma_store_4d<STREAM>(&map_y, ob, 2 * tt.w0, h0, dz, tt.b);
+        bulk_commit();
+      }
+      obuf = obuf + 1 == OBUFS ? 0 : obuf + 1;
+    } else if constexpr (CO == 8) {  // NCDHW: channel planes 2q, 2q + 1
+      const size_t vol = (size_t)a.D * a.H * a.W;
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int w = tt.w0 + p0 + 8 * half;
+          if (h0 + r >= a.H || w >= a.W) continue;
+          bf16* py = a.y + ((size_t)tt.b * 8 + 2 * q) * vol +
+                     ((size_t)dz * a.H + h0 + r) * a.W + w;
+          py[0] = from_f<bf16>(fmaxf(acc.v[4 * r + 2 * half], 0.f));
+          py[vol] = from_f<bf16>(fmaxf(acc.v[4 * r + 2 * half + 1], 0.f));
+        }
+      }
+    }
+  };
+
+  // One staging buffer at a fixed address, so that every A read is one
+  // instruction from a per-thread register and a constant: a barrier
+  // before the stores of each tile after the first (its A reads done).
+  for (bool first = true; t < ntiles; t += gridDim.x, first = false) {
+    if (!first) __syncthreads();
+    store_tile(v, a, stage, a0, b0);
+    const Tile next = tile_of(a, t + gridDim.x);
+    if (t + (int)gridDim.x < ntiles) load_tile(a, next, v);
+    __syncthreads();  // the tile staged (and, first, the weights)
+#pragma unroll
+    for (int g = 0; g < S::GROUPS; ++g) {
+      uint32_t af[KC][4];
+      Acc acc;
+      load_a(af, g);
+      init(acc);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        mma(acc, af[kc], desc0 + kc * (S::SLICE >> 4));
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      store(acc, tt, g);
+    }
+    tt = next;
+  }
+  // The last copies have read their buffers before the block's shared
+  // memory goes; their writes complete by the end of the launch.
+  if (CO == 8 && threadIdx.x == 0) bulk_wait_read<0>();
+}
+
+// Launch on `stream`: as many resident blocks as fit (the occupancy,
+// queried once), at most one per tile. Returns a cudaError_t.
+template <int CO>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kernel = conv3d_bn_relu_entry_kernel<CO>;
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (per_sm < 1 || tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
+  const int grid = std::min(tiles(a), per_sm * tc::sm_count());
+  if (grid < 1) return (int)cudaSuccess;
+  // At CO = 8 channels-last, y as (B, D, H, W x 2) elements of 8 bytes, a
+  // pixel's 8 channels two of them, so that a box row is one 1 KB run
+  // (`tc::make_voxel_map`'s layout: 16-byte runs made TMA slow on the
+  // H100).
+  CUtensorMap map_y{};
+  if (CO == 8 && a.y_cl) {
+    const tc::EncodeTiled encode = tc::encode_tiled();
+    if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+    const cuuint64_t dims[4] = {2 * (cuuint64_t)a.W, (cuuint64_t)a.H,
+                                (cuuint64_t)a.D, (cuuint64_t)a.B};
+    const cuuint64_t strides[3] = {8 * dims[0], 8 * dims[0] * dims[1],
+                                   8 * dims[0] * dims[1] * dims[2]};
+    const cuuint32_t box[4] = {2 * TW, Shape<CO>::G, 1, 1};
+    const cuuint32_t ones[4] = {1, 1, 1, 1};
+    const int rc = (int)encode(
+        &map_y, CU_TENSOR_MAP_DATA_TYPE_UINT64, 4, a.y, dims, strides, box,
+        ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (rc != 0) return rc;
+  }
+  kernel<<<grid, THREADS, 0, stream>>>(with_tiles(a), map_y);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace c1
+
 template <typename T>
-int launch(const void* x, const void* wt, const void* shift, void* y, int B,
-           int Ci, int Co, int D, int H, int W, int x_cl, int y_cl,
-           void* stream) {
+int launch(const void* x, const void* wt, const void* shift, const void* aff,
+           void* y, int B, int Ci, int Co, int D, int H, int W, int x_cl,
+           int y_cl, void* stream) {
   const int co_t = Co % 32 == 0 ? 32 : (Co % 8 == 0 ? 8 : 0);
   if (co_t == 0 || Ci < 1) return (int)cudaErrorInvalidValue;
+  if (aff != nullptr && Ci != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_tc(sizeof(T), Ci, Co)) {
-    // The routes read channels-last only; the 32-channel one writes it
-    // only, the 8-channel one either layout.
+    // The routes write channels-last only at 32 channels, either layout at
+    // 8. The entries' one input channel lies the same in both layouts;
+    // the other routes read channels-last only. The entries take wt as
+    // (Co, 1, 3, 3, 3), the others the B images the wrapper lays out.
+    if (Co == tc::N && !y_cl) return (int)cudaErrorInvalidValue;
+    if (Ci == 1) {
+      const c1::Args a{(const uint16_t*)x, (const uint16_t*)wt,
+                       (const float*)shift, (const float*)aff, (bf16*)y,
+                       B, D, H, W, y_cl};
+      return Co == tc::N ? c1::launch<32>(a, s) : c1::launch<8>(a, s);
+    }
     if (!x_cl) return (int)cudaErrorInvalidValue;
     if (Co == 8) return c8::launch(x, wt, shift, y, B, D, H, W, y_cl, s);
-    if (!y_cl) return (int)cudaErrorInvalidValue;
     return Ci == 32 ? launch_tc<32>(x, wt, shift, y, B, D, H, W, s)
                     : launch_tc<16>(x, wt, shift, y, B, D, H, W, s);
   }
@@ -577,22 +1169,25 @@ int launch(const void* x, const void* wt, const void* shift, void* y, int B,
   const T* xp = (const T*)x;
   const T* wp = (const T*)wt;
   const float* sp = (const float*)shift;
-  if (co_t == 32)
-    conv3d_bn_relu_kernel<T, 32><<<grid, THREADS, 0, s>>>(
-        xp, wp, sp, (T*)y, Ci, Co, D, H, W, y_cl);
-  else
-    conv3d_bn_relu_kernel<T, 8><<<grid, THREADS, 0, s>>>(
-        xp, wp, sp, (T*)y, Ci, Co, D, H, W, y_cl);
+  const float* ap = (const float*)aff;
+  auto kernel = co_t == 32 ? (ap ? conv3d_bn_relu_kernel<T, 32, true>
+                                 : conv3d_bn_relu_kernel<T, 32, false>)
+                           : (ap ? conv3d_bn_relu_kernel<T, 8, true>
+                                 : conv3d_bn_relu_kernel<T, 8, false>);
+  kernel<<<grid, THREADS, 0, s>>>(xp, wp, sp, ap, (T*)y, Ci, Co, D, H, W,
+                                  y_cl);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// aff: null, or at Ci = 1 two floats (a0, b0), layer 0's BN + ReLU.
 #define CONV3D_BN_RELU_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const void* x, const void* wt, const void* shift,      \
-                      void* y, int B, int Ci, int Co, int D, int H, int W,   \
-                      int x_cl, int y_cl, void* stream) {                    \
-    return launch<T>(x, wt, shift, y, B, Ci, Co, D, H, W, x_cl, y_cl,        \
+                      const void* aff, void* y, int B, int Ci, int Co,       \
+                      int D, int H, int W, int x_cl, int y_cl,               \
+                      void* stream) {                                        \
+    return launch<T>(x, wt, shift, aff, y, B, Ci, Co, D, H, W, x_cl, y_cl,   \
                      stream);                                                \
   }
 

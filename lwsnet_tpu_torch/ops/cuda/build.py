@@ -137,7 +137,7 @@ class Kernel:
             self.route_launches[route] = self.route_launches.get(route, 0) + 1
 
 
-CONV3D_BN_RELU = Kernel("conv3d_bn_relu", [_P] * 4 + [_I] * 8 + [_P])
+CONV3D_BN_RELU = Kernel("conv3d_bn_relu", [_P] * 5 + [_I] * 8 + [_P])
 CONV3D_SKIP_SOFTARGMIN = Kernel(
     "conv3d_skip_softargmin",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P])
@@ -167,7 +167,8 @@ def launch_counts() -> Dict[str, int]:
 def route_counts() -> Dict[str, int]:
     """{"kernel[route]": launches} of every route a wrapper named, e.g.
     "dense3x3[entry]" and "dense3x3[output]" for dense3x3's narrow
-    routes."""
+    routes, "conv3d_bn_relu[entry]" for the cost filters' 1 -> C
+    entries."""
     return {f"{k.name}[{r}]": n for k in KERNELS
             for r, n in sorted(k.route_launches.items())}
 

@@ -4,14 +4,18 @@ Counterpart of the JAX package's `ops/pallas/costfilter.py`. A stage's
 filter is `layers + 2` BN + ReLU + conv3d layers; in inference every BN
 folds into an affine, so the stage runs as
 
-  act = relu(a0 * vol + b0)                       (plain torch, layer 0's BN)
-  act = conv3d_bn_relu(act, w_k * a_{k+1}, b_{k+1})   for k = 0 .. n-2
+  act = conv3d_entry(vol, (a0, b0), w_0 * a_1, b_1)   (layer 0's BN inside)
+  act = conv3d_bn_relu(act, w_k * a_{k+1}, b_{k+1})   for k = 1 .. n-2
   out = conv3d_skip_softargmin(act, w_{n-1}, vol, start)
 
 Layer k+1's BN scale folds into layer k's weights in float32, cast once to
-the compute dtype; its shift is the epilogue's bias. Stages 1, 2 and 3 all
-take this one path (the JAX package's `_dgrid` and `_folded` formulations
-compute the same function).
+the compute dtype; its shift is the epilogue's bias. Layer 0's BN + ReLU,
+relu(a0 * vol + b0) rounded once to the compute dtype, runs inside the
+entry launch, on the values it stages, inside the volume only (the conv's
+zero padding comes after the activation), where the JAX package runs it
+as XLA before its kernels. Stages 1, 2 and 3 all take this one path (the
+JAX package's `_dgrid` and `_folded` formulations compute the same
+function).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs
 its plain PyTorch version, beside it here, for a CPU tensor.
@@ -19,12 +23,13 @@ its plain PyTorch version, beside it here, for a CPU tensor.
 Layout on the card: a bf16 activation of 32 or 8 channels lies
 channels-last-3d in memory, (B, D, H, W, C) under its logical
 (B, C, D, H, W) shape, because the tensor-core routes of `conv3d_bn_relu`
-(`conv3d_tensor_core_route`) read it so. The 1 -> C entry writes it (for
-one input channel the two layouts are the same memory), the C -> C layers
-read and write it, and the tensor-core route of `conv3d_skip_softargmin`
-(`skip_tensor_core_route`) reads it: a bf16 filter makes no layout copy.
-float32 stays in the default layout. A copy, where a caller hands a kernel
-the other layout, is `build.in_layout`'s, counted.
+(`conv3d_tensor_core_route`) read it so. The 1 -> C entry writes it (its
+one input channel, the raw volume, lies the same in both layouts), the
+C -> C layers read and write it, and the tensor-core route of
+`conv3d_skip_softargmin` (`skip_tensor_core_route`) reads it: a bf16
+filter makes no layout copy. float32 stays in the default layout. A copy,
+where a caller hands a kernel the other layout, is `build.in_layout`'s,
+counted.
 """
 
 from __future__ import annotations
@@ -47,10 +52,12 @@ SKIP_MAX_D = 64  # costs a pixel (MAX_D in csrc/conv3d_skip_softargmin.cu)
 def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
     """Whether `conv3d_bn_relu` runs a wgmma route (`use_tc` in
     csrc/conv3d_bn_relu.cu): bf16 32 -> 32 (or 16 -> 32), which reads and
-    writes channels-last only, or bf16 8 -> 8, which reads channels-last
-    and writes either layout."""
+    writes channels-last only; bf16 8 -> 8, which reads channels-last and
+    writes either layout; and the bf16 entries 1 -> 32 and 1 -> 8 (`c1`),
+    whose one input channel lies the same in either layout, writing
+    channels-last (either layout at 8 channels)."""
     return dtype == torch.bfloat16 and (
-        (Co == 32 and Ci in (16, 32)) or (Ci == 8 and Co == 8))
+        (Co == 32 and Ci in (1, 16, 32)) or (Co == 8 and Ci in (1, 8)))
 
 
 def conv3d_writes_ncdhw(dtype: torch.dtype, Ci: int, Co: int) -> bool:
@@ -105,25 +112,67 @@ def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
                    channels_last: Optional[bool] = None) -> torch.Tensor:
     """One BN-folded conv3d layer; see `conv3d_bn_relu_plain`. On the card
     the tensor-core routes read channels-last and the CUDA cores NCDHW (x
-    is copied where it lies otherwise). The result lies channels-last
-    where asked (`channels_last`) or, by default, where the next layer of
-    its width takes a tensor-core route (bf16, 32 or 8 channels); the
-    32-channel route writes nothing else."""
+    is copied where it lies otherwise; a 1-channel x lies the same in
+    both). The result lies channels-last where asked (`channels_last`) or,
+    by default, where the next layer of its width takes a tensor-core
+    route (bf16, 32 or 8 channels); the 32-channel routes write nothing
+    else."""
     if not on_card(x):
         return conv3d_bn_relu_plain(x, wt, shift)
+    return _launch(x, wt, shift, None, channels_last)
+
+
+def conv3d_entry_plain(vol: torch.Tensor, a0b0: torch.Tensor,
+                       wt: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """A stage's entry: layer 0's BN + ReLU on the raw volume, rounded once
+    to its dtype, then the 1 -> Co layer, `conv3d_bn_relu_plain`:
+    act = relu(vol * a0 + b0) in float32. vol: (B, D, H, W); a0b0: (2,)
+    float32, (a0, b0); wt: (Co, 1, 3, 3, 3) in vol's dtype; shift: (Co,)
+    float32. Returns (B, Co, D, H, W)."""
+    act = F.relu(vol.float() * a0b0[0] + a0b0[1]).to(vol.dtype)
+    return conv3d_bn_relu_plain(act[:, None], wt, shift)
+
+
+def conv3d_entry(vol: torch.Tensor, a0b0: torch.Tensor, wt: torch.Tensor,
+                 shift: torch.Tensor) -> torch.Tensor:
+    """A stage's entry in one launch; see `conv3d_entry_plain`. On the card
+    bf16 at 32 or 8 outputs takes the tensor-core entry (`c1` in
+    csrc/conv3d_bn_relu.cu), float32 the CUDA cores, each applying the
+    affine to the values it reads inside the volume; a0b0 stays on the
+    device (no host sync). The result lies as `conv3d_bn_relu`'s default:
+    channels-last in bf16, NCDHW in float32."""
+    if not on_card(vol):
+        return conv3d_entry_plain(vol, a0b0, wt, shift)
+    if vol.dim() != 4:
+        raise ValueError(f"vol: shape {tuple(vol.shape)}, expected "
+                         f"(B, D, H, W)")
+    check(vol, "vol", vol.shape, vol.dtype, vol.device)  # dense
+    check(a0b0, "a0b0", (2,), torch.float32, vol.device)
+    return _launch(vol[:, None], wt, shift, a0b0, None)
+
+
+def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
+            aff: Optional[torch.Tensor],
+            channels_last: Optional[bool]) -> torch.Tensor:
+    """`conv3d_bn_relu`'s launch on the card, with layer 0's affine `aff`
+    ((2,) float32 on x's device) at a 1-channel entry. Launches with one
+    input channel count as route "entry"."""
     B, Ci, D, H, W = x.shape
     Co = wt.shape[0]
-    x_cl = tensor_core = conv3d_tensor_core_route(x.dtype, Ci, Co)
+    tensor_core = conv3d_tensor_core_route(x.dtype, Ci, Co)
+    x_cl = tensor_core and Ci > 1
     x = in_layout(x, x_cl)
     y_cl = (conv3d_tensor_core_route(x.dtype, Co, Co)
             if channels_last is None else channels_last)
     if not (y_cl or conv3d_writes_ncdhw(x.dtype, Ci, Co)):
-        raise ValueError("the 32-channel tensor-core route writes "
+        raise ValueError("the 32-channel tensor-core routes write "
                          "channels-last only")
     check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, x_cl)
     check(wt, "wt", (Co, Ci, 3, 3, 3), x.dtype, x.device)
     check(shift, "shift", (Co,), torch.float32, x.device)
-    if tensor_core and Co == 8:
+    if tensor_core and Ci == 1:
+        wk = wt  # each block lays out its B images
+    elif tensor_core and Co == 8:
         wk = c8_images(wt)
     elif tensor_core:
         # resident B images: per (ci // 16, tap) a 16 x 32 K-major slice
@@ -135,8 +184,9 @@ def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
     y = empty((B, Co, D, H, W), x.dtype, x.device, y_cl)
     CONV3D_BN_RELU.launch(
         f"conv3d_bn_relu_{symbol_suffix(x.dtype)}", x.device,
-        x.data_ptr(), wk.data_ptr(), shift.data_ptr(), y.data_ptr(),
-        B, Ci, Co, D, H, W, x_cl, y_cl)
+        x.data_ptr(), wk.data_ptr(), shift.data_ptr(),
+        None if aff is None else aff.data_ptr(), y.data_ptr(),
+        B, Ci, Co, D, H, W, x_cl, y_cl, route="entry" if Ci == 1 else None)
     return y
 
 
@@ -214,14 +264,13 @@ def filter_soft_argmin(cost: torch.Tensor, params: Dict[str, torch.Tensor],
     affs = [_fold_bn(params, stats, f"BNReLUConv3D_{i}.BatchNorm_0")
             for i in range(n)]
     vol = cost.permute(0, 3, 1, 2).to(dtype).contiguous()  # (B, D, H, W)
-    a0, b0 = affs[0]
-    act = F.relu(vol.float() * a0 + b0).to(dtype)[:, None]
     # Every layer hands on the layout the next one reads: channels-last in
-    # bf16, NCDHW in float32.
+    # bf16, NCDHW in float32. The entry applies layer 0's BN + ReLU.
     for i in range(n - 1):
         a_next, b_next = affs[i + 1]
-        wt = params[f"BNReLUConv3D_{i}.weight"].float() \
-            * a_next.view(-1, 1, 1, 1, 1)
-        act = conv3d_bn_relu(act, wt.to(dtype), b_next)
+        wt = (params[f"BNReLUConv3D_{i}.weight"].float()
+              * a_next.view(-1, 1, 1, 1, 1)).to(dtype)
+        act = (conv3d_entry(vol, torch.cat(affs[0]), wt, b_next) if i == 0
+               else conv3d_bn_relu(act, wt, b_next))
     wt = params[f"BNReLUConv3D_{n - 1}.weight"].to(dtype)
     return conv3d_skip_softargmin(act, wt, vol, start)[..., None]

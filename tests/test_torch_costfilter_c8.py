@@ -46,7 +46,7 @@ def _operands(rng, B, D, H, W):
 @pytest.mark.parametrize("dtype,ci,co,ncdhw", [
     (torch.bfloat16, 8, 8, True),      # stages 2-3: either layout
     (torch.bfloat16, 32, 32, False),   # stage 1: channels-last only
-    (torch.bfloat16, 1, 8, True),      # the entries, on the CUDA cores
+    (torch.bfloat16, 1, 8, True),      # the stage-2/3 entries: either
     (torch.float32, 8, 8, True),
     (torch.float32, 32, 32, True),
 ])
@@ -133,10 +133,11 @@ def test_c8_k_loop_emulation_matches_plain(B, D, H, W):
 
 def test_filter_soft_argmin_c8_layouts_match_jax(monkeypatch):
     """The stage-2/3 filter (four mid layers of 8 channels, D = 9, residual
-    bins from -4), each conv3d_bn_relu handing its output on in the layout
-    the bf16 route writes on the card: the 1 -> 8 entry and every 8 -> 8
-    layer channels-last, which conv3d_skip_softargmin's route reads. The
-    result matches the JAX package's."""
+    bins from -4), each layer handing its output on in the layout the bf16
+    route writes on the card: the 1 -> 8 entry (conv3d_entry, layer 0's BN
+    inside) and every 8 -> 8 layer channels-last, which
+    conv3d_skip_softargmin's route reads. The result matches the JAX
+    package's."""
     B, H, W, D, layers, channels, start = 1, 6, 10, 9, 4, 8, -4
     rng = np.random.default_rng(11)
     cost = rng.standard_normal((B, H, W, D)).astype(np.float32)
@@ -151,6 +152,14 @@ def test_filter_soft_argmin_c8_layouts_match_jax(monkeypatch):
 
     seen = []
     plain_layer, plain_last = tcf.conv3d_bn_relu, tcf.conv3d_skip_softargmin
+    plain_entry = tcf.conv3d_entry
+
+    def entry(vol, a0b0, wt, shift):
+        co = wt.shape[0]
+        out_cl = tcf.conv3d_tensor_core_route(torch.bfloat16, co, co)
+        seen.append(("entry", co, out_cl))
+        y = plain_entry(vol, a0b0, wt, shift)
+        return y.contiguous(memory_format=CL3) if out_cl else y
 
     def layer(x, wt, shift, channels_last=None):
         ci, co = x.shape[1], wt.shape[0]
@@ -164,13 +173,14 @@ def test_filter_soft_argmin_c8_layouts_match_jax(monkeypatch):
         seen.append(("skip", build.lies_channels_last(x)))
         return plain_last(x, wt, vol, start)
 
+    monkeypatch.setattr(tcf, "conv3d_entry", entry)
     monkeypatch.setattr(tcf, "conv3d_bn_relu", layer)
     monkeypatch.setattr(tcf, "conv3d_skip_softargmin", last)
     got = tcf.filter_soft_argmin(
         torch.from_numpy(cost), dict(port.named_parameters()),
         dict(port.named_buffers()), layers=layers, channels=channels,
         start=start, dtype=torch.float32)
-    assert seen == [(1, 8, False, True)] + [(8, 8, True, True)] * 4 + [
+    assert seen == [("entry", 8, True)] + [(8, 8, True, True)] * 4 + [
         ("skip", True)]
     assert got.shape == (B, H, W, 1)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),

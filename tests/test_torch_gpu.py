@@ -183,9 +183,9 @@ def test_conv3d_c8_route_on_card(rnd, shape, out_cl):
 
 @pytest.mark.parametrize("last_ncdhw", [False, True])
 def test_conv3d_c8_stage_on_card(rnd, last_ncdhw):
-    """A stage-2/3 filter's layers: the 1 -> 8 entry on the CUDA cores
-    writing channels-last, four 8 -> 8 layers on the tensor cores, then
-    conv3d_skip_softargmin's tensor-core route; each layer against its
+    """A stage-2/3 filter's layers: the 1 -> 8 entry (no affine) on its
+    tensor-core route writing channels-last, four 8 -> 8 layers on the
+    tensor cores, then conv3d_skip_softargmin's tensor-core route; each layer against its
     plain version from the same input. As the path runs them (every layer
     channels-last, no layout copy), and with the last 8 -> 8 layer writing
     NCDHW, which the skip layer copies once to channels-last."""
@@ -216,6 +216,87 @@ def test_conv3d_c8_stage_on_card(rnd, last_ncdhw):
     assert counts == {"conv3d_bn_relu": 5, "conv3d_skip_softargmin": 1}
     assert build.LAYOUT_COPIES == {"to channels-last": int(last_ncdhw),
                                    "to contiguous": 0}
+
+
+def _entry_operands(rnd, B, Co, D, H, W, dtype):
+    """A stage entry's vol, (a0, b0) with b0 > 0 (so relu(b0) > 0 and a
+    padding that took the affine would show), wt and shift."""
+    vol = rnd(B, D, H, W).to(dtype)
+    a0b0 = torch.stack([rnd(1)[0].abs() + 0.5, rnd(1)[0].abs() + 0.2])
+    wt = (rnd(Co, 1, 3, 3, 3) * (2 / 27) ** 0.5).to(dtype)
+    return vol, a0b0, wt, rnd(Co) * 0.1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (1, 32, 24, 46, 154),   # stage 1 of the 368x1232 forward
+    (1, 8, 9, 92, 308),     # stage 2
+    (1, 8, 9, 184, 616),    # stage 3
+    (2, 8, 7, 11, 37),      # ragged: no dimension a multiple of 3 x 4 x 64
+    (2, 32, 7, 11, 37),
+])
+def test_conv3d_entry_route_on_card(rnd, shape, dtype):
+    """A stage's entry, layer 0's BN + ReLU fused (conv3d_entry): bf16 on
+    the tensor-core entry route, within two rounding steps of
+    conv3d_entry_plain and channels-last; float32 on the CUDA cores, atol
+    2e-4 / rtol 1e-3, NCDHW. One launch each, counted as the "entry"
+    route, no layout copy."""
+    B, Co, D, H, W = shape
+    vol, a0b0, wt, shift = _entry_operands(rnd, B, Co, D, H, W, dtype)
+    assert tcf.conv3d_tensor_core_route(dtype, 1, Co) == (
+        dtype == torch.bfloat16)
+    build.reset_launch_counts()
+    got = tcf.conv3d_entry(vol, a0b0, wt, shift)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["conv3d_bn_relu"] == 1
+    assert build.route_counts()["conv3d_bn_relu[entry]"] == 1
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    want = tcf.conv3d_entry_plain(vol, a0b0, wt, shift)
+    assert got.shape == want.shape == (B, Co, D, H, W)
+    if dtype == torch.bfloat16:
+        assert build.lies_channels_last(got)
+        _assert_two_steps(got, want)
+    else:
+        assert got.is_contiguous()
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+
+
+def test_conv3d_entry_makes_no_host_sync_on_card(rnd):
+    """conv3d_entry keeps (a0, b0) on the device: neither route makes the
+    host wait for the card (torch's sync debug mode raises on a sync)."""
+    calls = [_entry_operands(rnd, 1, co, 9, 20, 70, dt)
+             for co, dt in ((8, torch.bfloat16), (32, torch.bfloat16),
+                            (8, torch.float32))]
+    for args in calls:  # builds and loads the library first
+        tcf.conv3d_entry(*args)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args in calls:
+            tcf.conv3d_entry(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert build.route_counts() == {"conv3d_bn_relu[entry]": 3}
+
+
+def test_conv3d_entry_ncdhw_out_on_card(rnd):
+    """The bf16 1 -> 8 entry writes NCDHW where asked (conv3d_bn_relu with
+    channels_last=False, no affine), and the 1 -> 32 one refuses it."""
+    bf = torch.bfloat16
+    x = rnd(2, 1, 7, 11, 37, dtype=bf).relu()
+    w = (rnd(8, 1, 3, 3, 3) * (2 / 27) ** 0.5).to(bf)
+    shift = rnd(8) * 0.1
+    build.reset_launch_counts()
+    got = tcf.conv3d_bn_relu(x, w, shift, channels_last=False)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and not build.lies_channels_last(got)
+    _assert_two_steps(got, tcf.conv3d_bn_relu_plain(x, w, shift))
+    assert build.route_counts() == {"conv3d_bn_relu[entry]": 1}
+    with pytest.raises(ValueError, match="channels-last only"):
+        tcf.conv3d_bn_relu(x, rnd(32, 1, 3, 3, 3).to(bf), rnd(32),
+                           channels_last=False)
 
 
 @pytest.mark.parametrize("channels_last", [True, False])
@@ -307,7 +388,8 @@ def test_channels_last_cuda_core_routes_on_card(rnd):
     (the narrow-output route: channels-last in); the same two shapes in
     float32 and a float32 32 -> 32 layer, which stay on the CUDA-core
     tiles (the entry writing channels-last where asked, the output reading
-    it); and the 1 -> 32 entry of conv3d_bn_relu."""
+    it); and the 1 -> 32 entry of conv3d_bn_relu (its tensor-core route,
+    no affine)."""
     build.reset_launch_counts()
     for dt in (torch.bfloat16, torch.float32):
         x3 = rnd(2, 3, 29, 70, dtype=dt)
@@ -685,7 +767,8 @@ def test_refinement_layout_copies_on_card(rnd, fields, want):
     assert all(torch.isfinite(o).all() for o in outs)
     counts = {k: v for k, v in build.launch_counts().items() if v}
     assert counts == dict(want, conv3d_bn_relu=15, conv3d_skip_softargmin=3)
-    assert build.route_counts() == routes
+    # and the three cost filters' entries on theirs
+    assert build.route_counts() == dict(routes, **{"conv3d_bn_relu[entry]": 3})
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
 
 

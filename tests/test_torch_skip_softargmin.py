@@ -208,10 +208,11 @@ def test_skip_walk_emulation_matches_plain(B, C, D, H, W, start):
 ])
 def test_filter_soft_argmin_card_hand_over_matches_jax(monkeypatch, D,
                                                        channels, start):
-    """A stage filter (four mid layers), each conv3d_bn_relu handing its
-    output on in the layout the bf16 routes write on the card: every layer
-    channels-last, which the last layer's route reads with no copy; the
-    last layer through the emulation of its walk. The result matches the
+    """A stage filter (four mid layers), each layer (the entry, layer 0's
+    BN inside, then conv3d_bn_relu) handing its output on in the layout the
+    bf16 routes write on the card: every layer channels-last, which the
+    last layer's route reads with no copy; the last layer through the
+    emulation of its walk. The result matches the
     JAX package's at atol 2e-4 / rtol 1e-3, the bar of the port's filter
     tests."""
     B, H, W, layers = 1, 5, 9, 4
@@ -227,7 +228,14 @@ def test_filter_soft_argmin_card_hand_over_matches_jax(monkeypatch, D,
         jnp.asarray(cost), variables["params"], variables["batch_stats"])
 
     seen = []
-    plain_layer = tcf.conv3d_bn_relu
+    plain_layer, plain_entry = tcf.conv3d_bn_relu, tcf.conv3d_entry
+
+    def entry(vol, a0b0, wt, shift):
+        co = wt.shape[0]
+        out_cl = tcf.conv3d_tensor_core_route(torch.bfloat16, co, co)
+        seen.append(("entry", co, out_cl))
+        y = plain_entry(vol, a0b0, wt, shift)
+        return y.contiguous(memory_format=CL3) if out_cl else y
 
     def layer(x, wt, shift, channels_last=None):
         ci, co = x.shape[1], wt.shape[0]
@@ -242,6 +250,7 @@ def test_filter_soft_argmin_card_hand_over_matches_jax(monkeypatch, D,
             torch.bfloat16, x.shape[1]), build.lies_channels_last(x)))
         return _emulate(x, wt, vol, start)
 
+    monkeypatch.setattr(tcf, "conv3d_entry", entry)
     monkeypatch.setattr(tcf, "conv3d_bn_relu", layer)
     monkeypatch.setattr(tcf, "conv3d_skip_softargmin", last)
     got = tcf.filter_soft_argmin(
@@ -249,7 +258,7 @@ def test_filter_soft_argmin_card_hand_over_matches_jax(monkeypatch, D,
         dict(port.named_buffers()), layers=layers, channels=channels,
         start=start, dtype=torch.float32)
     C = channels
-    assert seen == [(1, C, False, True)] + [(C, C, True, True)] * 4 + [
+    assert seen == [("entry", C, True)] + [(C, C, True, True)] * 4 + [
         ("skip", True, True)]
     assert got.shape == (B, H, W, 1)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
