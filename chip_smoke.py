@@ -9,8 +9,9 @@ It builds the Hopper kernels from `lwsnet_tpu_torch/csrc/` and drives the
 port's main path, the 368x1232 batch-1 bf16 4-stage inference forward, on
 seeded random weights, under each stage-4 refinement engine: the shipped
 `rows_dw="mxu"`, then "vpu" with `rows_paired` True and False, "chain",
-and the planar `pallas_mode="layers"`; then the rows microbench. Phases,
-in order; any failure exits non-zero:
+and the planar `pallas_mode="layers"`; then the rows microbench; then the
+training path through the finetune CLI. Phases, in order; any failure
+exits non-zero:
 
   1. the card's name and power limit;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
@@ -34,8 +35,11 @@ in order; any failure exits non-zero:
      one to channels-last for bf16 NCDHW, one to the default layout for
      float32 channels-last (its CUDA-core kernel reads NCDHW);
   4. for each engine, the full forward through `make_forward` (kernels)
-     against the module path on the card: bf16 per-stage mean |delta| < 2 %
-     of span, float32 max |delta| < 1e-3 x span; the launch counters of
+     and the module path on the card, each held against the module path
+     in float64 (the reference): per stage and dtype the kernel path's
+     mean |delta| at most 1.1 x the module path's, and in float32 its max
+     |delta| at most 2 x the module path's (printed with the pixel where
+     the two float32 paths lie farthest apart); the launch counters of
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
      conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), its
@@ -68,7 +72,25 @@ in order; any failure exits non-zero:
      launches `lane_broadcast`; then `lane_broadcast`, `Tensor.repeat` of
      the same and an empty kernel, 1000 each in a profiler window of its
      own, run again (twice at most) when the profiler dropped over a tenth
-     of them (median and spread of each kernel's device time).
+     of them (median and spread of each kernel's device time);
+  8. training on the card, which launches none of the kernels above (the
+     train step runs the module path, as the JAX train step runs no
+     Pallas kernel): `make -B -C native` (the native decoder; without it
+     the pipeline decodes through PIL or the stdlib codec), a synthetic
+     KITTI2015 corpus of 16 frames at 375x1242 written from a seed, then
+     `lwsnet_tpu_torch.cli.finetune` at full width in bf16 (batch 4 at
+     256x512, eval batch 8 at 368x1232, 2 epochs of 2 steps): every step
+     finite, the parameters moved, a checkpoint and its metadata written,
+     `--resume --epoch 3` restoring the epoch and best error, `--evaluate`
+     a finite D1, the launch counters still 0; the trained weights through
+     `make_forward` (kernels) and the module path at 368x1232 against the
+     float64 module path, with phase 4's bf16 bar; one float32 train step
+     on the card against the
+     CPU (`card_vs_cpu_step`'s bars), beside the CPU's own step with its
+     input scaled by 1 + 1e-7; the bf16 train step's median and max over
+     10 steps (CUDA events) with images/s and peak memory, one profiler
+     window over 3 steps (device busy share, costliest kernels), and the
+     eval step's time at batch 8.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -792,24 +814,508 @@ def two_steps(got, want, what):
             f"steps")
 
 
-def compare(what, want, got, dtype, shape):
-    """Phase-4 bar of one output against the module path's: finite, of
-    `shape`; bf16 mean |delta| < 2 % of span, float32 max |delta| <
-    1e-3 x span (span = the module output's range + 1)."""
+MEAN_RATIO = 1.1  # phase 4: kernel path's mean |delta| / module path's
+MAX_RATIO = 2.0   # float32: kernel path's max |delta| / module path's
+
+
+def compare(what, truth, plain, got, dtype, shape, failures):
+    """Phase-4 bar of one output: finite, of `shape`, and held with the
+    module path's output in the same dtype (`plain`) against the float64
+    module path's (`truth`): the kernel path's mean |delta| at most
+    MEAN_RATIO x the module path's, and in float32 also its max |delta|
+    at most MAX_RATIO x the module path's. A miss is appended to
+    `failures`. Prints, as % of span (the truth's range + 1), both paths'
+    distance from the truth and from each other and, in float32, the pixel
+    (batch 1) where the two lie farthest apart with the three values."""
     import torch
     require(tuple(got.shape) == shape, f"{what}: shape {tuple(got.shape)}")
     require(torch.isfinite(got).all().item(), f"{what}: finite")
-    span = (want.max() - want.min()).item() + 1.0
-    delta = (want - got).abs()
-    mean, mx = delta.mean().item(), delta.max().item()
-    print(f"[4] {what}: span {span:.4g}, mean |delta| {mean:.4g} "
-          f"({100 * mean / span:.3f} %), max |delta| {mx:.4g} "
-          f"({100 * mx / span:.3f} %)")
-    if dtype == "bfloat16":
-        require(mean < 0.02 * span, f"{what}: mean |delta| >= 2% of span")
+    span = (truth.max() - truth.min()).item() + 1.0
+    e_k, e_m, d = ((a - b).abs() for a, b in ((got, truth), (plain, truth),
+                                              (got, plain)))
+    row = dict(span=span, mean_abs=d.mean().item(), max_abs=d.max().item(),
+               kernels_mean=e_k.mean().item(), kernels_max=e_k.max().item(),
+               module_mean=e_m.mean().item(), module_max=e_m.max().item())
+    row["mean_ratio"] = row["kernels_mean"] / max(row["module_mean"], 1e-30)
+    row["max_ratio"] = row["kernels_max"] / max(row["module_max"], 1e-30)
+    pc = {k: f"{100 * v / span:.4g} %" for k, v in row.items()}
+    print(f"[4] {what}: span {span:.4g}; from the float64 module path: "
+          f"kernels mean {pc['kernels_mean']} max {pc['kernels_max']}, "
+          f"module mean {pc['module_mean']} max {pc['module_max']} (ratios "
+          f"{row['mean_ratio']:.4f}, {row['max_ratio']:.4f}); kernels - "
+          f"module mean {pc['mean_abs']} max {pc['max_abs']}")
+    if not row["mean_ratio"] <= MEAN_RATIO:
+        failures.append(f"{what}: kernel path mean |delta| "
+                        f"{pc['kernels_mean']} > {MEAN_RATIO} x the module "
+                        f"path's {pc['module_mean']}")
+    if dtype == "float32":
+        i = int(d.reshape(-1).argmax())  # batch 1: i = row * W + col
+        vals = [float(t.reshape(-1)[i]) for t in (got, plain, truth)]
+        row["worst"] = dict(pixel=divmod(i, shape[2]), kernels=vals[0],
+                            module=vals[1], float64=vals[2])
+        print(f"[4] {what}: kernels and module farthest apart at (row, "
+              f"col) {divmod(i, shape[2])}: kernels {vals[0]:.6f}, module "
+              f"{vals[1]:.6f}, float64 {vals[2]:.6f}")
+        if not row["max_ratio"] <= MAX_RATIO:
+            failures.append(f"{what}: kernel path max |delta| "
+                            f"{pc['kernels_max']} > {MAX_RATIO} x the "
+                            f"module path's {pc['module_max']}")
+    return row
+
+
+def float64_reference(cfg_fields, dev, forward, state=None):
+    """The float64 module path's output of `forward(model)` (the phase-4
+    reference) for the network of ModelConfig(**cfg_fields) with seed-0
+    weights and phase 4's batch norms, or `state` where given."""
+    import torch
+    from lwsnet_tpu_torch import LWSNet, ModelConfig
+    model = LWSNet(ModelConfig(**dict(cfg_fields, compute_dtype="float64")),
+                   device=dev, seed=0)
+    if state is None:
+        jitter_batchnorm(model, np.random.default_rng(3))
     else:
-        require(mx < 1e-3 * span, f"{what}: max |delta| >= 1e-3 x span")
-    return dict(span=span, mean_abs=mean, max_abs=mx)
+        model.load_state_dict(state)
+    out = forward(model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def forward_phase(dev, engines=None):
+    """Phase 4: for each engine of `engines` (default all), the 368x1232
+    forward through `make_forward` (kernels) and the module path, in bf16
+    and float32, each held with `compare` against the float64 module path;
+    the bf16 kernel run's launch, route and layout-copy counts; then the
+    "layers" refinement alone at WIDE_H x WIDE_W. Fails after printing
+    every comparison if any missed its bar. Returns (report, launch
+    counts, layout copies, route launches) by engine."""
+    import torch
+    from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
+    from lwsnet_tpu_torch.models.refine_kernels import refine_residual
+    from lwsnet_tpu_torch.ops.cuda import build
+    engines = {e: ENGINES[e] for e in (engines or ENGINES)}
+    left_np = np.random.default_rng(1).standard_normal((1, H, W, 3))
+    right_np = np.random.default_rng(2).standard_normal((1, H, W, 3))
+    left = torch.as_tensor(left_np, dtype=torch.float32, device=dev)
+    right = torch.as_tensor(right_np, dtype=torch.float32, device=dev)
+    # every engine's module path computes the same function: one reference
+    truth = float64_reference({}, dev, lambda m: make_forward(
+        m, use_pallas=False, device=dev)(left, right))
+    build.reset_launch_counts()
+    zero = build.launch_counts()
+    counts, copies, routes, failures = {}, {}, {}, []
+    forward_report = {}
+    for dt in ("bfloat16", "float32"):
+        plain = None
+        for engine, fields in engines.items():
+            model = LWSNet(ModelConfig(compute_dtype=dt, **fields),
+                           device=dev, seed=0)
+            jitter_batchnorm(model, np.random.default_rng(3))
+            if plain is None:  # the module path runs no refinement kernel
+                plain = make_forward(model, use_pallas=False,
+                                     device=dev)(left, right)
+            fwd = make_forward(model, use_pallas=True, device=dev)
+            build.reset_launch_counts()
+            got = fwd(left, right)
+            torch.cuda.synchronize()
+            if dt == "bfloat16":
+                counts[engine] = build.launch_counts()
+                copies[engine] = dict(build.LAYOUT_COPIES)
+                routes[engine] = build.route_counts()
+            forward_report[f"{dt} {engine}"] = [
+                dict(stage=s + 1, **compare(f"{dt} {engine} stage {s + 1}",
+                                            t, a, b, dt, (1, H, W, 1),
+                                            failures))
+                for s, (t, a, b) in enumerate(zip(truth, plain, got))]
+            del model, got
+        del plain
+    del truth
+    for engine in engines:
+        want = want_counts(engine, zero)
+        print(f"[4] launch counts of the bf16 {engine} kernel forward: "
+              f"{counts[engine]}")
+        require(counts[engine] == want,
+                f"{engine} launch counts {counts[engine]} != {want}")
+        print(f"[4] route launches (dense3x3's narrow routes, the cost "
+              f"filters' entries) of the bf16 {engine} kernel forward: "
+              f"{routes[engine]}")
+        require(routes[engine] == WANT_ROUTES[engine],
+                f"{engine} route launches {routes[engine]} != "
+                f"{WANT_ROUTES[engine]}")
+        print(f"[4] layout copies of the bf16 {engine} kernel forward: "
+              f"{copies[engine]}")
+        require(copies[engine] == WANT_COPIES[engine],
+                f"{engine} layout copies {copies[engine]} != "
+                f"{WANT_COPIES[engine]}")
+    if "layers" not in engines:
+        require(not failures, "; ".join(failures))
+        return forward_report, counts, copies, routes
+
+    # the layers refinement alone at a width where its (8, 16) tower pair
+    # splits: the only run of the path's solo branch
+    rng = np.random.default_rng(4)
+    wide_left = torch.as_tensor(rng.standard_normal((1, WIDE_H, WIDE_W, 3)),
+                                dtype=torch.float32, device=dev)
+    wide_disp = torch.as_tensor(rng.uniform(0, 60, (1, WIDE_H, WIDE_W, 1)),
+                                dtype=torch.float32, device=dev)
+
+    def towers_and_head(model):
+        with torch.inference_mode():
+            both = torch.cat([
+                model.RefinementTower_0(
+                    wide_left.permute(0, 3, 1, 2).to(model.cfg.dtype)),
+                model.RefinementTower_1(
+                    wide_disp.permute(0, 3, 1, 2).to(model.cfg.dtype))], 1)
+            return model.RefinementHead_0(both).permute(0, 2, 3, 1).float()
+
+    truth = float64_reference(dict(pallas_mode="layers"), dev,
+                                towers_and_head)
+    for dt in ("bfloat16", "float32"):
+        model = LWSNet(ModelConfig(compute_dtype=dt, pallas_mode="layers"),
+                       device=dev, seed=0)
+        jitter_batchnorm(model, np.random.default_rng(3))
+        want = towers_and_head(model)
+        with torch.inference_mode():
+            build.reset_launch_counts()
+            got = refine_residual(model, wide_left, wide_disp)
+            torch.cuda.synchronize()
+        if dt == "bfloat16":
+            counts["layers-wide"] = build.launch_counts()
+            copies["layers-wide"] = dict(build.LAYOUT_COPIES)
+            routes["layers-wide"] = build.route_counts()
+        forward_report[f"{dt} layers-wide residual"] = compare(
+            f"{dt} layers residual at {WIDE_H}x{WIDE_W}", truth, want, got,
+            dt, (1, WIDE_H, WIDE_W, 1), failures)
+        del model, want, got
+    want = dict(zero, **WIDE_LAUNCHES)
+    print(f"[4] launch counts of the bf16 layers refinement at "
+          f"{WIDE_H}x{WIDE_W}: {counts['layers-wide']}")
+    require(counts["layers-wide"] == want,
+            f"layers-wide launch counts {counts['layers-wide']} != {want}")
+    require(routes["layers-wide"] == WANT_ROUTES["layers-wide"],
+            f"layers-wide narrow-route launches {routes['layers-wide']}")
+    print(f"[4] layout copies of the bf16 layers refinement at "
+          f"{WIDE_H}x{WIDE_W}: {copies['layers-wide']}")
+    require(copies["layers-wide"] == WANT_COPIES["layers-wide"],
+            f"layers-wide layout copies {copies['layers-wide']}")
+    require(not failures, "; ".join(failures))
+    return forward_report, counts, copies, routes
+
+
+TRAIN_FRAMES, TRAIN_H, TRAIN_W = 16, 375, 1242  # the KITTI frame size
+TRAIN_CROP = (256, 512)   # the published finetune crop, batch 4
+STEP_SHAPE = (2, 128, 256)  # card against CPU: batch, height, width
+
+
+def write_kitti_corpus(root, seed=0):
+    """A synthetic KITTI2015 `training/` corpus: TRAIN_FRAMES frames of
+    image_2 / image_3 (right = left shifted 5-40 px) and disp_occ_0 (uint16
+    disparity x 256, about a third of the pixels valid, 1-150 px), and a
+    split file naming 8 frames for validation. Returns the split's path."""
+    from lwsnet_tpu_torch.data.png import write_png
+    rng = np.random.default_rng(seed)
+    for d in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(TRAIN_FRAMES):
+        name = f"{i:06d}_10.png"
+        img = rng.integers(0, 256, (TRAIN_H, TRAIN_W, 3), dtype=np.uint8)
+        shift = int(rng.integers(5, 41))
+        disp = rng.uniform(1.0, 150.0, (TRAIN_H, TRAIN_W))
+        disp[rng.uniform(size=disp.shape) > 1 / 3] = 0.0
+        for sub, arr in (("image_2", img),
+                         ("image_3", np.roll(img, -shift, axis=1)),
+                         ("disp_occ_0", (disp * 256).astype(np.uint16))):
+            write_png(os.path.join(root, sub, name), arr, compress_level=1)
+    split = os.path.join(root, "val.txt")
+    with open(split, "w") as f:
+        f.write("".join(f"{i}\n" for i in range(0, TRAIN_FRAMES, 2)))
+    return split
+
+
+def build_native():
+    """`make -B -C native`: the native PNG decoder and fused crops of the
+    data path, built for this machine (a library copied from another
+    machine is removed first). Returns what happened, for the log; without
+    it the pipeline decodes through PIL or the stdlib codec."""
+    import subprocess
+    lib = os.path.join("native", "libstereoload.so")
+    if os.path.exists(lib):
+        os.remove(lib)
+    try:
+        r = subprocess.run(["make", "-B", "-C", "native"],
+                           capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"not built ({e})"
+    if r.returncode != 0 or not os.path.exists(lib):
+        return f"not built (make: {r.stderr.strip()[-300:]})"
+    return "built"
+
+
+def _grad_agreement(a, b, floor):
+    """(cosine of the whole gradient, least per-tensor cosine and its
+    tensor, {tensor: |a - b|} of the tensors below `floor`) of two
+    {name: gradient} dicts, float64."""
+    cos, zero = {}, {}
+    for n, g in a.items():
+        if float(b[n].norm()) < floor:
+            zero[n] = float((g - b[n]).norm())
+        else:
+            cos[n] = float((g * b[n]).sum() / (g.norm() * b[n].norm()))
+    x, y = (np.concatenate([d[n].reshape(-1).numpy() for n in cos])
+            for d in (a, b))
+    worst = min(cos, key=cos.get)
+    whole = float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))
+    return whole, cos[worst], worst, zero
+
+
+def card_vs_cpu_step(dev, seed=0):
+    """One float32 train step (TF32 off) of the full-width model at
+    STEP_SHAPE, on the card and on the CPU from the same seed-0 weights and
+    batch, and on the CPU once more with the left image scaled by
+    1 + 1e-7, which shows how far the float32 gradient moves when only
+    its rounding changes. Fails past the bars: loss and stage losses rtol
+    1e-4; grad_norm rtol 1e-3; the whole gradient's cosine >= 0.997 and
+    each tensor's >= 0.95, but a tensor whose gradient lies below 1e-6 of
+    the global norm (zero to float32, with no direction) within 1e-6 of
+    the global norm of the CPU's; BN running statistics rtol 1e-4 (atol
+    1e-6). The cosine bars lie between the nudge's spread (1 - 1.1e-3,
+    least tensor 0.985) and a planted fault's reading at this geometry
+    (the batch mean's gradient dropped in train-mode BN: 1 - 0.11, least
+    tensor -0.28); grad_norm's between the card's (1.4e-5 to 8.6e-5 on
+    this batch) and the whole gradient 1 % off (1.0e-2) (PERF.md,
+    Findings). Returns the measured agreement of both."""
+    import torch
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import make_train_step
+    tcfg = TrainConfig(mask_min_disp=0.0)
+    rng = np.random.default_rng(seed)
+    batch = [rng.standard_normal(STEP_SHAPE + (3,)),
+             rng.standard_normal(STEP_SHAPE + (3,)),
+             rng.uniform(1.0, 150.0, STEP_SHAPE)]
+    batch[2][rng.uniform(size=batch[2].shape) > 1 / 3] = 0.0
+    nudged = [batch[0] * (1.0 + 1e-7)] + batch[1:]
+    cpu = torch.device("cpu")
+    out = {}
+    for what, d, b in (("card", dev, batch), ("cpu", cpu, batch),
+                       ("nudged", cpu, nudged)):
+        st = create_train_state(ModelConfig(compute_dtype="float32"), tcfg,
+                                seed=0, device=d)
+        st, aux = make_train_step(tcfg, 1)(
+            st, *[torch.as_tensor(a, dtype=torch.float32, device=d)
+                  for a in b])
+        out[what] = dict(
+            aux={k: (v.detach().cpu().double() if torch.is_tensor(v)
+                     else v) for k, v in aux.items()},
+            grads={n: p.grad.detach().cpu().double()
+                   for n, p in st.model.named_parameters()},
+            stats={n: b.detach().cpu().double()
+                   for n, b in st.model.named_buffers()})
+        del st
+    ref = out["cpu"]
+    floor = 1e-6 * float(ref["aux"]["grad_norm"])
+    rel = lambda a, b: float(((a - b).abs() / b.abs()).max())  # noqa: E731
+    res = {}
+    for what in ("card", "nudged"):
+        got = out[what]
+        whole, least, worst, zero = _grad_agreement(got["grads"],
+                                                    ref["grads"], floor)
+        res[what] = dict(
+            {k: rel(got["aux"][k], ref["aux"][k])
+             for k in ("loss", "stage_losses", "grad_norm")},
+            cosine=whole, min_cosine=least, min_cosine_tensor=worst,
+            zero_max=max(zero.values()), zero_tensors=len(zero),
+            stats=max(float(((b - ref["stats"][n]).abs()
+                             / (1e-4 * ref["stats"][n].abs() + 1e-6)).max())
+                      for n, b in got["stats"].items()))
+        r = res[what]
+        print(f"[8] {what} vs CPU, one float32 step (batch "
+              f"{STEP_SHAPE[0]}, {STEP_SHAPE[1]}x{STEP_SHAPE[2]}, TF32 off):"
+              f" loss rel {r['loss']:.3g}, stage losses rel "
+              f"{r['stage_losses']:.3g}, grad_norm rel {r['grad_norm']:.3g}"
+              f" (of {float(ref['aux']['grad_norm']):.6g}), gradient cosine"
+              f" {r['cosine']:.7f}, least of {len(got['grads']) - len(zero)}"
+              f" tensors {r['min_cosine']:.7f} ({worst}), {len(zero)} "
+              f"tensors below the float32 floor {floor:.3g} within "
+              f"{r['zero_max']:.3g}; BN statistics worst |delta| / (1e-4 "
+              f"|cpu| + 1e-6) {r['stats']:.3g}")
+    r = res["card"]
+    require(r["loss"] <= 1e-4 and r["stage_losses"] <= 1e-4,
+            "card vs CPU: loss beyond rtol 1e-4")
+    require(r["grad_norm"] <= 1e-3, "card vs CPU: grad_norm beyond rtol "
+            "1e-3")
+    require(r["cosine"] >= 0.997 and r["min_cosine"] >= 0.95,
+            f"card vs CPU: gradient cosine {r['cosine']}, least "
+            f"{r['min_cosine']} ({r['min_cosine_tensor']})")
+    require(r["zero_max"] <= floor, "card vs CPU: gradients below the "
+            "float32 floor differ")
+    require(r["stats"] <= 1.0, "card vs CPU: BN running statistics beyond "
+            "rtol 1e-4")
+    return res
+
+
+def training_phase(dev, smi):
+    """Phase 8: the finetune CLI on the card at full width, card-vs-CPU
+    parity of one step, the trained weights through the kernel path, and
+    the train and eval step timings. Returns the phase's report."""
+    import tempfile
+    import torch
+    from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
+    from lwsnet_tpu_torch.cli import finetune
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.data import transforms as T
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.training.checkpoint import CheckpointManager
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import (make_eval_step,
+                                                 make_train_step)
+    from lwsnet_tpu_torch.utils.timing import event_times
+    t0 = time.time()
+    report = {"native_decode": build_native()}
+    print(f"[8] native decode library: {report['native_decode']}")
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        root = os.path.join(tmp, "training")
+        split = write_kitti_corpus(root)
+        save = os.path.join(tmp, "finetune")
+        common = ["--datapath", root, "--val_set", split, "--pretrained", "",
+                  "--train_batch_size", "4", "--test_batch_size", "8",
+                  "--crop_height", str(TRAIN_CROP[0]),
+                  "--crop_width", str(TRAIN_CROP[1]),
+                  "--eval_height", str(H), "--eval_width", str(W),
+                  "--save_path", save, "--num_workers", "4",
+                  "--device", "cuda"]
+        print(f"[8] corpus: {TRAIN_FRAMES} frames at {TRAIN_H}x{TRAIN_W}, "
+              f"8 for validation ({time.time() - t0:.1f} s)")
+
+        # 2. train through the CLI, resume, evaluate; the training path
+        # launches none of the port's kernels
+        build.reset_launch_counts()
+        zero = build.launch_counts()
+        fresh = LWSNet(ModelConfig(), device="cpu", seed=0).state_dict()
+        trained = finetune.run(["--epoch", "2"] + common)
+        hist = trained.history
+        require(len(hist) == 4 and all(
+            h["finite"] == 1.0 and np.isfinite(h["loss"]) for h in hist),
+            f"finetune: step losses {hist}")
+        moved = sum(not torch.equal(v.cpu(), fresh[k]) for k, v in
+                    trained.state.model.state_dict().items())
+        require(moved > 0, "finetune: no parameter moved")
+        ckpt = CheckpointManager(save)
+        require(ckpt.exists() and os.path.exists(ckpt.meta_path),
+                "finetune: no checkpoint and metadata")
+        with open(ckpt.meta_path) as f:
+            meta = json.load(f)
+        require(set(meta) == {"epoch", "lr", "error", "time_cost"},
+                f"checkpoint metadata {meta}")
+        resumed = finetune.run(["--epoch", "3", "--resume"] + common)
+        require(resumed.start_epoch == int(meta["epoch"]) + 1
+                and resumed.best_error <= meta["error"]
+                and resumed.history[-1]["epoch"] == 2,
+                f"resume: start epoch {resumed.start_epoch}, best "
+                f"{resumed.best_error}, metadata {meta}")
+        d1 = finetune.main(["--evaluate", "--resume"] + common)
+        require(np.isfinite(d1) and 0.0 <= d1 <= 1.0, f"--evaluate: D1 {d1}")
+        counts = build.launch_counts()
+        require(counts == zero, f"the training path launched kernels: "
+                f"{counts}")
+        print(f"[8] finetune CLI, bf16 full width, batch 4 at "
+              f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}: "
+              f"losses {[round(h['loss'], 3) for h in hist]}, {moved} "
+              f"tensors moved, best D1 {meta['error']:.4f} at epoch "
+              f"{int(meta['epoch'])}; --resume --epoch 3 ran epochs "
+              f"{sorted({h['epoch'] for h in resumed.history})}; "
+              f"--evaluate D1 {d1:.4f}; port kernel launches {counts}")
+        report["finetune"] = dict(losses=[h["loss"] for h in hist],
+                                  resumed_losses=[h["loss"] for h in
+                                                  resumed.history],
+                                  metadata=meta, evaluate_d1=d1)
+
+        # 4. trained weights through the kernel path and the module path,
+        # each against the float64 module path at the eval window: phase
+        # 4's bf16 bar
+        state = torch.load(ckpt.path, map_location=dev,
+                           weights_only=True)["model"]
+        model = LWSNet(ModelConfig(), device=dev)
+        model.load_state_dict(state)
+        left, right = (torch.as_tensor(T.crop_normalize(
+            T.decode_image_u8(os.path.join(root, sub, "000001_10.png")),
+            TRAIN_H - H, TRAIN_W - W, H, W)[None], device=dev)
+            for sub in ("image_2", "image_3"))
+        del trained, resumed
+    truth = float64_reference({}, dev, lambda m: make_forward(
+        m, use_pallas=False, device=dev)(left, right), state=state)
+    want = make_forward(model, use_pallas=False, device=dev)(left, right)
+    got = make_forward(model, use_pallas=True, device=dev)(left, right)
+    torch.cuda.synchronize()
+    failures = []
+    report["trained_forward"] = [
+        dict(stage=s + 1, **compare(f"bfloat16 trained weights stage "
+                                    f"{s + 1}", t, a, b, "bfloat16",
+                                    (1, H, W, 1), failures))
+        for s, (t, a, b) in enumerate(zip(truth, want, got))]
+    require(not failures, "; ".join(failures))
+    del model, state, truth, want, got
+
+    # 3. one float32 step, card against CPU
+    report["card_vs_cpu"] = card_vs_cpu_step(dev)
+
+    # 5. timings: the bf16 train step at batch 4 and the finetune crop, and
+    # the eval step at batch 8 and the eval window
+    tcfg = TrainConfig(mask_min_disp=0.0)
+    st = create_train_state(ModelConfig(), tcfg, seed=0, device=dev)
+    rng = np.random.default_rng(7)
+    l, r = (torch.as_tensor(rng.standard_normal((4, *TRAIN_CROP, 3)),
+                            dtype=torch.float32, device=dev)
+            for _ in range(2))
+    g = torch.as_tensor(rng.uniform(1, 150, (4, *TRAIN_CROP)),
+                        dtype=torch.float32, device=dev)
+    step = make_train_step(tcfg, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = event_times(lambda: step(st, l, r, g), reps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(ts)
+    # after the event timings: timings taken after a profiler window read
+    # slower (PERF.md)
+    prof = device_profile(lambda: step(st, l, r, g), reps=3)
+    del l, r, g
+    l8, r8 = (torch.as_tensor(rng.standard_normal((8, H, W, 3)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    g8 = torch.as_tensor(rng.uniform(1, 150, (8, H, W)),
+                         dtype=torch.float32, device=dev)
+    valid = torch.ones(8, device=dev)
+    evaluate = make_eval_step()
+    te = event_times(lambda: evaluate(st, l8, r8, g8, valid), reps=5,
+                     warmup=2)
+    report["timing"] = dict(
+        card=smi, train_step_ms=med, train_step_max_ms=ts[-1],
+        train_step_samples=len(ts), images_per_s=4 / (med / 1e3),
+        peak_bytes=peak, train_step_profile=prof,
+        eval_step_ms=statistics.median(te), eval_step_max_ms=te[-1],
+        eval_step_samples=len(te))
+    print(f"[8] bf16 train step, batch 4 at {TRAIN_CROP[0]}x{TRAIN_CROP[1]}: "
+          f"median {med:.3f} ms, "
+          f"max {ts[-1]:.3f} ms over {len(ts)} after 3 warm-ups (CUDA "
+          f"events), {4 / (med / 1e3):.2f} images/s, peak memory "
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated) ({smi})")
+    if prof is None:
+        print("[8] train step device busy share: not measured (the "
+              "profiler recorded no device activity)")
+    else:
+        print(f"[8] profiled bf16 train step: host clock "
+              f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} "
+              f"ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %); "
+              f"costliest kernels: " + "; ".join(
+                  f"{t:.3f} ms {n}" for n, t in prof["top_other"]))
+    print(f"[8] bf16 eval step, batch 8 at {H}x{W}: median "
+          f"{statistics.median(te):.3f} ms, max {te[-1]:.3f} ms over "
+          f"{len(te)} after 2 warm-ups ({smi})")
+    report["seconds"] = time.time() - t0
+    print(f"[8] training phase: {report['seconds']:.1f} s")
+    return report
 
 
 def main():
@@ -821,7 +1327,6 @@ def main():
     import lwsnet_tpu_torch  # noqa: F401  (fails outside the repository)
     from lwsnet_tpu_torch import InferenceEngine, LWSNet, ModelConfig
     from lwsnet_tpu_torch import make_forward
-    from lwsnet_tpu_torch.models.refine_kernels import refine_residual
     from lwsnet_tpu_torch.ops.cuda import build
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
     from lwsnet_tpu_torch.tools import microbench_rows
@@ -908,97 +1413,7 @@ def main():
             del c, got, want
 
     # 4. the whole forward under each engine, kernels vs module path
-    left_np = np.random.default_rng(1).standard_normal((1, H, W, 3))
-    right_np = np.random.default_rng(2).standard_normal((1, H, W, 3))
-    left = torch.as_tensor(left_np, dtype=torch.float32, device=dev)
-    right = torch.as_tensor(right_np, dtype=torch.float32, device=dev)
-    build.reset_launch_counts()
-    zero = build.launch_counts()
-    counts, copies, routes = {}, {}, {}
-    forward_report = {}
-    for dt in ("bfloat16", "float32"):
-        plain = None
-        for engine, fields in ENGINES.items():
-            model = LWSNet(ModelConfig(compute_dtype=dt, **fields),
-                           device=dev, seed=0)
-            jitter_batchnorm(model, np.random.default_rng(3))
-            if plain is None:  # the module path runs no refinement kernel
-                plain = make_forward(model, use_pallas=False,
-                                     device=dev)(left, right)
-            fwd = make_forward(model, use_pallas=True, device=dev)
-            build.reset_launch_counts()
-            got = fwd(left, right)
-            torch.cuda.synchronize()
-            if dt == "bfloat16":
-                counts[engine] = build.launch_counts()
-                copies[engine] = dict(build.LAYOUT_COPIES)
-                routes[engine] = build.route_counts()
-            forward_report[f"{dt} {engine}"] = [
-                dict(stage=s + 1, **compare(f"{dt} {engine} stage {s + 1}",
-                                            a, b, dt, (1, H, W, 1)))
-                for s, (a, b) in enumerate(zip(plain, got))]
-            del model, got
-        del plain
-    for engine in ENGINES:
-        want = want_counts(engine, zero)
-        print(f"[4] launch counts of the bf16 {engine} kernel forward: "
-              f"{counts[engine]}")
-        require(counts[engine] == want,
-                f"{engine} launch counts {counts[engine]} != {want}")
-        print(f"[4] route launches (dense3x3's narrow routes, the cost "
-              f"filters' entries) of the bf16 {engine} kernel forward: "
-              f"{routes[engine]}")
-        require(routes[engine] == WANT_ROUTES[engine],
-                f"{engine} route launches {routes[engine]} != "
-                f"{WANT_ROUTES[engine]}")
-        print(f"[4] layout copies of the bf16 {engine} kernel forward: "
-              f"{copies[engine]}")
-        require(copies[engine] == WANT_COPIES[engine],
-                f"{engine} layout copies {copies[engine]} != "
-                f"{WANT_COPIES[engine]}")
-
-    # the layers refinement alone at a width where its (8, 16) tower pair
-    # splits: the only run of the path's solo branch
-    rng = np.random.default_rng(4)
-    wide_left = torch.as_tensor(rng.standard_normal((1, WIDE_H, WIDE_W, 3)),
-                                dtype=torch.float32, device=dev)
-    wide_disp = torch.as_tensor(rng.uniform(0, 60, (1, WIDE_H, WIDE_W, 1)),
-                                dtype=torch.float32, device=dev)
-    for dt in ("bfloat16", "float32"):
-        model = LWSNet(ModelConfig(compute_dtype=dt, pallas_mode="layers"),
-                       device=dev, seed=0)
-        jitter_batchnorm(model, np.random.default_rng(3))
-        with torch.inference_mode():
-            both = torch.cat([
-                model.RefinementTower_0(
-                    wide_left.permute(0, 3, 1, 2).to(model.cfg.dtype)),
-                model.RefinementTower_1(
-                    wide_disp.permute(0, 3, 1, 2).to(model.cfg.dtype))], 1)
-            want = model.RefinementHead_0(both).permute(0, 2, 3, 1).float()
-            del both
-            build.reset_launch_counts()
-            got = refine_residual(model, wide_left, wide_disp)
-            torch.cuda.synchronize()
-        if dt == "bfloat16":
-            counts["layers-wide"] = build.launch_counts()
-            copies["layers-wide"] = dict(build.LAYOUT_COPIES)
-            routes["layers-wide"] = build.route_counts()
-        forward_report[f"{dt} layers-wide residual"] = compare(
-            f"{dt} layers residual at {WIDE_H}x{WIDE_W}", want, got, dt,
-            (1, WIDE_H, WIDE_W, 1))
-        del model, want, got
-    want = dict(zero, **WIDE_LAUNCHES)
-    print(f"[4] launch counts of the bf16 layers refinement at "
-          f"{WIDE_H}x{WIDE_W}: {counts['layers-wide']}")
-    require(counts["layers-wide"] == want,
-            f"layers-wide launch counts {counts['layers-wide']} != {want}")
-    require(routes["layers-wide"] == WANT_ROUTES["layers-wide"],
-            f"layers-wide narrow-route launches {routes['layers-wide']}")
-    print(f"[4] layout copies of the bf16 layers refinement at "
-          f"{WIDE_H}x{WIDE_W}: {copies['layers-wide']}")
-    require(copies["layers-wide"] == WANT_COPIES["layers-wide"],
-            f"layers-wide layout copies {copies['layers-wide']}")
-    report["forward"] = forward_report
+    report["forward"], counts, copies, routes = forward_phase(dev)
     report["layout_copies"] = copies
     report["narrow_route_launches"] = routes
 
@@ -1211,6 +1626,9 @@ def main():
             print(f"[6] per forward: {kernel} under {engine} alone on the "
                   f"device {tot['device_ms']:.4f} ms (events "
                   f"{tot['ms']:.4f} ms)")
+
+    # 8. training on the card
+    report["training"] = training_phase(dev, smi)
 
     line = []
     for k in build.KERNELS:

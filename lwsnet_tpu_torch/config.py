@@ -1,10 +1,12 @@
-"""Model configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-Field for field the same as the JAX package's `ModelConfig`, with the same
-defaults. Two fields read differently here: `dtype` gives a `torch.dtype`,
-and `use_pallas` selects the hand-written Hopper kernels
-(`lwsnet_tpu_torch.ops.cuda`) for the inference path; the module path
-(`LWSNet.forward`) is the plain PyTorch counterpart.
+Field for field the same dataclasses as the JAX package's `config.py`, with
+the same defaults and the same published recipes (`pretrain_config`,
+`finetune_config`). What reads differently here: `ModelConfig.dtype`
+gives a `torch.dtype`; `ModelConfig.use_pallas` selects the hand-written
+Hopper kernels (`lwsnet_tpu_torch.ops.cuda`) for the inference path, while
+training always runs the plain module path (`LWSNet.forward`); the loss
+mask's open bounds are Python floats.
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ from typing import Tuple
 
 import torch
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# "float64" runs the module path as a reference (chip_smoke.py phase 4);
+# the kernels take float32 and bfloat16.
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 PALLAS_MODES = ("rows", "layers")
 
 
@@ -62,3 +67,97 @@ class ModelConfig:
     @property
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline settings (reference: dataloader/dataloader.py:61-92)."""
+
+    datapath: str = ""
+    val_split_file: str = ""  # KITTI val split; empty -> builtin 40 frames
+    crop_height: int = 256
+    crop_width: int = 512
+    eval_height: int = 368  # KITTI eval window
+    eval_width: int = 1232
+    sceneflow_eval_height: int = 544
+    sceneflow_eval_width: int = 960
+    num_workers: int = 8
+    prefetch_depth: int = 2
+    shuffle_seed: int = 0
+    # The reference indexes SceneFlow's 15mm driving split twice and never
+    # the 35mm one; True reproduces that corpus.
+    sceneflow_compat_duplicate_15mm: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings (reference: train.py:30-34, finetune.py:29-33);
+    the JAX package's `TrainConfig` documents each choice."""
+
+    lr: float = 5e-4
+    epochs: int = 10
+    train_batch_size: int = 8
+    eval_batch_size: int = 8
+    loss_weights: Tuple[float, ...] = (0.25, 0.5, 1.0, 1.0)
+    # MultiStep decay of the KITTI recipe, in epochs.
+    lr_milestones: Tuple[int, ...] = ()
+    lr_gamma: float = 0.1
+    # Linear warmup 0 -> lr over this many optimizer updates (0 = off).
+    warmup_steps: int = 0
+    # Precise BN (`Trainer.reestimate_bn`): EWMA stat steps (False) or the
+    # exact moment average over the batches (True).
+    bn_reestimate_exact: bool = False
+    # Loss mask, exclusive bounds: pretrain gt < max_disp, finetune gt > 0.
+    mask_min_disp: float = float("-inf")
+    mask_max_disp: float = float("inf")
+    # Clip gradients to this global norm; 0 disables.
+    grad_clip_norm: float = 5.0
+    # A step whose loss or gradient norm is not finite changes no parameter,
+    # optimizer moment or batch-norm statistic.
+    skip_nonfinite_updates: bool = True
+    # "batch": normalize by the batch's statistics and update the running
+    # ones; "frozen": normalize by the running statistics, which stay.
+    bn_mode: str = "batch"
+    # Forward-only passes over training batches that refresh the BN
+    # running statistics before each validation (0 = off).
+    bn_reestimate_batches: int = 0
+    save_path: str = "results/run"
+    resume: str = ""
+    pretrained: str = ""
+    log_every: int = 5
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout of the JAX package's data / spatial sharding. The
+    port trains in one process on one device; kept so configurations carry
+    over."""
+
+    data_axis: str = "data"
+    spatial_axis: str = "spatial"
+    data_parallel: int = -1  # -1 => all devices
+    spatial_parallel: int = 1
+
+
+def pretrain_config(datapath: str = "dataset/sceneflow/") -> tuple:
+    """The published SceneFlow recipe (reference: train.py:19-39)."""
+    model = ModelConfig()
+    data = DataConfig(datapath=datapath)
+    train = TrainConfig(
+        lr=5e-4, epochs=10, train_batch_size=8, eval_batch_size=8,
+        mask_max_disp=192.0, save_path="results/pretrained",
+    )
+    return model, data, train
+
+
+def finetune_config(datapath: str = "dataset/kitti2015/training/") -> tuple:
+    """The published KITTI2015 recipe (reference: finetune.py:18-41)."""
+    model = ModelConfig()
+    data = DataConfig(datapath=datapath)
+    train = TrainConfig(
+        lr=5e-4, epochs=300, train_batch_size=4, eval_batch_size=8,
+        lr_milestones=(200, 400), lr_gamma=0.1,
+        mask_min_disp=0.0, save_path="results/finetune",
+    )
+    return model, data, train

@@ -67,12 +67,14 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
 
 def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
     """Inverse of `from_jax_variables`: the port's state dict as a JAX
-    `{"params", "batch_stats"}` tree of float32 numpy arrays."""
+    `{"params", "batch_stats"}` tree of float32 numpy arrays that share no
+    memory with the tensors."""
     params: dict = {}
     stats: dict = {}
     for key, value in state_dict.items():
         *mods, leaf = key.split(".")
-        arr = value.detach().cpu().float().numpy()
+        # a copy: numpy() of a CPU float32 tensor shares its memory
+        arr = value.detach().cpu().float().numpy().copy()
         if leaf in ("running_mean", "running_var"):
             tree, name = stats, leaf[len("running_"):]
         elif leaf in ("weight", "bias") and mods[-1].startswith("BatchNorm_"):

@@ -1,4 +1,4 @@
-"""Conv/BN building blocks of the port, eval mode, NCHW / NCDHW inside.
+"""Conv/BN building blocks of the port, NCHW / NCDHW inside.
 
 Counterparts of the JAX package's `models/blocks.py`. Submodules and
 parameters carry the Flax tree's names (`Conv_0`, `BatchNorm_0`, `kernel`
@@ -6,13 +6,19 @@ parameters carry the Flax tree's names (`Conv_0`, `BatchNorm_0`, `kernel`
 layout flip. As in the JAX package:
 
 * parameters and batch-norm statistics are float32 under any compute
-  dtype; batch norm runs in float32 and casts back;
+  dtype; batch norm runs in at least float32 and casts back;
 * convolutions cast their input and weight to the compute dtype;
 * padding equals the dilation whenever the dilation is above 1;
 * the transposed conv is k3/s2/p1/output_padding 1, which doubles each
   spatial dim.
 
-Only inference is ported: batch norm always uses the running statistics.
+* in training mode (`module.train()`) batch norm normalizes by the
+  batch's float32 statistics and updates the running ones as Flax
+  `nn.BatchNorm(momentum=0.9)` does: biased variance
+  max(0, E[x^2] - E[x]^2), r <- 0.9 r + 0.1 batch; in eval mode it uses
+  the running statistics;
+* conv weights start He-normal, truncated at 2 sigma, as
+  `nn.initializers.he_normal()` draws them.
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+# Flax's running-average momentum: r <- BN_MOMENTUM * r + (1 - BN_MOMENTUM) * b
+BN_MOMENTUM = 0.9
+# Standard deviation of the unit normal truncated to [-2, 2]; he_normal
+# divides by it so the truncated draw keeps the variance 2 / fan_in.
+TRUNC_STD = 0.87962566103423978
 
 
 def _pad_for(dilation: int, padding: int) -> int:
@@ -40,7 +51,10 @@ def bn_affine(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over dim 1 in float32; returns float32."""
+    """Batch norm over dim 1 in at least float32, as Flax computes it;
+    returns that dtype. Training mode normalizes by the batch statistics
+    (reduced over every dim but 1) and folds them into the running ones;
+    eval mode uses the running ones."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -51,9 +65,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        return ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape))
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            dims = [0] + list(range(2, x.dim()))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    (1.0 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class Conv(nn.Module):
@@ -133,7 +158,9 @@ class PreConvDW(nn.Module):
         self.Conv_0 = Conv(ci, co, kernel=1, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.BatchNorm_0(x)).to(self.dtype)
+        # NCHW for the depthwise conv: on the CPU, oneDNN's bf16 depthwise
+        # weight gradient from channels-last input is garbage (torch 2.13)
+        x = F.relu(self.BatchNorm_0(x)).to(self.dtype).contiguous()
         d = self.dilation
         x = F.conv2d(x, self.dw_weight.to(self.dtype), None, 1, d, d,
                      x.shape[1])
@@ -175,6 +202,24 @@ class CostFilter3D(nn.Module):
         return x[:, 0].permute(0, 2, 3, 1)
 
 
+def he_normal(shape, fan_in: int, generator: torch.Generator
+              ) -> torch.Tensor:
+    """`nn.initializers.he_normal()`'s draw: the unit normal truncated to
+    [-2, 2] (by its inverse CDF), scaled by sqrt(2 / fan_in) / TRUNC_STD."""
+    lo, hi = (0.5 * (1.0 + math.erf(t / math.sqrt(2.0))) for t in (-2, 2))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    z = torch.erfinv(2.0 * (lo + (hi - lo) * u) - 1.0) * math.sqrt(2.0)
+    std = math.sqrt(2.0 / fan_in) / TRUNC_STD
+    return (z.clamp(-2.0, 2.0) * std).float()
+
+
+def fan_in(module: nn.Module, p: torch.Tensor) -> int:
+    """Receptive field x input channels of a conv weight: (co, ci, k...)
+    for a conv, (ci, co, k...) for the transposed conv."""
+    out = p.shape[1] if isinstance(module, DeconvBN) else p.shape[0]
+    return p.numel() // out
+
+
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """He-normal conv weights from `generator`; identity batch norms."""
     with torch.no_grad():
@@ -186,6 +231,4 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 module.running_var.fill_(1.0)
                 continue
             for name, p in module.named_parameters(recurse=False):
-                out = p.shape[1] if isinstance(module, DeconvBN) else p.shape[0]
-                std = math.sqrt(2.0 * out / p.numel())
-                p.copy_(torch.randn(p.shape, generator=generator) * std)
+                p.copy_(he_normal(p.shape, fan_in(module, p), generator))

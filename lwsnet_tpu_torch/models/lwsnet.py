@@ -114,5 +114,5 @@ class LWSNet(nn.Module):
                     preds[-1].permute(0, 3, 1, 2).to(dtype))
                 res = self.RefinementHead_0(
                     torch.cat([tower_l, tower_d], 1)).permute(0, 2, 3, 1)
-            preds.append(preds[-1] + res.float())
+            preds.append(preds[-1] + res.to(preds[-1].dtype))
         return [p.float() for p in preds]

@@ -73,26 +73,28 @@ def build_residual_volume(feat_l: torch.Tensor, feat_r: torch.Tensor,
     Each hypothesis samples feat_r at x - disp + o_k from its two bilinear
     taps; a tap outside [0, W) contributes zero, also when only one of the
     two taps is outside. The fractional weight is rounded to the feature
-    dtype, and the two-tap sum is formed in float32 and rounded once, as the
-    JAX interpolation-matrix product does. Disparities stay float32.
+    dtype, and the two-tap sum is formed in float32 (float64 for float64
+    features) and rounded once, as the JAX interpolation-matrix product
+    does. Disparities stay float32 (float64).
 
     feat_l, feat_r: (B, H, W, C); disp: (B, H, W) or (B, H, W, 1).
     Returns (B, H, W, 2*max_disp-1).
     """
-    disp = _squeeze_disp(disp).float()
-    W = feat_r.shape[2]
     dtype = feat_r.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    disp = _squeeze_disp(disp).to(acc)
+    W = feat_r.shape[2]
     P = max_disp * stride
-    x = torch.arange(W, dtype=torch.float32, device=disp.device)
+    x = torch.arange(W, dtype=acc, device=disp.device)
     base = x - disp + P
     i0 = torch.floor(base)
     frac = (base - i0).to(dtype)
-    w1 = frac.float()[..., None]
-    w0 = (1.0 - frac).float()[..., None]
+    w1 = frac.to(acc)[..., None]
+    w0 = (1.0 - frac).to(acc)[..., None]
     q0 = i0.long() - P
     # One zero column each side: clamping a tap index into [-1, W] lands
     # every out-of-bounds tap on a zero.
-    padded = F.pad(feat_r, (0, 0, 1, 1)).float()
+    padded = F.pad(feat_r, (0, 0, 1, 1)).to(acc)
     costs = []
     for k in range(2 * max_disp - 1):
         q = q0 + (k - max_disp + 1) * stride
@@ -107,20 +109,23 @@ def soft_argmin(cost: torch.Tensor, start: int, end: int,
                 stride: int = 1) -> torch.Tensor:
     """Expectation of the disparity bins arange(start, end) * stride under
     softmax(-cost) over the last axis. cost: (B, H, W, D) with
-    D == end - start. Returns (B, H, W, 1) float32."""
+    D == end - start. Returns (B, H, W, 1) float32 (float64 for a float64
+    cost)."""
+    acc = torch.promote_types(cost.dtype, torch.float32)
     bins = torch.arange(start * stride, end * stride, stride,
-                        dtype=torch.float32, device=cost.device)
-    probs = torch.softmax(-cost.float(), dim=-1)
+                        dtype=acc, device=cost.device)
+    probs = torch.softmax(-cost.to(acc), dim=-1)
     return (probs * bins).sum(-1, keepdim=True)
 
 
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Bilinear resize with half-pixel centres (align_corners=False), edge
-    clamping and no antialias on downscale, computed in float32 and cast
-    back. x: (B, H, W, C)."""
+    clamping and no antialias on downscale, computed in float32 (float64
+    for float64 input) and cast back. x: (B, H, W, C)."""
     H, W = x.shape[1], x.shape[2]
     if H == height and W == width:
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(height, width),
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(acc), size=(height, width),
                       mode="bilinear", align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1).to(x.dtype)

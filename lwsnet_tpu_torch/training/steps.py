@@ -1,0 +1,131 @@
+"""Train, stat and eval steps of the port.
+
+Counterpart of the JAX package's `training/steps.py` (reference loop body:
+train.py:134-155). Every step runs the plain module path,
+`LWSNet.forward(kernels=False)`: cuDNN convolutions and autograd. The
+Hopper kernels are forward-only and stay off it, as the JAX train step
+stays off Pallas. Steps update the `TrainState` in place and return it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from lwsnet_tpu_torch.config import TrainConfig
+from lwsnet_tpu_torch.training import losses, metrics
+from lwsnet_tpu_torch.training.state import (TrainState,
+                                             clip_by_global_norm_,
+                                             global_norm, make_lr_schedule)
+
+BN_MODES = ("batch", "frozen")
+
+
+def make_train_step(cfg: TrainConfig, steps_per_epoch: int) -> Callable:
+    """Returns train_step(state, left, right, gt) -> (state, aux).
+
+    aux = {"loss": scalar, "stage_losses": (num_stages,) before weighting,
+           "lr": schedule(state.step) before the step, "grad_norm": the
+           global gradient norm before the clip, "finite": 1.0 iff the loss
+           and the gradient norm were finite}, tensors on the state's
+    device ("lr" a float).
+
+    `cfg.bn_mode` "batch" normalizes by the batch's statistics and updates
+    the running ones; "frozen" runs the forward with batch norm in eval
+    mode. With `cfg.skip_nonfinite_updates` a non-finite step changes no
+    parameter, Adam moment or count, nor any running statistic; only
+    `state.step` advances. The gradients the update used (after the clip)
+    stay in each parameter's `.grad` until the next step.
+    """
+    if cfg.bn_mode not in BN_MODES:
+        raise ValueError(f"bn_mode={cfg.bn_mode!r}: expected one of "
+                         f"{BN_MODES}")
+    schedule = make_lr_schedule(cfg, steps_per_epoch)
+
+    def train_step(state: TrainState, left, right, gt
+                   ) -> Tuple[TrainState, Dict]:
+        model, opt = state.model, state.optimizer
+        params = list(model.parameters())
+        stats = list(model.buffers())
+        saved = torch.cat([b.reshape(-1) for b in stats])
+        model.train(cfg.bn_mode == "batch")
+        opt.zero_grad(set_to_none=True)
+        outputs = model(left, right)
+        total, per_stage = losses.staged_loss(
+            outputs, gt, cfg.loss_weights,
+            min_disp=cfg.mask_min_disp, max_disp=cfg.mask_max_disp)
+        total.backward()
+        for p in params:  # a parameter off the graph has gradient 0
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        grad_norm = global_norm(grads)
+        finite = bool(torch.isfinite(total) & torch.isfinite(grad_norm))
+        if finite or not cfg.skip_nonfinite_updates:
+            if cfg.grad_clip_norm > 0:
+                clip_by_global_norm_(grads, cfg.grad_clip_norm,
+                                     float(grad_norm))
+            for group in opt.param_groups:
+                group["lr"] = schedule(state.updates)
+            opt.step()
+            state.updates += 1
+        else:
+            with torch.no_grad():
+                for b, old in zip(stats, saved.split(
+                        [b.numel() for b in stats])):
+                    b.copy_(old.view_as(b))
+        aux = {"loss": total.detach(), "stage_losses": per_stage.detach(),
+               "lr": schedule(state.step), "grad_norm": grad_norm,
+               "finite": float(finite)}
+        state.step += 1
+        model.eval()
+        return state, aux
+
+    return train_step
+
+
+def make_stat_step() -> Callable:
+    """Returns stat_step(state, left, right) -> state with the running
+    batch-norm statistics refreshed by one forward in batch-statistics
+    mode, no parameter update: the building block of precise BN."""
+
+    def stat_step(state: TrainState, left, right) -> TrainState:
+        model = state.model
+        model.train()
+        with torch.no_grad():
+            model(left, right)
+        model.eval()
+        return state
+
+    return stat_step
+
+
+def make_eval_step(max_disp: float = 192.0,
+                   sceneflow_row_offset: int = 0) -> Callable:
+    """Returns eval_step(state, left, right, gt, valid) ->
+    {"epe": (stages,), "d1": (stages,), "weight": scalar}: per-stage EPE
+    and D1 of each example, summed over the valid ones (padded eval rows
+    carry valid 0); divide the sums by the summed weight. A non-zero
+    `sceneflow_row_offset` drops that many top rows of each prediction
+    (reference: train.py:189)."""
+
+    def eval_step(state: TrainState, left, right, gt, valid
+                  ) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.eval()
+        with torch.no_grad():
+            outputs = model(left, right)
+        epes, d1s = [], []
+        for o in outputs:
+            o = o[:, sceneflow_row_offset:, :, 0]
+            e = torch.stack([metrics.epe(o[i], gt[i], max_disp)
+                             for i in range(o.shape[0])])
+            d = torch.stack([metrics.d1_error(o[i], gt[i], max_disp)
+                             for i in range(o.shape[0])])
+            epes.append((e * valid).sum())
+            d1s.append((d * valid).sum())
+        return {"epe": torch.stack(epes), "d1": torch.stack(d1s),
+                "weight": valid.sum()}
+
+    return eval_step

@@ -880,3 +880,91 @@ def test_chain_narrow_outputs_on_card(rnd, out_dtype):
     torch.cuda.synchronize()
     assert build.launch_counts()["chain3x3"] == 3
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+# -- training on the card ------------------------------------------------------
+
+def _train_batch(shape, seed=0):
+    """left, right, and sparse ground truth (a third valid, 1-150 px), as
+    `chip_smoke.card_vs_cpu_step` draws them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    batch = [rng.standard_normal(shape + (3,)),
+             rng.standard_normal(shape + (3,)),
+             rng.uniform(1.0, 150.0, shape)]
+    batch[2][rng.uniform(size=shape) > 1 / 3] = 0.0
+    return batch
+
+
+def test_train_step_card_matches_cpu(rnd):
+    """One float32 train step (TF32 off) of the full-width model, batch 2
+    at 128x256, from the same seed-0 weights on the card and on the CPU:
+    loss and stage losses rtol 1e-4; grad_norm rtol 1e-3; the whole
+    gradient's cosine >= 0.997 and each tensor's >= 0.95, but a tensor
+    below 1e-6 of the global norm (zero to float32) within that of the
+    CPU's; BN running statistics rtol 1e-4 (atol 1e-6): the bars of
+    `chip_smoke.card_vs_cpu_step`, which gives the readings they sit
+    between. cuDNN's and gather's backward sum in another order than the
+    CPU's: on this batch the CPU's own float32 gradient, with the left
+    image scaled by 1 + 1e-7, moves to cosine 0.9989 whole and 0.985 in a
+    tensor."""
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import make_train_step
+    tcfg = TrainConfig(mask_min_disp=0.0)
+    batch = _train_batch((2, 128, 256))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = create_train_state(ModelConfig(compute_dtype="float32"), tcfg,
+                                seed=0, device=dev)
+        st, aux = make_train_step(tcfg, 1)(st, *[
+            torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in batch])
+        out[dev] = (aux, {n: p.grad.double().cpu()
+                          for n, p in st.model.named_parameters()},
+                    {n: b.double().cpu()
+                     for n, b in st.model.named_buffers()})
+    (ga, gg, gs), (ca, cg, cs) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(ga["loss"].cpu(), ca["loss"], rtol=1e-4,
+                               atol=0)
+    torch.testing.assert_close(ga["stage_losses"].cpu(),
+                               ca["stage_losses"], rtol=1e-4, atol=0)
+    torch.testing.assert_close(ga["grad_norm"].cpu(), ca["grad_norm"],
+                               rtol=1e-3, atol=0)
+    floor = 1e-6 * float(ca["grad_norm"])
+    above = [n for n in gg if float(cg[n].norm()) >= floor]
+    for n in gg:
+        if n not in above:
+            assert float((gg[n] - cg[n]).norm()) <= floor, n
+            continue
+        cos = (gg[n] * cg[n]).sum() / (gg[n].norm() * cg[n].norm())
+        assert cos >= 0.95, (n, float(cos))
+    a, b = (torch.cat([g[n].reshape(-1) for n in above]) for g in (gg, cg))
+    assert (a * b).sum() / (a.norm() * b.norm()) >= 0.997
+    for n, b in gs.items():
+        torch.testing.assert_close(b, cs[n], rtol=1e-4, atol=1e-6, msg=n)
+
+
+def test_train_loss_falls_on_card(rnd):
+    """Ten bf16 train steps of the full-width model on one fixed batch
+    (2 at 64x128, the module path): every step finite, the loss falls."""
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.ops.cuda import build as kbuild
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import make_train_step
+    tcfg = TrainConfig(lr=1e-3, mask_min_disp=0.0)
+    st = create_train_state(ModelConfig(), tcfg, seed=0, device="cuda")
+    step = make_train_step(tcfg, 1)
+    batch = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+             for a in _train_batch((2, 64, 128), seed=1)]
+    kbuild.reset_launch_counts()
+    losses = []
+    for _ in range(10):
+        st, aux = step(st, *batch)
+        assert aux["finite"] == 1.0
+        losses.append(float(aux["loss"]))
+    assert losses[-1] < losses[0], losses
+    assert st.updates == 10
+    assert not any(kbuild.launch_counts().values())  # no Hopper kernel

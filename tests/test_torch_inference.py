@@ -24,6 +24,7 @@ from lwsnet_tpu_torch import (InferenceEngine, LWSNet,  # noqa: E402
                               ModelConfig, make_forward)
 from lwsnet_tpu_torch.data import png  # noqa: E402
 from lwsnet_tpu_torch.inference import save_disparity_png  # noqa: E402
+from lwsnet_tpu_torch.ops import stereo  # noqa: E402
 from test_torch_model import _span_check, setup  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +38,38 @@ def test_kernel_path_matches_jax(setup):  # noqa: F811
     got = make_forward(model, use_pallas=True, device="cpu")(
         torch.from_numpy(left), torch.from_numpy(right))
     _span_check(got, want)
+
+
+def test_float64_module_path_matches_jax(setup):  # noqa: F811
+    """`compute_dtype="float64"` (the reference of chip_smoke.py's phase
+    4) on the bridged weights: the module path against JAX's float32
+    forward at the whole-model bar, and within half that bar of the
+    float32 port (1.2e-4 of the span apart at this size); its
+    disparities, volumes and soft-argmin stay float64 inside."""
+    jmodel, variables, model, left, right = setup
+    want = jax.jit(lambda v, a, b: jmodel.apply(v, a, b, train=False))(
+        variables, jnp.asarray(left), jnp.asarray(right))
+    port = LWSNet(ModelConfig(compute_dtype="float64"), device="cpu")
+    port.load_state_dict(model.state_dict(), strict=True)
+    l, r = torch.from_numpy(left), torch.from_numpy(right)
+    got = make_forward(port, use_pallas=False, device="cpu")(l, r)
+    _span_check(got, want)
+    f32 = make_forward(model, use_pallas=False, device="cpu")(l, r)
+    for g, f in zip(got, f32):
+        assert g.dtype == torch.float32
+        assert float((g - f).abs().max()) < 1e-3 * (float(f.abs().max()) + 1)
+    cost = torch.rand(1, 2, 3, 5, dtype=torch.float64)
+    assert stereo.soft_argmin(cost, -2, 3).dtype == torch.float64
+    feat = torch.rand(1, 2, 6, 4, dtype=torch.float64)
+    disp = torch.full((1, 2, 6), 0.25 + 2 ** -30, dtype=torch.float64)
+    vol = stereo.build_residual_volume(feat, feat, disp, 2)
+    assert vol.dtype == torch.float64
+    # the float64 fraction reaches the taps: a 2**-30 shift of the
+    # disparity moves the volume, which float32 would round away
+    moved = stereo.build_residual_volume(feat, feat, disp - 2 ** -30, 2)
+    assert not torch.equal(vol, moved)
+    assert stereo.resize_bilinear(disp[..., None], 4, 12).dtype == \
+        torch.float64
 
 
 @pytest.mark.parametrize("dw,paired", [("vpu", True), ("vpu", False),
