@@ -10,7 +10,8 @@ port's main path, the 368x1232 batch-1 bf16 4-stage inference forward, on
 seeded random weights, under each stage-4 refinement engine: the shipped
 `rows_dw="mxu"`, then "vpu" with `rows_paired` True and False, "chain",
 and the planar `pallas_mode="layers"`; then the rows microbench; then the
-training path through the finetune CLI. Phases, in order; any failure
+training path through the finetune CLI; then pretrain, finetune and
+infer through their CLIs. Phases, in order; any failure
 exits non-zero:
 
   1. the card's name and power limit;
@@ -90,7 +91,32 @@ exits non-zero:
      input scaled by 1 + 1e-7; the bf16 train step's median and max over
      10 steps (CUDA events) with images/s and peak memory, one profiler
      window over 3 steps (device busy share, costliest kernels), and the
-     eval step's time at batch 8.
+     eval step's time at batch 8;
+  9. the two-phase recipe and inference through the three CLIs, full
+     width, bf16, seed 0, in under 120 s: (a) `cli.pretrain` on a
+     synthetic SceneFlow corpus (a monkaa scene of 16 and a
+     frames_cleanpass/TEST/A sequence of 8 frames at 540x960, PFM ground
+     truth), batch 8 at 256x512, eval batch 8 at 544x960, one epoch,
+     under a `torch.distributed` NCCL group of one process set up from a
+     launcher's environment (127.0.0.1, a free port): the group's
+     backend, one collective per batch norm, mask count, gradient and
+     loss reduction of each step, one per eval step, a barrier after the
+     checkpoint, no kernel launch; one float32 step (TF32 off,
+     deterministic algorithms: the default backward's grad_norm moves by
+     about 1e-5 from run to run, printed) through the distributed path
+     against the single-process one (loss rel 1e-6, grad_norm rel 1e-5);
+     the bf16 pretrain step's median and max of 10
+     (CUDA events), images/s and peak memory, and the eval step's median,
+     under the group; (b) `cli.finetune --pretrained` on phase 8's corpus
+     for one epoch: the state before its first step equals the
+     pretrained checkpoint's exactly; (c) `cli.infer --model` (the
+     finetuned checkpoint) on "mxu" over a KITTI testing directory of 4
+     frames at 375x1242, then in single-pair mode: four PNGs a frame,
+     the launch counters (0 before) at `want_counts("mxu")` times the
+     forwards the CLI ran (two a frame), frame 0's four stages through
+     the CLI held with the bf16 module path against the float64 module
+     path on the restored weights at phase 4's bar, and each frame's
+     forward time and host-clock time as the CLI logs them.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -100,6 +126,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1155,11 +1182,11 @@ def card_vs_cpu_step(dev, seed=0):
     return res
 
 
-def training_phase(dev, smi):
-    """Phase 8: the finetune CLI on the card at full width, card-vs-CPU
+def training_phase(dev, smi, tmp):
+    """Phase 8: the finetune CLI on the card at full width on a KITTI
+    corpus written to `tmp`/training (phase 9 reads it too), card-vs-CPU
     parity of one step, the trained weights through the kernel path, and
     the train and eval step timings. Returns the phase's report."""
-    import tempfile
     import torch
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.cli import finetune
@@ -1174,76 +1201,74 @@ def training_phase(dev, smi):
     t0 = time.time()
     report = {"native_decode": build_native()}
     print(f"[8] native decode library: {report['native_decode']}")
-    os.makedirs("build", exist_ok=True)
-    with tempfile.TemporaryDirectory(dir="build") as tmp:
-        root = os.path.join(tmp, "training")
-        split = write_kitti_corpus(root)
-        save = os.path.join(tmp, "finetune")
-        common = ["--datapath", root, "--val_set", split, "--pretrained", "",
-                  "--train_batch_size", "4", "--test_batch_size", "8",
-                  "--crop_height", str(TRAIN_CROP[0]),
-                  "--crop_width", str(TRAIN_CROP[1]),
-                  "--eval_height", str(H), "--eval_width", str(W),
-                  "--save_path", save, "--num_workers", "4",
-                  "--device", "cuda"]
-        print(f"[8] corpus: {TRAIN_FRAMES} frames at {TRAIN_H}x{TRAIN_W}, "
-              f"8 for validation ({time.time() - t0:.1f} s)")
+    root = os.path.join(tmp, "training")
+    split = write_kitti_corpus(root)
+    save = os.path.join(tmp, "finetune")
+    common = ["--datapath", root, "--val_set", split, "--pretrained", "",
+              "--train_batch_size", "4", "--test_batch_size", "8",
+              "--crop_height", str(TRAIN_CROP[0]),
+              "--crop_width", str(TRAIN_CROP[1]),
+              "--eval_height", str(H), "--eval_width", str(W),
+              "--save_path", save, "--num_workers", "4",
+              "--device", "cuda"]
+    print(f"[8] corpus: {TRAIN_FRAMES} frames at {TRAIN_H}x{TRAIN_W}, "
+          f"8 for validation ({time.time() - t0:.1f} s)")
 
-        # 2. train through the CLI, resume, evaluate; the training path
-        # launches none of the port's kernels
-        build.reset_launch_counts()
-        zero = build.launch_counts()
-        fresh = LWSNet(ModelConfig(), device="cpu", seed=0).state_dict()
-        trained = finetune.run(["--epoch", "2"] + common)
-        hist = trained.history
-        require(len(hist) == 4 and all(
-            h["finite"] == 1.0 and np.isfinite(h["loss"]) for h in hist),
-            f"finetune: step losses {hist}")
-        moved = sum(not torch.equal(v.cpu(), fresh[k]) for k, v in
-                    trained.state.model.state_dict().items())
-        require(moved > 0, "finetune: no parameter moved")
-        ckpt = CheckpointManager(save)
-        require(ckpt.exists() and os.path.exists(ckpt.meta_path),
-                "finetune: no checkpoint and metadata")
-        with open(ckpt.meta_path) as f:
-            meta = json.load(f)
-        require(set(meta) == {"epoch", "lr", "error", "time_cost"},
-                f"checkpoint metadata {meta}")
-        resumed = finetune.run(["--epoch", "3", "--resume"] + common)
-        require(resumed.start_epoch == int(meta["epoch"]) + 1
-                and resumed.best_error <= meta["error"]
-                and resumed.history[-1]["epoch"] == 2,
-                f"resume: start epoch {resumed.start_epoch}, best "
-                f"{resumed.best_error}, metadata {meta}")
-        d1 = finetune.main(["--evaluate", "--resume"] + common)
-        require(np.isfinite(d1) and 0.0 <= d1 <= 1.0, f"--evaluate: D1 {d1}")
-        counts = build.launch_counts()
-        require(counts == zero, f"the training path launched kernels: "
-                f"{counts}")
-        print(f"[8] finetune CLI, bf16 full width, batch 4 at "
-              f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}: "
-              f"losses {[round(h['loss'], 3) for h in hist]}, {moved} "
-              f"tensors moved, best D1 {meta['error']:.4f} at epoch "
-              f"{int(meta['epoch'])}; --resume --epoch 3 ran epochs "
-              f"{sorted({h['epoch'] for h in resumed.history})}; "
-              f"--evaluate D1 {d1:.4f}; port kernel launches {counts}")
-        report["finetune"] = dict(losses=[h["loss"] for h in hist],
-                                  resumed_losses=[h["loss"] for h in
-                                                  resumed.history],
-                                  metadata=meta, evaluate_d1=d1)
+    # 2. train through the CLI, resume, evaluate; the training path
+    # launches none of the port's kernels
+    build.reset_launch_counts()
+    zero = build.launch_counts()
+    fresh = LWSNet(ModelConfig(), device="cpu", seed=0).state_dict()
+    trained = finetune.run(["--epoch", "2"] + common)
+    hist = trained.history
+    require(len(hist) == 4 and all(
+        h["finite"] == 1.0 and np.isfinite(h["loss"]) for h in hist),
+        f"finetune: step losses {hist}")
+    moved = sum(not torch.equal(v.cpu(), fresh[k]) for k, v in
+                trained.state.model.state_dict().items())
+    require(moved > 0, "finetune: no parameter moved")
+    ckpt = CheckpointManager(save)
+    require(ckpt.exists() and os.path.exists(ckpt.meta_path),
+            "finetune: no checkpoint and metadata")
+    with open(ckpt.meta_path) as f:
+        meta = json.load(f)
+    require(set(meta) == {"epoch", "lr", "error", "time_cost"},
+            f"checkpoint metadata {meta}")
+    resumed = finetune.run(["--epoch", "3", "--resume"] + common)
+    require(resumed.start_epoch == int(meta["epoch"]) + 1
+            and resumed.best_error <= meta["error"]
+            and resumed.history[-1]["epoch"] == 2,
+            f"resume: start epoch {resumed.start_epoch}, best "
+            f"{resumed.best_error}, metadata {meta}")
+    d1 = finetune.main(["--evaluate", "--resume"] + common)
+    require(np.isfinite(d1) and 0.0 <= d1 <= 1.0, f"--evaluate: D1 {d1}")
+    counts = build.launch_counts()
+    require(counts == zero, f"the training path launched kernels: "
+            f"{counts}")
+    print(f"[8] finetune CLI, bf16 full width, batch 4 at "
+          f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}: "
+          f"losses {[round(h['loss'], 3) for h in hist]}, {moved} "
+          f"tensors moved, best D1 {meta['error']:.4f} at epoch "
+          f"{int(meta['epoch'])}; --resume --epoch 3 ran epochs "
+          f"{sorted({h['epoch'] for h in resumed.history})}; "
+          f"--evaluate D1 {d1:.4f}; port kernel launches {counts}")
+    report["finetune"] = dict(losses=[h["loss"] for h in hist],
+                              resumed_losses=[h["loss"] for h in
+                                              resumed.history],
+                              metadata=meta, evaluate_d1=d1)
 
-        # 4. trained weights through the kernel path and the module path,
-        # each against the float64 module path at the eval window: phase
-        # 4's bf16 bar
-        state = torch.load(ckpt.path, map_location=dev,
-                           weights_only=True)["model"]
-        model = LWSNet(ModelConfig(), device=dev)
-        model.load_state_dict(state)
-        left, right = (torch.as_tensor(T.crop_normalize(
-            T.decode_image_u8(os.path.join(root, sub, "000001_10.png")),
-            TRAIN_H - H, TRAIN_W - W, H, W)[None], device=dev)
-            for sub in ("image_2", "image_3"))
-        del trained, resumed
+    # 4. trained weights through the kernel path and the module path,
+    # each against the float64 module path at the eval window: phase
+    # 4's bf16 bar
+    state = torch.load(ckpt.path, map_location=dev,
+                       weights_only=True)["model"]
+    model = LWSNet(ModelConfig(), device=dev)
+    model.load_state_dict(state)
+    left, right = (torch.as_tensor(T.crop_normalize(
+        T.decode_image_u8(os.path.join(root, sub, "000001_10.png")),
+        TRAIN_H - H, TRAIN_W - W, H, W)[None], device=dev)
+        for sub in ("image_2", "image_3"))
+    del trained, resumed
     truth = float64_reference({}, dev, lambda m: make_forward(
         m, use_pallas=False, device=dev)(left, right), state=state)
     want = make_forward(model, use_pallas=False, device=dev)(left, right)
@@ -1315,6 +1340,389 @@ def training_phase(dev, smi):
           f"{len(te)} after 2 warm-ups ({smi})")
     report["seconds"] = time.time() - t0
     print(f"[8] training phase: {report['seconds']:.1f} s")
+    return report
+
+
+SF_TRAIN, SF_TEST, SF_H, SF_W = 16, 8, 540, 960  # SceneFlow's frame size
+SF_EVAL = (544, 960)       # the published SceneFlow eval window
+INFER_FRAMES = 4
+
+
+def write_sceneflow_corpus(root, seed=1):
+    """A synthetic SceneFlow root: a monkaa scene of SF_TRAIN frames (the
+    train split) and a frames_cleanpass/TEST/A sequence of SF_TEST frames
+    (the test split), SF_H x SF_W, right = left shifted 5-40 px, PFM
+    disparity 1-150 px with a tenth of the pixels at 250 (past the
+    pretrain mask's 192)."""
+    from lwsnet_tpu_torch.data.pfm import write_pfm
+    from lwsnet_tpu_torch.data.png import write_png
+    rng = np.random.default_rng(seed)
+    for img_dir, disp_dir, n in (
+            (("monkaa_frames_cleanpass", "scene"),
+             ("monkaa_disparity", "scene"), SF_TRAIN),
+            (("frames_cleanpass", "TEST", "A", "0000"),
+             ("frames_disparity", "TEST", "A", "0000"), SF_TEST)):
+        img_dir, disp_dir = (os.path.join(root, *d)
+                             for d in (img_dir, disp_dir))
+        for d in (os.path.join(img_dir, "left"),
+                  os.path.join(img_dir, "right"),
+                  os.path.join(disp_dir, "left")):
+            os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            img = rng.integers(0, 256, (SF_H, SF_W, 3), dtype=np.uint8)
+            shift = int(rng.integers(5, 41))
+            name = f"{i:04d}.png"
+            write_png(os.path.join(img_dir, "left", name), img,
+                      compress_level=1)
+            write_png(os.path.join(img_dir, "right", name),
+                      np.roll(img, -shift, axis=1), compress_level=1)
+            disp = rng.uniform(1.0, 150.0, (SF_H, SF_W)).astype(np.float32)
+            disp[rng.uniform(size=disp.shape) < 0.1] = 250.0
+            write_pfm(os.path.join(disp_dir, "left", f"{i:04d}.pfm"), disp)
+
+
+def write_testing_dir(root, seed=2):
+    """A KITTI `testing/` directory (no ground truth) of INFER_FRAMES
+    frames at TRAIN_H x TRAIN_W, and beside it `pair/` with frame 0 as
+    left_test.png and its sibling right_test.png for the single-pair
+    mode. Returns the single pair's left path."""
+    from lwsnet_tpu_torch.data.png import write_png
+    rng = np.random.default_rng(seed)
+    pair = os.path.join(os.path.dirname(root), "pair")
+    for d in (os.path.join(root, "image_2"), os.path.join(root, "image_3"),
+              pair):
+        os.makedirs(d, exist_ok=True)
+    for i in range(INFER_FRAMES):
+        img = rng.integers(0, 256, (TRAIN_H, TRAIN_W, 3), dtype=np.uint8)
+        right = np.roll(img, -int(rng.integers(5, 41)), axis=1)
+        name = f"{i:06d}_10.png"
+        paths = [os.path.join(root, "image_2", name),
+                 os.path.join(root, "image_3", name)]
+        if i == 0:
+            paths += [os.path.join(pair, "left_test.png"),
+                      os.path.join(pair, "right_test.png")]
+        for path, arr in zip(paths, (img, right, img, right)):
+            write_png(path, arr, compress_level=1)
+    return os.path.join(pair, "left_test.png")
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def probe_step(dev, deterministic=True):
+    """One float32 train step (TF32 off) of the full-width model at
+    STEP_SHAPE from the seed-0 state, on `card_vs_cpu_step`'s batch with
+    the pretrain recipe's mask; {loss, grad_norm} and the collectives it
+    ran (none without a process group). With `deterministic`, under
+    `torch.use_deterministic_algorithms` and cuDNN's deterministic
+    algorithms, which raise rather than run an op that has none: the
+    default backward (atomic adds in the warp's and the resize's
+    gradients, cuDNN's algorithm choice) moves grad_norm from run to run."""
+    import torch
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.parallel import mesh
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import make_train_step
+    tcfg = TrainConfig(mask_max_disp=192.0)
+    rng = np.random.default_rng(0)
+    batch = [rng.standard_normal(STEP_SHAPE + (3,)),
+             rng.standard_normal(STEP_SHAPE + (3,)),
+             rng.uniform(1.0, 250.0, STEP_SHAPE)]
+    st = create_train_state(ModelConfig(compute_dtype="float32"), tcfg,
+                            seed=0, device=dev)
+    mesh.reset_collective_counts()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    if deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        _, aux = make_train_step(tcfg, 1)(
+            st, *[torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in batch])
+        out = dict(loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]),
+                   collectives=mesh.collective_counts())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        cudnn.deterministic, cudnn.benchmark = saved
+    return out
+
+
+def recipe_phase(dev, smi, tmp):
+    """Phase 9: the two-phase recipe and inference through the three CLIs
+    at full width in bf16, seed 0: (a) `cli.pretrain` on a synthetic
+    SceneFlow corpus under an NCCL process group of one process, with one
+    float32 step through the distributed path against the single-process
+    one and the pretrain and eval step timings; (b) `cli.finetune
+    --pretrained` on phase 8's KITTI corpus in `tmp`; (c) `cli.infer
+    --model` on "mxu" over a KITTI testing directory and on one pair,
+    its launch counts and one frame against the float64 module path.
+    Returns the phase's report."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
+    from lwsnet_tpu_torch.cli import finetune, infer, pretrain
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.data import transforms as T
+    from lwsnet_tpu_torch.models.blocks import BatchNorm
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.parallel import mesh
+    from lwsnet_tpu_torch.training import loop
+    from lwsnet_tpu_torch.training.checkpoint import CheckpointManager
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import (make_eval_step,
+                                                 make_train_step)
+    from lwsnet_tpu_torch.utils.timing import event_times
+    t0 = time.time()
+    report = {}
+    sf = os.path.join(tmp, "sceneflow")
+    write_sceneflow_corpus(sf)
+    print(f"[9] SceneFlow corpus: {SF_TRAIN} train and {SF_TEST} test "
+          f"frames at {SF_H}x{SF_W} ({time.time() - t0:.1f} s)")
+
+    # (a) pretrain under NCCL at world size 1, from the launcher's
+    # environment as torchrun sets it
+    single = probe_step(dev)
+    require(not dist.is_initialized() and not single["collectives"],
+            "the single-process step ran collectives")
+    spread = [probe_step(dev, deterministic=False)["grad_norm"]
+              for _ in range(2)]
+    spread = abs(spread[1] / spread[0] - 1.0)
+    launcher = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    os.environ.update(launcher)
+    pre = os.path.join(tmp, "pretrained")
+    try:
+        mesh.reset_collective_counts()
+        build.reset_launch_counts()
+        zero = build.launch_counts()
+        trainer = pretrain.run([
+            "--datapath", sf, "--epoch", "1", "--train_batch_size", "8",
+            "--test_batch_size", "8", "--crop_height", str(TRAIN_CROP[0]),
+            "--crop_width", str(TRAIN_CROP[1]),
+            "--eval_height", str(SF_EVAL[0]), "--eval_width",
+            str(SF_EVAL[1]), "--save_path", pre, "--num_workers", "4",
+            "--device", dev.type])
+        backend = dist.get_backend() if dist.is_initialized() else None
+        counts = mesh.collective_counts()
+        require(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+                f"pretrain: process group {backend}")
+        require(trainer.process_count == 1
+                and trainer.device == mesh.process_device(dev.type),
+                f"pretrain: {trainer.process_count} processes on "
+                f"{trainer.device}")
+        hist = trainer.history
+        steps = SF_TRAIN // 8
+        require(len(hist) == steps and all(
+            h["finite"] == 1.0 and np.isfinite(h["loss"]) for h in hist),
+            f"pretrain: step losses {hist}")
+        require(np.isfinite(trainer.last_error),
+                f"pretrain: EPE {trainer.last_error}")
+        require(CheckpointManager(pre).exists(), "pretrain: no checkpoint")
+        n_bn = sum(isinstance(m, BatchNorm)
+                   for m in trainer.state.model.modules())
+        want = {"batch_norm": n_bn * steps, "loss_count": steps,
+                "gradients": steps, "loss": steps, "eval": SF_TEST // 8,
+                "barrier": 1}
+        require(counts == want, f"pretrain collectives {counts} != {want}")
+        require(build.launch_counts() == zero,
+                "the pretrain path launched kernels")
+        print(f"[9a] cli.pretrain under torch.distributed ({backend}, world "
+              f"size 1, {trainer.device}), bf16 full width, batch 8 at "
+              f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}, eval 8 at {SF_EVAL[0]}x"
+              f"{SF_EVAL[1]}: losses {[round(h['loss'], 3) for h in hist]}, "
+              f"EPE {trainer.last_error:.4f}; collectives {counts}")
+        report["pretrain"] = dict(losses=[h["loss"] for h in hist],
+                                  epe=trainer.last_error,
+                                  collectives=counts)
+        del trainer
+
+        ddp = probe_step(dev)
+        rel = {k: abs(ddp[k] / single[k] - 1.0)
+               for k in ("loss", "grad_norm")}
+        print(f"[9a] one float32 step (batch {STEP_SHAPE[0]}, "
+              f"{STEP_SHAPE[1]}x{STEP_SHAPE[2]}, TF32 off, deterministic "
+              f"algorithms), distributed vs single-process: loss "
+              f"{ddp['loss']:.9g} vs {single['loss']:.9g} (rel "
+              f"{rel['loss']:.3g}), grad_norm {ddp['grad_norm']:.9g} vs "
+              f"{single['grad_norm']:.9g} (rel {rel['grad_norm']:.3g}); "
+              f"collectives {ddp['collectives']}; the default algorithms' "
+              f"grad_norm moves by rel {spread:.3g} between two "
+              f"single-process runs")
+        require(ddp["collectives"].get("gradients") == 1
+                and ddp["collectives"].get("batch_norm", 0) > 0,
+                f"the distributed step ran {ddp['collectives']}")
+        require(rel["loss"] <= 1e-6 and rel["grad_norm"] <= 1e-5,
+                f"distributed vs single step: {rel}")
+        report["distributed_vs_single"] = dict(
+            single=single, ddp=ddp, rel=rel, default_algorithms_spread=spread)
+
+        # timings under the group: the bf16 pretrain step, batch 8 at the
+        # crop, and the eval step, batch 8 at the eval window (540-row
+        # ground truth, row offset 4)
+        tcfg = TrainConfig(mask_max_disp=192.0)
+        st = create_train_state(ModelConfig(), tcfg, seed=0, device=dev)
+        rng = np.random.default_rng(7)
+        l, r = (torch.as_tensor(rng.standard_normal((8, *TRAIN_CROP, 3)),
+                                dtype=torch.float32, device=dev)
+                for _ in range(2))
+        g = torch.as_tensor(rng.uniform(1, 250, (8, *TRAIN_CROP)),
+                            dtype=torch.float32, device=dev)
+        step = make_train_step(tcfg, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = event_times(lambda: step(st, l, r, g), reps=10, warmup=3)
+        peak = torch.cuda.max_memory_allocated()
+        del l, r, g
+        l8, r8 = (torch.as_tensor(rng.standard_normal((8, *SF_EVAL, 3)),
+                                  dtype=torch.float32, device=dev)
+                  for _ in range(2))
+        g8 = torch.as_tensor(rng.uniform(1, 250, (8, SF_H, SF_W)),
+                             dtype=torch.float32, device=dev)
+        valid = torch.ones(8, device=dev)
+        evaluate = make_eval_step(sceneflow_row_offset=4)
+        te = event_times(lambda: evaluate(st, l8, r8, g8, valid), reps=5,
+                         warmup=2)
+        del st, l8, r8, g8
+        med = statistics.median(ts)
+        report["timing"] = dict(
+            card=smi, train_step_ms=med, train_step_max_ms=ts[-1],
+            train_step_samples=len(ts), images_per_s=8 / (med / 1e3),
+            peak_bytes=peak, eval_step_ms=statistics.median(te),
+            eval_step_max_ms=te[-1], eval_step_samples=len(te))
+        print(f"[9a] bf16 pretrain step under {backend}, batch 8 at "
+              f"{TRAIN_CROP[0]}x{TRAIN_CROP[1]}: median {med:.3f} ms, max "
+              f"{ts[-1]:.3f} ms over {len(ts)} after 3 warm-ups (CUDA "
+              f"events), {8 / (med / 1e3):.2f} images/s, peak memory "
+              f"{peak / 2**30:.3f} GiB (max_memory_allocated) ({smi})")
+        print(f"[9a] bf16 eval step under {backend}, batch 8 at {SF_EVAL[0]}x"
+              f"{SF_EVAL[1]} (ground truth {SF_H}x{SF_W}, row offset 4): "
+              f"median {statistics.median(te):.3f} ms, max {te[-1]:.3f} ms "
+              f"over {len(te)} after 2 warm-ups ({smi})")
+
+        # (b) finetune from the pretrained checkpoint on phase 8's corpus;
+        # the state the first train epoch starts from is read as it starts
+        want_state = torch.load(CheckpointManager(pre).path,
+                                map_location="cpu",
+                                weights_only=True)["model"]
+        first = {}
+        train_epoch = loop.Trainer.train_epoch
+
+        def spy(self, epoch):
+            first.setdefault("state", {
+                k: v.detach().cpu().clone()
+                for k, v in self.state.model.state_dict().items()})
+            return train_epoch(self, epoch)
+
+        loop.Trainer.train_epoch = spy
+        ft = os.path.join(tmp, "finetuned")
+        try:
+            tuned = finetune.run([
+                "--datapath", os.path.join(tmp, "training"), "--val_set",
+                os.path.join(tmp, "training", "val.txt"), "--pretrained",
+                pre, "--epoch", "1", "--train_batch_size", "4",
+                "--test_batch_size", "8", "--crop_height",
+                str(TRAIN_CROP[0]), "--crop_width", str(TRAIN_CROP[1]),
+                "--eval_height", str(H), "--eval_width", str(W),
+                "--save_path", ft, "--num_workers", "4", "--device", dev.type])
+        finally:
+            loop.Trainer.train_epoch = train_epoch
+        got = first["state"]
+        equal = got.keys() == want_state.keys() and all(
+            torch.equal(got[k], v) for k, v in want_state.items())
+        require(equal, "finetune: the state before the first step is not "
+                "the pretrained checkpoint's")
+        require(len(tuned.history) == 2 and all(
+            h["finite"] == 1.0 for h in tuned.history)
+            and CheckpointManager(ft).exists()
+            and 0.0 <= tuned.last_error <= 1.0,
+            f"finetune from pretrained: {tuned.history}, D1 "
+            f"{tuned.last_error}")
+        print(f"[9b] cli.finetune --pretrained: the {len(want_state)} "
+              f"tensors before the first step equal the pretrained "
+              f"checkpoint's exactly; losses "
+              f"{[round(h['loss'], 3) for h in tuned.history]}, D1 "
+              f"{tuned.last_error:.4f}")
+        report["finetune"] = dict(losses=[h["loss"] for h in tuned.history],
+                                  d1=tuned.last_error)
+        del tuned, first, got
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in launcher:
+            os.environ.pop(k, None)
+
+    # (c) infer with the finetuned weights on the kernel path ("mxu")
+    testing = os.path.join(tmp, "testing")
+    left = write_testing_dir(testing)
+    out = os.path.join(tmp, "inference")
+    build.reset_launch_counts()
+    zero = build.launch_counts()
+    window = ["--eval_height", str(H), "--eval_width", str(W), "--model",
+              ft, "--device", dev.type]
+    frames = infer.run(["--img_path", testing, "--save_path", out] + window)
+    frames += infer.run(["--left_img", left, "--save_path",
+                         os.path.join(out, "single")] + window)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    # InferenceEngine.infer_files runs two forwards a frame: a warm-up,
+    # then the timed one
+    forwards = 2 * len(frames)
+    want = {k: forwards * n for k, n in want_counts("mxu", zero).items()}
+    require(counts == want, f"infer CLI launch counts {counts} != {want}")
+    names = sorted(os.listdir(out))
+    for i in range(INFER_FRAMES):
+        for s in range(1, 5):
+            require(f"{i:06d}_10_stage{s}.png" in names,
+                    f"infer: no PNG for frame {i} stage {s}")
+    require(sorted(os.listdir(os.path.join(out, "single"))) ==
+            [f"{s}.png" for s in range(1, 5)], "infer: single-pair PNGs")
+    for f in frames:
+        print(f"[9c] cli.infer {f['name']}: forward {f['seconds'] * 1e3:.3f}"
+              f" ms (CUDA events, after a warm-up), frame "
+              f"{f['host_seconds'] * 1e3:.3f} ms on the host clock (decode, "
+              f"two forwards, four PNGs) ({smi})")
+    print(f"[9c] cli.infer launches over {forwards} forwards "
+          f"({len(frames)} frames): {counts}")
+
+    # frame 0 through the CLI against the float64 module path on the same
+    # restored weights, with the bf16 module path beside it: phase 4's bar
+    state = torch.load(CheckpointManager(ft).path, map_location=dev,
+                       weights_only=True)["model"]
+    l, r = (torch.as_tensor(T.normalize(T.bottom_right_crop(
+        T.load_image(p), H, W))[None], dtype=torch.float32, device=dev)
+        for p in (os.path.join(testing, sub, "000000_10.png")
+                  for sub in ("image_2", "image_3")))
+    truth = float64_reference({}, dev, lambda m: make_forward(
+        m, use_pallas=False, device=dev)(l, r), state=state)
+    model = LWSNet(ModelConfig(), device=dev)
+    model.load_state_dict(state)
+    plain = make_forward(model, use_pallas=False, device=dev)(l, r)
+    got = [torch.as_tensor(d, device=dev)[None, :, :, None]
+           for d in frames[0]["disparities"]]
+    failures = []
+    report["infer_forward"] = [
+        dict(stage=s + 1, **compare(f"cli.infer frame 0 (finetuned "
+                                    f"weights) stage {s + 1}", t, a, b,
+                                    "bfloat16", (1, H, W, 1), failures))
+        for s, (t, a, b) in enumerate(zip(truth, plain, got))]
+    require(not failures, "; ".join(failures))
+    del model, state, truth, plain, got
+    shutil.rmtree(out)
+    report["infer"] = dict(
+        launches=counts, forwards=forwards,
+        frames=[dict(name=f["name"], forward_ms=f["seconds"] * 1e3,
+                     host_ms=f["host_seconds"] * 1e3) for f in frames])
+    report["seconds"] = time.time() - t0
+    print(f"[9] recipe phase: {report['seconds']:.1f} s")
     return report
 
 
@@ -1627,8 +2035,11 @@ def main():
                   f"device {tot['device_ms']:.4f} ms (events "
                   f"{tot['ms']:.4f} ms)")
 
-    # 8. training on the card
-    report["training"] = training_phase(dev, smi)
+    # 8. training on the card; 9. the recipe through the three CLIs
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        report["training"] = training_phase(dev, smi, tmp)
+        report["recipe"] = recipe_phase(dev, smi, tmp)
 
     line = []
     for k in build.KERNELS:

@@ -2,11 +2,14 @@
 
 The JAX package's `cli/common.py` flag set, plus `--device` (default
 `cuda`): the entry points run on the card and raise without one unless
-asked for the CPU."""
+asked for the CPU. `setup` starts a training entry point: the process
+group when a launcher such as `torchrun` set one up, and the logger."""
 
 from __future__ import annotations
 
 import argparse
+import logging
+from typing import Tuple
 
 from lwsnet_tpu_torch.config import ModelConfig, TrainConfig
 
@@ -76,3 +79,19 @@ def train_config(args, **overrides) -> TrainConfig:
     )
     base.update(overrides)
     return TrainConfig(**base)
+
+
+def setup(name: str, args) -> Tuple[logging.Logger, int, int]:
+    """Initialize the process group from the launcher's environment (a
+    no-op without one: `parallel/mesh.py`) and the logger, which writes
+    to stderr and ./log/ on process 0 only; logs the flags. Returns
+    (logger, process index, process count)."""
+    from lwsnet_tpu_torch.parallel import mesh
+    from lwsnet_tpu_torch.utils.logger import setup_logger
+
+    mesh.maybe_initialize_distributed(args.device)
+    pi = mesh.process_index()
+    log = setup_logger(name, "./log/", pi)
+    for k, v in sorted(vars(args).items()):
+        log.info("%s: %s", k, v)
+    return log, pi, mesh.process_count()

@@ -5,8 +5,10 @@
 
 Bootstraps from the pretrain checkpoint (`--pretrained`, a port
 checkpoint directory; "" for none) unless resuming; `--evaluate` runs one
-validation pass and exits (reference: finetune.py:115-117). One process,
-one device. Logs go to ./log/.
+validation pass and exits (reference: finetune.py:115-117). Logs go to
+./log/. Data-parallel over N cards, one process each:
+
+    torchrun --nproc_per_node=N -m lwsnet_tpu_torch.cli.finetune ...
 """
 
 from __future__ import annotations
@@ -38,12 +40,9 @@ def run(argv=None):
     from lwsnet_tpu_torch.data.kitti2015 import index_kitti2015
     from lwsnet_tpu_torch.data.pipeline import StereoPipeline
     from lwsnet_tpu_torch.training.loop import Trainer, TrainerConfig
-    from lwsnet_tpu_torch.utils.logger import setup_logger
 
     args = build_parser().parse_args(argv)
-    log = setup_logger("finetune", "./log/")
-    for k, v in sorted(vars(args).items()):
-        log.info("%s: %s", k, v)
+    log, pi, pc = common.setup("finetune", args)
 
     model_cfg = common.model_config(args)
     # finetune mask: gt > 0 (sparse KITTI GT, reference: finetune.py:153);
@@ -58,11 +57,13 @@ def run(argv=None):
     train_pipe = StereoPipeline(
         train_idx, args.train_batch_size, training=True,
         crop=(args.crop_height, args.crop_width),
-        kitti=True, seed=args.seed, num_workers=args.num_workers)
+        kitti=True, seed=args.seed, num_workers=args.num_workers,
+        process_index=pi, process_count=pc)
     eval_pipe = StereoPipeline(
         val_idx, args.test_batch_size, training=False,
         crop=(args.eval_height, args.eval_width),
-        kitti=True, num_workers=args.num_workers)
+        kitti=True, num_workers=args.num_workers,
+        process_index=pi, process_count=pc)
 
     trainer = Trainer(
         TrainerConfig(model=model_cfg, train=train_cfg, eval_metric="d1"),

@@ -130,9 +130,10 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of the JAX package's data / spatial sharding. The
-    port trains in one process on one device; kept so configurations carry
-    over."""
+    """Device-mesh layout of the JAX package's data / spatial sharding.
+    The port shards the batch over the processes of a `torch.distributed`
+    group, one device each (`parallel/mesh.py`); row sharding
+    (`spatial_parallel` > 1) is not ported and raises there."""
 
     data_axis: str = "data"
     spatial_axis: str = "spatial"

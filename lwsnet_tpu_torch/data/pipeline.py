@@ -1,4 +1,4 @@
-"""Host-sharded, thread-prefetched input pipeline (KITTI2015).
+"""Host-sharded, thread-prefetched input pipeline (KITTI2015, SceneFlow).
 
 The port's copy of the JAX package's `data/pipeline.py`, which it matches
 batch for batch:
@@ -42,12 +42,32 @@ class Batch:
 
 
 def _load_example(index: StereoIndex, i: int, training: bool,
-                  crop: Tuple[int, int], rng: np.random.Generator
+                  crop: Tuple[int, int], kitti: bool,
+                  rng: np.random.Generator
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Decode to uint8, then one fused crop + normalize pass over the
-    window; a random crop for training (y, then x, as `T.random_crop`
-    draws them), the bottom-right one for evaluation."""
+    """One example: a random crop for training (y, then x, as
+    `T.random_crop` draws them), the bottom-right one for evaluation.
+
+    KITTI decodes to uint8, then one fused crop + normalize pass over the
+    window. SceneFlow decodes the whole frame to float32 and its PFM
+    ground truth; its eval crop zero-pads the top rows of a frame shorter
+    than the window (544 rows from 540, as the reference gets from PIL,
+    dataloader/dataloader.py:85) and keeps the full-size ground truth:
+    the metric drops the prediction's top rows instead (reference:
+    train.py:189)."""
     ch, cw = crop
+    if not kitti:
+        left = T.load_image(index.left[i])
+        right = T.load_image(index.right[i])
+        disp = (T.load_disparity_sceneflow(index.disp[i]) if index.disp
+                else np.zeros(left.shape[:2], dtype=np.float32))
+        if training:
+            left, right, disp = T.random_crop(left, right, disp, ch, cw,
+                                              rng)
+        else:
+            left = T.bottom_right_crop(left, ch, cw, pad_if_short=True)
+            right = T.bottom_right_crop(right, ch, cw, pad_if_short=True)
+        return T.normalize(left), T.normalize(right), disp
     left_u8 = T.decode_image_u8(index.left[i])
     right_u8 = T.decode_image_u8(index.right[i])
     h, w = left_u8.shape[:2]
@@ -66,23 +86,18 @@ def _load_example(index: StereoIndex, i: int, training: bool,
 
 
 class StereoPipeline:
-    """Iterable over process-local batches of one KITTI2015 split.
-
-    `kitti=False` (SceneFlow: PFM ground truth, padded eval crops) is not
-    ported yet and raises."""
+    """Iterable over process-local batches of one split: KITTI2015
+    (`kitti=True`) or SceneFlow (PFM ground truth, padded eval crops)."""
 
     def __init__(self, index: StereoIndex, batch_size: int,
                  training: bool, crop: Tuple[int, int], kitti: bool = True,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 2,
                  process_index: int = 0, process_count: int = 1):
-        if not kitti:
-            raise NotImplementedError(
-                "the port's pipeline reads KITTI2015 only; SceneFlow "
-                "(data/sceneflow.py, data/pfm.py) is not ported yet")
         self.index = index
         self.batch_size = batch_size
         self.training = training
         self.crop = crop
+        self.kitti = kitti
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
@@ -119,7 +134,7 @@ class StereoPipeline:
             j, i = args
             rng = np.random.default_rng((self.seed, epoch, int(i), j))
             return _load_example(self.index, int(i), self.training,
-                                 self.crop, rng)
+                                 self.crop, self.kitti, rng)
 
         # Padding rows duplicate a real example (valid 0); a process whose
         # slice is empty still emits `total` all-padding batches.

@@ -1,9 +1,11 @@
 """Host-side decode, crops and normalization (numpy, HWC).
 
-The port's own copy of the JAX package's `data/transforms.py`, KITTI
-part: decode to uint8, the fused crop + /255 + ImageNet normalization and
-crop + /256 of a KITTI disparity map, the random training crop and the
-deterministic bottom-right eval crop. Decoding goes native C++
+The port's own copy of the JAX package's `data/transforms.py`: decode to
+uint8, the fused crop + /255 + ImageNet normalization and crop + /256 of a
+KITTI disparity map, SceneFlow's PFM disparity, the random training crop
+and the deterministic bottom-right eval crop, which zero-pads the top and
+left of a short image on request (SceneFlow's 540-row frames in a 544-row
+window). Decoding goes native C++
 (`native/libstereoload.so`, built by `make -C native`) -> PIL -> the
 stdlib PNG codec; the crops go through the native library when it is
 built and numpy otherwise. This is host decoding: nothing here touches a
@@ -18,6 +20,7 @@ import numpy as np
 
 from lwsnet_tpu_torch.data import native
 from lwsnet_tpu_torch.data import png as stdpng
+from lwsnet_tpu_torch.data.pfm import read_pfm
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -103,6 +106,13 @@ def load_crop_disparity_kitti(path: str, y0: int, x0: int, ch: int,
         except ValueError:
             pass
     return load_disparity_kitti(path)[y0:y0 + ch, x0:x0 + cw]
+
+
+def load_disparity_sceneflow(path: str) -> np.ndarray:
+    """SceneFlow disparity PFM as float32 (reference:
+    dataloader/dataloader.py:57-59)."""
+    data, _ = read_pfm(path)
+    return np.ascontiguousarray(data, dtype=np.float32)
 
 
 def random_crop(left: np.ndarray, right: np.ndarray, disp: np.ndarray,

@@ -16,7 +16,8 @@ layout flip. As in the JAX package:
   batch's float32 statistics and updates the running ones as Flax
   `nn.BatchNorm(momentum=0.9)` does: biased variance
   max(0, E[x^2] - E[x]^2), r <- 0.9 r + 0.1 batch; in eval mode it uses
-  the running statistics;
+  the running statistics. Under a process group the batch is the global
+  one, as under pjit: E[x] and E[x^2] are averaged over the processes;
 * conv weights start He-normal, truncated at 2 sigma, as
   `nn.initializers.he_normal()` draws them.
 """
@@ -29,6 +30,8 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lwsnet_tpu_torch.parallel import mesh
 
 BN_EPS = 1e-5
 # Flax's running-average momentum: r <- BN_MOMENTUM * r + (1 - BN_MOMENTUM) * b
@@ -53,8 +56,9 @@ def bn_affine(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
 class BatchNorm(nn.Module):
     """Batch norm over dim 1 in at least float32, as Flax computes it;
     returns that dtype. Training mode normalizes by the batch statistics
-    (reduced over every dim but 1) and folds them into the running ones;
-    eval mode uses the running ones."""
+    (reduced over every dim but 1, and over every process of a process
+    group) and folds them into the running ones; eval mode uses the
+    running ones."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -68,8 +72,16 @@ class BatchNorm(nn.Module):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            mean, mean_sq = x.mean(dims), (x * x).mean(dims)
+            if mesh.is_distributed():
+                # The global moments: every process holds as many elements
+                # (the lockstep pipeline's equal batches), so they are the
+                # mean of the processes' moments. The collective's backward
+                # carries each process's loss to every process's input.
+                both = mesh.all_reduce_autograd(
+                    torch.cat([mean, mean_sq]), "batch_norm")
+                mean, mean_sq = (both / mesh.process_count()).chunk(2)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     (1.0 - BN_MOMENTUM) * mean)

@@ -3,8 +3,15 @@
 Counterpart of the JAX package's `training/loop.py` (reference loops:
 train.py:107-199, finetune.py:122-210): per-epoch train pass, optional
 precise-BN pass, validation, best-only checkpoints with {epoch, lr, error,
-time_cost}, resume. One process, one device: each numpy batch is pinned
-(on a card) and copied to the device without blocking the host.
+time_cost}, resume. Each numpy batch is pinned (on a card) and copied to
+the device without blocking the host.
+
+Under a process group (`parallel/mesh.py`) each process trains on its own
+device (`cuda:LOCAL_RANK`) and reads its slice of each epoch; the steps
+reduce what the JAX steps reduce under pjit, so every process holds the
+same state. Process 0 alone writes the checkpoint, and every process waits
+for it at a barrier, so a later `resume` or `load_pretrained` reads a
+whole file on each.
 """
 
 from __future__ import annotations
@@ -19,8 +26,8 @@ import torch
 
 from lwsnet_tpu_torch.config import ModelConfig, TrainConfig
 from lwsnet_tpu_torch.data.pipeline import StereoPipeline
-from lwsnet_tpu_torch.device import resolve_device
 from lwsnet_tpu_torch.models.blocks import BN_MOMENTUM, BatchNorm
+from lwsnet_tpu_torch.parallel import mesh
 from lwsnet_tpu_torch.training import steps as steps_lib
 from lwsnet_tpu_torch.training.checkpoint import CheckpointManager
 from lwsnet_tpu_torch.training.metrics import AverageMeter
@@ -37,21 +44,32 @@ class TrainerConfig:
 
 class Trainer:
     """Trains `tcfg.model` on `device` (default the card; raises without
-    one unless `device="cpu"`). `history` holds one {epoch, step, loss,
-    finite, lr, grad_norm} record per train step of this process."""
+    one unless `device="cpu"`; under a process group, this process's
+    card). `history` holds one {epoch, step, loss, finite, lr, grad_norm}
+    record per train step, with the global loss. The pipelines must be
+    this process's slices (`process_index`, `process_count`)."""
 
     def __init__(self, tcfg: TrainerConfig, train_pipe: StereoPipeline,
                  eval_pipe: StereoPipeline, logger,
                  stat_pipe: Optional[StereoPipeline] = None,
                  device="cuda"):
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.device = mesh.process_device(device)
+        self.process_index = mesh.process_index()
+        self.process_count = mesh.process_count()
         self.train_pipe = train_pipe
         self.eval_pipe = eval_pipe
         # Precise-BN batches; their size shapes the statistics (the JAX
         # Trainer documents the measured failure), so callers that change
         # the train batch between phases pass a fixed stat_pipe.
         self.stat_pipe = stat_pipe or train_pipe
+        for pipe in (train_pipe, eval_pipe, self.stat_pipe):
+            if (pipe.process_index, pipe.process_count) != (
+                    self.process_index, self.process_count):
+                raise ValueError(
+                    f"pipeline slice {pipe.process_index}/"
+                    f"{pipe.process_count} is not this process's "
+                    f"{self.process_index}/{self.process_count}")
         self.log = logger
         # Steps per epoch = this process's batch count: the epoch ->
         # step milestone conversion must not scale by the process count.
@@ -162,6 +180,8 @@ class Trainer:
         """Precise BN (cfg.bn_reestimate_batches > 0): refresh the running
         statistics with forward-only passes over training batches so that
         validation sees statistics that match the current parameters.
+        Under a process group each stat step reads global statistics, so
+        every process computes the same average.
 
         EWMA mode steps the running averages once a batch. Exact mode
         (cfg.bn_reestimate_exact) sets them to the moment average over the
@@ -234,12 +254,16 @@ class Trainer:
             self.train_epoch(epoch)
             self.reestimate_bn(epoch)
             error = self.evaluate()
+            # `error` is the same on every process (the eval sums are
+            # reduced), so all take this branch together.
             if error < self.best_error:
                 self.best_error = error
-                self.ckpt.save(
-                    self.state,
-                    {"epoch": epoch, "lr": self.last_lr, "error": error,
-                     "time_cost": time.time() - self.start_time})
+                if self.process_index == 0:
+                    self.ckpt.save(
+                        self.state,
+                        {"epoch": epoch, "lr": self.last_lr, "error": error,
+                         "time_cost": time.time() - self.start_time})
+                mesh.barrier()
                 self.log.info("save model param success")
         self.log.info("full training time = %.2f Hours",
                       (time.time() - self.start_time) / 3600)

@@ -5,6 +5,11 @@ Counterpart of the JAX package's `training/losses.py`: each stage's
 smooth-L1 (delta 1) over the pixels whose ground truth lies strictly
 between the mask bounds, normalized by max(count, 1), weighted and summed.
 Pretrain masks gt < max_disp, finetune gt > 0.
+
+Under a process group the count is the global batch's, as the JAX loss
+under pjit divides by it: each process returns its own pixels' share of
+the global loss, and the shares sum to it (`training/steps.py` sums the
+gradients).
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+
+from lwsnet_tpu_torch.parallel import mesh
 
 
 def smooth_l1(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -35,10 +42,11 @@ def staged_loss(outputs: Sequence[torch.Tensor], gt: torch.Tensor,
 
     outputs: per-stage (B, H, W, 1) or (B, H, W) disparities; gt (B, H, W).
     Returns (total, per-stage losses before weighting), as the reference
-    logs the de-weighted values.
+    logs the de-weighted values; under a process group, this process's
+    shares of them.
     """
     mask = disparity_mask(gt, min_disp, max_disp)
-    count = torch.clamp(mask.sum(), min=1.0)
+    count = torch.clamp(mesh.all_reduce_(mask.sum(), "loss_count"), min=1.0)
     per_stage = []
     for out in outputs:
         if out.dim() == 4:

@@ -5,6 +5,15 @@ train.py:134-155). Every step runs the plain module path,
 `LWSNet.forward(kernels=False)`: cuDNN convolutions and autograd. The
 Hopper kernels are forward-only and stay off it, as the JAX train step
 stays off Pallas. Steps update the `TrainState` in place and return it.
+
+Under a process group (`parallel/mesh.py`) each process takes its slice of
+the global batch, and the steps compute what the JAX steps compute under
+pjit on the whole batch: batch norm reads global statistics, the loss is
+divided by the global mask count, the gradients are summed over the
+processes (one flat all-reduce: each process's loss is already its share
+of the global one) before the norm, the clip and the finite test, so that
+every process takes the same decision; aux reports the global loss, and
+the eval sums and weights are summed over the processes.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from lwsnet_tpu_torch.config import TrainConfig
+from lwsnet_tpu_torch.parallel import mesh
 from lwsnet_tpu_torch.training import losses, metrics
 from lwsnet_tpu_torch.training.state import (TrainState,
                                              clip_by_global_norm_,
@@ -60,6 +70,10 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int) -> Callable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        mesh.all_reduce_flat_(grads, "gradients")
+        reported = mesh.all_reduce_(
+            torch.cat([total.detach()[None], per_stage.detach()]), "loss")
+        total, per_stage = reported[0], reported[1:]
         grad_norm = global_norm(grads)
         finite = bool(torch.isfinite(total) & torch.isfinite(grad_norm))
         if finite or not cfg.skip_nonfinite_updates:
@@ -75,7 +89,7 @@ def make_train_step(cfg: TrainConfig, steps_per_epoch: int) -> Callable:
                 for b, old in zip(stats, saved.split(
                         [b.numel() for b in stats])):
                     b.copy_(old.view_as(b))
-        aux = {"loss": total.detach(), "stage_losses": per_stage.detach(),
+        aux = {"loss": total, "stage_losses": per_stage,
                "lr": schedule(state.step), "grad_norm": grad_norm,
                "finite": float(finite)}
         state.step += 1
@@ -106,7 +120,8 @@ def make_eval_step(max_disp: float = 192.0,
     """Returns eval_step(state, left, right, gt, valid) ->
     {"epe": (stages,), "d1": (stages,), "weight": scalar}: per-stage EPE
     and D1 of each example, summed over the valid ones (padded eval rows
-    carry valid 0); divide the sums by the summed weight. A non-zero
+    carry valid 0) and over the processes; divide the sums by the summed
+    weight. A non-zero
     `sceneflow_row_offset` drops that many top rows of each prediction
     (reference: train.py:189)."""
 
@@ -125,7 +140,9 @@ def make_eval_step(max_disp: float = 192.0,
                              for i in range(o.shape[0])])
             epes.append((e * valid).sum())
             d1s.append((d * valid).sum())
-        return {"epe": torch.stack(epes), "d1": torch.stack(d1s),
-                "weight": valid.sum()}
+        sums = mesh.all_reduce_(
+            torch.stack(epes + d1s + [valid.sum()]), "eval")
+        n = len(outputs)
+        return {"epe": sums[:n], "d1": sums[n:2 * n], "weight": sums[-1]}
 
     return eval_step

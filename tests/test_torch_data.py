@@ -180,8 +180,21 @@ def test_transforms_match_jax(corpus):
 
 
 def test_sceneflow_pipeline_not_ported(corpus):
+    """`kitti=False` no longer raises: the SceneFlow branch reads a
+    GT-free index (zero disparity) as the JAX one does, padding the eval
+    window's top rows (tests/test_torch_sceneflow.py holds the branch
+    with PFM ground truth)."""
     root, _ = corpus
-    idx, _ = kitti2015.index_kitti2015(root)
-    with pytest.raises(NotImplementedError, match="SceneFlow"):
-        pipeline.StereoPipeline(idx, 1, training=True, crop=(32, 64),
-                                kitti=False)
+    t_idx, _ = kitti2015.index_kitti2015(root, split_file=os.devnull)
+    idx = kitti2015.StereoIndex(t_idx.left, t_idx.right, [])
+    port = pipeline.StereoPipeline(idx, 2, training=False, crop=(H + 4, W),
+                                   kitti=False, num_workers=2)
+    ref = jpipeline.StereoPipeline(idx, 2, training=False, crop=(H + 4, W),
+                                   kitti=False, num_workers=2)
+    got, want = list(port.epoch(0)), list(ref.epoch(0))
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        for f in ("left", "right", "disparity", "valid"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert got[0].left.shape == (2, H + 4, W, 3)
+    assert not got[0].disparity.any() and got[0].disparity.shape == (2, H, W)

@@ -968,3 +968,100 @@ def test_train_loss_falls_on_card(rnd):
     assert losses[-1] < losses[0], losses
     assert st.updates == 10
     assert not any(kbuild.launch_counts().values())  # no Hopper kernel
+
+
+# -- data-parallel training and the infer CLI on the card ---------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_nccl_world_one_step_matches_single_on_card(rnd, monkeypatch):
+    """One float32 train step (TF32 off) of the full-width model, batch 2
+    at 128x256, from the seed-0 state: under an NCCL process group of one
+    process (`parallel.mesh`, from a launcher's environment) against no
+    group. Every collective is an identity at world size 1, so the counts
+    show that the distributed path ran; loss rel 1e-6, grad_norm rel
+    1e-5. Both steps run under deterministic algorithms: by default the
+    backward (atomic adds in the warp's and the resize's gradients,
+    cuDNN's algorithm choice) moves grad_norm by 1.2e-5 to 3.9e-5 from
+    run to run on an H100."""
+    import os
+    import torch.distributed as dist
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.parallel import mesh
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import make_train_step
+    tcfg = TrainConfig(mask_min_disp=0.0)
+    batch = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+             for a in _train_batch((2, 128, 256))]
+
+    def step():
+        st = create_train_state(ModelConfig(compute_dtype="float32"), tcfg,
+                                seed=0, device="cuda")
+        return make_train_step(tcfg, 1)(st, *batch)[1]
+
+    cudnn = torch.backends.cudnn
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG",
+                       os.environ.get("CUBLAS_WORKSPACE_CONFIG", ":4096:8"))
+    monkeypatch.setattr(cudnn, "deterministic", True)
+    monkeypatch.setattr(cudnn, "benchmark", False)
+    torch.use_deterministic_algorithms(True)
+    try:
+        single = step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(k, v)
+    assert mesh.maybe_initialize_distributed("cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        assert mesh.process_device("cuda") == torch.device("cuda", 0)
+        mesh.reset_collective_counts()
+        torch.use_deterministic_algorithms(True)
+        ddp = step()
+        counts = mesh.collective_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    assert counts["batch_norm"] > 0, counts
+    assert (counts["loss_count"], counts["gradients"], counts["loss"]) == \
+        (1, 1, 1), counts
+    for k, rtol in (("loss", 1e-6), ("grad_norm", 1e-5)):
+        torch.testing.assert_close(ddp[k], single[k], rtol=rtol, atol=0)
+
+
+def test_infer_cli_launches_the_kernels_on_card(rnd, tmp_path):
+    """`cli.infer` on random weights over one 375x1242 frame in bf16:
+    four PNGs, finite 368x1232 maps, and the "mxu" forward's launches
+    (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3 11 of which 1
+    two-input) for each of the engine's two forwards (a warm-up, then
+    the timed one)."""
+    import numpy as np
+    from lwsnet_tpu_torch.cli import infer
+    from lwsnet_tpu_torch.data.png import write_png
+    rng = np.random.default_rng(0)
+    for d in ("image_2", "image_3"):
+        (tmp_path / d).mkdir()
+    img = rng.integers(0, 256, (375, 1242, 3), dtype=np.uint8)
+    write_png(str(tmp_path / "image_2" / "000000_10.png"), img)
+    write_png(str(tmp_path / "image_3" / "000000_10.png"),
+              np.roll(img, -9, axis=1))
+    build.reset_launch_counts()
+    zero = build.launch_counts()
+    (frame,) = infer.run(["--img_path", str(tmp_path), "--save_path",
+                          str(tmp_path / "out"), "--random_weights"])
+    torch.cuda.synchronize()
+    want = dict.fromkeys(zero, 0)
+    want.update({"conv3d_bn_relu": 30, "conv3d_skip_softargmin": 6,
+                 "dense3x3": 22, "dense3x3[dual]": 2})
+    assert build.launch_counts() == want
+    for s, d in enumerate(frame["disparities"]):
+        assert d.shape == (368, 1232) and np.isfinite(d).all(), s
+        assert (tmp_path / "out" / f"000000_10_stage{s + 1}.png").is_file()
