@@ -11,8 +11,8 @@ seeded random weights, under each stage-4 refinement engine: the shipped
 `rows_dw="mxu"`, then "vpu" with `rows_paired` True and False, "chain",
 and the planar `pallas_mode="layers"`; then the rows microbench; then the
 training path through the finetune CLI; then pretrain, finetune and
-infer through their CLIs. Phases, in order; any failure
-exits non-zero:
+infer through their CLIs; then every tool of `lwsnet_tpu_torch.tools`.
+Phases, in order; any failure exits non-zero:
 
   1. the card's name and power limit;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
@@ -116,7 +116,26 @@ exits non-zero:
      forwards the CLI ran (two a frame), frame 0's four stages through
      the CLI held with the bf16 module path against the float64 module
      path on the restored weights at phase 4's bar, and each frame's
-     forward time and host-clock time as the CLI logs them.
+     forward time and host-clock time as the CLI logs them;
+ 10. the tools (`lwsnet_tpu_torch.tools`), in process, their JSON under
+     chiprun_out/tools/: (a) `parity --fixture` under each engine in
+     float32 (TF32 off) and bf16 on both of the JAX fixture's weight
+     sets (`tests/torch_fixtures/`: the JAX float32 module path at every
+     4th pixel of 368x1232), each stage of each path at
+     `tools.parity`'s fixture bars, and the bf16 "mxu" launch counts at
+     `want_counts("mxu")`; (b) `parity_kernels` on the trained weights
+     in both dtypes; (c) `profile_forward --trace`: per-stage and
+     per-component times, and the trace's `stage1` .. `stage4_refinement`
+     ranges, `stage1` enclosing a `conv3d_bn_relu` launch and
+     `stage4_refinement` a `dense3x3` one, and the forward's time with
+     and without the ranges, in turns; (d) `golden_pair_inference` on
+     phase 9's finetuned checkpoint and a seeded 375x1242 pair: four
+     finite stages, four PNGs, 2 x `want_counts("mxu")` launches; (e)
+     `microbench_refine` and `microbench_3d`, their equivalence checks
+     first; (f) `aot_warm` names every library; (g) `scaling_sweep
+     --devices 1 --iters 3` under NCCL: one finite point; (h) a
+     miniature `overfit_proof` (8 pairs, 1 + 1 epochs, batch 4) and
+     `cpu_truth_eval` on its best checkpoint, finite, no EPE bar.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -1726,6 +1745,177 @@ def recipe_phase(dev, smi, tmp):
     return report
 
 
+# Phase 10: the tools. Each engine as `tools.parity` options.
+PARITY_ARGS = {"mxu": ["--rows_dw", "mxu"],
+               "vpu-paired": ["--rows_dw", "vpu"],
+               "vpu-unpaired": ["--rows_dw", "vpu", "--unpaired"],
+               "chain": ["--rows_dw", "chain"],
+               "layers": ["--pallas_mode", "layers"]}
+OVERFIT_MINI = ["--regimes", "kitti_mask", "--pairs", "8", "--epochs", "1",
+                "--tail-epochs", "1", "--tail-seg-epochs", "1", "--batch",
+                "4", "--tail-batch", "4"]
+
+
+def tools_phase(dev, smi, tmp, phase5_ms=None):
+    """Phase 10: the tools of `lwsnet_tpu_torch.tools` on the card, in
+    process, with their JSON under chiprun_out/tools/: (a) `parity
+    --fixture` under every engine in float32 and bf16 on both weight
+    sets, the "mxu" launch counts; (b) `parity_kernels` on the trained
+    weights; (c) `profile_forward --trace` with its four stage ranges,
+    each enclosing a launch of the port's kernels; (d)
+    `golden_pair_inference` on phase 9's finetuned checkpoint; (e) the
+    two microbenches; (f) `aot_warm`; (g) `scaling_sweep --devices 1`
+    under NCCL; (h) a miniature `overfit_proof` and `cpu_truth_eval` on
+    its best checkpoint. `phase5_ms`: phase 5's 4-stage "mxu" median,
+    printed beside profile_forward's. Returns the phase's report."""
+    import torch
+    from lwsnet_tpu_torch.data.png import write_png
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.tools import (aot_warm, cpu_truth_eval,
+                                        golden_pair_inference, microbench_3d,
+                                        microbench_refine, overfit_proof,
+                                        parity, parity_kernels,
+                                        profile_forward, scaling_sweep)
+    t0 = time.time()
+    out = os.path.join("chiprun_out", "tools")
+    os.makedirs(out, exist_ok=True)
+    report = {}
+
+    # (a) both paths against the JAX fixture
+    build.reset_launch_counts()
+    zero = build.launch_counts()
+    report["parity"] = {}
+    for engine, args in PARITY_ARGS.items():
+        for dtype in ("float32", "bfloat16"):
+            res = parity.main(
+                ["--fixture", parity.FIXTURE, "--dtype", dtype, *args,
+                 "--out", os.path.join(out, f"parity_{engine}_{dtype}.json")])
+            report["parity"][f"{engine} {dtype}"] = res["sets"]
+            for name, st in res["sets"].items():
+                for row in st["stages"]:
+                    k, m = row["kernels"], row["module"]
+                    failed = [b for b, ok in row["bars"].items()
+                              if ok is False]
+                    unheld = [b for b, ok in row["bars"].items()
+                              if ok is None]
+                    print(f"[10a] {engine} {dtype} {name} stage "
+                          f"{row['stage']}: fixture span "
+                          f"{row['fixture_span']:.3f} px (guard "
+                          f"{row['span_guard_px']:.1f}), mean |delta| "
+                          f"(bar {row['mean_bar_pct']:g} %) "
+                          f"kernels {k['mean_delta_pct_of_span']:.4f} % "
+                          f"(max {k['max_abs_delta']:.4g} px), module "
+                          f"{m['mean_delta_pct_of_span']:.4f} % (max "
+                          f"{m['max_abs_delta']:.4g} px)"
+                          + (f"; not applied: {unheld}" if unheld else "")
+                          + (f"; FAILED {failed}" if failed else ""))
+                if engine == "mxu":
+                    print(f"[10a] mxu {dtype} {name} launches: "
+                          f"{st['launches']}")
+                    if dtype == "bfloat16":
+                        require(st["launches"] == want_counts("mxu", zero),
+                                f"parity {name}: launches {st['launches']}")
+            require(res["pass"], f"parity --fixture {engine} {dtype} failed")
+
+    # (b) the kernel families where parity is well-posed
+    res = parity_kernels.main(
+        ["--ckpt", os.path.join(os.path.dirname(parity.FIXTURE),
+                                parity.WEIGHTS) + ":trained",
+         "--out", os.path.join(out, "parity_kernels.json")])
+    for c in res["checks"]:
+        print(f"[10b] {c['check']} {c['dtype']}: mean |delta| "
+              f"{c['mean_delta_pct_of_span']:.4f} % of span {c['span']:.3f} "
+              f"(bar {c['bar_pct']:g} %)")
+    require(res["pass"], "parity_kernels failed")
+    report["parity_kernels"] = res["checks"]
+
+    # (c) per-stage and per-component times, and the trace's ranges
+    prof = profile_forward.main(["--trace", out])
+    ranges = prof["trace"]["ranges"]
+    require(set(profile_forward.STAGE_RANGES) <= set(ranges),
+            f"trace ranges {sorted(ranges)}")
+    for rng_name, kernel in (("stage1", "conv3d_bn_relu"),
+                             ("stage4_refinement", "dense3x3")):
+        require(any(KERNEL_NAMES[kernel] in n for n in ranges[rng_name]),
+                f"trace: no {kernel} launch inside {rng_name}: "
+                f"{ranges[rng_name]}")
+    inc = prof["forward_ms"]["kernels"]
+    print(f"[10c] profile_forward ({smi}): kernel path per-stage "
+          f"increments {[round(inc[k]['increment_ms'], 3) for k in inc]} ms "
+          f"sum {sum(r['increment_ms'] for r in inc.values()):.3f} ms; "
+          f"phase 5's 4-stage median "
+          f"{'not measured' if phase5_ms is None else f'{phase5_ms:.3f} ms'}")
+    report["profile_forward"] = prof
+
+    # (d) golden-pair inference on phase 9's finetuned checkpoint
+    rng = np.random.default_rng(10)
+    img = rng.integers(0, 256, (TRAIN_H, TRAIN_W, 3), dtype=np.uint8)
+    pair = [os.path.join(tmp, f"golden_{s}.png") for s in ("l", "r")]
+    for path, arr in zip(pair, (img, np.roll(img, -17, axis=1))):
+        write_png(path, arr, compress_level=1)
+    pngs = os.path.join(tmp, "golden_out")
+    build.reset_launch_counts()
+    res = golden_pair_inference.main(
+        ["--ckpt", os.path.join(tmp, "finetuned"), "--left", pair[0],
+         "--right", pair[1], "--out", pngs])
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    want = {k: 2 * n for k, n in want_counts("mxu", zero).items()}
+    require(res["ok"] and sorted(os.listdir(pngs)) ==
+            [f"{s}.png" for s in range(1, 5)], f"golden pair: {res}")
+    require(counts == want, f"golden pair launches {counts} != {want}")
+    print(f"[10d] golden_pair_inference: 4 finite stages, 4 PNGs, forward "
+          f"{res['seconds'] * 1e3:.3f} ms, launches {counts} ({smi})")
+    report["golden_pair"] = dict(res, launches=counts)
+
+    # (e) the microbenches, their equivalence checks first
+    report["microbench_refine"] = microbench_refine.main([])
+    report["microbench_3d"] = microbench_3d.main([])
+
+    # (f) the ahead-of-time build
+    res = aot_warm.main([])
+    require(set(res["libraries"]) == set(build.SOURCES),
+            f"aot_warm named {sorted(res['libraries'])}")
+    report["aot_warm"] = res
+
+    # (g) the data-parallel sweep at one process under NCCL
+    res = scaling_sweep.main(["--devices", "1", "--iters", "3", "--out",
+                              os.path.join(out, "scaling_sweep.json")])
+    require(len(res["points"]) == 1
+            and np.isfinite(res["points"][0]["step_ms"]),
+            f"scaling_sweep: {res['points']}")
+    print(f"[10g] scaling_sweep --devices 1: step "
+          f"{res['points'][0]['step_ms']:.3f} ms, "
+          f"{res['points'][0]['frames_per_s']:.2f} frames/s ({smi})")
+    report["scaling_sweep"] = res
+
+    # (h) the overfit proof in miniature, and its CPU float32 truth
+    src = os.path.join(tmp, "overfit_source.png")
+    write_png(src, rng.integers(0, 256, (TRAIN_H, TRAIN_W, 3),
+                                dtype=np.uint8), compress_level=1)
+    work = os.path.join(tmp, "overfit")
+    res = overfit_proof.main(OVERFIT_MINI + [
+        "--source", src, "--workdir", work,
+        "--out", os.path.join(out, "overfit_proof.json")])
+    run = res["runs"][0]
+    require(all(run[k] is not None for k in ("final_epe_px", "best_epe_px",
+                                             "first_loss", "last_loss")),
+            f"overfit_proof: {run}")
+    truth = cpu_truth_eval.main(
+        ["--ckpt", run["best_ckpt"], "--workdir", work, "--pairs", "8",
+         "--device", "cpu", "--out", os.path.join(out, "cpu_truth_eval.json")])
+    require(np.isfinite(truth["cpu_f32_stage4_epe_px"]),
+            f"cpu_truth_eval: {truth}")
+    print(f"[10h] overfit_proof (miniature): {run['steps']} steps, EPE "
+          f"{run['initial_epe_px']} -> best {run['best_epe_px']}, final "
+          f"{run['final_epe_px']} px; cpu_truth_eval stage-4 EPE "
+          f"{truth['cpu_f32_stage4_epe_px']} px over 8 pairs")
+    report["overfit_proof"] = dict(run=run, truth=truth)
+    report["seconds"] = time.time() - t0
+    print(f"[10] tools phase: {report['seconds']:.1f} s")
+    return report
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2035,11 +2225,14 @@ def main():
                   f"device {tot['device_ms']:.4f} ms (events "
                   f"{tot['ms']:.4f} ms)")
 
-    # 8. training on the card; 9. the recipe through the three CLIs
+    # 8. training on the card; 9. the recipe through the three CLIs;
+    # 10. the tools, phase 9's finetuned checkpoint among their inputs
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build") as tmp:
         report["training"] = training_phase(dev, smi, tmp)
         report["recipe"] = recipe_phase(dev, smi, tmp)
+        report["tools"] = tools_phase(dev, smi, tmp,
+                                      latency["mxu"][4]["kernels_ms"])
 
     line = []
     for k in build.KERNELS:

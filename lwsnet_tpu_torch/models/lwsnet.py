@@ -12,7 +12,9 @@ Counterpart of the JAX package's `models/lwsnet.py`, eval mode:
 the JAX `use_pallas=False`. With `kernels=True` the cost filters and the
 refinement run on the Hopper kernels (`lwsnet_tpu_torch.ops.cuda`);
 `inference.make_forward` selects it. `num_stages` is an early exit: the
-stages after it do not run.
+stages after it do not run. Each stage runs inside a profiler range named
+as the JAX forward names its scopes (`stage1` .. `stage3`,
+`stage4_refinement`), on both paths; a range adds no synchronisation.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import List, Optional
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from lwsnet_tpu_torch.config import ModelConfig
 from lwsnet_tpu_torch.device import resolve_device
@@ -78,41 +81,45 @@ class LWSNet(nn.Module):
 
         preds: List[torch.Tensor] = []
         for scale in range(min(stages, 3)):
-            fl, fr = feats[scale][:B], feats[scale][B:]
-            fh, fw = fl.shape[1], fl.shape[2]
-            D = cfg.max_disp_list[scale]
-            if scale == 0:
-                cost = stereo.build_cost_volume(fl, fr, D)
-                start = 0
-            else:
-                # Disparities stay float32: bf16 has too little mantissa
-                # for sub-pixel warp offsets.
-                wflow = stereo.resize_bilinear(preds[-1], fh, fw) * (fh / H)
-                cost = stereo.build_residual_volume(fl, fr, wflow, D)
-                start = -D + 1
-            filt = getattr(self, f"CostFilter3D_{scale}")
-            if kernels:
-                d = filter_soft_argmin(
-                    cost, dict(filt.named_parameters()),
-                    dict(filt.named_buffers()), layers=cfg.layers_3d,
-                    channels=cfg.channels_3d * cfg.growth_rate[scale],
-                    start=start, dtype=dtype)
-            else:
-                d = stereo.soft_argmin(filt(cost) + cost, start,
-                                       start + cost.shape[-1])
-            d_up = stereo.resize_bilinear(d * (H / fh), H, W)
-            preds.append(d_up if scale == 0 else d_up + preds[-1])
+            with record_function(f"stage{scale + 1}"):
+                fl, fr = feats[scale][:B], feats[scale][B:]
+                fh, fw = fl.shape[1], fl.shape[2]
+                D = cfg.max_disp_list[scale]
+                if scale == 0:
+                    cost = stereo.build_cost_volume(fl, fr, D)
+                    start = 0
+                else:
+                    # Disparities stay float32: bf16 has too little
+                    # mantissa for sub-pixel warp offsets.
+                    wflow = (stereo.resize_bilinear(preds[-1], fh, fw)
+                             * (fh / H))
+                    cost = stereo.build_residual_volume(fl, fr, wflow, D)
+                    start = -D + 1
+                filt = getattr(self, f"CostFilter3D_{scale}")
+                if kernels:
+                    d = filter_soft_argmin(
+                        cost, dict(filt.named_parameters()),
+                        dict(filt.named_buffers()), layers=cfg.layers_3d,
+                        channels=cfg.channels_3d * cfg.growth_rate[scale],
+                        start=start, dtype=dtype)
+                else:
+                    d = stereo.soft_argmin(filt(cost) + cost, start,
+                                           start + cost.shape[-1])
+                d_up = stereo.resize_bilinear(d * (H / fh), H, W)
+                preds.append(d_up if scale == 0 else d_up + preds[-1])
 
         if stages == 4:
-            if kernels:
-                res = refine_residual(self, left, preds[-1], dtype=dtype,
-                                      paired=cfg.rows_paired)
-            else:
-                tower_l = self.RefinementTower_0(
-                    left.permute(0, 3, 1, 2).to(dtype))
-                tower_d = self.RefinementTower_1(
-                    preds[-1].permute(0, 3, 1, 2).to(dtype))
-                res = self.RefinementHead_0(
-                    torch.cat([tower_l, tower_d], 1)).permute(0, 2, 3, 1)
-            preds.append(preds[-1] + res.to(preds[-1].dtype))
+            with record_function("stage4_refinement"):
+                if kernels:
+                    res = refine_residual(self, left, preds[-1],
+                                          dtype=dtype,
+                                          paired=cfg.rows_paired)
+                else:
+                    tower_l = self.RefinementTower_0(
+                        left.permute(0, 3, 1, 2).to(dtype))
+                    tower_d = self.RefinementTower_1(
+                        preds[-1].permute(0, 3, 1, 2).to(dtype))
+                    res = self.RefinementHead_0(torch.cat(
+                        [tower_l, tower_d], 1)).permute(0, 2, 3, 1)
+                preds.append(preds[-1] + res.to(preds[-1].dtype))
         return [p.float() for p in preds]

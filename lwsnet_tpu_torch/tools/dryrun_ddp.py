@@ -10,9 +10,10 @@ afterwards.
 
     python -m lwsnet_tpu_torch.tools.dryrun_ddp [--processes N]
 
-`spawn` starts such processes for any module-level target (the tests use
-it): each rendezvouses through a file, runs on one torch thread and is
-joined within a time limit, after which every process still running is
+`spawn` starts such processes for any module-level target (the tests and
+`tools.scaling_sweep` use it, the latter on the card under NCCL): each
+rendezvouses through a file, runs on one torch thread and is joined
+within a time limit, after which every process still running is
 killed and `spawn` raises.
 """
 
@@ -33,7 +34,7 @@ TRAIN_KW = dict(mask_max_disp=192.0)
 
 
 def _child(target: Callable, rank: int, world: int, init_method: str,
-           args: Sequence) -> None:
+           args: Sequence, device: str) -> None:
     import torch.distributed as dist
 
     from lwsnet_tpu_torch.parallel import mesh
@@ -41,7 +42,7 @@ def _child(target: Callable, rank: int, world: int, init_method: str,
     torch.set_num_threads(1)
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank))
-    mesh.maybe_initialize_distributed("cpu", init_method=init_method)
+    mesh.maybe_initialize_distributed(device, init_method=init_method)
     try:
         target(rank, world, *args)
     finally:
@@ -49,18 +50,20 @@ def _child(target: Callable, rank: int, world: int, init_method: str,
 
 
 def spawn(target: Callable, world: int, args: Sequence = (),
-          timeout: float = 120.0, rendezvous_dir: Optional[str] = None
-          ) -> None:
-    """Run target(rank, world, *args) in `world` fresh CPU processes under
-    one gloo group (rendezvous file in `rendezvous_dir`, default a new
-    temporary directory). Waits at most `timeout` seconds for all of them:
+          timeout: float = 120.0, rendezvous_dir: Optional[str] = None,
+          device: str = "cpu") -> None:
+    """Run target(rank, world, *args) in `world` fresh processes under one
+    group (rendezvous file in `rendezvous_dir`, default a new temporary
+    directory): gloo on the CPU, or NCCL with `device="cuda"`, process r
+    on card r. Waits at most `timeout` seconds for all of them:
     then kills those still running and raises TimeoutError; raises
     RuntimeError if any exited with another code than 0."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=rendezvous_dir) as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         procs = [ctx.Process(target=_child,
-                             args=(target, rank, world, init, tuple(args)))
+                             args=(target, rank, world, init, tuple(args),
+                                   device))
                  for rank in range(world)]
         for p in procs:
             p.start()

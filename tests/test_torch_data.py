@@ -9,6 +9,8 @@ Mirrors tests/test_data.py and tests/test_native.py for KITTI.
 """
 
 import os
+import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -139,11 +141,33 @@ def test_lockstep_batch_counts(corpus, training, bs):
         assert total_valid == len(idx)
 
 
-def test_native_and_numpy_routes_agree(corpus, monkeypatch):
+@pytest.fixture(scope="module")
+def native_library():
+    """native/libstereoload.so, built here when it is missing (as
+    tests/test_native.py builds it), so the test below does not depend on
+    which worker ran that file first. The library is made in a temporary
+    directory and renamed into place, so a process that loads it never
+    sees a half-written file. Skips only when the toolchain is missing."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lib = os.path.join(repo, "native", "libstereoload.so")
+    if not os.path.exists(lib):
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(repo, "native")) as tmp:
+            try:
+                subprocess.run(
+                    ["make", "-C", os.path.join(repo, "native"),
+                     f"OUT={os.path.join(tmp, 'libstereoload.so')}"],
+                    check=True, capture_output=True)
+            except (subprocess.CalledProcessError, OSError) as e:
+                pytest.skip(f"native toolchain unavailable: {e}")
+            os.replace(os.path.join(tmp, "libstereoload.so"), lib)
+    if not native.available():
+        pytest.skip("native library failed to load")
+
+
+def test_native_and_numpy_routes_agree(corpus, monkeypatch, native_library):
     """The native fused crop / normalize and the numpy path give the same
     batch (the decode is exact; normalization within 1e-6)."""
-    if not native.available():
-        pytest.skip("native/libstereoload.so not built (make -C native)")
     root, split = corpus
     pipe, _ = _pipes(root, split, False, 2, (48, 96))
     fast = list(pipe.epoch(0))

@@ -1065,3 +1065,42 @@ def test_infer_cli_launches_the_kernels_on_card(rnd, tmp_path):
     for s, d in enumerate(frame["disparities"]):
         assert d.shape == (368, 1232) and np.isfinite(d).all(), s
         assert (tmp_path / "out" / f"000000_10_stage{s + 1}.png").is_file()
+
+
+_ENGINES = {"mxu": dict(rows_dw="mxu"),
+            "vpu-paired": dict(rows_dw="vpu", rows_paired=True),
+            "vpu-unpaired": dict(rows_dw="vpu", rows_paired=False),
+            "chain": dict(rows_dw="chain"),
+            "layers": dict(pallas_mode="layers")}
+
+
+@pytest.mark.parametrize("engine", sorted(_ENGINES))
+def test_parity_fixture_on_card(rnd, engine):
+    """Both paths at 368x1232 against the JAX float32 fixture
+    (`tests/torch_fixtures/`, no JAX needed) on its two weight sets, in
+    float32 and bf16, at `tools.parity`'s fixture bars."""
+    import os
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.tools import parity
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), parity.FIXTURE)
+    for dtype in ("float32", "bfloat16"):
+        cfg = ModelConfig(compute_dtype=dtype, **_ENGINES[engine])
+        res = parity.check_fixture(path, cfg, torch.device("cuda"))
+        for name, st in res.items():
+            assert st["pass"], (dtype, name, [
+                (row["stage"], row["bars"]) for row in st["stages"]])
+
+
+def test_parity_kernels_on_card(rnd, tmp_path):
+    """`tools.parity_kernels` on the fixture's trained weights: the
+    refinement residual and each stage's filter + soft-argmin on peaked
+    volumes within 0.1 % (float32) / 2 % (bf16) of the module path."""
+    import os
+    from lwsnet_tpu_torch.tools import parity, parity_kernels
+    weights = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), os.path.dirname(parity.FIXTURE),
+        parity.WEIGHTS)
+    res = parity_kernels.main(["--ckpt", weights + ":trained", "--out",
+                               str(tmp_path / "parity_kernels.json")])
+    assert res["pass"], res["checks"]
