@@ -135,12 +135,33 @@ Phases, in order; any failure exits non-zero:
      first; (f) `aot_warm` names every library; (g) `scaling_sweep
      --devices 1 --iters 3` under NCCL: one finite point; (h) a
      miniature `overfit_proof` (8 pairs, 1 + 1 epochs, batch 4) and
-     `cpu_truth_eval` on its best checkpoint, finite, no EPE bar.
+     `cpu_truth_eval` on its best checkpoint, finite, no EPE bar; (i) a
+     miniature `overfit_diag` (configs "f32" and "primed", 8 steps over
+     4 pairs at batch 2): every number of its result finite;
+ 11. row sharding on the card: two processes on the one card under gloo
+     (NCCL refuses two processes on one device), laid out as data x
+     spatial 1 x 2 through `tools.dryrun_ddp.spawn`, against the same
+     work in this process, with seeded weights (phase 4's jittered batch
+     norms): (a) one train step of the full-width model at 256x512, batch
+     2, TF32 off and deterministic algorithms, in float32 (loss rel 1e-5,
+     BN statistics rtol 1e-4 / atol 1e-6) and in float64 compute (also
+     every gradient tensor's cosine >= 0.9999; float32's cosines are
+     printed: they move with the order of summation alone); (b) the eval
+     step at the KITTI window 368x1232, 184 rows a shard: in float64
+     compute EPE and D1 sums within rel 1e-5, weight equal in both
+     dtypes, float32's gaps printed (threshold pixels flip, and stage 4
+     of a random network amplifies rounding); (c) bf16 train steps,
+     finite; (d) the "halo" collectives equal to `LWSNet.halo_exchanges`
+     (forward and backward a train step, forward an eval step) and no
+     kernel launch;
+     printed with no bar: each process's peak memory and the bf16 step's
+     median time beside the single process's at the same global batch.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -1433,6 +1454,27 @@ def free_port():
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """TF32 off and deterministic algorithms inside, the settings as they
+    were after."""
+    import torch
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             matmul.allow_tf32)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+         matmul.allow_tf32) = saved[1:]
+
+
 def probe_step(dev, deterministic=True):
     """One float32 train step (TF32 off) of the full-width model at
     STEP_SHAPE from the seed-0 state, on `card_vs_cpu_step`'s batch with
@@ -1456,22 +1498,14 @@ def probe_step(dev, deterministic=True):
     st = create_train_state(ModelConfig(compute_dtype="float32"), tcfg,
                             seed=0, device=dev)
     mesh.reset_collective_counts()
-    cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
-    if deterministic:
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        torch.use_deterministic_algorithms(True)
-        cudnn.deterministic, cudnn.benchmark = True, False
-    try:
+    with (deterministic_algorithms() if deterministic
+          else contextlib.nullcontext()):
         _, aux = make_train_step(tcfg, 1)(
             st, *[torch.as_tensor(a, dtype=torch.float32, device=dev)
                   for a in batch])
-        out = dict(loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]),
-                   collectives=mesh.collective_counts())
-    finally:
-        torch.use_deterministic_algorithms(False)
-        cudnn.deterministic, cudnn.benchmark = saved
-    return out
+        return dict(loss=float(aux["loss"]),
+                    grad_norm=float(aux["grad_norm"]),
+                    collectives=mesh.collective_counts())
 
 
 def recipe_phase(dev, smi, tmp):
@@ -1754,6 +1788,8 @@ PARITY_ARGS = {"mxu": ["--rows_dw", "mxu"],
 OVERFIT_MINI = ["--regimes", "kitti_mask", "--pairs", "8", "--epochs", "1",
                 "--tail-epochs", "1", "--tail-seg-epochs", "1", "--batch",
                 "4", "--tail-batch", "4"]
+DIAG_MINI = ["--configs", "f32", "primed", "--steps", "8", "--pairs", "4",
+             "--batch", "2"]
 
 
 def tools_phase(dev, smi, tmp, phase5_ms=None):
@@ -1773,9 +1809,10 @@ def tools_phase(dev, smi, tmp, phase5_ms=None):
     from lwsnet_tpu_torch.ops.cuda import build
     from lwsnet_tpu_torch.tools import (aot_warm, cpu_truth_eval,
                                         golden_pair_inference, microbench_3d,
-                                        microbench_refine, overfit_proof,
-                                        parity, parity_kernels,
-                                        profile_forward, scaling_sweep)
+                                        microbench_refine, overfit_diag,
+                                        overfit_proof, parity,
+                                        parity_kernels, profile_forward,
+                                        scaling_sweep)
     t0 = time.time()
     out = os.path.join("chiprun_out", "tools")
     os.makedirs(out, exist_ok=True)
@@ -1911,8 +1948,232 @@ def tools_phase(dev, smi, tmp, phase5_ms=None):
           f"{run['final_epe_px']} px; cpu_truth_eval stage-4 EPE "
           f"{truth['cpu_f32_stage4_epe_px']} px over 8 pairs")
     report["overfit_proof"] = dict(run=run, truth=truth)
+
+    # (i) the overfit microscope in miniature
+    t1 = time.time()
+    runs = overfit_diag.main(DIAG_MINI + [
+        "--source", src, "--out", os.path.join(out, "overfit_diag.json")])
+    for res in runs:
+        nums = [v for k, v in res.items() if k != "milestones"
+                and isinstance(v, (int, float))] + [
+            x for k in ("loss_last_10", "final_stage_losses",
+                        "step_stage_recheck") for x in res[k]]
+        require(all(np.isfinite(x) for x in nums),
+                f"overfit_diag {res['config']}: {res}")
+        print(f"[10i] overfit_diag {res['config']}: loss {res['first_loss']}"
+              f" -> {res['last_loss']} in {res['steps']} steps "
+              f"({res['wall_s']} s), max grad norm {res['max_gnorm']}, "
+              f"stage-4 EPE eval {res['final_epe_eval']} / train "
+              f"{res['final_epe_train']} / restat {res['epe_eval_restat']}"
+              f" px, recheck {res['step_loss_recheck']}")
+    print(f"[10i] overfit_diag: {time.time() - t1:.1f} s ({smi})")
+    report["overfit_diag"] = runs
     report["seconds"] = time.time() - t0
     print(f"[10] tools phase: {report['seconds']:.1f} s")
+    return report
+
+
+# Phase 11: row sharding, two processes on the one card.
+SHARD_STEP = (2, 256, 512)  # the train step: batch, height, width
+SHARD_EVAL = (2, H, W)      # the eval step at the KITTI window
+SHARD_TCFG = dict(mask_max_disp=192.0)
+
+
+def shard_child(rank, world, work):
+    """Phase 11's process `rank` of `world` (row shards of one data slice)
+    on the one card: its rows of `<work>/batch.npz` through (a) one train
+    step in float32 and in float64 compute, TF32 off and deterministic;
+    (b) the eval step at the KITTI window in both; (c) bf16 train steps
+    timed by CUDA events, with the process's peak memory over them.
+    Records the collectives and launches of each, to
+    `<work>/shard<world>_<rank>.pt`."""
+    import torch
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.parallel import mesh
+    from lwsnet_tpu_torch.tools.dryrun_ddp import local_part
+    from lwsnet_tpu_torch.training.state import create_train_state
+    from lwsnet_tpu_torch.training.steps import (make_eval_step,
+                                                 make_train_step)
+    from lwsnet_tpu_torch.utils.timing import event_times
+
+    dev = torch.device("cuda", 0)
+    base = torch.cuda.memory_allocated(dev)
+    data = dict(np.load(os.path.join(work, "batch.npz")))
+    weights = torch.load(os.path.join(work, "weights.pt"))
+    tcfg = TrainConfig(**SHARD_TCFG)
+    launches = build.launch_counts()
+
+    def state(dtype):
+        st = create_train_state(ModelConfig(compute_dtype=dtype), tcfg,
+                                device=dev)
+        st.model.load_state_dict(weights)
+        return st
+
+    batch = [t.to(dev) for t in local_part(data, "lrg")]
+    out = {"rows": mesh.row_range(SHARD_STEP[1]),
+           "eval_rows": mesh.row_range(SHARD_EVAL[1])}
+    with deterministic_algorithms():
+        for dtype in ("float32", "float64"):
+            st = state(dtype)
+            mesh.reset_collective_counts()
+            st, aux = make_train_step(tcfg, 1)(st, *batch)
+            out[dtype] = dict(
+                loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]),
+                counts=mesh.collective_counts(),
+                grads={n: p.grad.detach().double().cpu()
+                       for n, p in st.model.named_parameters()},
+                buffers={n: b.detach().double().cpu()
+                         for n, b in st.model.named_buffers()})
+            del st
+        ev = [t.to(dev) for t in local_part(data, ["el", "er", "eg"])]
+        for dtype in ("float32", "float64"):
+            st = state(dtype)
+            mesh.reset_collective_counts()
+            res = make_eval_step(192.0)(st, *ev, torch.as_tensor(
+                data["ev"], device=dev))
+            out[f"eval_{dtype}"] = dict(
+                {k: v.double().cpu() for k, v in res.items()},
+                counts=mesh.collective_counts())
+            del st
+    st = state("bfloat16")
+    step = make_train_step(tcfg, 1)
+    losses = []
+
+    def bf16_step():
+        nonlocal st
+        st, aux = step(st, *batch)
+        losses.append(float(aux["loss"]))
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.reset_collective_counts()
+    ms = event_times(bf16_step, reps=5, warmup=2)
+    out["bf16"] = dict(ms=ms, losses=losses,
+                       counts=mesh.collective_counts(),
+                       peak_bytes=torch.cuda.max_memory_allocated(dev) - base)
+    out["launches"] = {k: n - launches[k]
+                       for k, n in build.launch_counts().items()}
+    torch.save(out, os.path.join(work, f"shard{world}_{rank}.pt"))
+
+
+def row_shard_phase(dev, smi, tmp):
+    """Phase 11: `shard_child` in this process, without a process group,
+    then in two row shards of one data slice spawned on the one card
+    under gloo (NCCL refuses two processes on one device), and the two
+    held against the one (the module docstring's bars). Returns the
+    phase's report."""
+    import torch
+    from lwsnet_tpu_torch import LWSNet, ModelConfig
+    from lwsnet_tpu_torch.tools import dryrun_ddp
+    t0 = time.time()
+    work = os.path.join(tmp, "shards")
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(11)
+    b, h, w = SHARD_STEP
+    eb, eh, ew = SHARD_EVAL
+    eg = rng.uniform(1.0, 150.0, (eb, eh, ew)).astype(np.float32)
+    eg[rng.uniform(size=eg.shape) < 0.3] = 0.0
+    np.savez(os.path.join(work, "batch.npz"),
+             l=rng.standard_normal((b, h, w, 3)).astype(np.float32),
+             r=rng.standard_normal((b, h, w, 3)).astype(np.float32),
+             g=rng.uniform(1.0, 250.0, (b, h, w)).astype(np.float32),
+             el=rng.standard_normal((eb, eh, ew, 3)).astype(np.float32),
+             er=rng.standard_normal((eb, eh, ew, 3)).astype(np.float32),
+             eg=eg, ev=np.ones(eb, np.float32))
+    model = LWSNet(ModelConfig(compute_dtype="float32"), device="cpu")
+    jitter_batchnorm(model, np.random.default_rng(3))
+    torch.save(model.state_dict(), os.path.join(work, "weights.pt"))
+    halo = model.halo_exchanges()
+    t1 = time.time()
+    shard_child(0, 1, work)
+    t2 = time.time()
+    dryrun_ddp.spawn(shard_child, 2, (work,), 300.0, work, device="cuda:0",
+                     spatial=2, backend="gloo")
+    print(f"[11] one process {t2 - t1:.1f} s, two row shards on the card "
+          f"{time.time() - t2:.1f} s")
+    one = torch.load(os.path.join(work, "shard1_0.pt"))
+    two = [torch.load(os.path.join(work, f"shard2_{r}.pt")) for r in (0, 1)]
+    require([r["rows"] for r in two] == [(0, h // 2), (h // 2, h)]
+            and [r["eval_rows"] for r in two] == [(0, eh // 2),
+                                                 (eh // 2, eh)],
+            f"row shards {[(r['rows'], r['eval_rows']) for r in two]}")
+    report = {}
+    for dtype in ("float32", "float64"):
+        a, s1 = two[0][dtype], one[dtype]
+        for key in ("grads", "buffers"):
+            require(all(torch.equal(t, two[1][dtype][key][n])
+                        for n, t in a[key].items()),
+                    f"{dtype}: the two shards' {key} differ")
+        require(a["counts"].get("halo") == halo["forward"] + halo["backward"],
+                f"{dtype} step: halo exchanges {a['counts']} != {halo}")
+        floor = 1e-6 * s1["grad_norm"]
+        whole, least, worst, _ = _grad_agreement(a["grads"], s1["grads"],
+                                                 floor)
+        loss_rel = abs(a["loss"] / s1["loss"] - 1.0)
+        stats = max(float(((t - s1["buffers"][n]).abs()
+                           / (1e-4 * s1["buffers"][n].abs() + 1e-6)).max())
+                    for n, t in a["buffers"].items())
+        under = sum(float((a["grads"][n] * g).sum()
+                          / (a["grads"][n].norm() * g.norm())) < 0.9999
+                    for n, g in s1["grads"].items()
+                    if float(g.norm()) >= floor)
+        print(f"[11a] {dtype} step, 1 x 2 row shards vs one process (batch "
+              f"{b}, {h}x{w}, TF32 off, deterministic): loss "
+              f"{a['loss']:.7g} vs {s1['loss']:.7g} (rel {loss_rel:.3g}), "
+              f"grad_norm rel {abs(a['grad_norm'] / s1['grad_norm'] - 1):.3g}"
+              f", BN statistics {stats:.3g} of the bar, gradient cosine "
+              f"{whole:.9f}, least tensor {least:.9f} ({worst}), {under} "
+              f"tensors under 0.9999; collectives {a['counts']}")
+        require(loss_rel <= 1e-5 and stats <= 1.0,
+                f"{dtype} step: loss rel {loss_rel}, statistics {stats}")
+        if dtype == "float64":
+            require(under == 0, f"float64 step: {under} gradient tensors "
+                    f"under cosine 0.9999 (least {least}, {worst})")
+        report[dtype] = dict(loss_rel=loss_rel, stats=stats, cosine=whole,
+                             min_cosine=least, tensors_under=under)
+    for dtype in ("float32", "float64"):
+        got, want = two[0][f"eval_{dtype}"], one[f"eval_{dtype}"]
+        require(all(torch.equal(t, two[1][f"eval_{dtype}"][k])
+                    for k, t in got.items() if k != "counts"),
+                f"eval {dtype}: the two shards' sums differ")
+        gaps = {k: float(((got[k] - want[k]).abs() / want[k].abs()).max())
+                for k in ("epe", "d1")}
+        print(f"[11b] {dtype} eval step at {eh}x{ew} (batch {eb}, "
+              f"{eh // 2} rows a shard): EPE sums {got['epe'].tolist()} vs "
+              f"{want['epe'].tolist()}, D1 sums {got['d1'].tolist()} vs "
+              f"{want['d1'].tolist()}, relative gaps {gaps}, weight "
+              f"{float(got['weight'])}; collectives {got['counts']}")
+        # float32 rounding differs between the shards' and the whole
+        # image's convolutions, stage 4 of a random network amplifies it
+        # (8.4e-6 of the EPE sum, PERF.md) and a pixel within rounding of
+        # D1's 3 px threshold flips: the bars hold in float64
+        require((dtype == "float32" or max(gaps.values()) <= 1e-5)
+                and float(got["weight"]) == float(want["weight"]) == eb,
+                f"eval {dtype}: gaps {gaps}, weight {float(got['weight'])}")
+        require(got["counts"].get("halo") == halo["forward"],
+                f"eval: halo exchanges {got['counts']} != {halo}")
+        report[f"eval_{dtype}_gaps"] = gaps
+    for r in two:
+        require(all(np.isfinite(r["bf16"]["losses"])),
+                f"bf16 steps: losses {r['bf16']['losses']}")
+        require(r["bf16"]["counts"].get("halo")
+                == 7 * (halo["forward"] + halo["backward"]),
+                f"bf16 steps: {r['bf16']['counts']}")
+        require(not any(r["launches"].values()),
+                f"training launched kernels: {r['launches']}")
+    med = [statistics.median(r["bf16"]["ms"]) for r in two + [one]]
+    peak = [r["bf16"]["peak_bytes"] / 2 ** 30 for r in two + [one]]
+    print(f"[11c] bf16 train step, batch {b} at {h}x{w} ({smi}): 1 x 2 row "
+          f"shards {med[0]:.3f} / {med[1]:.3f} ms median of 5 (max "
+          f"{max(two[0]['bf16']['ms']):.3f}), one process {med[2]:.3f} ms; "
+          f"peak memory {peak[0]:.3f} / {peak[1]:.3f} GiB a shard, one "
+          f"process {peak[2]:.3f} GiB ({peak[0] / peak[2]:.3f} of it); "
+          f"losses finite")
+    report.update(bf16_ms=med, peak_gib=peak, halo=halo,
+                  seconds=time.time() - t0)
+    print(f"[11] row sharding phase: {report['seconds']:.1f} s")
     return report
 
 
@@ -2233,6 +2494,7 @@ def main():
         report["recipe"] = recipe_phase(dev, smi, tmp)
         report["tools"] = tools_phase(dev, smi, tmp,
                                       latency["mxu"][4]["kernels_ms"])
+        report["row_shards"] = row_shard_phase(dev, smi, tmp)
 
     line = []
     for k in build.KERNELS:

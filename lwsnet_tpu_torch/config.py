@@ -131,9 +131,13 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh layout of the JAX package's data / spatial sharding.
-    The port shards the batch over the processes of a `torch.distributed`
-    group, one device each (`parallel/mesh.py`); row sharding
-    (`spatial_parallel` > 1) is not ported and raises there."""
+    The port lays the processes of a `torch.distributed` group, one device
+    each, out as `data_parallel` x `spatial_parallel` (`parallel/mesh.py`;
+    rank = d * spatial_parallel + s): the batch is split over the data
+    slices and each image's rows over the `spatial_parallel` processes of
+    a slice, with halo exchanges at the shard edges. `data_parallel` -1
+    takes the world / spatial_parallel; a layout the world cannot hold
+    raises ValueError."""
 
     data_axis: str = "data"
     spatial_axis: str = "spatial"

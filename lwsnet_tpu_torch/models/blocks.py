@@ -17,7 +17,14 @@ layout flip. As in the JAX package:
   `nn.BatchNorm(momentum=0.9)` does: biased variance
   max(0, E[x^2] - E[x]^2), r <- 0.9 r + 0.1 batch; in eval mode it uses
   the running statistics. Under a process group the batch is the global
-  one, as under pjit: E[x] and E[x^2] are averaged over the processes;
+  one, as under pjit: E[x] and E[x^2] are averaged over the processes,
+  which hold equal batches; under row sharding, whose shards may differ
+  (48 and 40 rows), the sums of x and x^2 and the element counts are
+  summed instead;
+* under row sharding (`parallel/mesh.py`) every convolution with a
+  kernel taller than one row takes its H padding from the spatial
+  neighbours' rows (`parallel/halo.py`) and keeps its W padding; without
+  it the convolutions run as they always did;
 * conv weights start He-normal, truncated at 2 sigma, as
   `nn.initializers.he_normal()` draws them.
 """
@@ -31,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lwsnet_tpu_torch.parallel import mesh
+from lwsnet_tpu_torch.parallel import halo, mesh
 
 BN_EPS = 1e-5
 # Flax's running-average momentum: r <- BN_MOMENTUM * r + (1 - BN_MOMENTUM) * b
@@ -44,6 +51,51 @@ TRUNC_STD = 0.87962566103423978
 def _pad_for(dilation: int, padding: int) -> int:
     """Reference quirk: padding = dilation whenever dilation > 1."""
     return dilation if dilation > 1 else padding
+
+
+def halo_rows(kernel: int, stride: int, padding: int, dilation: int
+              ) -> Tuple[int, int]:
+    """Rows above and below its shard that a convolution reads: output row
+    o reads rows stride * o - padding + dilation * j, j < kernel, so a
+    shard of whole output rows needs `padding` rows above and
+    dilation * (kernel - 1) - padding - (stride - 1) below."""
+    return padding, max(0, dilation * (kernel - 1) - padding - (stride - 1))
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+           padding: int = 0, dilation: int = 1, groups: int = 1
+           ) -> torch.Tensor:
+    """Bias-free `F.conv2d` on NCHW; under row sharding the H padding comes
+    from the halo rows."""
+    if mesh.spatial_count() == 1:
+        return F.conv2d(x, weight, None, stride, padding, dilation, groups)
+    top, bottom = halo_rows(weight.shape[2], stride, padding, dilation)
+    x = halo.extend_rows(x, 2, top, bottom)
+    return F.conv2d(x, weight, None, stride, (0, padding), dilation, groups)
+
+
+def conv3d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Bias-free 3x3x3 `F.conv3d`, padding 1, on (B, C, D, H, W); under row
+    sharding the H padding comes from the halo rows."""
+    if mesh.spatial_count() == 1:
+        return F.conv3d(x, weight, None, 1, 1)
+    x = halo.extend_rows(x, 3, 1, 1)
+    return F.conv3d(x, weight, None, 1, (1, 0, 1))
+
+
+def conv_transpose2d_up2(x: torch.Tensor, weight: torch.Tensor
+                         ) -> torch.Tensor:
+    """The k3/s2/p1/output_padding 1 transposed conv, which doubles H and
+    W. Output rows 2 r .. 2 r + 1 read input rows r and r + 1: under row
+    sharding a shard takes one row below (zeros past the image's bottom)
+    and keeps its first 2 L output rows."""
+    if mesh.spatial_count() == 1:
+        return F.conv_transpose2d(x, weight, stride=2, padding=1,
+                                  output_padding=1)
+    L = x.shape[2]
+    x = halo.extend_rows(x, 2, 0, 1)
+    return F.conv_transpose2d(x, weight, stride=2, padding=1,
+                              output_padding=1)[:, :, :2 * L]
 
 
 def bn_affine(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -72,15 +124,24 @@ class BatchNorm(nn.Module):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            mean, mean_sq = x.mean(dims), (x * x).mean(dims)
-            if mesh.is_distributed():
-                # The global moments: every process holds as many elements
-                # (the lockstep pipeline's equal batches), so they are the
-                # mean of the processes' moments. The collective's backward
-                # carries each process's loss to every process's input.
-                both = mesh.all_reduce_autograd(
-                    torch.cat([mean, mean_sq]), "batch_norm")
-                mean, mean_sq = (both / mesh.process_count()).chunk(2)
+            # The global moments under a process group; the collective's
+            # backward carries each process's loss to every process's input.
+            if mesh.spatial_count() > 1:
+                # row shards hold unequal element counts (48 and 40 rows):
+                # the moments from the summed sums and counts
+                n = x.new_full((1,), float(x.numel() // x.shape[1]))
+                sums = mesh.all_reduce_autograd(
+                    torch.cat([x.sum(dims), (x * x).sum(dims), n]),
+                    "batch_norm")
+                mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
+            else:
+                mean, mean_sq = x.mean(dims), (x * x).mean(dims)
+                if mesh.is_distributed():
+                    # every process holds as many elements (the lockstep
+                    # pipeline's equal batches): the mean of the moments
+                    both = mesh.all_reduce_autograd(
+                        torch.cat([mean, mean_sq]), "batch_norm")
+                    mean, mean_sq = (both / mesh.process_count()).chunk(2)
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
@@ -105,8 +166,8 @@ class Conv(nn.Module):
         self.padding = _pad_for(dilation, padding)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return F.conv2d(x.to(dtype), self.weight.to(dtype), None,
-                        self.stride, self.padding, self.dilation, self.groups)
+        return conv2d(x.to(dtype), self.weight.to(dtype), self.stride,
+                      self.padding, self.dilation, self.groups)
 
 
 class ConvBN(nn.Module):
@@ -138,8 +199,8 @@ class DeconvBN(nn.Module):
         self.BatchNorm_0 = BatchNorm(co)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                               stride=2, padding=1, output_padding=1)
+        y = conv_transpose2d_up2(x.to(self.dtype),
+                                 self.weight.to(self.dtype))
         return self.BatchNorm_0(y).to(self.dtype)
 
 
@@ -174,8 +235,7 @@ class PreConvDW(nn.Module):
         # weight gradient from channels-last input is garbage (torch 2.13)
         x = F.relu(self.BatchNorm_0(x)).to(self.dtype).contiguous()
         d = self.dilation
-        x = F.conv2d(x, self.dw_weight.to(self.dtype), None, 1, d, d,
-                     x.shape[1])
+        x = conv2d(x, self.dw_weight.to(self.dtype), 1, d, d, x.shape[1])
         return self.Conv_0(x, self.dtype)
 
 
@@ -191,7 +251,7 @@ class BNReLUConv3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.BatchNorm_0(x)).to(self.dtype)
-        return F.conv3d(x, self.weight.to(self.dtype), None, 1, 1)
+        return conv3d(x, self.weight.to(self.dtype))
 
 
 class CostFilter3D(nn.Module):

@@ -15,11 +15,17 @@ refinement run on the Hopper kernels (`lwsnet_tpu_torch.ops.cuda`);
 stages after it do not run. Each stage runs inside a profiler range named
 as the JAX forward names its scopes (`stage1` .. `stage3`,
 `stage4_refinement`), on both paths; a range adds no synchronisation.
+
+Under row sharding (`parallel/mesh.py`) the module path runs on this
+process's rows of the images: the convolutions and the upscales exchange
+halo rows (`halo_exchanges` counts them), and the multiple-of-8 check
+holds for the shard. The kernel path does not shard, as the JAX inference
+path does not: it raises there.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -27,13 +33,16 @@ from torch.profiler import record_function
 
 from lwsnet_tpu_torch.config import ModelConfig
 from lwsnet_tpu_torch.device import resolve_device
-from lwsnet_tpu_torch.models.blocks import CostFilter3D, init_params
+from lwsnet_tpu_torch.models.blocks import (BNReLUConv3D, Conv,
+                                            CostFilter3D, DeconvBN,
+                                            PreConvDW, init_params)
 from lwsnet_tpu_torch.models.feature import FeatureExtractor
 from lwsnet_tpu_torch.models.refine_kernels import refine_residual
 from lwsnet_tpu_torch.models.refinement import (RefinementHead,
                                                 RefinementTower)
 from lwsnet_tpu_torch.ops import stereo
 from lwsnet_tpu_torch.ops.cuda.costfilter import filter_soft_argmin
+from lwsnet_tpu_torch.parallel import mesh
 
 
 class LWSNet(nn.Module):
@@ -69,6 +78,10 @@ class LWSNet(nn.Module):
         stages = num_stages if num_stages is not None else cfg.num_stages
         if not 1 <= stages <= 4:
             raise ValueError(f"num_stages must be 1..4, got {stages}")
+        if kernels and mesh.spatial_count() > 1:
+            raise ValueError("the kernel path does not shard rows; run the "
+                             "module path (kernels=False) under row "
+                             "sharding")
         B, H, W, _ = left.shape
         if H % 8 or W % 8:
             raise ValueError(f"input dims must be multiples of 8, got "
@@ -123,3 +136,34 @@ class LWSNet(nn.Module):
                         [tower_l, tower_d], 1)).permute(0, 2, 3, 1)
                 preds.append(preds[-1] + res.to(preds[-1].dtype))
         return [p.float() for p in preds]
+
+    def halo_exchanges(self, num_stages: Optional[int] = None
+                       ) -> Dict[str, int]:
+        """Halo exchanges of one row-sharded forward of `num_stages`
+        stages, and of its backward in a train step: one per convolution
+        taller than one row (the feature extractor's, the transposed ones
+        among them, each 3D conv, the towers' and the head's) and one per
+        stage's upscale; the backward skips the two that read the input
+        images, which carry no gradient."""
+        stages = num_stages if num_stages is not None else \
+            self.cfg.num_stages
+
+        def convs(*modules) -> int:
+            n = 0
+            for module in modules:
+                for m in module.modules():
+                    if isinstance(m, Conv):
+                        n += m.weight.shape[2] > 1
+                    n += isinstance(m, (DeconvBN, PreConvDW, BNReLUConv3D,
+                                        RefinementHead))
+            return n
+
+        cascade = min(stages, 3)
+        forward = convs(self.FeatureExtractor_0, *(
+            getattr(self, f"CostFilter3D_{s}") for s in range(cascade)))
+        forward += cascade
+        if stages == 4:
+            forward += convs(self.RefinementTower_0, self.RefinementTower_1,
+                             self.RefinementHead_0)
+        return {"forward": forward,
+                "backward": forward - 1 - (stages == 4)}

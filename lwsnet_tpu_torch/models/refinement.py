@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from lwsnet_tpu_torch.models.blocks import Conv, PreConv, PreConvDW
+from lwsnet_tpu_torch.models.blocks import Conv, PreConv, PreConvDW, conv2d
 
 TOWER_DILATIONS = (2, 4, 8, 16)
 HEAD_DILATIONS = (8, 4, 2, 1)
@@ -57,5 +56,5 @@ class RefinementHead(nn.Module):
         x = self.PreConv_0(x)
         for k in range(len(HEAD_DILATIONS)):
             x = getattr(self, f"PreConvDW_{k}")(x)
-        return F.conv2d(x.to(self.dtype), self.out_weight.to(self.dtype),
-                        None, 1, 1)
+        return conv2d(x.to(self.dtype), self.out_weight.to(self.dtype),
+                      padding=1)

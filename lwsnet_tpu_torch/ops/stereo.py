@@ -6,12 +6,19 @@ features and images (B, H, W, C), disparities (B, H, W) or (B, H, W, 1),
 cost volumes (B, H, W, D). The JAX residual volume warps with a one-hot
 interpolation matrix on the TPU's matrix unit; here the bilinear taps are
 gathered directly, which is the same arithmetic.
+
+Under row sharding (`parallel/mesh.py`) the cost volumes, the warp and the
+soft-argmin work along W and the disparity axis, so they run on a shard's
+rows as they stand; `resize_bilinear` takes the one halo row each side an
+integer upscale reads.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from lwsnet_tpu_torch.parallel import halo, mesh
 
 
 def _squeeze_disp(disp: torch.Tensor) -> torch.Tensor:
@@ -121,11 +128,31 @@ def soft_argmin(cost: torch.Tensor, start: int, end: int,
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Bilinear resize with half-pixel centres (align_corners=False), edge
     clamping and no antialias on downscale, computed in float32 (float64
-    for float64 input) and cast back. x: (B, H, W, C)."""
+    for float64 input) and cast back. x: (B, H, W, C).
+
+    Under row sharding x holds this process's rows and `height` the
+    resized shard's. An upscale by an integer factor f reads one source
+    row beyond each shard edge: the shard takes them from its neighbours,
+    the image's edge row repeated at its global edges (the clamp), and
+    keeps output rows f .. f + height of the extended resize. A downscale
+    by an even factor f reads source rows f o + f / 2 - 1 and f o + f / 2,
+    inside the shard; other factors raise ValueError there."""
     H, W = x.shape[1], x.shape[2]
     if H == height and W == width:
         return x
     acc = torch.promote_types(x.dtype, torch.float32)
-    y = F.interpolate(x.permute(0, 3, 1, 2).to(acc), size=(height, width),
+    y = x.permute(0, 3, 1, 2).to(acc)
+    if mesh.spatial_count() > 1 and H != height:
+        if height > H and height % H == 0:
+            f = height // H
+            y = F.interpolate(halo.extend_rows(y, 2, 1, 1, edge=True),
+                              size=(height + 2 * f, width), mode="bilinear",
+                              align_corners=False, antialias=False)
+            return y[:, :, f:f + height].permute(0, 2, 3, 1).to(x.dtype)
+        if height > H or H % height or (H // height) % 2:
+            raise ValueError(f"resize of a row shard from {H} to {height} "
+                             f"rows: only integer upscales and even "
+                             f"downscales split on rows")
+    y = F.interpolate(y, size=(height, width),
                       mode="bilinear", align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1).to(x.dtype)

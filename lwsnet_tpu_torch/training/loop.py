@@ -7,11 +7,15 @@ time_cost}, resume. Each numpy batch is pinned (on a card) and copied to
 the device without blocking the host.
 
 Under a process group (`parallel/mesh.py`) each process trains on its own
-device (`cuda:LOCAL_RANK`) and reads its slice of each epoch; the steps
-reduce what the JAX steps reduce under pjit, so every process holds the
-same state. Process 0 alone writes the checkpoint, and every process waits
-for it at a barrier, so a later `resume` or `load_pretrained` reads a
-whole file on each.
+device (`cuda:LOCAL_RANK`) and reads its data slice of each epoch; the
+steps reduce what the JAX steps reduce under pjit, so every process holds
+the same state. `mesh_cfg` lays the group out as data x spatial, as the
+JAX `Trainer(mesh_cfg=...)` does: the spatial partners of a data slice
+read the same batches (and crops) and each takes its rows of every image
+(`mesh.row_range`), cut on the host before the copy to the device.
+Process 0 alone writes the checkpoint, and every process waits for it at
+a barrier, so a later `resume` or `load_pretrained` reads a whole file on
+each.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from lwsnet_tpu_torch.config import ModelConfig, TrainConfig
+from lwsnet_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from lwsnet_tpu_torch.data.pipeline import StereoPipeline
 from lwsnet_tpu_torch.models.blocks import BN_MOMENTUM, BatchNorm
 from lwsnet_tpu_torch.parallel import mesh
@@ -46,14 +50,17 @@ class Trainer:
     """Trains `tcfg.model` on `device` (default the card; raises without
     one unless `device="cpu"`; under a process group, this process's
     card). `history` holds one {epoch, step, loss, finite, lr, grad_norm}
-    record per train step, with the global loss. The pipelines must be
-    this process's slices (`process_index`, `process_count`)."""
+    record per train step, with the global loss. `mesh_cfg` lays the
+    process group out (`mesh.set_layout`; raises ValueError for a layout
+    the world cannot hold). The pipelines must be this process's data
+    slices (`mesh.data_index`, `mesh.data_count`)."""
 
     def __init__(self, tcfg: TrainerConfig, train_pipe: StereoPipeline,
                  eval_pipe: StereoPipeline, logger,
                  stat_pipe: Optional[StereoPipeline] = None,
-                 device="cuda"):
+                 device="cuda", mesh_cfg: MeshConfig = MeshConfig()):
         self.tcfg = tcfg
+        mesh.set_layout(mesh_cfg)
         self.device = mesh.process_device(device)
         self.process_index = mesh.process_index()
         self.process_count = mesh.process_count()
@@ -63,13 +70,13 @@ class Trainer:
         # Trainer documents the measured failure), so callers that change
         # the train batch between phases pass a fixed stat_pipe.
         self.stat_pipe = stat_pipe or train_pipe
+        data = (mesh.data_index(), mesh.data_count())
         for pipe in (train_pipe, eval_pipe, self.stat_pipe):
-            if (pipe.process_index, pipe.process_count) != (
-                    self.process_index, self.process_count):
+            if (pipe.process_index, pipe.process_count) != data:
                 raise ValueError(
                     f"pipeline slice {pipe.process_index}/"
-                    f"{pipe.process_count} is not this process's "
-                    f"{self.process_index}/{self.process_count}")
+                    f"{pipe.process_count} is not this process's data "
+                    f"slice {data[0]}/{data[1]}")
         self.log = logger
         # Steps per epoch = this process's batch count: the epoch ->
         # step milestone conversion must not scale by the process count.
@@ -90,9 +97,19 @@ class Trainer:
         self.last_error: Optional[float] = None  # of the last evaluate()
         self.history: List[Dict[str, float]] = []
 
-    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+    def _to_device(self, *arrays: np.ndarray, gt_offset: int = 0
+                   ) -> List[torch.Tensor]:
+        """The arrays on the device. Under row sharding each (B, H, ...)
+        array is cut to this process's rows [r0, r1) of the first one's H;
+        one of fewer rows (the SceneFlow eval ground truth, `gt_offset`
+        rows short) to rows [max(r0, gt_offset), r1) less the offset."""
+        h = arrays[0].shape[1]
+        r0, r1 = mesh.row_range(h)
         out = []
         for a in arrays:
+            if mesh.spatial_count() > 1 and a.ndim >= 3:
+                a = a[:, r0:r1] if a.shape[1] == h else \
+                    a[:, max(r0, gt_offset) - gt_offset:r1 - gt_offset]
             t = torch.from_numpy(np.ascontiguousarray(a))
             if self.device.type == "cuda":
                 t = t.pin_memory()
@@ -230,7 +247,8 @@ class Trainer:
         weight = 0.0
         for batch in self.eval_pipe.epoch(0):
             left, right, gt, valid = self._to_device(
-                batch.left, batch.right, batch.disparity, batch.valid)
+                batch.left, batch.right, batch.disparity, batch.valid,
+                gt_offset=self.tcfg.sceneflow_row_offset)
             out = self.eval_step(self.state, left, right, gt, valid)
             sums[0] += out["epe"].cpu().numpy()
             sums[1] += out["d1"].cpu().numpy()

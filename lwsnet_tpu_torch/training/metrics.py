@@ -17,21 +17,42 @@ def _squeeze(pred: torch.Tensor) -> torch.Tensor:
     return pred[..., 0] if pred.dim() == 4 else pred
 
 
+def epe_terms(pred: torch.Tensor, gt: torch.Tensor,
+              max_disp: float = 192.0) -> torch.Tensor:
+    """EPE's numerator and pixel count, (2,): sums that row shards add
+    before `epe_ratio` divides (over the last dim)."""
+    mask = (gt < max_disp).float()
+    return torch.stack([((_squeeze(pred) - gt).abs() * mask).sum(),
+                        mask.sum()])
+
+
+def epe_ratio(terms: torch.Tensor) -> torch.Tensor:
+    return terms[..., 0] / torch.clamp(terms[..., 1], min=1.0)
+
+
 def epe(pred: torch.Tensor, gt: torch.Tensor,
         max_disp: float = 192.0) -> torch.Tensor:
     """End-point error over valid pixels. pred/gt: (B, H, W)."""
-    mask = (gt < max_disp).float()
-    count = torch.clamp(mask.sum(), min=1.0)
-    return ((_squeeze(pred) - gt).abs() * mask).sum() / count
+    return epe_ratio(epe_terms(pred, gt, max_disp))
+
+
+def d1_terms(pred: torch.Tensor, gt: torch.Tensor,
+             max_disp: float = 192.0) -> torch.Tensor:
+    """D1's bad-pixel count and pixel count, (2,)."""
+    mask = ((gt > 0) & (gt < max_disp)).float()
+    err = (_squeeze(pred) - gt).abs()
+    bad = ((err > 3.0) & (err / torch.clamp(gt, min=1e-9) > 0.05)).float()
+    return torch.stack([(bad * mask).sum(), mask.sum()])
+
+
+def d1_ratio(terms: torch.Tensor) -> torch.Tensor:
+    return terms[..., 0] / (terms[..., 1] + 1e-9)
 
 
 def d1_error(pred: torch.Tensor, gt: torch.Tensor,
              max_disp: float = 192.0) -> torch.Tensor:
     """3-pixel error rate. pred/gt: (B, H, W)."""
-    mask = ((gt > 0) & (gt < max_disp)).float()
-    err = (_squeeze(pred) - gt).abs()
-    bad = ((err > 3.0) & (err / torch.clamp(gt, min=1e-9) > 0.05)).float()
-    return (bad * mask).sum() / (mask.sum() + 1e-9)
+    return d1_ratio(d1_terms(pred, gt, max_disp))
 
 
 class AverageMeter:

@@ -14,6 +14,13 @@ processes (one flat all-reduce: each process's loss is already its share
 of the global one) before the norm, the clip and the finite test, so that
 every process takes the same decision; aux reports the global loss, and
 the eval sums and weights are summed over the processes.
+
+Under row sharding each process takes its rows of its data slice's batch
+(`Trainer` cuts them, `mesh.row_range`). The same reductions hold: the
+halo exchanges carry the backward across the shard edges, batch norm sums
+over unequal shards, and the mask count is the global one. The eval step
+adds each example's EPE and D1 numerators and counts over the spatial
+group before it divides.
 """
 
 from __future__ import annotations
@@ -121,9 +128,14 @@ def make_eval_step(max_disp: float = 192.0,
     {"epe": (stages,), "d1": (stages,), "weight": scalar}: per-stage EPE
     and D1 of each example, summed over the valid ones (padded eval rows
     carry valid 0) and over the processes; divide the sums by the summed
-    weight. A non-zero
-    `sceneflow_row_offset` drops that many top rows of each prediction
-    (reference: train.py:189)."""
+    weight. A non-zero `sceneflow_row_offset` drops that many top rows of
+    each prediction (reference: train.py:189): `gt` has that many rows
+    fewer than the images.
+
+    Under row sharding the images are this process's rows and `gt` the
+    rows its kept prediction rows cover (`Trainer.evaluate` cuts them):
+    the shard holding the image's top rows drops those of the offset that
+    fall in it, the prediction rows above `gt`."""
 
     def eval_step(state: TrainState, left, right, gt, valid
                   ) -> Dict[str, torch.Tensor]:
@@ -131,17 +143,29 @@ def make_eval_step(max_disp: float = 192.0,
         model.eval()
         with torch.no_grad():
             outputs = model(left, right)
-        epes, d1s = [], []
+        drop = outputs[0].shape[1] - gt.shape[1]
+        if not (0 <= drop <= sceneflow_row_offset
+                if mesh.spatial_count() > 1
+                else drop == sceneflow_row_offset):
+            raise ValueError(
+                f"{outputs[0].shape[1]} prediction rows against "
+                f"{gt.shape[1]} ground-truth rows with a row offset of "
+                f"{sceneflow_row_offset}")
+        terms = []  # (stages, B, 4): EPE and D1 numerators and counts
         for o in outputs:
-            o = o[:, sceneflow_row_offset:, :, 0]
-            e = torch.stack([metrics.epe(o[i], gt[i], max_disp)
-                             for i in range(o.shape[0])])
-            d = torch.stack([metrics.d1_error(o[i], gt[i], max_disp)
-                             for i in range(o.shape[0])])
-            epes.append((e * valid).sum())
-            d1s.append((d * valid).sum())
-        sums = mesh.all_reduce_(
-            torch.stack(epes + d1s + [valid.sum()]), "eval")
+            o = o[:, drop:, :, 0]
+            terms.append(torch.stack([torch.cat([
+                metrics.epe_terms(o[i], gt[i], max_disp),
+                metrics.d1_terms(o[i], gt[i], max_disp)])
+                for i in range(o.shape[0])]))
+        terms = mesh.all_reduce_spatial_(torch.stack(terms), "eval_shards")
+        e = metrics.epe_ratio(terms[..., :2])
+        d = metrics.d1_ratio(terms[..., 2:])
+        sums = torch.cat([(e * valid).sum(-1), (d * valid).sum(-1),
+                          valid.sum()[None]])
+        if mesh.spatial_index():  # the top shard reports each example
+            sums.zero_()
+        mesh.all_reduce_(sums, "eval")
         n = len(outputs)
         return {"epe": sums[:n], "d1": sums[n:2 * n], "weight": sums[-1]}
 
