@@ -11,8 +11,9 @@ seeded random weights, under each stage-4 refinement engine: the shipped
 `rows_dw="mxu"`, then "vpu" with `rows_paired` True and False, "chain",
 and the planar `pallas_mode="layers"`; then the rows microbench; then the
 training path through the finetune CLI; then pretrain, finetune and
-infer through their CLIs; then every tool of `lwsnet_tpu_torch.tools`.
-Phases, in order; any failure exits non-zero:
+infer through their CLIs; then every tool of `lwsnet_tpu_torch.tools`;
+then row sharding; then the port's bench. Phases, in order; any failure
+exits non-zero:
 
   1. the card's name and power limit;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
@@ -71,9 +72,10 @@ Phases, in order; any failure exits non-zero:
   7. the rows microbench (`lwsnet_tpu_torch.tools.microbench_rows`) once,
      its counters set to 0 just before: its probe must print OK, which
      launches `lane_broadcast`; then `lane_broadcast`, `Tensor.repeat` of
-     the same and an empty kernel, 1000 each in a profiler window of its
-     own, run again (twice at most) when the profiler dropped over a tenth
-     of them (median and spread of each kernel's device time);
+     the same and an empty kernel, 1000 each in profiler windows of 250
+     calls of their own, a window run again (twice at most) when the
+     profiler dropped over a tenth of its kernels (median and spread of
+     each kernel's device time);
   8. training on the card, which launches none of the kernels above (the
      train step runs the module path, as the JAX train step runs no
      Pallas kernel): `make -B -C native` (the native decoder; without it
@@ -155,7 +157,17 @@ Phases, in order; any failure exits non-zero:
      (forward and backward a train step, forward an eval step) and no
      kernel launch;
      printed with no bar: each process's peak memory and the bf16 step's
-     median time beside the single process's at the same global batch.
+     median time beside the single process's at the same global batch;
+ 12. the port's bench, `python -m lwsnet_tpu_torch.tools.bench` in a
+     process of its own with BENCH_BUDGET_S=120 (detail in
+     chiprun_out/bench_detail.json): its last line holds the four keys
+     and a finite positive value; its detail holds stages 1-4, the
+     monotonicity check, the module path, both train steps and their
+     projections, the MFU and the card with its power limit, and no
+     skipped step or low-budget estimate; its headline forward launched
+     `want_counts("mxu")`, its module-path forward and train steps
+     launched nothing; its 4-stage time is printed beside phase 5's
+     median, with no bar.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json.
@@ -311,8 +323,11 @@ def device_profile(fn, reps=5):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the device rows of the forward's stage ranges span idle gaps: not
+    # kernels
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
     if not spans:
         return None
     busy, end = 0.0, float("-inf")
@@ -369,15 +384,16 @@ def kernel_device_ms(fn, name, reps=10):
     return None
 
 
-def launch_floor(dev, n=1000):
+def launch_floor(dev, n=1000, window=250):
     """`lane_broadcast` (32, 1) -> (32, 1024) bf16, `Tensor.repeat` of the
     same, and an empty kernel (`torch.cuda._sleep(0)`, the launch floor),
-    each called n times in a torch.profiler window of its own: {what:
-    device us of each of its kernels, as median, p10, p90, min, max and
-    count}. The kernels are told apart by name (`lane_broadcast`, `spin`,
-    the rest). The profiler may drop some of a long window's kernels: a
-    window that recorded under 90 % of its n is run again, twice at most,
-    and the phase fails if none was."""
+    each called n times, `window` calls to a torch.profiler window of its
+    own: {what: device us of each of its kernels, as median, p10, p90,
+    min, max and count}. The kernels are told apart by name
+    (`lane_broadcast`, `spin`, the rest). The profiler may drop some of a
+    long window's kernels (888 of 3000 in PR 11, 672 of 1000 empty
+    kernels in PR 16): a window that recorded under 90 % of its calls is
+    run again, twice at most, and the phase fails if none was."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -390,19 +406,25 @@ def launch_floor(dev, n=1000):
     for what, f in fns.items():
         f()
         torch.cuda.synchronize()
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    f()
-                torch.cuda.synchronize()
-            ts = [e.time_range.end - e.time_range.start
-                  for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and ("lane_broadcast" if what == "lane_broadcast" else
-                       "spin" if what == "empty kernel" else "") in e.name]
-            if len(ts) >= 0.9 * n:
-                break
-        require(len(ts) >= 0.9 * n, f"launch floor: {len(ts)} {what} "
-                f"kernels recorded of {n}, in each of three windows")
+        ts = []
+        for _ in range(n // window):
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(window):
+                        f()
+                    torch.cuda.synchronize()
+                got = [e.time_range.end - e.time_range.start
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and ("lane_broadcast" if what == "lane_broadcast"
+                            else "spin" if what == "empty kernel" else "")
+                       in e.name]
+                if len(got) >= 0.9 * window:
+                    break
+            require(len(got) >= 0.9 * window,
+                    f"launch floor: {len(got)} {what} kernels recorded of "
+                    f"{window}, in each of three windows")
+            ts += got
         q = np.percentile(ts, [10, 50, 90])
         out[what] = dict(median=float(q[1]), p10=float(q[0]),
                          p90=float(q[2]), min=float(min(ts)),
@@ -2177,6 +2199,78 @@ def row_shard_phase(dev, smi, tmp):
     return report
 
 
+# Detail keys of the bench that a run with BENCH_BUDGET_S=120 must hold.
+BENCH_KEYS = ("stage1_fps", "stage2_fps", "stage3_fps", "stage4_fps",
+              "per_stage_monotonicity", "stage4_fps_no_pallas",
+              "train_step_ms_256x512_b8", "train_step_ms_256x512_b4",
+              "pretrain_projection_h", "pretrain_projection_vs_baseline",
+              "finetune_projection_h", "finetune_projection_vs_baseline",
+              "mfu_pct", "card")
+
+
+def bench_phase(smi, phase5_ms=None):
+    """Phase 12: `python -m lwsnet_tpu_torch.tools.bench` in a process of
+    its own with BENCH_BUDGET_S=120: its last line, a complete detail
+    (chiprun_out/bench_detail.json) with no skipped or low-budget step,
+    and its launch counts (the headline forward's `want_counts("mxu")`,
+    none on the module path or in a train step). `phase5_ms`: phase 5's
+    4-stage "mxu" median, printed beside the bench's 4-stage time.
+    Returns the phase's report."""
+    import subprocess
+    import torch
+    from lwsnet_tpu_torch.ops.cuda import build
+    t0 = time.time()
+    path = os.path.join("chiprun_out", "bench_detail.json")
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lwsnet_tpu_torch.tools.bench", "--detail",
+         path], env=dict(os.environ, BENCH_BUDGET_S="120"),
+        capture_output=True, text=True, timeout=420)
+    require(proc.returncode == 0, f"bench exited {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(sorted(last) == ["metric", "unit", "value", "vs_baseline"]
+            and last["metric"] == "torch_4stage_inference_fps_368x1232"
+            and np.isfinite(last["value"]) and last["value"] > 0,
+            f"bench's last line: {last}")
+    with open(path) as f:
+        detail = json.load(f)
+    missing = [k for k in BENCH_KEYS if k not in detail]
+    require(not missing, f"bench detail lacks {missing}")
+    short = [k for k in detail if k.endswith(("_skipped", "_note"))]
+    require(not short, f"bench at 120 s: {short}")
+    require(detail["card"] == smi, f"bench card {detail['card']!r}")
+    zero = build.launch_counts()
+    want = want_counts("mxu", zero)
+    require(detail["launches_4stage_forward"] == want,
+            f"bench headline launches {detail['launches_4stage_forward']} "
+            f"!= {want}")
+    for what in ("launches_module_forward", "launches_train_step_b8",
+                 "launches_train_step_b4"):
+        require(not any(detail[what].values()),
+                f"bench {what}: {detail[what]}")
+    ms = detail["stage_ms"]["4"]
+    busy = detail.get("stage4_device_busy_ms")
+    print(f"[12] bench: {last}; stages 1-4 "
+          f"{[detail[f'stage{k}_fps'] for k in (1, 2, 3, 4)]} frames/s, "
+          f"monotonicity {detail['per_stage_monotonicity']}, module path "
+          f"{detail['stage4_fps_no_pallas']} frames/s, MFU "
+          f"{detail['mfu_pct']} %, train steps "
+          f"{detail['train_step_ms_256x512_b8']} / "
+          f"{detail['train_step_ms_256x512_b4']} ms (b8 / b4), build "
+          f"{detail['build_s']:.1f} s, elapsed {detail['elapsed_s']} s "
+          f"({smi})")
+    print(f"[12] bench 4-stage {ms:.3f} ms a frame (host-paced loop) "
+          f"beside phase 5's median "
+          f"{'not measured' if phase5_ms is None else f'{phase5_ms:.3f}'} "
+          f"ms; device busy {busy}")
+    report = dict(line=last, detail=detail, seconds=time.time() - t0)
+    print(f"[12] bench phase: {report['seconds']:.1f} s")
+    return report
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2425,7 +2519,7 @@ def main():
     floor = launch_floor(dev)
     report["launch_floor_us"] = floor
     for what, st in floor.items():
-        print(f"[7] {what}: {st['count']} kernels in its profiler window, "
+        print(f"[7] {what}: {st['count']} kernels in its profiler windows, "
               f"device us each: median {st['median']:.3f}, p10 "
               f"{st['p10']:.3f}, p90 {st['p90']:.3f}, min {st['min']:.3f}, "
               f"max {st['max']:.3f}")
@@ -2495,6 +2589,8 @@ def main():
         report["tools"] = tools_phase(dev, smi, tmp,
                                       latency["mxu"][4]["kernels_ms"])
         report["row_shards"] = row_shard_phase(dev, smi, tmp)
+    # 12. the port's bench, in a process of its own
+    report["bench"] = bench_phase(smi, latency["mxu"][4]["kernels_ms"])
 
     line = []
     for k in build.KERNELS:

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import statistics
 import subprocess
-from typing import Callable, List
+import time
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -58,10 +59,14 @@ def event_ms(fn: Callable[[], object]) -> float:
 
 def device_time(fn: Callable[[], object], iters: int = 10, warmup: int = 3,
                 repeats: int = 3) -> float:
-    """Per-call device seconds of fn(): `repeats` runs of `iters`
-    back-to-back calls, each run between one pair of CUDA events, after
+    """Seconds a call of fn() at the pace of back-to-back calls: `repeats`
+    runs of `iters` calls, each run between one pair of CUDA events, after
     `warmup` calls; the fastest run over `iters`. Host stalls only ever
-    make a run slower, so the minimum is the robust estimate."""
+    make a run slower, so the minimum is the robust estimate. The events
+    wait for the launches, so where fn() spends longer on the host than
+    its kernels take on the device (the 4-stage forward does), this reads
+    the host's pace, not device time alone: `profile_window` and
+    `busy_ms` give that."""
     _require_card()
     for _ in range(warmup):
         fn()
@@ -76,3 +81,40 @@ def device_time(fn: Callable[[], object], iters: int = 10, warmup: int = 3,
         end.synchronize()
         best = min(best, begin.elapsed_time(end))
     return best / iters / 1e3
+
+
+def profile_window(fn: Callable[[], object], reps: int = 5
+                   ) -> Tuple[float, List[Tuple[float, float, str]]]:
+    """One torch.profiler window (CPU and CUDA activity) over `reps` calls
+    of fn(), after one warm call: (host-clock ms a call, [(start us, end
+    us, name)] of the device kernels, sorted). The device rows of
+    `record_function` ranges (`LWSNet.forward`'s stage ranges) are not
+    kernels and are left out: each spans its stage's idle gaps too. The
+    list is empty when the profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _require_card()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
+    return wall_ms, spans
+
+
+def busy_ms(spans: List[Tuple[float, float, str]], reps: int) -> float:
+    """Device-busy ms a call: the union of the (sorted) kernel intervals
+    of `spans` over `reps` calls."""
+    busy, end = 0.0, float("-inf")
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy / reps / 1e3

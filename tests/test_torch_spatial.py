@@ -20,6 +20,14 @@ They are held against:
   float64 both splits agree with one process to 1e-14;
 * JAX's train step on a 2x2 CPU mesh (`spatial_parallel=2`, GSPMD's
   halos), from the same state: the data-parallel slice's JAX bars;
+* at 1x4 on 32x64 images (shards of 8 rows, 1 at 1/8 resolution; the
+  towers' dilation-16 halos come from two shards away), in float64
+  compute with float64 ground truth: the eval step's EPE and D1 sums on
+  the initial weights and then the train step, against one process:
+  loss rel <= 1e-12, every gradient tensor's cosine >= 1 - 1e-10, the
+  sums rel <= 1e-12, and as many halo exchanges as
+  `LWSNet.halo_exchanges()` says (readings: loss rel 0.0, least cosine
+  1 - 1.5e-14, EPE 1.5e-16, D1 0.0);
 * at 88 rows, shards of 48 and 40 rows: the BN statistics of the single
   process (batch norm sums over unequal shards);
 * a `Trainer(mesh_cfg=MeshConfig(spatial_parallel=2))` epoch: its train
@@ -115,8 +123,13 @@ def setup(tmp_path_factory):
     el, er, _ = _images(rng, 2, EVAL_H, EVAL_W)
     eg = rng.uniform(1.0, 60.0, (2, GT_H, EVAL_W)).astype(np.float32)
     eg[rng.uniform(size=eg.shape) < 0.2] = 250.0
+    rng32 = np.random.default_rng(32)
+    l32, r32, g32 = _images(rng32, 2, 32, 64)
+    el32, er32, eg32 = _images(rng32, 2, 32, 64)
     data = dict(l=l4[:2], r=r4[:2], g=g4[:2], l88=l88, r88=r88, g88=g88,
-                el=el, er=er, eg=eg, ev=np.ones(2, np.float32))
+                el=el, er=er, eg=eg, ev=np.ones(2, np.float32),
+                l32=l32, r32=r32, g32=g32, el32=el32, er32=er32,
+                eg32=eg32.astype(np.float64))  # float64 metric sums
     data_path = str(tmp / "data.npz")
     np.savez(data_path, **data)
     return dict(jstate=jstate, sd=sd, path=path, data=data,
@@ -141,6 +154,17 @@ def two_by_two(setup):
     return dryrun_ddp.run_step(4, setup["batch4"], setup["path"], KW,
                                TIMEOUT, str(setup["tmp"]),
                                target=child.steps_child, spatial=2)
+
+
+@pytest.fixture(scope="module")
+def one_by_four(setup):
+    """Each process's record of `child.quad_child` at 1x4 (32 rows)."""
+    tmp = setup["tmp"]
+    dryrun_ddp.spawn(child.quad_child, 4,
+                     (setup["path"], setup["data_path"], KW, str(tmp)),
+                     TIMEOUT, str(tmp), spatial=4)
+    return [torch.load(str(tmp / f"quad{r}.pt"), weights_only=False)
+            for r in range(4)]
 
 
 @pytest.fixture(scope="module")
@@ -185,6 +209,35 @@ def test_one_by_two_step_matches_single_process(one_by_two, single, dtype):
     key = {"float32": "step", "float64": "step64"}[dtype]
     _check_step([r[key] for r in one_by_two], single("b2", dtype), dtype,
                 "1x2")
+
+
+def test_one_by_four_step_and_eval_match_single_process(setup, one_by_four):
+    """4 shards of 8 rows, whose dilation-16 towers read two shards away:
+    the float64 step and eval equal one process's."""
+    d = setup["data"]
+    want = child.step_record(
+        setup["path"], {k: d[k + "32"] for k in "lrg"}, KW, "float64",
+        {k: d["e" + k + "32"] for k in "lrg"})
+    for rec in one_by_four[1:]:
+        for key in ("grads", "params", "buffers", "eval"):
+            for n, t in rec[key].items():
+                assert torch.equal(t, one_by_four[0][key][n]), (key, n)
+    got = one_by_four[0]
+    halo = LWSNet(ModelConfig(compute_dtype="float64"), device="cpu"
+                  ).halo_exchanges()
+    assert got["counts"]["halo"] == halo["forward"] + halo["backward"]
+    loss = abs(float(got["aux"]["loss"]) / float(want["aux"]["loss"]) - 1)
+    cos = {n: float((a.double() * want["grads"][n].double()).sum()
+                    / (a.double().norm() * want["grads"][n].double().norm()))
+           for n, a in got["grads"].items()}
+    evals = {k: float(((got["eval"][k] - want["eval"][k]).abs()
+                       / want["eval"][k].abs()).max()) for k in ("epe", "d1")}
+    print("1x4 vs one process: loss rel", loss, "least cosine 1 -",
+          1 - min(cos.values()), "eval rel", evals)
+    assert loss <= 1e-12
+    assert min(cos.values()) >= 1 - 1e-10, min(cos, key=cos.get)
+    assert max(evals.values()) <= 1e-12, evals
+    assert float(got["eval"]["weight"]) == 2.0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -5,12 +5,14 @@ tests/test_torch_spatial.py).
 laid out as row shards, which import this module by name: it imports
 torch, numpy and the port only, never JAX.
 
-`halo_ops_child` runs every op of `HALO_CASES` on its rows of a 64-row
-image; `spatial_child` runs the row-sharded train step, batch norm over
-unequal shards, a `Trainer` (train, precise BN and the SceneFlow eval)
-and two planted faults: "zero_halo" gives every shard zero rows at its
-seams (forward and backward), "shard_epe" divides each shard's EPE and D1
-sums by its own counts (no spatial reduction before the division).
+`halo_ops_child` runs every op of `HALO_CASES` and `MULTI_HOP_CASES` on
+its rows of a 64-row image; `quad_child` the float64 train and eval
+steps at 4 shards of 32 rows; `spatial_child` runs the row-sharded train
+step, batch norm over unequal shards, a `Trainer` (train, precise BN and
+the SceneFlow eval) and two planted faults: "zero_halo" gives every
+shard zero rows at its seams (forward and backward), "shard_epe" divides
+each shard's EPE and D1 sums by its own counts (no spatial reduction
+before the division).
 """
 
 import logging
@@ -64,11 +66,48 @@ HALO_CASES = {
 TOO_TALL = (_conv(1, 16, 16), (1, 2, 16, 40), (2, 2, 3, 3), 2, 4, 4)
 
 
+def _edge_conv(x, w):
+    """A dilation-8 conv over rows extended by 8 repeated edge rows each
+    side (the clamp `resize_bilinear` asks for), W padded with zeros."""
+    if mesh.spatial_count() > 1:
+        x = halo.extend_rows(x, 2, 8, 8, edge=True)
+    else:
+        x = torch.cat([x[:, :, :1].expand(-1, -1, 8, -1), x,
+                       x[:, :, -1:].expand(-1, -1, 8, -1)], 2)
+    return torch.nn.functional.conv2d(x, w, None, 1, (0, 8), 8)
+
+
+# Halos taller than a shard at 4 shards of the 64-row image (16 rows at
+# full resolution, 8 at 1/2, 4 at 1/4), filled from several shards and,
+# past the image's edges, with zeros or repeated edge rows. Same tuple
+# layout as HALO_CASES; seeded apart from them (`_seed`).
+MULTI_HOP_CASES = {
+    "too_tall": TOO_TALL,
+    "conv_d16_l2": (_conv(1, 16, 16), (2, 4, 32, 24), (3, 4, 3, 3), 2, 2,
+                    2),
+    "conv_s2_d8_l4": (_conv(2, 8, 8), (2, 3, 16, 16), (4, 3, 3, 3), 2, 4,
+                      8),
+    "edge_d8_l4": (_edge_conv, (2, 3, 16, 20), (4, 3, 3, 3), 2, 4, 4),
+}
+# A halo taller than the whole image: dilation 16 at 1/8 resolution (8
+# rows); raises at every world size
+PAST_IMAGE = (_conv(1, 16, 16), (1, 2, 8, 40), (2, 2, 3, 3), 2, 8, 8)
+
+
+def _seed(name):
+    if name in HALO_CASES:
+        return sorted(HALO_CASES).index(name)
+    if name == "too_tall":
+        return 99
+    if name in MULTI_HOP_CASES:
+        return 100 + sorted(MULTI_HOP_CASES).index(name)
+    return 199
+
+
 def halo_inputs(name, case):
     """The case's full input, weight and output gradient, from a seed."""
     op, shape, wshape, dim, _, _ = case
-    rng = np.random.default_rng(sorted(HALO_CASES).index(name)
-                                if name in HALO_CASES else 99)
+    rng = np.random.default_rng(_seed(name))
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     w = (torch.from_numpy(rng.standard_normal(wshape).astype(np.float32))
          if wshape else None)
@@ -100,23 +139,24 @@ def run_case(case, x, w, g, rows_in=slice(None), rows_out=slice(None)):
 
 
 def halo_ops_child(rank, world, out_dir):
-    """Every case of HALO_CASES on this process's rows; saves each one's
-    local output, input and weight gradients and its "halo" count to
-    `<out_dir>/halo<rank>.pt`, and TOO_TALL's ValueError message."""
+    """Every case of HALO_CASES and MULTI_HOP_CASES on this process's rows;
+    saves each one's local output, input and weight gradients and its
+    "halo" count to `<out_dir>/halo<rank>.pt`, and PAST_IMAGE's
+    ValueError message."""
     out = {}
-    for name, case in HALO_CASES.items():
+    for name, case in {**HALO_CASES, **MULTI_HOP_CASES}.items():
         x, w, g = halo_inputs(name, case)
         mesh.reset_collective_counts()
         y, dx, dw = run_case(case, x, w, g, level_rows(case[4]),
                              level_rows(case[5]))
         out[name] = dict(y=y, dx=dx, dw=dw,
                          halo=mesh.collective_counts().get("halo", 0))
-    x, w, g = halo_inputs("too_tall", TOO_TALL)
+    x, w, g = halo_inputs("past_image", PAST_IMAGE)
     try:
-        run_case(TOO_TALL, x, w, g, level_rows(4), level_rows(4))
-        out["too_tall"] = None
+        run_case(PAST_IMAGE, x, w, g, level_rows(8), level_rows(8))
+        out["past_image"] = None
     except ValueError as e:
-        out["too_tall"] = str(e)
+        out["past_image"] = str(e)
     torch.save(out, os.path.join(out_dir, f"halo{rank}.pt"))
 
 
@@ -191,20 +231,30 @@ def fit_record(t):
                 trained=trained, state=state())
 
 
-def step_record(state_path, batch, train_kw, dtype="float32"):
+def step_record(state_path, batch, train_kw, dtype="float32",
+                eval_batch=None):
     """One train step in `dtype` compute on this process's part of
     `batch`: its aux, the gradients the update used, the parameters,
-    Adam's moments and the buffers after it, and the collective counts."""
+    Adam's moments and the buffers after it, and the collective counts;
+    with `eval_batch` (l, r, g) also the eval step's sums on this
+    process's part of it before the train step ("eval": float32 running
+    statistics would carry the step's rounding into the eval)."""
     from lwsnet_tpu_torch import ModelConfig
     from lwsnet_tpu_torch.config import TrainConfig
     from lwsnet_tpu_torch.tools.dryrun_ddp import local_part
     from lwsnet_tpu_torch.training.state import create_train_state
-    from lwsnet_tpu_torch.training.steps import make_train_step
+    from lwsnet_tpu_torch.training.steps import make_eval_step, \
+        make_train_step
 
     cfg = TrainConfig(**train_kw)
     st = create_train_state(ModelConfig(compute_dtype=dtype), cfg,
                             device="cpu")
     st.model.load_state_dict(torch.load(state_path), strict=True)
+    evaluated = {}
+    if eval_batch is not None:
+        left, right, gt = local_part(eval_batch, "lrg")
+        evaluated["eval"] = make_eval_step()(
+            st, left, right, gt, torch.ones(len(left), dtype=torch.float32))
     mesh.reset_collective_counts()
     st, aux = make_train_step(cfg, 1)(st, *local_part(batch, "lrg"))
     named = list(st.model.named_parameters())
@@ -213,7 +263,8 @@ def step_record(state_path, batch, train_kw, dtype="float32"):
     return dict(aux=aux, counts=mesh.collective_counts(), **moments,
                 grads={n: p.grad.clone() for n, p in named},
                 params={n: p.detach().clone() for n, p in named},
-                buffers={n: b.clone() for n, b in st.model.named_buffers()})
+                buffers={n: b.clone() for n, b in st.model.named_buffers()},
+                **evaluated)
 
 
 def steps_child(rank, world, batch_path, state_path, train_kw, out_dir):
@@ -223,6 +274,18 @@ def steps_child(rank, world, batch_path, state_path, train_kw, out_dir):
     torch.save({dtype: step_record(state_path, batch, train_kw, dtype)
                 for dtype in ("float32", "float64")},
                os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def quad_child(rank, world, state_path, data_path, train_kw, out_dir):
+    """The 1x4 case of tests/test_torch_spatial.py: the float64 eval step
+    and train step at 32 rows (8 a shard at full resolution, 1 at
+    1/8, dilation-16 halos from two shards away). Saves
+    `<out_dir>/quad<rank>.pt`."""
+    data = dict(np.load(data_path))
+    batch = {k: data[k + "32"] for k in "lrg"}
+    evb = {k: data["e" + k + "32"] for k in "lrg"}
+    torch.save(step_record(state_path, batch, train_kw, "float64", evb),
+               os.path.join(out_dir, f"quad{rank}.pt"))
 
 
 @contextmanager
