@@ -15,7 +15,7 @@ infer through their CLIs; then every tool of `lwsnet_tpu_torch.tools`;
 then row sharding; then the port's bench. Phases, in order; any failure
 exits non-zero:
 
-  1. the card's name and power limit;
+  1. the card's name and power limit, and the number of cards visible;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
      memory lines;
   3. every kernel against its plain PyTorch version at each shape and
@@ -51,6 +51,22 @@ exits non-zero:
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
      at the same bars, with its own launch counts;
+ 4b. every kernel launch against the module layer it replaces
+     (`lwsnet_tpu_torch.tools.parity_layers`), before any timing: the
+     368x1232 forward under each engine in bf16 and float32 (TF32 off),
+     on the seed-0 network with phase 4's batch norms and on
+     `tools.parity`'s "trained_wide" set (the fixture's trained weights on
+     `wide_pair`), each launch's output held with its module
+     reference in the launch's dtype against the float64 truth on the
+     same input (phase 4's rule per launch, or the route's own bar in
+     `parity_layers.ROUTE_BARS`; the cost filters' launches under the
+     first engine); each engine's launches, each matched to a reference,
+     as many as `want_counts` holds, and its kernel launches equal to
+     `want_counts`; then a x1.01 weight
+     error planted in each route's first launch (`parity_layers.ROUTES`,
+     seed-0, bf16, kernel side) must miss at that launch and no other,
+     printed beside the sound reading; its time printed, every reading in
+     chiprun_out/parity_layers.json;
   5. `InferenceEngine` answers 4 seeded requests at num_stages 1..4 under
      the shipped engine, with per-stage latency from CUDA events after a
      warm-up; under each other engine it answers one request at
@@ -121,8 +137,8 @@ exits non-zero:
      forward time and host-clock time as the CLI logs them;
  10. the tools (`lwsnet_tpu_torch.tools`), in process, their JSON under
      chiprun_out/tools/: (a) `parity --fixture` under each engine in
-     float32 (TF32 off) and bf16 on both of the JAX fixture's weight
-     sets (`tests/torch_fixtures/`: the JAX float32 module path at every
+     float32 (TF32 off) and bf16 on each of the JAX fixture's three sets
+     (`tests/torch_fixtures/`: the JAX float32 module path at every
      4th pixel of 368x1232), each stage of each path at
      `tools.parity`'s fixture bars, and the bf16 "mxu" launch counts at
      `want_counts("mxu")`; (b) `parity_kernels` on the trained weights
@@ -183,6 +199,10 @@ import time
 
 import numpy as np
 
+from lwsnet_tpu_torch.tools.parity_layers import (ENGINES, MAX_RATIO,
+                                                  MEAN_RATIO,
+                                                  jitter_batchnorm)
+
 H, W = 368, 1232          # KITTI eval window
 WIDE_H, WIDE_W = 96, 3712  # a width where the layers path splits a pair
 PEAK_BF16 = 989e12        # H100 SXM dense tensor-core FLOP/s (data sheet)
@@ -198,32 +218,11 @@ def require(cond, msg):
         raise PhaseError(msg)
 
 
-def jitter_batchnorm(model, rng):
-    """Non-identity BN statistics and affines, so every fold is exercised."""
-    import torch
-    from lwsnet_tpu_torch.models.blocks import BatchNorm
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, BatchNorm):
-                c = m.weight.shape[0]
-                for t, v in ((m.weight, rng.uniform(0.5, 1.5, c)),
-                             (m.bias, rng.normal(0.0, 0.1, c)),
-                             (m.running_mean, rng.normal(0.0, 0.1, c)),
-                             (m.running_var, rng.uniform(0.5, 1.5, c))):
-                    t.copy_(torch.as_tensor(v, dtype=torch.float32))
-
-
 PORT_KERNELS = ("conv3d_bn_relu", "skip_softargmin", "dense3x3", "dwsep3x3",
                 "chain3x3")
 # The engines whose 4-stage forward phase 5 profiles for device busy time.
 PROFILED = ("mxu", "vpu-paired", "chain", "layers")
 
-# The stage-4 refinement engines as ModelConfig fields; "mxu" is shipped.
-ENGINES = {"mxu": dict(rows_dw="mxu"),
-           "vpu-paired": dict(rows_dw="vpu", rows_paired=True),
-           "vpu-unpaired": dict(rows_dw="vpu", rows_paired=False),
-           "chain": dict(rows_dw="chain"),
-           "layers": dict(pallas_mode="layers")}
 # Launches per 368x1232 batch-1 forward beyond stages 1-3's
 # (conv3d_bn_relu 15, conv3d_skip_softargmin 3).
 REFINE_LAUNCHES = {
@@ -903,10 +902,6 @@ def two_steps(got, want, what):
             f"steps")
 
 
-MEAN_RATIO = 1.1  # phase 4: kernel path's mean |delta| / module path's
-MAX_RATIO = 2.0   # float32: kernel path's max |delta| / module path's
-
-
 def compare(what, truth, plain, got, dtype, shape, failures):
     """Phase-4 bar of one output: finite, of `shape`, and held with the
     module path's output in the same dtype (`plain`) against the float64
@@ -1089,6 +1084,77 @@ def forward_phase(dev, engines=None):
             f"layers-wide layout copies {copies['layers-wide']}")
     require(not failures, "; ".join(failures))
     return forward_report, counts, copies, routes
+
+
+def layer_phase(dev, zero):
+    """Phase 4b: `tools.parity_layers` at H x W, batch 1: every launch of
+    the forward under each engine, in bf16 and float32 (TF32 off), on the
+    seed-0 network with phase 4's batch norms and on "trained_wide",
+    against its module layer (the cost filters' launches held under the
+    first engine); each engine's launches, each matched to a reference,
+    as many as `want_counts` holds (`zero`: every counter's name), and its
+    kernels' launch counts equal to it; then each route of
+    `parity_layers.ROUTES` planted (weights x1.01, kernel side, seed-0,
+    bf16), which must miss at its launch and nowhere else. Fails after
+    printing every reading if any missed. Returns the phase's report."""
+    import torch
+    from lwsnet_tpu_torch.tools import parity_layers as PL
+    from lwsnet_tpu_torch.tools.parity import tf32_off
+    t0 = time.time()
+    failures, report = [], {"sound": {}, "planted": {}}
+
+    def log(line):
+        print(f"[4b] {line}")
+
+    with tf32_off():
+        for set_name in PL.SETS:
+            for dt in ("bfloat16", "float32"):
+                runs = PL.check_set(set_name, dt, list(ENGINES), H, W, dev,
+                                    log=log)
+                for engine, res in runs.items():
+                    want = want_counts(engine, zero)
+                    what = f"{set_name} {dt} {engine}"
+                    # a "[dual]" launch is one of its kernel's launches
+                    launches = sum(v for k, v in want.items() if "[" not in k)
+                    require(res["launches"] == launches,
+                            f"{what}: {res['launches']} launches matched to "
+                            f"references, want_counts has {launches}")
+                    require(res["kernel_counts"] == want,
+                            f"{what}: kernel launches {res['kernel_counts']}"
+                            f" != {want}")
+                    failures += [f"{what} #{r['index']} {r['route']} "
+                                 f"({r['where']}): ratio "
+                                 f"{r['mean_ratio']:.3f} (max "
+                                 f"{r['max_ratio']:.3f})"
+                                 for r in res["rows"] if not r["ok"]]
+                    log(f"{what}: {res['launches']} launches, each with its "
+                        f"reference, {res['held']} held here (the cost "
+                        f"filters' under {next(iter(ENGINES))}); kernel "
+                        f"launches {res['kernel_counts']}")
+                report["sound"][f"{set_name} {dt}"] = runs
+        sound = report["sound"]["seed0 bfloat16"]
+        for route, engine in PL.ROUTES.items():
+            res = PL.check_plant(route, H, W, dev, log=lambda _: None)
+            at = res["planted_at"]
+            got = next(r for r in res["rows"] if r["index"] == at)
+            ref = next(r for r in sound[engine]["rows"] if r["index"] == at)
+            log(f"planted x{PL.PLANT_SCALE} {route} ({engine} #{at}, "
+                f"{got['where']}): ratio {got['mean_ratio']:.3f} (max "
+                f"{got['max_ratio']:.3f}) against sound "
+                f"{ref['mean_ratio']:.3f} (max {ref['max_ratio']:.3f}), bar "
+                f"{PL.bars(torch.bfloat16, route)[0]}; launches that "
+                f"missed: {res['missed']}")
+            if not res["caught"]:
+                failures.append(f"planted {route}: missed at {res['missed']}"
+                                f", want [{at}] alone")
+            report["planted"][route] = res
+    report["seconds"] = time.time() - t0
+    with open(os.path.join("chiprun_out", "parity_layers.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"[4b] per-launch check: {len(failures)} misses; "
+          f"{report['seconds']:.1f} s")
+    require(not failures, "; ".join(failures))
+    return report
 
 
 TRAIN_FRAMES, TRAIN_H, TRAIN_W = 16, 375, 1242  # the KITTI frame size
@@ -1817,8 +1883,8 @@ DIAG_MINI = ["--configs", "f32", "primed", "--steps", "8", "--pairs", "4",
 def tools_phase(dev, smi, tmp, phase5_ms=None):
     """Phase 10: the tools of `lwsnet_tpu_torch.tools` on the card, in
     process, with their JSON under chiprun_out/tools/: (a) `parity
-    --fixture` under every engine in float32 and bf16 on both weight
-    sets, the "mxu" launch counts; (b) `parity_kernels` on the trained
+    --fixture` under every engine in float32 and bf16 on each of the
+    fixture's sets, the "mxu" launch counts; (b) `parity_kernels` on the trained
     weights; (c) `profile_forward --trace` with its four stage ranges,
     each enclosing a launch of the port's kernels; (d)
     `golden_pair_inference` on phase 9's finetuned checkpoint; (e) the
@@ -2296,6 +2362,8 @@ def main():
     print(f"[1] card: {smi}")
     print(f"[1] torch.cuda.get_device_name(0): {name}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[1] cards visible: torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()}")
     report["card"] = smi
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2369,6 +2437,10 @@ def main():
     report["forward"], counts, copies, routes = forward_phase(dev)
     report["layout_copies"] = copies
     report["narrow_route_launches"] = routes
+    # 4b. every launch against its module layer, before any timing
+    build.reset_launch_counts()
+    layers = layer_phase(dev, build.launch_counts())
+    report["layer_check_seconds"] = layers["seconds"]
 
     # 5. the inference engine: 4 seeded requests, num_stages 1..4, under the
     # shipped engine; one request and the 4-stage latency under each other

@@ -18,16 +18,19 @@ module path's span (0.1 % in float32, TF32 off).
 Without `--left_img` the pair is `fixture_pair(0)`: a seeded smooth
 texture through `overfit_proof.synth_pair`, cropped to 368x1232; the JAX
 tool's default pair, the reference's golden pair, is not in the
-repository. Without `--ckpt`: the seed-0 random network. `--ckpt` takes a
-checkpoint directory of the port, or a weights file with a set after a
-colon (`tests/torch_fixtures/parity_weights.pt:trained`).
+repository. `wide_pair(0)`, a ground plane whose disparity runs from 10
+to 170 px down the rows over a texture of 16-pixel blocks, is the input
+of the fixture's "trained_wide" set. Without `--ckpt`: the seed-0
+random network. `--ckpt` takes a checkpoint directory of the port, or a
+weights file with a set after a colon
+(`tests/torch_fixtures/parity_weights.pt:trained`).
 
 `--fixture` also holds each stage of each path, at the fixture's strided
-pixels, against the JAX package's float32 module path on both of the
-fixture's weight sets and inputs (`tests/torch_parity_fixture.py` writes
-it; `FIXTURE_BARS`, `STAGE_BARS` and `KERNEL_FLOORS` give the fixed
-bars). It replaces the pair and weights
-options. Runs on the card (raises without one) unless `--device cpu`.
+pixels, against the JAX package's float32 module path on each of the
+fixture's sets, each a weight set on an input pair
+(`tests/torch_parity_fixture.py` writes it; `FIXTURE_BARS`, `STAGE_BARS`
+and `KERNEL_FLOORS` give the fixed bars). It replaces the pair and
+weights options. Runs on the card (raises without one) unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -45,12 +48,17 @@ H, W = 368, 1232  # KITTI eval window
 SRC_H, SRC_W = 375, 1242  # KITTI frame
 FIXTURE = os.path.join("tests", "torch_fixtures", "parity_368x1232.npz")
 WEIGHTS = "parity_weights.pt"  # beside the fixture
-SETS = ("random", "trained")
+SETS = ("random", "trained", "trained_wide")
+# The weights file's state dict of each set: the "trained_wide" set runs
+# the trained weights on `wide_pair`.
+WEIGHTS_OF = {"random": "random", "trained": "trained",
+              "trained_wide": "trained"}
 # Bars against the JAX fixture, per stage (`check_fixture`), all fixed:
 # each path's mean |delta| below FIXTURE_BARS[dtype] of the fixture
 # stage's span, or below STAGE_BARS[(dtype, set, stage)] where that is
 # given; the kernel path's mean |delta| at most KERNEL_RATIO x the module
-# path's, or KERNEL_FLOORS[dtype] x span; on the GUARDED sets the fixture
+# path's, or KERNEL_FLOORS[dtype] x span (not held in UNRATIOED); on the
+# GUARDED sets the fixture
 # stage spanning more than SPAN_GUARD of its bin range (`bin_range_px`).
 FIXTURE_BARS = {"float32": 1e-3, "bfloat16": 2e-2}
 # The seed-0 network amplifies bf16 rounding to 4.44-4.48 % of span at
@@ -58,12 +66,23 @@ FIXTURE_BARS = {"float32": 1e-3, "bfloat16": 2e-2}
 # 4.61-4.63 % there (`tests/test_torch_parity.py`).
 STAGE_BARS = {("bfloat16", "random", 4): 4.55e-2}
 KERNEL_RATIO = 1.1
+# On `wide_pair` the trained network's bf16 kernel path lies 1.15-1.21 x
+# the module path's distance from JAX at every stage under every engine,
+# above KERNEL_RATIO and the floor, while every launch meets its module
+# layer (`tools.parity_layers`): stage 1's entry folds the next BN scale
+# into bf16 weights, and with them in float32 the ratio falls within
+# KERNEL_RATIO (`tests/test_torch_parity.py`). No set-level ratio bar
+# separates that rounding from a x1.05 fault in stage 2's filter (1.24-
+# 1.28 x), so the set is held in bf16 to its mean bars and the span guard.
+UNRATIOED = (("bfloat16", "trained_wide"),)
 # bf16 rounding alone puts the kernel path at 0.069 % of span against the
 # module path's 0.056 % at trained stage 2; a x1.05 error in one of stage
 # 2's filter layers on the kernel path alone reads 0.178 % there.
 KERNEL_FLOORS = {"float32": 1e-4, "bfloat16": 1e-3}
 SPAN_GUARD = 0.25
-GUARDED = ("random",)
+# The trained network's stage 1 sits near 16 px on `fixture_pair` and on a
+# ground plane over `smooth_texture`: only `wide_pair`'s set spans its bins.
+GUARDED = ("random", "trained_wide")
 
 
 def mean_bar(dtype: str, name: str, stage: int) -> float:
@@ -120,6 +139,57 @@ def fixture_pair(seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     return tuple(np.ascontiguousarray(
         T.normalize(T.bottom_right_crop(img, H, W)), np.float32)
         for img in (left, right))
+
+
+WIDE_DISP = (10.0, 170.0)  # wide_pair's disparity at the top, bottom row
+WIDE_MARGIN = 192           # wide_pair's source columns beyond the frame
+WIDE_CELL = 16              # block_texture's cell in wide_pair, pixels
+
+
+def block_texture(rng: np.random.Generator, h: int, w: int,
+                  cell: int) -> np.ndarray:
+    """(h, w, 3) float32: grey cells of `cell` x `cell` pixels, each 0 or 1
+    with even odds."""
+    grid = (rng.random((h // cell + 1, w // cell + 1)) < 0.5).astype(
+        np.float32)
+    img = np.repeat(np.repeat(grid, cell, 0), cell, 1)[:h, :w]
+    return np.repeat(img[:, :, None], 3, 2)
+
+
+def wide_pair(seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(left, right), each (H, W, 3) float32 and ImageNet-normalized: a
+    ground plane, whose disparity d(y) depends on the row alone, rising
+    linearly from WIDE_DISP[0] at the top source row to WIDE_DISP[1] at the
+    bottom, so the right view is exact, with no occlusion:
+    right[y, u] = source[y, u + d(y)] by linear interpolation along the
+    row, left = source[:, :SRC_W]. The source is a `block_texture` of
+    SRC_H x (SRC_W + WIDE_MARGIN) with `overfit_proof.synth_pair`'s noise
+    (0.6 texture + 0.4 noise averaged with its neighbours above and to the
+    left); both views are bottom-right cropped to H x W. numpy only, from
+    one generator seeded `seed`."""
+    from lwsnet_tpu_torch.data import transforms as T
+
+    rng = np.random.default_rng(seed)
+    src = block_texture(rng, SRC_H, SRC_W + WIDE_MARGIN, WIDE_CELL)
+    noise = rng.random(src.shape).astype(np.float32)
+    noise = (noise + np.roll(noise, 1, 0) + np.roll(noise, 1, 1)) / 3.0
+    src = np.clip(0.6 * src + 0.4 * noise, 0.0, 1.0)
+    lo, hi = WIDE_DISP
+    d = lo + (hi - lo) * np.arange(SRC_H, dtype=np.float64) / (SRC_H - 1)
+    x = np.arange(SRC_W)[None, :] + d[:, None]
+    i0 = np.floor(x).astype(np.int64)
+    w1 = (x - i0).astype(np.float32)[..., None]
+    rows = np.arange(SRC_H)[:, None]
+    right = src[rows, i0] * (1 - w1) + src[rows, i0 + 1] * w1
+    return tuple(np.ascontiguousarray(
+        T.normalize(T.bottom_right_crop(img, H, W)), np.float32)
+        for img in (src[:, :SRC_W], right))
+
+
+def set_pair(name: str, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """The input pair of the fixture's weight set `name`."""
+    return {"random": random_pair, "trained": fixture_pair,
+            "trained_wide": wide_pair}[name](seed)
 
 
 def random_pair(seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
@@ -214,9 +284,9 @@ def check_fixture(path: str, cfg, device, sets=SETS) -> Dict:
     out = {}
     for name in sets:
         seed = int(fx[f"{name}_input_seed"])
-        pair = random_pair(seed) if name == "random" else fixture_pair(seed)
-        kern, plain, counts = run_paths(build_model(cfg, weights[name],
-                                                    device), *pair, device)
+        kern, plain, counts = run_paths(
+            build_model(cfg, weights[WEIGHTS_OF[name]], device),
+            *set_pair(name, seed), device)
         stages = []
         for s in range(4):
             ref = fx[f"{name}_stage{s + 1}"]
@@ -225,12 +295,13 @@ def check_fixture(path: str, cfg, device, sets=SETS) -> Dict:
             span, guard = k["span"], SPAN_GUARD * bin_range_px(cfg, s + 1)
             km, mm = k["mean_abs_delta"], m["mean_abs_delta"]
             bar = mean_bar(dtype, name, s + 1)
-            # span_guard None: not held on this set (GUARDED)
+            # None: not held on this set (UNRATIOED, GUARDED)
             bars = {
                 "finite": k["finite"] and m["finite"],
                 "mean": max(km, mm) < bar * span,
-                "kernel_vs_module": km <= max(KERNEL_RATIO * mm,
-                                              KERNEL_FLOORS[dtype] * span),
+                "kernel_vs_module": None if (dtype, name) in UNRATIOED
+                else km <= max(KERNEL_RATIO * mm,
+                               KERNEL_FLOORS[dtype] * span),
                 "span_guard": span > guard if name in GUARDED else None}
             stages.append({"stage": s + 1, "fixture_span": span,
                            "mean_bar_pct": 100.0 * bar,
@@ -301,13 +372,16 @@ def _run(args, cfg, dev, result: Dict) -> None:
         result["fixture"] = args.fixture
         wider = [f"{n} stage {st}: {b * 100:g}%"
                  for (d, n, st), b in STAGE_BARS.items() if d == args.dtype]
+        unheld = [n for d, n in UNRATIOED if d == args.dtype]
         result["bars"] = (
             f"per stage at the fixture's pixels: each path's mean |delta| "
             f"< {bar * 100:g}% of the fixture's span"
             + (f" ({'; '.join(wider)})" if wider else "")
             + f"; kernel path mean |delta| <= max({KERNEL_RATIO} x the "
-            f"module path's, {KERNEL_FLOORS[args.dtype] * 100:g}% of span); "
-            f"on the {', '.join(GUARDED)} set the fixture span > "
+            f"module path's, {KERNEL_FLOORS[args.dtype] * 100:g}% of span)"
+            + (f" (not on the {', '.join(unheld)} set)" if unheld else "")
+            + "; "
+            f"on the {', '.join(GUARDED)} sets the fixture span > "
             f"{SPAN_GUARD * 100:g}% of the stage's bin range")
         result["sets"] = check_fixture(args.fixture, cfg, dev)
         ok = all(s["pass"] for s in result["sets"].values())

@@ -21,6 +21,7 @@ from lwsnet_tpu_torch.ops.cuda import build
 from lwsnet_tpu_torch.ops.cuda import costfilter as tcf
 from lwsnet_tpu_torch.ops.cuda import probe
 from lwsnet_tpu_torch.ops.cuda import refine_rows as trr
+from lwsnet_tpu_torch.tools.parity_layers import ENGINES
 
 pytestmark = pytest.mark.gpu
 
@@ -1067,17 +1068,10 @@ def test_infer_cli_launches_the_kernels_on_card(rnd, tmp_path):
         assert (tmp_path / "out" / f"000000_10_stage{s + 1}.png").is_file()
 
 
-_ENGINES = {"mxu": dict(rows_dw="mxu"),
-            "vpu-paired": dict(rows_dw="vpu", rows_paired=True),
-            "vpu-unpaired": dict(rows_dw="vpu", rows_paired=False),
-            "chain": dict(rows_dw="chain"),
-            "layers": dict(pallas_mode="layers")}
-
-
-@pytest.mark.parametrize("engine", sorted(_ENGINES))
+@pytest.mark.parametrize("engine", sorted(ENGINES))
 def test_parity_fixture_on_card(rnd, engine):
     """Both paths at 368x1232 against the JAX float32 fixture
-    (`tests/torch_fixtures/`, no JAX needed) on its two weight sets, in
+    (`tests/torch_fixtures/`, no JAX needed) on each of its sets, in
     float32 and bf16, at `tools.parity`'s fixture bars."""
     import os
     from lwsnet_tpu_torch import ModelConfig
@@ -1085,7 +1079,7 @@ def test_parity_fixture_on_card(rnd, engine):
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), parity.FIXTURE)
     for dtype in ("float32", "bfloat16"):
-        cfg = ModelConfig(compute_dtype=dtype, **_ENGINES[engine])
+        cfg = ModelConfig(compute_dtype=dtype, **ENGINES[engine])
         res = parity.check_fixture(path, cfg, torch.device("cuda"))
         for name, st in res.items():
             assert st["pass"], (dtype, name, [
@@ -1104,3 +1098,35 @@ def test_parity_kernels_on_card(rnd, tmp_path):
     res = parity_kernels.main(["--ckpt", weights + ":trained", "--out",
                                str(tmp_path / "parity_kernels.json")])
     assert res["pass"], res["checks"]
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_every_launch_meets_its_module_layer_on_card(rnd, engine):
+    """`tools.parity_layers` at 368x1232 on the seed-0 network with
+    jittered batch norms, in bf16 and float32: every launch of the
+    engine's forward matched to its module reference and within its bar,
+    and the kernels launched as `chip_smoke.want_counts` says."""
+    import chip_smoke
+    from lwsnet_tpu_torch.tools import parity_layers as PL
+    from lwsnet_tpu_torch.tools.parity import tf32_off
+    for dtype in ("bfloat16", "float32"):
+        with tf32_off():
+            res = PL.check_set("seed0", dtype, [engine], PL.H, PL.W,
+                               torch.device("cuda"), log=lambda _: None)
+        res = res[engine]
+        assert res["held"] == res["launches"] == len(res["rows"])
+        assert [r for r in res["rows"] if not r["ok"]] == [], dtype
+        assert res["kernel_counts"] == chip_smoke.want_counts(
+            engine, res["kernel_counts"]), dtype
+
+
+def test_planted_launch_fault_is_caught_on_card(rnd):
+    """A x1.01 error in the weights of stage 2's first 8->8 layer, on the
+    kernel side, in bf16: the per-launch check misses that launch and no
+    other."""
+    from lwsnet_tpu_torch.tools import parity_layers as PL
+    from lwsnet_tpu_torch.tools.parity import tf32_off
+    with tf32_off():
+        res = PL.check_plant("cf-8", PL.H, PL.W, torch.device("cuda"),
+                             log=lambda _: None)
+    assert res["planted_at"] == 7 and res["missed"] == [7]

@@ -1,9 +1,10 @@
 """The port against the JAX package at the shipped geometry, 368x1232.
 
 `tests/torch_fixtures/` holds the JAX float32 module path's four stage
-outputs at every 4th pixel, on two weight sets (the port's seed-0 network
-on a standard-normal pair; the committed trained checkpoint on
-`tools.parity.fixture_pair(0)`), and both sets as the port's state dicts
+outputs at every 4th pixel, on three sets (the port's seed-0 network on a
+standard-normal pair; the committed trained checkpoint on
+`tools.parity.fixture_pair(0)` and on `tools.parity.wide_pair(0)`), and
+both weight sets as the port's state dicts
 (`tests/torch_parity_fixture.py` writes them). The card reads them there
 (`chip_smoke.py` phase 10, `tools.parity --fixture`); here:
 
@@ -12,8 +13,8 @@ on a standard-normal pair; the committed trained checkpoint on
   network and the Orbax checkpoint bridged by `from_jax_variables`,
   exactly: a stale fixture fails here;
 * the port's module path and kernel path (the kernels' plain versions on
-  the CPU) meet the fixture at phase 10's float32 and bf16 bars on both
-  sets, and planted weight errors fail those bars;
+  the CPU) meet the fixture at phase 10's float32 and bf16 bars on every
+  set, and planted weight errors fail those bars;
 * `tools.parity` and `tools.parity_kernels` run through `main` at 64x128.
 """
 
@@ -45,7 +46,8 @@ def committed():
 
 def test_committed_weights_are_the_sets(committed):
     _, weights = committed
-    assert sorted(weights) == sorted(parity.SETS)
+    assert sorted(weights) == sorted(set(parity.WEIGHTS_OF.values()))
+    assert sorted(parity.WEIGHTS_OF) == sorted(parity.SETS)
     for name, want in (("random", fixture_lib.random_state_dict()),
                        ("trained", fixture_lib.trained_state_dict())):
         got = weights[name]
@@ -65,6 +67,22 @@ def test_fixture_matches_regenerated_jax(committed):
         if key.endswith(tuple(f"stage{s}" for s in range(1, 5))):
             assert got.shape == (92, 308), key
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=0, err_msg=key)
+
+
+def test_wide_pair_spans_the_bins(committed):
+    """`wide_pair`'s right view is its left shifted along the row by the
+    row's disparity (170 px on the bottom row, where it is whole), and on
+    each guarded set every JAX stage spans more than SPAN_GUARD of its bin
+    range (46 / 8 / 4 / 4 px)."""
+    left, right = parity.wide_pair(0)
+    d = int(parity.WIDE_DISP[1])
+    np.testing.assert_array_equal(right[-1, :-d], left[-1, d:])
+    fx, _ = committed
+    assert set(parity.GUARDED) == {"random", "trained_wide"}
+    for name in parity.GUARDED:
+        for s in range(1, 5):
+            guard = parity.SPAN_GUARD * parity.bin_range_px(ModelConfig(), s)
+            assert np.ptp(fx[f"{name}_stage{s}"]) > guard, (name, s)
 
 
 @pytest.mark.parametrize("name", parity.SETS)
@@ -170,7 +188,8 @@ def test_fixture_bars_catch_planted_faults(fault, monkeypatch):
 def test_port_paths_meet_fixture_bf16(name):
     """Both paths in bf16 at phase 10's fixed bars: mean |delta| < 2 % of
     the fixture stage's span (4.55 % at random stage 4), the kernel
-    path's at most 1.1 x the module path's (or 0.1 % of span)."""
+    path's at most 1.1 x the module path's (or 0.1 % of span), except on
+    the sets of `parity.UNRATIOED`."""
     res = parity.check_fixture(NPZ, ModelConfig(compute_dtype="bfloat16"),
                                torch.device("cpu"), sets=(name,))[name]
     for row in res["stages"]:
@@ -179,8 +198,50 @@ def test_port_paths_meet_fixture_bf16(name):
         for path in ("kernels", "module"):
             assert row[path]["mean_abs_delta"] < bar * row["fixture_span"], \
                 (row["stage"], path, row[path])
+        unheld = ("bfloat16", name) in parity.UNRATIOED
+        assert (row["bars"]["kernel_vs_module"] is None) == unheld, row
         assert row["ok"], row
     assert res["pass"]
+
+
+def test_wide_kernel_ratio_comes_from_the_stage1_entry_fold(monkeypatch):
+    """On "trained_wide" the bf16 kernel path reads 1.15-1.21 x the module
+    path's distance from JAX, over KERNEL_RATIO (`parity.UNRATIOED`). The
+    cause is stage 1's entry, which folds the next BN scale into bf16
+    weights: with those weights left in float32 on the kernel path alone
+    (the activations still rounded to bf16, the output too), every stage
+    comes within KERNEL_RATIO of the module path."""
+    import torch.nn.functional as F
+    from lwsnet_tpu_torch.models import lwsnet as L
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+
+    filt, entry = L.filter_soft_argmin, CF.conv3d_entry
+
+    def float32_fold(cost, params, stats, **kw):
+        if kw["start"] != 0:  # stages 2-3 as they are
+            return filt(cost, params, stats, **kw)
+        a1, _ = CF._fold_bn(params, stats, "BNReLUConv3D_1.BatchNorm_0")
+        wt = params["BNReLUConv3D_0.weight"].float() * a1.view(-1, 1, 1, 1, 1)
+
+        def entry32(vol, a0b0, _, shift):
+            act = F.relu(vol.float() * a0b0[0] + a0b0[1]).to(vol.dtype)
+            return CF.conv3d_bn_relu_plain(act.float()[:, None], wt,
+                                           shift).to(vol.dtype)
+        monkeypatch.setattr(CF, "conv3d_entry", entry32)
+        try:
+            return filt(cost, params, stats, **kw)
+        finally:
+            monkeypatch.setattr(CF, "conv3d_entry", entry)
+
+    monkeypatch.setattr(L, "filter_soft_argmin", float32_fold)
+    assert ("bfloat16", "trained_wide") in parity.UNRATIOED
+    res = parity.check_fixture(NPZ, ModelConfig(compute_dtype="bfloat16"),
+                               torch.device("cpu"),
+                               sets=("trained_wide",))["trained_wide"]
+    for row in res["stages"]:
+        km = row["kernels"]["mean_abs_delta"]
+        mm = row["module"]["mean_abs_delta"]
+        assert km <= parity.KERNEL_RATIO * mm, (row["stage"], km / mm)
 
 
 @pytest.mark.parametrize("fault", ["shared_refinement",

@@ -33,8 +33,8 @@ from lwsnet_tpu_torch.tools import (aot_warm, cpu_truth_eval,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("aot_warm", "cpu_truth_eval", "golden_pair_inference",
          "bench", "microbench_3d", "microbench_refine", "overfit_diag",
-         "overfit_proof", "parity", "parity_kernels", "profile_forward",
-         "scaling_sweep")
+         "overfit_proof", "parity", "parity_kernels", "parity_layers",
+         "profile_forward", "scaling_sweep")
 CPU = torch.device("cpu")
 
 

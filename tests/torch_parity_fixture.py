@@ -1,20 +1,25 @@
 """The JAX reference the port is held to at the shipped geometry.
 
 Runs the JAX package's float32 module path (`LWSNet.apply`,
-`train=False`, matmul precision "highest") at 368x1232, batch 1, on two
-weight sets, and writes what the card (which has no JAX) reads:
+`train=False`, matmul precision "highest") at 368x1232, batch 1, on three
+sets (a weight set on an input pair), and writes what the card (which has
+no JAX) reads:
 
   tests/torch_fixtures/parity_368x1232.npz   every stage's output at every
                                              STRIDE-th row and column, per
                                              set, with the seeds and stride
-  tests/torch_fixtures/parity_weights.pt     both sets as the port's state
-                                             dicts ({"random", "trained"})
+  tests/torch_fixtures/parity_weights.pt     both weight sets as the port's
+                                             state dicts ({"random",
+                                             "trained"})
 
 The sets: "random", the port's seed-0 `LWSNet(ModelConfig(compute_dtype=
 "float32"))` bridged by `convert.to_jax_variables`, on
 `tools.parity.random_pair(0)` (standard normal); "trained", the committed
 Orbax checkpoint `artifacts/overfit_ckpt_kitti` through
-`convert.from_jax_variables`, on `tools.parity.fixture_pair(0)`.
+`convert.from_jax_variables`, on `tools.parity.fixture_pair(0)`;
+"trained_wide", the same weights on `tools.parity.wide_pair(0)`, whose
+stages span their bins (`tools.parity.GUARDED`). Each set's weights are
+`tools.parity.WEIGHTS_OF[set]`.
 
     python tests/torch_parity_fixture.py
 
@@ -89,17 +94,16 @@ def jax_stages(state_dict, left: np.ndarray, right: np.ndarray):
 
 
 def build(weights=None):
-    """({set: state dict}, {npz key: array}) of the fixture; `weights`
-    ({set: state dict}) in place of the sets' own."""
+    """({weight set: state dict}, {npz key: array}) of the fixture;
+    `weights` ({weight set: state dict}) in place of the sets' own."""
     weights = weights or {"random": random_state_dict(),
                           "trained": trained_state_dict()}
-    pairs = {"random": parity.random_pair(SEED),
-             "trained": parity.fixture_pair(SEED)}
     arrays = {"stride": np.int64(STRIDE),
               "random_weight_seed": np.int64(SEED)}
     for name in parity.SETS:
         arrays[f"{name}_input_seed"] = np.int64(SEED)
-        for s, out in enumerate(jax_stages(weights[name], *pairs[name])):
+        for s, out in enumerate(jax_stages(weights[parity.WEIGHTS_OF[name]],
+                                           *parity.set_pair(name, SEED))):
             arrays[f"{name}_stage{s + 1}"] = np.ascontiguousarray(
                 out[::STRIDE, ::STRIDE])
     return weights, arrays
@@ -115,10 +119,16 @@ def main() -> None:
     for path in (NPZ, WEIGHTS):
         print(f"wrote {os.path.relpath(path, REPO)}: "
               f"{os.path.getsize(path) / 1e6:.3f} MB")
+    from lwsnet_tpu_torch import ModelConfig
+
+    guards = [parity.SPAN_GUARD * parity.bin_range_px(ModelConfig(), s)
+              for s in range(1, 5)]
     for name in parity.SETS:
         spans = [float(np.ptp(arrays[f"{name}_stage{s}"]))
                  for s in range(1, 5)]
-        print(f"{name}: stage spans {[round(x, 3) for x in spans]} px")
+        print(f"{name}: stage spans {[round(x, 3) for x in spans]} px "
+              f"(span guard {guards} px, "
+              f"{'held' if name in parity.GUARDED else 'not held'})")
 
 
 if __name__ == "__main__":
