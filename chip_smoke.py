@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # phases 1-13
+    python3 chip_smoke.py --only multicard   # phases 1 and 13, 4 cards
 
 It builds the Hopper kernels from `lwsnet_tpu_torch/csrc/` and drives the
 port's main path, the 368x1232 batch-1 bf16 4-stage inference forward, on
@@ -12,8 +13,9 @@ seeded random weights, under each stage-4 refinement engine: the shipped
 and the planar `pallas_mode="layers"`; then the rows microbench; then the
 training path through the finetune CLI; then pretrain, finetune and
 infer through their CLIs; then every tool of `lwsnet_tpu_torch.tools`;
-then row sharding; then the port's bench. Phases, in order; any failure
-exits non-zero:
+then row sharding; then the port's bench; then, where 2 or more cards
+are visible, data x spatial training across them under NCCL. Phases, in
+order; any failure exits non-zero:
 
   1. the card's name and power limit, and the number of cards visible;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
@@ -53,8 +55,8 @@ exits non-zero:
      at the same bars, with its own launch counts;
  4b. every kernel launch against the module layer it replaces
      (`lwsnet_tpu_torch.tools.parity_layers`), before any timing: the
-     368x1232 forward under each engine in bf16 and float32 (TF32 off),
-     on the seed-0 network with phase 4's batch norms and on
+     368x1232 forward under each engine in bf16 and float32 (TF32 off,
+     cuDNN's deterministic algorithms), on the seed-0 network with phase 4's batch norms and on
      `tools.parity`'s "trained_wide" set (the fixture's trained weights on
      `wide_pair`), each launch's output held with its module
      reference in the launch's dtype against the float64 truth on the
@@ -159,19 +161,22 @@ exits non-zero:
  11. row sharding on the card: two processes on the one card under gloo
      (NCCL refuses two processes on one device), laid out as data x
      spatial 1 x 2 through `tools.dryrun_ddp.spawn`, against the same
-     work in this process, with seeded weights (phase 4's jittered batch
-     norms): (a) one train step of the full-width model at 256x512, batch
-     2, TF32 off and deterministic algorithms, in float32 (loss rel 1e-5,
-     BN statistics rtol 1e-4 / atol 1e-6) and in float64 compute (also
-     every gradient tensor's cosine >= 0.9999; float32's cosines are
-     printed: they move with the order of summation alone); (b) the eval
-     step at the KITTI window 368x1232, 184 rows a shard: in float64
-     compute EPE and D1 sums within rel 1e-5, weight equal in both
-     dtypes, float32's gaps printed (threshold pixels flip, and stage 4
-     of a random network amplifies rounding); (c) bf16 train steps,
-     finite; (d) the "halo" collectives equal to `LWSNet.halo_exchanges`
-     (forward and backward a train step, forward an eval step) and no
-     kernel launch;
+     work in this process (`dryrun_ddp.layout_child`, held by
+     `dryrun_ddp.layout_failures`, as phase 13 holds its layouts), with
+     seeded weights (phase 4's jittered batch norms): (a) one train step
+     of the full-width model at 256x512, batch 2, TF32 off and
+     deterministic algorithms, in float32 (loss rel 1e-5, BN statistics
+     rtol 1e-4 / atol 1e-6) and in float64 compute (also grad_norm rel
+     1e-5 and every gradient tensor's cosine >= 0.9999; float32's
+     cosines are printed: they move with the order of summation alone);
+     (b) the eval step at the KITTI window 368x1232, 184 rows a shard: in
+     float64 compute EPE and D1 sums within rel 1e-5, weight equal in
+     both dtypes, float32's gaps printed (threshold pixels flip, and
+     stage 4 of a random network amplifies rounding); (c) 3 bf16 train
+     steps, finite, after which the two shards' parameters and
+     statistics are bit-identical; (d) the collectives by purpose,
+     "halo" equal to `LWSNet.halo_exchanges` (forward and backward a
+     train step, forward an eval step), and no kernel launch;
      printed with no bar: each process's peak memory and the bf16 step's
      median time beside the single process's at the same global batch;
  12. the port's bench, `python -m lwsnet_tpu_torch.tools.bench` in a
@@ -183,10 +188,38 @@ exits non-zero:
      skipped step or low-budget estimate; its headline forward launched
      `want_counts("mxu")`, its module-path forward and train steps
      launched nothing; its 4-stage time is printed beside phase 5's
-     median, with no bar.
+     median, with no bar;
+ 13. multi-card, with 2 or more cards visible (one card: it prints that
+     it was not run and records {"cards": 1, "run": false}): each data x
+     spatial layout of 2 x 1, 1 x 2 and, with 4 cards, 4 x 1, 2 x 2 and
+     1 x 4 on as many processes, one a card under NCCL
+     (`tools.dryrun_ddp.spawn(..., device="cuda")`, `layout_child`),
+     against one process on card 0 on the same data and weights (phase
+     11's: seeded, jittered batch norms; batch 2, or 4 for 4 x 1 and
+     2 x 2): (a) one float64 train step at 256x512 and the float64 eval
+     step at 368x1232 (deterministic algorithms, TF32 off) with phase
+     11's float64 bars, the processes' gradients, statistics and sums
+     equal; (b) the collectives by purpose, "halo" at
+     `LWSNet.halo_exchanges` (49 + 47 a train step, 49 an eval step)
+     under row sharding; (c) after 3 bf16 steps every process's
+     parameters and batch-norm statistics bit-identical (the largest
+     difference printed); no kernel launch; printed with no bar: each
+     process's bf16 step time (CUDA events, median of 5) and peak memory
+     beside the one process's; (f) a torch.profiler window on rank 0 over
+     3 bf16 steps of 4 x 1 and 2 x 2: device busy, NCCL kernels (all-
+     gather, all-reduce) and other kernels; then (d) `torchrun
+     --standalone --nproc_per_node=4 -m lwsnet_tpu_torch.cli.pretrain`
+     (2 with two or three cards) for one epoch on phase 9's synthetic
+     SceneFlow corpus: exactly one checkpoint, whose EPE equals this
+     process's eval of it (rel 1e-5), then `cli.finetune --pretrained`
+     from it the same way on phase 8's KITTI corpus: one checkpoint, a
+     D1 in [0, 1]; (e) `tools.scaling_sweep --devices 1 2 4` at 256x512
+     in bf16, per-card batch 4 and global batch 8. `--only multicard`
+     runs phases 1 and 13 alone and fails with fewer than 4 cards.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
-written to chiprun_out/chip_smoke.json.
+written to chiprun_out/chip_smoke.json; the scaling sweeps' to
+chiprun_out/scaling_sweep_{weak,strong}.json.
 """
 
 import contextlib
@@ -199,6 +232,7 @@ import time
 
 import numpy as np
 
+from lwsnet_tpu_torch.tools.dryrun_ddp import deterministic_algorithms
 from lwsnet_tpu_torch.tools.parity_layers import (ENGINES, MAX_RATIO,
                                                   MEAN_RATIO,
                                                   jitter_batchnorm)
@@ -1542,27 +1576,6 @@ def free_port():
         return s.getsockname()[1]
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """TF32 off and deterministic algorithms inside, the settings as they
-    were after."""
-    import torch
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (torch.are_deterministic_algorithms_enabled(),
-             cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
-             matmul.allow_tf32)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    cudnn.deterministic, cudnn.benchmark = True, False
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(saved[0])
-        (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
-         matmul.allow_tf32) = saved[1:]
-
-
 def probe_step(dev, deterministic=True):
     """One float32 train step (TF32 off) of the full-width model at
     STEP_SHAPE from the seed-0 state, on `card_vs_cpu_step`'s batch with
@@ -2063,194 +2076,50 @@ def tools_phase(dev, smi, tmp, phase5_ms=None):
 
 # Phase 11: row sharding, two processes on the one card.
 SHARD_STEP = (2, 256, 512)  # the train step: batch, height, width
-SHARD_EVAL = (2, H, W)      # the eval step at the KITTI window
-SHARD_TCFG = dict(mask_max_disp=192.0)
 
 
-def shard_child(rank, world, work):
-    """Phase 11's process `rank` of `world` (row shards of one data slice)
-    on the one card: its rows of `<work>/batch.npz` through (a) one train
-    step in float32 and in float64 compute, TF32 off and deterministic;
-    (b) the eval step at the KITTI window in both; (c) bf16 train steps
-    timed by CUDA events, with the process's peak memory over them.
-    Records the collectives and launches of each, to
-    `<work>/shard<world>_<rank>.pt`."""
-    import torch
-    from lwsnet_tpu_torch import ModelConfig
-    from lwsnet_tpu_torch.config import TrainConfig
-    from lwsnet_tpu_torch.ops.cuda import build
-    from lwsnet_tpu_torch.parallel import mesh
-    from lwsnet_tpu_torch.tools.dryrun_ddp import local_part
-    from lwsnet_tpu_torch.training.state import create_train_state
-    from lwsnet_tpu_torch.training.steps import (make_eval_step,
-                                                 make_train_step)
-    from lwsnet_tpu_torch.utils.timing import event_times
-
-    dev = torch.device("cuda", 0)
-    base = torch.cuda.memory_allocated(dev)
-    data = dict(np.load(os.path.join(work, "batch.npz")))
-    weights = torch.load(os.path.join(work, "weights.pt"))
-    tcfg = TrainConfig(**SHARD_TCFG)
-    launches = build.launch_counts()
-
-    def state(dtype):
-        st = create_train_state(ModelConfig(compute_dtype=dtype), tcfg,
-                                device=dev)
-        st.model.load_state_dict(weights)
-        return st
-
-    batch = [t.to(dev) for t in local_part(data, "lrg")]
-    out = {"rows": mesh.row_range(SHARD_STEP[1]),
-           "eval_rows": mesh.row_range(SHARD_EVAL[1])}
-    with deterministic_algorithms():
-        for dtype in ("float32", "float64"):
-            st = state(dtype)
-            mesh.reset_collective_counts()
-            st, aux = make_train_step(tcfg, 1)(st, *batch)
-            out[dtype] = dict(
-                loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]),
-                counts=mesh.collective_counts(),
-                grads={n: p.grad.detach().double().cpu()
-                       for n, p in st.model.named_parameters()},
-                buffers={n: b.detach().double().cpu()
-                         for n, b in st.model.named_buffers()})
-            del st
-        ev = [t.to(dev) for t in local_part(data, ["el", "er", "eg"])]
-        for dtype in ("float32", "float64"):
-            st = state(dtype)
-            mesh.reset_collective_counts()
-            res = make_eval_step(192.0)(st, *ev, torch.as_tensor(
-                data["ev"], device=dev))
-            out[f"eval_{dtype}"] = dict(
-                {k: v.double().cpu() for k, v in res.items()},
-                counts=mesh.collective_counts())
-            del st
-    st = state("bfloat16")
-    step = make_train_step(tcfg, 1)
-    losses = []
-
-    def bf16_step():
-        nonlocal st
-        st, aux = step(st, *batch)
-        losses.append(float(aux["loss"]))
-
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    mesh.reset_collective_counts()
-    ms = event_times(bf16_step, reps=5, warmup=2)
-    out["bf16"] = dict(ms=ms, losses=losses,
-                       counts=mesh.collective_counts(),
-                       peak_bytes=torch.cuda.max_memory_allocated(dev) - base)
-    out["launches"] = {k: n - launches[k]
-                       for k, n in build.launch_counts().items()}
-    torch.save(out, os.path.join(work, f"shard{world}_{rank}.pt"))
-
-
-def row_shard_phase(dev, smi, tmp):
-    """Phase 11: `shard_child` in this process, without a process group,
-    then in two row shards of one data slice spawned on the one card
-    under gloo (NCCL refuses two processes on one device), and the two
-    held against the one (the module docstring's bars). Returns the
-    phase's report."""
-    import torch
-    from lwsnet_tpu_torch import LWSNet, ModelConfig
+def row_shard_phase(smi, tmp):
+    """Phase 11: `tools.dryrun_ddp.layout_child` with its float32 step
+    and eval, in this process without a process group, then as 1 x 2 row
+    shards spawned on the one card under gloo (NCCL refuses two
+    processes on one device), the two held against the one by
+    `dryrun_ddp.layout_failures`. Returns the phase's report."""
     from lwsnet_tpu_torch.tools import dryrun_ddp
     t0 = time.time()
     work = os.path.join(tmp, "shards")
     os.makedirs(work, exist_ok=True)
-    rng = np.random.default_rng(11)
     b, h, w = SHARD_STEP
-    eb, eh, ew = SHARD_EVAL
-    eg = rng.uniform(1.0, 150.0, (eb, eh, ew)).astype(np.float32)
-    eg[rng.uniform(size=eg.shape) < 0.3] = 0.0
-    np.savez(os.path.join(work, "batch.npz"),
-             l=rng.standard_normal((b, h, w, 3)).astype(np.float32),
-             r=rng.standard_normal((b, h, w, 3)).astype(np.float32),
-             g=rng.uniform(1.0, 250.0, (b, h, w)).astype(np.float32),
-             el=rng.standard_normal((eb, eh, ew, 3)).astype(np.float32),
-             er=rng.standard_normal((eb, eh, ew, 3)).astype(np.float32),
-             eg=eg, ev=np.ones(eb, np.float32))
-    model = LWSNet(ModelConfig(compute_dtype="float32"), device="cpu")
-    jitter_batchnorm(model, np.random.default_rng(3))
-    torch.save(model.state_dict(), os.path.join(work, "weights.pt"))
-    halo = model.halo_exchanges()
+    halo, n_bn = dryrun_ddp.write_layout_weights(work)
+    dryrun_ddp.write_layout_data(os.path.join(work, "batch.npz"), b, (h, w),
+                                 (H, W))
+    dryrun_ddp.layout_child(0, 1, work, "batch", "cuda:0", timed=True,
+                            float32=True)
     t1 = time.time()
-    shard_child(0, 1, work)
-    t2 = time.time()
-    dryrun_ddp.spawn(shard_child, 2, (work,), 300.0, work, device="cuda:0",
-                     spatial=2, backend="gloo")
-    print(f"[11] one process {t2 - t1:.1f} s, two row shards on the card "
-          f"{time.time() - t2:.1f} s")
-    one = torch.load(os.path.join(work, "shard1_0.pt"))
-    two = [torch.load(os.path.join(work, f"shard2_{r}.pt")) for r in (0, 1)]
-    require([r["rows"] for r in two] == [(0, h // 2), (h // 2, h)]
-            and [r["eval_rows"] for r in two] == [(0, eh // 2),
-                                                 (eh // 2, eh)],
+    dryrun_ddp.spawn(dryrun_ddp.layout_child, 2,
+                     (work, "batch", "cuda:0", True, False, True), 300.0,
+                     work, device="cuda:0", spatial=2, backend="gloo")
+    print(f"[11] one process {t1 - t0:.1f} s, two row shards on the card "
+          f"{time.time() - t1:.1f} s")
+    one = dryrun_ddp.layout_records(work, "batch", 1)[0]
+    two = dryrun_ddp.layout_records(work, "batch", 2)
+    require([(r["rows"], r["eval_rows"]) for r in two]
+            == [((0, h // 2), (0, H // 2)), ((h // 2, h), (H // 2, H))],
             f"row shards {[(r['rows'], r['eval_rows']) for r in two]}")
-    report = {}
-    for dtype in ("float32", "float64"):
-        a, s1 = two[0][dtype], one[dtype]
-        for key in ("grads", "buffers"):
-            require(all(torch.equal(t, two[1][dtype][key][n])
-                        for n, t in a[key].items()),
-                    f"{dtype}: the two shards' {key} differ")
-        require(a["counts"].get("halo") == halo["forward"] + halo["backward"],
-                f"{dtype} step: halo exchanges {a['counts']} != {halo}")
-        floor = 1e-6 * s1["grad_norm"]
-        whole, least, worst, _ = _grad_agreement(a["grads"], s1["grads"],
-                                                 floor)
-        loss_rel = abs(a["loss"] / s1["loss"] - 1.0)
-        stats = max(float(((t - s1["buffers"][n]).abs()
-                           / (1e-4 * s1["buffers"][n].abs() + 1e-6)).max())
-                    for n, t in a["buffers"].items())
-        under = sum(float((a["grads"][n] * g).sum()
-                          / (a["grads"][n].norm() * g.norm())) < 0.9999
-                    for n, g in s1["grads"].items()
-                    if float(g.norm()) >= floor)
-        print(f"[11a] {dtype} step, 1 x 2 row shards vs one process (batch "
-              f"{b}, {h}x{w}, TF32 off, deterministic): loss "
-              f"{a['loss']:.7g} vs {s1['loss']:.7g} (rel {loss_rel:.3g}), "
-              f"grad_norm rel {abs(a['grad_norm'] / s1['grad_norm'] - 1):.3g}"
-              f", BN statistics {stats:.3g} of the bar, gradient cosine "
-              f"{whole:.9f}, least tensor {least:.9f} ({worst}), {under} "
-              f"tensors under 0.9999; collectives {a['counts']}")
-        require(loss_rel <= 1e-5 and stats <= 1.0,
-                f"{dtype} step: loss rel {loss_rel}, statistics {stats}")
-        if dtype == "float64":
-            require(under == 0, f"float64 step: {under} gradient tensors "
-                    f"under cosine 0.9999 (least {least}, {worst})")
-        report[dtype] = dict(loss_rel=loss_rel, stats=stats, cosine=whole,
-                             min_cosine=least, tensors_under=under)
-    for dtype in ("float32", "float64"):
-        got, want = two[0][f"eval_{dtype}"], one[f"eval_{dtype}"]
-        require(all(torch.equal(t, two[1][f"eval_{dtype}"][k])
-                    for k, t in got.items() if k != "counts"),
-                f"eval {dtype}: the two shards' sums differ")
-        gaps = {k: float(((got[k] - want[k]).abs() / want[k].abs()).max())
-                for k in ("epe", "d1")}
-        print(f"[11b] {dtype} eval step at {eh}x{ew} (batch {eb}, "
-              f"{eh // 2} rows a shard): EPE sums {got['epe'].tolist()} vs "
-              f"{want['epe'].tolist()}, D1 sums {got['d1'].tolist()} vs "
-              f"{want['d1'].tolist()}, relative gaps {gaps}, weight "
-              f"{float(got['weight'])}; collectives {got['counts']}")
-        # float32 rounding differs between the shards' and the whole
-        # image's convolutions, stage 4 of a random network amplifies it
-        # (8.4e-6 of the EPE sum, PERF.md) and a pixel within rounding of
-        # D1's 3 px threshold flips: the bars hold in float64
-        require((dtype == "float32" or max(gaps.values()) <= 1e-5)
-                and float(got["weight"]) == float(want["weight"]) == eb,
-                f"eval {dtype}: gaps {gaps}, weight {float(got['weight'])}")
-        require(got["counts"].get("halo") == halo["forward"],
-                f"eval: halo exchanges {got['counts']} != {halo}")
-        report[f"eval_{dtype}_gaps"] = gaps
-    for r in two:
-        require(all(np.isfinite(r["bf16"]["losses"])),
-                f"bf16 steps: losses {r['bf16']['losses']}")
-        require(r["bf16"]["counts"].get("halo")
-                == 7 * (halo["forward"] + halo["backward"]),
-                f"bf16 steps: {r['bf16']['counts']}")
-        require(not any(r["launches"].values()),
-                f"training launched kernels: {r['launches']}")
+    rd, fails = dryrun_ddp.layout_failures(two, one, halo, n_bn)
+    r32 = rd["float32"]
+    print(f"[11a] 1 x 2 row shards vs one process, train step at batch "
+          f"{b}, {h}x{w} (TF32 off, deterministic): float32 loss rel "
+          f"{r32['loss_rel']:.3g}, grad_norm rel {r32['grad_norm_rel']:.3g},"
+          f" BN statistics {r32['stats']:.3g} of the bar, least tensor "
+          f"cosine {r32['min_cosine']:.9f}; float64 loss rel "
+          f"{rd['loss_rel']:.3g}, grad_norm rel {rd['grad_norm_rel']:.3g}, "
+          f"BN statistics {rd['stats']:.3g} of the bar, least tensor cosine "
+          f"1 - {1 - rd['min_cosine']:.3g} ({rd['least_tensor']}), "
+          f"{rd['tensors_under']} tensors under 0.9999")
+    print(f"[11b] eval step at {H}x{W} (batch {b}, {H // 2} rows a shard): "
+          f"float64 EPE / D1 gaps {rd['eval_gaps']}, weight {rd['weight']};"
+          f" float32 gaps {r32['eval_gaps']}, weight {r32['weight']}; "
+          f"collectives {rd['counts']}")
     med = [statistics.median(r["bf16"]["ms"]) for r in two + [one]]
     peak = [r["bf16"]["peak_bytes"] / 2 ** 30 for r in two + [one]]
     print(f"[11c] bf16 train step, batch {b} at {h}x{w} ({smi}): 1 x 2 row "
@@ -2258,11 +2127,13 @@ def row_shard_phase(dev, smi, tmp):
           f"{max(two[0]['bf16']['ms']):.3f}), one process {med[2]:.3f} ms; "
           f"peak memory {peak[0]:.3f} / {peak[1]:.3f} GiB a shard, one "
           f"process {peak[2]:.3f} GiB ({peak[0] / peak[2]:.3f} of it); "
-          f"losses finite")
-    report.update(bf16_ms=med, peak_gib=peak, halo=halo,
-                  seconds=time.time() - t0)
-    print(f"[11] row sharding phase: {report['seconds']:.1f} s")
-    return report
+          f"after {dryrun_ddp.LAYOUT_BF16_STEPS} bf16 steps the shards "
+          f"differ by {rd['bf16_max_diff']}")
+    require(not fails, f"row shards: {fails}")
+    rd.update(bf16_ms=med, peak_gib=peak, halo=halo,
+              seconds=time.time() - t0)
+    print(f"[11] row sharding phase: {rd['seconds']:.1f} s")
+    return rd
 
 
 # Detail keys of the bench that a run with BENCH_BUDGET_S=120 must hold.
@@ -2337,8 +2208,268 @@ def bench_phase(smi, phase5_ms=None):
     return report
 
 
-def main():
+# Phase 13: data x spatial training on 2 and 4 cards under NCCL.
+# (data, spatial) layouts, one process a card; those of more processes
+# than cards visible are not run.
+MULTI_LAYOUTS = ((2, 1), (1, 2), (4, 1), (2, 2), (1, 4))
+MULTI_STEP_HW = (256, 512)  # phase 11's train step
+MULTI_PROFILED = ((4, 1), (2, 2))
+MULTI_TIMEOUT = 240.0       # each layout's processes, start-up included
+
+
+def multicard_batch(dp, sp):
+    """Phase 11's global batch (2), or 4 for the layouts of 4 processes
+    with more than one data slice."""
+    return 4 if dp * sp == 4 and dp > 1 else 2
+
+
+def checkpoint_eval(ckpt, sf_root, batch, dev):
+    """The SceneFlow eval of `ckpt` in this process alone, as the pretrain
+    CLI evaluates (its default model flags, eval batch `batch` at
+    SF_EVAL, EPE with the 4-row offset): the EPE it returns."""
+    import logging
+    from lwsnet_tpu_torch.cli import common, pretrain
+    from lwsnet_tpu_torch.config import TrainConfig
+    from lwsnet_tpu_torch.data.pipeline import StereoPipeline
+    from lwsnet_tpu_torch.data.sceneflow import index_sceneflow
+    from lwsnet_tpu_torch.training.loop import Trainer, TrainerConfig
+    _, test_idx = index_sceneflow(sf_root)
+    pipe = StereoPipeline(test_idx, batch, training=False, crop=SF_EVAL,
+                          kitti=False, num_workers=2)
+    model = common.model_config(pretrain.build_parser().parse_args([]))
+    t = Trainer(TrainerConfig(model=model, train=TrainConfig(
+        mask_max_disp=192.0, save_path=ckpt), eval_metric="epe",
+        sceneflow_row_offset=4), pipe, pipe,
+        logging.getLogger("chip_smoke"), device=dev)
+    t.init_state(0)
+    require(t.resume(), f"no checkpoint to restore in {ckpt}")
+    return t.evaluate()
+
+
+def multicard_layouts(smi, work, cards, report, failures):
+    """Phase 13 (a)-(c), (f): each layout of MULTI_LAYOUTS that the cards
+    hold, its processes spawned one a card under NCCL
+    (`tools.dryrun_ddp.layout_child`), held against the one process on
+    card 0 (`dryrun_ddp.layout_failures`); stops at the first layout
+    whose processes hang, and then returns False."""
     import torch
+    from lwsnet_tpu_torch.tools import dryrun_ddp
+    halo, n_bn = dryrun_ddp.write_layout_weights(work)
+    layouts = [(dp, sp) for dp, sp in MULTI_LAYOUTS if dp * sp <= cards]
+    singles = {}
+    for b in sorted({multicard_batch(*lay) for lay in layouts}):
+        dryrun_ddp.write_layout_data(os.path.join(work, f"b{b}.npz"), b,
+                                     MULTI_STEP_HW, (H, W))
+        dryrun_ddp.layout_child(0, 1, work, f"b{b}", "cuda", timed=True)
+        singles[b] = dryrun_ddp.layout_records(work, f"b{b}", 1)[0]
+        torch.cuda.empty_cache()
+        one = singles[b]["bf16"]
+        print(f"[13] one process on card 0, batch {b}: bf16 step "
+              f"{statistics.median(one['ms']):.3f} ms median of 5 (max "
+              f"{max(one['ms']):.3f}), peak memory "
+              f"{one['peak_bytes'] / 2 ** 30:.3f} GiB ({smi})")
+    for dp, sp in layouts:
+        world, b = dp * sp, multicard_batch(dp, sp)
+        what = f"{dp} x {sp}"
+        t0 = time.time()
+        try:
+            dryrun_ddp.spawn(dryrun_ddp.layout_child, world,
+                             (work, f"b{b}", "cuda", True,
+                              (dp, sp) in MULTI_PROFILED),
+                             MULTI_TIMEOUT, work, device="cuda", spatial=sp)
+        except TimeoutError as e:
+            failures.append(f"{what}: {e}")
+            print(f"[13] {what}: {e}; the remaining layouts not run")
+            return False
+        except RuntimeError as e:
+            failures.append(f"{what}: {e}")
+            print(f"[13] {what}: {e}")
+            continue
+        records = dryrun_ddp.layout_records(work, f"b{b}", world)
+        readings, fails = dryrun_ddp.layout_failures(records, singles[b],
+                                                     halo, n_bn)
+        failures.extend(f"{what}: {f}" for f in fails)
+        med = [statistics.median(r["bf16"]["ms"]) for r in records]
+        peak = [r["bf16"]["peak_bytes"] / 2 ** 30 for r in records]
+        one = singles[b]["bf16"]
+        readings.update(seconds=time.time() - t0, batch=b, bf16_ms=med,
+                        peak_gib=peak, rows=[r["rows"] for r in records],
+                        single_ms=statistics.median(one["ms"]),
+                        single_peak_gib=one["peak_bytes"] / 2 ** 30)
+        print(f"[13a] {what}, batch {b} at {MULTI_STEP_HW[0]}x"
+              f"{MULTI_STEP_HW[1]}, rows {readings['rows']}, float64 step "
+              f"vs one process: loss rel {readings['loss_rel']:.3g}, "
+              f"grad_norm rel {readings['grad_norm_rel']:.3g}, BN statistics "
+              f"{readings['stats']:.3g} of the bar, least tensor cosine 1 - "
+              f"{1 - readings['min_cosine']:.3g} ({readings['least_tensor']})"
+              f", {readings['tensors_under']} tensors under 0.9999; eval at "
+              f"{H}x{W}: EPE / D1 gaps {readings['eval_gaps']}, weight "
+              f"{readings['weight']}")
+        print(f"[13b] {what}: collectives {readings['counts']}")
+        print(f"[13c] {what}: after {dryrun_ddp.LAYOUT_BF16_STEPS} bf16 "
+              f"steps the processes' parameters and statistics differ by "
+              f"{readings['bf16_max_diff']}; bf16 step "
+              f"{', '.join(f'{m:.3f}' for m in med)} ms a process (median "
+              f"of 5), one process {readings['single_ms']:.3f} ms; peak "
+              f"memory {', '.join(f'{p:.3f}' for p in peak)} GiB a process, "
+              f"one process {readings['single_peak_gib']:.3f} GiB ({smi}); "
+              f"{readings['seconds']:.1f} s; "
+              f"{'ok' if not fails else 'FAILED: ' + '; '.join(fails)}")
+        prof = records[0].get("profile")
+        if prof is not None:
+            readings["profile"] = prof
+            print(f"[13f] {what} profiler window on rank 0, 3 bf16 steps: "
+                  f"host clock {prof['wall_ms']:.3f} ms a step, device busy "
+                  f"{prof['busy_ms']:.3f} ms "
+                  f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), NCCL "
+                  f"kernels {prof['nccl_ms']:.3f} ms "
+                  f"({prof['nccl_kernels']:.0f} a step; all-gather "
+                  f"{prof['all_gather_ms']:.3f}, "
+                  f"all-reduce {prof['all_reduce_ms']:.3f}), other kernels "
+                  f"{prof['other_ms']:.3f} ms")
+        report[what] = readings
+    return True
+
+
+def torchrun(n, module, args):
+    """`torchrun --standalone --nproc_per_node=n -m module args` (through
+    `python -m torch.distributed.run`): (seconds, the process's result);
+    fails unless it exits 0."""
+    import subprocess
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", "-m", module] + args
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=420)
+    require(proc.returncode == 0, f"torchrun {module} exited "
+            f"{proc.returncode}: {proc.stderr[-4000:]}")
+    return time.time() - t0, proc
+
+
+def multicard_clis(smi, tmp, cards, report):
+    """Phase 13 (d): `cli.pretrain` under torchrun on `cards` processes
+    (4, or 2 with two or three cards visible) for one epoch on phase 9's
+    SceneFlow corpus, per-process batch 8 / cards, eval batch 2: exactly
+    one checkpoint, and its EPE (the checkpoint's metadata, from the
+    reduced eval sums) equal to this process's eval of that checkpoint
+    at the same per-process batch (rel 1e-5); then `cli.finetune
+    --pretrained` from it under torchrun for one epoch on phase 8's KITTI
+    corpus (per-process batch 4 / cards): one checkpoint, a D1 in [0, 1]."""
+    import torch
+    sf = os.path.join(tmp, "sceneflow")
+    write_sceneflow_corpus(sf)
+    n = 4 if cards >= 4 else 2
+    out = os.path.join(tmp, f"pretrained_{n}cards")
+    took, _ = torchrun(n, "lwsnet_tpu_torch.cli.pretrain", [
+        "--datapath", sf, "--epoch", "1",
+        "--train_batch_size", str(8 // n), "--test_batch_size", "2",
+        "--crop_height", str(TRAIN_CROP[0]),
+        "--crop_width", str(TRAIN_CROP[1]),
+        "--eval_height", str(SF_EVAL[0]), "--eval_width", str(SF_EVAL[1]),
+        "--save_path", out, "--num_workers", "2"])
+    files = sorted(os.listdir(out))
+    require(files == ["checkpoint", "checkpoint.meta.json"],
+            f"torchrun pretrain wrote {files}")
+    with open(os.path.join(out, "checkpoint.meta.json")) as f:
+        meta = json.load(f)
+    torch.cuda.empty_cache()
+    epe = checkpoint_eval(out, sf, 2, torch.device("cuda", 0))
+    rel = abs(epe / meta["error"] - 1.0)
+    print(f"[13d] torchrun --standalone --nproc_per_node={n} cli.pretrain, "
+          f"one epoch ({SF_TRAIN} frames, batch {8 // n} a process, bf16, "
+          f"{took:.1f} s): one checkpoint, {files}; its EPE "
+          f"{meta['error']:.9g} from {n} processes, {epe:.9g} from one "
+          f"process (rel {rel:.3g}; bar 1e-5) ({smi})")
+    require(rel <= 1e-5, f"pretrain on {n} cards: EPE {meta['error']} vs "
+            f"one process's {epe}")
+    report["pretrain"] = dict(processes=n, seconds=took, epe=meta["error"],
+                              single_epe=epe, rel=rel)
+    kitti = os.path.join(tmp, "training")
+    split = write_kitti_corpus(kitti)
+    ft = os.path.join(tmp, f"finetuned_{n}cards")
+    took, _ = torchrun(n, "lwsnet_tpu_torch.cli.finetune", [
+        "--datapath", kitti, "--val_set", split, "--pretrained", out,
+        "--epoch", "1", "--train_batch_size", str(4 // n),
+        "--test_batch_size", "2", "--crop_height", str(TRAIN_CROP[0]),
+        "--crop_width", str(TRAIN_CROP[1]), "--eval_height", str(H),
+        "--eval_width", str(W), "--save_path", ft, "--num_workers", "2"])
+    files = sorted(os.listdir(ft))
+    with open(os.path.join(ft, "checkpoint.meta.json")) as f:
+        d1 = json.load(f)["error"]
+    print(f"[13d] torchrun --standalone --nproc_per_node={n} cli.finetune "
+          f"--pretrained, one epoch ({TRAIN_FRAMES} frames, batch {4 // n} "
+          f"a process, {took:.1f} s): {files}, D1 {d1:.6f}")
+    require(files == ["checkpoint", "checkpoint.meta.json"]
+            and 0.0 <= d1 <= 1.0, f"torchrun finetune: {files}, D1 {d1}")
+    report["finetune"] = dict(processes=n, seconds=took, d1=d1)
+
+
+def multicard_sweeps(smi, cards, report):
+    """Phase 13 (e): `tools.scaling_sweep --devices 1 2 4` at 256x512,
+    bf16, per-card batch 4 (weak) and global batch 8 (strong, the
+    pretrain recipe's), each point a finite step time."""
+    from lwsnet_tpu_torch.tools import scaling_sweep
+    want = [n for n in (1, 2, 4) if n <= cards]
+    for mode, extra in (("weak", []), ("strong", ["--global-batch", "8"])):
+        res = scaling_sweep.main(
+            ["--devices", "1", "2", "4", "--iters", "5", "--out",
+             os.path.join("chiprun_out", f"scaling_sweep_{mode}.json")]
+            + extra)
+        pts = res["points"]
+        require([p["devices"] for p in pts] == want and all(
+            np.isfinite(p["step_ms"]) and p["step_ms"] > 0 for p in pts),
+            f"scaling_sweep {mode}: {pts}")
+        print(f"[13e] scaling_sweep {mode}: " + ", ".join(
+            f"{p['devices']} card(s) {p['step_ms']:.3f} ms "
+            f"{p['frames_per_s']:.1f} frames/s" for p in pts)
+            + f"; efficiency {res['efficiency_pct']} % ({smi})")
+        report[f"sweep_{mode}"] = res
+
+
+def multicard_phase(smi, tmp, only=False):
+    """Phase 13: data x spatial training on the cards under NCCL, one
+    process a card. Not run with fewer than 2 cards visible (with `only`,
+    fewer than 4 fail). Returns the phase's report."""
+    import torch
+    cards = torch.cuda.device_count()
+    if only:
+        require(cards >= 4, f"--only multicard needs 4 cards; "
+                f"torch.cuda.device_count() = {cards}")
+    if cards < 2:
+        print(f"[13] multi-card phase: {cards} card visible, needs 2 or "
+              f"more: not run")
+        return {"cards": cards, "run": False}
+    t0 = time.time()
+    report = {"cards": cards, "run": True,
+              "names": [torch.cuda.get_device_name(i) for i in range(cards)]}
+    print(f"[13] multi-card phase: {cards} cards, {report['names']}; NCCL "
+          f"{torch.cuda.nccl.version()}")
+    failures = []
+    work = os.path.join(tmp, "multicard")
+    os.makedirs(work, exist_ok=True)
+    hung = not multicard_layouts(smi, work, cards, report, failures)
+    for what, piece in () if hung else (
+            ("clis", lambda: multicard_clis(smi, tmp, cards, report)),
+            ("scaling_sweep", lambda: multicard_sweeps(smi, cards, report))):
+        try:
+            piece()
+        except Exception as e:  # every piece runs; the phase fails below
+            failures.append(f"{what}: {e!r}")
+            print(f"[13] {what} FAILED: {e!r}")
+    report.update(failures=failures, seconds=time.time() - t0)
+    print(f"[13] multi-card phase: {report['seconds']:.1f} s, "
+          f"{len(failures)} failure(s)")
+    require(not failures, f"multi-card phase: {failures}")
+    return report
+
+
+def main(argv=None):
+    import argparse
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", choices=("multicard",),
+        help="multicard: phases 1 and 13 alone, which need 4 cards")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2369,6 +2500,18 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print("[1] TF32 off for cuDNN and matmul: float32 checks and yardsticks "
           "run in full float32")
+    if args.only == "multicard":
+        os.makedirs("build", exist_ok=True)
+        with tempfile.TemporaryDirectory(dir="build") as tmp:
+            report["multicard"] = multicard_phase(smi, tmp, only=True)
+        report["seconds"] = time.time() - t_start
+        with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"card: {smi}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 2. build
     t0 = time.time()
@@ -2660,9 +2803,12 @@ def main():
         report["recipe"] = recipe_phase(dev, smi, tmp)
         report["tools"] = tools_phase(dev, smi, tmp,
                                       latency["mxu"][4]["kernels_ms"])
-        report["row_shards"] = row_shard_phase(dev, smi, tmp)
+        report["row_shards"] = row_shard_phase(smi, tmp)
     # 12. the port's bench, in a process of its own
     report["bench"] = bench_phase(smi, latency["mxu"][4]["kernels_ms"])
+    # 13. data x spatial training on 2 and 4 cards, where they are visible
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        report["multicard"] = multicard_phase(smi, tmp)
 
     line = []
     for k in build.KERNELS:

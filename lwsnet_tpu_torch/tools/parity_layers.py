@@ -505,6 +505,24 @@ def recording(rec: Recorder):
             setattr(mod, n, original)
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside, its settings as they were
+    after. By default cuDNN may take a non-deterministic algorithm for a
+    convolution ahead of the launches, whose inputs then differ in their
+    last bits from run to run, and a float32 max ratio, one element's
+    error, moves with them ("trained_wide" `dense-32` under "mxu" read
+    2.98 and 3.67 in two runs of chip_smoke.py phase 4b on an H100);
+    inside, every run reads the same."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 # --- runs --------------------------------------------------------------------
 
 def set_state(name: str):
@@ -551,8 +569,8 @@ def run_engine(model, truth, left, right, engine: str, *,
                hold_filters: bool = True, plant: Optional[str] = None,
                log: Callable[[str], None] = print) -> Dict:
     """One 4-stage kernel forward of `model` under `engine`, every launch
-    recorded: the cost filters' launches held where `hold_filters`, every
-    stage-4 launch held. Returns the held rows, the number of launches,
+    recorded, under `cudnn_deterministic`: the cost filters' launches held
+    where `hold_filters`, every stage-4 launch held. Returns the held rows, the number of launches,
     each matched to a reference, and, on the card, the launch counts the
     kernels made (set to 0 just before the forward)."""
     from lwsnet_tpu_torch import make_forward
@@ -566,7 +584,7 @@ def run_engine(model, truth, left, right, engine: str, *,
                    plant=plant, log=log)
     dev = left.device
     kbuild.reset_launch_counts()
-    with recording(rec):
+    with recording(rec), cudnn_deterministic():
         outs = make_forward(model, use_pallas=True, device=dev)(left, right)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

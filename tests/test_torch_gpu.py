@@ -1130,3 +1130,57 @@ def test_planted_launch_fault_is_caught_on_card(rnd):
         res = PL.check_plant("cf-8", PL.H, PL.W, torch.device("cuda"),
                              log=lambda _: None)
     assert res["planted_at"] == 7 and res["missed"] == [7]
+
+
+def test_launch_readings_repeat_on_card(rnd):
+    """`tools.parity_layers`' sound check of "trained_wide" in float32
+    under "mxu", twice in one process: every launch's distances equal in
+    both (its launches run under `cudnn_deterministic`; by default a
+    float32 max ratio moved between runs of phase 4b)."""
+    from lwsnet_tpu_torch.tools import parity_layers as PL
+    from lwsnet_tpu_torch.tools.parity import tf32_off
+    keys = ("kernel_mean", "module_mean", "kernel_max", "module_max")
+    runs = []
+    for _ in range(2):
+        with tf32_off():
+            res = PL.check_set("trained_wide", "float32", ["mxu"], PL.H,
+                               PL.W, torch.device("cuda"),
+                               log=lambda _: None)
+        runs.append([[r[k] for k in keys] for r in res["mxu"]["rows"]])
+    assert len(runs[0]) == 29 and runs[0] == runs[1]
+
+
+@pytest.fixture
+def two_cards(tmp_path):
+    """Phase 13's weights and data at 64x128 (batch 2), and the one
+    process's `dryrun_ddp.layout_child` record on card 0; skips with
+    fewer than 2 cards."""
+    from lwsnet_tpu_torch.tools import dryrun_ddp
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards")
+    work = str(tmp_path)
+    halo, n_bn = dryrun_ddp.write_layout_weights(work)
+    dryrun_ddp.write_layout_data(f"{work}/b2.npz", 2, (64, 128), (64, 128))
+    dryrun_ddp.layout_child(0, 1, work, "b2", "cuda")
+    return dict(work=work, single=dryrun_ddp.layout_records(work, "b2", 1)[0],
+                halo=halo, n_bn=n_bn)
+
+
+@pytest.mark.parametrize("spatial", [1, 2], ids=["2x1", "1x2"])
+def test_two_card_step_matches_one_process_on_card(two_cards, spatial):
+    """Two processes, one a card under NCCL, as 2 x 1 (data-parallel) or
+    1 x 2 (row shards), against one process on card 0: the float64 step
+    and eval at phase 11's bars, the collectives by purpose, bf16
+    replicas bit-identical after 3 steps (`dryrun_ddp.layout_failures`,
+    chip_smoke.py phase 13 at 64x128)."""
+    import torch.distributed as dist
+    from lwsnet_tpu_torch.tools import dryrun_ddp
+    work = two_cards["work"]
+    dryrun_ddp.spawn(dryrun_ddp.layout_child, 2, (work, "b2", "cuda"),
+                     300.0, work, device="cuda", spatial=spatial)
+    assert not dist.is_initialized()
+    readings, fails = dryrun_ddp.layout_failures(
+        dryrun_ddp.layout_records(work, "b2", 2), two_cards["single"],
+        two_cards["halo"], two_cards["n_bn"])
+    print(readings)
+    assert not fails, fails

@@ -113,6 +113,28 @@ def test_recording_leaves_the_outputs_bit_for_bit(engine):
             assert torch.equal(a, b), (engine, dtype)
 
 
+def test_launches_are_held_under_deterministic_cudnn(monkeypatch):
+    """Each launch runs and is held with cuDNN's deterministic algorithms
+    on (so its input reads the same in every run on the card), and the
+    settings are as they were after."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic, cudnn.benchmark
+    seen = []
+    check = PL.Recorder.check
+
+    def spy(self, *args):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+        return check(self, *args)
+
+    monkeypatch.setattr(PL.Recorder, "check", spy)
+    model = PL.build("mxu", "float32", None, CPU)
+    left, right = PL.set_pair("seed0", H, W, CPU)
+    PL.run_engine(model, PL.float64_copy(model), left, right, "mxu",
+                  log=lambda _: None)
+    assert seen and set(seen) == {(True, False)}
+    assert (cudnn.deterministic, cudnn.benchmark) == before
+
+
 def test_a_launch_without_reference_raises():
     """A launch the plan does not hold raises LookupError."""
     model = PL.build("mxu", "float32", None, CPU)

@@ -65,6 +65,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+import chip_smoke  # noqa: E402
 import torch_spatial_child as child  # noqa: E402
 from lwsnet_tpu import LWSNet as JLWSNet  # noqa: E402
 from lwsnet_tpu import MeshConfig as JMeshConfig  # noqa: E402
@@ -76,6 +77,7 @@ from lwsnet_tpu_torch import LWSNet, ModelConfig  # noqa: E402
 from lwsnet_tpu_torch.convert import (from_jax_variables,  # noqa: E402
                                       to_jax_variables)
 from lwsnet_tpu_torch.tools import dryrun_ddp  # noqa: E402
+from lwsnet_tpu_torch.utils import timing  # noqa: E402
 from test_torch_distributed import (KW, _against_single,  # noqa: E402
                                     _meets_single_bars,
                                     check_against_jax_mesh)
@@ -332,3 +334,157 @@ def test_dryrun_tool_spatial():
     --spatial 2`: the 2x2 loss within 1e-2 of the data-parallel one."""
     out = dryrun_ddp.main(["--processes", "4", "--spatial", "2"])
     assert out["spatial_gap"] < 1e-2
+
+
+# --- chip_smoke.py phase 13's layouts, over gloo at 32x64 -------------------
+# `dryrun_ddp.layout_child` and `layout_failures`, which phase 13 runs one
+# process a card under NCCL at 256x512 (eval 368x1232), here on the CPU.
+LAYOUT_HW = (32, 64)
+
+
+@pytest.fixture(scope="module")
+def layout_work(tmp_path_factory):
+    """Phase 13's weights (seeded, jittered batch norms), its data at
+    32x64 for batches 2 and 4, the one process's record at each batch
+    (at batch 2 with the float32 step and eval that phase 11 adds), and
+    the layouts' records as the tests run them."""
+    work = str(tmp_path_factory.mktemp("layouts"))
+    halo, n_bn = dryrun_ddp.write_layout_weights(work)
+    single = {}
+    for b in (2, 4):
+        dryrun_ddp.write_layout_data(os.path.join(work, f"b{b}.npz"), b,
+                                     LAYOUT_HW, LAYOUT_HW)
+        dryrun_ddp.layout_child(0, 1, work, f"b{b}", float32=b == 2)
+        single[b] = dryrun_ddp.layout_records(work, f"b{b}", 1)[0]
+    return dict(work=work, single=single, halo=halo, n_bn=n_bn, records={})
+
+
+def _layout(layout_work, dp, sp):
+    """(records, one process's record) of layout dp x sp, run once; 1 x 2
+    with phase 11's float32 step and eval."""
+    b = chip_smoke.multicard_batch(dp, sp)
+    if (dp, sp) not in layout_work["records"]:
+        dryrun_ddp.spawn(dryrun_ddp.layout_child, dp * sp,
+                         (layout_work["work"], f"b{b}", "cpu", False, False,
+                          (dp, sp) == (1, 2)), TIMEOUT,
+                         layout_work["work"], spatial=sp)
+        layout_work["records"][dp, sp] = dryrun_ddp.layout_records(
+            layout_work["work"], f"b{b}", dp * sp)
+    return layout_work["records"][dp, sp], layout_work["single"][b]
+
+
+@pytest.mark.parametrize("layout", [(2, 1), (1, 2), (2, 2)],
+                         ids=lambda lay: f"{lay[0]}x{lay[1]}")
+def test_card_layout_child_matches_one_process(layout_work, layout):
+    """Phase 13's child as 2 x 1, 1 x 2 and 2 x 2 (batch 4) over gloo:
+    the float64 step and eval equal one process's at phase 11's bars, the
+    collectives by purpose, bf16 replicas bit-identical after 3 steps
+    (`dryrun_ddp.layout_failures`). Readings: loss rel 0.0 (2 x 2
+    1.2e-7), least tensor cosine 1 - 6e-14 or closer, eval gaps <= 1.5e-7
+    (float32 sums of the float64 forward), bf16 difference 0.0."""
+    assert layout in chip_smoke.MULTI_LAYOUTS
+    records, single = _layout(layout_work, *layout)
+    readings, fails = dryrun_ddp.layout_failures(
+        records, single, layout_work["halo"], layout_work["n_bn"])
+    print(readings)
+    assert not fails, fails
+    assert readings["counts"]["step"].get("halo", 0) == (
+        96 if layout[1] > 1 else 0)
+    assert [r["rows"] for r in records] == [
+        (0, 32) if layout[1] == 1 else ((0, 16), (16, 32))[r % 2]
+        for r in range(len(records))]
+    assert ("float32" in readings) == (layout == (1, 2))
+
+
+def _plant(records, single, fault):
+    """Copies of a 1 x 2 layout's records with one fault planted."""
+    import copy
+    records = copy.deepcopy(records)
+    first = records[0]
+    name = "FeatureExtractor_0.ConvBN_0.Conv_0.weight"
+    if fault == "gradient":      # 2 % of its norm off one tensor's direction
+        for r in records:
+            g = r["step"]["grads"][name]
+            r["step"]["grads"][name] = g + 0.02 * g.norm() * torch.randn(
+                g.shape, generator=torch.Generator().manual_seed(0),
+                dtype=g.dtype) / g.numel() ** 0.5
+    elif fault == "statistics":  # a BN mean off by 1e-3 of its value
+        for r in records:
+            key = next(n for n in r["step"]["buffers"]
+                       if n.endswith("running_mean"))
+            r["step"]["buffers"][key] = r["step"]["buffers"][key] * 1.001
+    elif fault == "replica":     # one process's bf16 parameter one step off
+        p = records[-1]["bf16"]["params"][name]
+        records[-1]["bf16"]["params"][name] = torch.nextafter(
+            p, torch.full_like(p, float("inf")))
+    elif fault == "halo_count":  # one halo exchange missing
+        first["step"]["counts"] = dict(first["step"]["counts"],
+                                       halo=first["step"]["counts"]["halo"]
+                                       - 1)
+    elif fault == "eval":        # one EPE sum off by 1e-4
+        for r in records:
+            r["eval"]["epe"] = r["eval"]["epe"] * (1.0 + 1e-4)
+    elif fault == "gradient_scale":  # gradients summed, not averaged
+        for r in records:
+            r["step"]["grad_norm"] *= 2.0
+    elif fault == "float32_statistics":  # phase 11's float32 step's BN
+        for r in records:
+            key = next(n for n in r["step_float32"]["buffers"]
+                       if n.endswith("running_var"))
+            r["step_float32"]["buffers"][key] = \
+                r["step_float32"]["buffers"][key] * 1.001
+    return records
+
+
+# Each planted fault and the start of the failure that must report it.
+CAUGHT_BY = {"gradient": "float64 step: 1 gradient tensors",
+             "statistics": "float64 step: loss rel 0",
+             "replica": "bf16 steps: parameters",
+             "halo_count": "step collectives",
+             "eval": "float64 eval: gaps",
+             "gradient_scale": "float64 step: loss rel 0.0, grad_norm rel 1",
+             "float32_statistics": "float32 step and eval"}
+
+
+@pytest.mark.parametrize("fault", list(CAUGHT_BY))
+def test_layout_bars_catch_planted_faults(layout_work, fault):
+    """`layout_failures` reports each fault planted in the 1 x 2 records
+    by the bar meant for it."""
+    records, single = _layout(layout_work, 1, 2)
+    _, fails = dryrun_ddp.layout_failures(
+        _plant(records, single, fault), single, layout_work["halo"],
+        layout_work["n_bn"])
+    print(fault, fails)
+    assert any(f.startswith(CAUGHT_BY[fault]) for f in fails), fails
+
+
+def test_multicard_phase_needs_four_cards_under_only(monkeypatch, capsys):
+    """`chip_smoke.py --only multicard` on one card fails; without
+    `--only` phase 13 says it was not run and records so."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(timing, "card", lambda: "card, 700.00 W")
+    for flags in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        monkeypatch.setattr(flags, "allow_tf32", flags.allow_tf32)
+    monkeypatch.chdir(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    with pytest.raises(chip_smoke.PhaseError, match="needs 4 cards"):
+        chip_smoke.main(["--only", "multicard"])
+    assert '"ok"' not in capsys.readouterr().out
+    assert chip_smoke.multicard_phase("card", "unused") == {
+        "cards": 1, "run": False}
+    assert "[13] multi-card phase: 1 card visible, needs 2 or more: not " \
+        "run" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--only", "everything"])
+
+
+def test_dryrun_tool_device_flag(monkeypatch):
+    """`dryrun_ddp --device cuda` raises without a card before it starts
+    a process; the CPU is the default."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        dryrun_ddp.main(["--processes", "2", "--device", "cuda"])
+    with pytest.raises(SystemExit):
+        dryrun_ddp.main(["--device", "tpu"])

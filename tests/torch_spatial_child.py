@@ -267,9 +267,13 @@ def step_record(state_path, batch, train_kw, dtype="float32",
                 **evaluated)
 
 
-def steps_child(rank, world, batch_path, state_path, train_kw, out_dir):
-    """`step_record` in float32 and float64 on `batch_path`'s batch;
-    saves {dtype: record} to `<out_dir>/rank<rank>.pt`."""
+def steps_child(rank, world, batch_path, state_path, train_kw, out_dir,
+                device="cpu"):
+    """`step_record` in float32 and float64 on `batch_path`'s batch (on
+    the CPU: `dryrun_ddp.run_step` passes its `device` last); saves
+    {dtype: record} to `<out_dir>/rank<rank>.pt`."""
+    if device != "cpu":
+        raise ValueError(f"steps_child runs on the CPU, not {device}")
     batch = dict(np.load(batch_path))
     torch.save({dtype: step_record(state_path, batch, train_kw, dtype)
                 for dtype in ("float32", "float64")},
