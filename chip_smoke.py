@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py                    # phases 1-13
+    python3 chip_smoke.py                    # phases 1-14
     python3 chip_smoke.py --only multicard   # phases 1 and 13, 4 cards
+    python3 chip_smoke.py --only configs     # phases 1, 2 and 14
 
 It builds the Hopper kernels from `lwsnet_tpu_torch/csrc/` and drives the
 port's main path, the 368x1232 batch-1 bf16 4-stage inference forward, on
@@ -14,8 +15,9 @@ and the planar `pallas_mode="layers"`; then the rows microbench; then the
 training path through the finetune CLI; then pretrain, finetune and
 infer through their CLIs; then every tool of `lwsnet_tpu_torch.tools`;
 then row sharding; then the port's bench; then, where 2 or more cards
-are visible, data x spatial training across them under NCCL. Phases, in
-order; any failure exits non-zero:
+are visible, data x spatial training across them under NCCL; then AnyNet's
+cost-filter settings through the same entry points. Phases, in order; any
+failure exits non-zero:
 
   1. the card's name and power limit, and the number of cards visible;
   2. build every kernel (nvcc, sm_90a) and print ptxas register / shared
@@ -215,7 +217,25 @@ order; any failure exits non-zero:
      from it the same way on phase 8's KITTI corpus: one checkpoint, a
      D1 in [0, 1]; (e) `tools.scaling_sweep --devices 1 2 4` at 256x512
      in bf16, per-card batch 4 and global batch 8. `--only multicard`
-     runs phases 1 and 13 alone and fails with fewer than 4 cards.
+     runs phases 1 and 13 alone and fails with fewer than 4 cards;
+ 14. AnyNet's cost-filter settings (`parity_layers.ANYNET`: maxdisplist
+     12 3 3, channels_3d 4, layers_3d 4, growth_rate 4 1 1; stage widths
+     16 / 4 / 4 over D = 12 / 5 / 5), the other fields shipped, at
+     368x1232 batch 1 (`configs_phase`): (a) phase 3's check of each of
+     its cost filters' calls, of a filter of 64 channels over D = 72
+     (stage 1 at channels_3d 16), of the widths 16, 4 and 3 at a ragged
+     shape, and of the bf16 fused last layer past D = 64 at 32 and 8
+     channels, each on the route `costfilter.filter_routes` gives; (b)
+     phase 4's forward check under "mxu" with its launch counts
+     (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3 11), route
+     launches (`want_routes`: the cost filters' 12 layers and 3 fused last
+     layers on the CUDA cores) and no layout copy, then `InferenceEngine`
+     at num_stages 1..4; (c) phase 4b on the configuration, bf16 and
+     float32, and a x1.01 weight fault planted in each of its new routes,
+     caught at that launch alone; (d) `cli.infer` with the four flags on
+     one pair; (e) each of its bf16 launches and the wide filter's timed:
+     device, events, plain, one cuDNN conv3d, bound. `--only configs` runs
+     phases 1, 2 and 14 alone.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
 written to chiprun_out/chip_smoke.json; the scaling sweeps' to
@@ -289,6 +309,7 @@ WANT_ROUTES = {engine: {"dense3x3[entry]": 2 if engine.startswith("layers")
 WANT_ROUTES["chain"] = {}
 for _engine in ENGINES:
     WANT_ROUTES[_engine]["conv3d_bn_relu[entry]"] = 3
+FILTER_KERNELS = ("conv3d_bn_relu", "conv3d_skip_softargmin")
 # The path whose run gives each kernel's launches on the kernels line.
 ENGINE_OF = {"conv3d_bn_relu": "mxu", "conv3d_skip_softargmin": "mxu",
              "dense3x3": "mxu", "dwsep3x3": "vpu-unpaired",
@@ -328,6 +349,23 @@ def dense_route(p, dtype):
         return "output"
     return ("tensor cores" if RR.dense_tensor_core_route(*args)
             else "CUDA cores")
+
+
+def want_routes(engine, fields=None):
+    """Route launches of one bf16 forward under `engine` of
+    ModelConfig(**fields): `WANT_ROUTES`, and each cost-filter launch but
+    the entries off the tensor cores as "cores" (`filter_routes`; none at
+    the shipped widths)."""
+    import torch
+    from lwsnet_tpu_torch import ModelConfig
+    want = dict(WANT_ROUTES[engine])
+    cfg = ModelConfig(**(fields or {}))
+    for kernel, _, p, n, _ in main_path_calls(cfg):
+        if kernel in FILTER_KERNELS and not p.get("entry"):
+            for route, k in filter_route_launches(kernel, p,
+                                                  torch.bfloat16).items():
+                want[route] = want.get(route, 0) + k * n
+    return want
 
 
 def want_counts(engine, zero):
@@ -490,6 +528,8 @@ def main_path_calls(cfg):
     kernel is asked to write channels-last (`ncdhw_out`, in the ragged
     checks only: NCDHW); `entry`: a stage's 1 -> C entry, layer 0's BN +
     ReLU fused (`conv3d_entry`), which writes what the next layer reads."""
+    import torch
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
     calls = []
     for s in range(3):
         h, w = H // 8 * 2 ** s, W // 8 * 2 ** s
@@ -498,12 +538,16 @@ def main_path_calls(cfg):
         geo = dict(B=1, D=D, H=h, W=w)
         calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C} entry",
                       dict(geo, Ci=1, Co=C, entry=True), 1, "mxu"))
-        # the bf16 C -> C layers read and write channels-last, and the
-        # fused last layer reads it
+        # the C -> C layers read and write the layout of the bf16 path
+        # (`filter_routes`: channels-last at 32 or 8 channels), and the
+        # fused last layer reads it (a checkout from before the rule:
+        # channels-last, at the shipped widths)
+        routes = getattr(CF, "filter_routes", None)
+        cl = routes(torch.bfloat16, C, D).layer.reads_cl if routes else True
         calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}",
-                      dict(geo, Ci=C, Co=C, cl=True), cfg.layers_3d, "mxu"))
+                      dict(geo, Ci=C, Co=C, cl=cl), cfg.layers_3d, "mxu"))
         calls.append(("conv3d_skip_softargmin", f"stage{s + 1} {C}->1",
-                      dict(geo, Ci=C, cl=True, start=0 if s == 0 else
+                      dict(geo, Ci=C, cl=cl, start=0 if s == 0 else
                            -cfg.max_disp_list[s] + 1), 1, "mxu"))
     c = cfg.refine_channels
     geo = dict(H=H, W=W)
@@ -936,7 +980,89 @@ def two_steps(got, want, what):
             f"steps")
 
 
-def compare(what, truth, plain, got, dtype, shape, failures):
+def filter_route_launches(kernel, p, dtype):
+    """The route launches (`build.route_counts()`) of one call `p` of a
+    cost filter's kernel in `dtype`, from `costfilter.filter_routes`: an
+    entry counts as "entry", any other launch on the CUDA cores as
+    "cores"."""
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    if kernel == "conv3d_bn_relu":
+        if p.get("entry"):
+            return {"conv3d_bn_relu[entry]": 1}
+        tc = CF.conv3d_tensor_core_route(dtype, p["Ci"], p["Co"])
+        return {} if tc else {"conv3d_bn_relu[cores]": 1}
+    route = CF.filter_routes(dtype, p["Ci"], p["D"]).skip.route
+    return ({} if route == CF.TENSOR_CORES
+            else {"conv3d_skip_softargmin[cores]": 1})
+
+
+def check_calls(calls, dev, tag, seed=1000):
+    """Phase 3: each call of `calls` on seeded operands (call i from
+    default_rng(seed + i)) against its plain version, in float32 and bf16
+    (`check_close`; in bf16 `two_steps` too where the kernel rounds as the
+    plain version: chain3x3, conv3d_skip_softargmin, conv3d_bn_relu but
+    its 32-channel tensor-core route, dense3x3's narrow routes, or, writing
+    float32, atol 2e-4 / rtol 1e-3), each launch on the route its rule
+    picks (`dense_route`, `filter_route_launches`), and the fused last
+    layer's layout copies as `costfilter.filter_routes` says (one where
+    the call hands it the other layout). Returns {kernel: {(label, dtype):
+    max |delta|}}."""
+    import torch
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (kernel, label, p, _, _) in enumerate(calls):
+            rng = np.random.default_rng(seed + i)
+            c = make_call(kernel, p, dtype, rng, dev)
+            build.reset_launch_counts()
+            got = c["kernel"]()
+            made = dict(build.LAYOUT_COPIES)
+            routes = build.route_counts()
+            want = c["plain"]()
+            torch.cuda.synchronize()
+            what = f"{kernel} [{label}] {str(dtype)[6:]}"
+            err, span = check_close(got, want, dtype, what)
+            narrow = None
+            if kernel == "dense3x3":
+                route = dense_route(p, dtype)
+                narrow = route if route in ("entry", "output") else None
+                require(routes == ({f"dense3x3[{narrow}]": 1} if narrow
+                                   else {}),
+                        f"{what}: route launches {routes}, want {route}")
+            if kernel in ("conv3d_bn_relu", "conv3d_skip_softargmin"):
+                want_routes = filter_route_launches(kernel, p, dtype)
+                require(routes == want_routes, f"{what}: route launches "
+                        f"{routes}, want {want_routes}")
+            if dtype == torch.bfloat16 and narrow and p.get("f32_out"):
+                require(((got - want).abs()
+                         <= 2e-4 + 1e-3 * want.abs()).all().item(),
+                        f"{what}: beyond atol 2e-4 / rtol 1e-3")
+            elif dtype == torch.bfloat16 and (
+                    kernel in ("chain3x3", "conv3d_skip_softargmin")
+                    or (kernel == "conv3d_bn_relu" and (
+                        p["Co"] == 8 or p.get("entry")
+                        or not CF.conv3d_tensor_core_route(
+                            dtype, p["Ci"], p["Co"])))
+                    or narrow):
+                two_steps(got, want, what)
+            if kernel == "conv3d_skip_softargmin":
+                # it reads the layout its stage's layers write: one
+                # counted copy where the call hands it the other
+                reads_cl = CF.filter_routes(dtype, p["Ci"],
+                                            p["D"]).skip.reads_cl
+                cl = bool(p.get("cl"))
+                require(made == {"to channels-last": int(reads_cl and not cl),
+                                 "to contiguous": int(cl and not reads_cl)},
+                        f"{what}: layout copies {made}")
+            checks.setdefault(kernel, {})[(label, str(dtype)[6:])] = err
+            print(f"[{tag}] ok {what}: max |delta| {err:.3g}, span "
+                  f"{span:.4g}")
+            del c, got, want
+    return checks
+
+
+def compare(what, truth, plain, got, dtype, shape, failures, phase="4"):
     """Phase-4 bar of one output: finite, of `shape`, and held with the
     module path's output in the same dtype (`plain`) against the float64
     module path's (`truth`): the kernel path's mean |delta| at most
@@ -957,7 +1083,7 @@ def compare(what, truth, plain, got, dtype, shape, failures):
     row["mean_ratio"] = row["kernels_mean"] / max(row["module_mean"], 1e-30)
     row["max_ratio"] = row["kernels_max"] / max(row["module_max"], 1e-30)
     pc = {k: f"{100 * v / span:.4g} %" for k, v in row.items()}
-    print(f"[4] {what}: span {span:.4g}; from the float64 module path: "
+    print(f"[{phase}] {what}: span {span:.4g}; from the float64 module path: "
           f"kernels mean {pc['kernels_mean']} max {pc['kernels_max']}, "
           f"module mean {pc['module_mean']} max {pc['module_max']} (ratios "
           f"{row['mean_ratio']:.4f}, {row['max_ratio']:.4f}); kernels - "
@@ -971,7 +1097,7 @@ def compare(what, truth, plain, got, dtype, shape, failures):
         vals = [float(t.reshape(-1)[i]) for t in (got, plain, truth)]
         row["worst"] = dict(pixel=divmod(i, shape[2]), kernels=vals[0],
                             module=vals[1], float64=vals[2])
-        print(f"[4] {what}: kernels and module farthest apart at (row, "
+        print(f"[{phase}] {what}: kernels and module farthest apart at (row, "
               f"col) {divmod(i, shape[2])}: kernels {vals[0]:.6f}, module "
               f"{vals[1]:.6f}, float64 {vals[2]:.6f}")
         if not row["max_ratio"] <= MAX_RATIO:
@@ -999,14 +1125,16 @@ def float64_reference(cfg_fields, dev, forward, state=None):
     return out
 
 
-def forward_phase(dev, engines=None):
+def forward_phase(dev, engines=None, fields=None, phase="4"):
     """Phase 4: for each engine of `engines` (default all), the 368x1232
     forward through `make_forward` (kernels) and the module path, in bf16
     and float32, each held with `compare` against the float64 module path;
-    the bf16 kernel run's launch, route and layout-copy counts; then the
-    "layers" refinement alone at WIDE_H x WIDE_W. Fails after printing
-    every comparison if any missed its bar. Returns (report, launch
-    counts, layout copies, route launches) by engine."""
+    the bf16 kernel run's launch, route (`want_routes`) and layout-copy
+    counts; then, with "layers" among them, the "layers" refinement alone
+    at WIDE_H x WIDE_W. `fields`: further ModelConfig fields (phase 14:
+    AnyNet's cost filters); `phase`: the tag of its printed lines. Fails
+    after printing every comparison if any missed its bar. Returns
+    (report, launch counts, layout copies, route launches) by engine."""
     import torch
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.models.refine_kernels import refine_residual
@@ -1016,8 +1144,9 @@ def forward_phase(dev, engines=None):
     right_np = np.random.default_rng(2).standard_normal((1, H, W, 3))
     left = torch.as_tensor(left_np, dtype=torch.float32, device=dev)
     right = torch.as_tensor(right_np, dtype=torch.float32, device=dev)
+    fields = fields or {}
     # every engine's module path computes the same function: one reference
-    truth = float64_reference({}, dev, lambda m: make_forward(
+    truth = float64_reference(fields, dev, lambda m: make_forward(
         m, use_pallas=False, device=dev)(left, right))
     build.reset_launch_counts()
     zero = build.launch_counts()
@@ -1025,9 +1154,9 @@ def forward_phase(dev, engines=None):
     forward_report = {}
     for dt in ("bfloat16", "float32"):
         plain = None
-        for engine, fields in engines.items():
-            model = LWSNet(ModelConfig(compute_dtype=dt, **fields),
-                           device=dev, seed=0)
+        for engine, engine_fields in engines.items():
+            model = LWSNet(ModelConfig(compute_dtype=dt, **engine_fields,
+                                       **fields), device=dev, seed=0)
             jitter_batchnorm(model, np.random.default_rng(3))
             if plain is None:  # the module path runs no refinement kernel
                 plain = make_forward(model, use_pallas=False,
@@ -1043,25 +1172,25 @@ def forward_phase(dev, engines=None):
             forward_report[f"{dt} {engine}"] = [
                 dict(stage=s + 1, **compare(f"{dt} {engine} stage {s + 1}",
                                             t, a, b, dt, (1, H, W, 1),
-                                            failures))
+                                            failures, phase))
                 for s, (t, a, b) in enumerate(zip(truth, plain, got))]
             del model, got
         del plain
     del truth
     for engine in engines:
         want = want_counts(engine, zero)
-        print(f"[4] launch counts of the bf16 {engine} kernel forward: "
-              f"{counts[engine]}")
+        print(f"[{phase}] launch counts of the bf16 {engine} kernel "
+              f"forward: {counts[engine]}")
         require(counts[engine] == want,
                 f"{engine} launch counts {counts[engine]} != {want}")
-        print(f"[4] route launches (dense3x3's narrow routes, the cost "
-              f"filters' entries) of the bf16 {engine} kernel forward: "
-              f"{routes[engine]}")
-        require(routes[engine] == WANT_ROUTES[engine],
-                f"{engine} route launches {routes[engine]} != "
-                f"{WANT_ROUTES[engine]}")
-        print(f"[4] layout copies of the bf16 {engine} kernel forward: "
-              f"{copies[engine]}")
+        print(f"[{phase}] route launches (dense3x3's narrow routes, the "
+              f"cost filters' entries and CUDA-core launches) of the bf16 "
+              f"{engine} kernel forward: {routes[engine]}")
+        want = want_routes(engine, fields)
+        require(routes[engine] == want,
+                f"{engine} route launches {routes[engine]} != {want}")
+        print(f"[{phase}] layout copies of the bf16 {engine} kernel "
+              f"forward: {copies[engine]}")
         require(copies[engine] == WANT_COPIES[engine],
                 f"{engine} layout copies {copies[engine]} != "
                 f"{WANT_COPIES[engine]}")
@@ -2462,13 +2591,236 @@ def multicard_phase(smi, tmp, only=False):
     return report
 
 
+# Phase 14: AnyNet's cost-filter settings, and a filter wider than any
+# shipped one (stage 1 at channels_3d 16: 64 channels, over D = 72).
+RAGGED_WIDTHS = (16, 4, 3)
+WIDE_FILTER = dict(B=1, C=64, D=72, H=H // 8, W=W // 8)
+
+
+def config_calls(fields):
+    """Phase 14a: the cost filters' calls of the 368x1232 forward of
+    ModelConfig(**fields) (`main_path_calls`), the wide filter's, the new
+    widths at a ragged shape (B = 2, D = 7, 11 x 37), and the bf16 fused
+    last layer past D = 64 at 32 and 8 channels (the CUDA cores reading
+    channels-last). Tuples as `main_path_calls` (launches: per forward of
+    the configuration, or of a 4-layer filter of the wide width)."""
+    from lwsnet_tpu_torch import ModelConfig
+    calls = [c for c in main_path_calls(ModelConfig(**fields))
+             if c[0] in FILTER_KERNELS]
+    geo = {k: WIDE_FILTER[k] for k in ("B", "D", "H", "W")}
+    C = WIDE_FILTER["C"]
+    calls += [
+        ("conv3d_bn_relu", f"wide 1->{C} entry", dict(geo, Ci=1, Co=C,
+                                                      entry=True), 1, None),
+        ("conv3d_bn_relu", f"wide {C}->{C}", dict(geo, Ci=C, Co=C), 4, None),
+        ("conv3d_skip_softargmin", f"wide {C}->1", dict(geo, Ci=C, start=0),
+         1, None)]
+    ragged = dict(B=2, D=7, H=11, W=37)
+    for C in RAGGED_WIDTHS:
+        calls += [
+            ("conv3d_bn_relu", f"ragged 1->{C} entry B=2 7x11x37",
+             dict(ragged, Ci=1, Co=C, entry=True), 0, None),
+            ("conv3d_bn_relu", f"ragged {C}->{C} B=2 7x11x37",
+             dict(ragged, Ci=C, Co=C), 0, None),
+            ("conv3d_skip_softargmin", f"ragged {C}->1 B=2 7x11x37",
+             dict(ragged, Ci=C, start=-3), 0, None)]
+    calls += [
+        ("conv3d_skip_softargmin", "32->1 D=72 channels-last",
+         dict(geo, Ci=32, cl=True, start=0), 0, None),
+        ("conv3d_skip_softargmin", "8->1 B=2 D=65 5x37 channels-last",
+         dict(B=2, D=65, H=5, W=37, Ci=8, cl=True, start=-32), 0, None)]
+    return calls
+
+
+def configs_phase(dev, smi, tmp):
+    """Phase 14: AnyNet's cost-filter settings (`parity_layers.ANYNET`,
+    stage widths 16 / 4 / 4 over D = 12 / 5 / 5), the other fields
+    shipped, at 368x1232 batch 1: (a) `check_calls` over `config_calls`
+    (phase 3's bars), the wide filter among them; (b) `forward_phase` under
+    "mxu" (phase 4's bars, launch counts 15 / 3 / 11, `want_routes`, no
+    layout copy), then `InferenceEngine` answering one request at
+    num_stages 1..4 with the same launches; (c) `tools.parity_layers` on
+    the configuration in bf16 and float32, every launch held, then a x1.01
+    weight error planted in the first launch of each route the shipped
+    configuration does not run, caught there alone; (d) `cli.infer` with
+    --maxdisplist 12 3 3 --channels_3d 4 --growth_rate 4 1 1 on one
+    seeded 375x1242 pair: four PNGs, finite maps, two forwards' launches;
+    (e) each bf16 launch of the configuration and of the wide filter timed:
+    events, the kernel alone on the device (profiler, after every event
+    timing), the plain version, one cuDNN conv3d of the same layer, and
+    its bound. Fails after printing every reading if any missed. Returns
+    the phase's report."""
+    import torch
+    from lwsnet_tpu_torch import InferenceEngine, LWSNet, ModelConfig
+    from lwsnet_tpu_torch.cli import infer
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    from lwsnet_tpu_torch.tools import parity_layers as PL
+    from lwsnet_tpu_torch.tools.parity import tf32_off
+    from lwsnet_tpu_torch.utils.timing import event_ms
+    fields = PL.ANYNET
+    t0 = time.time()
+    report = {"fields": {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in fields.items()}}
+    print(f"[14] configuration {fields}")
+
+    # (a) every kernel call of the configuration against its plain version
+    calls = config_calls(fields)
+    report["checks"] = {f"{k} [{label}] {dt}": err for k, v in check_calls(
+        calls, dev, "14a", seed=3000).items() for (label, dt), err in
+        v.items()}
+
+    # (b) the forward through make_forward, then InferenceEngine
+    build.reset_launch_counts()
+    zero = build.launch_counts()
+    report["forward"], counts, copies, routes = forward_phase(
+        dev, ["mxu"], fields, phase="14b")
+    report["routes"] = routes["mxu"]
+    model = LWSNet(ModelConfig(**fields), device="cpu", seed=0)
+    jitter_batchnorm(model, np.random.default_rng(3))
+    eng = InferenceEngine(ModelConfig(**fields), model.state_dict(),
+                          eval_height=H, eval_width=W, device=dev)
+    del model
+    rng = np.random.default_rng(100)
+    l, r = eng.preprocess(*(rng.uniform(0, 1, (375, 1242, 3)).astype(
+        np.float32) for _ in range(2)))
+    build.reset_launch_counts()
+    full = eng(l, r, num_stages=4)
+    torch.cuda.synchronize()
+    want = want_counts("mxu", zero)
+    require(build.launch_counts() == want,
+            f"InferenceEngine launches {build.launch_counts()} != {want}")
+    for stages in (1, 2, 3):
+        outs = eng(l, r, num_stages=stages)
+        require(len(outs) == stages, "stage count")
+        for s, o in enumerate(outs):
+            require(o.shape == (1, H, W) and np.isfinite(o).all(),
+                    f"InferenceEngine stages {stages}: stage {s + 1}")
+            span = float(full[s].max() - full[s].min()) + 1.0
+            require(np.abs(o - full[s]).mean() < 1e-3 * span,
+                    f"InferenceEngine: stages={stages} is not a prefix")
+    print(f"[14b] InferenceEngine answered a request at num_stages 1..4; "
+          f"the 4-stage call launched {want}")
+    del eng
+
+    # (c) every launch against its module layer, and the planted faults
+    failures, report["layers"] = [], {"sound": {}, "planted": {}}
+    cfg = ModelConfig(**fields)
+    launches = sum(v for k, v in want.items() if "[" not in k)
+    with tf32_off():
+        for dt in ("bfloat16", "float32"):
+            res = PL.check_set("seed0", dt, ["mxu"], H, W, dev,
+                               log=lambda line: print(f"[14c] {line}"),
+                               fields=fields)["mxu"]
+            require(res["launches"] == launches and
+                    res["kernel_counts"] == want,
+                    f"{dt}: {res['launches']} launches matched, kernel "
+                    f"launches {res['kernel_counts']}")
+            failures += [f"{dt} #{row['index']} {row['route']}: ratio "
+                         f"{row['mean_ratio']:.3f} (max "
+                         f"{row['max_ratio']:.3f})"
+                         for row in res["rows"] if not row["ok"]]
+            report["layers"]["sound"][dt] = res["rows"]
+        sound = report["layers"]["sound"]["bfloat16"]
+        new = sorted({L.route for L in PL.filter_plan(cfg)} - set(PL.ROUTES))
+        for route in new:
+            res = PL.check_plant(route, H, W, dev, log=lambda _: None,
+                                 fields=fields)
+            at = res["planted_at"]
+            got = next(row for row in res["rows"] if row["index"] == at)
+            ref = next(row for row in sound if row["index"] == at)
+            exact = ("" if "exact_ratio" not in got else
+                     f", exact {got['exact_ratio']:.3f} against "
+                     f"{ref['exact_ratio']:.3f}")
+            print(f"[14c] planted x{PL.PLANT_SCALE} {route} (#{at}, "
+                  f"{got['where']}): ratio {got['mean_ratio']:.3f} (max "
+                  f"{got['max_ratio']:.3f}) against sound "
+                  f"{ref['mean_ratio']:.3f} (max {ref['max_ratio']:.3f})"
+                  f"{exact}, bar {PL.bars(torch.bfloat16, route)[0]}; "
+                  f"launches that missed: {res['missed']}")
+            if not res["caught"]:
+                failures.append(f"planted {route}: missed at "
+                                f"{res['missed']}, want [{at}] alone")
+            report["layers"]["planted"][route] = {
+                k: res[k] for k in ("planted_at", "missed", "caught")}
+    print(f"[14c] per-launch check: {len(failures)} misses")
+
+    # (d) the infer CLI with the configuration's flags
+    left = write_testing_dir(os.path.join(tmp, "config_testing"))
+    out = os.path.join(tmp, "config_infer")
+    flags = ["--maxdisplist", *map(str, fields["max_disp_list"]),
+             "--channels_3d", str(fields["channels_3d"]), "--layers_3d",
+             str(fields["layers_3d"]), "--growth_rate",
+             *map(str, fields["growth_rate"])]
+    build.reset_launch_counts()
+    frames = infer.run(["--left_img", left, "--save_path", out,
+                        "--random_weights", "--eval_height", str(H),
+                        "--eval_width", str(W), "--device", dev.type]
+                       + flags)
+    torch.cuda.synchronize()
+    want2 = {k: 2 * n for k, n in want.items()}  # a warm-up, then timed
+    require(build.launch_counts() == want2,
+            f"infer CLI launches {build.launch_counts()} != {want2}")
+    require(sorted(os.listdir(out)) == [f"{s}.png" for s in range(1, 5)],
+            f"infer CLI wrote {sorted(os.listdir(out))}")
+    for s, d in enumerate(frames[0]["disparities"]):
+        require(d.shape == (H, W) and np.isfinite(d).all(),
+                f"infer CLI stage {s + 1}")
+    print(f"[14d] cli.infer {' '.join(flags)}: four PNGs, finite "
+          f"{H}x{W} maps, forward {frames[0]['seconds'] * 1e3:.3f} ms "
+          f"(CUDA events) ({smi}); launches over its two forwards {want2}")
+    report["infer_ms"] = frames[0]["seconds"] * 1e3
+
+    # (e) each bf16 launch of the configuration and of the wide filter
+    timed = [(i, c) for i, c in enumerate(calls) if c[3] > 0]
+    rows = []
+    for i, (kernel, label, p, n, _) in timed:
+        c = make_call(kernel, p, torch.bfloat16, np.random.default_rng(
+            4000 + i), dev)
+        t_bytes = c["bytes"] / PEAK_BYTES * 1e3
+        t_ops = c["ops"] / PEAK_BF16 * 1e3
+        stage = CF.filter_routes(torch.bfloat16, p["Co"] if p.get("entry")
+                                 else p["Ci"], p["D"])
+        route = (stage.entry if p.get("entry") else stage.layer
+                 if kernel == "conv3d_bn_relu" else stage.skip).route
+        rows.append(dict(kernel=kernel, label=label, launches=n, route=route,
+                         ms=event_ms(c["kernel"]),
+                         plain_ms=event_ms(c["plain"]),
+                         library_ms=event_ms(c["library"]),
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations"))
+        del c
+    for (i, (kernel, label, p, n, _)), row in zip(timed, rows):
+        c = make_call(kernel, p, torch.bfloat16, np.random.default_rng(
+            4000 + i), dev)
+        row["device_ms"] = kernel_device_ms(c["kernel"], KERNEL_NAMES[kernel])
+        row["library_device_ms"] = kernel_device_ms(c["library"], "")
+        del c
+        dev_ms, lib_ms = (("not measured" if v is None else f"{v:.4f} ms")
+                          for v in (row["device_ms"],
+                                    row["library_device_ms"]))
+        print(f"[14e] {kernel} [{label}] ({row['route']}) x{n}: device "
+              f"{dev_ms}, events {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, cuDNN conv3d {lib_ms} (events "
+              f"{row['library_ms']:.4f} ms), bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) ({smi})")
+    report["timings"] = rows
+    report["seconds"] = time.time() - t0
+    print(f"[14] configurations phase: {report['seconds']:.1f} s, "
+          f"{len(failures)} failure(s)")
+    require(not failures, "; ".join(failures))
+    return report
+
+
 def main(argv=None):
     import argparse
     import torch
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("multicard",),
-        help="multicard: phases 1 and 13 alone, which need 4 cards")
+        "--only", choices=("multicard", "configs"),
+        help="multicard: phases 1 and 13 alone, which need 4 cards; "
+        "configs: phases 1, 2 and 14 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2523,58 +2875,24 @@ def main(argv=None):
                                        "spill", "wgmma", "setmaxnreg",
                                        "warning")):
                 print(f"[2] {src}: {line.strip()}")
+    if args.only == "configs":
+        os.makedirs("build", exist_ok=True)
+        with tempfile.TemporaryDirectory(dir="build") as tmp:
+            report["configs"] = configs_phase(dev, smi, tmp)
+        report["seconds"] = time.time() - t_start
+        with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"card: {smi}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     cfg = ModelConfig()
     calls = main_path_calls(cfg) + variant_calls(cfg) + layers_calls(cfg)
 
     # 3. kernels against their plain versions
-    checks = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for i, (kernel, label, p, _, _) in enumerate(calls + ragged_calls()):
-            rng = np.random.default_rng(1000 + i)
-            c = make_call(kernel, p, dtype, rng, dev)
-            build.reset_launch_counts()
-            got = c["kernel"]()
-            made = dict(build.LAYOUT_COPIES)
-            routes = build.route_counts()
-            want = c["plain"]()
-            torch.cuda.synchronize()
-            what = f"{kernel} [{label}] {str(dtype)[6:]}"
-            err, span = check_close(got, want, dtype, what)
-            narrow = None
-            if kernel == "dense3x3":
-                route = dense_route(p, dtype)
-                narrow = route if route in ("entry", "output") else None
-                require(routes == ({f"dense3x3[{narrow}]": 1} if narrow
-                                   else {}),
-                        f"{what}: route launches {routes}, want {route}")
-            if kernel == "conv3d_bn_relu":
-                require(routes == ({"conv3d_bn_relu[entry]": 1}
-                                   if p.get("entry") else {}),
-                        f"{what}: route launches {routes}")
-            if dtype == torch.bfloat16 and narrow and p.get("f32_out"):
-                require(((got - want).abs()
-                         <= 2e-4 + 1e-3 * want.abs()).all().item(),
-                        f"{what}: beyond atol 2e-4 / rtol 1e-3")
-            elif dtype == torch.bfloat16 and (
-                    kernel in ("chain3x3", "conv3d_skip_softargmin")
-                    or (kernel == "conv3d_bn_relu"
-                        and (p["Co"] == 8 or p.get("entry")))
-                    or narrow):
-                two_steps(got, want, what)
-            if kernel == "conv3d_skip_softargmin":
-                # bf16 reads channels-last (its tensor-core route), float32
-                # NCDHW (the CUDA-core kernel): one counted copy otherwise
-                bf = dtype == torch.bfloat16
-                require(CF.skip_tensor_core_route(dtype, p["Ci"]) == bf,
-                        f"{what}: route rule")
-                cl = bool(p.get("cl"))
-                require(made == {"to channels-last": int(bf and not cl),
-                                 "to contiguous": int(cl and not bf)},
-                        f"{what}: layout copies {made}")
-            checks.setdefault(kernel, {})[(label, str(dtype)[6:])] = err
-            print(f"[3] ok {what}: max |delta| {err:.3g}, span {span:.4g}")
-            del c, got, want
+    checks = check_calls(calls + ragged_calls(), dev, "3")
 
     # 4. the whole forward under each engine, kernels vs module path
     report["forward"], counts, copies, routes = forward_phase(dev)
@@ -2809,6 +3127,9 @@ def main(argv=None):
     # 13. data x spatial training on 2 and 4 cards, where they are visible
     with tempfile.TemporaryDirectory(dir="build") as tmp:
         report["multicard"] = multicard_phase(smi, tmp)
+    # 14. AnyNet's cost-filter settings through the entry points
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        report["configs"] = configs_phase(dev, smi, tmp)
 
     line = []
     for k in build.KERNELS:

@@ -3,6 +3,8 @@
 // Replaces two TPU kernels of the JAX package that compute this function:
 //   lwsnet_tpu/ops/pallas/costfilter.py:_dgrid_kernel  (stage 1, D=24, C=32)
 //   lwsnet_tpu/ops/pallas/costfilter.py:_folded_kernel (stages 2-3, D=9, C=8)
+// at the shipped widths, and at every width and D they take (the JAX
+// package picks between them by (D + 2) C <= 128).
 // Their flat-HW lanes, banded (D+2)*C weights and mask rows are TPU layout
 // devices; here the layer is a plain conv over (B, C, D, H, W):
 //   y[b,co,d,h,w] = relu(sum_{ci,kd,kh,kw} act(x[b,ci,d+kd-1,h+kh-1,w+kw-1])
@@ -132,14 +134,21 @@
 //     group's box of y (4 rows x 64 pixels x 16 bytes), then one TMA copy
 //     of 1 KB runs (16-byte runs made TMA slow on the H100); two buffers
 //     in turn. Co = 8 NCDHW (not on the forward): 2-byte lane stores.
-// * otherwise (float32 above all): the CUDA cores. A block takes an 8 x 32
-//   pixel tile of one (b, d) slice, one pixel per thread, with CO_T output
-//   channels in float32 registers. Weights go through shared memory in
-//   chunks of CI_CHUNK input channels (27 * 8 * 32 floats = 27 KB); input
-//   taps are read straight from global memory, each voxel's 27 uses within
-//   a block hitting L1, the entry's act applied at the load (out-of-volume
-//   taps are skipped, so the padding stays zero). A channels-last output
-//   of 8k channels is written in 16-byte vectors.
+// * otherwise (float32 at every width; bf16 at every width but those
+//   above, e.g. 16 and 4 channels, AnyNet's cost-filter widths): the CUDA
+//   cores, any Ci, Co >= 1, NCDHW in. A block takes an 8 x 32 pixel tile
+//   of one (b, d) slice, one pixel per thread, with CO_T output channels
+//   in float32 registers: 32, 16, 8 or 4, the widest that divides Co (4
+//   where none does, the last tile's extra channels zero-weighted and not
+//   stored). Weights go through shared memory in chunks of CI_CHUNK input
+//   channels (27 * 8 * 32 floats = 27 KB); input taps are read straight
+//   from global memory, each voxel's 27 uses within a block hitting L1,
+//   the entry's act applied at the load (out-of-volume taps are skipped,
+//   so the padding stays zero). NCDHW out, or channels-last where asked:
+//   whole 16-byte vectors where the tile's channels fill them, else one
+//   element a store. At 4-16 channels its bytes and its products bound it
+//   about equally (PERF.md §6 has each launch's bound beside its time); a
+//   simple tile, not tuned.
 #include <algorithm>
 #include <type_traits>
 
@@ -170,9 +179,12 @@ conv3d_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   const int tx = threadIdx.x % TILE_W, ty = threadIdx.x / TILE_W;
   const int w = blockIdx.x * TILE_W + tx;
   const int h = blockIdx.y * TILE_H + ty;
-  const int n_co = Co / CO_T;
+  const int n_co = ceil_div(Co, CO_T);
   int z = blockIdx.z;
   const int co0 = (z % n_co) * CO_T;
+  // output channels of this tile: CO_T, fewer in the last tile where CO_T
+  // does not divide Co (its other weights staged as zeros, never stored)
+  const int nco = min(CO_T, Co - co0);
   z /= n_co;
   const int d = z % D;
   const int b = z / D;
@@ -191,7 +203,8 @@ conv3d_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ wt,
     __syncthreads();
     for (int i = threadIdx.x; i < nci * 27 * CO_T; i += THREADS) {
       const int c = i % CO_T, row = i / CO_T;  // row = ci_local * 27 + tap
-      ws[i] = to_f(wt[(size_t)(ci0 * 27 + row) * Co + co0 + c]);
+      ws[i] = c < nco ? to_f(wt[(size_t)(ci0 * 27 + row) * Co + co0 + c])
+                      : 0.f;
     }
     __syncthreads();
     if (!active) continue;
@@ -225,20 +238,31 @@ conv3d_bn_relu_kernel(const T* __restrict__ x, const T* __restrict__ wt,
     T* yb = y + ((size_t)b * Co + co0) * vol + voxel;
 #pragma unroll
     for (int c = 0; c < CO_T; ++c)
-      yb[c * vol] = from_f<T>(fmaxf(acc[c] + shift[co0 + c], 0.f));
+      if (c < nco)
+        yb[c * vol] = from_f<T>(fmaxf(acc[c] + shift[co0 + c], 0.f));
     return;
   }
-  // Channels-last: 16-byte vectors of the thread's CO_T (8 or 32) channels.
+  // Channels-last: 16-byte vectors of the thread's CO_T channels where
+  // they fill whole vectors at 16-byte offsets, else one element a store.
   T* yb = y + ((size_t)b * vol + voxel) * Co + co0;
   constexpr int VEC = 16 / sizeof(T);
+  if constexpr (CO_T % VEC == 0) {
+    if (nco == CO_T && Co % VEC == 0) {
 #pragma unroll
-  for (int c0 = 0; c0 < CO_T; c0 += VEC) {
-    __align__(16) T v[VEC];
+      for (int c0 = 0; c0 < CO_T; c0 += VEC) {
+        __align__(16) T v[VEC];
 #pragma unroll
-    for (int c = 0; c < VEC; ++c)
-      v[c] = from_f<T>(fmaxf(acc[c0 + c] + shift[co0 + c0 + c], 0.f));
-    *reinterpret_cast<uint4*>(yb + c0) = *reinterpret_cast<const uint4*>(v);
+        for (int c = 0; c < VEC; ++c)
+          v[c] = from_f<T>(fmaxf(acc[c0 + c] + shift[co0 + c0 + c], 0.f));
+        *reinterpret_cast<uint4*>(yb + c0) =
+            *reinterpret_cast<const uint4*>(v);
+      }
+      return;
+    }
   }
+#pragma unroll
+  for (int c = 0; c < CO_T; ++c)
+    if (c < nco) yb[c] = from_f<T>(fmaxf(acc[c] + shift[co0 + c], 0.f));
 }
 
 // ---- tensor-core route ----------------------------------------------------
@@ -1139,12 +1163,27 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace c1
 
+// The CUDA cores at any Ci, Co >= 1: x NCDHW; y NCDHW or channels-last.
+// Output-channel tiles of 32, 16, 8 or 4, the widest that divides Co (4,
+// the last tile masked, where none does).
+template <typename T, int CO_T>
+int launch_cores(const T* x, const T* wt, const float* shift,
+                 const float* aff, T* y, int B, int Ci, int Co, int D, int H,
+                 int W, int y_cl, cudaStream_t s) {
+  dim3 grid(ceil_div(W, TILE_W), ceil_div(H, TILE_H),
+            B * D * ceil_div(Co, CO_T));
+  auto kernel = aff ? conv3d_bn_relu_kernel<T, CO_T, true>
+                    : conv3d_bn_relu_kernel<T, CO_T, false>;
+  kernel<<<grid, THREADS, 0, s>>>(x, wt, shift, aff, y, Ci, Co, D, H, W,
+                                  y_cl);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, const void* wt, const void* shift, const void* aff,
            void* y, int B, int Ci, int Co, int D, int H, int W, int x_cl,
            int y_cl, void* stream) {
-  const int co_t = Co % 32 == 0 ? 32 : (Co % 8 == 0 ? 8 : 0);
-  if (co_t == 0 || Ci < 1) return (int)cudaErrorInvalidValue;
+  if (Co < 1 || Ci < 1) return (int)cudaErrorInvalidValue;
   if (aff != nullptr && Ci != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_tc(sizeof(T), Ci, Co)) {
@@ -1165,18 +1204,21 @@ int launch(const void* x, const void* wt, const void* shift, const void* aff,
                     : launch_tc<16>(x, wt, shift, y, B, D, H, W, s);
   }
   if (x_cl) return (int)cudaErrorInvalidValue;  // the CUDA cores read NCDHW
-  dim3 grid(ceil_div(W, TILE_W), ceil_div(H, TILE_H), B * D * (Co / co_t));
   const T* xp = (const T*)x;
   const T* wp = (const T*)wt;
   const float* sp = (const float*)shift;
   const float* ap = (const float*)aff;
-  auto kernel = co_t == 32 ? (ap ? conv3d_bn_relu_kernel<T, 32, true>
-                                 : conv3d_bn_relu_kernel<T, 32, false>)
-                           : (ap ? conv3d_bn_relu_kernel<T, 8, true>
-                                 : conv3d_bn_relu_kernel<T, 8, false>);
-  kernel<<<grid, THREADS, 0, s>>>(xp, wp, sp, ap, (T*)y, Ci, Co, D, H, W,
-                                  y_cl);
-  return (int)cudaGetLastError();
+  if (Co % 32 == 0)
+    return launch_cores<T, 32>(xp, wp, sp, ap, (T*)y, B, Ci, Co, D, H, W,
+                               y_cl, s);
+  if (Co % 16 == 0)
+    return launch_cores<T, 16>(xp, wp, sp, ap, (T*)y, B, Ci, Co, D, H, W,
+                               y_cl, s);
+  if (Co % 8 == 0)
+    return launch_cores<T, 8>(xp, wp, sp, ap, (T*)y, B, Ci, Co, D, H, W,
+                              y_cl, s);
+  return launch_cores<T, 4>(xp, wp, sp, ap, (T*)y, B, Ci, Co, D, H, W, y_cl,
+                            s);
 }
 
 }  // namespace

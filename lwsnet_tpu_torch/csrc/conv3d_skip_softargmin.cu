@@ -18,8 +18,8 @@
 // on the CUDA cores' float32 peak alone, so the bf16 route runs them on
 // the tensor cores, where they cost next to nothing.
 //
-// Two routes, picked by dtype:
-// * bf16, Ci == 32 (stage 1) or Ci == 8 (stages 2-3), channels-last
+// Two routes, picked by dtype, width and D (`costfilter.skip_route`):
+// * bf16, Ci == 32 (stage 1) or Ci == 8 (stages 2-3), D <= 64, channels-last
 //   (B, D, H, W, C) in: tensor cores (`tcr` below, helpers in `tc.cuh`).
 //   - Tile: TH output rows x 62 pixels, every d (TH = 1 at Ci = 32, 2 at
 //     Ci = 8). A block is one product warpgroup and one staging warp; the
@@ -73,75 +73,136 @@
 //     with N = 8 (the taps as K slices, three times the A bytes), a
 //     volume read by 2-byte loads that each waited, two product
 //     warpgroups splitting the planes, persistent blocks.
-// * otherwise (float32): the CUDA cores, NCDHW in. A block takes 32 pixels
-//   of one image row. Its 8 warps split the D disparities between them:
-//   each thread forms one pixel's cost at its disparities (reads coalesced
-//   along W) into shared memory; then one warp runs the softmax over D for
-//   its 32 pixels. The Ci*27 weights sit in shared memory.
+// * otherwise (float32 at every width; bf16 at every other width, e.g.
+//   AnyNet's 16 and 4 channels, and at 8 or 32 past D = 64): the CUDA
+//   cores, any Ci and D, NCDHW in (channels-last where the stage's layers
+//   write it: bf16 at 8 or 32 channels). A block takes 32 pixels of one
+//   image row and walks D in chunks of 64. Its 8 warps split a chunk's
+//   disparities between them: each thread forms one pixel's cost at its
+//   disparities (reads coalesced along W in NCDHW) into shared memory,
+//   the weights staged 32 input channels at a time; then one warp runs
+//   the chunk's soft-argmin, the least cost and then the sums in order of
+//   d as above, and folds it into its running one (both sums rescaled to
+//   the lesser least cost), so D is unbounded. At D <= 64 and Ci <= 32
+//   (one chunk of each) it sums in the order of the single-pass kernel it
+//   replaces. Bound: the bytes, as above; not tuned.
 #include "tc.cuh"
 
 namespace {
 
-constexpr int MAX_CI = 32;
-constexpr int MAX_D = 64;
+constexpr int CI_CHUNK = 32;  // input channels whose weights a block stages
+constexpr int D_CHUNK = 64;   // costs a pixel a block holds at once
 constexpr int D_LANES = THREADS / TILE_W;
+constexpr int D_PER = D_CHUNK / D_LANES;  // costs a thread forms a chunk
 
+// x NCDHW, or channels-last (B, D, H, W, Ci) where x_cl; wt (Ci, 27); vol
+// (B, D, H, W); all in T. out (B, H, W) float32.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-skip_softargmin_kernel(const float* __restrict__ x,
-                       const float* __restrict__ wt,
-                       const float* __restrict__ vol, float* __restrict__ out,
-                       int Ci, int D, int H, int W, float start) {
-  __shared__ float ws[MAX_CI * 27];
-  __shared__ float cost[MAX_D][TILE_W];
+skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
+                       const T* __restrict__ vol, float* __restrict__ out,
+                       int Ci, int D, int H, int W, float start, int x_cl) {
+  __shared__ float ws[CI_CHUNK * 27];
+  __shared__ float cost[D_CHUNK][TILE_W];
   const int tx = threadIdx.x % TILE_W, ty = threadIdx.x / TILE_W;
   const int w = blockIdx.x * TILE_W + tx;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  for (int i = threadIdx.x; i < Ci * 27; i += THREADS) ws[i] = wt[i];
-  __syncthreads();
 
   const size_t plane = (size_t)H * W;
   const size_t volume = (size_t)D * plane;
-  if (w < W) {
-    const float* xb = x + (size_t)b * Ci * volume;
-    for (int d = ty; d < D; d += D_LANES) {
-      float acc = 0.f;
-      for (int ci = 0; ci < Ci; ++ci) {
-        const float* xc = xb + (size_t)ci * volume;
-        const float* wc = ws + ci * 27;
+  // element (ci, voxel v) of image b at xb[ci * cs + v * vs]
+  const size_t cs = x_cl ? 1 : volume, vs = x_cl ? Ci : 1;
+  const T* xb = x + (size_t)b * Ci * volume;
+  // warp 0's running soft-argmin of its pixel over the chunks so far: the
+  // least cost, and the sums of exp(least - cost) and of that times the bin
+  float run_m = 0.f, run_den = 0.f, run_num = 0.f;
+  for (int d0 = 0; d0 < D; d0 += D_CHUNK) {
+    const int dn = min(D_CHUNK, D - d0);
+    float acc[D_PER];
 #pragma unroll
-        for (int kd = 0; kd < 3; ++kd) {
-          const int dd = d + kd - 1;
-          if (dd < 0 || dd >= D) continue;
+    for (int k = 0; k < D_PER; ++k) acc[k] = 0.f;
+    for (int ci0 = 0; ci0 < Ci; ci0 += CI_CHUNK) {
+      const int nci = min(CI_CHUNK, Ci - ci0);
+      __syncthreads();  // the last chunk's weights and costs read
+      for (int i = threadIdx.x; i < nci * 27; i += THREADS)
+        ws[i] = to_f(wt[(size_t)ci0 * 27 + i]);
+      __syncthreads();
+      if (w >= W) continue;
 #pragma unroll
-          for (int kh = 0; kh < 3; ++kh) {
-            const int hh = h + kh - 1;
-            if (hh < 0 || hh >= H) continue;
+      for (int k = 0; k < D_PER; ++k) {
+        const int d = d0 + ty + k * D_LANES;
+        if (d >= d0 + dn) break;
+        float a = acc[k];
+        for (int ci = 0; ci < nci; ++ci) {
+          const T* xc = xb + (size_t)(ci0 + ci) * cs;
+          const float* wc = ws + ci * 27;
 #pragma unroll
-            for (int kw = 0; kw < 3; ++kw) {
-              const int ww = w + kw - 1;
-              if (ww < 0 || ww >= W) continue;
-              acc = fmaf(xc[dd * plane + (size_t)hh * W + ww],
-                         wc[kd * 9 + kh * 3 + kw], acc);
+          for (int kd = 0; kd < 3; ++kd) {
+            const int dd = d + kd - 1;
+            if (dd < 0 || dd >= D) continue;
+#pragma unroll
+            for (int kh = 0; kh < 3; ++kh) {
+              const int hh = h + kh - 1;
+              if (hh < 0 || hh >= H) continue;
+#pragma unroll
+              for (int kw = 0; kw < 3; ++kw) {
+                const int ww = w + kw - 1;
+                if (ww < 0 || ww >= W) continue;
+                a = fmaf(to_f(xc[(dd * plane + (size_t)hh * W + ww) * vs]),
+                         wc[kd * 9 + kh * 3 + kw], a);
+              }
             }
           }
         }
+        acc[k] = a;
       }
-      cost[d][tx] = acc + vol[(size_t)b * volume + d * plane +
-                              (size_t)h * W + w];
+    }
+    if (w < W) {
+#pragma unroll
+      for (int k = 0; k < D_PER; ++k) {
+        const int dl = ty + k * D_LANES;
+        if (dl >= dn) break;
+        cost[dl][tx] = acc[k] + to_f(vol[(size_t)b * volume +
+                                         (d0 + dl) * plane +
+                                         (size_t)h * W + w]);
+      }
+    }
+    __syncthreads();
+    if (ty != 0 || w >= W) continue;
+    float m = cost[0][tx];
+    for (int d = 1; d < dn; ++d) m = fminf(m, cost[d][tx]);
+    float den = 0.f, num = 0.f;
+    for (int d = 0; d < dn; ++d) {
+      const float e = expf(m - cost[d][tx]);
+      den += e;
+      num = fmaf(e, start + (float)(d0 + d), num);
+    }
+    if (d0 == 0) {
+      run_m = m;
+      run_den = den;
+      run_num = num;
+    } else {  // both sums rescaled to the lesser of the two least costs
+      const float mm = fminf(run_m, m);
+      const float s_run = expf(mm - run_m), s_new = expf(mm - m);
+      run_den = run_den * s_run + den * s_new;
+      run_num = run_num * s_run + num * s_new;
+      run_m = mm;
     }
   }
-  __syncthreads();
-  if (ty != 0 || w >= W) return;
-  float m = cost[0][tx];
-  for (int d = 1; d < D; ++d) m = fminf(m, cost[d][tx]);
-  float den = 0.f, num = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float e = expf(m - cost[d][tx]);
-    den += e;
-    num = fmaf(e, start + (float)d, num);
-  }
-  out[(size_t)b * plane + (size_t)h * W + w] = num / den;
+  if (ty == 0 && w < W) out[(size_t)b * plane + (size_t)h * W + w] =
+      run_num / run_den;
+}
+
+template <typename T>
+int launch_cores(const void* x, const void* wt, const void* vol, void* out,
+                 int B, int Ci, int D, int H, int W, float start, int x_cl,
+                 cudaStream_t s) {
+  dim3 grid(ceil_div(W, TILE_W), H, B);
+  skip_softargmin_kernel<T><<<grid, THREADS, 0, s>>>(
+      (const T*)x, (const T*)wt, (const T*)vol, (float*)out, Ci, D, H, W,
+      start, x_cl);
+  return (int)cudaGetLastError();
 }
 
 // ---- the bf16 tensor-core route -------------------------------------------
@@ -154,6 +215,14 @@ constexpr int VR = 6;             // volume rows a warp loads at once
 constexpr int SLICE = 16 * 8 * 2; // one 16 x 8 B image, as laid out
 constexpr int BARS = 256;         // bytes of mbarriers
 constexpr int THREADS = 128 + 32; // the product warpgroup, the staging warp
+// costs a pixel a tile keeps in shared memory (`Geometry::smem`); past it,
+// and at other widths, the CUDA cores take the layer
+constexpr int MAX_D = 64;
+
+// Whether the route takes Ci input channels and D costs a pixel.
+inline bool takes(int Ci, int D) {
+  return (Ci == 32 || Ci == 8) && D <= MAX_D;
+}
 
 // Per input width: output rows a tile, products a staged row (Ci = 32:
 // the channel halves; Ci = 8: one, k >= 8 the next pixel), bytes a staged
@@ -552,27 +621,33 @@ int launch(const void* x, const void* wt, const void* vol, void* out, int B,
 
 }  // namespace
 
+// x NCDHW, or channels-last where x_cl; wt (1, Ci, 3, 3, 3).
 extern "C" int conv3d_skip_softargmin_f32(const void* x, const void* wt,
                                           const void* vol, void* out, int B,
                                           int Ci, int D, int H, int W,
-                                          float start, void* stream) {
-  if (Ci < 1 || Ci > MAX_CI || D < 1 || D > MAX_D)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(ceil_div(W, TILE_W), H, B);
-  skip_softargmin_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)wt, (const float*)vol, (float*)out, Ci,
-      D, H, W, start);
-  return (int)cudaGetLastError();
+                                          float start, int x_cl,
+                                          void* stream) {
+  if (Ci < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  return launch_cores<float>(x, wt, vol, out, B, Ci, D, H, W, start, x_cl,
+                             (cudaStream_t)stream);
 }
 
-// x channels-last; wt the B images of `costfilter.skip_images`.
+// The tensor-core route where it takes the shape (x channels-last, wt the
+// B images of `costfilter.skip_images`), else the CUDA cores (x NCDHW or
+// channels-last where x_cl, wt (1, Ci, 3, 3, 3)). Mirrored by
+// `costfilter.skip_route`.
 extern "C" int conv3d_skip_softargmin_bf16(const void* x, const void* wt,
                                            const void* vol, void* out, int B,
                                            int Ci, int D, int H, int W,
-                                           float start, void* stream) {
-  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+                                           float start, int x_cl,
+                                           void* stream) {
+  if (Ci < 1 || D < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (Ci == 32) return tcr::launch<32>(x, wt, vol, out, B, D, H, W, start, s);
-  if (Ci == 8) return tcr::launch<8>(x, wt, vol, out, B, D, H, W, start, s);
-  return (int)cudaErrorInvalidValue;
+  if (tcr::takes(Ci, D)) {
+    if (!x_cl) return (int)cudaErrorInvalidValue;
+    return Ci == 32 ? tcr::launch<32>(x, wt, vol, out, B, D, H, W, start, s)
+                    : tcr::launch<8>(x, wt, vol, out, B, D, H, W, start, s);
+  }
+  return launch_cores<bf16>(x, wt, vol, out, B, Ci, D, H, W, start, x_cl,
+                            s);
 }

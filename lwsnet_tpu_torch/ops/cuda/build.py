@@ -140,7 +140,7 @@ class Kernel:
 CONV3D_BN_RELU = Kernel("conv3d_bn_relu", [_P] * 5 + [_I] * 8 + [_P])
 CONV3D_SKIP_SOFTARGMIN = Kernel(
     "conv3d_skip_softargmin",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P])
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 DENSE3X3 = Kernel("dense3x3", [_P] * 7 + [_I] * 9 + [_P])
 DWSEP3X3 = Kernel("dwsep3x3", [_P] * 5 + [_I] * 8 + [_P])
 DWSEP3X3_PAIR = Kernel(
@@ -168,7 +168,8 @@ def route_counts() -> Dict[str, int]:
     """{"kernel[route]": launches} of every route a wrapper named, e.g.
     "dense3x3[entry]" and "dense3x3[output]" for dense3x3's narrow
     routes, "conv3d_bn_relu[entry]" for the cost filters' 1 -> C
-    entries."""
+    entries, "conv3d_bn_relu[cores]" and "conv3d_skip_softargmin[cores]"
+    for the cost filters' other launches on the CUDA cores."""
     return {f"{k.name}[{r}]": n for k in KERNELS
             for r, n in sorted(k.route_launches.items())}
 

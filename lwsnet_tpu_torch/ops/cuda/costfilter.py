@@ -20,21 +20,25 @@ function).
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor and runs
 its plain PyTorch version, beside it here, for a CPU tensor.
 
-Layout on the card: a bf16 activation of 32 or 8 channels lies
-channels-last-3d in memory, (B, D, H, W, C) under its logical
-(B, C, D, H, W) shape, because the tensor-core routes of `conv3d_bn_relu`
-(`conv3d_tensor_core_route`) read it so. The 1 -> C entry writes it (its
-one input channel, the raw volume, lies the same in both layouts), the
-C -> C layers read and write it, and the tensor-core route of
-`conv3d_skip_softargmin` (`skip_tensor_core_route`) reads it: a bf16
-filter makes no layout copy. float32 stays in the default layout. A copy,
+Routes and layouts on the card (`filter_routes`, the one rule that the
+wrappers, `filter_soft_argmin`, chip_smoke.py and `tools.parity_layers`
+consult): a bf16 stage of 32 or 8 channels runs its launches on the tensor
+cores and its activations lie channels-last-3d in memory, (B, D, H, W, C)
+under the logical (B, C, D, H, W) shape, because those routes of
+`conv3d_bn_relu` (`conv3d_tensor_core_route`) read it so. The 1 -> C entry
+writes it (its one input channel, the raw volume, lies the same in both
+layouts), the C -> C layers read and write it, and the fused last layer
+reads it: on the tensor cores up to D = 64 (`SKIP_TC_MAX_D`), past it on
+the CUDA cores. Every other stage, float32 at any width and bf16 at any
+other width (AnyNet's 16 and 4 channels among them) and any D, runs on the
+CUDA cores in the default layout. No filter makes a layout copy. A copy,
 where a caller hands a kernel the other layout, is `build.in_layout`'s,
 counted.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +50,10 @@ from lwsnet_tpu_torch.ops.cuda.build import (CONV3D_BN_RELU,
                                              symbol_suffix)
 
 
-SKIP_MAX_D = 64  # costs a pixel (MAX_D in csrc/conv3d_skip_softargmin.cu)
+# Costs a pixel that the fused last layer's tensor-core route keeps in
+# shared memory (tcr::MAX_D in csrc/conv3d_skip_softargmin.cu).
+SKIP_TC_MAX_D = 64
+TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
 
 
 def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
@@ -66,6 +73,44 @@ def conv3d_writes_ncdhw(dtype: torch.dtype, Ci: int, Co: int) -> bool:
     return not (conv3d_tensor_core_route(dtype, Ci, Co) and Co == 32)
 
 
+class LaunchRoute(NamedTuple):
+    """A launch's route on the card (TENSOR_CORES or CUDA_CORES) and
+    whether the activation it reads / writes lies channels-last (an entry
+    reads the raw (B, D, H, W) volume; the fused last layer writes
+    (B, H, W) float32)."""
+    route: str
+    reads_cl: bool
+    writes_cl: bool
+
+
+class StageRoutes(NamedTuple):
+    """The launches of one stage's filter: the 1 -> C entry, each C -> C
+    layer, the fused C -> 1 last layer."""
+    entry: LaunchRoute
+    layer: LaunchRoute
+    skip: LaunchRoute
+
+
+def filter_routes(dtype: torch.dtype, channels: int, D: int) -> StageRoutes:
+    """The route and layouts of each launch of a stage's filter of width
+    `channels` over D costs a pixel, in `dtype` (float32 or bf16): the
+    tensor cores and channels-last for bf16 at 32 or 8 channels (the fused
+    last layer there only up to D = SKIP_TC_MAX_D, past it the CUDA cores
+    reading channels-last), the CUDA cores and NCDHW otherwise. Each
+    launch reads what the one before it writes. Mirrors `use_tc` in
+    csrc/conv3d_bn_relu.cu and `tcr::takes` in
+    csrc/conv3d_skip_softargmin.cu."""
+    if channels < 1 or D < 1:
+        raise ValueError(f"a filter of {channels} channels over {D} costs")
+    tc = conv3d_tensor_core_route(dtype, channels, channels)
+    skip_tc = skip_tensor_core_route(dtype, channels) and D <= SKIP_TC_MAX_D
+    route = TENSOR_CORES if tc else CUDA_CORES
+    return StageRoutes(
+        entry=LaunchRoute(route, False, tc),
+        layer=LaunchRoute(route, tc, tc),
+        skip=LaunchRoute(TENSOR_CORES if skip_tc else CUDA_CORES, tc, False))
+
+
 def c8_images(wt: torch.Tensor) -> torch.Tensor:
     """(8, 8, 3, 3, 3) -> the 8 -> 8 route's resident B images: per
     (kd, kh, j) a 16 x 8 K-major slice whose k < 8 are the input channels
@@ -78,9 +123,9 @@ def c8_images(wt: torch.Tensor) -> torch.Tensor:
 
 def skip_tensor_core_route(dtype: torch.dtype, Ci: int) -> bool:
     """Whether `conv3d_skip_softargmin` runs its wgmma route (`tcr` in
-    csrc/conv3d_skip_softargmin.cu), which reads channels-last: bf16 at 32
-    (stage 1) or 8 (stages 2-3) input channels. Other bf16 widths raise on
-    the card; float32 takes the CUDA cores, which read NCDHW."""
+    csrc/conv3d_skip_softargmin.cu), which reads channels-last, at D <=
+    SKIP_TC_MAX_D: bf16 at 32 (stage 1) or 8 (stages 2-3) input channels.
+    Other bf16 widths and float32 take the CUDA cores (`filter_routes`)."""
     return dtype == torch.bfloat16 and Ci in (8, 32)
 
 
@@ -113,10 +158,10 @@ def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
     """One BN-folded conv3d layer; see `conv3d_bn_relu_plain`. On the card
     the tensor-core routes read channels-last and the CUDA cores NCDHW (x
     is copied where it lies otherwise; a 1-channel x lies the same in
-    both). The result lies channels-last where asked (`channels_last`) or,
-    by default, where the next layer of its width takes a tensor-core
-    route (bf16, 32 or 8 channels); the 32-channel routes write nothing
-    else."""
+    both); the CUDA cores take any Ci and Co. The result lies
+    channels-last where asked (`channels_last`) or, by default, where a
+    filter of its width reads it so (`filter_routes`: bf16, 32 or 8
+    channels); the 32-channel routes write nothing else."""
     if not on_card(x):
         return conv3d_bn_relu_plain(x, wt, shift)
     return _launch(x, wt, shift, None, channels_last)
@@ -137,10 +182,11 @@ def conv3d_entry(vol: torch.Tensor, a0b0: torch.Tensor, wt: torch.Tensor,
                  shift: torch.Tensor) -> torch.Tensor:
     """A stage's entry in one launch; see `conv3d_entry_plain`. On the card
     bf16 at 32 or 8 outputs takes the tensor-core entry (`c1` in
-    csrc/conv3d_bn_relu.cu), float32 the CUDA cores, each applying the
-    affine to the values it reads inside the volume; a0b0 stays on the
-    device (no host sync). The result lies as `conv3d_bn_relu`'s default:
-    channels-last in bf16, NCDHW in float32."""
+    csrc/conv3d_bn_relu.cu), float32 and every other width the CUDA
+    cores, each applying the affine to the values it reads inside the
+    volume; a0b0 stays on the device (no host sync). The result lies as
+    `conv3d_bn_relu`'s default (`filter_routes`): channels-last where the
+    entry takes the tensor cores, NCDHW otherwise."""
     if not on_card(vol):
         return conv3d_entry_plain(vol, a0b0, wt, shift)
     if vol.dim() != 4:
@@ -156,13 +202,14 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
             channels_last: Optional[bool]) -> torch.Tensor:
     """`conv3d_bn_relu`'s launch on the card, with layer 0's affine `aff`
     ((2,) float32 on x's device) at a 1-channel entry. Launches with one
-    input channel count as route "entry"."""
+    input channel count as route "entry", the others on the CUDA cores as
+    route "cores"."""
     B, Ci, D, H, W = x.shape
     Co = wt.shape[0]
     tensor_core = conv3d_tensor_core_route(x.dtype, Ci, Co)
     x_cl = tensor_core and Ci > 1
     x = in_layout(x, x_cl)
-    y_cl = (conv3d_tensor_core_route(x.dtype, Co, Co)
+    y_cl = (filter_routes(x.dtype, Co, D).layer.reads_cl
             if channels_last is None else channels_last)
     if not (y_cl or conv3d_writes_ncdhw(x.dtype, Ci, Co)):
         raise ValueError("the 32-channel tensor-core routes write "
@@ -186,7 +233,8 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
         f"conv3d_bn_relu_{symbol_suffix(x.dtype)}", x.device,
         x.data_ptr(), wk.data_ptr(), shift.data_ptr(),
         None if aff is None else aff.data_ptr(), y.data_ptr(),
-        B, Ci, Co, D, H, W, x_cl, y_cl, route="entry" if Ci == 1 else None)
+        B, Ci, Co, D, H, W, x_cl, y_cl,
+        route="entry" if Ci == 1 else None if tensor_core else "cores")
     return y
 
 
@@ -207,21 +255,18 @@ def conv3d_skip_softargmin_plain(x: torch.Tensor, wt: torch.Tensor,
 def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
                            vol: torch.Tensor, start: int) -> torch.Tensor:
     """Fused last layer + skip + soft-argmin; see the plain version. On the
-    card bf16 takes the tensor-core route, which reads channels-last (x is
-    copied where it lies otherwise), at Ci 8 or 32 and D <= 64; float32 the
-    CUDA cores, which read NCDHW."""
+    card it reads the layout of its stage's layers (`filter_routes`:
+    channels-last for bf16 at 8 or 32 channels, where it runs on the
+    tensor cores up to D = SKIP_TC_MAX_D; NCDHW otherwise; x is copied
+    where it lies otherwise) and takes any Ci and D. Launches on the CUDA
+    cores count as route "cores"."""
     if not on_card(x):
         return conv3d_skip_softargmin_plain(x, wt, vol, start)
     B, Ci, D, H, W = x.shape
-    tensor_core = skip_tensor_core_route(x.dtype, Ci)
-    if x.dtype == torch.bfloat16 and not tensor_core:
-        raise ValueError(f"the bf16 route takes 8 or 32 input channels, "
-                         f"got {Ci}")
-    if not 1 <= D <= SKIP_MAX_D:
-        raise ValueError(f"D = {D}: the kernels hold at most {SKIP_MAX_D} "
-                         f"costs a pixel")
-    x = in_layout(x, tensor_core)
-    check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, tensor_core)
+    route = filter_routes(x.dtype, Ci, D).skip
+    tensor_core = route.route == TENSOR_CORES
+    x = in_layout(x, route.reads_cl)
+    check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, route.reads_cl)
     check(wt, "wt", (1, Ci, 3, 3, 3), x.dtype, x.device)
     check(vol, "vol", (B, D, H, W), x.dtype, x.device)
     wk = skip_images(wt) if tensor_core else wt
@@ -229,7 +274,8 @@ def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
     CONV3D_SKIP_SOFTARGMIN.launch(
         f"conv3d_skip_softargmin_{symbol_suffix(x.dtype)}", x.device,
         x.data_ptr(), wk.data_ptr(), vol.data_ptr(), out.data_ptr(),
-        B, Ci, D, H, W, float(start))
+        B, Ci, D, H, W, float(start), route.reads_cl,
+        route=None if tensor_core else "cores")
     return out
 
 
@@ -264,8 +310,9 @@ def filter_soft_argmin(cost: torch.Tensor, params: Dict[str, torch.Tensor],
     affs = [_fold_bn(params, stats, f"BNReLUConv3D_{i}.BatchNorm_0")
             for i in range(n)]
     vol = cost.permute(0, 3, 1, 2).to(dtype).contiguous()  # (B, D, H, W)
-    # Every layer hands on the layout the next one reads: channels-last in
-    # bf16, NCDHW in float32. The entry applies layer 0's BN + ReLU.
+    # Every layer hands on the layout the next one reads: each wrapper's
+    # default, from `filter_routes` (channels-last for bf16 at 32 or 8
+    # channels, NCDHW otherwise). The entry applies layer 0's BN + ReLU.
     for i in range(n - 1):
         a_next, b_next = affs[i + 1]
         wt = (params[f"BNReLUConv3D_{i}.weight"].float()

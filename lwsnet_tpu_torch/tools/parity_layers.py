@@ -32,21 +32,33 @@ twice: in the launch's dtype with the module path's arithmetic
 Bar (chip_smoke.py phase 4's rule, per launch): the launch's mean |delta|
 from truth at most MEAN_RATIO x the module reference's, and in float32
 its max |delta| at most MAX_RATIO x, or the route's own bars where it
-rounds at another point than the module (`ROUTE_BARS`). A launch that
+rounds at another point than the module (`ROUTE_BARS`). A bf16 fused last
+layer is also held against the kernel's own arithmetic (the conv in
+float32 on the same bf16 operands, `_cf_exact`), within EXACT_RATIO. A launch that
 has no reference raises (`LookupError`). The cost-filter launches are the
 same under every engine: they are held once per dtype and weight set,
 under the first engine run, and only matched to their references under
 the others.
 
 `--plant ROUTE` scales by 1.01 the weights handed to the first launch of
-one route (`ROUTES`), every layer's conv kernel in it (a dw-sep layer's
-pointwise weights), on the kernel side only, in bf16 on the seed-0 set:
-the check must then fail at that launch and at no other. Without it the
-sound check runs under every engine, in bf16 and float32, on both sets.
+one route (`ROUTES`, or a cost-filter route of the configuration's
+widths), every layer's conv kernel in it (a dw-sep layer's pointwise
+weights), on the kernel side only, in bf16 on the seed-0 set: the check
+must then fail at that launch and at no other. Without it the sound check
+runs under every engine, in bf16 and float32, on both sets.
 
     python -m lwsnet_tpu_torch.tools.parity_layers [--plant ROUTE] \
         [--height 368 --width 1232] [--out results/PARITY_LAYERS.json] \
-        [--device cuda]
+        [--device cuda] [--maxdisplist 12 3 3 --channels_3d 4 \
+        --layers_3d 4 --growth_rate 4 1 1]
+
+The last four flags, as the CLIs take them, set the cost filters'
+configuration (`ModelConfig` fields; the shipped one by default); another
+configuration's filters get references of their own widths (routes
+`cf-entry-C`, `cf-C`, `skip-C` for each stage width C: AnyNet's settings,
+`ANYNET`, run `cf-entry-16`, `cf-16`, `skip-16` and the same at 4), and
+it runs on the seed-0 set alone (the trained weights are the shipped
+configuration's).
 
 The sets: "seed0", the seed-0 network with jittered batch norms
 (`jitter_batchnorm`, chip_smoke.py phase 4's) on phase 4's
@@ -80,19 +92,27 @@ MAX_RATIO = 2.0
 # A route's own (mean, max) ratio bars where its sound launches read over
 # MEAN_RATIO or MAX_RATIO, each above the route's own sound readings and
 # below a x1.01 weight fault's (CHANGES.md and PERF.md give both):
-# * bf16 cost filters at 8 channels: BN scale folded into the bf16 weights
-#   (w * a rounded once, where the module rounds w, then the conv output);
-#   216 or 27 products a voxel do not average the weights' rounding;
+# * bf16 cost filters at 8 channels (and AnyNet's 16 and 4, `ANYNET`): BN
+#   scale folded into the bf16 weights (w * a rounded once, where the
+#   module rounds w, then the conv output); 432, 216, 108 or 27 products a
+#   voxel do not average the weights' rounding (eight seed-0-like draws at
+#   64x128 on the CPU: `cf-16` up to 1.166, `cf-entry-4` 1.186, `cf-4`
+#   1.750, each x1.01 fault 2.3 or more);
 # * bf16 fused last layer: the conv, skip and soft-argmin in float32 where
 #   the module rounds the cost to bf16, so a sound launch reads 0.03-0.64 x
 #   the module's distance and a planted fault hides under 1.1;
 # * float32: the cost filters' entries and 8-channel layers and the dw-sep
 #   layers fold BN into float32 weights or affines, and "mxu" and "chain"
 #   compose rank-1 kernels into 288-term sums, a rounding the module
-#   (exact float32 weights) does not make.
+#   (exact float32 weights) does not make (`cf-4` up to 1.271 over the
+#   eight draws).
 ROUTE_BARS = {
     ("bfloat16", "cf-8"): (1.5, MAX_RATIO),
     ("bfloat16", "cf-entry-8"): (1.5, MAX_RATIO),
+    ("bfloat16", "cf-16"): (1.5, MAX_RATIO),
+    ("bfloat16", "cf-entry-4"): (1.5, MAX_RATIO),
+    ("bfloat16", "cf-4"): (2.0, MAX_RATIO),
+    ("float32", "cf-4"): (1.4, MAX_RATIO),
     ("bfloat16", "skip-32"): (0.9, MAX_RATIO),
     ("bfloat16", "skip-8"): (0.9, MAX_RATIO),
     ("float32", "cf-entry-32"): (1.25, MAX_RATIO),
@@ -104,6 +124,22 @@ ROUTE_BARS = {
     ("float32", "chain-tower"): (2.0, MAX_RATIO),
     ("float32", "chain-head"): (1.6, MAX_RATIO)}
 PLANT_SCALE = 1.01
+# A bf16 fused last layer's mean |delta| from the float64 truth over that
+# of its exact reference (`Launch.exact`): the same arithmetic, float32
+# products and sums of the same bf16 operands, in another order, so a
+# sound launch reads 1 to within the order of the sums. Its module
+# reference rounds the cost to bf16, which at 4 channels swamps a x1.01
+# weight error (AnyNet's stage-2 `skip-4` reads 0.024 sound and 0.121
+# planted against the module at 368x1232, where stage 3 reads 0.457 sound).
+EXACT_RATIO = 1.1
+
+# AnyNet's cost-filter settings inside LWSNet: the argparse defaults of
+# AnyNet's finetune.py (Wang et al., "Anytime Stereo Image Depth
+# Estimation on Mobile Devices", ICRA 2019, github.com/mileyan/AnyNet),
+# --maxdisplist 12 3 3 --channels_3d 4 --layers_3d 4 --growth_rate 4 1 1:
+# stage widths 16 / 4 / 4 over D = 12 / 5 / 5 costs.
+ANYNET = dict(max_disp_list=(12, 3, 3), channels_3d=4, layers_3d=4,
+              growth_rate=(4, 1, 1))
 
 # The stage-4 refinement engines as ModelConfig fields; "mxu" is shipped.
 ENGINES = {"mxu": dict(rows_dw="mxu"),
@@ -139,15 +175,22 @@ ROUTES = {
 
 class Launch(NamedTuple):
     """One expected launch: the layer function the forward calls, its
-    route (a key of ROUTES, or "layers-dwsep" for a solo that 368x1232
-    does not make), where it stands, its input channels, and its module
-    reference ref(model, cast, args): `cast` is applied to each input
-    tensor among the launch's positional `args`."""
+    route (a key of ROUTES, a cost-filter route of another width, or
+    "layers-dwsep" for a solo that 368x1232 does not make), where it
+    stands, its input channels, and its module reference ref(model, cast,
+    args): `cast` is applied to each input tensor among the launch's
+    positional `args`. `exact`: for the fused last layer, a second
+    reference in the kernel's own arithmetic (`_cf_exact`), held in bf16
+    (EXACT_RATIO). `kernel_route`: a cost filter's launch's route
+    on the card by dtype (`costfilter.filter_routes`), recorded with its
+    reading."""
     fn: str
     route: str
     where: str
     channels: int
     ref: Callable
+    exact: Optional[Callable] = None
+    kernel_route: Optional[Dict[str, str]] = None
 
 
 def jitter_batchnorm(model, rng: np.random.Generator) -> None:
@@ -195,6 +238,23 @@ def _cf_ref(s: int, i: int) -> Callable:
             return F.relu(layers[i + 1].BatchNorm_0(y)).to(dt)
         vol, start = cast(args[2]), args[3]
         cost = (y[:, 0] + vol).permute(0, 2, 3, 1)
+        return stereo.soft_argmin(cost, start, start + cost.shape[-1])[..., 0]
+    return ref
+
+
+def _cf_exact(s: int, i: int) -> Callable:
+    """Cost filter `s`'s fused last launch `i` as the kernel computes it:
+    the conv in float32 on the launch's operands and on the layer's
+    weights rounded to the model's dtype, plus the volume, then
+    `stereo.soft_argmin` in float32."""
+    from lwsnet_tpu_torch.models.blocks import conv3d
+    from lwsnet_tpu_torch.ops import stereo
+
+    def ref(m, cast, args):
+        layer = _filter_layers(m, s)[i]
+        x, vol, start = cast(args[0]), cast(args[2]), args[3]
+        y = conv3d(x.float(), layer.weight.to(layer.dtype).float())
+        cost = (y[:, 0] + vol.float()).permute(0, 2, 3, 1)
         return stereo.soft_argmin(cost, start, start + cost.shape[-1])[..., 0]
     return ref
 
@@ -278,20 +338,29 @@ def _head_half(k: int) -> Callable:
 
 
 def filter_plan(cfg) -> List[Launch]:
-    """The cost filters' launches of stages 1-3, in order."""
+    """The cost filters' launches of stages 1-3, in order; routes named by
+    width (`cf-entry-C`, `cf-C`, `skip-C`)."""
+    from lwsnet_tpu_torch.ops.cuda.costfilter import filter_routes
     out = []
     n = cfg.layers_3d + 2
     for s in range(3):
         C = cfg.channels_3d * cfg.growth_rate[s]
+        D = cfg.max_disp_list[s] if s == 0 else 2 * cfg.max_disp_list[s] - 1
+        on_card = [{str(dt).replace("torch.", ""): getattr(
+            filter_routes(dt, C, D), kind).route
+            for dt in (torch.bfloat16, torch.float32)}
+            for kind in ("entry", "layer", "skip")]
         out.append(Launch("conv3d_entry", f"cf-entry-{C}",
                           f"stage {s + 1} layer 0 (1->{C})", 1,
-                          _cf_ref(s, 0)))
+                          _cf_ref(s, 0), kernel_route=on_card[0]))
         out += [Launch("conv3d_bn_relu", f"cf-{C}",
                        f"stage {s + 1} layer {i} ({C}->{C})", C,
-                       _cf_ref(s, i)) for i in range(1, n - 1)]
+                       _cf_ref(s, i), kernel_route=on_card[1])
+                for i in range(1, n - 1)]
         out.append(Launch("conv3d_skip_softargmin", f"skip-{C}",
                           f"stage {s + 1} layer {n - 1} ({C}->1) + skip + "
-                          f"soft-argmin", C, _cf_ref(s, n - 1)))
+                          f"soft-argmin", C, _cf_ref(s, n - 1),
+                          _cf_exact(s, n - 1), on_card[2]))
     return out
 
 
@@ -404,10 +473,13 @@ def bars(dtype: torch.dtype, route: str):
 
 
 def bar_ok(row: Dict, dtype: torch.dtype) -> bool:
-    """chip_smoke.py phase 4's rule for one launch, at its route's bars."""
+    """chip_smoke.py phase 4's rule for one launch, at its route's bars;
+    a bf16 fused last layer also within EXACT_RATIO of its exact
+    reference."""
     mean, most = bars(dtype, row["route"])
     return (row["finite"] and row["mean_ratio"] <= mean
-            and (dtype != torch.float32 or row["max_ratio"] <= most))
+            and (dtype != torch.float32 or row["max_ratio"] <= most)
+            and row.get("exact_ratio", 0.0) <= EXACT_RATIO)
 
 
 class Recorder:
@@ -465,6 +537,14 @@ class Recorder:
         row = dict(index=i, fn=launch.fn, route=launch.route,
                    where=launch.where, shape=list(out.shape),
                    planted=planted, **distances(out, module, truth))
+        if launch.kernel_route is not None:
+            row["kernel_route"] = launch.kernel_route[
+                str(self.dtype).replace("torch.", "")]
+        if launch.exact is not None and self.dtype == torch.bfloat16:
+            exact = distances(out, launch.exact(self.model, lambda t: t,
+                                                args), truth)
+            row["exact_mean"] = exact["module_mean"]
+            row["exact_ratio"] = exact["mean_ratio"]
         del module, truth
         row["ok"] = bar_ok(row, self.dtype)
         self.log(f"{'ok  ' if row['ok'] else 'MISS'} #{i:2d} "
@@ -475,6 +555,8 @@ class Recorder:
                  f"{100 * row['module_mean']:.4f} % "
                  f"(max {100 * row['module_max']:.3f}), ratio "
                  f"{row['mean_ratio']:.3f} (max {row['max_ratio']:.3f})"
+                 + (f", exact {row['exact_ratio']:.3f}"
+                    if "exact_ratio" in row else "")
                  + (" [planted]" if planted else ""))
         return row
 
@@ -552,12 +634,14 @@ def set_pair(name: str, h: int, w: int, device) -> List[torch.Tensor]:
             for x in pair]
 
 
-def build(engine: str, dtype: str, state, device):
+def build(engine: str, dtype: str, state, device,
+          fields: Optional[Dict] = None):
     """LWSNet under `engine` in `dtype` with `state`, or the seed-0
-    network with jittered batch norms."""
+    network with jittered batch norms; `fields`: further ModelConfig
+    fields (e.g. ANYNET)."""
     from lwsnet_tpu_torch import LWSNet, ModelConfig
-    model = LWSNet(ModelConfig(compute_dtype=dtype, **ENGINES[engine]),
-                   device=device, seed=0)
+    model = LWSNet(ModelConfig(compute_dtype=dtype, **ENGINES[engine],
+                               **(fields or {})), device=device, seed=0)
     if state is None:
         jitter_batchnorm(model, np.random.default_rng(3))
     else:
@@ -599,16 +683,22 @@ def run_engine(model, truth, left, right, engine: str, *,
 
 
 def check_set(set_name: str, dtype: str, engines: Sequence[str], h: int,
-              w: int, device, log: Callable[[str], None] = print) -> Dict:
+              w: int, device, log: Callable[[str], None] = print,
+              fields: Optional[Dict] = None) -> Dict:
     """The sound check of weight set `set_name` in `dtype` under each of
     `engines`: the cost filters held under the first, every stage-4
-    launch under each. Returns {engine: run_engine's result, without the
+    launch under each. `fields`: further ModelConfig fields (the seed-0
+    set only). Returns {engine: run_engine's result, without the
     outputs}."""
+    if fields and set_name != "seed0":
+        raise ValueError(f"set {set_name!r} holds the shipped "
+                         f"configuration's weights; {fields} runs on "
+                         f"\"seed0\" only")
     state = set_state(set_name)
     left, right = set_pair(set_name, h, w, device)
     out, truth = {}, None
     for k, engine in enumerate(engines):
-        model = build(engine, dtype, state, device)
+        model = build(engine, dtype, state, device, fields)
         if truth is None:  # every engine's modules hold the same weights
             truth = float64_copy(model)
         log(f"{set_name} {dtype} {engine}:")
@@ -621,13 +711,15 @@ def check_set(set_name: str, dtype: str, engines: Sequence[str], h: int,
 
 
 def check_plant(route: str, h: int, w: int, device,
-                log: Callable[[str], None] = print) -> Dict:
+                log: Callable[[str], None] = print,
+                fields: Optional[Dict] = None) -> Dict:
     """`route`'s first launch planted (weights x PLANT_SCALE, kernel side)
-    on the seed-0 set in bf16 under the engine of ROUTES, every launch
-    held. Returns run_engine's result without the outputs, with "caught":
-    the planted launch alone missed its bar."""
-    engine = ROUTES[route]
-    model = build(engine, "bfloat16", None, device)
+    on the seed-0 set in bf16 under the engine of ROUTES ("mxu" for a
+    cost-filter route of another width), every launch held; `fields`:
+    further ModelConfig fields. Returns run_engine's result without the
+    outputs, with "caught": the planted launch alone missed its bar."""
+    engine = ROUTES.get(route, "mxu")
+    model = build(engine, "bfloat16", None, device, fields)
     left, right = set_pair("seed0", h, w, device)
     res = run_engine(model, float64_copy(model), left, right, engine,
                      plant=route, log=log)
@@ -641,34 +733,45 @@ def check_plant(route: str, h: int, w: int, device,
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--plant", type=str, default="", choices=[""] + list(
-        ROUTES), help=f"scale the weights of ROUTE's first launch by "
-        f"{PLANT_SCALE} (seed-0 set, bf16, ROUTE's engine); the check must "
-        "fail there and nowhere else")
+    p.add_argument("--plant", type=str, default="", help=f"scale the "
+                   f"weights of ROUTE's first launch by {PLANT_SCALE} "
+                   "(seed-0 set, bf16, ROUTE's engine); the check must fail "
+                   "there and nowhere else")
     p.add_argument("--height", type=int, default=H)
     p.add_argument("--width", type=int, default=W)
     p.add_argument("--out", type=str, default="results/PARITY_LAYERS.json")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--maxdisplist", type=int, nargs="+")
+    p.add_argument("--channels_3d", type=int)
+    p.add_argument("--layers_3d", type=int)
+    p.add_argument("--growth_rate", type=int, nargs="+")
     args = p.parse_args(argv)
 
     from lwsnet_tpu_torch.device import resolve_device
     from lwsnet_tpu_torch.tools.parity import tf32_off
 
+    fields = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in (("max_disp_list", args.maxdisplist),
+                           ("channels_3d", args.channels_3d),
+                           ("layers_3d", args.layers_3d),
+                           ("growth_rate", args.growth_rate))
+              if v is not None}
     dev = resolve_device(args.device)
     t0 = time.time()
     result: Dict = {"device": (torch.cuda.get_device_name(dev)
                                if dev.type == "cuda" else "cpu"),
-                    "size": [args.height, args.width]}
+                    "size": [args.height, args.width], "config": fields}
     with tf32_off():
         if args.plant:
             result["plant"] = check_plant(args.plant, args.height,
-                                          args.width, dev)
+                                          args.width, dev, fields=fields)
             ok = result["plant"]["caught"]
         else:
             result["sets"] = {
                 f"{s} {d}": check_set(s, d, list(ENGINES), args.height,
-                                      args.width, dev)
-                for s in SETS for d in ("bfloat16", "float32")}
+                                      args.width, dev, fields=fields)
+                for s in (("seed0",) if fields else SETS)
+                for d in ("bfloat16", "float32")}
             ok = all(r["ok"] for runs in result["sets"].values()
                      for res in runs.values() for r in res["rows"])
     result["seconds"] = time.time() - t0

@@ -334,8 +334,9 @@ def test_skip_softargmin_wgmma_route_on_card(rnd, shape, channels_last):
 
 def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
     """float32 stays on the CUDA cores, which read NCDHW: a channels-last
-    input is copied once to the default layout. bf16 at a width the route
-    does not take raises."""
+    input is copied once to the default layout. bf16 at a width the
+    tensor-core route does not take (16) runs on the CUDA cores from NCDHW
+    too, within two rounding steps of the plain version."""
     build.reset_launch_counts()
     x = _channels_last(rnd(1, 32, 24, 5, 70).relu(), True)
     wt, vol = rnd(1, 32, 3, 3, 3) * 0.05, rnd(1, 24, 5, 70)
@@ -346,12 +347,154 @@ def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
         rtol=1e-3)
     torch.cuda.synchronize()
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
-    xb = rnd(1, 16, 9, 5, 70, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="8 or 32 input channels"):
-        tcf.conv3d_skip_softargmin(
-            xb, rnd(1, 16, 3, 3, 3, dtype=torch.bfloat16),
-            rnd(1, 9, 5, 70, dtype=torch.bfloat16), 0)
-    assert build.launch_counts()["conv3d_skip_softargmin"] == 1
+    bf = torch.bfloat16
+    xb = rnd(1, 16, 9, 5, 70, dtype=bf).relu()
+    wb, vb = rnd(1, 16, 3, 3, 3, dtype=bf), rnd(1, 9, 5, 70, dtype=bf)
+    _assert_two_steps(tcf.conv3d_skip_softargmin(xb, wb, vb, 0),
+                      tcf.conv3d_skip_softargmin_plain(xb, wb, vb, 0))
+    assert build.launch_counts()["conv3d_skip_softargmin"] == 2
+    assert build.route_counts() == {"conv3d_skip_softargmin[cores]": 2}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
+
+
+# AnyNet's cost-filter stages at 368x1232 (stage widths 16 / 4 / 4 over
+# D = 12 / 5 / 5; `parity_layers.ANYNET`), a ragged shape (odd H and W,
+# D = 7) at widths 16, 4 and 3, and a filter of 64 channels over D = 72.
+WIDTH_SHAPES = [
+    (1, 16, 12, 46, 154, 0),    # stage 1
+    (1, 4, 5, 92, 308, -2),     # stage 2
+    (1, 4, 5, 184, 616, -2),    # stage 3
+    (2, 16, 7, 11, 37, -3),     # ragged
+    (2, 4, 7, 11, 37, 0),
+    (2, 3, 7, 11, 37, -3),
+    (1, 64, 72, 46, 154, 0),    # wide
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", WIDTH_SHAPES)
+def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
+    """conv3d_bn_relu's CUDA-core route at widths no tensor-core route
+    takes: the 1 -> C entry with layer 0's BN + ReLU and a C -> C layer,
+    NCDHW in and out, no layout copy, each counted on its route ("entry",
+    "cores"); float32 at atol 2e-4 / rtol 1e-3, bf16 within two rounding
+    steps of the plain versions."""
+    B, C, D, H, W, _ = shape
+    vol, a0b0, wt, shift = _entry_operands(rnd, B, C, D, H, W, dtype)
+    assert tcf.filter_routes(dtype, C, D).layer.route == tcf.CUDA_CORES
+    build.reset_launch_counts()
+    y = tcf.conv3d_entry(vol, a0b0, wt, shift)
+    w2 = (rnd(C, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(dtype)
+    s2 = rnd(C) * 0.1
+    got = tcf.conv3d_bn_relu(y, w2, s2)
+    torch.cuda.synchronize()
+    assert y.is_contiguous() and got.is_contiguous()
+    assert build.route_counts() == {"conv3d_bn_relu[entry]": 1,
+                                    "conv3d_bn_relu[cores]": 1}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    for k, w in ((y, tcf.conv3d_entry_plain(vol, a0b0, wt, shift)),
+                 (got, tcf.conv3d_bn_relu_plain(y, w2, s2))):
+        if dtype == torch.bfloat16:
+            _assert_two_steps(k, w)
+        else:
+            torch.testing.assert_close(k, w, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", WIDTH_SHAPES)
+def test_skip_softargmin_cuda_core_widths_on_card(rnd, shape, dtype):
+    """conv3d_skip_softargmin's CUDA-core route at the same widths and D
+    (D = 72 over its 64-cost chunks), NCDHW in, counted as "cores", no
+    layout copy: float32 at atol 2e-4 / rtol 1e-3 of the plain version,
+    bf16 within two rounding steps and atol 1e-3 / rtol 1e-4 (both sum
+    float32 from the same bf16 operands)."""
+    B, C, D, H, W, start = shape
+    x = rnd(B, C, D, H, W, dtype=dtype).relu()
+    wt = (rnd(1, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(dtype)
+    vol = (rnd(B, D, H, W) * 2).to(dtype)
+    build.reset_launch_counts()
+    got = tcf.conv3d_skip_softargmin(x, wt, vol, start)
+    torch.cuda.synchronize()
+    assert build.route_counts() == {"conv3d_skip_softargmin[cores]": 1}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    want = tcf.conv3d_skip_softargmin_plain(x, wt, vol, start)
+    assert got.shape == (B, H, W) and got.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        _assert_two_steps(got, want)
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("C,D", [(32, 72), (8, 65)])
+def test_skip_softargmin_past_d64_on_card(rnd, C, D):
+    """bf16 at 32 or 8 channels past D = 64: the fused last layer leaves
+    the tensor cores for the CUDA cores and reads the channels-last
+    activation its stage's tensor-core layers write, with no copy."""
+    bf = torch.bfloat16
+    routes = tcf.filter_routes(bf, C, D)
+    assert routes.layer.writes_cl and routes.skip.reads_cl
+    assert routes.skip.route == tcf.CUDA_CORES
+    x = _channels_last(rnd(2, C, D, 5, 37, dtype=bf).relu(), True)
+    wt = (rnd(1, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(bf)
+    vol = (rnd(2, D, 5, 37) * 2).to(bf)
+    build.reset_launch_counts()
+    got = tcf.conv3d_skip_softargmin(x, wt, vol, -D // 2)
+    torch.cuda.synchronize()
+    assert build.route_counts() == {"conv3d_skip_softargmin[cores]": 1}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    want = tcf.conv3d_skip_softargmin_plain(x, wt, vol, -D // 2)
+    _assert_two_steps(got, want)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+def test_anynet_forward_on_card(rnd):
+    """The 368x1232 forward at AnyNet's cost-filter settings (seed-0
+    weights, jittered batch norms) through `make_forward`: in bf16 and
+    float32 the kernel path within phase 4's bars of chip_smoke.py from
+    the float64 module path (mean |delta| at most 1.1 x the module path's,
+    float32 max at most 2 x), the bf16 forward launching conv3d_bn_relu 15,
+    conv3d_skip_softargmin 3 and dense3x3 11 times, its 12 C -> C layers
+    and 3 fused last layers on the CUDA cores, no layout copy."""
+    import numpy as np
+    from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
+    from lwsnet_tpu_torch.tools.parity_layers import (ANYNET, MAX_RATIO,
+                                                      MEAN_RATIO,
+                                                      jitter_batchnorm)
+    H, W = 368, 1232
+    left, right = (torch.as_tensor(np.random.default_rng(k).standard_normal(
+        (1, H, W, 3)), dtype=torch.float32, device="cuda") for k in (1, 2))
+
+    def model(dtype):
+        m = LWSNet(ModelConfig(compute_dtype=dtype, **ANYNET),
+                   device="cuda", seed=0)
+        jitter_batchnorm(m, np.random.default_rng(3))
+        return m
+
+    truth = make_forward(model("float64"), use_pallas=False,
+                         device="cuda")(left, right)
+    for dtype in ("bfloat16", "float32"):
+        m = model(dtype)
+        plain = make_forward(m, use_pallas=False, device="cuda")(left, right)
+        build.reset_launch_counts()
+        got = make_forward(m, device="cuda")(left, right)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in build.launch_counts().items() if v}
+        assert counts == {"conv3d_bn_relu": 15, "conv3d_skip_softargmin": 3,
+                          "dense3x3": 11, "dense3x3[dual]": 1}, dtype
+        if dtype == "bfloat16":
+            assert build.route_counts() == {
+                "conv3d_bn_relu[cores]": 12, "conv3d_bn_relu[entry]": 3,
+                "conv3d_skip_softargmin[cores]": 3, "dense3x3[entry]": 1,
+                "dense3x3[output]": 1}
+        assert build.LAYOUT_COPIES == {"to channels-last": 0,
+                                       "to contiguous": 0}
+        for s, (t, a, b) in enumerate(zip(truth, plain, got)):
+            assert b.shape == (1, H, W, 1) and torch.isfinite(b).all()
+            e_k, e_m = (b - t).abs(), (a - t).abs()
+            assert e_k.mean() <= MEAN_RATIO * e_m.mean(), (dtype, s)
+            if dtype == "float32":
+                assert e_k.max() <= MAX_RATIO * e_m.max(), (dtype, s)
 
 
 def test_conv3d_float32_c8_on_cuda_cores_on_card(rnd):

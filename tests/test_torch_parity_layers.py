@@ -169,3 +169,57 @@ def test_tool_main_writes_its_verdict(tmp_path):
     written = json.loads(out.read_text())
     assert res["pass"] is True and written["pass"] is True
     assert written["plant"]["missed"] == [19]
+
+
+@pytest.fixture(scope="module")
+def anynet_sound():
+    """{dtype: check_set's result under "mxu"} at AnyNet's cost-filter
+    settings (`PL.ANYNET`, the seed-0 set)."""
+    with tf32_off():
+        return {d: PL.check_set("seed0", d, ["mxu"], H, W, CPU,
+                                log=lambda _: None, fields=PL.ANYNET)["mxu"]
+                for d in DTYPES}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_anynet_launches_meet_their_bar(anynet_sound, dtype):
+    """At AnyNet's settings every launch has a reference of its own width
+    (routes cf-entry-16, cf-16, skip-16, cf-entry-4, cf-4, skip-4), on
+    the CUDA cores on the card, and
+    meets its bar; in bf16 the fused last layers read their exact
+    reference (the kernel's own arithmetic) to within the order of the
+    sums."""
+    res = anynet_sound[dtype]
+    assert res["launches"] == res["held"] == 29
+    routes = [r["route"] for r in res["rows"][:18]]
+    assert routes == (["cf-entry-16"] + ["cf-16"] * 4 + ["skip-16"]
+                      + (["cf-entry-4"] + ["cf-4"] * 4 + ["skip-4"]) * 2)
+    # every one of them on the CUDA cores on the card (`filter_routes`)
+    assert {r["kernel_route"] for r in res["rows"][:18]} == {"CUDA cores"}
+    for row in res["rows"]:
+        assert row["ok"], row
+        if dtype == "bfloat16" and row["route"].startswith("skip"):
+            assert abs(row["exact_ratio"] - 1) < 1e-3, row
+        else:
+            assert "exact_ratio" not in row
+
+
+@pytest.mark.parametrize("route", ["cf-4", "skip-4"])
+def test_planted_anynet_route_fails_at_its_launch_only(route, tmp_path):
+    """A x1.01 error in the weights of the first launch of a route that
+    only AnyNet's settings run, through the tool's flags: that launch
+    misses its bar and no other (`skip-4` by its exact reference: its
+    module reference rounds the cost to bf16, which hides the fault)."""
+    out = tmp_path / "layers.json"
+    res = PL.main(["--device", "cpu", "--height", str(H), "--width", str(W),
+                   "--plant", route, "--out", str(out), "--maxdisplist",
+                   "12", "3", "3", "--channels_3d", "4", "--layers_3d", "4",
+                   "--growth_rate", "4", "1", "1"])
+    assert res["pass"] is True and res["config"] == PL.ANYNET
+    plant = res["plant"]
+    at = plant["planted_at"]
+    assert at == {"cf-4": 7, "skip-4": 11}[route]
+    assert plant["missed"] == [at]
+    row = next(r for r in plant["rows"] if r["index"] == at)
+    if route == "skip-4":
+        assert row["mean_ratio"] <= 1.1 < row["exact_ratio"]

@@ -52,7 +52,7 @@ PER_ROW = {32: 9, 8: 6}
 @pytest.mark.parametrize("dtype,ci,route", [
     (torch.bfloat16, 32, True),    # stage 1
     (torch.bfloat16, 8, True),     # stages 2-3
-    (torch.bfloat16, 16, False),   # raises on the card
+    (torch.bfloat16, 16, False),   # the CUDA cores (`filter_routes`)
     (torch.bfloat16, 4, False),
     (torch.float32, 32, False),    # the CUDA cores, NCDHW
     (torch.float32, 8, False),
