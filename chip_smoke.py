@@ -48,10 +48,11 @@ failure exits non-zero:
      the two float32 paths lie farthest apart); the launch counters of
      the bf16 kernel run, set to 0 just before it, must equal
      `want_counts` (the shipped engine: conv3d_bn_relu 15,
-     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input), its
-     route launches `WANT_ROUTES` (dense3x3's narrow routes, and the
-     three cost filters' entries on conv3d_bn_relu's), and the
-     wrappers' layout copies `WANT_COPIES` (none on any path); then the
+     conv3d_skip_softargmin 3, dense3x3 11, 1 of them two-input; the
+     refinement's from its route rule, `refine_launches`), its route
+     launches `want_routes` (dense3x3's narrow routes, and the three cost
+     filters' entries on conv3d_bn_relu's), and the wrappers' layout
+     copies `WANT_COPIES` (none on any path); then the
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
      at the same bars, with its own launch counts;
@@ -220,21 +221,32 @@ failure exits non-zero:
      runs phases 1 and 13 alone and fails with fewer than 4 cards;
  14. AnyNet's cost-filter settings (`parity_layers.ANYNET`: maxdisplist
      12 3 3, channels_3d 4, layers_3d 4, growth_rate 4 1 1; stage widths
-     16 / 4 / 4 over D = 12 / 5 / 5), the other fields shipped, at
+     16 / 4 / 4 over D = 12 / 5 / 5), the other fields shipped, and the
+     refinement at `refine_channels` 48 and 20 (`REFINE_WIDTHS`), at
      368x1232 batch 1 (`configs_phase`): (a) phase 3's check of each of
-     its cost filters' calls, of a filter of 64 channels over D = 72
-     (stage 1 at channels_3d 16), of the widths 16, 4 and 3 at a ragged
-     shape, and of the bf16 fused last layer past D = 64 at 32 and 8
-     channels, each on the route `costfilter.filter_routes` gives; (b)
-     phase 4's forward check under "mxu" with its launch counts
-     (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3 11), route
-     launches (`want_routes`: the cost filters' 12 layers and 3 fused last
-     layers on the CUDA cores) and no layout copy, then `InferenceEngine`
-     at num_stages 1..4; (c) phase 4b on the configuration, bf16 and
-     float32, and a x1.01 weight fault planted in each of its new routes,
-     caught at that launch alone; (d) `cli.infer` with the four flags on
-     one pair; (e) each of its bf16 launches and the wide filter's timed:
-     device, events, plain, one cuDNN conv3d, bound. `--only configs` runs
+     AnyNet's cost filters' calls, of a filter of 64 channels over D = 72
+     (stage 1 at channels_3d 16), of the widths 16, 64, 4 and 3 at a
+     ragged shape, and of the bf16 fused last layer past D = 64 at 32 and
+     8 channels, each on the route `costfilter.filter_routes` gives (bf16
+     16 -> 16 and 64 -> 64 on the tensor cores); of every dw-sep call of
+     the forward at widths 48 and 20, in the layout the path hands it
+     (`refine_kernels.refine_routes`); and of dwsep3x3 solo and pair at
+     48, 20 and 64 channels at a ragged shape writing either layout; (b)
+     phase 4's forward check under "mxu" at AnyNet's settings with its
+     launch counts (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3
+     11), route launches (`want_routes`: stage 1's four 16 -> 16 layers on
+     the tensor cores, the 8 4 -> 4 layers and 3 fused last layers on the
+     CUDA cores) and no layout copy, and under every engine at each
+     refinement width in bf16 and float32 (launch and route counts from
+     the route rules, no copy), then `InferenceEngine` at AnyNet's
+     settings at num_stages 1..4; (c) phase 4b on AnyNet's settings
+     ("mxu") and on each refinement width (every engine), bf16 and
+     float32, and a x1.01 weight fault planted in each route the shipped
+     configuration does not run, caught at that launch alone; (d)
+     `cli.infer` with the four flags on one pair; (e) each bf16 launch of
+     AnyNet's filters, the wide filter's and the "vpu" engines' dw-sep
+     launches at each refinement width timed: device, events, plain, one
+     cuDNN call (a dw-sep pair: one a layer), bound. `--only configs` runs
      phases 1, 2 and 14 alone.
 
 Without CUDA it exits 1 and prints no result. Details of the run are also
@@ -277,38 +289,43 @@ PORT_KERNELS = ("conv3d_bn_relu", "skip_softargmin", "dense3x3", "dwsep3x3",
 # The engines whose 4-stage forward phase 5 profiles for device busy time.
 PROFILED = ("mxu", "vpu-paired", "chain", "layers")
 
-# Launches per 368x1232 batch-1 forward beyond stages 1-3's
-# (conv3d_bn_relu 15, conv3d_skip_softargmin 3).
-REFINE_LAUNCHES = {
-    "mxu": {"dense3x3": 11, "dense3x3[dual]": 1},
-    "vpu-paired": {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3_pair": 4},
-    "vpu-unpaired": {"dense3x3": 3, "dense3x3[dual]": 1, "dwsep3x3": 8},
-    "chain": {"chain3x3": 2, "chain3x3[dual]": 1},
-    "layers": {"dense3x3": 5, "dwsep3x3_pair": 6},
-}
-# Layout copies the wrappers make per forward (build.LAYOUT_COPIES): the
-# tensor-core routes (dense3x3's, dwsep3x3's, conv3d_bn_relu's,
-# conv3d_skip_softargmin's) read and write channels-last, every other
-# kernel the default layout (the CUDA cores of dense3x3 either). Every
-# bf16 layer, the cost filters' fused last one too, reads the layout the
-# layer before it writes: no path copies, nor the refinement alone at
-# WIDE_H x WIDE_W.
+# Layout copies the wrappers make per forward (build.LAYOUT_COPIES): each
+# launch of the refinement writes the layout the next one reads
+# (`refine_kernels.refine_routes`, whose `layout_copies` is 0 on every
+# engine and width), and every cost-filter layer, the fused last one too,
+# reads the layout the layer before it writes (`costfilter.filter_routes`):
+# no path copies, nor the refinement alone at WIDE_H x WIDE_W.
 WANT_COPIES = {engine: {"to channels-last": 0, "to contiguous": 0}
                for engine in (*ENGINES, "layers-wide")}
-# Launches of the layers refinement alone at WIDE_H x WIDE_W.
-WIDE_LAUNCHES = {"dense3x3": 5, "dwsep3x3": 4, "dwsep3x3_pair": 4}
-# Route launches per bf16 forward (build.route_counts()): every path but
-# "chain" runs its tower entries (one at 2B with two weight groups, or
-# "layers"' two at batch 1) on dense3x3's narrow-entry route and its
-# 32 -> 1 output conv on the narrow-output route; every forward runs the
-# three cost filters' entries (1 -> 32, 1 -> 8, 1 -> 8) on conv3d_bn_relu's
-# entry route. The refinement alone ("layers-wide") runs no cost filter.
-WANT_ROUTES = {engine: {"dense3x3[entry]": 2 if engine.startswith("layers")
-                        else 1, "dense3x3[output]": 1}
-               for engine in (*ENGINES, "layers-wide")}
-WANT_ROUTES["chain"] = {}
-for _engine in ENGINES:
-    WANT_ROUTES[_engine]["conv3d_bn_relu[entry]"] = 3
+# Each engine's two-input launch (the head's entry), counted apart.
+DUAL = {"mxu": "dense3x3[dual]", "vpu-paired": "dense3x3[dual]",
+        "vpu-unpaired": "dense3x3[dual]", "chain": "chain3x3[dual]",
+        "layers": None}
+
+
+def refine_launches(engine, fields=None, h=H, w=W):
+    """(launches, route launches) of the bf16 refinement under `engine` of
+    ModelConfig(**fields) at h x w, from its route rule
+    (`refine_kernels.refine_routes`): launches by kernel, its two-input
+    one as "[dual]"; dense3x3's narrow routes as `build.route_counts()`
+    counts them ("dense3x3[entry]", "dense3x3[output]")."""
+    import torch
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.models import refine_kernels as RK
+    engine = engine.replace("layers-wide", "layers")
+    launches, routes = {}, {}
+    for L in RK.refine_routes(torch.bfloat16, engine,
+                              ModelConfig(**(fields or {})).refine_channels,
+                              h, w):
+        launches[L.kernel] = launches.get(L.kernel, 0) + 1
+        if L.kernel == "dense3x3" and L.route in (RK.ENTRY, RK.OUTPUT):
+            key = f"dense3x3[{L.route}]"
+            routes[key] = routes.get(key, 0) + 1
+    if DUAL[engine]:
+        launches[DUAL[engine]] = 1
+    return launches, routes
+
+
 FILTER_KERNELS = ("conv3d_bn_relu", "conv3d_skip_softargmin")
 # The path whose run gives each kernel's launches on the kernels line.
 ENGINE_OF = {"conv3d_bn_relu": "mxu", "conv3d_skip_softargmin": "mxu",
@@ -353,12 +370,14 @@ def dense_route(p, dtype):
 
 def want_routes(engine, fields=None):
     """Route launches of one bf16 forward under `engine` of
-    ModelConfig(**fields): `WANT_ROUTES`, and each cost-filter launch but
-    the entries off the tensor cores as "cores" (`filter_routes`; none at
-    the shipped widths)."""
+    ModelConfig(**fields): the refinement's narrow routes
+    (`refine_launches`), the three cost filters' entries
+    ("conv3d_bn_relu[entry]", at every width), and each other cost-filter
+    launch off the tensor cores as "cores" (`filter_routes`)."""
     import torch
     from lwsnet_tpu_torch import ModelConfig
-    want = dict(WANT_ROUTES[engine])
+    want = dict(refine_launches(engine, fields)[1])
+    want["conv3d_bn_relu[entry]"] = 3
     cfg = ModelConfig(**(fields or {}))
     for kernel, _, p, n, _ in main_path_calls(cfg):
         if kernel in FILTER_KERNELS and not p.get("entry"):
@@ -368,12 +387,14 @@ def want_routes(engine, fields=None):
     return want
 
 
-def want_counts(engine, zero):
-    """Launch counts of one bf16 forward under `engine`; `zero` holds every
-    counter's name."""
+def want_counts(engine, zero, fields=None):
+    """Launch counts of one bf16 forward under `engine` of
+    ModelConfig(**fields) at H x W: conv3d_bn_relu 15 and
+    conv3d_skip_softargmin 3, and the refinement's (`refine_launches`);
+    `zero` holds every counter's name."""
     counts = dict.fromkeys(zero, 0)
     counts.update(conv3d_bn_relu=15, conv3d_skip_softargmin=3)
-    counts.update(REFINE_LAUNCHES[engine])
+    counts.update(refine_launches(engine, fields)[0])
     return counts
 
 
@@ -550,25 +571,41 @@ def main_path_calls(cfg):
                       dict(geo, Ci=C, cl=cl, start=0 if s == 0 else
                            -cfg.max_disp_list[s] + 1), 1, "mxu"))
     c = cfg.refine_channels
+    reads = refine_reads(cfg, "mxu")
     geo = dict(H=H, W=W)
-    calls.append(("dense3x3", "tower entry 3->32 G=2",
+    calls.append(("dense3x3", f"tower entry 3->{c} G=2",
                   dict(geo, B=2, G=2, Ci=3, Co=c, d=1, aff=False,
-                       cl_out=True), 1, "mxu"))
-    for d in (2, 4, 8, 16):
-        calls.append(("dense3x3", f"tower 32->32 d={d} G=2",
+                       cl_out=reads[1]), 1, "mxu"))
+    for i, d in enumerate((2, 4, 8, 16)):
+        calls.append(("dense3x3", f"tower {c}->{c} d={d} G=2",
                       dict(geo, B=2, G=2, Ci=c, Co=c, d=d, aff=True,
-                           cl=True), 1, "mxu"))
-    calls.append(("dense3x3", "head entry 2x32->32 d=8 (dual)",
+                           cl=reads[1 + i]), 1, "mxu"))
+    calls.append(("dense3x3", f"head entry 2x{c}->{c} d=8 (dual)",
                   dict(geo, B=1, G=1, Ci=c, Co=c, d=8, aff=True, dual=True,
-                       cl=True), 1, "mxu"))
-    for d in (8, 4, 2, 1):
-        calls.append(("dense3x3", f"head 32->32 d={d}",
+                       cl=reads[5]), 1, "mxu"))
+    for i, d in enumerate((8, 4, 2, 1)):
+        calls.append(("dense3x3", f"head {c}->{c} d={d}",
                       dict(geo, B=1, G=1, Ci=c, Co=c, d=d, aff=True,
-                           cl=True), 1, "mxu"))
-    calls.append(("dense3x3", "out 32->1 f32 out",
+                           cl=reads[6 + i]), 1, "mxu"))
+    calls.append(("dense3x3", f"out {c}->1 f32 out",
                   dict(geo, B=1, G=1, Ci=c, Co=1, d=1, aff=False,
-                       f32_out=True, cl=True), 1, "mxu"))
+                       f32_out=True, cl=reads[10]), 1, "mxu"))
     return calls
+
+
+def refine_reads(cfg, engine, h=H, w=W):
+    """Whether each launch of `engine`'s bf16 refinement of `cfg` at h x w
+    reads channels-last, in order (`refine_kernels.refine_routes`); in a
+    checkout from before that rule, the shipped path's: all but the
+    tower entries."""
+    import torch
+    from lwsnet_tpu_torch.models import refine_kernels as RK
+    routes = getattr(RK, "refine_routes", None)
+    if routes is not None:
+        return [L.reads_cl for L in routes(torch.bfloat16, engine,
+                                           cfg.refine_channels, h, w)]
+    entries = {"layers": (0, 3), "chain": (0,)}.get(engine, (0,))
+    return [i not in entries for i in range(11)]
 
 
 def variant_calls(cfg):
@@ -581,26 +618,28 @@ def variant_calls(cfg):
     c = cfg.refine_channels
     tower = dict(H=H, W=W, C=c, B=2, G=2)
     head = dict(H=H, W=W, C=c, B=1, G=1)
-    calls = [("dwsep3x3", f"tower d={d} G=2", dict(tower, d=d, cl=True),
-              1, "vpu-unpaired") for d in TOWER_DILATIONS]
-    calls += [("dwsep3x3", f"head d={d}", dict(head, d=d, cl=True), 1,
-               "vpu-unpaired") for d in HEAD_DILATIONS]
-    for geo, dils, name in ((tower, TOWER_DILATIONS, "tower"),
-                            (head, HEAD_DILATIONS, "head")):
+    solo, pair = refine_reads(cfg, "vpu-unpaired"), refine_reads(
+        cfg, "vpu-paired")
+    calls = [("dwsep3x3", f"tower d={d} G=2", dict(tower, d=d, cl=solo[1 + i]),
+              1, "vpu-unpaired") for i, d in enumerate(TOWER_DILATIONS)]
+    calls += [("dwsep3x3", f"head d={d}", dict(head, d=d, cl=solo[6 + i]), 1,
+               "vpu-unpaired") for i, d in enumerate(HEAD_DILATIONS)]
+    for geo, dils, name, first in ((tower, TOWER_DILATIONS, "tower", 1),
+                                   (head, HEAD_DILATIONS, "head", 4)):
         for i in (0, 2):
             d1, d2 = dils[i], dils[i + 1]
             calls.append(("dwsep3x3_pair", f"{name} ({d1},{d2}) G={geo['G']}",
-                          dict(geo, d1=d1, d2=d2, cl=True), 1,
-                          "vpu-paired"))
-    calls.append(("chain3x3", "tower 3->32, d=1,2,4,8,16, G=2",
+                          dict(geo, d1=d1, d2=d2, cl=pair[first + i // 2]),
+                          1, "vpu-paired"))
+    calls.append(("chain3x3", f"tower 3->{c}, d=1,2,4,8,16, G=2",
                   dict(tower, Ci0=3, dils=(1,) + TOWER_DILATIONS,
                        aff=(False,) + (True,) * 4, dual=False, co_last=c,
                        f32_out=False), 1, "chain"))
     dils = (HEAD_DENSE_DILATION,) + HEAD_DILATIONS + (1,)
-    calls.append(("chain3x3", f"head 2x32->32->1, d={dils}, f32 out",
+    calls.append(("chain3x3", f"head 2x{c}->{c}->1, d={dils}, f32 out",
                   dict(head, Ci0=c, dils=dils, aff=(True,) * 5 + (False,),
-                       dual=True, co_last=1, f32_out=True, cl=True), 1,
-                  "chain"))
+                       dual=True, co_last=1, f32_out=True,
+                       cl=refine_reads(cfg, "chain")[1]), 1, "chain"))
     return calls
 
 
@@ -612,20 +651,23 @@ def layers_calls(cfg):
     then the rows microbench's probe (engine "microbench"). Tuples as
     `main_path_calls`."""
     c = cfg.refine_channels
+    reads = refine_reads(cfg, "layers")
     geo = dict(H=H, W=W, B=1, G=1)
     calls = [
-        ("dense3x3", "layers entry 3->32 G=1",
+        ("dense3x3", f"layers entry 3->{c} G=1",
          dict(geo, Ci=3, Co=c, d=1, aff=False), 1, "layers"),
-        ("dense3x3", "layers entry 1->32",
+        ("dense3x3", f"layers entry 1->{c}",
          dict(geo, Ci=1, Co=c, d=1, aff=False), 1, "layers"),
-        ("dense3x3", "layers head half 32->32 d=8",
-         dict(geo, Ci=c, Co=c, d=8, aff=True, cl=True), 2, "layers"),
-        ("dense3x3", "layers out 32->1 bf16 out",
-         dict(geo, Ci=c, Co=1, d=1, aff=False, cl=True), 1, "layers")]
-    for (d1, d2), n in (((2, 4), 2), ((8, 16), 2), ((8, 4), 1), ((2, 1), 1)):
+        ("dense3x3", f"layers head half {c}->{c} d=8",
+         dict(geo, Ci=c, Co=c, d=8, aff=True, cl=reads[6]), 2, "layers"),
+        ("dense3x3", f"layers out {c}->1 bf16 out",
+         dict(geo, Ci=c, Co=1, d=1, aff=False, cl=reads[10]), 1, "layers")]
+    for (d1, d2), n, k in (((2, 4), 2, 1), ((8, 16), 2, 2), ((8, 4), 1, 8),
+                           ((2, 1), 1, 9)):
         calls.append(("dwsep3x3_pair", f"layers ({d1},{d2}) G=1",
-                      dict(geo, C=c, d1=d1, d2=d2, cl=True), n, "layers"))
-    wide = dict(H=WIDE_H, W=WIDE_W, B=1, G=1, C=c, cl=True)
+                      dict(geo, C=c, d1=d1, d2=d2, cl=reads[k]), n, "layers"))
+    wide = dict(H=WIDE_H, W=WIDE_W, B=1, G=1, C=c,
+                cl=refine_reads(cfg, "layers", WIDE_H, WIDE_W)[2])
     for d in (8, 16):
         calls.append(("dwsep3x3", f"layers d={d} G=1 at {WIDE_H}x{WIDE_W}",
                       dict(wide, d=d), 2, "layers-wide"))
@@ -794,11 +836,13 @@ def make_call(kernel, p, dtype, rng, dev):
         nbytes = ((C + Co) * B * h * w + n_w) * es + sum(
             8 * G * ci for ci, _ in chans)
         ops = sum(2 * B * h * w * (9 * ci + ci * co) for ci, co in chans)
+        # `cl_out`: the CUDA-core route asked for a channels-last result
+        out = {"channels_last": True} if p.get("cl_out") else {}
         if not pair:
             (dw, pw, aff), = layers
             kw = dict(dilation=p["d"], affine=aff)
             k = _composed(dw, pw)
-            return call(lambda: RR.dwsep(x, dw, pw, **kw),
+            return call(lambda: RR.dwsep(x, dw, pw, **kw, **out),
                         lambda: RR.dwsep_plain(x, dw, pw, **kw),
                         _conv(x, k, p["d"]), nbytes, ops,
                         library_nchw=(_conv(x.contiguous(), k, p["d"])
@@ -809,7 +853,7 @@ def make_call(kernel, p, dtype, rng, dev):
         inner = lay(t(rng.standard_normal((B, Co, h, w))))  # yardstick
         convs = [_conv(x, _composed(dw1, pw1), p["d1"]),
                  _conv(inner, _composed(dw2, pw2), p["d2"])]
-        return call(lambda: RR.dwsep2(x, dw1, pw1, dw2, pw2, **kw),
+        return call(lambda: RR.dwsep2(x, dw1, pw1, dw2, pw2, **kw, **out),
                     lambda: RR.dwsep2_plain(x, dw1, pw1, dw2, pw2, **kw),
                     None, nbytes, ops, lambda: [c() for c in convs])
     if kernel == "chain3x3":
@@ -1129,10 +1173,11 @@ def forward_phase(dev, engines=None, fields=None, phase="4"):
     """Phase 4: for each engine of `engines` (default all), the 368x1232
     forward through `make_forward` (kernels) and the module path, in bf16
     and float32, each held with `compare` against the float64 module path;
-    the bf16 kernel run's launch, route (`want_routes`) and layout-copy
-    counts; then, with "layers" among them, the "layers" refinement alone
-    at WIDE_H x WIDE_W. `fields`: further ModelConfig fields (phase 14:
-    AnyNet's cost filters); `phase`: the tag of its printed lines. Fails
+    the bf16 kernel run's launch (`want_counts`), route (`want_routes`)
+    and layout-copy counts; then, with "layers" among them and no
+    `fields`, the "layers" refinement alone at WIDE_H x WIDE_W. `fields`:
+    further ModelConfig fields (phase 14: AnyNet's cost filters, a
+    refinement width); `phase`: the tag of its printed lines. Fails
     after printing every comparison if any missed its bar. Returns
     (report, launch counts, layout copies, route launches) by engine."""
     import torch
@@ -1178,7 +1223,7 @@ def forward_phase(dev, engines=None, fields=None, phase="4"):
         del plain
     del truth
     for engine in engines:
-        want = want_counts(engine, zero)
+        want = want_counts(engine, zero, fields)
         print(f"[{phase}] launch counts of the bf16 {engine} kernel "
               f"forward: {counts[engine]}")
         require(counts[engine] == want,
@@ -1194,7 +1239,7 @@ def forward_phase(dev, engines=None, fields=None, phase="4"):
         require(copies[engine] == WANT_COPIES[engine],
                 f"{engine} layout copies {copies[engine]} != "
                 f"{WANT_COPIES[engine]}")
-    if "layers" not in engines:
+    if "layers" not in engines or fields:
         require(not failures, "; ".join(failures))
         return forward_report, counts, copies, routes
 
@@ -1234,12 +1279,14 @@ def forward_phase(dev, engines=None, fields=None, phase="4"):
             f"{dt} layers residual at {WIDE_H}x{WIDE_W}", truth, want, got,
             dt, (1, WIDE_H, WIDE_W, 1), failures)
         del model, want, got
-    want = dict(zero, **WIDE_LAUNCHES)
+    wide_launches, wide_routes = refine_launches("layers", h=WIDE_H,
+                                                 w=WIDE_W)
+    want = dict(zero, **wide_launches)
     print(f"[4] launch counts of the bf16 layers refinement at "
           f"{WIDE_H}x{WIDE_W}: {counts['layers-wide']}")
     require(counts["layers-wide"] == want,
             f"layers-wide launch counts {counts['layers-wide']} != {want}")
-    require(routes["layers-wide"] == WANT_ROUTES["layers-wide"],
+    require(routes["layers-wide"] == wide_routes,
             f"layers-wide narrow-route launches {routes['layers-wide']}")
     print(f"[4] layout copies of the bf16 layers refinement at "
           f"{WIDE_H}x{WIDE_W}: {copies['layers-wide']}")
@@ -2592,9 +2639,13 @@ def multicard_phase(smi, tmp, only=False):
 
 
 # Phase 14: AnyNet's cost-filter settings, and a filter wider than any
-# shipped one (stage 1 at channels_3d 16: 64 channels, over D = 72).
-RAGGED_WIDTHS = (16, 4, 3)
+# shipped one (stage 1 at channels_3d 16: 64 channels, over D = 72); the
+# refinement at two widths the JAX kernels take, one over 32 and one not a
+# multiple of 8, and the dw-sep kernels at 64.
+RAGGED_WIDTHS = (16, 64, 4, 3)
 WIDE_FILTER = dict(B=1, C=64, D=72, H=H // 8, W=W // 8)
+REFINE_WIDTHS = (48, 20)
+DWSEP_WIDTHS = (48, 20, 64)
 
 
 def config_calls(fields):
@@ -2602,19 +2653,29 @@ def config_calls(fields):
     ModelConfig(**fields) (`main_path_calls`), the wide filter's, the new
     widths at a ragged shape (B = 2, D = 7, 11 x 37), and the bf16 fused
     last layer past D = 64 at 32 and 8 channels (the CUDA cores reading
-    channels-last). Tuples as `main_path_calls` (launches: per forward of
-    the configuration, or of a 4-layer filter of the wide width)."""
+    channels-last); then every dw-sep call of the forward at each of
+    REFINE_WIDTHS (engine "width C <engine>": launches a forward of that
+    width, each input in the layout the path hands it, `refine_routes`;
+    the width's other launches are held in (b) and (c)), and
+    `dwsep3x3` solo and pair at DWSEP_WIDTHS at a ragged shape (37 x 75,
+    two weight groups at B = 2), NCHW in, each result in both layouts.
+    Tuples as `main_path_calls` (launches: per forward of the
+    configuration, or of a 4-layer filter of the wide width)."""
+    import torch
     from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
     calls = [c for c in main_path_calls(ModelConfig(**fields))
              if c[0] in FILTER_KERNELS]
     geo = {k: WIDE_FILTER[k] for k in ("B", "D", "H", "W")}
     C = WIDE_FILTER["C"]
+    cl = CF.filter_routes(torch.bfloat16, C, geo["D"]).layer.reads_cl
     calls += [
         ("conv3d_bn_relu", f"wide 1->{C} entry", dict(geo, Ci=1, Co=C,
                                                       entry=True), 1, None),
-        ("conv3d_bn_relu", f"wide {C}->{C}", dict(geo, Ci=C, Co=C), 4, None),
-        ("conv3d_skip_softargmin", f"wide {C}->1", dict(geo, Ci=C, start=0),
-         1, None)]
+        ("conv3d_bn_relu", f"wide {C}->{C}", dict(geo, Ci=C, Co=C, cl=cl),
+         4, None),
+        ("conv3d_skip_softargmin", f"wide {C}->1", dict(geo, Ci=C, cl=cl,
+                                                         start=0), 1, None)]
     ragged = dict(B=2, D=7, H=11, W=37)
     for C in RAGGED_WIDTHS:
         calls += [
@@ -2629,46 +2690,181 @@ def config_calls(fields):
          dict(geo, Ci=32, cl=True, start=0), 0, None),
         ("conv3d_skip_softargmin", "8->1 B=2 D=65 5x37 channels-last",
          dict(B=2, D=65, H=5, W=37, Ci=8, cl=True, start=-32), 0, None)]
+    for c in REFINE_WIDTHS:
+        cfg = ModelConfig(refine_channels=c)
+        calls += [(k, label, p, n, f"width {c} {engine}")
+                  for k, label, p, n, engine in variant_calls(cfg)
+                  + layers_calls(cfg) if k.startswith("dwsep")]
+    geo = dict(H=37, W=75, B=2, G=2)
+    for c in DWSEP_WIDTHS:
+        for d in (1, 16):
+            for out in (False, True):
+                to = "channels-last" if out else "NCHW"
+                calls += [
+                    ("dwsep3x3", f"ragged {c}->{c} d={d} G=2 37x75 to {to}",
+                     dict(geo, C=c, d=d, cl_out=out), 0, None),
+                    ("dwsep3x3_pair", f"ragged {c}->{c}->{c} ({17 - d},{d}) "
+                     f"G=2 37x75 to {to}",
+                     dict(geo, C=c, d1=17 - d, d2=d, cl_out=out), 0, None)]
     return calls
+
+
+def per_launch_phase(dev, fields, engines, zero, tag):
+    """Phase 14c for ModelConfig(**fields): `tools.parity_layers` under
+    each of `engines` in bf16 and float32 (the seed-0 set, every launch
+    held, kernel launches as `want_counts`), then a x1.01 weight error
+    planted in the first launch of each route of the configuration that
+    the shipped one does not run (`parity_layers.ROUTES`), caught there
+    alone. Returns (failures, report)."""
+    import torch
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.tools import parity_layers as PL
+    failures, report = [], {"sound": {}, "planted": {}}
+    cfg = ModelConfig(**fields)
+    for dt in ("bfloat16", "float32"):
+        runs = PL.check_set("seed0", dt, engines, H, W, dev,
+                            log=lambda line: print(f"[{tag}] {line}"),
+                            fields=fields)
+        for engine, res in runs.items():
+            want = want_counts(engine, zero, fields)
+            launches = sum(v for k, v in want.items() if "[" not in k)
+            require(res["launches"] == launches and
+                    res["kernel_counts"] == want,
+                    f"{dt} {engine}: {res['launches']} launches matched, "
+                    f"kernel launches {res['kernel_counts']}")
+            failures += [f"{dt} {engine} #{row['index']} {row['route']}: "
+                         f"ratio {row['mean_ratio']:.3f} (max "
+                         f"{row['max_ratio']:.3f})"
+                         for row in res["rows"] if not row["ok"]]
+        report["sound"][dt] = {e: r["rows"] for e, r in runs.items()}
+    sound = report["sound"]["bfloat16"]
+    plans = {e: PL.filter_plan(cfg) + PL.refine_plan(cfg, e, H, W)
+             for e in engines}
+    new = sorted({L.route for plan in plans.values() for L in plan}
+                 - set(PL.ROUTES))
+    for route in new:
+        res = PL.check_plant(route, H, W, dev, log=lambda _: None,
+                             fields=fields)
+        at = res["planted_at"]
+        engine = PL.ROUTES.get(PL.shipped_route(route), "mxu")
+        got = next(row for row in res["rows"] if row["index"] == at)
+        ref = next(row for row in sound[engine] if row["index"] == at)
+        exact = ("" if "exact_ratio" not in got else
+                 f", exact {got['exact_ratio']:.3f} against "
+                 f"{ref['exact_ratio']:.3f}")
+        print(f"[{tag}] planted x{PL.PLANT_SCALE} {route} ({engine} #{at}, "
+              f"{got['where']}): ratio {got['mean_ratio']:.3f} (max "
+              f"{got['max_ratio']:.3f}) against sound "
+              f"{ref['mean_ratio']:.3f} (max {ref['max_ratio']:.3f})"
+              f"{exact}, bar {PL.bars(torch.bfloat16, route)[0]}; "
+              f"launches that missed: {res['missed']}")
+        if not res["caught"]:
+            failures.append(f"planted {route}: missed at {res['missed']}, "
+                            f"want [{at}] alone")
+        report["planted"][route] = {
+            k: res[k] for k in ("planted_at", "missed", "caught")}
+    print(f"[{tag}] per-launch check of {fields}: {len(failures)} misses")
+    return failures, report
+
+
+def timing_rows(calls, dev, smi, tag, seed):
+    """Phase 14e: each call of `calls` in bf16 on seeded operands (call i
+    from default_rng(seed + i)): events, the kernel alone on the device
+    (profiler, after every event timing), the plain version, one library
+    call of the same function (cuDNN; a dw-sep pair has none, and the sum
+    of one cuDNN call a layer stands beside it) and its bound."""
+    import torch
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
+    from lwsnet_tpu_torch.utils.timing import event_ms
+
+    def route_of(kernel, p):
+        if kernel in FILTER_KERNELS:
+            stage = CF.filter_routes(torch.bfloat16, p["Co"] if p.get(
+                "entry") else p["Ci"], p["D"])
+            return (stage.entry if p.get("entry") else stage.layer
+                    if kernel == "conv3d_bn_relu" else stage.skip).route
+        dils = (p["d1"], p["d2"]) if "d1" in p else (p["d"],)
+        tc = RR.dwsep_tensor_core_route(
+            torch.bfloat16, (p["C"],) * (len(dils) + 1), dils, p["G"])
+        return CF.TENSOR_CORES if tc else CF.CUDA_CORES
+
+    rows = []
+    for i, (kernel, label, p, n, _) in calls:
+        c = make_call(kernel, p, torch.bfloat16,
+                      np.random.default_rng(seed + i), dev)
+        t_bytes = c["bytes"] / PEAK_BYTES * 1e3
+        t_ops = c["ops"] / PEAK_BF16 * 1e3
+        lib = c["library"] or c["layers"]
+        rows.append(dict(kernel=kernel, label=label, launches=n,
+                         route=route_of(kernel, p),
+                         ms=event_ms(c["kernel"]),
+                         plain_ms=event_ms(c["plain"]),
+                         library=("one call" if c["library"]
+                                  else "per layer"),
+                         library_ms=event_ms(lib),
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations"))
+        del c
+    for (i, (kernel, label, p, n, _)), row in zip(calls, rows):
+        c = make_call(kernel, p, torch.bfloat16,
+                      np.random.default_rng(seed + i), dev)
+        row["device_ms"] = kernel_device_ms(c["kernel"], KERNEL_NAMES[kernel])
+        row["library_device_ms"] = kernel_device_ms(
+            c["library"] or c["layers"], "")
+        del c
+        dev_ms, lib_ms = (("not measured" if v is None else f"{v:.4f} ms")
+                          for v in (row["device_ms"],
+                                    row["library_device_ms"]))
+        lib = "cuDNN" if row["library"] == "one call" else \
+            "cuDNN one call a layer (no one call)"
+        print(f"[{tag}] {kernel} [{label}] ({row['route']}) x{n}: device "
+              f"{dev_ms}, events {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, {lib} {lib_ms} (events "
+              f"{row['library_ms']:.4f} ms), bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) ({smi})")
+    return rows
 
 
 def configs_phase(dev, smi, tmp):
     """Phase 14: AnyNet's cost-filter settings (`parity_layers.ANYNET`,
     stage widths 16 / 4 / 4 over D = 12 / 5 / 5), the other fields
-    shipped, at 368x1232 batch 1: (a) `check_calls` over `config_calls`
-    (phase 3's bars), the wide filter among them; (b) `forward_phase` under
-    "mxu" (phase 4's bars, launch counts 15 / 3 / 11, `want_routes`, no
-    layout copy), then `InferenceEngine` answering one request at
-    num_stages 1..4 with the same launches; (c) `tools.parity_layers` on
-    the configuration in bf16 and float32, every launch held, then a x1.01
-    weight error planted in the first launch of each route the shipped
-    configuration does not run, caught there alone; (d) `cli.infer` with
+    shipped, and the refinement at REFINE_WIDTHS, at 368x1232 batch 1:
+    (a) `check_calls` over `config_calls` (phase 3's bars), the wide
+    filter and the refinement's calls at the new widths among them; (b)
+    `forward_phase` under "mxu" at AnyNet's settings, and under every
+    engine at each refinement width (phase 4's bars, launch counts,
+    `want_routes`, no layout copy), then `InferenceEngine` answering one
+    request at AnyNet's settings at num_stages 1..4 with the same
+    launches; (c) `per_launch_phase` on AnyNet's settings ("mxu") and on
+    each refinement width (every engine); (d) `cli.infer` with
     --maxdisplist 12 3 3 --channels_3d 4 --growth_rate 4 1 1 on one
     seeded 375x1242 pair: four PNGs, finite maps, two forwards' launches;
-    (e) each bf16 launch of the configuration and of the wide filter timed:
-    events, the kernel alone on the device (profiler, after every event
-    timing), the plain version, one cuDNN conv3d of the same layer, and
-    its bound. Fails after printing every reading if any missed. Returns
-    the phase's report."""
+    (e) `timing_rows` over each bf16 launch of AnyNet's configuration and
+    of the wide filter, and the dw-sep launches of each refinement width.
+    Fails after printing every reading if any missed. Returns the phase's
+    report."""
     import torch
     from lwsnet_tpu_torch import InferenceEngine, LWSNet, ModelConfig
     from lwsnet_tpu_torch.cli import infer
     from lwsnet_tpu_torch.ops.cuda import build
-    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
     from lwsnet_tpu_torch.tools import parity_layers as PL
     from lwsnet_tpu_torch.tools.parity import tf32_off
-    from lwsnet_tpu_torch.utils.timing import event_ms
     fields = PL.ANYNET
     t0 = time.time()
     report = {"fields": {k: list(v) if isinstance(v, tuple) else v
-                         for k, v in fields.items()}}
-    print(f"[14] configuration {fields}")
+                         for k, v in fields.items()},
+              "refine_widths": list(REFINE_WIDTHS)}
+    print(f"[14] configuration {fields}; refinement widths {REFINE_WIDTHS}")
 
-    # (a) every kernel call of the configuration against its plain version
+    # (a) every kernel call of the configurations against its plain version
     calls = config_calls(fields)
     report["checks"] = {f"{k} [{label}] {dt}": err for k, v in check_calls(
         calls, dev, "14a", seed=3000).items() for (label, dt), err in
         v.items()}
+
+    print(f"[14] (a) done at {time.time() - t0:.1f} s")
 
     # (b) the forward through make_forward, then InferenceEngine
     build.reset_launch_counts()
@@ -2676,6 +2872,10 @@ def configs_phase(dev, smi, tmp):
     report["forward"], counts, copies, routes = forward_phase(
         dev, ["mxu"], fields, phase="14b")
     report["routes"] = routes["mxu"]
+    for c in REFINE_WIDTHS:
+        report[f"forward width {c}"], _, _, report[f"routes width {c}"] = \
+            forward_phase(dev, list(ENGINES), dict(refine_channels=c),
+                          phase=f"14b width {c}")
     model = LWSNet(ModelConfig(**fields), device="cpu", seed=0)
     jitter_batchnorm(model, np.random.default_rng(3))
     eng = InferenceEngine(ModelConfig(**fields), model.state_dict(),
@@ -2687,7 +2887,7 @@ def configs_phase(dev, smi, tmp):
     build.reset_launch_counts()
     full = eng(l, r, num_stages=4)
     torch.cuda.synchronize()
-    want = want_counts("mxu", zero)
+    want = want_counts("mxu", zero, fields)
     require(build.launch_counts() == want,
             f"InferenceEngine launches {build.launch_counts()} != {want}")
     for stages in (1, 2, 3):
@@ -2703,47 +2903,19 @@ def configs_phase(dev, smi, tmp):
           f"the 4-stage call launched {want}")
     del eng
 
+    print(f"[14] (b) done at {time.time() - t0:.1f} s")
+
     # (c) every launch against its module layer, and the planted faults
-    failures, report["layers"] = [], {"sound": {}, "planted": {}}
-    cfg = ModelConfig(**fields)
-    launches = sum(v for k, v in want.items() if "[" not in k)
+    failures, report["layers"] = [], {}
     with tf32_off():
-        for dt in ("bfloat16", "float32"):
-            res = PL.check_set("seed0", dt, ["mxu"], H, W, dev,
-                               log=lambda line: print(f"[14c] {line}"),
-                               fields=fields)["mxu"]
-            require(res["launches"] == launches and
-                    res["kernel_counts"] == want,
-                    f"{dt}: {res['launches']} launches matched, kernel "
-                    f"launches {res['kernel_counts']}")
-            failures += [f"{dt} #{row['index']} {row['route']}: ratio "
-                         f"{row['mean_ratio']:.3f} (max "
-                         f"{row['max_ratio']:.3f})"
-                         for row in res["rows"] if not row["ok"]]
-            report["layers"]["sound"][dt] = res["rows"]
-        sound = report["layers"]["sound"]["bfloat16"]
-        new = sorted({L.route for L in PL.filter_plan(cfg)} - set(PL.ROUTES))
-        for route in new:
-            res = PL.check_plant(route, H, W, dev, log=lambda _: None,
-                                 fields=fields)
-            at = res["planted_at"]
-            got = next(row for row in res["rows"] if row["index"] == at)
-            ref = next(row for row in sound if row["index"] == at)
-            exact = ("" if "exact_ratio" not in got else
-                     f", exact {got['exact_ratio']:.3f} against "
-                     f"{ref['exact_ratio']:.3f}")
-            print(f"[14c] planted x{PL.PLANT_SCALE} {route} (#{at}, "
-                  f"{got['where']}): ratio {got['mean_ratio']:.3f} (max "
-                  f"{got['max_ratio']:.3f}) against sound "
-                  f"{ref['mean_ratio']:.3f} (max {ref['max_ratio']:.3f})"
-                  f"{exact}, bar {PL.bars(torch.bfloat16, route)[0]}; "
-                  f"launches that missed: {res['missed']}")
-            if not res["caught"]:
-                failures.append(f"planted {route}: missed at "
-                                f"{res['missed']}, want [{at}] alone")
-            report["layers"]["planted"][route] = {
-                k: res[k] for k in ("planted_at", "missed", "caught")}
-    print(f"[14c] per-launch check: {len(failures)} misses")
+        for f, engines in [(fields, ["mxu"])] + [
+                (dict(refine_channels=c), list(ENGINES))
+                for c in REFINE_WIDTHS]:
+            missed, report["layers"][str(f)] = per_launch_phase(
+                dev, f, engines, zero, "14c")
+            failures += missed
+
+    print(f"[14] (c) done at {time.time() - t0:.1f} s")
 
     # (d) the infer CLI with the configuration's flags
     left = write_testing_dir(os.path.join(tmp, "config_testing"))
@@ -2771,41 +2943,15 @@ def configs_phase(dev, smi, tmp):
           f"(CUDA events) ({smi}); launches over its two forwards {want2}")
     report["infer_ms"] = frames[0]["seconds"] * 1e3
 
-    # (e) each bf16 launch of the configuration and of the wide filter
-    timed = [(i, c) for i, c in enumerate(calls) if c[3] > 0]
-    rows = []
-    for i, (kernel, label, p, n, _) in timed:
-        c = make_call(kernel, p, torch.bfloat16, np.random.default_rng(
-            4000 + i), dev)
-        t_bytes = c["bytes"] / PEAK_BYTES * 1e3
-        t_ops = c["ops"] / PEAK_BF16 * 1e3
-        stage = CF.filter_routes(torch.bfloat16, p["Co"] if p.get("entry")
-                                 else p["Ci"], p["D"])
-        route = (stage.entry if p.get("entry") else stage.layer
-                 if kernel == "conv3d_bn_relu" else stage.skip).route
-        rows.append(dict(kernel=kernel, label=label, launches=n, route=route,
-                         ms=event_ms(c["kernel"]),
-                         plain_ms=event_ms(c["plain"]),
-                         library_ms=event_ms(c["library"]),
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations"))
-        del c
-    for (i, (kernel, label, p, n, _)), row in zip(timed, rows):
-        c = make_call(kernel, p, torch.bfloat16, np.random.default_rng(
-            4000 + i), dev)
-        row["device_ms"] = kernel_device_ms(c["kernel"], KERNEL_NAMES[kernel])
-        row["library_device_ms"] = kernel_device_ms(c["library"], "")
-        del c
-        dev_ms, lib_ms = (("not measured" if v is None else f"{v:.4f} ms")
-                          for v in (row["device_ms"],
-                                    row["library_device_ms"]))
-        print(f"[14e] {kernel} [{label}] ({row['route']}) x{n}: device "
-              f"{dev_ms}, events {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, cuDNN conv3d {lib_ms} (events "
-              f"{row['library_ms']:.4f} ms), bound "
-              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) ({smi})")
-    report["timings"] = rows
+    print(f"[14] (d) done at {time.time() - t0:.1f} s")
+
+    # (e) each bf16 launch of the configuration and of the wide filter, and
+    # the "vpu" engines' dw-sep launches of the refinement widths (the
+    # "layers" path's pairs have the head pairs' shapes)
+    timed = [(i, c) for i, c in enumerate(calls) if c[3] > 0 and (
+        c[0] in FILTER_KERNELS or (c[0].startswith("dwsep")
+                                   and "vpu" in c[4]))]
+    report["timings"] = timing_rows(timed, dev, smi, "14e", 4000)
     report["seconds"] = time.time() - t0
     print(f"[14] configurations phase: {report['seconds']:.1f} s, "
           f"{len(failures)} failure(s)")

@@ -4,7 +4,8 @@
 Run from the repository root on a machine with a card:
 
     python3 kernel_device_times.py [--package-root DIR] [--nchw]
-                                   [--forwards] [--json PATH]
+                                   [--forwards] [--configs] [--widths]
+                                   [--json PATH]
 
 For every kernel call of `chip_smoke.py` (phases 3 and 6: the 368x1232
 batch-1 bf16 forward under each refinement path, every dw-sep solo and
@@ -39,9 +40,20 @@ stage's entry and its first C->C layer in one call (`entry_pairs`): the
 C->C layer reads what the entry just wrote, as in the forward, so the
 pair's time shows what the entry's stores cost the next layer.
 
+--configs times, in place of the shipped path's calls, the cost filters'
+launches of `chip_smoke.py` phase 14e (AnyNet's settings and the
+64-channel filter over D = 72, each input in the layout its tree's
+`filter_routes` gives), and --widths the "vpu" engines' dw-sep launches
+of phase 14e at the refinement widths `chip_smoke.REFINE_WIDTHS`; each
+beside the device
+time of its cuDNN call (one conv3d, or for a dw-sep pair one conv a
+layer).
+
 --package-root DIR imports `lwsnet_tpu_torch` from another checkout (for
 instance the parent commit unpacked with `git archive`), so two trees can
-be compared on one card in one run; --nchw hands every kernel NCHW
+be compared on one card in one run (this checkout's `chip_smoke.py`
+drives both: it is loaded after DIR heads the import path, so its own
+imports of the package find DIR's); --nchw hands every kernel NCHW
 operands (and leaves each layer's output layout to the wrapper), as a
 checkout without channels-last routes needs (a checkout whose
 conv3d_skip_softargmin reads NCDHW, for one). Exits 1
@@ -49,6 +61,7 @@ without CUDA.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -59,6 +72,8 @@ def main(argv=None):
     ap.add_argument("--package-root", default=None)
     ap.add_argument("--nchw", action="store_true")
     ap.add_argument("--forwards", action="store_true")
+    ap.add_argument("--configs", action="store_true")
+    ap.add_argument("--widths", action="store_true")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     import numpy as np
@@ -66,9 +81,16 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("kernel_device_times: no CUDA card", file=sys.stderr)
         return 1
-    import chip_smoke as cs  # this checkout's, before the package's root
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
+    # this checkout's chip_smoke.py, whose imports of the package resolve
+    # through the path above
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
     import lwsnet_tpu_torch
     from lwsnet_tpu_torch import ModelConfig
     from lwsnet_tpu_torch.utils.timing import card
@@ -81,6 +103,8 @@ def main(argv=None):
     rows = []
     root = os.path.dirname(lwsnet_tpu_torch.__file__)
     print(f"card: {card()}; package {root}")
+    if args.configs or args.widths:
+        return config_times(cs, args, dev)
     for i, (kernel, label, p, n, engine) in enumerate(calls):
         if args.nchw:
             p = {k: v for k, v in p.items()
@@ -152,6 +176,38 @@ def main(argv=None):
             json.dump(dict(card=card(), rows=rows, forwards=forwards,
                            chain_prefixes=prefixes, entry_pairs=pairs), f,
                       indent=1)
+    return 0
+
+
+def config_times(cs, args, dev):
+    """--configs / --widths: the chosen calls of phase 14e, each kernel
+    alone on the device beside its cuDNN call(s)."""
+    import numpy as np
+    import torch
+    from lwsnet_tpu_torch.tools.parity_layers import ANYNET
+    from lwsnet_tpu_torch.utils.timing import card
+    calls = [(i, c) for i, c in enumerate(cs.config_calls(ANYNET))
+             if c[3] > 0 and ((args.configs and c[0] in cs.FILTER_KERNELS)
+                              or (args.widths and c[0].startswith("dwsep")
+                                  and "vpu" in c[4]))]
+    rows = []
+    for i, (kernel, label, p, n, engine) in calls:
+        c = cs.make_call(kernel, p, torch.bfloat16,
+                         np.random.default_rng(4000 + i), dev)
+        ms = cs.kernel_device_ms(c["kernel"], cs.KERNEL_NAMES[kernel])
+        lib = cs.kernel_device_ms(c["library"] or c["layers"], "")
+        del c
+        rows.append(dict(kernel=kernel, label=label, engine=engine,
+                         launches=n, device_ms=ms, library_device_ms=lib,
+                         library="one call" if kernel != "dwsep3x3_pair"
+                         else "per layer"))
+        print(f"{kernel} [{label}] x{n}: " + ", ".join(
+            "not measured" if v is None else f"{v:.4f} ms" for v in (
+                ms, lib)) + f" (kernel, cuDNN {rows[-1]['library']})")
+    if args.json:
+        os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(dict(card=card(), rows=rows), f, indent=1)
     return 0
 
 

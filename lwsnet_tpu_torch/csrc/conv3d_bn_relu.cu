@@ -23,16 +23,19 @@
 //
 // Bound on the H100: the stage-1 32->32 layer is compute bound (9.40 GFLOP
 // per launch at 368x1232: 9.51 us at 989 TFLOP/s, against 21.8 MB of
-// input and output, 6.5 us at 3.35 TB/s); the stage-2/3 8->8 layers are
-// bound by their bytes (32.6 MB a launch at stage 3: 9.7 us), but their
-// route is held by its narrow products (below). The entries are bound by
-// their channels-last write stream: 10.9 MB at stage 1 (3.3 us), 4.1 and
-// 16.3 MB at stages 2 and 3 (1.4 and 5.4 us).
+// input and output, 6.5 us at 3.35 TB/s), as is a 64->64 layer over D =
+// 72 at 46x154 (112.8 GFLOP, 114.1 us, against 130.6 MB, 39.0 us); the
+// 16->16 layer of AnyNet's stage 1 is bound by its bytes; the stage-2/3
+// 8->8 layers are bound by their bytes (32.6 MB a launch at stage 3: 9.7
+// us), but their route is held by its narrow products (below). The
+// entries are bound by their channels-last write stream: 10.9 MB at stage
+// 1 (3.3 us), 4.1 and 16.3 MB at stages 2 and 3 (1.4 and 5.4 us).
 //
 // Four routes picked by shape:
-// * bf16, Co == 32, Ci == 16 or 32 (the stage-1 32->32 layers), channels-
-//   last in and out: tensor cores through wgmma m64n32k16, Hopper's
-//   warpgroup product (helpers in `tc.cuh`).
+// * bf16, Co == 32, Ci == 16 or 32 (the stage-1 32->32 layers), and Ci ==
+//   Co == 16 or 64 (AnyNet's stage-1 16->16 layers, a 64-channel filter),
+//   channels-last in and out: tensor cores through wgmma m64n32k16,
+//   Hopper's warpgroup product (helpers in `tc.cuh`).
 //   - Persistent blocks of three warpgroups, one block per SM: one thread
 //     of warpgroup 0 issues the TMA copies, warpgroups 1 and 2 multiply
 //     and write, taking the block's tiles in turn, so that one's epilogue
@@ -63,6 +66,24 @@
 //     channels-last stores from the registers, ragged D, H and W masked.
 //   Registers and spills (ptxas, `chip_smoke.py` phase 2 on the H100): 127
 //   a thread at Ci = 32, 124 at Ci = 16, no spills.
+//   - 16 -> 16: the 16 -> 32 body with the weights zero-padded to 32
+//     outputs by the wrapper and the upper 16 columns not stored (lanes
+//     t = 2, 3 of each quad skip their 16-byte store). Not an m64n16k16
+//     product: the layer is bound by its bytes (AnyNet's stage 1 at
+//     368x1232: 5.4 MB, 1.6 us, for 2.4 GFLOP padded, 2.4 us at the
+//     tensor cores' peak), its time is the launch and the tail of its 414
+//     tiles, and the padding keeps the one product body and B image
+//     layout that the 32-channel route runs.
+//   - 64 -> 64: the 221 KB of weights do not fit beside a stage ring in
+//     227 KB, so each block takes one 32-channel half of the outputs with
+//     its 110.6 KB of weights resident (blocks 2k and 2k + 1 take the two
+//     halves of the same tiles, so the second reads the input from L2),
+//     and stages the input in 16-channel slabs (36.9 KB a stage, three
+//     stages: 222 KB in all). A tile's four slabs pass through the ring
+//     in turn, the two product warpgroups' tiles interleaved slab by slab
+//     so that each has its next slab in flight while it multiplies; the
+//     accumulators carry over the slabs, and each slab's stage is freed
+//     once its products have run (wgmma_wait<0> a slab).
 // * bf16, Ci == Co == 8 (the stage-2/3 8->8 layers): the same persistent
 //   TMA + mbarrier + wgmma design on 16-byte voxels (`c8` below). On the
 //   CUDA cores this layer cannot reach its bound: 27 x 8 x 8 float32 FMAs
@@ -135,7 +156,7 @@
 //     of 1 KB runs (16-byte runs made TMA slow on the H100); two buffers
 //     in turn. Co = 8 NCDHW (not on the forward): 2-byte lane stores.
 // * otherwise (float32 at every width; bf16 at every width but those
-//   above, e.g. 16 and 4 channels, AnyNet's cost-filter widths): the CUDA
+//   above, e.g. 4 channels and the 1->16 and 1->64 entries): the CUDA
 //   cores, any Ci, Co >= 1, NCDHW in. A block takes an 8 x 32 pixel tile
 //   of one (b, d) slice, one pixel per thread, with CO_T output channels
 //   in float32 registers: 32, 16, 8 or 4, the widest that divides Co (4
@@ -276,11 +297,12 @@ constexpr int MAX_STAGES = 8;
 constexpr int SMEM_MAX = 232448;             // per block, opted in
 
 // The tensor-core routes (mirrored by `conv3d_tensor_core_route` in
-// ops/cuda/costfilter.py): 32 -> 32 (or 16 -> 32), 8 -> 8 and the entries
-// 1 -> 32, 1 -> 8.
+// ops/cuda/costfilter.py): 32 -> 32 (or 16 -> 32), 16 -> 16 and 64 -> 64,
+// 8 -> 8 and the entries 1 -> 32, 1 -> 8.
 bool use_tc(int elem_bytes, int Ci, int Co) {
   return elem_bytes == 2 &&
-         ((Co == tc::N && (Ci == 16 || Ci == 32)) || (Ci == 8 && Co == 8) ||
+         ((Co == tc::N && (Ci == 16 || Ci == 32)) ||
+          (Ci == Co && (Ci == 16 || Ci == 64)) || (Ci == 8 && Co == 8) ||
           (Ci == 1 && (Co == tc::N || Co == 8)));
 }
 
@@ -288,45 +310,58 @@ template <int SC>
 __host__ __device__ constexpr int stage_bytes() {
   return SROWS * LP * SC * 2;
 }
-// Weights, 2 x MAX_STAGES + 1 mbarriers (256 B); the stage ring starts at
-// the next 1024-byte boundary.
-template <int SC>
-__host__ __device__ constexpr int fixed_bytes() {
-  return 27 * SC * tc::N * 2 + 256;
+// A block's weights: NS slabs of SC input channels x 27 taps x one
+// 32-channel output half (tc::N), as 1 KB B images; 2 x MAX_STAGES + 1
+// mbarriers (256 B); the stage ring starts at the next 1024-byte boundary.
+template <int SC, int NS>
+__host__ __device__ constexpr int weight_bytes() {
+  return NS * 27 * SC * tc::N * 2;
 }
-template <int SC>
+template <int SC, int NS>
+__host__ __device__ constexpr int fixed_bytes() {
+  return weight_bytes<SC, NS>() + 256;
+}
+template <int SC, int NS>
 __host__ __device__ constexpr int tc_stages() {
-  return (SMEM_MAX - fixed_bytes<SC>() - 1024) / stage_bytes<SC>() <
+  return (SMEM_MAX - fixed_bytes<SC, NS>() - 1024) / stage_bytes<SC>() <
                  MAX_STAGES
-             ? (SMEM_MAX - fixed_bytes<SC>() - 1024) / stage_bytes<SC>()
+             ? (SMEM_MAX - fixed_bytes<SC, NS>() - 1024) / stage_bytes<SC>()
              : MAX_STAGES;
 }
-static_assert(tc_stages<32>() >= 2, "two stages must fit");
+static_assert(tc_stages<32, 1>() >= 2, "two stages must fit");
+static_assert(tc_stages<16, 4>() >= 3, "three stages must fit");
 
-// Ci = SC input channels, one staged slab; map_x: the TMA map of x; wt:
-// the (Ci / 16, 27) B images (the wrapper lays them out).
-template <int SC>
+// Ci = NS x SC input channels, staged one slab of SC at a time; Co = 16,
+// 32 or 64 outputs, a block taking one 32-channel half of them (Co = 64:
+// blocks 2k and 2k + 1 take the halves of the same tiles; Co = 16: the
+// products' upper 16 columns multiply zero weights and are not stored);
+// map_x: the TMA map of x (boxes of SC channels); wt: per output half the
+// (NS x SC / 16, 27) B images (the wrapper lays them out).
+template <int SC, int NS>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 conv3d_bn_relu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                          const bf16* __restrict__ wt,
                          const float* __restrict__ shift,
-                         bf16* __restrict__ y, int B, int D, int H, int W) {
+                         bf16* __restrict__ y, int B, int D, int H, int W,
+                         int Co) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int KC = SC / 16, PX = SC * 2, ROW = LP * PX;
-  constexpr int S = tc_stages<SC>(), SB = stage_bytes<SC>();
+  constexpr int S = tc_stages<SC, NS>(), SB = stage_bytes<SC>();
+  constexpr int WB = weight_bytes<SC, NS>();
   const uint32_t wbase = tc::smem_addr(smem);
-  const uint32_t bars = wbase + 27 * SC * tc::N * 2;
-  const uint32_t stage0 = (wbase + fixed_bytes<SC>() + 1023) & ~1023u;
+  const uint32_t bars = wbase + WB;
+  const uint32_t stage0 = (wbase + fixed_bytes<SC, NS>() + 1023) & ~1023u;
   // Per stage: copies landed, read by the products; then the weights'.
   auto landed = [&](int n) { return bars + 8 * (n % S); };
   auto empty = [&](int n) { return bars + 8 * (MAX_STAGES + n % S); };
   const uint32_t weights = bars + 8 * 2 * MAX_STAGES;
   const int wg = threadIdx.x / 128;
+  const int halves = Co > tc::N ? Co / tc::N : 1;
+  const int half = blockIdx.x % halves, bx = blockIdx.x / halves;
+  const int nbx = gridDim.x / halves, co0 = half * tc::N;
   const int nd = ceil_div(D, TD), nh = ceil_div(H, TH), ncx = ceil_div(W, TW);
   const int ntiles = B * nd * nh * ncx;
-  const int my_tiles = (int)blockIdx.x < ntiles
-                           ? (ntiles - 1 - (int)blockIdx.x) / gridDim.x + 1
-                           : 0;
+  const int my_tiles = bx < ntiles ? (ntiles - 1 - bx) / nbx + 1 : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -337,15 +372,15 @@ conv3d_bn_relu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
   }
   __syncthreads();
   if (threadIdx.x == 0) {  // resident weights: one bulk copy
-    tc::mbar_expect_tx(weights, 27 * SC * tc::N * 2);
-    tc::bulk_load(wbase, wt, 27 * SC * tc::N * 2, weights);
+    tc::mbar_expect_tx(weights, WB);
+    tc::bulk_load(wbase, wt + (size_t)half * (WB / 2), WB, weights);
   }
 
   struct Tile {
     int b, d0, h0, w0;
   };
   auto tile_of = [&](int n) {
-    int t = blockIdx.x + n * gridDim.x;
+    int t = bx + n * nbx;
     Tile r;
     r.w0 = (t % ncx) * TW;
     t /= ncx;
@@ -355,20 +390,33 @@ conv3d_bn_relu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
     r.b = t / nd;
     return r;
   };
+  // The ring's items: the block's tiles in pairs (tiles 2p and 2p + 1, one
+  // a product warpgroup), slab by slab, the pair's two tiles in turn:
+  // item p * 2 NS + s * (tiles in the pair) + (tile % 2). With one slab,
+  // item n is tile n.
+  auto item_of = [&](int m, int s) {
+    const int p = m / 2, ps = min(2, my_tiles - 2 * p);
+    return p * 2 * NS + s * ps + m % 2;
+  };
 
   if (wg == 0) {
-    // Staging: one thread issues tile n's 16 row copies into stage
-    // n % S, on the stage's barrier, once the products have read it.
+    // Staging: one thread issues item n's 16 row copies (one tile's slab)
+    // into stage n % S, on the stage's barrier, once the products have
+    // read it.
     if (threadIdx.x == 0)
-      for (int n = 0; n < my_tiles; ++n) {
-        if (n >= S) tc::mbar_wait(empty(n), ((n / S) & 1) ^ 1);
-        const Tile t = tile_of(n);
-        const uint32_t buf = stage0 + (n % S) * SB;
-        tc::mbar_expect_tx(landed(n), SB);
-        for (int sr = 0; sr < SROWS; ++sr)
-          tc::tma_load_5d(buf + sr * ROW, &map_x, landed(n), 0, t.w0 - 1,
-                          t.h0 - 1 + sr % SH, t.d0 - 1 + sr / SH, t.b);
-      }
+      for (int m = 0; m < my_tiles; m += 2)
+        for (int s = 0; s < NS; ++s)
+          for (int r = 0; r < 2 && m + r < my_tiles; ++r) {
+            const int n = item_of(m + r, s);
+            if (n >= S) tc::mbar_wait(empty(n), ((n / S) & 1) ^ 1);
+            const Tile t = tile_of(m + r);
+            const uint32_t buf = stage0 + (n % S) * SB;
+            tc::mbar_expect_tx(landed(n), SB);
+            for (int sr = 0; sr < SROWS; ++sr)
+              tc::tma_load_5d(buf + sr * ROW, &map_x, landed(n), s * SC,
+                              t.w0 - 1, t.h0 - 1 + sr % SH,
+                              t.d0 - 1 + sr / SH, t.b);
+          }
     return;
   }
 
@@ -388,43 +436,48 @@ conv3d_bn_relu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
   tc::mbar_wait(weights, 0);
   float sh[8];  // this lane's output channels 8j + 2(lane % 4) + {0, 1}
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    sh[2 * j] = shift[8 * j + 2 * (lane % 4)];
-    sh[2 * j + 1] = shift[8 * j + 2 * (lane % 4) + 1];
+  for (int j = 0; j < 8; ++j) {
+    const int c = co0 + 8 * (j / 2) + 2 * (lane % 4) + j % 2;
+    sh[j] = c < Co ? shift[c] : 0.f;
   }
+  // the lanes whose 8 channels of a row the block stores
+  const bool stores = 8 * (lane % 4) < min(Co, tc::N);
   tc::Acc acc[TD * TH];
   for (int m = wg - 1; m < my_tiles; m += 2) {
-    tc::mbar_wait(landed(m), (m / S) & 1);
-    const uint32_t buf = stage0 + (m % S) * SB;
 #pragma unroll
     for (int o = 0; o < TD * TH; ++o) tc::zero(acc[o]);
-    constexpr int NG = KC * SROWS * 3, NBUF = 4;
-    auto load = [&](uint32_t (&f)[4], int q) {
-      const int kc = q / (SROWS * 3), sr = q / 3 % SROWS, kw = q % 3;
-      tc::ldsm_x4(f, buf + sr * ROW + ao[kc][kw]);
-    };
-    uint32_t af[NBUF][4];
-    load(af[0], 0);
+    for (int s = 0; s < NS; ++s) {
+      const int n = item_of(m, s);
+      tc::mbar_wait(landed(n), (n / S) & 1);
+      const uint32_t buf = stage0 + (n % S) * SB;
+      constexpr int NG = KC * SROWS * 3, NBUF = 4;
+      auto load = [&](uint32_t (&f)[4], int q) {
+        const int kc = q / (SROWS * 3), sr = q / 3 % SROWS, kw = q % 3;
+        tc::ldsm_x4(f, buf + sr * ROW + ao[kc][kw]);
+      };
+      uint32_t af[NBUF][4];
+      load(af[0], 0);
 #pragma unroll
-    for (int q = 0; q < NG; ++q) {
-      if (q + 1 < NG) {
-        if (q + 1 >= NBUF) tc::wgmma_wait<NBUF - 2>();
-        load(af[(q + 1) % NBUF], q + 1);
-      }
-      tc::wgmma_fence();
-      const int kc = q / (SROWS * 3), sr = q / 3 % SROWS, kw = q % 3;
+      for (int q = 0; q < NG; ++q) {
+        if (q + 1 < NG) {
+          if (q + 1 >= NBUF) tc::wgmma_wait<NBUF - 2>();
+          load(af[(q + 1) % NBUF], q + 1);
+        }
+        tc::wgmma_fence();
+        const int kc = q / (SROWS * 3), sr = q / 3 % SROWS, kw = q % 3;
 #pragma unroll
-      for (int o = 0; o < TD * TH; ++o) {
-        const int kd = sr / SH - o / TH, kh = sr % SH - o % TH;
-        if (kd < 0 || kd > 2 || kh < 0 || kh > 2) continue;
-        tc::wgmma_m64n32k16(
-            acc[o], af[q % NBUF],
-            desc0 + (kc * 27 + kd * 9 + kh * 3 + kw) * (tc::B_SLICE >> 4));
+        for (int o = 0; o < TD * TH; ++o) {
+          const int kd = sr / SH - o / TH, kh = sr % SH - o % TH;
+          if (kd < 0 || kd > 2 || kh < 0 || kh > 2) continue;
+          tc::wgmma_m64n32k16(acc[o], af[q % NBUF],
+                              desc0 + ((s * KC + kc) * 27 + kd * 9 + kh * 3 +
+                                       kw) * (tc::B_SLICE >> 4));
+        }
+        tc::wgmma_commit();
       }
-      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::mbar_arrive(empty(n));  // the slab's wgmma have read the stage
     }
-    tc::wgmma_wait<0>();
-    tc::mbar_arrive(empty(m));  // the tile's wgmma have read the stage
     const Tile t = tile_of(m);
 #pragma unroll
     for (int o = 0; o < TD * TH; ++o) {
@@ -435,35 +488,37 @@ conv3d_bn_relu_tc_kernel(const __grid_constant__ CUtensorMap map_x,
       const int dz = t.d0 + o / TH, h = t.h0 + o % TH;
       const bool rv = dz < D && h < H;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int w = t.w0 + warp * 16 + lane / 4 + 8 * half;
+      for (int half_row = 0; half_row < 2; ++half_row) {
+        const int w = t.w0 + warp * 16 + lane / 4 + 8 * half_row;
         const bool ok = rv && w < W;
         bf16* px = y + ((((size_t)t.b * D + (ok ? dz : 0)) * H +
-                         (ok ? h : 0)) * W + (ok ? w : 0)) * tc::N;
-        tc::store_row<bf16>(acc[o], half, px, ok);
+                         (ok ? h : 0)) * W + (ok ? w : 0)) * Co + co0;
+        tc::store_row<bf16>(acc[o], half_row, px, ok && stores);
       }
     }
   }
 }
 
-template <int SC>
+template <int SC, int NS>
 int launch_tc(const void* x, const void* wt, const void* shift, void* y,
-              int B, int D, int H, int W, cudaStream_t s) {
-  auto kernel = conv3d_bn_relu_tc_kernel<SC>;
-  constexpr int smem =
-      fixed_bytes<SC>() + 1024 + tc_stages<SC>() * stage_bytes<SC>();
+              int B, int D, int H, int W, int Co, cudaStream_t s) {
+  auto kernel = conv3d_bn_relu_tc_kernel<SC, NS>;
+  constexpr int smem = fixed_bytes<SC, NS>() + 1024 +
+                       tc_stages<SC, NS>() * stage_bytes<SC>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  if (tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
+  const int halves = Co > tc::N ? Co / tc::N : 1;
+  if (tc::sm_count() < halves) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  const cuuint64_t dims[5] = {(cuuint64_t)SC, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)D, (cuuint64_t)B};
+  const cuuint64_t dims[5] = {(cuuint64_t)SC * NS, (cuuint64_t)W,
+                              (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)B};
   const int rc = tc::make_map(&map, x, 5, dims, SC, LP);
   if (rc != 0) return rc;
   const int tiles = B * ceil_div(D, TD) * ceil_div(H, TH) * ceil_div(W, TW);
-  kernel<<<std::min(tiles, tc::sm_count()), TC_THREADS, smem, s>>>(
-      map, (const bf16*)wt, (const float*)shift, (bf16*)y, B, D, H, W);
+  const int grid = std::min(tiles, tc::sm_count() / halves) * halves;
+  kernel<<<grid, TC_THREADS, smem, s>>>(
+      map, (const bf16*)wt, (const float*)shift, (bf16*)y, B, D, H, W, Co);
   return (int)cudaGetLastError();
 }
 
@@ -1187,11 +1242,12 @@ int launch(const void* x, const void* wt, const void* shift, const void* aff,
   if (aff != nullptr && Ci != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_tc(sizeof(T), Ci, Co)) {
-    // The routes write channels-last only at 32 channels, either layout at
-    // 8. The entries' one input channel lies the same in both layouts;
-    // the other routes read channels-last only. The entries take wt as
-    // (Co, 1, 3, 3, 3), the others the B images the wrapper lays out.
-    if (Co == tc::N && !y_cl) return (int)cudaErrorInvalidValue;
+    // The routes write channels-last only at 16, 32 and 64 channels,
+    // either layout at 8. The entries' one input channel lies the same in
+    // both layouts; the other routes read channels-last only. The entries
+    // take wt as (Co, 1, 3, 3, 3), the others the B images the wrapper
+    // lays out.
+    if (Co != 8 && !y_cl) return (int)cudaErrorInvalidValue;
     if (Ci == 1) {
       const c1::Args a{(const uint16_t*)x, (const uint16_t*)wt,
                        (const float*)shift, (const float*)aff, (bf16*)y,
@@ -1200,8 +1256,11 @@ int launch(const void* x, const void* wt, const void* shift, const void* aff,
     }
     if (!x_cl) return (int)cudaErrorInvalidValue;
     if (Co == 8) return c8::launch(x, wt, shift, y, B, D, H, W, y_cl, s);
-    return Ci == 32 ? launch_tc<32>(x, wt, shift, y, B, D, H, W, s)
-                    : launch_tc<16>(x, wt, shift, y, B, D, H, W, s);
+    if (Ci == 32)
+      return launch_tc<32, 1>(x, wt, shift, y, B, D, H, W, Co, s);
+    if (Ci == 16)
+      return launch_tc<16, 1>(x, wt, shift, y, B, D, H, W, Co, s);
+    return launch_tc<16, 4>(x, wt, shift, y, B, D, H, W, Co, s);
   }
   if (x_cl) return (int)cudaErrorInvalidValue;  // the CUDA cores read NCDHW
   const T* xp = (const T*)x;

@@ -142,9 +142,10 @@ CONV3D_SKIP_SOFTARGMIN = Kernel(
     "conv3d_skip_softargmin",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
 DENSE3X3 = Kernel("dense3x3", [_P] * 7 + [_I] * 9 + [_P])
-DWSEP3X3 = Kernel("dwsep3x3", [_P] * 5 + [_I] * 8 + [_P])
+DWSEP3X3 = Kernel("dwsep3x3", [_P] * 5 + [_I] * 9 + [_P])
 DWSEP3X3_PAIR = Kernel(
-    "dwsep3x3_pair", [_P] * 8 + [_I] * 9 + [_P, _I, _P], source="dwsep3x3")
+    "dwsep3x3_pair", [_P] * 8 + [_I] * 9 + [_P, _I, _I, _P],
+    source="dwsep3x3")
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
 CHAIN3X3 = Kernel(

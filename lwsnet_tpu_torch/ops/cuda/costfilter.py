@@ -22,18 +22,19 @@ its plain PyTorch version, beside it here, for a CPU tensor.
 
 Routes and layouts on the card (`filter_routes`, the one rule that the
 wrappers, `filter_soft_argmin`, chip_smoke.py and `tools.parity_layers`
-consult): a bf16 stage of 32 or 8 channels runs its launches on the tensor
-cores and its activations lie channels-last-3d in memory, (B, D, H, W, C)
-under the logical (B, C, D, H, W) shape, because those routes of
-`conv3d_bn_relu` (`conv3d_tensor_core_route`) read it so. The 1 -> C entry
-writes it (its one input channel, the raw volume, lies the same in both
-layouts), the C -> C layers read and write it, and the fused last layer
-reads it: on the tensor cores up to D = 64 (`SKIP_TC_MAX_D`), past it on
-the CUDA cores. Every other stage, float32 at any width and bf16 at any
-other width (AnyNet's 16 and 4 channels among them) and any D, runs on the
-CUDA cores in the default layout. No filter makes a layout copy. A copy,
-where a caller hands a kernel the other layout, is `build.in_layout`'s,
-counted.
+consult): a bf16 stage of 32, 16, 64 or 8 channels runs its C -> C layers
+on the tensor cores and its activations lie channels-last-3d in memory,
+(B, D, H, W, C) under the logical (B, C, D, H, W) shape, because those
+routes of `conv3d_bn_relu` (`conv3d_tensor_core_route`) read it so. The
+1 -> C entry writes it (its one input channel, the raw volume, lies the
+same in both layouts; at 16 and 64 channels from the CUDA cores), the
+C -> C layers read and write it, and the fused last layer reads it: on
+the tensor cores at 32 and 8 channels up to D = 64 (`SKIP_TC_MAX_D`),
+otherwise on the CUDA cores. Every other stage, float32 at any width and
+bf16 at any other width (AnyNet's 4 channels among them) and any D, runs
+on the CUDA cores in the default layout. No filter makes a layout copy. A
+copy, where a caller hands a kernel the other layout, is
+`build.in_layout`'s, counted.
 """
 
 from __future__ import annotations
@@ -58,19 +59,20 @@ TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
 
 def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
     """Whether `conv3d_bn_relu` runs a wgmma route (`use_tc` in
-    csrc/conv3d_bn_relu.cu): bf16 32 -> 32 (or 16 -> 32), which reads and
-    writes channels-last only; bf16 8 -> 8, which reads channels-last and
-    writes either layout; and the bf16 entries 1 -> 32 and 1 -> 8 (`c1`),
-    whose one input channel lies the same in either layout, writing
-    channels-last (either layout at 8 channels)."""
+    csrc/conv3d_bn_relu.cu): bf16 32 -> 32 (or 16 -> 32), 16 -> 16 and
+    64 -> 64, which read and write channels-last only; bf16 8 -> 8, which
+    reads channels-last and writes either layout; and the bf16 entries
+    1 -> 32 and 1 -> 8 (`c1`), whose one input channel lies the same in
+    either layout, writing channels-last (either layout at 8 channels)."""
     return dtype == torch.bfloat16 and (
-        (Co == 32 and Ci in (1, 16, 32)) or (Co == 8 and Ci in (1, 8)))
+        (Co == 32 and Ci in (1, 16, 32)) or (Ci == Co and Ci in (16, 64))
+        or (Co == 8 and Ci in (1, 8)))
 
 
 def conv3d_writes_ncdhw(dtype: torch.dtype, Ci: int, Co: int) -> bool:
     """Whether `conv3d_bn_relu` can write NCDHW: every route but the
-    32-channel tensor-core one."""
-    return not (conv3d_tensor_core_route(dtype, Ci, Co) and Co == 32)
+    tensor-core ones of 16, 32 and 64 outputs."""
+    return not (conv3d_tensor_core_route(dtype, Ci, Co) and Co != 8)
 
 
 class LaunchRoute(NamedTuple):
@@ -93,21 +95,24 @@ class StageRoutes(NamedTuple):
 
 def filter_routes(dtype: torch.dtype, channels: int, D: int) -> StageRoutes:
     """The route and layouts of each launch of a stage's filter of width
-    `channels` over D costs a pixel, in `dtype` (float32 or bf16): the
-    tensor cores and channels-last for bf16 at 32 or 8 channels (the fused
-    last layer there only up to D = SKIP_TC_MAX_D, past it the CUDA cores
-    reading channels-last), the CUDA cores and NCDHW otherwise. Each
-    launch reads what the one before it writes. Mirrors `use_tc` in
+    `channels` over D costs a pixel, in `dtype` (float32 or bf16): for
+    bf16 at 32, 16, 64 or 8 channels the C -> C layers on the tensor cores
+    and every activation channels-last (the entry at 16 and 64 on the CUDA
+    cores, writing channels-last; the fused last layer on the tensor cores
+    at 32 and 8 up to D = SKIP_TC_MAX_D, else on the CUDA cores reading
+    channels-last); the CUDA cores and NCDHW otherwise. Each launch reads
+    what the one before it writes. Mirrors `use_tc` in
     csrc/conv3d_bn_relu.cu and `tcr::takes` in
     csrc/conv3d_skip_softargmin.cu."""
     if channels < 1 or D < 1:
         raise ValueError(f"a filter of {channels} channels over {D} costs")
     tc = conv3d_tensor_core_route(dtype, channels, channels)
+    entry_tc = conv3d_tensor_core_route(dtype, 1, channels)
     skip_tc = skip_tensor_core_route(dtype, channels) and D <= SKIP_TC_MAX_D
-    route = TENSOR_CORES if tc else CUDA_CORES
     return StageRoutes(
-        entry=LaunchRoute(route, False, tc),
-        layer=LaunchRoute(route, tc, tc),
+        entry=LaunchRoute(TENSOR_CORES if entry_tc else CUDA_CORES, False,
+                          tc),
+        layer=LaunchRoute(TENSOR_CORES if tc else CUDA_CORES, tc, tc),
         skip=LaunchRoute(TENSOR_CORES if skip_tc else CUDA_CORES, tc, False))
 
 
@@ -119,6 +124,19 @@ def c8_images(wt: torch.Tensor) -> torch.Tensor:
     Co, Ci = wt.shape[:2]
     return F.pad(wt, (0, 1)).reshape(Co, Ci, 3, 3, 2, 2).permute(
         2, 3, 4, 5, 0, 1).contiguous()
+
+
+def tc_images(wt: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3, 3), Co = 16, 32 or 64, Ci a multiple of 16 -> the
+    16 / 32 / 64-output route's resident B images: per 32-channel output
+    half (16 outputs zero-padded to 32; a block holds one half) and
+    (ci // 16, tap) a 16 x 32 K-major slice of 8 x 8 core matrices
+    (csrc/tc.cuh), as (half, ci // 16, tap, co // 8, ci % 16 // 8, co % 8,
+    ci % 8)."""
+    Co, Ci = wt.shape[:2]
+    wp = F.pad(wt, (0, 0, 0, 0, 0, 0, 0, 0, 0, -Co % 32)) if Co % 32 else wt
+    return wp.reshape(-1, 4, 8, Ci // 16, 2, 8, 27).permute(
+        0, 3, 6, 1, 4, 2, 5).contiguous()
 
 
 def skip_tensor_core_route(dtype: torch.dtype, Ci: int) -> bool:
@@ -160,8 +178,9 @@ def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
     is copied where it lies otherwise; a 1-channel x lies the same in
     both); the CUDA cores take any Ci and Co. The result lies
     channels-last where asked (`channels_last`) or, by default, where a
-    filter of its width reads it so (`filter_routes`: bf16, 32 or 8
-    channels); the 32-channel routes write nothing else."""
+    filter of its width reads it so (`filter_routes`: bf16, 32, 16, 64 or
+    8 channels); the tensor-core routes of 16, 32 and 64 outputs write
+    nothing else."""
     if not on_card(x):
         return conv3d_bn_relu_plain(x, wt, shift)
     return _launch(x, wt, shift, None, channels_last)
@@ -212,8 +231,8 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
     y_cl = (filter_routes(x.dtype, Co, D).layer.reads_cl
             if channels_last is None else channels_last)
     if not (y_cl or conv3d_writes_ncdhw(x.dtype, Ci, Co)):
-        raise ValueError("the 32-channel tensor-core routes write "
-                         "channels-last only")
+        raise ValueError("the tensor-core routes of 16, 32 and 64 outputs "
+                         "write channels-last only")
     check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, x_cl)
     check(wt, "wt", (Co, Ci, 3, 3, 3), x.dtype, x.device)
     check(shift, "shift", (Co,), torch.float32, x.device)
@@ -222,10 +241,7 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
     elif tensor_core and Co == 8:
         wk = c8_images(wt)
     elif tensor_core:
-        # resident B images: per (ci // 16, tap) a 16 x 32 K-major slice
-        # as 8 x 8 core matrices (csrc/tc.cuh)
-        wk = wt.reshape(Co // 8, 8, Ci // 16, 2, 8, 27).permute(
-            2, 5, 0, 3, 1, 4).contiguous()
+        wk = tc_images(wt)
     else:  # (Ci, 27, Co)
         wk = wt.permute(1, 2, 3, 4, 0).reshape(Ci, 27, Co).contiguous()
     y = empty((B, Co, D, H, W), x.dtype, x.device, y_cl)

@@ -12,7 +12,9 @@ computes its function, so no kernel of its own is needed:
 * `fused_dwsep` -> `dwsep3x3`;
 * `fused_dwsep2` -> the `dwsep3x3` pair kernel.
 
-On the card the bf16 dw-sep layers read and write channels-last memory
+On the card each launch writes the layout the next one reads, as the
+refinement's route rule (`models/refine_kernels.refine_routes`) says:
+e.g. the bf16 32-channel dw-sep layers read and write channels-last memory
 (`dwsep_tensor_core_route`), so the "layers" path asks the tower entries to
 write it (`fused_dense(channels_last=True)`).
 
@@ -53,12 +55,16 @@ def pick_layer_chunk(h: int, w: int, max_channels: int,
 
 
 def layer_plan(h: int, w: int, dilations: Sequence[int],
-               channels: int = 32) -> Tuple[Tuple[int, ...], ...]:
-    """The launches of a dw-sep chain at an h x w image, as the JAX
-    `_dwsep_chain` makes them: two consecutive layers fuse into one pair
-    when the chunk holds their joint halo (chunk >= round8(d1 + d2)), else
-    the first runs alone. Returns a tuple of (d,) solos and (d1, d2) pairs,
-    e.g. ((2, 4), (8,), (16,)) for the tower at 96 x 3712."""
+               channels: int) -> Tuple[Tuple[int, ...], ...]:
+    """The launches of a dw-sep chain of `channels` (the refinement's
+    width, `refine_channels`) at an h x w image, as the JAX `_dwsep_chain`
+    makes them with the chunk the JAX package picks for that width
+    (`refine_pallas.py`: `pick_layer_chunk(H, W, refine_channels)`): two
+    consecutive layers fuse into one pair when the chunk holds their joint
+    halo (chunk >= round8(d1 + d2)), else the first runs alone. Returns a
+    tuple of (d,) solos and (d1, d2) pairs, e.g. ((2, 4), (8,), (16,)) for
+    the 32-channel tower at 96 x 3712. Raises ValueError where the JAX
+    package finds no chunk."""
     chunk = pick_layer_chunk(h, w, channels)
     plan, k = [], 0
     while k < len(dilations):
@@ -103,22 +109,26 @@ def fused_dense(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
 
 
 def fused_dwsep(x: torch.Tensor, affine: torch.Tensor, dwk: torch.Tensor,
-                pwk: torch.Tensor, *, dilation: int) -> torch.Tensor:
+                pwk: torch.Tensor, *, dilation: int,
+                channels_last: bool = False) -> torch.Tensor:
     """BN-affine + ReLU + depthwise dilated 3x3 + pointwise 1x1.
 
     x: (B, C, H, W); affine: (2, C); dwk: (3, 3, 1, C) HWIO taps; pwk:
-    (Co, C). Returns (B, Co, H, W) in x's dtype."""
+    (Co, C). Returns (B, Co, H, W) in x's dtype; on the card channels-last
+    in memory as `dwsep` says."""
     dw, pw, aff = _dwsep_operands(x, affine, dwk, pwk)
-    return dwsep(x, dw, pw, dilation=dilation, affine=aff)
+    return dwsep(x, dw, pw, dilation=dilation, affine=aff,
+                 channels_last=channels_last)
 
 
 def fused_dwsep2(x: torch.Tensor, affine1: torch.Tensor, dwk1: torch.Tensor,
                  pwk1: torch.Tensor, affine2: torch.Tensor,
                  dwk2: torch.Tensor, pwk2: torch.Tensor, *, dilation1: int,
-                 dilation2: int) -> torch.Tensor:
+                 dilation2: int, channels_last: bool = False) -> torch.Tensor:
     """Two `fused_dwsep` layers in one launch (`dwsep2`); arguments as
     `fused_dwsep`, twice. Returns (B, Co2, H, W) in x's dtype."""
     dw1, pw1, a1 = _dwsep_operands(x, affine1, dwk1, pwk1)
     dw2, pw2, a2 = _dwsep_operands(x, affine2, dwk2, pwk2)
     return dwsep2(x, dw1, pw1, dw2, pw2, dilation1=dilation1,
-                  dilation2=dilation2, affine1=a1, affine2=a2)
+                  dilation2=dilation2, affine1=a1, affine2=a2,
+                  channels_last=channels_last)

@@ -19,12 +19,15 @@ read and write channels-last memory, (B, H, W, C) under the logical
 reads NCHW and writes channels-last, its narrow-output route
 (`dense_output_route`) reads channels-last and writes (B, Co, H, W), and
 its CUDA-core route reads either layout (channels-last where Ci % 8 == 0)
-and writes channels-last when asked. Under bf16 the "mxu" and "vpu"
-engines' entry writes channels-last and every later layer, the output
-conv included, reads it; "chain"'s tower reads its 3-channel input NCHW
-and writes channels-last, which the head reads. The CUDA-core routes of
-`dwsep` / `dwsep2` and `chain` read the default layout. Each copy is
-`build.in_layout`'s, counted. The plain versions take any layout.
+and writes channels-last when asked. The CUDA-core routes of `dwsep` /
+`dwsep2` (any width) read the default layout and write channels-last when
+asked; `chain`'s read and write the default layout. The refinement's
+route rule (`models/refine_kernels.refine_routes`) says which layout each
+launch of a forward writes: the one its next launch reads (under bf16 at
+32 channels, channels-last from the "mxu" and "vpu" engines' entry to the
+output conv; "chain"'s tower reads its 3-channel input NCHW and writes
+channels-last, which the head reads). Each copy is `build.in_layout`'s,
+counted. The plain versions take any layout.
 """
 
 from __future__ import annotations
@@ -301,10 +304,13 @@ def dwsep_plain(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
 
 
 def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
-          dilation: int, affine: torch.Tensor) -> torch.Tensor:
+          dilation: int, affine: torch.Tensor,
+          channels_last: bool = False) -> torch.Tensor:
     """The dwsep3x3 kernel (one layer); arguments as `dwsep_plain`. On
     the card the tensor-core route reads and writes channels-last, the
-    CUDA-core route NCHW (x is copied where it lies otherwise)."""
+    CUDA-core route (any C, Co) reads NCHW (x is copied where it lies
+    otherwise) and writes NCHW, or channels-last where `channels_last`
+    asks."""
     if not on_card(x):
         return dwsep_plain(x, dw, pw, dilation=dilation, affine=affine)
     B, C, H, W = x.shape
@@ -313,16 +319,17 @@ def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
     cl = dwsep_tensor_core_route(dt, (C, Co), (dilation,), G)
+    y_cl = cl or channels_last
     x = in_layout(x, cl)
     check(x, "x", (B, C, H, W), dt, dev, cl)
     check(dw, "dw", (G, C, 3, 3), dt, dev)
     check(pw, "pw", (G, Co, C), dt, dev)
     check(affine, "affine", (G, 2, C), torch.float32, dev)
     pk = _pw_images(pw) if cl else pw
-    y = empty((B, Co, H, W), dt, dev, cl)
+    y = empty((B, Co, H, W), dt, dev, y_cl)
     DWSEP3X3.launch(f"dwsep3x3_{symbol_suffix(dt)}", dev, x.data_ptr(),
                     affine.data_ptr(), dw.data_ptr(), pk.data_ptr(),
-                    y.data_ptr(), B, G, C, Co, H, W, dilation, cl)
+                    y.data_ptr(), B, G, C, Co, H, W, dilation, cl, y_cl)
     return y
 
 
@@ -337,8 +344,8 @@ def dwsep2_plain(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
 
 def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
            dw2: torch.Tensor, pw2: torch.Tensor, *, dilation1: int,
-           dilation2: int, affine1: torch.Tensor,
-           affine2: torch.Tensor) -> torch.Tensor:
+           dilation2: int, affine1: torch.Tensor, affine2: torch.Tensor,
+           channels_last: bool = False) -> torch.Tensor:
     """The dwsep3x3 pair kernel: both layers in one launch; arguments as
     `dwsep2_plain`. The layouts as `dwsep`'s. The tensor-core route passes
     the intermediate through a channels-last scratch tensor (one
@@ -355,6 +362,7 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
     cl = dwsep_tensor_core_route(dt, (C, Cm, Co), (dilation1, dilation2),
                                  G)
+    y_cl = cl or channels_last
     x = in_layout(x, cl)
     check(x, "x", (B, C, H, W), dt, dev, cl)
     check(dw1, "dw1", (G, C, 3, 3), dt, dev)
@@ -365,13 +373,13 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
     check(affine2, "affine2", (G, 2, Cm), torch.float32, dev)
     pk1, pk2 = (_pw_images(pw1), _pw_images(pw2)) if cl else (pw1, pw2)
     mid = empty((B, Cm, H, W), dt, dev, True) if cl else None
-    y = empty((B, Co, H, W), dt, dev, cl)
+    y = empty((B, Co, H, W), dt, dev, y_cl)
     DWSEP3X3_PAIR.launch(
         f"dwsep3x3_pair_{symbol_suffix(dt)}", dev, x.data_ptr(),
         affine1.data_ptr(), dw1.data_ptr(), pk1.data_ptr(),
         affine2.data_ptr(), dw2.data_ptr(), pk2.data_ptr(), y.data_ptr(),
         B, G, C, Cm, Co, H, W, dilation1, dilation2,
-        None if mid is None else mid.data_ptr(), cl)
+        None if mid is None else mid.data_ptr(), cl, y_cl)
     return y
 
 
@@ -526,12 +534,14 @@ def dense_layer(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
 
 def dense2_layer(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
                  affine: torch.Tensor,
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 channels_last: bool = False) -> torch.Tensor:
     """Dense dilated 3x3 conv over the channel concatenation of the two
     batch halves of x, without forming the concat:
     conv(concat(A, B)) = conv_A(A) + conv_B(B), each half with its own
     BN affine + ReLU. x: (2B, Ci, H, W); kernel: (Co, 2*Ci, 3, 3);
-    affine: (2, 2*Ci). Returns (B, Co, H, W)."""
+    affine: (2, 2*Ci). Returns (B, Co, H, W), on the card channels-last in
+    memory as `dense3x3` says."""
     B2, Ci = x.shape[0], x.shape[1]
     if B2 % 2:
         raise ValueError(f"batch {B2} is not two halves")
@@ -545,26 +555,30 @@ def dense2_layer(x: torch.Tensor, kernel: torch.Tensor, *, dilation: int,
         x[:B], wt[None, :, :Ci].contiguous(), dilation=dilation,
         affine=aff[None, :, :Ci].contiguous(), x2=x[B:],
         wt2=wt[None, :, Ci:].contiguous(),
-        affine2=aff[None, :, Ci:].contiguous(), out_dtype=out_dtype)
+        affine2=aff[None, :, Ci:].contiguous(), out_dtype=out_dtype,
+        channels_last=channels_last)
 
 
 def dwsep_layer(x: torch.Tensor, affine: torch.Tensor, dwk: torch.Tensor,
-                pwk: torch.Tensor, *, dilation: int,
-                groups: int = 1) -> torch.Tensor:
+                pwk: torch.Tensor, *, dilation: int, groups: int = 1,
+                channels_last: bool = False) -> torch.Tensor:
     """Folded BN-affine + ReLU + depthwise dilated 3x3 + pointwise 1x1.
     x: (B, C, H, W); affine: ([G,] 2, C); dwk: ([G,] C, 1, 3, 3) and pwk:
     ([G,] Co, C), each cast on its own to x's dtype. Returns
-    (B, Co, H, W)."""
+    (B, Co, H, W), on the card channels-last in memory as `dwsep`
+    says."""
     return dwsep(x, _grouped(dwk, 4, groups)[:, :, 0].to(x.dtype).contiguous(),
                  _grouped(pwk, 2, groups).to(x.dtype).contiguous(),
                  dilation=dilation,
-                 affine=_grouped(affine, 2, groups).float().contiguous())
+                 affine=_grouped(affine, 2, groups).float().contiguous(),
+                 channels_last=channels_last)
 
 
 def dwsep2_layer(x: torch.Tensor, affine1: torch.Tensor, dwk1: torch.Tensor,
                  pwk1: torch.Tensor, affine2: torch.Tensor,
                  dwk2: torch.Tensor, pwk2: torch.Tensor, *, dilation1: int,
-                 dilation2: int, groups: int = 1) -> torch.Tensor:
+                 dilation2: int, groups: int = 1,
+                 channels_last: bool = False) -> torch.Tensor:
     """Two consecutive dw-sep layers in one launch; arguments as
     `dwsep_layer`, twice. Returns (B, Co2, H, W)."""
     def prep(aff, dwk, pwk):
@@ -575,7 +589,8 @@ def dwsep2_layer(x: torch.Tensor, affine1: torch.Tensor, dwk1: torch.Tensor,
     dw1, pw1, a1 = prep(affine1, dwk1, pwk1)
     dw2, pw2, a2 = prep(affine2, dwk2, pwk2)
     return dwsep2(x, dw1, pw1, dw2, pw2, dilation1=dilation1,
-                  dilation2=dilation2, affine1=a1, affine2=a2)
+                  dilation2=dilation2, affine1=a1, affine2=a2,
+                  channels_last=channels_last)
 
 
 def chain_layer(x: torch.Tensor, kernels: Sequence[torch.Tensor],

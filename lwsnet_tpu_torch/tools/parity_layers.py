@@ -50,15 +50,19 @@ runs under every engine, in bf16 and float32, on both sets.
     python -m lwsnet_tpu_torch.tools.parity_layers [--plant ROUTE] \
         [--height 368 --width 1232] [--out results/PARITY_LAYERS.json] \
         [--device cuda] [--maxdisplist 12 3 3 --channels_3d 4 \
-        --layers_3d 4 --growth_rate 4 1 1]
+        --layers_3d 4 --growth_rate 4 1 1] [--refine_channels 48]
 
-The last four flags, as the CLIs take them, set the cost filters'
+The four cost-filter flags, as the CLIs take them, set the cost filters'
 configuration (`ModelConfig` fields; the shipped one by default); another
 configuration's filters get references of their own widths (routes
 `cf-entry-C`, `cf-C`, `skip-C` for each stage width C: AnyNet's settings,
-`ANYNET`, run `cf-entry-16`, `cf-16`, `skip-16` and the same at 4), and
-it runs on the seed-0 set alone (the trained weights are the shipped
-configuration's).
+`ANYNET`, run `cf-entry-16`, `cf-16`, `skip-16` and the same at 4).
+`--refine_channels C` sets the refinement's width (no CLI of the models
+takes it: a `ModelConfig` field), whose launches at C != 32 get routes
+named with the width (`width_route`: `dense-48`, `dwsep-48`, ...) and the
+bars of the shipped route they stand for (`shipped_route`). Another
+configuration runs on the seed-0 set alone (the trained weights are the
+shipped configuration's).
 
 The sets: "seed0", the seed-0 network with jittered batch norms
 (`jitter_batchnorm`, chip_smoke.py phase 4's) on phase 4's
@@ -101,6 +105,10 @@ MAX_RATIO = 2.0
 # * bf16 fused last layer: the conv, skip and soft-argmin in float32 where
 #   the module rounds the cost to bf16, so a sound launch reads 0.03-0.64 x
 #   the module's distance and a planted fault hides under 1.1;
+# * bf16 "chain" head at 48 channels (`--refine_channels 48`, on the
+#   CUDA cores): the composed rank-1 kernels rounded once to bf16, where the
+#   module rounds the depthwise output, over 432-term sums (eight draws at
+#   64x128 on the CPU: up to 1.221; a x1.01 fault 11.8-12.1);
 # * float32: the cost filters' entries and 8-channel layers and the dw-sep
 #   layers fold BN into float32 weights or affines, and "mxu" and "chain"
 #   compose rank-1 kernels into 288-term sums, a rounding the module
@@ -113,6 +121,7 @@ ROUTE_BARS = {
     ("bfloat16", "cf-entry-4"): (1.5, MAX_RATIO),
     ("bfloat16", "cf-4"): (2.0, MAX_RATIO),
     ("float32", "cf-4"): (1.4, MAX_RATIO),
+    ("bfloat16", "chain-head-48"): (1.5, MAX_RATIO),
     ("bfloat16", "skip-32"): (0.9, MAX_RATIO),
     ("bfloat16", "skip-8"): (0.9, MAX_RATIO),
     ("float32", "cf-entry-32"): (1.25, MAX_RATIO),
@@ -173,6 +182,29 @@ ROUTES = {
     "layers-head-half": "layers", "layers-output": "layers"}
 
 
+def width_route(route: str, channels: int) -> str:
+    """Route `route` of ROUTES (a refinement route, named at the shipped
+    width of 32 channels) at refinement width `channels`: itself at 32,
+    else named with the width ("dense-32" -> "dense-48", "dwsep" ->
+    "dwsep-48")."""
+    if channels == 32:
+        return route
+    return (f"dense-{channels}" if route == "dense-32"
+            else f"{route}-{channels}")
+
+
+def shipped_route(route: str) -> str:
+    """The route of ROUTES that `route` of another refinement width stands
+    for (`width_route`'s inverse); any other route itself (a cost filter's
+    `cf-16` among them). Its bars and engine are the shipped route's."""
+    base, _, width = route.rpartition("-")
+    if route not in ROUTES and width.isdigit():
+        base = "dense-32" if base == "dense" else base
+        if base in ROUTES:
+            return base
+    return route
+
+
 class Launch(NamedTuple):
     """One expected launch: the layer function the forward calls, its
     route (a key of ROUTES, a cost-filter route of another width, or
@@ -181,9 +213,9 @@ class Launch(NamedTuple):
     args): `cast` is applied to each input tensor among the launch's
     positional `args`. `exact`: for the fused last layer, a second
     reference in the kernel's own arithmetic (`_cf_exact`), held in bf16
-    (EXACT_RATIO). `kernel_route`: a cost filter's launch's route
-    on the card by dtype (`costfilter.filter_routes`), recorded with its
-    reading."""
+    (EXACT_RATIO). `kernel_route`: the launch's route on the card by dtype
+    (`costfilter.filter_routes`, `refine_kernels.refine_routes`), recorded
+    with its reading."""
     fn: str
     route: str
     where: str
@@ -365,42 +397,64 @@ def filter_plan(cfg) -> List[Launch]:
 
 
 def refine_plan(cfg, engine: str, h: int, w: int) -> List[Launch]:
-    """The stage-4 launches of `engine` at an h x w image, in order."""
+    """The stage-4 launches of `engine` at an h x w image, in order, each
+    with its route on the card by dtype from the refinement's route rule
+    (`refine_kernels.refine_routes`), which lists the same launches."""
+    from lwsnet_tpu_torch.models.refine_kernels import refine_routes
+    plan = _stage4_launches(cfg, engine, h, w)
+    rules = [refine_routes(dt, engine, cfg.refine_channels, h, w)
+             for dt in (torch.bfloat16, torch.float32)]
+    if not len(plan) == len(rules[0]) == len(rules[1]):
+        raise LookupError(f"{engine}: {len(plan)} references for "
+                          f"{len(rules[0])} launches of the route rule")
+    return [L._replace(kernel_route={"bfloat16": a.route,
+                                     "float32": b.route})
+            for L, a, b in zip(plan, *rules)]
+
+
+def _stage4_launches(cfg, engine: str, h: int, w: int) -> List[Launch]:
+    """`refine_plan`'s launches and their module references."""
     from lwsnet_tpu_torch.models.refinement import (HEAD_DILATIONS,
                                                     TOWER_DILATIONS)
     from lwsnet_tpu_torch.ops.cuda.refine import layer_plan
 
     c = cfg.refine_channels
     nt, nh = len(TOWER_DILATIONS), len(HEAD_DILATIONS)
-    entry = Launch("dense_layer", "dense-entry",
-                   "towers' entry (3->32 | 1->32)", 3, _towers(_rows_entry))
-    head_entry = Launch("dense2_layer", "dense-two-input",
-                        "head entry (64->32)", c, _head_entry)
-    output = Launch("dense_layer", "dense-output", "head output (32->1)", c,
-                    _head_output)
+
+    def Route(*args):  # a launch whose route is named at width c
+        fn, route, *rest = args
+        return Launch(fn, width_route(route, c), *rest)
+
+    entry = Route("dense_layer", "dense-entry",
+                  f"towers' entry (3->{c} | 1->{c})", 3,
+                  _towers(_rows_entry))
+    head_entry = Route("dense2_layer", "dense-two-input",
+                       f"head entry ({2 * c}->{c})", c, _head_entry)
+    output = Route("dense_layer", "dense-output", f"head output ({c}->1)",
+                   c, _head_output)
 
     def where(part, first, count):
         return (f"{part} layers {first}..{first + count - 1}" if count > 1
                 else f"{part} layer {first}")
 
     def tower_step(first, count, fn, route):  # both towers, one 2B batch
-        return Launch(fn, route, where("tower", first, count), c, _towers(
+        return Route(fn, route, where("tower", first, count), c, _towers(
             lambda t, x, _: _run_blocks(t, x, first, count)))
 
     def head_step(first, count, fn, route):
-        return Launch(fn, route, where("head", first, count), c,
-                      _blocks(_head, first, count))
+        return Route(fn, route, where("head", first, count), c,
+                     _blocks(_head, first, count))
 
     if engine == "chain":
-        return [Launch("chain_layer", "chain-tower", "towers (entry + 4)", 3,
-                       _towers(lambda t, x, which: t(
-                           x if which == 0 else x[:, :1]))),
-                Launch("chain_layer", "chain-head", "head", c, _chain_head)]
+        return [Route("chain_layer", "chain-tower", "towers (entry + 4)", 3,
+                      _towers(lambda t, x, which: t(
+                          x if which == 0 else x[:, :1]))),
+                Route("chain_layer", "chain-head", "head", c, _chain_head)]
     if engine == "layers":
         def chain(step, dilations):
             """The dw-sep launches of `layer_plan`: pairs and solos."""
             out, k = [], 0
-            for ds in layer_plan(h, w, dilations):
+            for ds in layer_plan(h, w, dilations, c):
                 pair = len(ds) == 2
                 out.append(step(
                     k, len(ds), "fused_dwsep2" if pair else "fused_dwsep",
@@ -412,23 +466,23 @@ def refine_plan(cfg, engine: str, h: int, w: int) -> List[Launch]:
             ci = 3 if which == 0 else 1
 
             def step(first, count, fn, route):
-                return Launch(fn, route, where(f"tower {which}", first,
-                                               count), c, _blocks(
+                return Route(fn, route, where(f"tower {which}", first,
+                                              count), c, _blocks(
                     lambda m: getattr(m, f"RefinementTower_{which}"),
                     first, count))
-            return [Launch("fused_dense", "layers-entry" if which == 0
-                           else "layers-entry-1",
-                           f"tower {which} entry ({ci}->32)", ci,
-                           _layers_entry(which))] + chain(step,
-                                                          TOWER_DILATIONS)
+            return [Route("fused_dense", "layers-entry" if which == 0
+                          else "layers-entry-1",
+                          f"tower {which} entry ({ci}->{c})", ci,
+                          _layers_entry(which))] + chain(step,
+                                                         TOWER_DILATIONS)
 
-        halves = [Launch("fused_dense", "layers-head-half",
-                         f"head entry half {k} (32->32)", c, _head_half(k))
+        halves = [Route("fused_dense", "layers-head-half",
+                        f"head entry half {k} ({c}->{c})", c, _head_half(k))
                   for k in (0, 1)]
         return (tower(0) + tower(1) + halves
                 + chain(head_step, HEAD_DILATIONS)
-                + [Launch("fused_dense", "layers-output",
-                          "head output (32->1)", c, _head_output)])
+                + [Route("fused_dense", "layers-output",
+                         f"head output ({c}->1)", c, _head_output)])
     # "mxu" and "vpu": (layer function, route, layers a launch)
     fn, route, count = {"mxu": ("dense_layer", "dense-32", 1),
                         "vpu-paired": ("dwsep2_layer", "dwsep-pair", 2),
@@ -467,9 +521,11 @@ def distances(got: torch.Tensor, module: torch.Tensor,
 
 def bars(dtype: torch.dtype, route: str):
     """(mean, max) ratio bars of `route` in `dtype`: its ROUTE_BARS entry,
-    else MEAN_RATIO and MAX_RATIO; the max bar holds in float32 only."""
+    else its shipped route's (`shipped_route`), else MEAN_RATIO and
+    MAX_RATIO; the max bar holds in float32 only."""
     name = str(dtype).replace("torch.", "")
-    return ROUTE_BARS.get((name, route), (MEAN_RATIO, MAX_RATIO))
+    return ROUTE_BARS.get((name, route), ROUTE_BARS.get(
+        (name, shipped_route(route)), (MEAN_RATIO, MAX_RATIO)))
 
 
 def bar_ok(row: Dict, dtype: torch.dtype) -> bool:
@@ -718,7 +774,7 @@ def check_plant(route: str, h: int, w: int, device,
     cost-filter route of another width), every launch held; `fields`:
     further ModelConfig fields. Returns run_engine's result without the
     outputs, with "caught": the planted launch alone missed its bar."""
-    engine = ROUTES.get(route, "mxu")
+    engine = ROUTES.get(shipped_route(route), "mxu")
     model = build(engine, "bfloat16", None, device, fields)
     left, right = set_pair("seed0", h, w, device)
     res = run_engine(model, float64_copy(model), left, right, engine,
@@ -745,6 +801,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     p.add_argument("--channels_3d", type=int)
     p.add_argument("--layers_3d", type=int)
     p.add_argument("--growth_rate", type=int, nargs="+")
+    p.add_argument("--refine_channels", type=int)
     args = p.parse_args(argv)
 
     from lwsnet_tpu_torch.device import resolve_device
@@ -754,7 +811,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
               for k, v in (("max_disp_list", args.maxdisplist),
                            ("channels_3d", args.channels_3d),
                            ("layers_3d", args.layers_3d),
-                           ("growth_rate", args.growth_rate))
+                           ("growth_rate", args.growth_rate),
+                           ("refine_channels", args.refine_channels))
               if v is not None}
     dev = resolve_device(args.device)
     t0 = time.time()

@@ -47,9 +47,11 @@ def test_every_width_and_d_has_a_chained_route(dtype):
     """Every (dtype, channels 1-64, D) has a route for each launch, and
     each launch reads the layout the one before it writes: the entry's
     output, each C -> C layer's input and output and the fused last
-    layer's input lie alike. The tensor cores take bf16 at 32 or 8
-    channels (the fused last layer only up to D = SKIP_TC_MAX_D), the CUDA
+    layer's input lie alike. The tensor cores take the bf16 C -> C layers
+    at 32, 16, 64 or 8 channels, the entries and the fused last layer at
+    32 or 8 (the fused last layer only up to D = SKIP_TC_MAX_D), the CUDA
     cores everything else."""
+    bf = dtype == torch.bfloat16
     for C in range(1, 65):
         for D in D_COUNTS:
             r = tcf.filter_routes(dtype, C, D)
@@ -57,15 +59,17 @@ def test_every_width_and_d_has_a_chained_route(dtype):
                 assert launch.route in (tcf.TENSOR_CORES, tcf.CUDA_CORES)
             assert r.entry.writes_cl == r.layer.reads_cl == \
                 r.layer.writes_cl == r.skip.reads_cl, (C, D)
-            tc = dtype == torch.bfloat16 and C in (8, 32)
+            tc = bf and C in (8, 16, 32, 64)
+            ends = bf and C in (8, 32)
             assert r.layer.reads_cl == tc, (C, D)
-            assert (r.entry.route == tcf.TENSOR_CORES) == tc
+            assert (r.entry.route == tcf.TENSOR_CORES) == ends
             assert (r.layer.route == tcf.TENSOR_CORES) == tc
             assert (r.skip.route == tcf.TENSOR_CORES) == (
-                tc and D <= tcf.SKIP_TC_MAX_D), (C, D)
+                ends and D <= tcf.SKIP_TC_MAX_D), (C, D)
             # the per-launch rules of the two kernels agree with it
             assert tcf.conv3d_tensor_core_route(dtype, C, C) == tc
-            assert tcf.conv3d_tensor_core_route(dtype, 1, C) == tc
+            assert tcf.conv3d_tensor_core_route(dtype, 1, C) == ends
+            assert tcf.skip_tensor_core_route(dtype, C) == ends
     with pytest.raises(ValueError):
         tcf.filter_routes(dtype, 0, 5)
     with pytest.raises(ValueError):

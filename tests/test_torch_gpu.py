@@ -336,7 +336,8 @@ def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
     """float32 stays on the CUDA cores, which read NCDHW: a channels-last
     input is copied once to the default layout. bf16 at a width the
     tensor-core route does not take (16) runs on the CUDA cores from NCDHW
-    too, within two rounding steps of the plain version."""
+    too, within two rounding steps of the plain version, reading the
+    channels-last activation its stage's tensor-core layers write."""
     build.reset_launch_counts()
     x = _channels_last(rnd(1, 32, 24, 5, 70).relu(), True)
     wt, vol = rnd(1, 32, 3, 3, 3) * 0.05, rnd(1, 24, 5, 70)
@@ -348,7 +349,8 @@ def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
     torch.cuda.synchronize()
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
     bf = torch.bfloat16
-    xb = rnd(1, 16, 9, 5, 70, dtype=bf).relu()
+    assert tcf.filter_routes(bf, 16, 9).skip.reads_cl
+    xb = _channels_last(rnd(1, 16, 9, 5, 70, dtype=bf).relu(), True)
     wb, vb = rnd(1, 16, 3, 3, 3, dtype=bf), rnd(1, 9, 5, 70, dtype=bf)
     _assert_two_steps(tcf.conv3d_skip_softargmin(xb, wb, vb, 0),
                       tcf.conv3d_skip_softargmin_plain(xb, wb, vb, 0))
@@ -374,23 +376,33 @@ WIDTH_SHAPES = [
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", WIDTH_SHAPES)
 def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
-    """conv3d_bn_relu's CUDA-core route at widths no tensor-core route
-    takes: the 1 -> C entry with layer 0's BN + ReLU and a C -> C layer,
-    NCDHW in and out, no layout copy, each counted on its route ("entry",
-    "cores"); float32 at atol 2e-4 / rtol 1e-3, bf16 within two rounding
-    steps of the plain versions."""
+    """conv3d_bn_relu's entries at widths no tensor-core entry takes (the
+    1 -> C entry with layer 0's BN + ReLU, on the CUDA cores) and a C -> C
+    layer on the route `filter_routes` gives: the CUDA cores in float32
+    and at 4 and 3 channels, NCDHW in and out; the tensor cores at bf16
+    16 and 64, the entry writing channels-last and the layer reading and
+    writing it. No layout copy, each launch counted on its route ("entry",
+    "cores" for the CUDA-core layer); float32 at atol 2e-4 / rtol 1e-3,
+    bf16 within two rounding steps of the plain versions."""
     B, C, D, H, W, _ = shape
     vol, a0b0, wt, shift = _entry_operands(rnd, B, C, D, H, W, dtype)
-    assert tcf.filter_routes(dtype, C, D).layer.route == tcf.CUDA_CORES
+    routes = tcf.filter_routes(dtype, C, D)
+    tc = dtype == torch.bfloat16 and C in (16, 64)
+    assert routes.entry.route == tcf.CUDA_CORES
+    assert routes.layer.route == (tcf.TENSOR_CORES if tc else tcf.CUDA_CORES)
     build.reset_launch_counts()
     y = tcf.conv3d_entry(vol, a0b0, wt, shift)
     w2 = (rnd(C, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(dtype)
     s2 = rnd(C) * 0.1
     got = tcf.conv3d_bn_relu(y, w2, s2)
     torch.cuda.synchronize()
-    assert y.is_contiguous() and got.is_contiguous()
-    assert build.route_counts() == {"conv3d_bn_relu[entry]": 1,
-                                    "conv3d_bn_relu[cores]": 1}
+    cl3 = torch.channels_last_3d
+    for t in (y, got):
+        assert (t.is_contiguous(memory_format=cl3) if tc
+                else t.is_contiguous())
+    assert build.route_counts() == dict(
+        {"conv3d_bn_relu[entry]": 1},
+        **({} if tc else {"conv3d_bn_relu[cores]": 1}))
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
     for k, w in ((y, tcf.conv3d_entry_plain(vol, a0b0, wt, shift)),
                  (got, tcf.conv3d_bn_relu_plain(y, w2, s2))):
@@ -404,12 +416,15 @@ def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
 @pytest.mark.parametrize("shape", WIDTH_SHAPES)
 def test_skip_softargmin_cuda_core_widths_on_card(rnd, shape, dtype):
     """conv3d_skip_softargmin's CUDA-core route at the same widths and D
-    (D = 72 over its 64-cost chunks), NCDHW in, counted as "cores", no
-    layout copy: float32 at atol 2e-4 / rtol 1e-3 of the plain version,
-    bf16 within two rounding steps and atol 1e-3 / rtol 1e-4 (both sum
-    float32 from the same bf16 operands)."""
+    (D = 72 over its 64-cost chunks), reading the layout its stage's
+    layers write (`filter_routes`: channels-last at bf16 16 and 64, else
+    NCDHW), counted as "cores", no layout copy: float32 at atol 2e-4 /
+    rtol 1e-3 of the plain version, bf16 within two rounding steps and
+    atol 1e-3 / rtol 1e-4 (both sum float32 from the same bf16
+    operands)."""
     B, C, D, H, W, start = shape
-    x = rnd(B, C, D, H, W, dtype=dtype).relu()
+    x = _channels_last(rnd(B, C, D, H, W, dtype=dtype).relu(),
+                       tcf.filter_routes(dtype, C, D).skip.reads_cl)
     wt = (rnd(1, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(dtype)
     vol = (rnd(B, D, H, W) * 2).to(dtype)
     build.reset_launch_counts()
@@ -454,8 +469,9 @@ def test_anynet_forward_on_card(rnd):
     float32 the kernel path within phase 4's bars of chip_smoke.py from
     the float64 module path (mean |delta| at most 1.1 x the module path's,
     float32 max at most 2 x), the bf16 forward launching conv3d_bn_relu 15,
-    conv3d_skip_softargmin 3 and dense3x3 11 times, its 12 C -> C layers
-    and 3 fused last layers on the CUDA cores, no layout copy."""
+    conv3d_skip_softargmin 3 and dense3x3 11 times, stage 1's four
+    16 -> 16 layers on the tensor cores, stages 2-3's eight 4 -> 4 layers
+    and the 3 fused last layers on the CUDA cores, no layout copy."""
     import numpy as np
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.tools.parity_layers import (ANYNET, MAX_RATIO,
@@ -484,7 +500,7 @@ def test_anynet_forward_on_card(rnd):
                           "dense3x3": 11, "dense3x3[dual]": 1}, dtype
         if dtype == "bfloat16":
             assert build.route_counts() == {
-                "conv3d_bn_relu[cores]": 12, "conv3d_bn_relu[entry]": 3,
+                "conv3d_bn_relu[cores]": 8, "conv3d_bn_relu[entry]": 3,
                 "conv3d_skip_softargmin[cores]": 3, "dense3x3[entry]": 1,
                 "dense3x3[output]": 1}
         assert build.LAYOUT_COPIES == {"to channels-last": 0,
@@ -861,6 +877,123 @@ def test_dwsep_cuda_core_route_off_the_tensor_cores_on_card(rnd):
         _assert_two_steps(got, trr.dwsep_plain(x, dw, pw, dilation=d,
                                                affine=aff))
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,Cm,Co", [(48, 48, 48), (20, 20, 20),
+                                     (64, 64, 64), (20, 64, 48)])
+def test_dwsep_cuda_core_widths_on_card(rnd, dtype, C, Cm, Co):
+    """dwsep3x3 solo (C -> Co) and pair (C -> Cm -> Co) on the CUDA cores
+    at widths over 32 and not a multiple of 8 (output tiles of 16 and 4,
+    the intermediate over its 32-channel passes, a pair's layer-1 weights
+    over two 32-channel chunks), two weight groups, the (8, 16) and (2, 1)
+    dilations, on a ragged 37 x 75 plane from NCHW, the result NCHW or
+    channels-last as asked: float32 max |delta| <= 1e-5 of the plain
+    versions, bf16 within two rounding steps; each launch counted, no
+    layout copy."""
+    build.reset_launch_counts()
+    x = rnd(2, C, 37, 75, dtype=dtype)
+    dw, pw, aff = _dwsep_operands(rnd, 2, C, Cm, dtype)
+    dw2, pw2, aff2 = _dwsep_operands(rnd, 2, Cm, Co, dtype)
+    _, pws, _ = _dwsep_operands(rnd, 2, C, Co, dtype)
+    n = 0
+    for cl in (False, True):
+        for d1, d2 in ((8, 16), (2, 1)):
+            assert not trr.dwsep_tensor_core_route(dtype, (C, Cm, Co),
+                                                   (d1, d2), 2)
+            kw = dict(dilation1=d1, dilation2=d2, affine1=aff, affine2=aff2)
+            pairs = (trr.dwsep2(x, dw, pw, dw2, pw2, channels_last=cl, **kw),
+                     trr.dwsep2_plain(x, dw, pw, dw2, pw2, **kw))
+            solos = (trr.dwsep(x, dw, pws, dilation=d2, affine=aff,
+                               channels_last=cl),
+                     trr.dwsep_plain(x, dw, pws, dilation=d2, affine=aff))
+            for got, want in (pairs, solos):
+                assert got.is_contiguous(memory_format=torch.channels_last
+                                         if cl else torch.contiguous_format)
+                if dtype == torch.float32:
+                    assert (got - want).abs().max().item() <= 1e-5
+                else:
+                    _assert_two_steps(got, want)
+            n += 1
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert (counts["dwsep3x3"], counts["dwsep3x3_pair"]) == (n, n)
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 16, 12, 46, 154),   # AnyNet's stage 1 at 368x1232
+    (1, 64, 72, 46, 154),   # the wide filter: 64 channels over D = 72
+    (2, 16, 7, 11, 37),     # ragged: no dimension a multiple of 2 x 2 x 64
+    (2, 64, 7, 11, 37),
+])
+def test_conv3d_tensor_core_widths_on_card(rnd, shape):
+    """conv3d_bn_relu's bf16 16 -> 16 and 64 -> 64 layers on the tensor
+    cores (no route launch counted: neither "cores" nor "entry"),
+    channels-last in and out, no layout copy, within two bf16 rounding
+    steps of the plain version."""
+    bf = torch.bfloat16
+    B, C, D, H, W = shape
+    assert tcf.conv3d_tensor_core_route(bf, C, C)
+    assert tcf.filter_routes(bf, C, D).layer.route == tcf.TENSOR_CORES
+    x = _channels_last(rnd(B, C, D, H, W, dtype=bf).relu(), True)
+    wt = (rnd(C, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(bf)
+    shift = rnd(C) * 0.1
+    build.reset_launch_counts()
+    got = tcf.conv3d_bn_relu(x, wt, shift)
+    torch.cuda.synchronize()
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    assert build.launch_counts()["conv3d_bn_relu"] == 1
+    assert build.route_counts() == {}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    _assert_two_steps(got, tcf.conv3d_bn_relu_plain(x, wt, shift))
+    with pytest.raises(ValueError, match="channels-last only"):
+        tcf.conv3d_bn_relu(x, wt, shift, channels_last=False)
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+@pytest.mark.parametrize("c", [48, 20])
+def test_refinement_widths_on_card(rnd, engine, c):
+    """The stage-4 refinement at refine_channels 48 and 20 (seed-0
+    weights, 48 x 160): in bf16 every launch on the route and layout of
+    `refine_kernels.refine_routes`, the launch and narrow-route counts of
+    `chip_smoke.refine_launches`, no layout copy, a finite residual; in
+    float32 (TF32 off) the kernel path within 1e-4 of the output's span
+    of the module path's towers and head."""
+    import numpy as np
+    import chip_smoke
+    from lwsnet_tpu_torch import LWSNet, ModelConfig
+    from lwsnet_tpu_torch.models.refine_kernels import refine_residual
+    rng = np.random.default_rng(c)
+    left = torch.as_tensor(rng.standard_normal((1, 48, 160, 3)),
+                           dtype=torch.float32, device="cuda")
+    disp = torch.as_tensor(rng.uniform(0, 20, (1, 48, 160, 1)),
+                           dtype=torch.float32, device="cuda")
+    fields = dict(refine_channels=c, **ENGINES[engine])
+    launches, routes = chip_smoke.refine_launches(
+        engine, fields, 48, 160)
+    for dtype in ("bfloat16", "float32"):
+        model = LWSNet(ModelConfig(compute_dtype=dtype, **fields),
+                       device="cuda", seed=0)
+        build.reset_launch_counts()
+        with torch.inference_mode():
+            got = refine_residual(model, left, disp)
+        torch.cuda.synchronize()
+        assert got.shape == (1, 48, 160, 1) and torch.isfinite(got).all()
+        if dtype == "bfloat16":
+            counts = {k: v for k, v in build.launch_counts().items() if v}
+            assert counts == launches
+            assert build.route_counts() == routes
+            assert build.LAYOUT_COPIES == {"to channels-last": 0,
+                                           "to contiguous": 0}
+            continue
+        with torch.inference_mode():
+            both = torch.cat([
+                model.RefinementTower_0(left.permute(0, 3, 1, 2)),
+                model.RefinementTower_1(disp.permute(0, 3, 1, 2))], 1)
+            want = model.RefinementHead_0(both).permute(0, 2, 3, 1)
+        span = (want.max() - want.min()).item()
+        assert (got - want).abs().max().item() <= 1e-4 * span
 
 
 @pytest.mark.parametrize("fields,want", [

@@ -147,13 +147,13 @@ def test_layer_plan(h, w, monkeypatch):
             want = _jax_plan(h, w, dils, monkeypatch)
         except ValueError:
             with pytest.raises(ValueError, match="no layer chunk"):
-                T.layer_plan(h, w, dils)
+                T.layer_plan(h, w, dils, 32)
             continue
-        assert T.layer_plan(h, w, dils) == want
+        assert T.layer_plan(h, w, dils, 32) == want
     if (h, w) == (368, 1232):
-        assert T.layer_plan(h, w, (2, 4, 8, 16)) == ((2, 4), (8, 16))
+        assert T.layer_plan(h, w, (2, 4, 8, 16), 32) == ((2, 4), (8, 16))
     if (h, w) == (96, 3712):
-        assert T.layer_plan(h, w, (2, 4, 8, 16)) == ((2, 4), (8,), (16,))
+        assert T.layer_plan(h, w, (2, 4, 8, 16), 32) == ((2, 4), (8,), (16,))
 
 
 def test_refine_residual_layers():
