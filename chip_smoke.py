@@ -307,19 +307,22 @@ def refine_launches(engine, fields=None, h=H, w=W):
     """(launches, route launches) of the bf16 refinement under `engine` of
     ModelConfig(**fields) at h x w, from its route rule
     (`refine_kernels.refine_routes`): launches by kernel, its two-input
-    one as "[dual]"; dense3x3's narrow routes as `build.route_counts()`
-    counts them ("dense3x3[entry]", "dense3x3[output]")."""
+    one as "[dual]"; dense3x3's narrow routes and dwsep3x3's tile body as
+    `build.route_counts()` counts them ("dense3x3[entry]",
+    "dense3x3[output]", "dwsep3x3[mma]", "dwsep3x3_pair[mma]")."""
     import torch
     from lwsnet_tpu_torch import ModelConfig
     from lwsnet_tpu_torch.models import refine_kernels as RK
+    from lwsnet_tpu_torch.ops.cuda.refine_rows import MMA
     engine = engine.replace("layers-wide", "layers")
     launches, routes = {}, {}
     for L in RK.refine_routes(torch.bfloat16, engine,
                               ModelConfig(**(fields or {})).refine_channels,
                               h, w):
         launches[L.kernel] = launches.get(L.kernel, 0) + 1
-        if L.kernel == "dense3x3" and L.route in (RK.ENTRY, RK.OUTPUT):
-            key = f"dense3x3[{L.route}]"
+        if (L.kernel == "dense3x3" and L.route in (RK.ENTRY, RK.OUTPUT)
+                or L.route == MMA):
+            key = f"{L.kernel}[{L.route}]"
             routes[key] = routes.get(key, 0) + 1
     if DUAL[engine]:
         launches[DUAL[engine]] = 1
@@ -1040,6 +1043,23 @@ def filter_route_launches(kernel, p, dtype):
             else {"conv3d_skip_softargmin[cores]": 1})
 
 
+def dwsep_route(p, dtype):
+    """The route of dw-sep call `p` in `dtype` (`refine_rows.dwsep_route`)."""
+    from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
+    dils = (p["d1"], p["d2"]) if "d1" in p else (p["d"],)
+    chans = (p["C"],) + (p.get("Co", p["C"]),) * len(dils)
+    return RR.dwsep_route(dtype, chans, dils, p["G"])
+
+
+def dwsep_route_launches(kernel, p, dtype):
+    """The route launches (`build.route_counts()`) of one dw-sep call `p`
+    in `dtype`: the tile body counts as "mma" (bf16) or "cores"
+    (float32), the wgmma route not at all."""
+    from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
+    name = RR.dwsep_counted(dwsep_route(p, dtype))
+    return {f"{kernel}[{name}]": 1} if name else {}
+
+
 def check_calls(calls, dev, tag, seed=1000):
     """Phase 3: each call of `calls` on seeded operands (call i from
     default_rng(seed + i)) against its plain version, in float32 and bf16
@@ -1076,6 +1096,10 @@ def check_calls(calls, dev, tag, seed=1000):
                         f"{what}: route launches {routes}, want {route}")
             if kernel in ("conv3d_bn_relu", "conv3d_skip_softargmin"):
                 want_routes = filter_route_launches(kernel, p, dtype)
+                require(routes == want_routes, f"{what}: route launches "
+                        f"{routes}, want {want_routes}")
+            if kernel.startswith("dwsep"):
+                want_routes = dwsep_route_launches(kernel, p, dtype)
                 require(routes == want_routes, f"{what}: route launches "
                         f"{routes}, want {want_routes}")
             if dtype == torch.bfloat16 and narrow and p.get("f32_out"):
@@ -2775,7 +2799,6 @@ def timing_rows(calls, dev, smi, tag, seed):
     of one cuDNN call a layer stands beside it) and its bound."""
     import torch
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
-    from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
     from lwsnet_tpu_torch.utils.timing import event_ms
 
     def route_of(kernel, p):
@@ -2784,10 +2807,7 @@ def timing_rows(calls, dev, smi, tag, seed):
                 "entry") else p["Ci"], p["D"])
             return (stage.entry if p.get("entry") else stage.layer
                     if kernel == "conv3d_bn_relu" else stage.skip).route
-        dils = (p["d1"], p["d2"]) if "d1" in p else (p["d"],)
-        tc = RR.dwsep_tensor_core_route(
-            torch.bfloat16, (p["C"],) * (len(dils) + 1), dils, p["G"])
-        return CF.TENSOR_CORES if tc else CF.CUDA_CORES
+        return dwsep_route(p, torch.bfloat16)
 
     rows = []
     for i, (kernel, label, p, n, _) in calls:

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Variants of conv3d_bn_relu's 8 -> 8 tensor-core route (with --skip, of
 conv3d_skip_softargmin's; with --entry, of conv3d_bn_relu's 1 -> C entry
-route), timed on one GPU.
+route; with --dwsep, of dwsep3x3's tile body), timed on one GPU.
 
 Run from the repository root on a machine with a card:
 
-    python3 conv3d_c8_variants.py [--skip | --entry] [--json PATH]
+    python3 conv3d_c8_variants.py [--skip | --entry | --dwsep] [--json PATH]
 
 Each variant is `lwsnet_tpu_torch/csrc/conv3d_bn_relu.cu` with a few
 textual changes to its `c8` namespace, written beside copies of the
@@ -84,6 +84,22 @@ reading its output (both kernels' device time a call):
                       block barrier), rows (its products and epilogue),
                       tiles a block and the whole block (medians over the
                       blocks of each launch, in clocks).
+
+--dwsep splits `dwsep3x3`'s tile body instead (the anonymous namespace
+of `csrc/dwsep3x3.cu`, solo and pair): each variant held against
+`dwsep_plain` / `dwsep2_plain` (every bf16 element within two rounding
+steps) and timed alone on the device at the "vpu" engines' launches of
+the 368x1232 forward at refine_channels 48, 20 and 64:
+
+  clock               clock64() of thread 0 of each block, by phase: the
+                      depthwise input staged (loads, activation, weights),
+                      the taps, the pointwise product (its weights staged,
+                      the mma.sync or CUDA-core sums, the results rounded
+                      into shared memory), the results stored to y, the
+                      block barriers, the pair's grid barrier; tiles a
+                      block and the block's total (medians over the
+                      blocks of one launch, in clocks, and each phase's
+                      share of the total).
 
 Exits 1 without CUDA, 2 if a variant fails to build or its check.
 """
@@ -419,25 +435,58 @@ ENTRY_SHAPES = {"stage1": (1, 32, 24, 46, 154), "stage2": (1, 8, 9, 92, 308),
                 "stage3": (1, 8, 9, 184, 616)}
 
 
+def namespace_body(src, namespace):
+    """(head, body, rest) of `src` around the namespace that opens with
+    `namespace` ("namespace c8 {", or "namespace {" for the anonymous one)
+    and closes with its "}  // namespace <name>" line."""
+    name = namespace[len("namespace"):-1].strip()
+    close = "}  // namespace" + (f" {name}" if name else "") + "\n"
+    head, rest = src.split(namespace, 1)
+    body, after = rest.split(close, 1)
+    return head + namespace, body, close + after
+
+
+DWSEP_VARIANTS = {
+    "clock": [("constexpr bool CLOCK = false;",
+               "constexpr bool CLOCK = true;")],
+}
+_DWSEP_CLOCK = '''
+extern "C" int dwsep_clock_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, clk, sizeof(clk));
+}
+extern "C" int dwsep_clock_reset() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, clk);
+  return e != cudaSuccess ? (int)e : (int)cudaMemset(p, 0, sizeof(clk));
+}
+'''
+# The slots of a block in `clk` (csrc/dwsep3x3.cu: enum Slot).
+DWSEP_SLOTS = ("staging", "taps", "pointwise", "stores", "barriers",
+               "grid_barrier", "tiles", "total")
+DWSEP_WIDTHS = (48, 20, 64)
+
+
 def write_variant(name, edits, out_dir, source="conv3d_bn_relu",
                   namespace="namespace c8 {", tail=""):
     """The variant's sources in out_dir; raises where an edit's anchor is
-    not found exactly once in the route's namespace. `tail` is appended."""
+    not found exactly once in the route's namespace (from its opening line
+    to its closing "}  // namespace" line, so that an anchor of the c8
+    route does not also match the c1 route after it). `tail` is appended
+    to the file."""
     csrc = os.path.join(ROOT, "lwsnet_tpu_torch", "csrc")
     src = open(os.path.join(csrc, f"{source}.cu")).read()
-    head, body = src.split(namespace, 1)
+    head, body, rest = namespace_body(src, namespace)
     for old, new in edits:
         if body.count(old) != 1:
             raise RuntimeError(f"{name}: anchor found {body.count(old)} "
                                f"times: {old[:60]!r}")
         body = body.replace(old, new)
-    body += tail
     os.makedirs(out_dir, exist_ok=True)
     for f in os.listdir(csrc):
         if f.endswith(".cuh"):
             shutil.copy(os.path.join(csrc, f), out_dir)
     with open(os.path.join(out_dir, f"{source}.cu"), "w") as f:
-        f.write(head + namespace + body)
+        f.write(head + body + rest + tail)
 
 
 def build_variants(variants, base, source, namespace, tails):
@@ -614,12 +663,78 @@ def entry_variants(dev, report):
     return rc
 
 
+def dwsep_variants(dev, report):
+    """The --dwsep family: each variant checked and timed at the "vpu"
+    engines' dw-sep launches of the 368x1232 forward at DWSEP_WIDTHS, the
+    clock variant's split of each; rc 2 if a build or a check failed."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.ops.cuda import build
+    libs, rc = build_variants(
+        DWSEP_VARIANTS, os.path.join(ROOT, "build", "dwsep_variants"),
+        "dwsep3x3", "namespace {", {"clock": _DWSEP_CLOCK})
+    calls = [(k, f"{label} at {w}", p, n)
+             for w in DWSEP_WIDTHS
+             for k, label, p, n, engine in cs.variant_calls(
+                 ModelConfig(refine_channels=w))
+             if k.startswith("dwsep") and "vpu" in engine]
+    kernels = (build.DWSEP3X3, build.DWSEP3X3_PAIR)
+    build.DWSEP3X3._fn("dwsep3x3_bf16")  # loads the library
+    repo_lib = build.DWSEP3X3._lib
+    for name, lib in libs.items():
+        for k in kernels:
+            k._lib = repo_lib if lib is None else lib
+            k._fns = {}
+        row = {}
+        for i, (kernel, label, p, n) in enumerate(calls):
+            c = cs.make_call(kernel, p, torch.bfloat16,
+                             np.random.default_rng(6000 + i), dev)
+            want, got = c["plain"]().float(), c["kernel"]().float()
+            tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+            bad = int(((got - want).abs() > tol).sum())
+            if bad:
+                print(f"{name}: {kernel} [{label}]: {bad} elements beyond "
+                      f"two rounding steps")
+                rc = 2
+            ms = cs.kernel_device_ms(c["kernel"], "dwsep")
+            row[f"{kernel} [{label}]"] = dict(device_ms=ms, launches=n)
+            print(f"{name}: {kernel} [{label}] x{n}: "
+                  f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+            if name == "clock":
+                torch.cuda.synchronize()
+                lib.dwsep_clock_reset()
+                c["kernel"]()
+                torch.cuda.synchronize()
+                clk = np.zeros(1024 * len(DWSEP_SLOTS), np.int64)
+                lib.dwsep_clock_read(ctypes.c_void_p(clk.ctypes.data))
+                ck = clk.reshape(1024, len(DWSEP_SLOTS))
+                ck = ck[ck[:, DWSEP_SLOTS.index("tiles")] > 0]
+                split = {s: float(np.median(ck[:, j]))
+                         for j, s in enumerate(DWSEP_SLOTS)}
+                total = split["total"]
+                split["share"] = {s: round(split[s] / total, 4)
+                                  for s in DWSEP_SLOTS[:6]}
+                split["blocks"] = int(len(ck))
+                row[f"{kernel} [{label}] clock64"] = split
+                print(f"{name}: {kernel} [{label}] clock64 medians over the "
+                      f"blocks (thread 0, clocks): {split}")
+            del c
+        report["variants"][name] = row
+    for k in kernels:
+        k._lib = repo_lib
+        k._fns = {}
+    return rc
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None)
     family = ap.add_mutually_exclusive_group()
     family.add_argument("--skip", action="store_true")
     family.add_argument("--entry", action="store_true")
+    family.add_argument("--dwsep", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -636,8 +751,9 @@ def main(argv=None):
     print(f"card: {card()}")
     build.build_all()
     report = {"card": card(), "variants": {}}
-    if args.skip or args.entry:
-        rc = (skip_variants if args.skip else entry_variants)(dev, report)
+    if args.skip or args.entry or args.dwsep:
+        rc = (skip_variants if args.skip else entry_variants if args.entry
+              else dwsep_variants)(dev, report)
         if args.json:
             os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
             with open(args.json, "w") as f:

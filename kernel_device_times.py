@@ -44,10 +44,10 @@ pair's time shows what the entry's stores cost the next layer.
 launches of `chip_smoke.py` phase 14e (AnyNet's settings and the
 64-channel filter over D = 72, each input in the layout its tree's
 `filter_routes` gives), and --widths the "vpu" engines' dw-sep launches
-of phase 14e at the refinement widths `chip_smoke.REFINE_WIDTHS`; each
-beside the device
-time of its cuDNN call (one conv3d, or for a dw-sep pair one conv a
-layer).
+of a 368x1232 forward at each of `chip_smoke.DWSEP_WIDTHS` (48, 20, 64),
+with each kernel's sum over a forward's launches; each beside the device
+time of its cuDNN call (one conv2d of the composed kernel, or for a
+dw-sep pair one such conv a layer).
 
 --package-root DIR imports `lwsnet_tpu_torch` from another checkout (for
 instance the parent commit unpacked with `git archive`), so two trees can
@@ -186,10 +186,16 @@ def config_times(cs, args, dev):
     import torch
     from lwsnet_tpu_torch.tools.parity_layers import ANYNET
     from lwsnet_tpu_torch.utils.timing import card
+    from lwsnet_tpu_torch import ModelConfig
     calls = [(i, c) for i, c in enumerate(cs.config_calls(ANYNET))
-             if c[3] > 0 and ((args.configs and c[0] in cs.FILTER_KERNELS)
-                              or (args.widths and c[0].startswith("dwsep")
-                                  and "vpu" in c[4]))]
+             if c[3] > 0 and args.configs and c[0] in cs.FILTER_KERNELS]
+    if args.widths:  # the "vpu" engines' dw-sep launches at each width
+        dwsep = [(k, label, p, n, f"width {w} {engine}")
+                 for w in cs.DWSEP_WIDTHS
+                 for k, label, p, n, engine in cs.variant_calls(
+                     ModelConfig(refine_channels=w))
+                 if k.startswith("dwsep") and "vpu" in engine]
+        calls += list(enumerate(dwsep, 5000))
     rows = []
     for i, (kernel, label, p, n, engine) in calls:
         c = cs.make_call(kernel, p, torch.bfloat16,
@@ -201,13 +207,30 @@ def config_times(cs, args, dev):
                          launches=n, device_ms=ms, library_device_ms=lib,
                          library="one call" if kernel != "dwsep3x3_pair"
                          else "per layer"))
-        print(f"{kernel} [{label}] x{n}: " + ", ".join(
+        print(f"{kernel} [{label}] x{n} ({engine}): " + ", ".join(
             "not measured" if v is None else f"{v:.4f} ms" for v in (
                 ms, lib)) + f" (kernel, cuDNN {rows[-1]['library']})")
+    # a forward's launches of each kernel at each width, summed
+    totals = {}
+    for r in rows:
+        if r["engine"] and r["engine"].startswith("width"):
+            key = f"{r['kernel']} {r['engine']}"
+            t = totals.setdefault(key, dict(launches=0, device_ms=0.0,
+                                            library_device_ms=0.0))
+            t["launches"] += r["launches"]
+            for k in ("device_ms", "library_device_ms"):
+                t[k] = (None if t[k] is None or r[k] is None
+                        else t[k] + r[k] * r["launches"])
+    for key, t in totals.items():
+        print(f"total {key}: {t['launches']} launches, " + ", ".join(
+            "not measured" if v is None else f"{v:.4f} ms" for v in (
+                t["device_ms"], t["library_device_ms"]))
+            + f" (kernel, cuDNN) ({card()})")
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(dict(card=card(), rows=rows), f, indent=1)
+            json.dump(dict(card=card(), rows=rows, totals=totals), f,
+                      indent=1)
     return 0
 
 

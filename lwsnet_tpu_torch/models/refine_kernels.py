@@ -23,9 +23,11 @@ Every engine runs at any `refine_channels`, as the JAX kernels do. Its
 one route rule, `refine_routes` (as `costfilter.filter_routes` is the cost
 filters'), gives each launch's route and layouts from (dtype, engine,
 width): at bf16 32 channels the tensor-core and narrow routes above; at
-every other width and in float32 the CUDA cores, each launch asked to
-write the layout its reader takes (channels-last only into a narrow
-output conv, at widths that are multiples of 16), so no launch copies.
+every other width and in float32 the CUDA cores (`dwsep3x3`'s tile body
+in bf16: its pointwise product on mma.sync, route `refine_rows.MMA`),
+each launch asked to write the layout its reader takes (channels-last
+only into a narrow output conv, at widths that are multiples of 16), so
+no launch copies.
 
 In every engine BatchNorm folds into a per-channel affine applied before
 each layer; the two towers run as one 2B batch with two weight groups, the
@@ -64,7 +66,7 @@ from lwsnet_tpu_torch.ops.cuda.refine import (fused_dense, fused_dwsep,
 from lwsnet_tpu_torch.ops.cuda.refine_rows import (
     chain_layer, chain_tensor_core_route, dense2_layer, dense_entry_route,
     dense_layer, dense_output_route, dense_tensor_core_route, dwsep2_layer,
-    dwsep_layer, dwsep_tensor_core_route)
+    dwsep_layer, dwsep_route)
 
 ENGINES = ("mxu", "vpu", "chain")
 # The refinement's engines by name: the "rows" engines ("vpu" paired and
@@ -76,7 +78,8 @@ ENTRY, OUTPUT = "entry", "output"
 
 class RefineLaunch(NamedTuple):
     """One launch of the refinement on the card: its kernel, its route
-    (ENTRY, OUTPUT: dense3x3's narrow routes; TENSOR_CORES; CUDA_CORES),
+    (ENTRY, OUTPUT: dense3x3's narrow routes; TENSOR_CORES; CUDA_CORES;
+    `refine_rows.MMA`: dwsep3x3's bf16 tile body, `dwsep_route`),
     whether the activation it reads / writes lies channels-last, and the
     launches whose outputs it reads (indices; none: the forward's NCHW
     input)."""
@@ -108,10 +111,12 @@ def refine_routes(dtype: torch.dtype, engine: str, channels: int,
     NCHW and writes channels-last, its narrow output reads channels-last
     and writes (B, Co, H, W), the tensor-core routes of `dense3x3`,
     `dwsep3x3` and `chain3x3` (tower: NCHW in) read and write
-    channels-last; the CUDA cores of `dwsep3x3` and `chain3x3` read NCHW,
+    channels-last; `dwsep3x3`'s tile body (`refine_rows.MMA` in bf16,
+    CUDA_CORES in float32) and the CUDA cores of `chain3x3` read NCHW,
     those of `dense3x3` read channels-last where Ci % 8 == 0 and their
-    input lies so. A CUDA-core launch of `dense3x3` or `dwsep3x3` writes
-    the layout its reader reads, so no launch copies (`layout_copies`).
+    input lies so. A launch of `dense3x3`'s CUDA cores or of `dwsep3x3`'s
+    tile body writes the layout its reader reads, so no launch copies
+    (`layout_copies`).
     Mirrors the predicates of ops/cuda/refine_rows.py, as
     `costfilter.filter_routes` does the cost filters'."""
     if engine not in ENGINE_NAMES:
@@ -140,11 +145,11 @@ def refine_routes(dtype: torch.dtype, engine: str, channels: int,
                    None, feeders)
 
     def dwsep(dilations, groups=1, feeders=None):
-        tc = dwsep_tensor_core_route(dtype, (c,) * (len(dilations) + 1),
-                                     dilations, groups)
+        route = dwsep_route(dtype, (c,) * (len(dilations) + 1), dilations,
+                            groups)
+        tc = route == TENSOR_CORES
         kernel = "dwsep3x3_pair" if len(dilations) == 2 else "dwsep3x3"
-        return add(kernel, TENSOR_CORES if tc else CUDA_CORES, tc,
-                   True if tc else None, feeders)
+        return add(kernel, route, tc, True if tc else None, feeders)
 
     if engine == "chain":
         tc = chain_tensor_core_route(dtype, (3,) + (c,) * 4, (c,) * 5,

@@ -272,10 +272,11 @@ def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
                            vol: torch.Tensor, start: int) -> torch.Tensor:
     """Fused last layer + skip + soft-argmin; see the plain version. On the
     card it reads the layout of its stage's layers (`filter_routes`:
-    channels-last for bf16 at 8 or 32 channels, where it runs on the
-    tensor cores up to D = SKIP_TC_MAX_D; NCDHW otherwise; x is copied
-    where it lies otherwise) and takes any Ci and D. Launches on the CUDA
-    cores count as route "cores"."""
+    channels-last for bf16 at 8, 16, 32 or 64 channels, where it runs on
+    the tensor cores at 8 or 32 channels up to D = SKIP_TC_MAX_D and on
+    the CUDA cores otherwise; NCDHW at every other width and in float32;
+    x is copied where it lies otherwise) and takes any Ci and D. Launches
+    on the CUDA cores count as route "cores"."""
     if not on_card(x):
         return conv3d_skip_softargmin_plain(x, wt, vol, start)
     B, Ci, D, H, W = x.shape
@@ -327,8 +328,9 @@ def filter_soft_argmin(cost: torch.Tensor, params: Dict[str, torch.Tensor],
             for i in range(n)]
     vol = cost.permute(0, 3, 1, 2).to(dtype).contiguous()  # (B, D, H, W)
     # Every layer hands on the layout the next one reads: each wrapper's
-    # default, from `filter_routes` (channels-last for bf16 at 32 or 8
-    # channels, NCDHW otherwise). The entry applies layer 0's BN + ReLU.
+    # default, from `filter_routes` (channels-last for bf16 at 8, 16, 32
+    # or 64 channels, NCDHW otherwise). The entry applies layer 0's BN +
+    # ReLU.
     for i in range(n - 1):
         a_next, b_next = affs[i + 1]
         wt = (params[f"BNReLUConv3D_{i}.weight"].float()

@@ -19,15 +19,15 @@ read and write channels-last memory, (B, H, W, C) under the logical
 reads NCHW and writes channels-last, its narrow-output route
 (`dense_output_route`) reads channels-last and writes (B, Co, H, W), and
 its CUDA-core route reads either layout (channels-last where Ci % 8 == 0)
-and writes channels-last when asked. The CUDA-core routes of `dwsep` /
-`dwsep2` (any width) read the default layout and write channels-last when
-asked; `chain`'s read and write the default layout. The refinement's
-route rule (`models/refine_kernels.refine_routes`) says which layout each
-launch of a forward writes: the one its next launch reads (under bf16 at
-32 channels, channels-last from the "mxu" and "vpu" engines' entry to the
-output conv; "chain"'s tower reads its 3-channel input NCHW and writes
-channels-last, which the head reads). Each copy is `build.in_layout`'s,
-counted. The plain versions take any layout.
+and writes channels-last when asked. The tile body of `dwsep` / `dwsep2`
+(any width, `dwsep_route`) reads the default layout and writes
+channels-last when asked; `chain`'s read and write the default layout.
+The refinement's route rule (`models/refine_kernels.refine_routes`) says
+which layout each launch of a forward writes: the one its next launch
+reads (under bf16 at 32 channels, channels-last from the "mxu" and "vpu"
+engines' entry to the output conv; "chain"'s tower reads its 3-channel
+input NCHW and writes channels-last, which the head reads). Each copy is
+`build.in_layout`'s, counted. The plain versions take any layout.
 """
 
 from __future__ import annotations
@@ -42,6 +42,13 @@ from lwsnet_tpu_torch.ops.cuda.build import (CHAIN3X3, DENSE3X3, DWSEP3X3,
                                              DWSEP3X3_PAIR, check, empty,
                                              in_layout, lies_channels_last,
                                              on_card, symbol_suffix)
+from lwsnet_tpu_torch.ops.cuda.costfilter import CUDA_CORES, TENSOR_CORES
+
+# `dwsep3x3`'s tile body in bf16: the depthwise taps on the CUDA cores, the
+# pointwise product on mma.sync tensor cores (`dwsep_route`); its launches
+# count as "dwsep3x3[mma]" / "dwsep3x3_pair[mma]", the float32 body's as
+# "[cores]".
+MMA = "mma"
 
 
 def dense_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int,
@@ -93,6 +100,24 @@ def dwsep_tensor_core_route(dtype: torch.dtype, channels: Sequence[int],
             and all(m == 32 for m in mid)
             and len(dilations) == len(channels) - 1
             and all(1 <= d <= 16 for d in dilations) and 1 <= groups <= 2)
+
+
+def dwsep_route(dtype: torch.dtype, channels: Sequence[int],
+                dilations: Sequence[int], groups: int = 1) -> str:
+    """The route of `dwsep` (channels (C, Co), dilations (d,)) or `dwsep2`
+    ((C, Cm, Co), (d1, d2)) on the card: TENSOR_CORES (the wgmma route,
+    `dwsep_tensor_core_route`, channels-last in and out), else the tile
+    body of csrc/dwsep3x3.cu (NCHW in, either layout out), MMA in bf16
+    (the pointwise product on mma.sync) and CUDA_CORES in float32."""
+    if dwsep_tensor_core_route(dtype, channels, dilations, groups):
+        return TENSOR_CORES
+    return MMA if dtype == torch.bfloat16 else CUDA_CORES
+
+
+def dwsep_counted(route: str) -> Optional[str]:
+    """The name `build.route_counts()` counts a dw-sep launch of `route`
+    under (none for the wgmma route)."""
+    return {MMA: MMA, CUDA_CORES: "cores"}.get(route)
 
 
 def _narrow_entry(cis: Sequence[int], cos: Sequence[int],
@@ -308,9 +333,9 @@ def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
           channels_last: bool = False) -> torch.Tensor:
     """The dwsep3x3 kernel (one layer); arguments as `dwsep_plain`. On
     the card the tensor-core route reads and writes channels-last, the
-    CUDA-core route (any C, Co) reads NCHW (x is copied where it lies
-    otherwise) and writes NCHW, or channels-last where `channels_last`
-    asks."""
+    tile body (any C, Co; `dwsep_route`) reads NCHW (x is copied where it
+    lies otherwise) and writes NCHW, or channels-last where
+    `channels_last` asks."""
     if not on_card(x):
         return dwsep_plain(x, dw, pw, dilation=dilation, affine=affine)
     B, C, H, W = x.shape
@@ -318,7 +343,8 @@ def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
     dev, dt = x.device, x.dtype
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
-    cl = dwsep_tensor_core_route(dt, (C, Co), (dilation,), G)
+    route = dwsep_route(dt, (C, Co), (dilation,), G)
+    cl = route == TENSOR_CORES
     y_cl = cl or channels_last
     x = in_layout(x, cl)
     check(x, "x", (B, C, H, W), dt, dev, cl)
@@ -329,7 +355,8 @@ def dwsep(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, *,
     y = empty((B, Co, H, W), dt, dev, y_cl)
     DWSEP3X3.launch(f"dwsep3x3_{symbol_suffix(dt)}", dev, x.data_ptr(),
                     affine.data_ptr(), dw.data_ptr(), pk.data_ptr(),
-                    y.data_ptr(), B, G, C, Co, H, W, dilation, cl, y_cl)
+                    y.data_ptr(), B, G, C, Co, H, W, dilation, cl, y_cl,
+                    route=dwsep_counted(route))
     return y
 
 
@@ -347,10 +374,10 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
            dilation2: int, affine1: torch.Tensor, affine2: torch.Tensor,
            channels_last: bool = False) -> torch.Tensor:
     """The dwsep3x3 pair kernel: both layers in one launch; arguments as
-    `dwsep2_plain`. The layouts as `dwsep`'s. The tensor-core route passes
-    the intermediate through a channels-last scratch tensor (one
-    cooperative launch, a grid-wide barrier between the layers); the
-    CUDA-core route keeps it in shared memory."""
+    `dwsep2_plain`. The layouts as `dwsep`'s. Both routes pass the
+    intermediate through a scratch tensor, channels-last on the
+    tensor-core route and NCHW on the tile body, in one cooperative launch
+    with a grid-wide barrier between the layers."""
     if not on_card(x):
         return dwsep2_plain(x, dw1, pw1, dw2, pw2, dilation1=dilation1,
                             dilation2=dilation2, affine1=affine1,
@@ -360,8 +387,8 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
     dev, dt = x.device, x.dtype
     if B % G:
         raise ValueError(f"batch {B} not divisible by {G} weight groups")
-    cl = dwsep_tensor_core_route(dt, (C, Cm, Co), (dilation1, dilation2),
-                                 G)
+    route = dwsep_route(dt, (C, Cm, Co), (dilation1, dilation2), G)
+    cl = route == TENSOR_CORES
     y_cl = cl or channels_last
     x = in_layout(x, cl)
     check(x, "x", (B, C, H, W), dt, dev, cl)
@@ -372,14 +399,14 @@ def dwsep2(x: torch.Tensor, dw1: torch.Tensor, pw1: torch.Tensor,
     check(pw2, "pw2", (G, Co, Cm), dt, dev)
     check(affine2, "affine2", (G, 2, Cm), torch.float32, dev)
     pk1, pk2 = (_pw_images(pw1), _pw_images(pw2)) if cl else (pw1, pw2)
-    mid = empty((B, Cm, H, W), dt, dev, True) if cl else None
+    mid = empty((B, Cm, H, W), dt, dev, cl)
     y = empty((B, Co, H, W), dt, dev, y_cl)
     DWSEP3X3_PAIR.launch(
         f"dwsep3x3_pair_{symbol_suffix(dt)}", dev, x.data_ptr(),
         affine1.data_ptr(), dw1.data_ptr(), pk1.data_ptr(),
         affine2.data_ptr(), dw2.data_ptr(), pk2.data_ptr(), y.data_ptr(),
-        B, G, C, Cm, Co, H, W, dilation1, dilation2,
-        None if mid is None else mid.data_ptr(), cl, y_cl)
+        B, G, C, Cm, Co, H, W, dilation1, dilation2, mid.data_ptr(), cl,
+        y_cl, route=dwsep_counted(route))
     return y
 
 

@@ -864,7 +864,7 @@ def test_dwsep_pair_shapes_of_the_path_on_card(rnd, d1, d2, G):
 
 def test_dwsep_cuda_core_route_off_the_tensor_cores_on_card(rnd):
     """bf16 shapes the tensor-core route does not take (Co = 8, C = 24,
-    d = 17) run on the CUDA cores from NCHW: a channels-last input is
+    d = 17) run on the tile body from NCHW: a channels-last input is
     copied once, the result lies in the default layout."""
     bf = torch.bfloat16
     build.reset_launch_counts()
@@ -883,14 +883,13 @@ def test_dwsep_cuda_core_route_off_the_tensor_cores_on_card(rnd):
 @pytest.mark.parametrize("C,Cm,Co", [(48, 48, 48), (20, 20, 20),
                                      (64, 64, 64), (20, 64, 48)])
 def test_dwsep_cuda_core_widths_on_card(rnd, dtype, C, Cm, Co):
-    """dwsep3x3 solo (C -> Co) and pair (C -> Cm -> Co) on the CUDA cores
-    at widths over 32 and not a multiple of 8 (output tiles of 16 and 4,
-    the intermediate over its 32-channel passes, a pair's layer-1 weights
-    over two 32-channel chunks), two weight groups, the (8, 16) and (2, 1)
-    dilations, on a ragged 37 x 75 plane from NCHW, the result NCHW or
-    channels-last as asked: float32 max |delta| <= 1e-5 of the plain
-    versions, bf16 within two rounding steps; each launch counted, no
-    layout copy."""
+    """dwsep3x3 solo (C -> Co) and pair (C -> Cm -> Co) on the tile body
+    at widths over 32 and not a multiple of 8 (output chunks of 32 and a
+    partial one, the pair's intermediate of another width than its
+    input), two weight groups, the (8, 16) and (2, 1) dilations, on a
+    ragged 37 x 75 plane from NCHW, the result NCHW or channels-last as
+    asked: float32 max |delta| <= 1e-5 of the plain versions, bf16 within
+    two rounding steps; each launch counted, no layout copy."""
     build.reset_launch_counts()
     x = rnd(2, C, 37, 75, dtype=dtype)
     dw, pw, aff = _dwsep_operands(rnd, 2, C, Cm, dtype)
@@ -919,6 +918,72 @@ def test_dwsep_cuda_core_widths_on_card(rnd, dtype, C, Cm, Co):
     counts = build.launch_counts()
     assert (counts["dwsep3x3"], counts["dwsep3x3_pair"]) == (n, n)
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [48, 20, 64, 3])
+def test_dwsep_tile_body_widths_on_card(rnd, dtype, C):
+    """dwsep3x3's tile body, solo (C -> C) and pair (C -> C -> C), at the
+    refinement widths 48 and 20, at 64 and at a ragged 3: d in {1, 16}
+    (pairs (16, 1) and (1, 16)), two weight groups at B = 2, a ragged
+    37 x 75 plane from NCHW, y NCHW and channels-last; float32 max |delta|
+    <= 1e-5 of `dwsep_plain` / `dwsep2_plain`, bf16 within two rounding
+    steps; each launch counted under its route (`dwsep_route`: "mma" in
+    bf16, "cores" in float32), no layout copy."""
+    build.reset_launch_counts()
+    x = rnd(2, C, 37, 75, dtype=dtype)
+    dw, pw, aff = _dwsep_operands(rnd, 2, C, C, dtype)
+    dw2, pw2, aff2 = _dwsep_operands(rnd, 2, C, C, dtype)
+    route = trr.dwsep_route(dtype, (C, C, C), (16, 1), 2)
+    assert route == (trr.MMA if dtype == torch.bfloat16 else tcf.CUDA_CORES)
+    n = 0
+    for cl in (False, True):
+        for d in (1, 16):
+            assert trr.dwsep_route(dtype, (C, C), (d,), 2) == route
+            kw = dict(dilation1=17 - d, dilation2=d, affine1=aff,
+                      affine2=aff2)
+            pairs = (trr.dwsep2(x, dw, pw, dw2, pw2, channels_last=cl, **kw),
+                     trr.dwsep2_plain(x, dw, pw, dw2, pw2, **kw))
+            solos = (trr.dwsep(x, dw, pw, dilation=d, affine=aff,
+                               channels_last=cl),
+                     trr.dwsep_plain(x, dw, pw, dilation=d, affine=aff))
+            for got, want in (pairs, solos):
+                assert got.is_contiguous(memory_format=torch.channels_last
+                                         if cl else torch.contiguous_format)
+                if dtype == torch.float32:
+                    assert (got - want).abs().max().item() <= 1e-5
+                else:
+                    _assert_two_steps(got, want)
+            n += 1
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    assert (counts["dwsep3x3"], counts["dwsep3x3_pair"]) == (n, n)
+    name = "mma" if dtype == torch.bfloat16 else "cores"
+    assert build.route_counts() == {f"dwsep3x3[{name}]": n,
+                                    f"dwsep3x3_pair[{name}]": n}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dwsep_tile_body_wide_and_odd_channels_on_card(rnd, dtype):
+    """The tile body past KC = 64 input channels (C = 80: two depthwise
+    passes, recomputed for each of the three 32-output chunks of Co = 80)
+    and with Cm != C != Co (20 -> 72 -> 9), G = 1, at a ragged 21 x 40
+    plane and d = 2 / 5; held as `test_dwsep_tile_body_widths_on_card`."""
+    for C, Cm, Co, d1, d2 in ((80, 80, 80, 2, 5), (20, 72, 9, 5, 2)):
+        x = rnd(1, C, 21, 40, dtype=dtype)
+        dw, pw, aff = _dwsep_operands(rnd, 1, C, Cm, dtype)
+        dw2, pw2, aff2 = _dwsep_operands(rnd, 1, Cm, Co, dtype)
+        kw = dict(dilation1=d1, dilation2=d2, affine1=aff, affine2=aff2)
+        for got, want in (
+                (trr.dwsep2(x, dw, pw, dw2, pw2, **kw),
+                 trr.dwsep2_plain(x, dw, pw, dw2, pw2, **kw)),
+                (trr.dwsep(x, dw, pw, dilation=d1, affine=aff),
+                 trr.dwsep_plain(x, dw, pw, dilation=d1, affine=aff))):
+            if dtype == torch.float32:
+                assert (got - want).abs().max().item() <= 1e-5
+            else:
+                _assert_two_steps(got, want)
 
 
 @pytest.mark.parametrize("shape", [

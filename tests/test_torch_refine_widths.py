@@ -78,9 +78,8 @@ def _route(dtype, name, args, kwargs):
         dils = ((kwargs["dilation1"], kwargs["dilation2"]) if pair
                 else (kwargs["dilation"],))
         c = x.shape[1]
-        tc = trr.dwsep_tensor_core_route(dtype, (c,) * (len(dils) + 1),
-                                         dils, kwargs.get("groups", 1))
-        return tcf.TENSOR_CORES if tc else tcf.CUDA_CORES
+        return trr.dwsep_route(dtype, (c,) * (len(dils) + 1), dils,
+                               kwargs.get("groups", 1))
     kern = args[1]
     if name == "fused_dense":  # HWIO
         ci, co = kern.shape[2], kern.shape[3]
@@ -152,9 +151,12 @@ def test_route_rule_is_what_the_refinement_asks_for(dtype, monkeypatch):
                 counts[L.kernel] = counts.get(L.kernel, 0) + 1
             assert {k: v for k, v in launches.items()
                     if "[" not in k} == counts
-            assert routes == {f"dense3x3[{r}]": sum(
-                L.route == r for L in rule) for r in (RK.ENTRY, RK.OUTPUT)
-                if any(L.route == r for L in rule)}
+            want_routes = {}
+            for L in rule:
+                if L.route in (RK.ENTRY, RK.OUTPUT, trr.MMA):
+                    key = f"{L.kernel}[{L.route}]"
+                    want_routes[key] = want_routes.get(key, 0) + 1
+            assert routes == want_routes
     with pytest.raises(ValueError, match="engine"):
         RK.refine_routes(dtype, "vpu", 32)
 
@@ -162,19 +164,64 @@ def test_route_rule_is_what_the_refinement_asks_for(dtype, monkeypatch):
 def test_route_rule_at_the_shipped_width():
     """bf16 at 32 channels: channels-last from the entries to the output
     conv on every engine, each launch on its tensor-core or narrow route;
-    off the tensor-core widths every dw-sep and dense layer on the CUDA
-    cores, channels-last only into an output conv that reads it."""
+    off the tensor-core widths every dw-sep layer on `dwsep3x3`'s tile
+    body (route MMA) and every dense layer on the CUDA cores,
+    channels-last only into an output conv that reads it."""
     bf = torch.bfloat16
     for engine in ENGINES:
         rule = RK.refine_routes(bf, engine, 32)
-        assert all(L.route != tcf.CUDA_CORES for L in rule), engine
+        assert all(L.route not in (tcf.CUDA_CORES, trr.MMA)
+                   for L in rule), engine
         assert [L.writes_cl for L in rule[:-1]] == [True] * (len(rule) - 1)
     for c in (20, 48):
         for engine in ENGINES:
             rule = RK.refine_routes(bf, engine, c)
             assert rule[-2].writes_cl == rule[-1].reads_cl == (
                 c % 16 == 0 and engine != "chain"), (c, engine)
-            assert all(L.route == tcf.CUDA_CORES for L in rule[:-1])
+            assert all(L.route == (trr.MMA if L.kernel.startswith("dwsep")
+                                   else tcf.CUDA_CORES)
+                       for L in rule[:-1])
+
+
+def test_dwsep_route_names_the_tile_body():
+    """`dwsep_route` is the wgmma route where `dwsep_tensor_core_route`
+    takes the shape, else `dwsep3x3`'s tile body: MMA in bf16, the CUDA
+    cores in float32; `refine_routes` names each dw-sep launch of the
+    "vpu" and "layers" engines so at every width 1-64 (the tile body off
+    32 channels in bf16, everywhere in float32), with no layout copy; and
+    chip_smoke counts the tile body's launches as `build.route_counts()`
+    does ("[mma]", "[cores]")."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for chans, dils, g, want in (
+            ((16, 32), (16,), 2, tcf.TENSOR_CORES),
+            ((32, 32, 32), (8, 16), 2, tcf.TENSOR_CORES),
+            ((32, 32), (17,), 1, trr.MMA), ((32, 32), (1,), 3, trr.MMA),
+            ((48, 48, 48), (8, 16), 2, trr.MMA), ((20, 20), (2,), 2, trr.MMA),
+            ((32, 8), (1,), 1, trr.MMA)):
+        assert trr.dwsep_route(bf, chans, dils, g) == want, chans
+        assert (want == tcf.TENSOR_CORES) == trr.dwsep_tensor_core_route(
+            bf, chans, dils, g)
+        assert trr.dwsep_route(f32, chans, dils, g) == tcf.CUDA_CORES
+    for c in range(1, 65):
+        for dtype in DTYPES:
+            for engine in ("vpu-paired", "vpu-unpaired", "layers"):
+                rule = RK.refine_routes(dtype, engine, c)
+                assert RK.layout_copies(rule) == 0, (c, engine)
+                routes = {L.route for L in rule
+                          if L.kernel.startswith("dwsep")}
+                want = (tcf.TENSOR_CORES if dtype == bf and c == 32
+                        else trr.MMA if dtype == bf else tcf.CUDA_CORES)
+                assert routes == {want}, (c, dtype, engine, routes)
+                assert all(not L.reads_cl for L in rule
+                           if L.route in (trr.MMA, tcf.CUDA_CORES)
+                           and L.kernel.startswith("dwsep"))
+    for dtype, name in ((bf, "mma"), (f32, "cores")):
+        for kernel, p in (("dwsep3x3", dict(C=48, d=16, G=2)),
+                          ("dwsep3x3_pair", dict(C=20, d1=8, d2=16, G=2))):
+            assert chip_smoke.dwsep_route_launches(kernel, p, dtype) == {
+                f"{kernel}[{name}]": 1}
+    assert chip_smoke.dwsep_route_launches(
+        "dwsep3x3_pair", dict(C=16, Co=32, d1=1, d2=16, G=2), bf) == {}
 
 
 @pytest.mark.parametrize("c", [48, 20])
