@@ -28,8 +28,9 @@ failure exits non-zero:
      output, Co 1 and 8), dwsep3x3 (solo and pair), chain3x3 (tower and
      head), conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout; the
      stage entries 1 -> 8 and 1 -> 32 with layer 0's BN + ReLU fused,
-     b0 > 0) and conv3d_skip_softargmin (32 and 8 channels) at ragged
-     shapes from both layouts (NCHW / channels-last), in float32 (TF32
+     b0 > 0) and conv3d_skip_softargmin (32 and 8 channels; 16 and 64, two
+     and three chunks of costs past D = 64) at ragged shapes from both
+     layouts (NCHW / channels-last), in float32 (TF32
      off; atol 2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain
      output's span; chain3x3, the 8-channel conv3d_bn_relu layers and the
      entries, conv3d_skip_softargmin and dense3x3's narrow routes also
@@ -226,25 +227,28 @@ failure exits non-zero:
      368x1232 batch 1 (`configs_phase`): (a) phase 3's check of each of
      AnyNet's cost filters' calls, of a filter of 64 channels over D = 72
      (stage 1 at channels_3d 16), of the widths 16, 64, 4 and 3 at a
-     ragged shape, and of the bf16 fused last layer past D = 64 at 32 and
-     8 channels, each on the route `costfilter.filter_routes` gives (bf16
-     16 -> 16 and 64 -> 64 on the tensor cores); of every dw-sep call of
-     the forward at widths 48 and 20, in the layout the path hands it
+     ragged shape, and of the bf16 fused last layer past D = 64 at 32, 8,
+     16 and 64 channels, each on the route `costfilter.filter_routes`
+     gives (bf16 16 -> 16 and 64 -> 64 and the fused last layer at 8, 16,
+     32 and 64 channels, any D, on the tensor cores); of every dw-sep
+     call of the forward at widths 48 and 20, in the layout the path hands it
      (`refine_kernels.refine_routes`); and of dwsep3x3 solo and pair at
      48, 20 and 64 channels at a ragged shape writing either layout; (b)
      phase 4's forward check under "mxu" at AnyNet's settings with its
      launch counts (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3
-     11), route launches (`want_routes`: stage 1's four 16 -> 16 layers on
-     the tensor cores, the 8 4 -> 4 layers and 3 fused last layers on the
-     CUDA cores) and no layout copy, and under every engine at each
-     refinement width in bf16 and float32 (launch and route counts from
+     11), route launches (`want_routes`: stage 1's four 16 -> 16 layers and
+     its fused last layer on the tensor cores, the 8 4 -> 4 layers and 2
+     fused last layers on the CUDA cores) and no layout copy, and under
+     every engine at each refinement width in bf16 and float32 (launch
+     and route counts from
      the route rules, no copy), then `InferenceEngine` at AnyNet's
      settings at num_stages 1..4; (c) phase 4b on AnyNet's settings
      ("mxu") and on each refinement width (every engine), bf16 and
      float32, and a x1.01 weight fault planted in each route the shipped
      configuration does not run, caught at that launch alone; (d)
      `cli.infer` with the four flags on one pair; (e) each bf16 launch of
-     AnyNet's filters, the wide filter's and the "vpu" engines' dw-sep
+     AnyNet's filters, the wide filter's, the fused last layer past D = 64
+     at 32 and 8 channels (`PAST_D64`) and the "vpu" engines' dw-sep
      launches at each refinement width timed: device, events, plain, one
      cuDNN call (a dw-sep pair: one a layer), bound. `--only configs` runs
      phases 1, 2 and 14 alone.
@@ -756,6 +760,16 @@ def ragged_calls():
         calls.append(("conv3d_bn_relu", f"ragged 1->{co} entry B=2 7x11x37",
                       dict(B=2, Ci=1, Co=co, D=7, H=11, W=37, entry=True), 0,
                       None))
+    # the fused last layer's 16- and 64-channel routes, over one chunk of
+    # costs and past D = 64 (two and three chunks)
+    for cl in (False, True):
+        tag = "channels-last" if cl else "NCHW"
+        for ci, d, h, w in ((16, 12, 5, 75), (64, 72, 3, 70),
+                            (16, 129, 3, 37)):
+            calls.append(("conv3d_skip_softargmin",
+                          f"ragged {ci}->1 B=2 {d}x{h}x{w} {tag}",
+                          dict(B=2, Ci=ci, D=d, H=h, W=w, cl=cl,
+                               start=-d // 3), 0, None))
     return calls
 
 
@@ -2668,6 +2682,9 @@ def multicard_phase(smi, tmp, only=False):
 # multiple of 8, and the dw-sep kernels at 64.
 RAGGED_WIDTHS = (16, 64, 4, 3)
 WIDE_FILTER = dict(B=1, C=64, D=72, H=H // 8, W=W // 8)
+# The fused last layer past D = 64 at the shipped widths, timed in phase
+# 14e beside the configurations' launches.
+PAST_D64 = ("32->1 D=72 channels-last", "8->1 B=2 D=65 5x37 channels-last")
 REFINE_WIDTHS = (48, 20)
 DWSEP_WIDTHS = (48, 20, 64)
 
@@ -2676,14 +2693,16 @@ def config_calls(fields):
     """Phase 14a: the cost filters' calls of the 368x1232 forward of
     ModelConfig(**fields) (`main_path_calls`), the wide filter's, the new
     widths at a ragged shape (B = 2, D = 7, 11 x 37), and the bf16 fused
-    last layer past D = 64 at 32 and 8 channels (the CUDA cores reading
-    channels-last); then every dw-sep call of the forward at each of
+    last layer past D = 64 at 32 and 8 channels (`PAST_D64`; the tensor
+    cores reading channels-last, the costs in chunks of 64); then every
+    dw-sep call of the forward at each of
     REFINE_WIDTHS (engine "width C <engine>": launches a forward of that
     width, each input in the layout the path hands it, `refine_routes`;
     the width's other launches are held in (b) and (c)), and
     `dwsep3x3` solo and pair at DWSEP_WIDTHS at a ragged shape (37 x 75,
-    two weight groups at B = 2), NCHW in, each result in both layouts.
-    Tuples as `main_path_calls` (launches: per forward of the
+    two weight groups at B = 2), NCHW in, each result in both layouts;
+    last, the fused last layer at 16 and 64 channels over D = 129 (three
+    chunks). Tuples as `main_path_calls` (launches: per forward of the
     configuration, or of a 4-layer filter of the wide width)."""
     import torch
     from lwsnet_tpu_torch import ModelConfig
@@ -2710,9 +2729,9 @@ def config_calls(fields):
             ("conv3d_skip_softargmin", f"ragged {C}->1 B=2 7x11x37",
              dict(ragged, Ci=C, start=-3), 0, None)]
     calls += [
-        ("conv3d_skip_softargmin", "32->1 D=72 channels-last",
+        ("conv3d_skip_softargmin", PAST_D64[0],
          dict(geo, Ci=32, cl=True, start=0), 0, None),
-        ("conv3d_skip_softargmin", "8->1 B=2 D=65 5x37 channels-last",
+        ("conv3d_skip_softargmin", PAST_D64[1],
          dict(B=2, D=65, H=5, W=37, Ci=8, cl=True, start=-32), 0, None)]
     for c in REFINE_WIDTHS:
         cfg = ModelConfig(refine_channels=c)
@@ -2730,7 +2749,21 @@ def config_calls(fields):
                     ("dwsep3x3_pair", f"ragged {c}->{c}->{c} ({17 - d},{d}) "
                      f"G=2 37x75 to {to}",
                      dict(geo, C=c, d1=17 - d, d2=d, cl_out=out), 0, None)]
+    calls += [("conv3d_skip_softargmin", f"{c}->1 B=2 D=129 5x75 "
+               f"channels-last", dict(B=2, D=129, H=5, W=75, Ci=c, cl=True,
+                                      start=-64), 0, None) for c in (16, 64)]
     return calls
+
+
+def timed_calls(calls):
+    """Phase 14e's calls of `calls` (`config_calls`), with their index:
+    the cost filters' launches of a forward or of the wide filter, the
+    fused last layer past D = 64 (`PAST_D64`), the "vpu" engines' dw-sep
+    launches (the "layers" path's pairs have the head pairs' shapes)."""
+    return [(i, c) for i, c in enumerate(calls)
+            if c[1] in PAST_D64 or c[3] > 0 and (
+                c[0] in FILTER_KERNELS or (c[0].startswith("dwsep")
+                                           and "vpu" in c[4]))]
 
 
 def per_launch_phase(dev, fields, engines, zero, tag):
@@ -2861,8 +2894,9 @@ def configs_phase(dev, smi, tmp):
     each refinement width (every engine); (d) `cli.infer` with
     --maxdisplist 12 3 3 --channels_3d 4 --growth_rate 4 1 1 on one
     seeded 375x1242 pair: four PNGs, finite maps, two forwards' launches;
-    (e) `timing_rows` over each bf16 launch of AnyNet's configuration and
-    of the wide filter, and the dw-sep launches of each refinement width.
+    (e) `timing_rows` over `timed_calls`: each bf16 launch of AnyNet's
+    configuration and of the wide filter, the fused last layer past
+    D = 64, and the dw-sep launches of each refinement width.
     Fails after printing every reading if any missed. Returns the phase's
     report."""
     import torch
@@ -2965,13 +2999,11 @@ def configs_phase(dev, smi, tmp):
 
     print(f"[14] (d) done at {time.time() - t0:.1f} s")
 
-    # (e) each bf16 launch of the configuration and of the wide filter, and
-    # the "vpu" engines' dw-sep launches of the refinement widths (the
-    # "layers" path's pairs have the head pairs' shapes)
-    timed = [(i, c) for i, c in enumerate(calls) if c[3] > 0 and (
-        c[0] in FILTER_KERNELS or (c[0].startswith("dwsep")
-                                   and "vpu" in c[4]))]
-    report["timings"] = timing_rows(timed, dev, smi, "14e", 4000)
+    # (e) each bf16 launch of the configuration and of the wide filter, the
+    # fused last layer past D = 64, and the "vpu" engines' dw-sep launches
+    # of the refinement widths
+    report["timings"] = timing_rows(timed_calls(calls), dev, smi, "14e",
+                                    4000)
     report["seconds"] = time.time() - t0
     print(f"[14] configurations phase: {report['seconds']:.1f} s, "
           f"{len(failures)} failure(s)")

@@ -38,8 +38,12 @@ the repository's own library, in one process:
 --skip times conv3d_skip_softargmin's tensor-core route instead (its `tcr`
 namespace in `csrc/conv3d_skip_softargmin.cu`), each variant held against
 `conv3d_skip_softargmin_plain` (every element within two bf16 rounding
-steps) and timed at the three stage shapes of the 368x1232 forward and at
-two small ones (one row of two tiles, each tile's block alone on its SM):
+steps) and timed at the three stage shapes of the 368x1232 forward, at
+two small ones (one row of two tiles, each tile's block alone on its SM),
+at AnyNet's stage 1 (16 channels, D = 12), the wide filter's last layer
+(64 channels, D = 72) and the stage-1 width past D = 64 (32 channels,
+D = 72), all at 46x154, and the stage-2/3 width past D = 64 (8 channels,
+D = 65, B = 2 at 5x37):
 
   c32_rows2           2 output rows a C = 32 tile (the route has 1): 69
                       tiles for 138, N = 24 for 16;
@@ -48,8 +52,11 @@ two small ones (one row of two tiles, each tile's block alone on its SM):
   c8_stages4          a ring of 4 at C = 8 (the route has 3; then six
                       blocks fit an SM, not seven);
   c8_acc2             two accumulators a plane at C = 8 (the route has one);
+  c64_stages5_blocks1 a ring of 5 at C = 64, one block an SM (the route has
+                      3 and two blocks an SM);
+  c64_acc2            two accumulators a plane at C = 64 (the route has 4);
   clock               clock64() marks of a block (thread 0 of the products
-                      and the staging thread): weights and first plane
+                      and the staging thread): B images built, first plane
                       landed, waits for landed planes, products done, end,
                       the last copy issued, waits for free stages (medians
                       over the blocks of each launch), and the spread of
@@ -307,15 +314,22 @@ SKIP_SHAPES = {"stage1": (1, 32, 24, 46, 154, 0),
                "stage2": (1, 8, 9, 92, 308, -4),
                "stage3": (1, 8, 9, 184, 616, -4),
                "one tile, C = 32": (1, 32, 24, 1, 64, 0),
-               "one tile, C = 8": (1, 8, 9, 2, 64, -4)}
+               "one tile, C = 8": (1, 8, 9, 2, 64, -4),
+               # AnyNet's stage 1, the wide filter's last layer, and the
+               # stage-1 width past D = 64 (two chunks of costs)
+               "anynet stage1, C = 16": (1, 16, 12, 46, 154, 0),
+               "wide, C = 64, D = 72": (1, 64, 72, 46, 154, 0),
+               "C = 32, D = 72": (1, 32, 72, 46, 154, 0),
+               "C = 8, B = 2, D = 65, 5x37": (2, 8, 65, 5, 37, -32)}
 SKIP_BLOCKS = 2048  # blocks whose clocks are kept
 # clock64() slots of a block (clocks from its start, thread 0 of the
 # product warpgroups unless marked; slot 5 marks a block that wrote): the
-# weights landed, the first plane landed, waits for landed planes, its
-# products and sums done, end; the staging thread's last copy issued and
-# its waits for free stages; the block's wall time (globaltimer, ns).
-# Slot 0 holds the start's globaltimer and slot 6 the SM.
-SKIP_ROLES = {"weights_at": 1, "first_plane_at": 2, "landed_waits": 7,
+# weights landed and B built (the first volume loads in flight), the first
+# plane landed, waits for landed planes, its products and sums done, end;
+# the staging thread's last copy issued and its waits for free stages; the
+# block's wall time (globaltimer, ns). Slot 0 holds the start's
+# globaltimer and slot 6 the SM.
+SKIP_ROLES = {"images_at": 1, "first_plane_at": 2, "landed_waits": 7,
               "products_done_at": 3, "end_at": 4, "last_copy_issued_at": 8,
               "staging_free_waits": 9, "wall_ns": 10}
 
@@ -323,20 +337,27 @@ SKIP_VARIANTS = {
     "c32_rows2": [("static constexpr int TH = 1, KP = 2,",
                    "static constexpr int TH = 2, KP = 2,"),
                   ("ACC = 2, BLOCKS = 2;", "ACC = 2, BLOCKS = 1;")],
-    "c32_stages4": [("LP = 64, STAGES = 6,", "LP = 64, STAGES = 4,")],
+    "c32_stages4": [("STAGES = 6, ACC = 2,", "STAGES = 4, ACC = 2,")],
     "c32_acc1": [("ACC = 2, BLOCKS = 2;", "ACC = 1, BLOCKS = 2;")],
-    "c8_stages4": [("LP = 72, STAGES = 3,", "LP = 72, STAGES = 4,")],
+    "c8_stages4": [("STAGES = 3, ACC = 1, BLOCKS = 7;",
+                    "STAGES = 4, ACC = 1, BLOCKS = 7;")],
     "c8_acc2": [("ACC = 1, BLOCKS = 7;", "ACC = 2, BLOCKS = 7;")],
+    # 64 channels: one block an SM with a deeper ring (a second wave of
+    # six tiles at 46x154), or two accumulator chains
+    "c64_stages5_blocks1": [("STAGES = 3, ACC = 4, BLOCKS = 2;",
+                             "STAGES = 5, ACC = 4, BLOCKS = 1;")],
+    "c64_acc2": [("STAGES = 3, ACC = 4, BLOCKS = 2;",
+                  "STAGES = 3, ACC = 2, BLOCKS = 2;")],
     "clock": [
-        ("template <int SC>\n__global__ void __launch_bounds__(THREADS, "
-         "Route<SC>::BLOCKS)\n",
+        ("template <int SC, bool CHUNKED>\n__global__ void "
+         "__launch_bounds__(THREADS, Route<SC>::BLOCKS)\n",
          f"__device__ long long clk[{SKIP_BLOCKS} * 16];\n"
          "__device__ __forceinline__ long long gtime() {\n"
          "  long long t;\n"
          "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n"
          "  return t;\n}\n"
-         "template <int SC>\n__global__ void __launch_bounds__(THREADS, "
-         "Route<SC>::BLOCKS)\n"),
+         "template <int SC, bool CHUNKED>\n__global__ void "
+         "__launch_bounds__(THREADS, Route<SC>::BLOCKS)\n"),
         ("  const int w0 = blockIdx.x * TW, h0 = blockIdx.y * TH, "
          "b = blockIdx.z;\n",
          "  const int w0 = blockIdx.x * TW, h0 = blockIdx.y * TH, "
@@ -349,14 +370,16 @@ SKIP_VARIANTS = {
          "        const long long e0 = clock64();\n"
          "        if (p >= S) tc::mbar_wait(empty(s), ((p / S) & 1) ^ 1);\n"
          "        t_free += clock64() - e0;\n"),
-        ("                          h0 - 1, p, b);\n      }\n    }\n"
-         "    return;\n",
-         "                          h0 - 1, p, b);\n      }\n"
+        ("                            32 * k, w0 - 1, h0 - 1, p, b);\n"
+         "      }\n    }\n    return;\n",
+         "                            32 * k, w0 - 1, h0 - 1, p, b);\n"
+         "      }\n"
          "      ck[8] = clock64() - t0;\n      ck[9] = t_free;\n    }\n"
          "    return;\n"),
-        ("  tc::mbar_wait(weights, 0);\n",
-         "  tc::mbar_wait(weights, 0);\n"
-         "  if (threadIdx.x == 0) ck[1] = clock64() - t0;\n"),
+        ("  tc::fence_proxy_async();  // the writes above before wgmma reads "
+         "them\n",
+         "  tc::fence_proxy_async();  // the writes above before wgmma reads "
+         "them\n  if (threadIdx.x == 0) ck[1] = clock64() - t0;\n"),
         ("    tc::mbar_wait(landed(p % S), (p / S) & 1);\n",
          "    const long long l0 = clock64();\n"
          "    tc::mbar_wait(landed(p % S), (p / S) & 1);\n"
@@ -365,8 +388,8 @@ SKIP_VARIANTS = {
         ("\n  // Soft-argmin of this thread's pixel",
          "\n  if (threadIdx.x == 0) { ck[3] = clock64() - t0; ck[7] = t_land; }"
          "\n  // Soft-argmin of this thread's pixel"),
-        ("  out[((size_t)b * H + h) * W + w] = num / den;\n}\n",
-         "  out[((size_t)b * H + h) * W + w] = num / den;\n"
+        ("  out[((size_t)b * H + h) * W + w] = run_num / run_den;\n}\n",
+         "  out[((size_t)b * H + h) * W + w] = run_num / run_den;\n"
          "  if (threadIdx.x == 0) {\n    ck[4] = clock64() - t0; ck[0] = g0;"
          " ck[10] = gtime() - g0; ck[5] = 1;\n"
          "    unsigned sm;\n"

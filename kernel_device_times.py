@@ -41,13 +41,15 @@ C->C layer reads what the entry just wrote, as in the forward, so the
 pair's time shows what the entry's stores cost the next layer.
 
 --configs times, in place of the shipped path's calls, the cost filters'
-launches of `chip_smoke.py` phase 14e (AnyNet's settings and the
-64-channel filter over D = 72, each input in the layout its tree's
-`filter_routes` gives), and --widths the "vpu" engines' dw-sep launches
-of a 368x1232 forward at each of `chip_smoke.DWSEP_WIDTHS` (48, 20, 64),
-with each kernel's sum over a forward's launches; each beside the device
-time of its cuDNN call (one conv2d of the composed kernel, or for a
-dw-sep pair one such conv a layer).
+launches of `chip_smoke.py` phase 14e (`chip_smoke.timed_calls`:
+AnyNet's settings, the 64-channel filter over D = 72 and the fused last
+layer past D = 64 at 32 and 8 channels, each input in the layout its
+tree's `filter_routes` gives), and --widths the "vpu" engines' dw-sep
+launches of a 368x1232 forward at each of `chip_smoke.DWSEP_WIDTHS` (48,
+20, 64), with each kernel's sum over a forward's launches; each as phase
+14e times it (`chip_smoke.timing_rows`): the device time beside that of
+its cuDNN call (one conv2d of the composed kernel, or for a dw-sep pair
+one such conv a layer), events, the plain version and the bound.
 
 --package-root DIR imports `lwsnet_tpu_torch` from another checkout (for
 instance the parent commit unpacked with `git archive`), so two trees can
@@ -181,14 +183,13 @@ def main(argv=None):
 
 def config_times(cs, args, dev):
     """--configs / --widths: the chosen calls of phase 14e, each kernel
-    alone on the device beside its cuDNN call(s)."""
-    import numpy as np
-    import torch
+    alone on the device beside its cuDNN call(s), with events, the plain
+    version and the bound (`chip_smoke.timing_rows`)."""
     from lwsnet_tpu_torch.tools.parity_layers import ANYNET
     from lwsnet_tpu_torch.utils.timing import card
     from lwsnet_tpu_torch import ModelConfig
-    calls = [(i, c) for i, c in enumerate(cs.config_calls(ANYNET))
-             if c[3] > 0 and args.configs and c[0] in cs.FILTER_KERNELS]
+    calls = [(i, c) for i, c in cs.timed_calls(cs.config_calls(ANYNET))
+             if args.configs and c[0] in cs.FILTER_KERNELS]
     if args.widths:  # the "vpu" engines' dw-sep launches at each width
         dwsep = [(k, label, p, n, f"width {w} {engine}")
                  for w in cs.DWSEP_WIDTHS
@@ -196,20 +197,9 @@ def config_times(cs, args, dev):
                      ModelConfig(refine_channels=w))
                  if k.startswith("dwsep") and "vpu" in engine]
         calls += list(enumerate(dwsep, 5000))
-    rows = []
-    for i, (kernel, label, p, n, engine) in calls:
-        c = cs.make_call(kernel, p, torch.bfloat16,
-                         np.random.default_rng(4000 + i), dev)
-        ms = cs.kernel_device_ms(c["kernel"], cs.KERNEL_NAMES[kernel])
-        lib = cs.kernel_device_ms(c["library"] or c["layers"], "")
-        del c
-        rows.append(dict(kernel=kernel, label=label, engine=engine,
-                         launches=n, device_ms=ms, library_device_ms=lib,
-                         library="one call" if kernel != "dwsep3x3_pair"
-                         else "per layer"))
-        print(f"{kernel} [{label}] x{n} ({engine}): " + ", ".join(
-            "not measured" if v is None else f"{v:.4f} ms" for v in (
-                ms, lib)) + f" (kernel, cuDNN {rows[-1]['library']})")
+    rows = cs.timing_rows(calls, dev, card(), "kdt", 4000)
+    for (_, c), r in zip(calls, rows):
+        r["engine"] = c[4]
     # a forward's launches of each kernel at each width, summed
     totals = {}
     for r in rows:

@@ -16,76 +16,98 @@
 // 3.35 TB/s for stages 1 / 2 / 3. Their products, 27 * Ci multiply-adds
 // an output (147 M at stage 1, 220 M at stage 3), would take about 12.6 us
 // on the CUDA cores' float32 peak alone, so the bf16 route runs them on
-// the tensor cores, where they cost next to nothing.
+// the tensor cores, where they cost next to nothing. A 64-channel
+// filter's last layer over D = 72 at 46x154 reads 66.3 MB: 19.8 us.
 //
-// Two routes, picked by dtype, width and D (`costfilter.skip_route`):
-// * bf16, Ci == 32 (stage 1) or Ci == 8 (stages 2-3), D <= 64, channels-last
-//   (B, D, H, W, C) in: tensor cores (`tcr` below, helpers in `tc.cuh`).
-//   - Tile: TH output rows x 62 pixels, every d (TH = 1 at Ci = 32, 2 at
-//     Ci = 8). A block is one product warpgroup and one staging warp; the
-//     staging thread walks the planes d' = 0 .. D-1 of the input, copying
-//     each plane's TH + 2 rows (h0 - 1 .. h0 + TH) of 64 (Ci = 32) or 72
-//     (Ci = 8) pixels from w0 - 1 in one TMA box into a ring of stages (6
-//     at Ci = 32, 3 at Ci = 8), zeros outside the volume: the conv's
-//     padding, since the input is already post-ReLU.
+// Two routes, picked by dtype and width (`costfilter.filter_routes`):
+// * bf16, Ci == 64, 32 (stage 1; 16 in AnyNet's stage 1) or 8 (stages
+//   2-3), any D, channels-last (B, D, H, W, C) in, as the stage's
+//   tensor-core layers write it: tensor cores (`tcr` below, helpers in
+//   `tc.cuh`).
+//   - Tile: TH output rows x 62 pixels, every d (TH = 1 at Ci = 16, 32 and
+//     64, 2 at Ci = 8). A block is one product warpgroup and one staging
+//     warp; the staging thread walks the planes d' = 0 .. D-1 of the input,
+//     copying each plane's TH + 2 rows (h0 - 1 .. h0 + TH) of 64 (Ci >= 16)
+//     or 72 (Ci = 8) pixels from w0 - 1 into a ring of stages (6 at Ci = 32
+//     and 16, 3 at Ci = 64 and 8), zeros outside the volume: the conv's
+//     padding, since the input is already post-ReLU. One TMA box a plane,
+//     and at Ci = 64 one a 32-channel slab (two a plane), as
+//     conv3d_bn_relu's 64-channel route stages its input in slabs.
 //   - Split by kd, not im2col, and the taps in N: per plane one product
-//     per staged row (and channel half at Ci = 32): A = the staged row's
-//     64 pixels from pixel 0, read by wgmma from shared memory through a
-//     descriptor (the 64-byte swizzle at Ci = 32; at Ci = 8 a row's k >= 8
-//     are the next pixel's channels); B = a 16 x N slice whose columns are
-//     (output row o, kw, kd) at Ci = 32 and (o, tap pair t, kd) at Ci = 8
-//     (t = 0: taps kw = 0, 1 of pixels q, q + 1; t = 1: kw = 2 of pixel
-//     q + 2), zero where kh = sh - o falls outside 0..2. wgmma m64n16k16
-//     (N = 9 or 12 columns used). The output pixel q then sums columns of
-//     rows q + kw: its kd terms, and plane d' gives cost[d'+1] += kd 0,
-//     cost[d'] += kd 1, cost[d'-1] += kd 2. Each plane is read once a tile,
-//     each staged byte once a product (where kw offsets of A read it three
-//     times), and the 62 output pixels of a 64-row product are what the
-//     taps leave.
-//   - B as multiplied (3 or 2 KB) is built in the block from the wrapper's
-//     per-(kh, piece) 16 x 8 images (4.6 / 1.5 KB, one bulk copy), written
-//     through the generic proxy and fenced before wgmma reads them.
+//     per staged row and 16-channel slice (KP = Ci / 16 products a row; one
+//     at Ci = 8): A = the staged row's 64 pixels from pixel 0, read by wgmma
+//     from shared memory through a descriptor (32 channels of a slab under
+//     the 64-byte swizzle at Ci = 32 and 64, 16 under the 32-byte swizzle at
+//     Ci = 16; at Ci = 8 a row's k >= 8 are the next pixel's channels);
+//     B = a 16 x N slice whose columns are (output row o, kw, kd) at Ci >= 16
+//     and (o, tap pair t, kd) at Ci = 8 (t = 0: taps kw = 0, 1 of pixels
+//     q, q + 1; t = 1: kw = 2 of pixel q + 2), zero where kh = sh - o falls
+//     outside 0..2. wgmma m64n16k16 (N = 9 or 12 columns used). The output
+//     pixel q then sums columns of rows q + kw: its kd terms, and plane d'
+//     gives cost[d'+1] += kd 0, cost[d'] += kd 1, cost[d'-1] += kd 2. Each
+//     plane is read once a tile, each staged byte once a product (where kw
+//     offsets of A read it three times), and the 62 output pixels of a
+//     64-row product are what the taps leave.
+//   - B as multiplied (1.5 to 6 KB) is built in the block from the wrapper's
+//     per-(kh, piece) 16 x 8 images (1.5 to 9.2 KB, one bulk copy into
+//     the cost columns, which hold nothing before the first plane's sums),
+//     written through the generic proxy and fenced before wgmma reads
+//     them.
 //   - Two planes in flight: plane p's products run while plane p - 1's
 //     sums are formed, through two accumulator sets and two product
 //     buffers (one barrier of the warpgroup a plane).
-//   - Skip and softmax in the block: a thread owns one output pixel and
-//     row (q, o): it keeps cost[d'-1] and cost[d'] in registers and writes
-//     each cost once complete (after plane d + 1) to its private column of
-//     D float32 costs in shared memory (6 KB at D = 24); the volume (row,
-//     d, pixel) bf16 is
-//     loaded at the start, all of a warp's loads issued before any is
-//     stored, while the weights and the first plane land. At the end the
-//     owner runs the two passes, min and then the sums in order of d,
-//     and writes float32 (B, H, W), ragged H and W masked.
+//   - Skip and softmax in the block, in chunks of up to 64 costs: a thread
+//     owns one output pixel and row (q, o): it keeps cost[d'-1] and
+//     cost[d'] in registers and writes each cost once complete (after plane
+//     d + 1) to its private column of 64 float32 costs in shared memory;
+//     the volume of the chunk (row, d, pixel) bf16 is loaded into shared
+//     memory, all of a warp's loads issued before any is stored: the first
+//     chunk's at the start, while the B images and the first plane land,
+//     each later one once every owner has folded the chunk before it. When
+//     a chunk's last cost is written the owner runs its two passes, min and
+//     then the sums in order of d, and folds them into a running (least
+//     cost, sum of exp, sum of exp * bin), both sums rescaled to the lesser
+//     least cost, as the CUDA-core route does; at D <= 64 (one chunk) that
+//     is the single two-pass soft-argmin in the order it always summed. It
+//     writes float32 (B, H, W), ragged H and W masked.
 //   - Filling the card: stage 1 has 46 x 3 = 138 tiles for 132 SMs. A
-//     block takes 94 KB (Ci = 32), so two fit an SM and all 138 are
+//     block takes 90 KB at Ci = 32 (D = 24) and 107 KB at Ci = 64 (three
+//     stages of two slabs, D >= 64), so two fit an SM and all 138 are
 //     resident at once: the six extra tiles run beside others, not as a
-//     second wave. Stage 3 has 920 tiles of 30.4 KB and 56 registers a
+//     second wave. Stage 3 has 920 tiles of 29.9 KB and 56 registers a
 //     thread (launch bounds), so that seven fit an SM (with all of its
 //     shared memory as carveout): one wave. Stage 2: 230 tiles.
 //   - What holds it (H100, `conv3d_c8_variants.py --skip`): a lone block
-//     spends about 3K clocks before its first plane (the weights, B, the
-//     volume, the first copy) and about 430 clocks a plane, most of them
-//     in the product threads' own sums (a barrier and shared-memory round
+//     spends about 3K clocks before its first plane (B, the volume, the
+//     first copy) and about 430 clocks a plane at Ci = 32, most of them in
+//     the product threads' own sums (a barrier and shared-memory round
 //     trips), not in the tensor cores or the copies; at stage 3 the first
 //     planes of 920 blocks land 3.5 us after the start; at stage 1 six SMs
-//     run two tiles. Earlier designs that ran slower: register A (ldmatrix)
-//     with N = 8 (the taps as K slices, three times the A bytes), a
-//     volume read by 2-byte loads that each waited, two product
-//     warpgroups splitting the planes, persistent blocks.
+//     run two tiles. At Ci = 64 (D = 72, 46x154) a plane stages 24 KB a
+//     tile, three times its share of the input (TH + 2 = 3 rows for one
+//     output row), from L2; the first planes land about 13K clocks in (all
+//     138 blocks' first stages and volumes at once), then about 860
+//     clocks a plane with the staging thread mostly waiting for a free
+//     stage, so the products and sums set the pace (two blocks an SM with
+//     three stages ran 1.5x faster than one with five). Earlier designs
+//     that ran slower: register A (ldmatrix) with N = 8 (the taps as K
+//     slices, three times the A bytes), a volume read by 2-byte loads that
+//     each waited, two product warpgroups splitting the planes, persistent
+//     blocks, B's images read from global memory by the product threads or
+//     the staging warp (5-9 % slower at the shipped shapes than one bulk
+//     copy); at Ci = 16 / 64 and past D = 64 the CUDA cores below, which
+//     lose 16.3x to cuDNN at Ci = 64, D = 72 (4.67 ms).
 // * otherwise (float32 at every width; bf16 at every other width, e.g.
-//   AnyNet's 16 and 4 channels, and at 8 or 32 past D = 64): the CUDA
-//   cores, any Ci and D, NCDHW in (channels-last where the stage's layers
-//   write it: bf16 at 8 or 32 channels). A block takes 32 pixels of one
-//   image row and walks D in chunks of 64. Its 8 warps split a chunk's
-//   disparities between them: each thread forms one pixel's cost at its
-//   disparities (reads coalesced along W in NCDHW) into shared memory,
-//   the weights staged 32 input channels at a time; then one warp runs
-//   the chunk's soft-argmin, the least cost and then the sums in order of
-//   d as above, and folds it into its running one (both sums rescaled to
-//   the lesser least cost), so D is unbounded. At D <= 64 and Ci <= 32
-//   (one chunk of each) it sums in the order of the single-pass kernel it
-//   replaces. Bound: the bytes, as above; not tuned.
+//   AnyNet's 4 channels or a ragged 3): the CUDA cores, any Ci and D,
+//   NCDHW in. A block takes 32 pixels of one image row and walks D in
+//   chunks of 64. Its 8 warps split a chunk's disparities between them:
+//   each thread forms one pixel's cost at its disparities (reads coalesced
+//   along W) into shared memory, the weights staged 32 input channels at a
+//   time; then one warp runs the chunk's soft-argmin, the least cost and
+//   then the sums in order of d as above, and folds it into its running one
+//   (both sums rescaled to the lesser least cost), so D is unbounded. At
+//   D <= 64 and Ci <= 32 (one chunk of each) it sums in the order of the
+//   single-pass kernel it replaces. Bound: the bytes, as above; not tuned.
 #include "tc.cuh"
 
 namespace {
@@ -95,13 +117,12 @@ constexpr int D_CHUNK = 64;   // costs a pixel a block holds at once
 constexpr int D_LANES = THREADS / TILE_W;
 constexpr int D_PER = D_CHUNK / D_LANES;  // costs a thread forms a chunk
 
-// x NCDHW, or channels-last (B, D, H, W, Ci) where x_cl; wt (Ci, 27); vol
-// (B, D, H, W); all in T. out (B, H, W) float32.
+// x NCDHW; wt (Ci, 27); vol (B, D, H, W); all in T. out (B, H, W) float32.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
                        const T* __restrict__ vol, float* __restrict__ out,
-                       int Ci, int D, int H, int W, float start, int x_cl) {
+                       int Ci, int D, int H, int W, float start) {
   __shared__ float ws[CI_CHUNK * 27];
   __shared__ float cost[D_CHUNK][TILE_W];
   const int tx = threadIdx.x % TILE_W, ty = threadIdx.x / TILE_W;
@@ -111,8 +132,6 @@ skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 
   const size_t plane = (size_t)H * W;
   const size_t volume = (size_t)D * plane;
-  // element (ci, voxel v) of image b at xb[ci * cs + v * vs]
-  const size_t cs = x_cl ? 1 : volume, vs = x_cl ? Ci : 1;
   const T* xb = x + (size_t)b * Ci * volume;
   // warp 0's running soft-argmin of its pixel over the chunks so far: the
   // least cost, and the sums of exp(least - cost) and of that times the bin
@@ -135,7 +154,7 @@ skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
         if (d >= d0 + dn) break;
         float a = acc[k];
         for (int ci = 0; ci < nci; ++ci) {
-          const T* xc = xb + (size_t)(ci0 + ci) * cs;
+          const T* xc = xb + (size_t)(ci0 + ci) * volume;
           const float* wc = ws + ci * 27;
 #pragma unroll
           for (int kd = 0; kd < 3; ++kd) {
@@ -149,7 +168,7 @@ skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
               for (int kw = 0; kw < 3; ++kw) {
                 const int ww = w + kw - 1;
                 if (ww < 0 || ww >= W) continue;
-                a = fmaf(to_f(xc[(dd * plane + (size_t)hh * W + ww) * vs]),
+                a = fmaf(to_f(xc[dd * plane + (size_t)hh * W + ww]),
                          wc[kd * 9 + kh * 3 + kw], a);
               }
             }
@@ -196,12 +215,12 @@ skip_softargmin_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 
 template <typename T>
 int launch_cores(const void* x, const void* wt, const void* vol, void* out,
-                 int B, int Ci, int D, int H, int W, float start, int x_cl,
+                 int B, int Ci, int D, int H, int W, float start,
                  cudaStream_t s) {
   dim3 grid(ceil_div(W, TILE_W), H, B);
   skip_softargmin_kernel<T><<<grid, THREADS, 0, s>>>(
       (const T*)x, (const T*)wt, (const T*)vol, (float*)out, Ci, D, H, W,
-      start, x_cl);
+      start);
   return (int)cudaGetLastError();
 }
 
@@ -215,32 +234,35 @@ constexpr int VR = 6;             // volume rows a warp loads at once
 constexpr int SLICE = 16 * 8 * 2; // one 16 x 8 B image, as laid out
 constexpr int BARS = 256;         // bytes of mbarriers
 constexpr int THREADS = 128 + 32; // the product warpgroup, the staging warp
-// costs a pixel a tile keeps in shared memory (`Geometry::smem`); past it,
-// and at other widths, the CUDA cores take the layer
-constexpr int MAX_D = 64;
 
-// Whether the route takes Ci input channels and D costs a pixel.
-inline bool takes(int Ci, int D) {
-  return (Ci == 32 || Ci == 8) && D <= MAX_D;
-}
-
-// Per input width: output rows a tile, products a staged row (Ci = 32:
-// the channel halves; Ci = 8: one, k >= 8 the next pixel), bytes a staged
-// pixel, staged pixels a row from w0 - 1 (the products read TM, and at
-// Ci = 8 one more; to 8 at Ci = 8, one TMA run a row), staged planes,
-// accumulators a plane (independent chains of products), blocks an SM
-// (registers and shared memory sized for them).
+// Per input width: output rows a tile, products a staged row (Ci >= 16:
+// one a 16-channel slice; Ci = 8: one, k >= 8 the next pixel), bytes a
+// staged pixel of a slab, staged pixels a row from w0 - 1 (the products
+// read TM, and at Ci = 8 one more; to 8 at Ci = 8, one TMA run a row),
+// slabs a plane (one TMA box each: at most 32 channels under the 64-byte
+// swizzle), staged planes, accumulators a plane (independent chains of
+// products), blocks an SM (registers and shared memory sized for them).
 template <int SC>
 struct Route;
 template <>
+struct Route<64> {
+  static constexpr int TH = 1, KP = 4, PX = 64, LP = 64, SLABS = 2;
+  static constexpr int STAGES = 3, ACC = 4, BLOCKS = 2;
+};
+template <>
 struct Route<32> {
-  static constexpr int TH = 1, KP = 2, PX = 64, LP = 64, STAGES = 6,
-                       ACC = 2, BLOCKS = 2;
+  static constexpr int TH = 1, KP = 2, PX = 64, LP = 64, SLABS = 1;
+  static constexpr int STAGES = 6, ACC = 2, BLOCKS = 2;
+};
+template <>
+struct Route<16> {
+  static constexpr int TH = 1, KP = 1, PX = 32, LP = 64, SLABS = 1;
+  static constexpr int STAGES = 6, ACC = 1, BLOCKS = 2;
 };
 template <>
 struct Route<8> {
-  static constexpr int TH = 2, KP = 1, PX = 16, LP = 72, STAGES = 3,
-                       ACC = 1, BLOCKS = 7;
+  static constexpr int TH = 2, KP = 1, PX = 16, LP = 72, SLABS = 1;
+  static constexpr int STAGES = 3, ACC = 1, BLOCKS = 7;
 };
 
 template <int SC>
@@ -249,26 +271,35 @@ struct Geometry {
   static constexpr int NR = TH + 2;              // staged rows a plane
   static constexpr int LP = Route<SC>::LP;
   static constexpr int ROW = LP * Route<SC>::PX; // bytes a staged row
-  static constexpr int SB = NR * ROW;            // bytes a stage
+  static constexpr int SLAB = NR * ROW;          // bytes a slab of a stage
+  static constexpr int SB = Route<SC>::SLABS * SLAB;  // bytes a stage
   static constexpr int S = Route<SC>::STAGES, ACC = Route<SC>::ACC;
-  // columns a product: per output row, (kw, kd) at Ci = 32 and (t, kd) at
-  // Ci = 8 (`source_slice`); N of the product, in blocks of 8; floats a
-  // row of the product buffer (odd: consecutive rows in distinct banks)
-  static constexpr int NCOLS = TH * (SC == 32 ? 9 : 6);
+  // columns a product: per output row, (kw, kd) at Ci >= 16 and (t, kd)
+  // at Ci = 8 (`source_slice`); N of the product, in blocks of 8; floats
+  // a row of the product buffer (odd: consecutive rows in distinct banks)
+  static constexpr int PER_ROW = SC == 8 ? 6 : 9;
+  static constexpr int NCOLS = TH * PER_ROW;
   static constexpr int NB = (NCOLS + 7) / 8;
   static constexpr int PSTRIDE = NCOLS | 1;
   static constexpr int BSLICE = 16 * 8 * NB * 2;      // one 16 x N B image
-  static constexpr int PIECES = SC == 32 ? 6 : 2;     // as laid out
+  static constexpr int PIECES = SC == 8 ? 2 : 3 * KP; // as laid out, a kh
   static constexpr int WBYTES = 3 * PIECES * SLICE;   // per (kh, piece)
   static constexpr int PBYTES = NR * KP * BSLICE;     // per (row, product)
-  // the 64-byte swizzle repeats every 512 bytes
-  static constexpr int ALIGN = SC == 32 ? 1024 : 128;
-  // weights as laid out and as multiplied, mbarriers, then the ring, then
-  // the costs (float32), two product buffers (float32), the volume (bf16)
-  static constexpr int RING = WBYTES + PBYTES + BARS + ALIGN;
+  // the swizzles repeat every 256 (32-byte) or 512 (64-byte) bytes
+  static constexpr int ALIGN = SC == 8 ? 128 : 1024;
+  // B as multiplied, mbarriers, then the ring, then the costs (float32;
+  // the weights as laid out until B is built), two product buffers
+  // (float32), the volume (bf16): costs and volume of one chunk of up to
+  // D_CHUNK
+  static constexpr int RING = PBYTES + BARS + ALIGN;
+  __host__ __device__ static int cost_bytes(int D) {
+    const int bytes = TH * (D < D_CHUNK ? D : D_CHUNK) * TW * 4;
+    return bytes > WBYTES ? bytes : WBYTES;
+  }
   static int smem(int D) {
-    return RING + S * SB + TH * D * TW * 4 + 2 * TM * PSTRIDE * 4 +
-           TH * D * TW * 2;
+    const int dc = D < D_CHUNK ? D : D_CHUNK;
+    return RING + S * SB + cost_bytes(D) + 2 * TM * PSTRIDE * 4 +
+           TH * dc * TW * 2;
   }
   static_assert(TH * TW <= 128, "a product thread a pixel");
   static_assert(NB == 2 || NB == 3, "N = 16 or 24");
@@ -276,18 +307,18 @@ struct Geometry {
   static_assert(8 * (2 * S + 1) <= BARS, "the mbarriers fit");
 };
 
-// Column n of the product of staged row sh as the slice of the wrapper's
-// images whose column n % 3 (kd) it holds, or -1 where the column is zero.
-// Output row o reads staged row sh at kh = sh - o. Ci = 32 (product kc):
-// n = o * 9 + kw * 3 + kd from slice (kh, (kw, kc)). Ci = 8: n = o * 6 +
-// t * 3 + kd from slice (kh, j = t): t = 0 the taps kw = 0 (k < 8) and 1
-// (k >= 8) at pixel q, t = 1 the tap kw = 2 (k < 8) at pixel q + 2.
+// Column n of the product of staged row sh and slice kc as the image of
+// the wrapper's whose column n % 3 (kd) it holds, or -1 where the column
+// is zero. Output row o reads staged row sh at kh = sh - o. Ci >= 16: n =
+// o * 9 + kw * 3 + kd from image (kh, kw, kc). Ci = 8: n = o * 6 + t * 3 +
+// kd from image (kh, j = t): t = 0 the taps kw = 0 (k < 8) and 1 (k >= 8)
+// at pixel q, t = 1 the tap kw = 2 (k < 8) at pixel q + 2.
 template <int SC>
 __device__ __forceinline__ int source_slice(int sh, int kc, int n) {
-  constexpr int PER_ROW = SC == 32 ? 9 : 6;
-  const int o = n / PER_ROW, m = n % PER_ROW, kh = sh - o;
-  if (o >= Route<SC>::TH || kh < 0 || kh > 2) return -1;
-  return SC == 32 ? kh * 6 + m / 3 * 2 + kc : kh * 2 + m / 3;
+  using G = Geometry<SC>;
+  const int o = n / G::PER_ROW, m = n % G::PER_ROW, kh = sh - o;
+  if (o >= G::TH || kh < 0 || kh > 2) return -1;
+  return SC == 8 ? kh * 2 + m / 3 : kh * G::PIECES + m / 3 * G::KP + kc;
 }
 
 // A 64 x 8NB float32 accumulator: thread (warp w, lane l) holds, per
@@ -341,24 +372,28 @@ __device__ __forceinline__ void wgmma_ss(Acc<NB>& d, uint64_t a,
         : "l"(a), "l"(b), "n"(1));
 }
 
-// The A descriptor of 64 staged pixels from `addr` on, K-major: Ci = 32,
-// 64-byte rows under TMA's 64-byte swizzle (8-row groups 512 bytes apart);
-// Ci = 8, 16-byte voxels unswizzled, k >= 8 the next voxel (16 bytes on),
-// 8-row groups 128 bytes apart.
+// The A descriptor of 64 staged pixels from `addr` on, K-major: Ci = 32
+// and 64, a slab's 64-byte rows under TMA's 64-byte swizzle (8-row groups
+// 512 bytes apart); Ci = 16, 32-byte rows under the 32-byte swizzle
+// (groups 256 bytes apart); Ci = 8, 16-byte voxels unswizzled, k >= 8 the
+// next voxel (16 bytes on), 8-row groups 128 bytes apart.
 template <int SC>
 __device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
   const uint64_t start = (addr & 0x3FFFF) >> 4;
-  if constexpr (SC == 32)
-    return start | (1ull << 16) | ((512ull >> 4) << 32) | (2ull << 62);
-  else
+  if constexpr (SC == 8)
     return start | ((16ull >> 4) << 16) | ((128ull >> 4) << 32);
+  else if constexpr (SC == 16)
+    return start | (1ull << 16) | ((256ull >> 4) << 32) | (3ull << 62);
+  else
+    return start | (1ull << 16) | ((512ull >> 4) << 32) | (2ull << 62);
 }
 
-// map_x: the TMA map of x, boxes of one plane's NR staged rows (Ci = 32:
-// `tc::make_map`; Ci = 8: `tc::make_voxel_map`); wt: the 3 * PIECES B
-// images, slice kh * PIECES + piece, column kd (the wrapper lays them
-// out); vol (B, D, H, W); out (B, H, W) float32.
-template <int SC>
+// map_x: the TMA map of x, boxes of one plane's NR staged rows (of one
+// 32-channel slab at Ci = 64; Ci >= 16: `tc::make_map`; Ci = 8:
+// `tc::make_voxel_map`); wt: the 3 * PIECES B images, image kh * PIECES +
+// piece, column kd (the wrapper lays them out); vol (B, D, H, W); out (B,
+// H, W) float32. CHUNKED: D > D_CHUNK, the costs folded chunk by chunk.
+template <int SC, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, Route<SC>::BLOCKS)
 skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                           const bf16* __restrict__ wt,
@@ -367,18 +402,20 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                           float start) {
   using Geo = Geometry<SC>;
   constexpr int TH = Geo::TH, KP = Geo::KP, NR = Geo::NR, ROW = Geo::ROW;
-  constexpr int SB = Geo::SB, S = Geo::S, ACC = Geo::ACC, NB = Geo::NB;
-  constexpr int NCOLS = Geo::NCOLS, PSTRIDE = Geo::PSTRIDE;
+  constexpr int SLAB = Geo::SLAB, SB = Geo::SB, S = Geo::S, ACC = Geo::ACC;
+  constexpr int NB = Geo::NB, NCOLS = Geo::NCOLS, PSTRIDE = Geo::PSTRIDE;
   constexpr int BSLICE = Geo::BSLICE;
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t wbase = tc::smem_addr(smem);
-  const uint32_t packed = wbase + Geo::WBYTES;
+  const uint32_t packed = tc::smem_addr(smem);
   const uint32_t bars = packed + Geo::PBYTES;
   const uint32_t ring = (bars + BARS + Geo::ALIGN - 1) & ~(Geo::ALIGN - 1u);
-  // costs (row, d, pixel) float32, product buffers (2, TM, PSTRIDE)
-  // float32, the volume (row, d, pixel) bf16
-  float* costs = reinterpret_cast<float*>(smem + (ring - wbase) + S * SB);
-  float* pbufs = costs + TH * D * TW;
+  // costs (row, d, pixel) float32 (first the weights as laid out),
+  // product buffers (2, TM, PSTRIDE) float32, the volume (row, d, pixel)
+  // bf16, each of one chunk of DC
+  const int DC = CHUNKED ? D_CHUNK : D;
+  unsigned char* raw_w = smem + (ring - packed) + S * SB;
+  float* costs = reinterpret_cast<float*>(raw_w);
+  float* pbufs = reinterpret_cast<float*>(raw_w + Geo::cost_bytes(D));
   unsigned short* vols =
       reinterpret_cast<unsigned short*>(pbufs + 2 * TM * PSTRIDE);
   auto landed = [&](int s) { return bars + 8 * s; };
@@ -397,20 +434,22 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
 
   if (threadIdx.x >= 128) {
     // The staging warp: one thread copies the weights, then plane p's NR
-    // rows into stage p % S once the products have read what it held.
+    // rows (each slab's box) into stage p % S once the products have read
+    // what it held.
     if (threadIdx.x == 128) {
       tc::mbar_expect_tx(weights, Geo::WBYTES);
-      tc::bulk_load(wbase, wt, Geo::WBYTES, weights);
+      tc::bulk_load(tc::smem_addr(raw_w), wt, Geo::WBYTES, weights);
       for (int p = 0; p < D; ++p) {
         const int s = p % S;
         if (p >= S) tc::mbar_wait(empty(s), ((p / S) & 1) ^ 1);
         tc::mbar_expect_tx(landed(s), SB);
-        if constexpr (SC == 32)
-          tc::tma_load_5d(ring + s * SB, &map_x, landed(s), 0, w0 - 1,
-                          h0 - 1, p, b);
-        else
+        if constexpr (SC == 8)
           tc::tma_load_4d(ring + s * SB, &map_x, landed(s), 2 * (w0 - 1),
                           h0 - 1, p, b);
+        else
+          for (int k = 0; k < Route<SC>::SLABS; ++k)
+            tc::tma_load_5d(ring + s * SB + k * SLAB, &map_x, landed(s),
+                            32 * k, w0 - 1, h0 - 1, p, b);
       }
     }
     return;
@@ -418,40 +457,48 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // The skip: the volume (row, d, pixel), each warp rows warp, warp + 4,
-  // ..., a lane pixels lane and lane + 32. The loads of VR rows are issued
-  // together, at a valid address (masked after), the first ones now, so
-  // that they land while the weights and the first plane do.
+  // The skip: the volume of costs d0 .. d0 + dn - 1 as rows (row, d - d0,
+  // pixel), each warp rows warp, warp + 4, ..., a lane pixels lane and
+  // lane + 32. The loads of VR rows are issued together, at a valid
+  // address (masked after), the first chunk's now, so that they land while
+  // B and the first plane do.
   const unsigned short* v16 = reinterpret_cast<const unsigned short*>(vol);
   unsigned raw[VR][2], vok = 0;  // 32-bit: no packing after each load
-  auto load_volume = [&](int r0) {  // rows r0 + k * 4 + warp
+  auto load_volume = [&](int d0, int dn, int r0) {  // rows r0 + k * 4 + warp
     vok = 0;
 #pragma unroll
     for (int k = 0; k < VR; ++k) {
       const int r = r0 + k * 4 + warp;
-      const int o = r / D, d = r % D, h = h0 + o;
+      const int o = r / dn, d = d0 + r % dn, h = h0 + o;
       const size_t row = (((size_t)b * D + d) * H + h) * W;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int x = lane + 32 * j, w = w0 + x;
-        const bool in = r < TH * D && h < H && x < TW && w < W;
+        const bool in = r < TH * dn && h < H && x < TW && w < W;
         vok |= (unsigned)in << (2 * k + j);
         raw[k][j] = __ldg(v16 + (in ? row + w : 0));
       }
     }
   };
-  auto store_volume = [&](int r0) {
+  auto store_volume = [&](int dn, int r0) {
 #pragma unroll
     for (int k = 0; k < VR; ++k) {
       const int r = r0 + k * 4 + warp;
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        if (r < TH * D && lane + 32 * j < TW)
+        if (r < TH * dn && lane + 32 * j < TW)
           vols[r * TW + lane + 32 * j] =
               vok >> (2 * k + j) & 1 ? raw[k][j] : 0u;
     }
   };
-  load_volume(0);
+  auto stage_volume = [&](int d0, int from) {  // the chunk from d0
+    const int dn = min(D - d0, D_CHUNK);
+    for (int r0 = from; r0 < TH * dn; r0 += VR * 4) {
+      load_volume(d0, dn, r0);
+      store_volume(dn, r0);
+    }
+  };
+  load_volume(0, min(D, D_CHUNK), 0);
 
   // The products' B, as multiplied: per (staged row, product) a 16 x N
   // slice whose column n holds `source_slice`'s column kd (n % 3): every
@@ -464,24 +511,58 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
     const int src = source_slice<SC>(slice / KP, slice % KP, n);
     uint4 v = make_uint4(0, 0, 0, 0);
     if (src >= 0)
-      v = *reinterpret_cast<const uint4*>(smem + src * SLICE + half * 128 +
+      v = *reinterpret_cast<const uint4*>(raw_w + src * SLICE + half * 128 +
                                           n % 3 * 16);
-    *reinterpret_cast<uint4*>(smem + Geo::WBYTES + slice * BSLICE +
-                              n / 8 * 256 + half * 128 + n % 8 * 16) = v;
+    *reinterpret_cast<uint4*>(smem + slice * BSLICE + n / 8 * 256 +
+                              half * 128 + n % 8 * 16) = v;
   }
   tc::fence_proxy_async();  // the writes above before wgmma reads them
-  store_volume(0);
-  for (int r0 = VR * 4; r0 < TH * D; r0 += VR * 4) {
-    load_volume(r0);
-    store_volume(r0);
-  }
+  store_volume(min(D, D_CHUNK), 0);
+  stage_volume(0, VR * 4);
   // This thread's output pixel q and row o, and its private column of
-  // costs; cost[p - 1] and cost[p] so far while plane p is summed.
+  // costs of the chunk from d0; cost[p - 1] and cost[p] so far while
+  // plane p is summed. Its running soft-argmin over the chunks folded so
+  // far: the least cost, and the sums of exp(least - cost) and of that
+  // times the bin.
   const int q = threadIdx.x % TM, o = threadIdx.x / TM;
   const bool owner = o < TH && q < TW;
-  float* mine = costs + o * D * TW + q;
+  float* mine = costs + o * DC * TW + q;
   float open_a = 0.f, open_b = 0.f;
+  int d0 = 0;
+  float run_m = 0.f, run_den = 0.f, run_num = 0.f;
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  // Costs d0 .. d0 + dn - 1 of this thread's pixel (its own column, the
+  // skip added: the volume stored by other threads before a barrier since)
+  // into the running soft-argmin: the least cost, then the sums in order
+  // of d, both rescaled to the lesser least cost past the first chunk.
+  auto fold = [&](int dn) {
+    auto cost = [&](int k) {
+      return mine[k * TW] +
+             __uint_as_float((unsigned)vols[(o * dn + k) * TW + q] << 16);
+    };
+    float m = cost(0);
+#pragma unroll 8
+    for (int k = 1; k < dn; ++k) m = fminf(m, cost(k));
+    float den = 0.f, num = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < dn; ++k) {
+      const float e = expf(m - cost(k));
+      den += e;
+      num = fmaf(e, start + (float)(d0 + k), num);
+    }
+    if (!CHUNKED || d0 == 0) {
+      run_m = m;
+      run_den = den;
+      run_num = num;
+    } else {
+      const float mm = fminf(run_m, m);
+      const float s_run = expf(mm - run_m), s_new = expf(mm - m);
+      run_den = run_den * s_run + den * s_new;
+      run_num = run_num * s_run + num * s_new;
+      run_m = mm;
+    }
+  };
 
   const uint64_t desc0 = tc::b_desc(packed);
   // Two planes in flight: plane p's products run while the sums of plane
@@ -491,8 +572,9 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
   Accs acc_a, acc_b;
   float* pbuf_a = pbufs;
   float* pbuf_b = pbufs + TM * PSTRIDE;
-  // Plane p's products: one wgmma per (staged row, product) from pixel 0
-  // of the staged row; ACC independent chains.
+  // Plane p's products: one wgmma per (staged row, 16-channel slice kc)
+  // from pixel 0 of the staged row (slice kc in slab kc / 2, at byte
+  // 32 (kc % 2) of a pixel); ACC independent chains.
   auto issue = [&](int p, Accs& acc) {
     tc::mbar_wait(landed(p % S), (p / S) & 1);
     const uint32_t buf = ring + (p % S) * SB;
@@ -503,15 +585,20 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
     }
     tc::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < NR * KP; ++i)
-      wgmma_ss(acc[i % ACC], a_desc<SC>(buf + i / KP * ROW + i % KP * 32),
+    for (int i = 0; i < NR * KP; ++i) {
+      const int kc = i % KP;
+      wgmma_ss(acc[i % ACC],
+               a_desc<SC>(buf + kc / 2 * SLAB + i / KP * ROW + kc % 2 * 32),
                desc0 + i * (BSLICE >> 4));
+    }
     tc::wgmma_commit();
   };
   // Plane p's sums, once its products are done: the product rows into a
   // buffer; then for this thread's pixel q and row o, P's columns of each
   // kd summed over the taps (rows q + kw): cost[p+1] gets kd 0, cost[p]
-  // kd 1, cost[p-1] kd 2, which completes it.
+  // kd 1, cost[p-1] kd 2, which completes it. Where that completes a
+  // chunk of D_CHUNK costs, the owners fold it, and once all have, the
+  // warpgroup loads the next chunk's volume.
   auto sums = [&](int p, Accs& acc, float* pb) {
     tc::mbar_arrive(empty(p % S));  // the products have read the stage
     float v[4 * NB] = {};
@@ -527,21 +614,30 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
       if (i / 4 * 8 + c + i % 2 < NCOLS)
         pb[(r + i / 2 % 2 * 8) * PSTRIDE + i / 4 * 8 + c + i % 2] = v[i];
     asm volatile("bar.sync 2, 128;\n" ::: "memory");
-    if (!owner) return;
-    float kd[3];
+    if (owner) {
+      float kd[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if constexpr (SC == 32)
-        kd[k] = pb[q * PSTRIDE + o * 9 + k] +
-                pb[(q + 1) * PSTRIDE + o * 9 + 3 + k] +
-                pb[(q + 2) * PSTRIDE + o * 9 + 6 + k];
-      else
-        kd[k] = pb[q * PSTRIDE + o * 6 + k] +
-                pb[(q + 2) * PSTRIDE + o * 6 + 3 + k];
+      for (int k = 0; k < 3; ++k) {
+        if constexpr (SC == 8)
+          kd[k] = pb[q * PSTRIDE + o * 6 + k] +
+                  pb[(q + 2) * PSTRIDE + o * 6 + 3 + k];
+        else
+          kd[k] = pb[q * PSTRIDE + o * 9 + k] +
+                  pb[(q + 1) * PSTRIDE + o * 9 + 3 + k] +
+                  pb[(q + 2) * PSTRIDE + o * 9 + 6 + k];
+      }
+      if (p > 0) mine[(p - 1 - d0) * TW] = open_a + kd[2];
+      open_a = open_b + kd[1];
+      open_b = kd[0];
     }
-    if (p > 0) mine[(p - 1) * TW] = open_a + kd[2];
-    open_a = open_b + kd[1];
-    open_b = kd[0];
+    if constexpr (CHUNKED) {
+      if (p - d0 == D_CHUNK) {  // costs d0 .. p - 1 complete; p < D
+        if (owner) fold(D_CHUNK);
+        d0 = p;
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");  // folds read
+        stage_volume(d0, 0);
+      }
+    }
   };
   issue(0, acc_a);
   int p = 1;
@@ -563,35 +659,23 @@ skip_softargmin_tc_kernel(const __grid_constant__ CUtensorMap map_x,
     tc::wgmma_wait<0>();
     sums(p - 1, acc_a, pbuf_a);
   }
+  // the last chunk's volume, stored after the barrier of its last sums
+  if constexpr (CHUNKED) asm volatile("bar.sync 1, 128;\n" ::: "memory");
 
-  // Soft-argmin of this thread's pixel (its own column of costs), the
-  // skip added (the volume, stored by other threads before the barrier
-  // above).
+  // Soft-argmin of this thread's pixel: the last chunk folded in.
   const int h = h0 + o, w = w0 + q;
   if (!owner || h >= H || w >= W) return;
-  mine[(D - 1) * TW] = open_a;
-  auto cost = [&](int d) {
-    return mine[d * TW] +
-           __uint_as_float((unsigned)vols[(o * D + d) * TW + q] << 16);
-  };
-  float m = cost(0);
-#pragma unroll 8
-  for (int d = 1; d < D; ++d) m = fminf(m, cost(d));
-  float den = 0.f, num = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float e = expf(m - cost(d));
-    den += e;
-    num = fmaf(e, start + (float)d, num);
-  }
-  out[((size_t)b * H + h) * W + w] = num / den;
+  mine[(D - 1 - d0) * TW] = open_a;
+  fold(D - d0);
+  out[((size_t)b * H + h) * W + w] = run_num / run_den;
 }
 
 template <int SC>
 int launch(const void* x, const void* wt, const void* vol, void* out, int B,
            int D, int H, int W, float start, cudaStream_t s) {
   using G = Geometry<SC>;
-  auto kernel = skip_softargmin_tc_kernel<SC>;
+  auto kernel = D > D_CHUNK ? skip_softargmin_tc_kernel<SC, true>
+                            : skip_softargmin_tc_kernel<SC, false>;
   const int smem = G::smem(D);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -602,12 +686,12 @@ int launch(const void* x, const void* wt, const void* vol, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   CUtensorMap map;
   int rc;
-  if constexpr (SC == 32) {
-    const cuuint64_t dims[5] = {32, (cuuint64_t)W, (cuuint64_t)H,
-                                (cuuint64_t)D, (cuuint64_t)B};
-    rc = tc::make_map(&map, x, 5, dims, 32, G::LP, G::NR);
-  } else {
+  if constexpr (SC == 8) {
     rc = tc::make_voxel_map(&map, x, B, D, H, W, G::LP, G::NR, 1);
+  } else {  // boxes of one slab: all 16 or 32 channels, or 32 of 64
+    const cuuint64_t dims[5] = {SC, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)D, (cuuint64_t)B};
+    rc = tc::make_map(&map, x, 5, dims, SC < 32 ? SC : 32, G::LP, G::NR);
   }
   if (rc != 0) return rc;
   const dim3 grid(ceil_div(W, TW), ceil_div(H, G::TH), B);
@@ -621,33 +705,34 @@ int launch(const void* x, const void* wt, const void* vol, void* out, int B,
 
 }  // namespace
 
-// x NCDHW, or channels-last where x_cl; wt (1, Ci, 3, 3, 3).
+// x NCDHW; wt (1, Ci, 3, 3, 3).
 extern "C" int conv3d_skip_softargmin_f32(const void* x, const void* wt,
                                           const void* vol, void* out, int B,
                                           int Ci, int D, int H, int W,
-                                          float start, int x_cl,
-                                          void* stream) {
+                                          float start, void* stream) {
   if (Ci < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  return launch_cores<float>(x, wt, vol, out, B, Ci, D, H, W, start, x_cl,
+  return launch_cores<float>(x, wt, vol, out, B, Ci, D, H, W, start,
                              (cudaStream_t)stream);
 }
 
-// The tensor-core route where it takes the shape (x channels-last, wt the
-// B images of `costfilter.skip_images`), else the CUDA cores (x NCDHW or
-// channels-last where x_cl, wt (1, Ci, 3, 3, 3)). Mirrored by
-// `costfilter.skip_route`.
+// The tensor-core route where it takes the width (x channels-last, wt the
+// B images of `costfilter.skip_images`), else the CUDA cores (x NCDHW, wt
+// (1, Ci, 3, 3, 3)). Mirrored by `costfilter.skip_tensor_core_route`.
 extern "C" int conv3d_skip_softargmin_bf16(const void* x, const void* wt,
                                            const void* vol, void* out, int B,
                                            int Ci, int D, int H, int W,
-                                           float start, int x_cl,
-                                           void* stream) {
+                                           float start, void* stream) {
   if (Ci < 1 || D < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (tcr::takes(Ci, D)) {
-    if (!x_cl) return (int)cudaErrorInvalidValue;
-    return Ci == 32 ? tcr::launch<32>(x, wt, vol, out, B, D, H, W, start, s)
-                    : tcr::launch<8>(x, wt, vol, out, B, D, H, W, start, s);
+  switch (Ci) {
+    case 64:
+      return tcr::launch<64>(x, wt, vol, out, B, D, H, W, start, s);
+    case 32:
+      return tcr::launch<32>(x, wt, vol, out, B, D, H, W, start, s);
+    case 16:
+      return tcr::launch<16>(x, wt, vol, out, B, D, H, W, start, s);
+    case 8:
+      return tcr::launch<8>(x, wt, vol, out, B, D, H, W, start, s);
   }
-  return launch_cores<bf16>(x, wt, vol, out, B, Ci, D, H, W, start, x_cl,
-                            s);
+  return launch_cores<bf16>(x, wt, vol, out, B, Ci, D, H, W, start, s);
 }

@@ -140,7 +140,7 @@ class Kernel:
 CONV3D_BN_RELU = Kernel("conv3d_bn_relu", [_P] * 5 + [_I] * 8 + [_P])
 CONV3D_SKIP_SOFTARGMIN = Kernel(
     "conv3d_skip_softargmin",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P])
 DENSE3X3 = Kernel("dense3x3", [_P] * 7 + [_I] * 9 + [_P])
 DWSEP3X3 = Kernel("dwsep3x3", [_P] * 5 + [_I] * 9 + [_P])
 DWSEP3X3_PAIR = Kernel(

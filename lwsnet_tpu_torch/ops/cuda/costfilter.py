@@ -28,9 +28,8 @@ on the tensor cores and its activations lie channels-last-3d in memory,
 routes of `conv3d_bn_relu` (`conv3d_tensor_core_route`) read it so. The
 1 -> C entry writes it (its one input channel, the raw volume, lies the
 same in both layouts; at 16 and 64 channels from the CUDA cores), the
-C -> C layers read and write it, and the fused last layer reads it: on
-the tensor cores at 32 and 8 channels up to D = 64 (`SKIP_TC_MAX_D`),
-otherwise on the CUDA cores. Every other stage, float32 at any width and
+C -> C layers read and write it, and the fused last layer reads it on
+the tensor cores, at any D. Every other stage, float32 at any width and
 bf16 at any other width (AnyNet's 4 channels among them) and any D, runs
 on the CUDA cores in the default layout. No filter makes a layout copy. A
 copy, where a caller hands a kernel the other layout, is
@@ -51,9 +50,6 @@ from lwsnet_tpu_torch.ops.cuda.build import (CONV3D_BN_RELU,
                                              symbol_suffix)
 
 
-# Costs a pixel that the fused last layer's tensor-core route keeps in
-# shared memory (tcr::MAX_D in csrc/conv3d_skip_softargmin.cu).
-SKIP_TC_MAX_D = 64
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
 
 
@@ -96,19 +92,17 @@ class StageRoutes(NamedTuple):
 def filter_routes(dtype: torch.dtype, channels: int, D: int) -> StageRoutes:
     """The route and layouts of each launch of a stage's filter of width
     `channels` over D costs a pixel, in `dtype` (float32 or bf16): for
-    bf16 at 32, 16, 64 or 8 channels the C -> C layers on the tensor cores
-    and every activation channels-last (the entry at 16 and 64 on the CUDA
-    cores, writing channels-last; the fused last layer on the tensor cores
-    at 32 and 8 up to D = SKIP_TC_MAX_D, else on the CUDA cores reading
-    channels-last); the CUDA cores and NCDHW otherwise. Each launch reads
-    what the one before it writes. Mirrors `use_tc` in
-    csrc/conv3d_bn_relu.cu and `tcr::takes` in
-    csrc/conv3d_skip_softargmin.cu."""
+    bf16 at 32, 16, 64 or 8 channels the C -> C layers and the fused last
+    layer on the tensor cores at any D, and every activation channels-last
+    (the entry at 16 and 64 on the CUDA cores, writing channels-last); the
+    CUDA cores and NCDHW otherwise. Each launch reads what the one before
+    it writes. Mirrors `use_tc` in csrc/conv3d_bn_relu.cu and the bf16
+    entry of csrc/conv3d_skip_softargmin.cu."""
     if channels < 1 or D < 1:
         raise ValueError(f"a filter of {channels} channels over {D} costs")
     tc = conv3d_tensor_core_route(dtype, channels, channels)
     entry_tc = conv3d_tensor_core_route(dtype, 1, channels)
-    skip_tc = skip_tensor_core_route(dtype, channels) and D <= SKIP_TC_MAX_D
+    skip_tc = skip_tensor_core_route(dtype, channels)
     return StageRoutes(
         entry=LaunchRoute(TENSOR_CORES if entry_tc else CUDA_CORES, False,
                           tc),
@@ -141,22 +135,24 @@ def tc_images(wt: torch.Tensor) -> torch.Tensor:
 
 def skip_tensor_core_route(dtype: torch.dtype, Ci: int) -> bool:
     """Whether `conv3d_skip_softargmin` runs its wgmma route (`tcr` in
-    csrc/conv3d_skip_softargmin.cu), which reads channels-last, at D <=
-    SKIP_TC_MAX_D: bf16 at 32 (stage 1) or 8 (stages 2-3) input channels.
+    csrc/conv3d_skip_softargmin.cu), which reads channels-last, at any D:
+    bf16 at 64, 32 (stage 1), 16 (AnyNet's stage 1) or 8 (stages 2-3)
+    input channels, the widths whose C -> C layers write channels-last.
     Other bf16 widths and float32 take the CUDA cores (`filter_routes`)."""
-    return dtype == torch.bfloat16 and Ci in (8, 32)
+    return dtype == torch.bfloat16 and Ci in (8, 16, 32, 64)
 
 
 def skip_images(wt: torch.Tensor) -> torch.Tensor:
     """(1, Ci, 3, 3, 3) -> the skip route's resident B images, one 16 x 8
     K-major slice (csrc/tc.cuh) per (kh, piece) whose column n < 3 holds
-    the weights of kd = n (n >= 3 zero). Ci = 32: pieces (kw, channel
-    half), k the channel in the half, as (kh, kw, half, k // 8, n, k % 8);
-    Ci = 8: pieces j, k < 8 the channels at tap kw = 2j and k >= 8 those at
-    kw = 2j + 1 (zero for kw = 3), as (kh, j, k // 8, n, ci)."""
+    the weights of kd = n (n >= 3 zero). Ci = 16, 32 or 64: pieces (kw,
+    16-channel slice kc), k the channel kc * 16 + k, as (kh, kw, kc,
+    k // 8, n, k % 8); Ci = 8: pieces j, k < 8 the channels at tap kw = 2j
+    and k >= 8 those at kw = 2j + 1 (zero for kw = 3), as (kh, j, k // 8,
+    n, ci)."""
     w = wt[0]
-    if w.shape[0] == 32:  # (ci, n, kh, kw)
-        w = F.pad(w, (0, 0, 0, 0, 0, 5)).reshape(2, 2, 8, 8, 3, 3)
+    if w.shape[0] != 8:  # (ci, n, kh, kw)
+        w = F.pad(w, (0, 0, 0, 0, 0, 5)).reshape(-1, 2, 8, 8, 3, 3)
         return w.permute(4, 5, 0, 1, 3, 2).contiguous()
     w = F.pad(w, (0, 1, 0, 0, 0, 5)).reshape(8, 8, 3, 2, 2)
     return w.permute(2, 3, 4, 1, 0).contiguous()
@@ -273,10 +269,9 @@ def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
     """Fused last layer + skip + soft-argmin; see the plain version. On the
     card it reads the layout of its stage's layers (`filter_routes`:
     channels-last for bf16 at 8, 16, 32 or 64 channels, where it runs on
-    the tensor cores at 8 or 32 channels up to D = SKIP_TC_MAX_D and on
-    the CUDA cores otherwise; NCDHW at every other width and in float32;
-    x is copied where it lies otherwise) and takes any Ci and D. Launches
-    on the CUDA cores count as route "cores"."""
+    the tensor cores; NCDHW on the CUDA cores at every other width and in
+    float32; x is copied where it lies otherwise) and takes any Ci and D.
+    Launches on the CUDA cores count as route "cores"."""
     if not on_card(x):
         return conv3d_skip_softargmin_plain(x, wt, vol, start)
     B, Ci, D, H, W = x.shape
@@ -291,7 +286,7 @@ def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
     CONV3D_SKIP_SOFTARGMIN.launch(
         f"conv3d_skip_softargmin_{symbol_suffix(x.dtype)}", x.device,
         x.data_ptr(), wk.data_ptr(), vol.data_ptr(), out.data_ptr(),
-        B, Ci, D, H, W, float(start), route.reads_cl,
+        B, Ci, D, H, W, float(start),
         route=None if tensor_core else "cores")
     return out
 

@@ -10,9 +10,10 @@ holding the same parameters and batch-norm statistics afterwards. With
 `--spatial S` the same N processes then run the step again as N/S data
 slices x S row shards (halo exchanges at every shard edge), and its loss
 must lie within 1e-2 x max(1, |loss|) of the data-parallel one, as the
-JAX dryrun asks. `--device cuda` runs process r on card r under NCCL
-(TF32 off; the single-process step on card 0); the default is gloo
-processes on the CPU.
+JAX dryrun asks. On the card by default, as the port's other entry
+points: process r on card r under NCCL (TF32 off; the single-process
+step on card 0), raising without one; `--device cpu` runs gloo processes
+on the CPU.
 
     python -m lwsnet_tpu_torch.tools.dryrun_ddp [--processes N] \
         [--spatial S] [--device cpu|cuda]
@@ -537,7 +538,7 @@ def _agree(ranks: list) -> None:
 
 
 def dryrun(n: int, timeout: float = 120.0, spatial: int = 1,
-           device: str = "cpu") -> Dict[str, float]:
+           device: str = "cuda") -> Dict[str, float]:
     """The N-process step against the single-process one (loss rel 1e-5;
     every process's parameters and statistics equal); with `spatial` > 1
     also the N-process data x spatial step against the data-parallel one
@@ -596,9 +597,10 @@ def main(argv=None) -> Dict[str, float]:
                    help="also run the step as processes/S data slices x S "
                         "row shards")
     p.add_argument("--timeout", type=float, default=120.0)
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu",
-                   help="gloo processes on the CPU, or one process a card "
-                        "under NCCL")
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                   help="one process a card under NCCL (the default; "
+                        "raises without a card), or gloo processes on the "
+                        "CPU")
     args = p.parse_args(argv)
     return dryrun(args.processes, args.timeout, args.spatial, args.device)
 

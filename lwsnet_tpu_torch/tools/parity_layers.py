@@ -104,7 +104,10 @@ MAX_RATIO = 2.0
 #   1.750, each x1.01 fault 2.3 or more);
 # * bf16 fused last layer: the conv, skip and soft-argmin in float32 where
 #   the module rounds the cost to bf16, so a sound launch reads 0.03-0.64 x
-#   the module's distance and a planted fault hides under 1.1;
+#   the module's distance and a planted fault hides under 1.1 (`skip-16`,
+#   AnyNet's stage 1 on the tensor cores: sound 0.14-0.76 over eight
+#   seed-0-like draws at 64x128 on the CPU and 0.376 at 368x1232 on the
+#   H100, a x1.01 fault 0.948 there);
 # * bf16 "chain" head at 48 channels (`--refine_channels 48`, on the
 #   CUDA cores): the composed rank-1 kernels rounded once to bf16, where the
 #   module rounds the depthwise output, over 432-term sums (eight draws at
@@ -124,6 +127,7 @@ ROUTE_BARS = {
     ("bfloat16", "chain-head-48"): (1.5, MAX_RATIO),
     ("bfloat16", "skip-32"): (0.9, MAX_RATIO),
     ("bfloat16", "skip-8"): (0.9, MAX_RATIO),
+    ("bfloat16", "skip-16"): (0.85, MAX_RATIO),
     ("float32", "cf-entry-32"): (1.25, MAX_RATIO),
     ("float32", "cf-entry-8"): (1.5, MAX_RATIO),
     ("float32", "cf-8"): (1.4, MAX_RATIO),

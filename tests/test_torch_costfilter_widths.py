@@ -48,9 +48,8 @@ def test_every_width_and_d_has_a_chained_route(dtype):
     each launch reads the layout the one before it writes: the entry's
     output, each C -> C layer's input and output and the fused last
     layer's input lie alike. The tensor cores take the bf16 C -> C layers
-    at 32, 16, 64 or 8 channels, the entries and the fused last layer at
-    32 or 8 (the fused last layer only up to D = SKIP_TC_MAX_D), the CUDA
-    cores everything else."""
+    and the fused last layer at 32, 16, 64 or 8 channels (at every D), the
+    entries at 32 or 8, the CUDA cores everything else."""
     bf = dtype == torch.bfloat16
     for C in range(1, 65):
         for D in D_COUNTS:
@@ -64,12 +63,11 @@ def test_every_width_and_d_has_a_chained_route(dtype):
             assert r.layer.reads_cl == tc, (C, D)
             assert (r.entry.route == tcf.TENSOR_CORES) == ends
             assert (r.layer.route == tcf.TENSOR_CORES) == tc
-            assert (r.skip.route == tcf.TENSOR_CORES) == (
-                ends and D <= tcf.SKIP_TC_MAX_D), (C, D)
+            assert (r.skip.route == tcf.TENSOR_CORES) == tc, (C, D)
             # the per-launch rules of the two kernels agree with it
             assert tcf.conv3d_tensor_core_route(dtype, C, C) == tc
             assert tcf.conv3d_tensor_core_route(dtype, 1, C) == ends
-            assert tcf.skip_tensor_core_route(dtype, C) == ends
+            assert tcf.skip_tensor_core_route(dtype, C) == tc
     with pytest.raises(ValueError):
         tcf.filter_routes(dtype, 0, 5)
     with pytest.raises(ValueError):

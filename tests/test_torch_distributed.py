@@ -353,7 +353,7 @@ def test_two_process_precise_bn_reads_global_statistics(setup, eval_corpus,
 def test_dryrun_tool():
     """`python -m lwsnet_tpu_torch.tools.dryrun_ddp`: two processes'
     loss equals the single process's."""
-    out = dryrun_ddp.main(["--processes", "2"])
+    out = dryrun_ddp.main(["--processes", "2", "--device", "cpu"])
     assert abs(out["loss"] - out["single_loss"]) <= 1e-5 * out["single_loss"]
 
 

@@ -335,9 +335,9 @@ def test_skip_softargmin_wgmma_route_on_card(rnd, shape, channels_last):
 def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
     """float32 stays on the CUDA cores, which read NCDHW: a channels-last
     input is copied once to the default layout. bf16 at a width the
-    tensor-core route does not take (16) runs on the CUDA cores from NCDHW
-    too, within two rounding steps of the plain version, reading the
-    channels-last activation its stage's tensor-core layers write."""
+    tensor-core route does not take (4) runs on the CUDA cores from NCDHW
+    too, as its stage's layers write it, within two rounding steps of the
+    plain version."""
     build.reset_launch_counts()
     x = _channels_last(rnd(1, 32, 24, 5, 70).relu(), True)
     wt, vol = rnd(1, 32, 3, 3, 3) * 0.05, rnd(1, 24, 5, 70)
@@ -349,9 +349,9 @@ def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
     torch.cuda.synchronize()
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
     bf = torch.bfloat16
-    assert tcf.filter_routes(bf, 16, 9).skip.reads_cl
-    xb = _channels_last(rnd(1, 16, 9, 5, 70, dtype=bf).relu(), True)
-    wb, vb = rnd(1, 16, 3, 3, 3, dtype=bf), rnd(1, 9, 5, 70, dtype=bf)
+    assert not tcf.filter_routes(bf, 4, 9).skip.reads_cl
+    xb = rnd(1, 4, 9, 5, 70, dtype=bf).relu()
+    wb, vb = rnd(1, 4, 3, 3, 3, dtype=bf), rnd(1, 9, 5, 70, dtype=bf)
     _assert_two_steps(tcf.conv3d_skip_softargmin(xb, wb, vb, 0),
                       tcf.conv3d_skip_softargmin_plain(xb, wb, vb, 0))
     assert build.launch_counts()["conv3d_skip_softargmin"] == 2
@@ -412,19 +412,24 @@ def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
             torch.testing.assert_close(k, w, atol=2e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", WIDTH_SHAPES)
+# The CUDA-core route's widths and D among them: float32 at each, bf16 at
+# 4 and 3 channels (at 16 and 64 the tensor cores take bf16).
+CORE_CASES = [(shape, dtype) for shape in WIDTH_SHAPES
+              for dtype in (torch.bfloat16, torch.float32)
+              if dtype == torch.float32 or shape[1] not in (16, 64)]
+
+
+@pytest.mark.parametrize("shape,dtype", CORE_CASES)
 def test_skip_softargmin_cuda_core_widths_on_card(rnd, shape, dtype):
     """conv3d_skip_softargmin's CUDA-core route at the same widths and D
-    (D = 72 over its 64-cost chunks), reading the layout its stage's
-    layers write (`filter_routes`: channels-last at bf16 16 and 64, else
-    NCDHW), counted as "cores", no layout copy: float32 at atol 2e-4 /
-    rtol 1e-3 of the plain version, bf16 within two rounding steps and
-    atol 1e-3 / rtol 1e-4 (both sum float32 from the same bf16
-    operands)."""
+    (D = 72 over its 64-cost chunks), reading NCDHW as its stage's layers
+    write it (`filter_routes`), counted as "cores", no layout copy:
+    float32 at atol 2e-4 / rtol 1e-3 of the plain version, bf16 within two
+    rounding steps and atol 1e-3 / rtol 1e-4 (both sum float32 from the
+    same bf16 operands)."""
     B, C, D, H, W, start = shape
-    x = _channels_last(rnd(B, C, D, H, W, dtype=dtype).relu(),
-                       tcf.filter_routes(dtype, C, D).skip.reads_cl)
+    assert not tcf.filter_routes(dtype, C, D).skip.reads_cl
+    x = rnd(B, C, D, H, W, dtype=dtype).relu()
     wt = (rnd(1, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(dtype)
     vol = (rnd(B, D, H, W) * 2).to(dtype)
     build.reset_launch_counts()
@@ -443,22 +448,53 @@ def test_skip_softargmin_cuda_core_widths_on_card(rnd, shape, dtype):
 
 @pytest.mark.parametrize("C,D", [(32, 72), (8, 65)])
 def test_skip_softargmin_past_d64_on_card(rnd, C, D):
-    """bf16 at 32 or 8 channels past D = 64: the fused last layer leaves
-    the tensor cores for the CUDA cores and reads the channels-last
-    activation its stage's tensor-core layers write, with no copy."""
+    """bf16 at 32 or 8 channels past D = 64: the fused last layer stays on
+    the tensor cores, its costs folded in chunks of 64, and reads the
+    channels-last activation its stage's tensor-core layers write, with
+    no copy."""
     bf = torch.bfloat16
     routes = tcf.filter_routes(bf, C, D)
     assert routes.layer.writes_cl and routes.skip.reads_cl
-    assert routes.skip.route == tcf.CUDA_CORES
+    assert routes.skip.route == tcf.TENSOR_CORES
     x = _channels_last(rnd(2, C, D, 5, 37, dtype=bf).relu(), True)
     wt = (rnd(1, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(bf)
     vol = (rnd(2, D, 5, 37) * 2).to(bf)
     build.reset_launch_counts()
     got = tcf.conv3d_skip_softargmin(x, wt, vol, -D // 2)
     torch.cuda.synchronize()
-    assert build.route_counts() == {"conv3d_skip_softargmin[cores]": 1}
+    assert build.launch_counts()["conv3d_skip_softargmin"] == 1
+    assert build.route_counts() == {}
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
     want = tcf.conv3d_skip_softargmin_plain(x, wt, vol, -D // 2)
+    _assert_two_steps(got, want)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("D", [12, 72, 129])
+@pytest.mark.parametrize("C", [16, 64])
+def test_skip_softargmin_wgmma_widths_on_card(rnd, C, D):
+    """The tensor-core route of conv3d_skip_softargmin at 16 and 64
+    channels (one and four products a staged row; two 32-channel slabs a
+    plane at 64), at D = 12 (one chunk of costs), 72 and 129 (two and
+    three chunks folded), B = 2, ragged H and W (H = 5, W = 75: two
+    62-pixel tiles, the last of 13), from the channels-last activation
+    its stage's layers write: one launch on the tensor cores, no route
+    count, no layout copy, within two bf16 rounding steps of the plain
+    version and atol 1e-3 / rtol 1e-4 of it."""
+    bf = torch.bfloat16
+    routes = tcf.filter_routes(bf, C, D)
+    assert routes.skip.route == tcf.TENSOR_CORES and routes.skip.reads_cl
+    x = _channels_last(rnd(2, C, D, 5, 75, dtype=bf).relu(), True)
+    wt = (rnd(1, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(bf)
+    vol = (rnd(2, D, 5, 75) * 2).to(bf)
+    build.reset_launch_counts()
+    got = tcf.conv3d_skip_softargmin(x, wt, vol, -D // 3)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["conv3d_skip_softargmin"] == 1
+    assert build.route_counts() == {}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    want = tcf.conv3d_skip_softargmin_plain(x, wt, vol, -D // 3)
+    assert got.shape == (2, 5, 75) and got.dtype == torch.float32
     _assert_two_steps(got, want)
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
 
@@ -470,8 +506,9 @@ def test_anynet_forward_on_card(rnd):
     the float64 module path (mean |delta| at most 1.1 x the module path's,
     float32 max at most 2 x), the bf16 forward launching conv3d_bn_relu 15,
     conv3d_skip_softargmin 3 and dense3x3 11 times, stage 1's four
-    16 -> 16 layers on the tensor cores, stages 2-3's eight 4 -> 4 layers
-    and the 3 fused last layers on the CUDA cores, no layout copy."""
+    16 -> 16 layers and its fused last layer on the tensor cores, stages
+    2-3's eight 4 -> 4 layers and 2 fused last layers on the CUDA cores, no
+    layout copy."""
     import numpy as np
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.tools.parity_layers import (ANYNET, MAX_RATIO,
@@ -501,7 +538,7 @@ def test_anynet_forward_on_card(rnd):
         if dtype == "bfloat16":
             assert build.route_counts() == {
                 "conv3d_bn_relu[cores]": 8, "conv3d_bn_relu[entry]": 3,
-                "conv3d_skip_softargmin[cores]": 3, "dense3x3[entry]": 1,
+                "conv3d_skip_softargmin[cores]": 2, "dense3x3[entry]": 1,
                 "dense3x3[output]": 1}
         assert build.LAYOUT_COPIES == {"to channels-last": 0,
                                        "to contiguous": 0}

@@ -1,15 +1,16 @@
-"""The tensor-core route of `conv3d_skip_softargmin` (bf16, Ci 32 or 8), on
-the CPU.
+"""The tensor-core route of `conv3d_skip_softargmin` (bf16, Ci 64, 32, 16 or
+8, any D), on the CPU.
 
 The route runs only on the card (`tests/test_torch_gpu.py` and
 `chip_smoke.py` hold it against its plain version there). Here: which
 dtype and width take it, the B images the wrapper lays out for it, a numpy
 emulation of its walk (tile by tile and plane by plane: the kd-split
 products over staged channels-last rows with the taps in N, the
-three-plane sums, the skip, the two-pass softmax) against
-`conv3d_skip_softargmin_plain`, and the
-stage-1 and stage-2/3 filters with the layouts the card hands from layer to
-layer, the last layer through that emulation, against the JAX package's
+three-plane sums, the skip, the two-pass softmax of each chunk of up to 64
+costs folded into a running one) against `conv3d_skip_softargmin_plain`,
+and the stage-1 and stage-2/3 filters and AnyNet's stage 1 and a 64-channel
+filter over D = 72 with the layouts the card hands from layer to layer,
+the last layer through that emulation, against the JAX package's
 `filter_soft_argmin` (Pallas kernels in interpret mode). float32
 throughout.
 """
@@ -37,23 +38,25 @@ from test_torch_model import jitter  # noqa: E402
 
 CL3 = torch.channels_last_3d
 # The route's tile (csrc/conv3d_skip_softargmin.cu, namespace tcr): TW
-# output pixels from w0, TM staged pixels a product row; by width, LP
-# staged pixels a row from w0 - 1, TH output rows a tile, KP products a staged
-# row, the 16 x 8 images as laid out a kh (PIECES) and the columns of a
-# product an output row (PER_ROW).
-TW, TM = 62, 64
-LP = {32: 64, 8: 72}
-TH = {32: 1, 8: 2}
-KP = {32: 2, 8: 1}
-PIECES = {32: 6, 8: 2}
-PER_ROW = {32: 9, 8: 6}
+# output pixels from w0, TM staged pixels a product row, costs a chunk the
+# owner folds at once (D_CHUNK); by width, LP staged pixels a row from
+# w0 - 1, TH output rows a tile, KP products a staged row (one a
+# 16-channel slice at Ci >= 16), the 16 x 8 images as laid out a kh
+# (PIECES) and the columns of a product an output row (PER_ROW).
+TW, TM, D_CHUNK = 62, 64, 64
+LP = {64: 64, 32: 64, 16: 64, 8: 72}
+TH = {64: 1, 32: 1, 16: 1, 8: 2}
+KP = {64: 4, 32: 2, 16: 1, 8: 1}
+PIECES = {64: 12, 32: 6, 16: 3, 8: 2}
+PER_ROW = {64: 9, 32: 9, 16: 9, 8: 6}
 
 
 @pytest.mark.parametrize("dtype,ci,route", [
     (torch.bfloat16, 32, True),    # stage 1
     (torch.bfloat16, 8, True),     # stages 2-3
-    (torch.bfloat16, 16, False),   # the CUDA cores (`filter_routes`)
-    (torch.bfloat16, 4, False),
+    (torch.bfloat16, 16, True),    # AnyNet's stage 1
+    (torch.bfloat16, 64, True),    # a 64-channel filter
+    (torch.bfloat16, 4, False),    # the CUDA cores (`filter_routes`)
     (torch.float32, 32, False),    # the CUDA cores, NCDHW
     (torch.float32, 8, False),
 ])
@@ -68,24 +71,26 @@ def _slices(wt):
     return img.numpy().transpose(0, 1, 3, 2).reshape(-1, 16, 8)
 
 
-@pytest.mark.parametrize("ci", [32, 8])
+@pytest.mark.parametrize("ci", [32, 8, 16, 64])
 def test_skip_images_unpack_to_the_weights(ci):
     """Slice kh * PIECES + piece holds, in column n < 3, the weights of
-    kd = n at row kh: Ci = 32, piece (kw, half) and k the channel half * 16
-    + k; Ci = 8, piece j, k < 8 the channels at tap kw = 2j and k >= 8
-    those at kw = 2j + 1 (zero for kw = 3). Columns 3-7 are zero."""
+    kd = n at row kh: Ci = 16, 32 or 64, piece (kw, kc) and k the channel
+    kc * 16 + k; Ci = 8, piece j, k < 8 the channels at tap kw = 2j and
+    k >= 8 those at kw = 2j + 1 (zero for kw = 3). Columns 3-7 are
+    zero."""
     rng = np.random.default_rng(ci)
     wt = rng.standard_normal((1, ci, 3, 3, 3)).astype(np.float32)
     bs = _slices(wt)
-    assert bs.shape == (3 * PIECES[ci], 16, 8)  # 4.6 / 1.5 KB of bf16
+    # 9.2 / 4.6 / 2.3 / 1.5 KB of bf16 at Ci = 64 / 32 / 16 / 8
+    assert bs.shape == (3 * PIECES[ci], 16, 8)
     assert not bs[:, :, 3:].any()
     back = np.zeros((ci, 3, 3, 4), np.float32)  # (ci, kd, kh, kw)
     for kh in range(3):
         for pc in range(PIECES[ci]):
             b = bs[kh * PIECES[ci] + pc, :, :3]  # (k, kd)
-            if ci == 32:
-                kw, half = divmod(pc, 2)
-                back[16 * half:16 * half + 16, :, kh, kw] = b
+            if ci != 8:
+                kw, kc = divmod(pc, KP[ci])
+                back[16 * kc:16 * kc + 16, :, kh, kw] = b
             else:
                 back[:, :, kh, 2 * pc] = b[:8]
                 back[:, :, kh, 2 * pc + 1] = b[8:]
@@ -100,7 +105,7 @@ def _source_slice(C, sh, kc, n):
     kh = sh - o
     if o >= TH[C] or not 0 <= kh <= 2:
         return -1
-    return kh * 6 + m // 3 * 2 + kc if C == 32 else kh * 2 + m // 3
+    return kh * 2 + m // 3 if C == 8 else kh * PIECES[C] + m // 3 * KP[C] + kc
 
 
 def _packed(bs, C):
@@ -117,16 +122,41 @@ def _packed(bs, C):
     return out
 
 
+def _fold(c, bins):
+    """The owner's soft-argmin of costs c (..., D) in chunks of D_CHUNK:
+    each chunk's least cost, then its sums of exp(least - cost) and of that
+    times the bin in order of d, folded into the running ones, both
+    rescaled to the lesser least cost."""
+    run = None
+    for d0 in range(0, c.shape[-1], D_CHUNK):
+        ck = c[..., d0:d0 + D_CHUNK]
+        m = ck.min(-1)
+        den = np.zeros_like(m)
+        num = np.zeros_like(m)
+        for k in range(ck.shape[-1]):
+            e = np.exp(m - ck[..., k])
+            den = den + e
+            num = num + e * bins[d0 + k]
+        if run is None:
+            run = m, den, num
+        else:
+            rm, rden, rnum = run
+            mm = np.minimum(rm, m)
+            s_run, s_new = np.exp(mm - rm), np.exp(mm - m)
+            run = mm, rden * s_run + den * s_new, rnum * s_run + num * s_new
+    return run[2] / run[1]
+
+
 def _emulate(x, wt, vol, start):
     """The route's arithmetic in numpy float32. Per (b, h0, w0) tile of
     TH rows x TW pixels: per plane d' the TH + 2 staged rows of LP
     channels-last pixels from w0 - 1 (zeros outside the volume); one
-    product per (staged row, product) of its TM pixels from pixel 0 (Ci =
-    32: channels kc * 16 ..; Ci = 8: pixels m and m + 1) with the packed B;
-    output pixel q of row o sums its kd columns over the taps (rows q + kw;
-    Ci = 8: q and q + 2), cost[d' + 1] += kd 0, cost[d'] += kd 1,
-    cost[d' - 1] += kd 2; then the volume added, min and the sums over d
-    in order."""
+    product per (staged row, product kc) of its TM pixels from pixel 0
+    (Ci >= 16: channels kc * 16 .. kc * 16 + 15; Ci = 8: pixels m and
+    m + 1) with the packed B; output pixel q of row o sums its kd columns
+    over the taps (rows q + kw; Ci = 8: q and q + 2), cost[d' + 1] += kd
+    0, cost[d'] += kd 1, cost[d' - 1] += kd 2; then the volume added and
+    the chunks folded (`_fold`)."""
     x, wt, vol = (t.detach() for t in (x, wt, vol))
     B, C, D, H, W = x.shape
     th = TH[C]
@@ -152,17 +182,16 @@ def _emulate(x, wt, vol, start):
                     P = 0
                     for i in range(pk.shape[0]):
                         sh, kc = divmod(i, KP[C])
-                        a = (rows[sh, m, 16 * kc:16 * kc + 16] if C == 32
-                             else np.concatenate([rows[sh, m],
-                                                  rows[sh, m + 1]], 1))
+                        a = (np.concatenate([rows[sh, m], rows[sh, m + 1]], 1)
+                             if C == 8 else rows[sh, m, 16 * kc:16 * kc + 16])
                         P = P + a @ pk[i]
                     for o in range(th):
-                        if C == 32:
-                            kd = [P[q, o * 9 + k] + P[q + 1, o * 9 + 3 + k]
-                                  + P[q + 2, o * 9 + 6 + k] for k in range(3)]
-                        else:
+                        if C == 8:
                             kd = [P[q, o * 6 + k] + P[q + 2, o * 6 + 3 + k]
                                   for k in range(3)]
+                        else:
+                            kd = [P[q, o * 9 + k] + P[q + 1, o * 9 + 3 + k]
+                                  + P[q + 2, o * 9 + 6 + k] for k in range(3)]
                         if dp + 1 < D:
                             costs[o, dp + 1] += kd[0]
                         costs[o, dp] += kd[1]
@@ -171,9 +200,8 @@ def _emulate(x, wt, vol, start):
                 nh, nw = min(th, H - h0), min(TW, W - w0)
                 c = costs[:nh, :, :nw] + v[b, :, h0:h0 + nh,
                                            w0:w0 + nw].transpose(1, 0, 2)
-                e = np.exp(c.min(1, keepdims=True) - c)
-                got = (e * bins[:, None]).sum(1) / e.sum(1)
-                out[b, h0:h0 + nh, w0:w0 + nw] = got
+                out[b, h0:h0 + nh, w0:w0 + nw] = _fold(
+                    c.transpose(0, 2, 1), bins)
     return torch.from_numpy(out)
 
 
@@ -189,11 +217,20 @@ def _operands(rng, B, C, D, H, W):
     (2, 32, 24, 2, 37, -4),
     (1, 8, 9, 1, 70, -4),      # stages 2-3: D = 9; H = 1 < TH = 2
     (2, 8, 9, 2, 126, 0),      # three W tiles, the last of 2 pixels
+    (1, 16, 12, 2, 70, 0),     # AnyNet's stage 1: D = 12
+    (1, 16, 72, 1, 126, -3),   # past D = 64: a chunk of 64, one of 8
+    (2, 16, 65, 1, 70, 0),     # a last chunk of one cost
+    (1, 16, 129, 1, 70, -64),  # three chunks
+    (1, 64, 12, 1, 70, 0),     # 64 channels: four products a staged row
+    (1, 64, 72, 2, 70, 0),     # the wide filter's D
+    (2, 64, 65, 1, 70, -32),
+    (1, 64, 129, 1, 126, 0),
 ])
 def test_skip_walk_emulation_matches_plain(B, C, D, H, W, start):
     """atol 1e-4 / rtol 1e-5 on outputs in bin units up to D - 1: float32
     sums in another order (per staged row, per tap, per kd, then the
-    skip) than the plain conv's."""
+    skip; past 64 costs chunk by chunk, rescaled) than the plain conv's
+    and softmax's."""
     x, wt, vol = _operands(np.random.default_rng(C + D + H), B, C, D, H, W)
     want = tcf.conv3d_skip_softargmin_plain(x, wt, vol, start)
     got = _emulate(x, wt, vol, start)
@@ -205,6 +242,8 @@ def test_skip_walk_emulation_matches_plain(B, C, D, H, W, start):
 @pytest.mark.parametrize("D,channels,start", [
     (24, 32, 0),    # stage 1: the d-grid formulation in JAX
     (9, 8, -4),     # stages 2-3: the folded one, residual bins
+    (12, 16, 0),    # AnyNet's stage 1
+    (72, 64, 0),    # a 64-channel filter past D = 64: two chunks
 ])
 def test_filter_soft_argmin_card_hand_over_matches_jax(monkeypatch, D,
                                                        channels, start):

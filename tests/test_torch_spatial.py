@@ -332,7 +332,8 @@ def test_planted_shard_epe_misses_the_bar(one_by_two, single_fit):
 def test_dryrun_tool_spatial():
     """`python -m lwsnet_tpu_torch.tools.dryrun_ddp --processes 4
     --spatial 2`: the 2x2 loss within 1e-2 of the data-parallel one."""
-    out = dryrun_ddp.main(["--processes", "4", "--spatial", "2"])
+    out = dryrun_ddp.main(["--processes", "4", "--spatial", "2", "--device",
+                           "cpu"])
     assert out["spatial_gap"] < 1e-2
 
 
@@ -482,9 +483,12 @@ def test_multicard_phase_needs_four_cards_under_only(monkeypatch, capsys):
 
 def test_dryrun_tool_device_flag(monkeypatch):
     """`dryrun_ddp --device cuda` raises without a card before it starts
-    a process; the CPU is the default."""
+    a process; the card is the default, so it raises without the flag
+    too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         dryrun_ddp.main(["--processes", "2", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        dryrun_ddp.main(["--processes", "2"])
     with pytest.raises(SystemExit):
         dryrun_ddp.main(["--device", "tpu"])
