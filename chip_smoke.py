@@ -28,11 +28,12 @@ failure exits non-zero:
      output, Co 1 and 8), dwsep3x3 (solo and pair), chain3x3 (tower and
      head), conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout; the
      stage entries 1 -> 8 and 1 -> 32 with layer 0's BN + ReLU fused,
-     b0 > 0) and conv3d_skip_softargmin (32 and 8 channels; 16 and 64, two
-     and three chunks of costs past D = 64) at ragged shapes from both
-     layouts (NCHW / channels-last), in float32 (TF32
-     off; atol 2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain
-     output's span; chain3x3, the 8-channel conv3d_bn_relu layers and the
+     b0 > 0; 4 -> 4, NCDHW in and out, at AnyNet's stage-2 and stage-3
+     shapes too) and conv3d_skip_softargmin (32 and 8 channels; 16 and
+     64, two and three chunks of costs past D = 64) at ragged shapes from
+     both layouts (NCHW / channels-last), in float32 (TF32 off; atol
+     2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain output's
+     span; chain3x3, the 8- and 4-channel conv3d_bn_relu layers and the
      entries, conv3d_skip_softargmin and dense3x3's narrow routes also
      every element within two rounding steps, or, writing float32, atol
      2e-4 / rtol 1e-3); each bf16 dense3x3 call on the route its shape
@@ -237,8 +238,9 @@ failure exits non-zero:
      phase 4's forward check under "mxu" at AnyNet's settings with its
      launch counts (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3
      11), route launches (`want_routes`: stage 1's four 16 -> 16 layers and
-     its fused last layer on the tensor cores, the 8 4 -> 4 layers and 2
-     fused last layers on the CUDA cores) and no layout copy, and under
+     its fused last layer and the 8 4 -> 4 layers (`c4`, NCDHW) on the
+     tensor cores, the 2 4-channel fused last layers on the CUDA cores)
+     and no layout copy, and under
      every engine at each refinement width in bf16 and float32 (launch
      and route counts from
      the route rules, no copy), then `InferenceEngine` at AnyNet's
@@ -686,7 +688,8 @@ def layers_calls(cfg):
 def ragged_calls():
     """Phase 3 only: the tensor-core routes of dense3x3 (32 outputs, the
     narrow entry and the narrow output), dwsep3x3 (solo and
-    pair), chain3x3, conv3d_bn_relu (with its entries 1 -> 8 and 1 -> 32)
+    pair), chain3x3, conv3d_bn_relu (with its entries 1 -> 8 and 1 -> 32;
+    4 -> 4 also at AnyNet's stage-2 and stage-3 shapes)
     and conv3d_skip_softargmin at shapes no tile divides (W = 150, 75, 70
     and 37, H = 37, 29, 11 and 5 not a multiple of R * d = 4d, of the skip
     route's two rows or of the entries' four, D = 7), two
@@ -770,6 +773,18 @@ def ragged_calls():
                           f"ragged {ci}->1 B=2 {d}x{h}x{w} {tag}",
                           dict(B=2, Ci=ci, D=d, H=h, W=w, cl=cl,
                                start=-d // 3), 0, None))
+    # the 4 -> 4 route (`c4`, NCDHW in and out) at AnyNet's stage-2 and
+    # stage-3 shapes (one and two tiles a block) and at a ragged one (odd
+    # W: 2-byte loads and stores), from NCDHW and (one counted copy)
+    # channels-last input
+    for cl in (False, True):
+        tag = "channels-last" if cl else "NCHW"
+        for b, d, h, w in ((1, 5, H // 4, W // 4), (1, 5, H // 2, W // 2),
+                           (2, 7, 11, 37)):
+            calls.append(("conv3d_bn_relu",
+                          f"4->4 B={b} {d}x{h}x{w} {tag}",
+                          dict(B=b, Ci=4, Co=4, D=d, H=h, W=w, cl=cl), 0,
+                          None))
     return calls
 
 
@@ -1079,9 +1094,10 @@ def check_calls(calls, dev, tag, seed=1000):
     default_rng(seed + i)) against its plain version, in float32 and bf16
     (`check_close`; in bf16 `two_steps` too where the kernel rounds as the
     plain version: chain3x3, conv3d_skip_softargmin, conv3d_bn_relu but
-    its 32-channel tensor-core route, dense3x3's narrow routes, or, writing
-    float32, atol 2e-4 / rtol 1e-3), each launch on the route its rule
-    picks (`dense_route`, `filter_route_launches`), and the fused last
+    its 16-, 32- and 64-channel tensor-core routes, dense3x3's narrow
+    routes, or, writing float32, atol 2e-4 / rtol 1e-3), each launch on
+    the route its rule picks (`dense_route`, `filter_route_launches`),
+    and the fused last
     layer's layout copies as `costfilter.filter_routes` says (one where
     the call hands it the other layout). Returns {kernel: {(label, dtype):
     max |delta|}}."""
@@ -1123,7 +1139,7 @@ def check_calls(calls, dev, tag, seed=1000):
             elif dtype == torch.bfloat16 and (
                     kernel in ("chain3x3", "conv3d_skip_softargmin")
                     or (kernel == "conv3d_bn_relu" and (
-                        p["Co"] == 8 or p.get("entry")
+                        p["Co"] in (4, 8) or p.get("entry")
                         or not CF.conv3d_tensor_core_route(
                             dtype, p["Ci"], p["Co"])))
                     or narrow):

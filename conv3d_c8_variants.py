@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Variants of conv3d_bn_relu's 8 -> 8 tensor-core route (with --skip, of
 conv3d_skip_softargmin's; with --entry, of conv3d_bn_relu's 1 -> C entry
-route; with --dwsep, of dwsep3x3's tile body), timed on one GPU.
+route; with --dwsep, of dwsep3x3's tile body; with --c4, of the 4 -> 4
+route and of the CUDA-core kernel it replaced), timed on one GPU.
 
 Run from the repository root on a machine with a card:
 
-    python3 conv3d_c8_variants.py [--skip | --entry | --dwsep] [--json PATH]
+    python3 conv3d_c8_variants.py [--skip | --entry | --dwsep | --c4]
+                                  [--json PATH]
 
 Each variant is `lwsnet_tpu_torch/csrc/conv3d_bn_relu.cu` with a few
 textual changes to its `c8` namespace, written beside copies of the
@@ -107,6 +109,34 @@ the 368x1232 forward at refine_channels 48, 20 and 64:
                       block and the block's total (medians over the
                       blocks of one launch, in clocks, and each phase's
                       share of the total).
+
+--c4 times the 4 -> 4 route instead (its `c4` namespace in
+`csrc/conv3d_bn_relu.cu`), each variant held against
+`conv3d_bn_relu_plain` (every bf16 element within two rounding steps) and
+timed alone on the device at the stage-2 and stage-3 geometry of SHAPES
+with 4 channels and D = 5 (AnyNet's settings), beside the CUDA-core kernel
+that took bf16 4 -> 4 before it (`conv3d_bn_relu_kernel<bf16, 4>`, built
+with the 4 -> 4 clause of `use_tc` removed and called with its (Ci, 27,
+Co) weights, NCDHW in and out):
+
+  blocks1             one block an SM (at most 255 registers; the route
+                      has two, at most 128);
+  clock               clock64() of thread 0 of each block: the tile
+                      staged (barrier, stores to shared memory, the next
+                      tile's loads issued, barrier), products (issued: the
+                      last ones' completion falls in the epilogue),
+                      epilogue (relu, rounding, stores to y), set-up before
+                      the first tile, tiles a block and the block's total
+                      (medians over the blocks, in clocks);
+  cores               the CUDA-core kernel as it was;
+  cores_clock         its clock64() split, thread 0 of each block: the
+                      weights staged (between the two block barriers), the
+                      taps (loads and FMAs), the stores;
+  cores_noload        each tap's global load replaced by a value from the
+                      pixel index (its FMAs, address and bounds arithmetic
+                      kept): the time without the 108 loads a thread;
+  cores_nofma         each tap's 4 FMAs cut to one (its loads kept): the
+                      time without three quarters of the FMAs.
 
 Exits 1 without CUDA, 2 if a variant fails to build or its check.
 """
@@ -751,6 +781,215 @@ def dwsep_variants(dev, report):
     return rc
 
 
+C4_VARIANTS = {
+    "blocks1": [("constexpr int MIN_BLOCKS = 2;",
+                 "constexpr int MIN_BLOCKS = 1;")],
+    "clock": [
+        ("constexpr int TD = 5, TH = 4, TW = 64;",
+         "__device__ long long clk[4096][8];\n"
+         "constexpr int TD = 5, TH = 4, TW = 64;"),
+        ("  const int ntiles = tiles(a);\n  int t = blockIdx.x;",
+         "  const long long c_start = clock64();\n"
+         "  long long c_stage = 0, c_prod = 0, c_epi = 0, c_first = 0;\n"
+         "  int c_tiles = 0;\n"
+         "  const int ntiles = tiles(a);\n  int t = blockIdx.x;"),
+        ("    __syncthreads();  // the last tile's A reads done",
+         "    const long long c_top = clock64();\n"
+         "    if (c_tiles == 0) c_first = c_top - c_start;\n"
+         "    __syncthreads();  // the last tile's A reads done"),
+        ("    __syncthreads();  // the tile staged\n",
+         "    __syncthreads();  // the tile staged\n"
+         "    const long long c_staged = clock64();\n"
+         "    c_stage += c_staged - c_top;\n"),
+        ("    // relu, one rounding, and each channel's pixel pair to y",
+         "    const long long c_prods = clock64();\n"
+         "    c_prod += c_prods - c_staged;\n"
+         "    // relu, one rounding, and each channel's pixel pair to y"),
+        # thread 0 (pixel w0, row h0 + 1) reaches the stores at C4_SHAPES
+        # (H a multiple of 4)
+        ("(p)[1] = u >> 16;\n        }\n      }\n    }\n  }\n}",
+         "(p)[1] = u >> 16;\n        }\n      }\n    }\n"
+         "    c_epi += clock64() - c_prods;\n    ++c_tiles;\n  }\n"
+         "  if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
+         "    long long* ck = clk[blockIdx.x];\n"
+         "    ck[0] = c_stage; ck[1] = c_prod; ck[2] = c_epi;\n"
+         "    ck[3] = c_first; ck[4] = c_tiles;\n"
+         "    ck[5] = clock64() - c_start; ck[6] = 1;\n"
+         "  }\n}"),
+    ],
+}
+_C4_CLOCK = '''
+extern "C" int c4_clock_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, c4::clk, sizeof(c4::clk));
+}
+extern "C" int c4_clock_reset() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, c4::clk);
+  return e != cudaSuccess ? (int)e : (int)cudaMemset(p, 0, sizeof(c4::clk));
+}
+'''
+C4_ROLES = {"staging": 0, "products": 1, "epilogue": 2, "setup": 3,
+            "tiles": 4, "block": 5}
+# The CUDA-core kernel at bf16 4 -> 4 (`use_tc` without its 4 -> 4 clause)
+_NO_C4 = ("(Ci == Co && (Ci == 8 || Ci == 4))", "(Ci == Co && Ci == 8)")
+CORES_VARIANTS = {
+    "cores": [_NO_C4],
+    "cores_clock": [
+        _NO_C4,
+        ("constexpr int CI_CHUNK = 8;",
+         "constexpr int CI_CHUNK = 8;\n__device__ long long clk[4096][8];"),
+        ("  const float a0 = AFF ? aff[0] : 1.f, b0 = AFF ? aff[1] : 0.f;\n",
+         "  const float a0 = AFF ? aff[0] : 1.f, b0 = AFF ? aff[1] : 0.f;\n"
+         "  long long c_w = 0, c_taps = 0, c0 = clock64();\n"),
+        ("    __syncthreads();\n    if (!active) continue;",
+         "    __syncthreads();\n    const long long c1_ = clock64();\n"
+         "    c_w += c1_ - c0;\n    if (!active) continue;"),
+        ("  if (!active) return;\n  const size_t voxel",
+         "  c_taps = clock64() - c0 - c_w;\n"
+         "  const long long c_end = clock64();\n"
+         "  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
+         " + blockIdx.x;\n"
+         "  if (!active) return;\n  const size_t voxel"),
+        # thread 0 is always inside the volume: it reaches the NCDHW stores
+        ("        yb[c * vol] = from_f<T>(fmaxf(acc[c] + shift[co0 + c], "
+         "0.f));\n    return;",
+         "        yb[c * vol] = from_f<T>(fmaxf(acc[c] + shift[co0 + c], "
+         "0.f));\n"
+         "    if (threadIdx.x == 0 && blk < 4096) {\n"
+         "      clk[blk][0] = c_w; clk[blk][1] = c_taps;\n"
+         "      clk[blk][2] = clock64() - c_end; clk[blk][6] = 1;\n"
+         "    }\n    return;"),
+    ],
+    "cores_noload": [
+        _NO_C4,
+        ("            float v = to_f(xc[dd * plane + (size_t)hh * W + ww]);",
+         "            float v = (float)((dd * plane + (size_t)hh * W + ww)"
+         " & 7);"),
+    ],
+    "cores_nofma": [
+        _NO_C4,
+        ("            for (int c = 0; c < CO_T; ++c) acc[c] = fmaf(v, wp[c], "
+         "acc[c]);",
+         "            for (int c = 0; c < 1; ++c) acc[c] = fmaf(v, wp[c], "
+         "acc[c]);"),
+    ],
+}
+_CORES_CLOCK = '''
+extern "C" int cores_clock_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, clk, sizeof(clk));
+}
+extern "C" int cores_clock_reset() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, clk);
+  return e != cudaSuccess ? (int)e : (int)cudaMemset(p, 0, sizeof(clk));
+}
+'''
+CORES_ROLES = {"weights": 0, "taps": 1, "stores": 2}
+# (B, D, H, W) of AnyNet's 4 -> 4 layers: SHAPES' geometry at D = 5.
+C4_SHAPES = {k: (B, 5, H, W) for k, (B, _, H, W) in SHAPES.items()}
+
+
+def c4_variants(dev, report):
+    """The --c4 family: each variant of the 4 -> 4 route and of the
+    CUDA-core kernel it replaced, checked and timed at C4_SHAPES, the clock
+    variants' splits; rc 2 if a build or a check failed."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    base = os.path.join(ROOT, "build", "c4_variants")
+    libs, rc = build_variants(C4_VARIANTS, base, "conv3d_bn_relu",
+                              "namespace c4 {", {"clock": _C4_CLOCK})
+    cores, rc2 = build_variants(CORES_VARIANTS, base, "conv3d_bn_relu",
+                                "namespace {", {"cores_clock": _CORES_CLOCK})
+    cores.pop("repo")
+    rc = rc or rc2
+
+    def operands(B, D, H, W):
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(np.maximum(rng.standard_normal((B, 4, D, H, W)),
+                                       0), dtype=torch.float32)
+        wt = torch.as_tensor(rng.standard_normal((4, 4, 3, 3, 3))
+                             * np.sqrt(2 / 108), dtype=torch.float32)
+        sh = torch.as_tensor(rng.normal(0, 0.1, 4), dtype=torch.float32)
+        return (x.to(dev, torch.bfloat16), wt.to(dev, torch.bfloat16),
+                sh.to(dev))
+
+    def cores_call(lib, x, wt, sh):
+        """The CUDA-core kernel of `lib` at bf16 4 -> 4, NCDHW in and out,
+        its weights as (Ci, 27, Co); a fn of no arguments."""
+        fn = lib.conv3d_bn_relu_bf16
+        fn.argtypes = build.CONV3D_BN_RELU.argtypes
+        fn.restype = ctypes.c_int
+        B, _, D, H, W = x.shape
+        wk = wt.permute(1, 2, 3, 4, 0).reshape(4, 27, 4).contiguous()
+        y = torch.empty_like(x)
+
+        def run():
+            rc = fn(x.data_ptr(), wk.data_ptr(), sh.data_ptr(), None,
+                    y.data_ptr(), B, 4, 4, D, H, W, 0, 0,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"cudaError {rc}")
+            return y
+        return run
+
+    def split(read, reset, fn, roles, blocks):
+        torch.cuda.synchronize()
+        reset()
+        fn()
+        torch.cuda.synchronize()
+        clk = np.zeros(4096 * 8, np.int64)
+        read(ctypes.c_void_p(clk.ctypes.data))
+        c = clk.reshape(4096, 8)
+        c = c[c[:, 6] == 1][:blocks]
+        out = {r: float(np.median(c[:, k])) for r, k in roles.items()}
+        out["blocks"] = int(len(c))
+        return out
+
+    kern = build.CONV3D_BN_RELU
+    kern._fn("conv3d_bn_relu_bf16")  # loads the library
+    repo_lib = kern._lib
+    for name, lib in list(libs.items()) + list(cores.items()):
+        on_c4 = name in libs
+        kern._lib = repo_lib if lib is None else lib
+        kern._fns = {}
+        row = {}
+        for shape, dims in C4_SHAPES.items():
+            x, wt, sh = operands(*dims)
+            fn = ((lambda: CF.conv3d_bn_relu(x, wt, sh)) if on_c4
+                  else cores_call(lib, x, wt, sh))
+            want = CF.conv3d_bn_relu_plain(x, wt, sh).float()
+            got = fn().float()
+            tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+            bad = int(((got - want).abs() > tol).sum())
+            if bad and name not in ("cores_noload", "cores_nofma"):
+                print(f"{name}: {shape}: {bad} elements beyond two rounding "
+                      f"steps")
+                rc = 2
+            ms = cs.kernel_device_ms(fn, "conv3d_bn_relu")
+            row[shape] = ms
+            print(f"{name}: {shape} 4->4: "
+                  f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+            if name == "clock":
+                row[f"{shape} clock64"] = out = split(
+                    lib.c4_clock_read, lib.c4_clock_reset, fn, C4_ROLES,
+                    4096)
+                print(f"{name}: {shape} clock64 medians over the blocks "
+                      f"(thread 0, clocks): {out}")
+            if name == "cores_clock":
+                row[f"{shape} clock64"] = out = split(
+                    lib.cores_clock_read, lib.cores_clock_reset, fn,
+                    CORES_ROLES, 4096)
+                print(f"{name}: {shape} clock64 medians over the blocks "
+                      f"(thread 0, clocks): {out}")
+        report["variants"][name] = row
+    kern._lib = repo_lib
+    kern._fns = {}
+    return rc
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None)
@@ -758,6 +997,7 @@ def main(argv=None):
     family.add_argument("--skip", action="store_true")
     family.add_argument("--entry", action="store_true")
     family.add_argument("--dwsep", action="store_true")
+    family.add_argument("--c4", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -774,9 +1014,9 @@ def main(argv=None):
     print(f"card: {card()}")
     build.build_all()
     report = {"card": card(), "variants": {}}
-    if args.skip or args.entry or args.dwsep:
+    if args.skip or args.entry or args.dwsep or args.c4:
         rc = (skip_variants if args.skip else entry_variants if args.entry
-              else dwsep_variants)(dev, report)
+              else dwsep_variants if args.dwsep else c4_variants)(dev, report)
         if args.json:
             os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
             with open(args.json, "w") as f:

@@ -29,9 +29,11 @@
 // 8->8 layers are bound by their bytes (32.6 MB a launch at stage 3: 9.7
 // us), but their route is held by its narrow products (below). The
 // entries are bound by their channels-last write stream: 10.9 MB at stage
-// 1 (3.3 us), 4.1 and 16.3 MB at stages 2 and 3 (1.4 and 5.4 us).
+// 1 (3.3 us), 4.1 and 16.3 MB at stages 2 and 3 (1.4 and 5.4 us). AnyNet's
+// 4->4 layers are bound by their bytes: 9.1 MB a launch at stage 3 (2.7
+// us), 2.3 MB at stage 2 (0.7 us).
 //
-// Four routes picked by shape:
+// Five routes picked by shape:
 // * bf16, Co == 32, Ci == 16 or 32 (the stage-1 32->32 layers), and Ci ==
 //   Co == 16 or 64 (AnyNet's stage-1 16->16 layers, a 64-channel filter),
 //   channels-last in and out: tensor cores through wgmma m64n32k16,
@@ -155,8 +157,41 @@
 //     group's box of y (4 rows x 64 pixels x 16 bytes), then one TMA copy
 //     of 1 KB runs (16-byte runs made TMA slow on the H100); two buffers
 //     in turn. Co = 8 NCDHW (not on the forward): 2-byte lane stores.
+// * bf16, Ci == Co == 4 (AnyNet's stage-2/3 layers, D = 5): `c4` below,
+//   NCDHW in and out (the layout of the 1->4 entry and of the fused 4->1
+//   last layer, both on the CUDA cores). On the CUDA cores one thread a
+//   pixel made 108 scalar 2-byte loads, each input value loaded 27 times,
+//   and 432 float32 FMAs a voxel: 47 us a launch at stage 3, 17x its
+//   bytes bound (PERF.md §6 splits it).
+//   - Persistent blocks of 256 threads, two an SM, walk tiles of TD = 5
+//     depths x TH = 4 rows x 64 pixels; ragged D, H and W are masked.
+//   - Staging: the tile's (TD + 2)(TH + 2) = 42 rows of 68 voxels (w0 - 2
+//     .. w0 + 65), read from the four channel planes by coalesced 4-byte
+//     loads of pixel pairs where W is even (2-byte loads where it is
+//     odd), the next tile's issued before this tile's products (a
+//     register prefetch, as `c1`), written channels-last as 8-byte voxels
+//     by 16-byte stores, zeros outside the volume. No TMA: a map's
+//     strides must be multiples of 16 bytes, and a stage-2 row is 616.
+//   - Products, no im2col: in a channels-last row the 16 elements from
+//     pixel p on are the 4 channels of pixels p .. p + 3, i.e. taps kw =
+//     0, 1, 2 of output pixel p and a fourth whose weights are zero: one
+//     K = 16 slice covers a staged row. Warp (pb, rg) takes 16 pixels of
+//     output rows 2 rg and 2 rg + 1 at every depth, the two rows x 4
+//     channels as N = 8 (B banded over the warp's 4 staged rows: per
+//     (kd, staged row) a resident slice of the kh each output row needs,
+//     12 in registers, `costfilter.c4_images`). Per staged (depth, row)
+//     one A fragment by 4-byte shared loads (lane (g, t) reads word 4g +
+//     t of its pixels' run: conflict-free, where an 8-byte voxel at an odd
+//     pixel does not start an ldmatrix row) and one mma.sync m16n8k16 per
+//     output depth that reads it: 60 a warp a tile. (N as 4 channels and
+//     4 zero columns, one output row a product, took 90 products and an
+//     epilogue through shared memory: 12.5 us at stage 3.)
+//   - Epilogue: A's rows are the pixels in pairs, so lane (g, t) ends
+//     with pixels 2g, 2g + 1 of one output row in two channels: the
+//     accumulators start at the shift, relu and one bf16 rounding in one
+//     cvt a pair, one 4-byte store a channel (two 2-byte where W is odd).
 // * otherwise (float32 at every width; bf16 at every width but those
-//   above, e.g. 4 channels and the 1->16 and 1->64 entries): the CUDA
+//   above, e.g. 3 channels and the 1->4, 1->16 and 1->64 entries): the CUDA
 //   cores, any Ci, Co >= 1, NCDHW in. A block takes an 8 x 32 pixel tile
 //   of one (b, d) slice, one pixel per thread, with CO_T output channels
 //   in float32 registers: 32, 16, 8 or 4, the widest that divides Co (4
@@ -298,11 +333,12 @@ constexpr int SMEM_MAX = 232448;             // per block, opted in
 
 // The tensor-core routes (mirrored by `conv3d_tensor_core_route` in
 // ops/cuda/costfilter.py): 32 -> 32 (or 16 -> 32), 16 -> 16 and 64 -> 64,
-// 8 -> 8 and the entries 1 -> 32, 1 -> 8.
+// 8 -> 8, 4 -> 4 and the entries 1 -> 32, 1 -> 8.
 bool use_tc(int elem_bytes, int Ci, int Co) {
   return elem_bytes == 2 &&
          ((Co == tc::N && (Ci == 16 || Ci == 32)) ||
-          (Ci == Co && (Ci == 16 || Ci == 64)) || (Ci == 8 && Co == 8) ||
+          (Ci == Co && (Ci == 16 || Ci == 64)) ||
+          (Ci == Co && (Ci == 8 || Ci == 4)) ||
           (Ci == 1 && (Co == tc::N || Co == 8)));
 }
 
@@ -1218,6 +1254,258 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace c1
 
+// ---- the C = 4 tensor-core route ------------------------------------------
+
+namespace c4 {
+
+constexpr int TD = 5, TH = 4, TW = 64;  // output tile
+constexpr int SH = TH + 2;              // staged rows a depth
+constexpr int SROWS = (TD + 2) * SH;    // 42 staged (depth, row) rows
+constexpr int PX = TW + 4;              // their pixels: w0 - 2 .. w0 + 65
+constexpr int PW = 2 * PX;              // 32-bit words a row (8-byte voxels)
+constexpr int THREADS = 256;            // 4 pixel blocks x 2 row pairs
+constexpr int MIN_BLOCKS = 2;           // an SM: at most 128 registers
+// Staging: thread t loads pixel pair k = t % 32 (pixels w0 - 2 + 2k, + 1)
+// of rows t / 32 + 8i, i < RI, and, below 2 SROWS, pair 32 + t % 2 of row
+// t / 2: the PX / 2 = 34 pairs of every row.
+constexpr int RI = (SROWS + 7) / 8;
+static_assert(THREADS == 8 * 32 && PX == 2 * 34 && 2 * SROWS <= THREADS,
+              "staging");
+
+struct Args {
+  const uint16_t* x;   // (B, 4, D, H, W)
+  const uint32_t* wk;  // the 12 B slices (`c4_images`)
+  const float* shift;  // (4,)
+  bf16* y;             // (B, 4, D, H, W)
+  int B, D, H, W;
+};
+
+struct Tile {
+  int b, d0, h0, w0;
+};
+
+__host__ __device__ inline int tiles(const Args& a) {
+  return a.B * ceil_div(a.D, TD) * ceil_div(a.H, TH) * ceil_div(a.W, TW);
+}
+
+__device__ __forceinline__ Tile tile_of(const Args& a, int t) {
+  const int ncx = ceil_div(a.W, TW), nh = ceil_div(a.H, TH);
+  const int nd = ceil_div(a.D, TD);
+  Tile r;
+  r.w0 = t % ncx * TW;
+  t /= ncx;
+  r.h0 = t % nh * TH;
+  t /= nh;
+  r.d0 = t % nd * TD;
+  r.b = t / nd;
+  return r;
+}
+
+// A thread's staged values of a tile: per (row, channel) a pixel pair,
+// 0 outside the volume. EVEN (W even: a pair lies in or out of the volume
+// whole and starts 4-byte aligned): one 4-byte load, two bf16 in a
+// register; else two 2-byte loads, each in a register of its own. Nothing
+// is used here, so the loads are all in flight together.
+template <bool EVEN>
+struct Staged {
+  static constexpr int N = EVEN ? 1 : 2;
+  uint32_t v[RI + 1][4][N];  // [RI]: the extra pair
+};
+
+template <bool EVEN>
+__device__ __forceinline__ void load_pair(const Args& a, const Tile& tt,
+                                          int r, int k, bool row_ok,
+                                          uint32_t (&v)[4][Staged<EVEN>::N]) {
+  const size_t vol = (size_t)a.D * a.H * a.W;
+  const int dd = tt.d0 - 1 + r / SH, hh = tt.h0 - 1 + r % SH;
+  const int w = tt.w0 - 2 + 2 * k;
+  const bool in = row_ok && (unsigned)dd < (unsigned)a.D &&
+                  (unsigned)hh < (unsigned)a.H;
+  const uint16_t* p =
+      a.x + (((size_t)tt.b * 4 * a.D + dd) * a.H + hh) * a.W + w;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if constexpr (EVEN) {
+      v[c][0] = in && (unsigned)w < (unsigned)a.W
+                    ? __ldg(reinterpret_cast<const uint32_t*>(p + c * vol))
+                    : 0u;
+    } else {
+      v[c][0] = in && (unsigned)w < (unsigned)a.W ? __ldg(p + c * vol) : 0u;
+      v[c][1] = in && (unsigned)(w + 1) < (unsigned)a.W
+                    ? __ldg(p + c * vol + 1)
+                    : 0u;
+    }
+  }
+}
+
+template <bool EVEN>
+__device__ __forceinline__ void load_tile(const Args& a, const Tile& tt,
+                                          Staged<EVEN>& s) {
+  const int k = threadIdx.x % 32, q = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+    load_pair<EVEN>(a, tt, q + 8 * i, k, q + 8 * i < SROWS, s.v[i]);
+  if (threadIdx.x < 2 * SROWS)
+    load_pair<EVEN>(a, tt, threadIdx.x / 2, 32 + threadIdx.x % 2, true,
+                    s.v[RI]);
+}
+
+// Pair k of staged row r to the staging buffer: its two voxels,
+// channels-last (staged pixel j = pixel - (w0 - 2) at words 2j, 2j + 1),
+// one 16-byte store.
+template <bool EVEN>
+__device__ __forceinline__ void store_pair(
+    const uint32_t (&v)[4][Staged<EVEN>::N], uint32_t* stage, int r, int k) {
+  uint32_t c[4];  // channel c's pixels: lo the first, hi the second
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (EVEN)
+      c[i] = v[i][0];
+    else
+      c[i] = v[i][0] | v[i][1] << 16;
+  }
+  *reinterpret_cast<uint4*>(stage + r * PW + 4 * k) = make_uint4(
+      __byte_perm(c[0], c[1], 0x5410), __byte_perm(c[2], c[3], 0x5410),
+      __byte_perm(c[0], c[1], 0x7632), __byte_perm(c[2], c[3], 0x7632));
+}
+
+template <bool EVEN>
+__device__ __forceinline__ void store_tile(const Staged<EVEN>& s,
+                                           uint32_t* stage) {
+  const int k = threadIdx.x % 32, q = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+    if (q + 8 * i < SROWS) store_pair<EVEN>(s.v[i], stage, q + 8 * i, k);
+  if (threadIdx.x < 2 * SROWS)
+    store_pair<EVEN>(s.v[RI], stage, threadIdx.x / 2, 32 + threadIdx.x % 2);
+}
+
+// d += a (16 pixels x 16, row-major) * b (16 x 8, col-major), float32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Persistent blocks walk the tiles; each stages a tile's 42 rows of 68
+// voxels channels-last while the next tile's pairs fly (a register
+// prefetch), then warp (pb, rg) = (warp % 4, warp / 4) multiplies pixels
+// 16 pb .. + 15 of output rows 2 rg, 2 rg + 1 at every depth. A's rows are
+// the pixels in pairs (row g pixel 2g, row g + 8 pixel 2g + 1), its 16
+// columns the elements from each pixel's staged voxel on (taps kw = 0, 1,
+// 2 and a fourth of zero weight); B's 8 columns the two output rows x 4
+// channels, banded over the staged rows: per staged row sh (0 .. 3 from
+// row 2 rg) and kd one resident slice whose column (e, co) holds output
+// row 1 - e's tap kh = sh - 1 + e (zero where it falls outside 0 .. 2).
+// So per staged (depth, row) one A fragment and one product per output
+// depth that reads it. The accumulators start at the shift; lane (g, t)
+// ends with pixels 2g, 2g + 1 of output row 1 - t / 2, channels 2 (t % 2)
+// and the next: relu, one rounding, a 4-byte store of each channel's
+// pair.
+template <bool EVEN>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    conv3d_bn_relu_c4_kernel(Args a) {
+  __shared__ __align__(16) uint32_t stage[SROWS * PW];
+
+  const int ntiles = tiles(a);
+  int t = blockIdx.x;
+  Tile tt = tile_of(a, t);
+  Staged<EVEN> s;
+  if (t < ntiles) load_tile<EVEN>(a, tt, s);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4, pb = warp % 4, rg = warp / 4;
+  uint32_t bw[12][2];  // B of (kd, sh): k = 2q + {0, 1} (+ 8), column g
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    bw[i][0] = __ldg(a.wk + (i * 8 + g) * 8 + q);
+    bw[i][1] = __ldg(a.wk + (i * 8 + g) * 8 + q + 4);
+  }
+  // this lane's outputs: channels co, co + 1 of output row orow
+  const int co = 2 * (q % 2), orow = 2 * rg + 1 - q / 2;
+  const float s0 = a.shift[co], s1 = a.shift[co + 1];
+  // this lane's A words: pixel 16 pb + 2g (+ 1) from its staged pixel on
+  const int aoff = 2 * (pb * 16 + 2 * g + 1) + q;
+  const size_t vol = (size_t)a.D * a.H * a.W;
+
+  for (; t < ntiles; t += gridDim.x) {
+    __syncthreads();  // the last tile's A reads done
+    store_tile<EVEN>(s, stage);
+    const Tile cur = tt;
+    if (t + (int)gridDim.x < ntiles) {
+      tt = tile_of(a, t + gridDim.x);
+      load_tile<EVEN>(a, tt, s);
+    }
+    __syncthreads();  // the tile staged
+
+    float acc[TD][4];
+#pragma unroll
+    for (int od = 0; od < TD; ++od) {
+      acc[od][0] = acc[od][2] = s0;
+      acc[od][1] = acc[od][3] = s1;
+    }
+#pragma unroll
+    for (int sd = 0; sd < TD + 2; ++sd)
+#pragma unroll
+      for (int sh = 0; sh < 4; ++sh) {
+        const uint32_t* ap = stage + (sd * SH + 2 * rg + sh) * PW + aoff;
+        const uint32_t af[4] = {ap[0], ap[2], ap[4], ap[6]};
+#pragma unroll
+        for (int od = 0; od < TD; ++od) {
+          const int kd = sd - od;
+          if (kd >= 0 && kd <= 2) mma(acc[od], af, bw[kd * 4 + sh]);
+        }
+      }
+
+    // relu, one rounding, and each channel's pixel pair to y
+    const int h = cur.h0 + orow, w = cur.w0 + pb * 16 + 2 * g;
+    if (h >= a.H || w >= a.W) continue;
+    bf16* yp = a.y + ((size_t)cur.b * 4 + co) * vol +
+               ((size_t)cur.d0 * a.H + h) * a.W + w;
+#pragma unroll
+    for (int od = 0; od < TD; ++od) {
+      if (cur.d0 + od >= a.D) break;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t u = c1::relu_bf16x2(acc[od][c], acc[od][c + 2]);
+        bf16* p = yp + c * vol + (size_t)od * a.H * a.W;
+        if constexpr (EVEN) {
+          *reinterpret_cast<uint32_t*>(p) = u;
+        } else {
+          reinterpret_cast<uint16_t*>(p)[0] = (uint16_t)u;
+          if (w + 1 < a.W) reinterpret_cast<uint16_t*>(p)[1] = u >> 16;
+        }
+      }
+    }
+  }
+}
+
+// Persistent blocks, as many as fit (the occupancy, queried once), at most
+// one a tile.
+template <bool EVEN>
+int launch_w(const Args& a, cudaStream_t s) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, conv3d_bn_relu_c4_kernel<EVEN>, THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (per_sm < 1 || tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
+  const int grid = std::min(tiles(a), per_sm * tc::sm_count());
+  if (grid < 1) return (int)cudaSuccess;
+  conv3d_bn_relu_c4_kernel<EVEN><<<grid, THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch(const Args& a, cudaStream_t s) {
+  return a.W % 2 == 0 ? launch_w<true>(a, s) : launch_w<false>(a, s);
+}
+
+}  // namespace c4
+
 // The CUDA cores at any Ci, Co >= 1: x NCDHW; y NCDHW or channels-last.
 // Output-channel tiles of 32, 16, 8 or 4, the widest that divides Co (4,
 // the last tile masked, where none does).
@@ -1242,11 +1530,17 @@ int launch(const void* x, const void* wt, const void* shift, const void* aff,
   if (aff != nullptr && Ci != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_tc(sizeof(T), Ci, Co)) {
-    // The routes write channels-last only at 16, 32 and 64 channels,
-    // either layout at 8. The entries' one input channel lies the same in
-    // both layouts; the other routes read channels-last only. The entries
-    // take wt as (Co, 1, 3, 3, 3), the others the B images the wrapper
-    // lays out.
+    // The 4 -> 4 route reads and writes NCDHW only. The others write
+    // channels-last only at 16, 32 and 64 channels, either layout at 8.
+    // The entries' one input channel lies the same in both layouts; the
+    // other routes read channels-last only. The entries take wt as (Co, 1,
+    // 3, 3, 3), the others the B images the wrapper lays out.
+    if (Ci == 4) {
+      if (x_cl || y_cl) return (int)cudaErrorInvalidValue;
+      return c4::launch(c4::Args{(const uint16_t*)x, (const uint32_t*)wt,
+                                 (const float*)shift, (bf16*)y, B, D, H, W},
+                        s);
+    }
     if (Co != 8 && !y_cl) return (int)cudaErrorInvalidValue;
     if (Ci == 1) {
       const c1::Args a{(const uint16_t*)x, (const uint16_t*)wt,

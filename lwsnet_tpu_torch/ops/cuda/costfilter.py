@@ -25,14 +25,16 @@ wrappers, `filter_soft_argmin`, chip_smoke.py and `tools.parity_layers`
 consult): a bf16 stage of 32, 16, 64 or 8 channels runs its C -> C layers
 on the tensor cores and its activations lie channels-last-3d in memory,
 (B, D, H, W, C) under the logical (B, C, D, H, W) shape, because those
-routes of `conv3d_bn_relu` (`conv3d_tensor_core_route`) read it so. The
+routes of `conv3d_bn_relu` (`conv3d_reads_channels_last`) read it so. The
 1 -> C entry writes it (its one input channel, the raw volume, lies the
 same in both layouts; at 16 and 64 channels from the CUDA cores), the
 C -> C layers read and write it, and the fused last layer reads it on
-the tensor cores, at any D. Every other stage, float32 at any width and
-bf16 at any other width (AnyNet's 4 channels among them) and any D, runs
-on the CUDA cores in the default layout. No filter makes a layout copy. A
-copy, where a caller hands a kernel the other layout, is
+the tensor cores, at any D. A bf16 stage of 4 channels (AnyNet's stages
+2-3) runs its 4 -> 4 layers on the tensor cores in the default layout,
+which its entry and fused last layer, on the CUDA cores, write and read.
+Every other stage, float32 at any width and bf16 at any other width, and
+any D, runs on the CUDA cores in the default layout. No filter makes a
+layout copy. A copy, where a caller hands a kernel the other layout, is
 `build.in_layout`'s, counted.
 """
 
@@ -54,21 +56,38 @@ TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
 
 
 def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
-    """Whether `conv3d_bn_relu` runs a wgmma route (`use_tc` in
+    """Whether `conv3d_bn_relu` runs a tensor-core route (`use_tc` in
     csrc/conv3d_bn_relu.cu): bf16 32 -> 32 (or 16 -> 32), 16 -> 16 and
     64 -> 64, which read and write channels-last only; bf16 8 -> 8, which
-    reads channels-last and writes either layout; and the bf16 entries
+    reads channels-last and writes either layout; bf16 4 -> 4 (`c4`,
+    mma.sync), which reads and writes NCDHW only; and the bf16 entries
     1 -> 32 and 1 -> 8 (`c1`), whose one input channel lies the same in
     either layout, writing channels-last (either layout at 8 channels)."""
     return dtype == torch.bfloat16 and (
         (Co == 32 and Ci in (1, 16, 32)) or (Ci == Co and Ci in (16, 64))
-        or (Co == 8 and Ci in (1, 8)))
+        or (Co == 8 and Ci in (1, 8)) or Ci == Co == 4)
+
+
+def conv3d_reads_channels_last(dtype: torch.dtype, Ci: int,
+                               Co: int) -> bool:
+    """Whether `conv3d_bn_relu`'s route reads channels-last: the
+    tensor-core routes but `c4` (NCDHW) and the entries (one input
+    channel, which lies the same in both layouts)."""
+    return conv3d_tensor_core_route(dtype, Ci, Co) and Ci not in (1, 4)
 
 
 def conv3d_writes_ncdhw(dtype: torch.dtype, Ci: int, Co: int) -> bool:
     """Whether `conv3d_bn_relu` can write NCDHW: every route but the
     tensor-core ones of 16, 32 and 64 outputs."""
-    return not (conv3d_tensor_core_route(dtype, Ci, Co) and Co != 8)
+    return not (conv3d_tensor_core_route(dtype, Ci, Co)
+                and Co in (16, 32, 64))
+
+
+def conv3d_writes_channels_last(dtype: torch.dtype, Ci: int,
+                                Co: int) -> bool:
+    """Whether `conv3d_bn_relu` can write channels-last: every route but
+    the 4 -> 4 tensor-core route (`c4`)."""
+    return not (conv3d_tensor_core_route(dtype, Ci, Co) and Ci == Co == 4)
 
 
 class LaunchRoute(NamedTuple):
@@ -94,20 +113,23 @@ def filter_routes(dtype: torch.dtype, channels: int, D: int) -> StageRoutes:
     `channels` over D costs a pixel, in `dtype` (float32 or bf16): for
     bf16 at 32, 16, 64 or 8 channels the C -> C layers and the fused last
     layer on the tensor cores at any D, and every activation channels-last
-    (the entry at 16 and 64 on the CUDA cores, writing channels-last); the
-    CUDA cores and NCDHW otherwise. Each launch reads what the one before
-    it writes. Mirrors `use_tc` in csrc/conv3d_bn_relu.cu and the bf16
-    entry of csrc/conv3d_skip_softargmin.cu."""
+    (the entry at 16 and 64 on the CUDA cores, writing channels-last); for
+    bf16 at 4 channels the 4 -> 4 layers on the tensor cores, the entry
+    and the fused last layer on the CUDA cores, every activation NCDHW;
+    the CUDA cores and NCDHW otherwise. Each launch reads what the one
+    before it writes. Mirrors `use_tc` in csrc/conv3d_bn_relu.cu and the
+    bf16 entry of csrc/conv3d_skip_softargmin.cu."""
     if channels < 1 or D < 1:
         raise ValueError(f"a filter of {channels} channels over {D} costs")
     tc = conv3d_tensor_core_route(dtype, channels, channels)
+    cl = conv3d_reads_channels_last(dtype, channels, channels)
     entry_tc = conv3d_tensor_core_route(dtype, 1, channels)
     skip_tc = skip_tensor_core_route(dtype, channels)
     return StageRoutes(
         entry=LaunchRoute(TENSOR_CORES if entry_tc else CUDA_CORES, False,
-                          tc),
-        layer=LaunchRoute(TENSOR_CORES if tc else CUDA_CORES, tc, tc),
-        skip=LaunchRoute(TENSOR_CORES if skip_tc else CUDA_CORES, tc, False))
+                          cl),
+        layer=LaunchRoute(TENSOR_CORES if tc else CUDA_CORES, cl, cl),
+        skip=LaunchRoute(TENSOR_CORES if skip_tc else CUDA_CORES, cl, False))
 
 
 def c8_images(wt: torch.Tensor) -> torch.Tensor:
@@ -118,6 +140,20 @@ def c8_images(wt: torch.Tensor) -> torch.Tensor:
     Co, Ci = wt.shape[:2]
     return F.pad(wt, (0, 1)).reshape(Co, Ci, 3, 3, 2, 2).permute(
         2, 3, 4, 5, 0, 1).contiguous()
+
+
+def c4_images(wt: torch.Tensor) -> torch.Tensor:
+    """(4, 4, 3, 3, 3) -> the 4 -> 4 route's register-resident B slices:
+    per (kd, sh), sh = 0 .. 3 a warp's staged row from its first output
+    row on, a 16 x 8 slice whose column n = 4e + co is channel co of
+    output row 1 - e, holding tap kh = sh - 1 + e (zero where it falls
+    outside 0 .. 2); k = 4 kw + ci (zero for kw = 3), K contiguous a
+    column, as (kd, sh, e, co, kw, ci): the mma.sync B fragment of lane
+    (g, t) is words (slice 8 + g) 8 + t and + 4 (csrc/conv3d_bn_relu.cu,
+    `c4`). One pad and one copy: the windows of 2 over kh padded by a zero
+    row on each side."""
+    w = F.pad(wt.permute(2, 3, 0, 4, 1), (0, 0, 0, 1, 0, 0, 1, 1))
+    return w.unfold(1, 2, 1).permute(0, 1, 5, 2, 3, 4).contiguous()
 
 
 def tc_images(wt: torch.Tensor) -> torch.Tensor:
@@ -170,13 +206,13 @@ def conv3d_bn_relu_plain(x: torch.Tensor, wt: torch.Tensor,
 def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
                    channels_last: Optional[bool] = None) -> torch.Tensor:
     """One BN-folded conv3d layer; see `conv3d_bn_relu_plain`. On the card
-    the tensor-core routes read channels-last and the CUDA cores NCDHW (x
-    is copied where it lies otherwise; a 1-channel x lies the same in
-    both); the CUDA cores take any Ci and Co. The result lies
-    channels-last where asked (`channels_last`) or, by default, where a
-    filter of its width reads it so (`filter_routes`: bf16, 32, 16, 64 or
-    8 channels); the tensor-core routes of 16, 32 and 64 outputs write
-    nothing else."""
+    the tensor-core routes but `c4` read channels-last, `c4` (bf16 4 -> 4)
+    and the CUDA cores NCDHW (x is copied where it lies otherwise; a
+    1-channel x lies the same in both); the CUDA cores take any Ci and Co.
+    The result lies channels-last where asked (`channels_last`) or, by
+    default, where a filter of its width reads it so (`filter_routes`:
+    bf16, 32, 16, 64 or 8 channels); the tensor-core routes of 16, 32 and
+    64 outputs write nothing else, `c4` nothing but NCDHW."""
     if not on_card(x):
         return conv3d_bn_relu_plain(x, wt, shift)
     return _launch(x, wt, shift, None, channels_last)
@@ -222,13 +258,15 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
     B, Ci, D, H, W = x.shape
     Co = wt.shape[0]
     tensor_core = conv3d_tensor_core_route(x.dtype, Ci, Co)
-    x_cl = tensor_core and Ci > 1
+    x_cl = conv3d_reads_channels_last(x.dtype, Ci, Co)
     x = in_layout(x, x_cl)
     y_cl = (filter_routes(x.dtype, Co, D).layer.reads_cl
             if channels_last is None else channels_last)
     if not (y_cl or conv3d_writes_ncdhw(x.dtype, Ci, Co)):
         raise ValueError("the tensor-core routes of 16, 32 and 64 outputs "
                          "write channels-last only")
+    if y_cl and not conv3d_writes_channels_last(x.dtype, Ci, Co):
+        raise ValueError("the 4 -> 4 tensor-core route writes NCDHW only")
     check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, x_cl)
     check(wt, "wt", (Co, Ci, 3, 3, 3), x.dtype, x.device)
     check(shift, "shift", (Co,), torch.float32, x.device)
@@ -236,6 +274,8 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
         wk = wt  # each block lays out its B images
     elif tensor_core and Co == 8:
         wk = c8_images(wt)
+    elif tensor_core and Co == 4:
+        wk = c4_images(wt)
     elif tensor_core:
         wk = tc_images(wt)
     else:  # (Ci, 27, Co)

@@ -48,8 +48,11 @@ def test_every_width_and_d_has_a_chained_route(dtype):
     each launch reads the layout the one before it writes: the entry's
     output, each C -> C layer's input and output and the fused last
     layer's input lie alike. The tensor cores take the bf16 C -> C layers
-    and the fused last layer at 32, 16, 64 or 8 channels (at every D), the
-    entries at 32 or 8, the CUDA cores everything else."""
+    at 32, 16, 64, 8 or 4 channels (at every D), the fused last layer at
+    32, 16, 64 or 8, the entries at 32 or 8, the CUDA cores everything
+    else; the activations lie channels-last where the fused last layer
+    takes the tensor cores (bf16 4 -> 4 reads and writes NCDHW, as its
+    entry and fused last layer on the CUDA cores do)."""
     bf = dtype == torch.bfloat16
     for C in range(1, 65):
         for D in D_COUNTS:
@@ -58,16 +61,18 @@ def test_every_width_and_d_has_a_chained_route(dtype):
                 assert launch.route in (tcf.TENSOR_CORES, tcf.CUDA_CORES)
             assert r.entry.writes_cl == r.layer.reads_cl == \
                 r.layer.writes_cl == r.skip.reads_cl, (C, D)
-            tc = bf and C in (8, 16, 32, 64)
+            cl = bf and C in (8, 16, 32, 64)
+            tc = bf and C in (4, 8, 16, 32, 64)
             ends = bf and C in (8, 32)
-            assert r.layer.reads_cl == tc, (C, D)
+            assert r.layer.reads_cl == cl, (C, D)
             assert (r.entry.route == tcf.TENSOR_CORES) == ends
             assert (r.layer.route == tcf.TENSOR_CORES) == tc
-            assert (r.skip.route == tcf.TENSOR_CORES) == tc, (C, D)
+            assert (r.skip.route == tcf.TENSOR_CORES) == cl, (C, D)
             # the per-launch rules of the two kernels agree with it
             assert tcf.conv3d_tensor_core_route(dtype, C, C) == tc
+            assert tcf.conv3d_reads_channels_last(dtype, C, C) == cl
             assert tcf.conv3d_tensor_core_route(dtype, 1, C) == ends
-            assert tcf.skip_tensor_core_route(dtype, C) == tc
+            assert tcf.skip_tensor_core_route(dtype, C) == cl
     with pytest.raises(ValueError):
         tcf.filter_routes(dtype, 0, 5)
     with pytest.raises(ValueError):

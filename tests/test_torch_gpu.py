@@ -379,15 +379,17 @@ def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
     """conv3d_bn_relu's entries at widths no tensor-core entry takes (the
     1 -> C entry with layer 0's BN + ReLU, on the CUDA cores) and a C -> C
     layer on the route `filter_routes` gives: the CUDA cores in float32
-    and at 4 and 3 channels, NCDHW in and out; the tensor cores at bf16
-    16 and 64, the entry writing channels-last and the layer reading and
-    writing it. No layout copy, each launch counted on its route ("entry",
-    "cores" for the CUDA-core layer); float32 at atol 2e-4 / rtol 1e-3,
-    bf16 within two rounding steps of the plain versions."""
+    and at 3 channels, NCDHW in and out; the tensor cores at bf16 16 and
+    64, the entry writing channels-last and the layer reading and writing
+    it, and at bf16 4 (`c4`), NCDHW in and out. No layout copy, each
+    launch counted on its route ("entry", "cores" for the CUDA-core
+    layer); float32 at atol 2e-4 / rtol 1e-3, bf16 within two rounding
+    steps of the plain versions."""
     B, C, D, H, W, _ = shape
     vol, a0b0, wt, shift = _entry_operands(rnd, B, C, D, H, W, dtype)
     routes = tcf.filter_routes(dtype, C, D)
-    tc = dtype == torch.bfloat16 and C in (16, 64)
+    tc = dtype == torch.bfloat16 and C in (4, 16, 64)
+    cl = dtype == torch.bfloat16 and C in (16, 64)
     assert routes.entry.route == tcf.CUDA_CORES
     assert routes.layer.route == (tcf.TENSOR_CORES if tc else tcf.CUDA_CORES)
     build.reset_launch_counts()
@@ -398,7 +400,7 @@ def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
     torch.cuda.synchronize()
     cl3 = torch.channels_last_3d
     for t in (y, got):
-        assert (t.is_contiguous(memory_format=cl3) if tc
+        assert (t.is_contiguous(memory_format=cl3) if cl
                 else t.is_contiguous())
     assert build.route_counts() == dict(
         {"conv3d_bn_relu[entry]": 1},
@@ -506,9 +508,9 @@ def test_anynet_forward_on_card(rnd):
     the float64 module path (mean |delta| at most 1.1 x the module path's,
     float32 max at most 2 x), the bf16 forward launching conv3d_bn_relu 15,
     conv3d_skip_softargmin 3 and dense3x3 11 times, stage 1's four
-    16 -> 16 layers and its fused last layer on the tensor cores, stages
-    2-3's eight 4 -> 4 layers and 2 fused last layers on the CUDA cores, no
-    layout copy."""
+    16 -> 16 layers and its fused last layer and stages 2-3's eight
+    4 -> 4 layers (`c4`, NCDHW) on the tensor cores, their 2 fused last
+    layers on the CUDA cores, no layout copy."""
     import numpy as np
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.tools.parity_layers import (ANYNET, MAX_RATIO,
@@ -537,7 +539,7 @@ def test_anynet_forward_on_card(rnd):
                           "dense3x3": 11, "dense3x3[dual]": 1}, dtype
         if dtype == "bfloat16":
             assert build.route_counts() == {
-                "conv3d_bn_relu[cores]": 8, "conv3d_bn_relu[entry]": 3,
+                "conv3d_bn_relu[entry]": 3,
                 "conv3d_skip_softargmin[cores]": 2, "dense3x3[entry]": 1,
                 "dense3x3[output]": 1}
         assert build.LAYOUT_COPIES == {"to channels-last": 0,
@@ -1021,6 +1023,38 @@ def test_dwsep_tile_body_wide_and_odd_channels_on_card(rnd, dtype):
                 assert (got - want).abs().max().item() <= 1e-5
             else:
                 _assert_two_steps(got, want)
+
+
+@pytest.mark.parametrize("shape", [s for s in WIDTH_SHAPES if s[1] == 4])
+def test_conv3d_c4_route_on_card(rnd, shape):
+    """The bf16 4 -> 4 route of conv3d_bn_relu (`c4`, mma.sync) at
+    AnyNet's stage-2 shape (2-row tiles; 616-byte rows), its stage-3 shape
+    (4-row tiles) and a ragged one (B = 2, D = 7 over two depth tiles, odd
+    H and W): NCDHW in and out, no layout copy, one launch and no route
+    counted (neither "cores" nor "entry"), every element within two bf16
+    rounding steps of the plain version; a channels-last input is copied
+    once, and channels-last output is refused."""
+    bf = torch.bfloat16
+    B, C, D, H, W, _ = shape
+    routes = tcf.filter_routes(bf, C, D)
+    assert routes.layer == (tcf.TENSOR_CORES, False, False)
+    x = rnd(B, C, D, H, W, dtype=bf).relu()
+    wt = (rnd(C, C, 3, 3, 3) * (2 / (27 * C)) ** 0.5).to(bf)
+    shift = rnd(C) * 0.1
+    build.reset_launch_counts()
+    got = tcf.conv3d_bn_relu(x, wt, shift)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.is_contiguous()
+    assert build.launch_counts()["conv3d_bn_relu"] == 1
+    assert build.route_counts() == {}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    _assert_two_steps(got, tcf.conv3d_bn_relu_plain(x, wt, shift))
+    again = tcf.conv3d_bn_relu(_channels_last(x, True), wt, shift)
+    torch.cuda.synchronize()
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
+    assert torch.equal(again, got)
+    with pytest.raises(ValueError, match="NCDHW only"):
+        tcf.conv3d_bn_relu(x, wt, shift, channels_last=True)
 
 
 @pytest.mark.parametrize("shape", [
