@@ -29,8 +29,10 @@ failure exits non-zero:
      head), conv3d_bn_relu (32 -> 32; 8 -> 8 writing either layout; the
      stage entries 1 -> 8 and 1 -> 32 with layer 0's BN + ReLU fused,
      b0 > 0; 4 -> 4, NCDHW in and out, at AnyNet's stage-2 and stage-3
-     shapes too) and conv3d_skip_softargmin (32 and 8 channels; 16 and
-     64, two and three chunks of costs past D = 64) at ragged shapes from
+     shapes too; the entries 1 -> 4 (NCDHW), 1 -> 16 and 1 -> 64 at a
+     ragged shape over D = 7 and 5) and conv3d_skip_softargmin (32 and 8
+     channels; 16 and 64, two and three chunks of costs past D = 64) at
+     ragged shapes from
      both layouts (NCHW / channels-last), in float32 (TF32 off; atol
      2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain output's
      span; chain3x3, the 8- and 4-channel conv3d_bn_relu layers and the
@@ -230,8 +232,9 @@ failure exits non-zero:
      (stage 1 at channels_3d 16), of the widths 16, 64, 4 and 3 at a
      ragged shape, and of the bf16 fused last layer past D = 64 at 32, 8,
      16 and 64 channels, each on the route `costfilter.filter_routes`
-     gives (bf16 16 -> 16 and 64 -> 64 and the fused last layer at 8, 16,
-     32 and 64 channels, any D, on the tensor cores); of every dw-sep
+     gives (bf16 entries at 4, 16 and 64 channels, 16 -> 16 and 64 -> 64
+     and the fused last layer at 8, 16, 32 and 64 channels, any D, on the
+     tensor cores); of every dw-sep
      call of the forward at widths 48 and 20, in the layout the path hands it
      (`refine_kernels.refine_routes`); and of dwsep3x3 solo and pair at
      48, 20 and 64 channels at a ragged shape writing either layout; (b)
@@ -239,8 +242,9 @@ failure exits non-zero:
      launch counts (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3
      11), route launches (`want_routes`: stage 1's four 16 -> 16 layers and
      its fused last layer and the 8 4 -> 4 layers (`c4`, NCDHW) on the
-     tensor cores, the 2 4-channel fused last layers on the CUDA cores)
-     and no layout copy, and under
+     tensor cores, the 2 4-channel fused last layers on the CUDA cores),
+     each stage's entry on the tensor cores (`filter_routes`: `c1`, the
+     1 -> 4 entries writing NCDHW) and no layout copy, and under
      every engine at each refinement width in bf16 and float32 (launch
      and route counts from
      the route rules, no copy), then `InferenceEngine` at AnyNet's
@@ -689,7 +693,9 @@ def ragged_calls():
     """Phase 3 only: the tensor-core routes of dense3x3 (32 outputs, the
     narrow entry and the narrow output), dwsep3x3 (solo and
     pair), chain3x3, conv3d_bn_relu (with its entries 1 -> 8 and 1 -> 32;
-    4 -> 4 also at AnyNet's stage-2 and stage-3 shapes)
+    4 -> 4 also at AnyNet's stage-2 and stage-3 shapes; last, the entries
+    1 -> 4, 1 -> 16 and 1 -> 64 over D = 7 and 5, appended so that every
+    earlier call keeps its seed)
     and conv3d_skip_softargmin at shapes no tile divides (W = 150, 75, 70
     and 37, H = 37, 29, 11 and 5 not a multiple of R * d = 4d, of the skip
     route's two rows or of the entries' four, D = 7), two
@@ -785,6 +791,15 @@ def ragged_calls():
                           f"4->4 B={b} {d}x{h}x{w} {tag}",
                           dict(B=b, Ci=4, Co=4, D=d, H=h, W=w, cl=cl), 0,
                           None))
+    # the entries 1 -> 4 (NCDHW out), 1 -> 16 and 1 -> 64 (channels-last
+    # out) on the tensor cores (`c1`), over two depth tiles of 3 (D = 7)
+    # and over D = 5, whose sixth depth is neither multiplied nor stored
+    for co in (4, 16, 64):
+        for d in (7, 5):
+            calls.append(("conv3d_bn_relu",
+                          f"ragged 1->{co} entry B=2 {d}x11x37",
+                          dict(B=2, Ci=1, Co=co, D=d, H=11, W=37,
+                               entry=True), 0, None))
     return calls
 
 
@@ -2919,6 +2934,7 @@ def configs_phase(dev, smi, tmp):
     from lwsnet_tpu_torch import InferenceEngine, LWSNet, ModelConfig
     from lwsnet_tpu_torch.cli import infer
     from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
     from lwsnet_tpu_torch.tools import parity_layers as PL
     from lwsnet_tpu_torch.tools.parity import tf32_off
     fields = PL.ANYNET
@@ -2942,6 +2958,18 @@ def configs_phase(dev, smi, tmp):
     report["forward"], counts, copies, routes = forward_phase(
         dev, ["mxu"], fields, phase="14b")
     report["routes"] = routes["mxu"]
+    # each stage's launches on the routes `filter_routes` gives; every
+    # entry counts as "[entry]" whatever its route, so the rule shows it
+    for kernel, label, p, _, _ in main_path_calls(ModelConfig(**fields)):
+        if not p.get("entry"):
+            continue
+        r = CF.filter_routes(torch.bfloat16, p["Co"], p["D"])
+        print(f"[14b] {label} (D = {p['D']}): entry on the {r.entry.route} "
+              f"writing {'channels-last' if r.entry.writes_cl else 'NCDHW'}"
+              f", layers on the {r.layer.route}, fused last layer on the "
+              f"{r.skip.route}")
+        require(r.entry.route == CF.TENSOR_CORES,
+                f"{label}: bf16 entry on the {r.entry.route}")
     for c in REFINE_WIDTHS:
         report[f"forward width {c}"], _, _, report[f"routes width {c}"] = \
             forward_phase(dev, list(ENGINES), dict(refine_channels=c),

@@ -68,9 +68,13 @@ D = 65, B = 2 at 5x37):
 --entry times the stage entries' route instead (its `c1` namespace in
 `csrc/conv3d_bn_relu.cu`: layer 0's BN + ReLU and the 1 -> C layer), each
 variant held against `conv3d_entry_plain` (every bf16 element within two
-rounding steps) at the three stage shapes of the 368x1232 forward, and
-timed there alone and together with the stage's first C -> C layer
-reading its output (both kernels' device time a call):
+rounding steps) at the three stage shapes of the 368x1232 forward, at
+AnyNet's three (1 -> 16 over D = 12, 1 -> 4 over D = 5 at stages 2 and 3)
+and at a 64-channel filter's (1 -> 64 over D = 72 at 46x154), and timed
+there alone and together with the stage's first C -> C layer reading its
+output (both kernels' device time a call); at the 4-, 16- and 64-channel
+shapes also the CUDA-core kernel that ran those entries before `c1` took
+them:
 
   evict_first         the output written with an L2 evict-first policy
                       (st.global.cs at Co = 32, the TMA copy's cache hint
@@ -84,15 +88,24 @@ reading its output (both kernels' device time a call):
                       (a third or a sixth of the code);
   pitch72             staged rows 72 pixels apart (the route has 74, at
                       which no A read of a warp meets a bank conflict;
-                      at 72 they take 1.9-2 wavefronts on average:
+                      at 72 they take 1.75-2 wavefronts on average:
                       `a_read_wavefronts` in
-                      tests/test_torch_costfilter_entry.py);
+                      tests/test_torch_costfilter_entry.py; the 4-output
+                      entry's 82 stays);
   clock               clock64() per block (thread 0): set-up (the B images,
                       shift, offsets; within it, the images laid out, from
-                      the block's start), staging (a tile's stores and the
-                      block barrier), rows (its products and epilogue),
-                      tiles a block and the whole block (medians over the
-                      blocks of each launch, in clocks).
+                      the block's start), the first tile's staging (the
+                      wait for its loads, issued before the set-up, and
+                      its stores), the later tiles' staging (stores and
+                      the block barrier), products (A reads, wgmma and
+                      the wait for them), epilogue (relu, rounding,
+                      stores), tiles a block and the whole block (medians
+                      over the blocks of each launch, in clocks);
+  entry_cores         the CUDA-core kernel at the 1 -> 4, 16 and 64
+                      entries (`use_tc` without them), as they ran it;
+  entry_cores_clock   its clock64() split, thread 0 of each block: the
+                      weights staged, the taps (loads, layer 0's affine,
+                      FMAs), the stores.
 
 --dwsep splits `dwsep3x3`'s tile body instead (the anonymous namespace
 of `csrc/dwsep3x3.cu`, solo and pair): each variant held against
@@ -440,11 +453,12 @@ ENTRY_VARIANTS = {
                 "#pragma unroll 1\n    for (int g = 0; g < S::GROUPS;")],
     "clock": [
         ("constexpr int TD = 3, TH = 4, TW = 64;",
-         "__device__ long long clk[4096][8];\n"
+         "__device__ long long clk[4096][12];\n"
          "constexpr int TD = 3, TH = 4, TW = 64;"),
         ("  const int ntiles = tiles(a);\n  uint32_t v[NL];",
          "  const long long c_start = clock64();\n"
-         "  long long c_stage = 0, c_rows = 0, c_tiles = 0;\n"
+         "  long long c_stage = 0, c_first = 0, c_prod = 0, c_epi = 0;\n"
+         "  long long c_tiles = 0;\n"
          "  const int ntiles = tiles(a);\n  uint32_t v[NL];"),
         ("  for (bool first = true; t < ntiles; t += gridDim.x, "
          "first = false) {",
@@ -459,15 +473,23 @@ ENTRY_VARIANTS = {
         ("    __syncthreads();  // the tile staged (and, first, the weights)",
          "    __syncthreads();  // the tile staged (and, first, the weights)\n"
          "    const long long c_mid = clock64();\n"
-         "    c_stage += c_mid - c_top;"),
+         "    if (first) c_first = c_mid - c_top;\n"
+         "    else c_stage += c_mid - c_top;"),
+        ("      load_a(af, g);",
+         "      const long long c_g0 = clock64();\n      load_a(af, g);"),
+        ("      tc::wgmma_wait<0>();\n      store(acc, tt, g);",
+         "      tc::wgmma_wait<0>();\n"
+         "      const long long c_g1 = clock64();\n"
+         "      c_prod += c_g1 - c_g0;\n"
+         "      store(acc, tt, g);\n"
+         "      c_epi += clock64() - c_g1;"),
         ("    tt = next;\n  }\n",
-         "    tt = next;\n"
-         "    c_rows += clock64() - c_mid;\n    ++c_tiles;\n  }\n"
+         "    tt = next;\n    ++c_tiles;\n  }\n"
          "  if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
          "    long long* ck = clk[blockIdx.x];\n"
-         "    ck[0] = c_setup - c_start; ck[1] = c_stage; ck[2] = c_rows;\n"
+         "    ck[0] = c_setup - c_start; ck[1] = c_stage; ck[2] = c_prod;\n"
          "    ck[3] = c_tiles; ck[4] = clock64() - c_start; ck[5] = 1;\n"
-         "    ck[6] = c_img - c_start;\n"
+         "    ck[6] = c_img - c_start; ck[7] = c_first; ck[8] = c_epi;\n"
          "  }\n"),
     ],
 }
@@ -481,11 +503,23 @@ extern "C" int entry_clock_reset() {
   return e != cudaSuccess ? (int)e : (int)cudaMemset(p, 0, sizeof(c1::clk));
 }
 '''
-ENTRY_ROLES = {"setup": 0, "staging": 1, "rows": 2, "tiles": 3, "block": 4,
-               "images_laid": 6}
-# (B, Co, D, H, W) of the three entries of the 368x1232 forward.
+# The slots of a block in `c1::clk` (the clock variant), and the flag.
+ENTRY_ROLES = {"setup": 0, "first_tile": 7, "staging": 1, "products": 2,
+               "epilogue": 8, "tiles": 3, "block": 4, "images_laid": 6}
+# (B, Co, D, H, W) of the three entries of the 368x1232 forward, of
+# AnyNet's three (`parity_layers.ANYNET`) and of a 64-channel filter's over
+# D = 72.
 ENTRY_SHAPES = {"stage1": (1, 32, 24, 46, 154), "stage2": (1, 8, 9, 92, 308),
-                "stage3": (1, 8, 9, 184, 616)}
+                "stage3": (1, 8, 9, 184, 616),
+                "anynet1": (1, 16, 12, 46, 154),
+                "anynet2": (1, 4, 5, 92, 308),
+                "anynet3": (1, 4, 5, 184, 616),
+                "wide": (1, 64, 72, 46, 154)}
+# The CUDA-core kernel at the bf16 1 -> 4, 16 and 64 entries (`use_tc`
+# without them), the route `c1` replaced there.
+_NO_C1 = ("(Ci == 1 && (Co == 4 || Co == 8 || Co == 16 || Co == tc::N ||\n"
+          "                       Co == 64))",
+          "(Ci == 1 && (Co == tc::N || Co == 8))")
 
 
 def namespace_body(src, namespace):
@@ -642,17 +676,27 @@ def skip_variants(dev, report):
 
 
 def entry_variants(dev, report):
-    """The --entry family: each variant checked and timed at ENTRY_SHAPES,
-    alone and with the stage's first C -> C layer; rc 2 if a build or a
-    check failed."""
+    """The --entry family: each variant of the route (`c1`) checked and
+    timed at ENTRY_SHAPES, alone and with the stage's first C -> C layer,
+    and at the 4-, 16- and 64-channel shapes the CUDA-core kernel that
+    took those entries before it (`ENTRY_CORES_VARIANTS`, called with
+    (1, 27, Co) weights, writing NCDHW at 4 and channels-last at 16 and 64,
+    as the path had it), alone; the clock variants' splits; rc 2 if a
+    build or a check failed."""
     import numpy as np
     import torch
     import chip_smoke as cs
     from lwsnet_tpu_torch.ops.cuda import build
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    base = os.path.join(ROOT, "build", "entry_variants")
     libs, rc = build_variants(
-        ENTRY_VARIANTS, os.path.join(ROOT, "build", "entry_variants"),
-        "conv3d_bn_relu", "namespace c1 {", {"clock": _ENTRY_CLOCK})
+        ENTRY_VARIANTS, base, "conv3d_bn_relu", "namespace c1 {",
+        {"clock": _ENTRY_CLOCK})
+    cores, rc2 = build_variants(
+        ENTRY_CORES_VARIANTS, base, "conv3d_bn_relu", "namespace {",
+        {"entry_cores_clock": _CORES_CLOCK})
+    cores.pop("repo")
+    rc = rc or rc2
 
     def operands(B, Co, D, H, W):
         rng = np.random.default_rng(0)
@@ -670,46 +714,86 @@ def entry_variants(dev, report):
                   * np.sqrt(2 / (27 * Co))),
                 t(rng.normal(0, 0.1, Co), torch.float32))
 
+    def cores_call(lib, vol, a0b0, wt, sh):
+        """The CUDA-core kernel of `lib` at a bf16 1 -> Co entry, layer 0's
+        affine at its loads, its weights as (1, 27, Co), writing NCDHW at 4
+        outputs and channels-last otherwise; a fn of no arguments."""
+        fn = lib.conv3d_bn_relu_bf16
+        fn.argtypes = build.CONV3D_BN_RELU.argtypes
+        fn.restype = ctypes.c_int
+        B, D, H, W = vol.shape
+        Co = wt.shape[0]
+        wk = wt.permute(1, 2, 3, 4, 0).reshape(1, 27, Co).contiguous()
+        y_cl = Co != 4
+        y = (torch.empty((B, D, H, W, Co), dtype=vol.dtype,
+                         device=vol.device).permute(0, 4, 1, 2, 3) if y_cl
+             else torch.empty((B, Co, D, H, W), dtype=vol.dtype,
+                              device=vol.device))
+
+        def run():
+            rc = fn(vol.data_ptr(), wk.data_ptr(), sh.data_ptr(),
+                    a0b0.data_ptr(), y.data_ptr(), B, 1, Co, D, H, W, 0,
+                    int(y_cl), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"cudaError {rc}")
+            return y
+        return run
+
+    def split(read, reset, fn, roles, flag):
+        torch.cuda.synchronize()
+        reset()
+        fn()
+        torch.cuda.synchronize()
+        width = 12 if flag == 5 else 8
+        clk = np.zeros(4096 * width, np.int64)
+        read(ctypes.c_void_p(clk.ctypes.data))
+        c = clk.reshape(4096, width)
+        c = c[c[:, flag] == 1]
+        out = {r: float(np.median(c[:, k])) for r, k in roles.items()}
+        out["blocks"] = int(len(c))
+        return out
+
     kern = build.CONV3D_BN_RELU
     kern._fn("conv3d_bn_relu_bf16")  # loads the library
     repo_lib = kern._lib
-    for name, lib in libs.items():
+    for name, lib in list(libs.items()) + list(cores.items()):
+        on_c1 = name in libs
         kern._lib = repo_lib if lib is None else lib
         kern._fns = {}
         row = {}
         for shape, dims in ENTRY_SHAPES.items():
+            if not on_c1 and dims[1] not in (4, 16, 64):
+                continue
             vol, a0b0, wt, sh, wt2, sh2 = operands(*dims)
+            entry = ((lambda: CF.conv3d_entry(vol, a0b0, wt, sh)) if on_c1
+                     else cores_call(lib, vol, a0b0, wt, sh))
             want = CF.conv3d_entry_plain(vol, a0b0, wt, sh).float()
-            got = CF.conv3d_entry(vol, a0b0, wt, sh).float()
+            got = entry().float()
             tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
             bad = int(((got - want).abs() > tol).sum())
             if bad:
                 print(f"{name}: {shape}: {bad} elements beyond two rounding "
                       f"steps")
                 rc = 2
-            for key, fn in (
-                    ("entry", lambda: CF.conv3d_entry(vol, a0b0, wt, sh)),
-                    ("entry + C->C", lambda: CF.conv3d_bn_relu(
-                        CF.conv3d_entry(vol, a0b0, wt, sh), wt2, sh2))):
+            timed = [("entry", entry)]
+            if on_c1:
+                timed.append(("entry + C->C", lambda: CF.conv3d_bn_relu(
+                    CF.conv3d_entry(vol, a0b0, wt, sh), wt2, sh2)))
+            for key, fn in timed:
                 ms = cs.kernel_device_ms(fn, "conv3d_bn_relu")
                 row[f"{shape} {key}"] = ms
                 print(f"{name}: {shape} {key}: "
                       f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
-            if name == "clock":
-                torch.cuda.synchronize()
-                lib.entry_clock_reset()
-                CF.conv3d_entry(vol, a0b0, wt, sh)
-                torch.cuda.synchronize()
-                clk = np.zeros(4096 * 8, np.int64)
-                lib.entry_clock_read(ctypes.c_void_p(clk.ctypes.data))
-                c = clk.reshape(4096, 8)
-                c = c[c[:, 5] == 1]
-                split = {r: float(np.median(c[:, k]))
-                         for r, k in ENTRY_ROLES.items()}
-                split["blocks"] = int(len(c))
-                row[f"{shape} clock64"] = split
+            clock = (("entry", ENTRY_ROLES, 5) if name == "clock" else
+                     ("cores", CORES_ROLES, 6)
+                     if name == "entry_cores_clock" else None)
+            if clock:
+                pre, roles, flag = clock
+                row[f"{shape} clock64"] = out = split(
+                    getattr(lib, f"{pre}_clock_read"),
+                    getattr(lib, f"{pre}_clock_reset"), entry, roles, flag)
                 print(f"{name}: {shape} clock64 medians over the blocks "
-                      f"(thread 0, clocks): {split}")
+                      f"(thread 0, clocks): {out}")
         report["variants"][name] = row
     kern._lib = repo_lib
     kern._fns = {}
@@ -884,6 +968,22 @@ extern "C" int cores_clock_reset() {
   return e != cudaSuccess ? (int)e : (int)cudaMemset(p, 0, sizeof(clk));
 }
 '''
+# The CUDA-core kernel as the bf16 1 -> 4, 16 and 64 entries ran it, and
+# its clock64() split (`CORES_VARIANTS`' marks, and one at the
+# channels-last stores, which the 16- and 64-channel entries wrote).
+ENTRY_CORES_VARIANTS = {
+    "entry_cores": [_NO_C1],
+    "entry_cores_clock": [_NO_C1] + CORES_VARIANTS["cores_clock"][1:] + [
+        ("        *reinterpret_cast<uint4*>(yb + c0) =\n"
+         "            *reinterpret_cast<const uint4*>(v);\n      }\n"
+         "      return;",
+         "        *reinterpret_cast<uint4*>(yb + c0) =\n"
+         "            *reinterpret_cast<const uint4*>(v);\n      }\n"
+         "      if (threadIdx.x == 0 && blk < 4096) {\n"
+         "        clk[blk][0] = c_w; clk[blk][1] = c_taps;\n"
+         "        clk[blk][2] = clock64() - c_end; clk[blk][6] = 1;\n"
+         "      }\n      return;")],
+}
 CORES_ROLES = {"weights": 0, "taps": 1, "stores": 2}
 # (B, D, H, W) of AnyNet's 4 -> 4 layers: SHAPES' geometry at D = 5.
 C4_SHAPES = {k: (B, 5, H, W) for k, (B, _, H, W) in SHAPES.items()}

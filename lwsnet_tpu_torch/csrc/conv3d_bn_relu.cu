@@ -28,10 +28,12 @@
 // 16->16 layer of AnyNet's stage 1 is bound by its bytes; the stage-2/3
 // 8->8 layers are bound by their bytes (32.6 MB a launch at stage 3: 9.7
 // us), but their route is held by its narrow products (below). The
-// entries are bound by their channels-last write stream: 10.9 MB at stage
-// 1 (3.3 us), 4.1 and 16.3 MB at stages 2 and 3 (1.4 and 5.4 us). AnyNet's
-// 4->4 layers are bound by their bytes: 9.1 MB a launch at stage 3 (2.7
-// us), 2.3 MB at stage 2 (0.7 us).
+// entries are bound by their write stream: 10.9 MB at stage 1 (3.3 us),
+// 4.1 and 16.3 MB at stages 2 and 3 (1.4 and 5.4 us); AnyNet's 1->16 2.9
+// MB (0.86 us), its 1->4 1.4 and 5.7 MB at stages 2 and 3 (0.42, 1.69
+// us), a 64-channel filter's 1->64 over D = 72 at 46x154 66.3 MB (19.8
+// us). AnyNet's 4->4 layers are bound by their bytes: 9.1 MB a launch at
+// stage 3 (2.7 us), 2.3 MB at stage 2 (0.7 us).
 //
 // Five routes picked by shape:
 // * bf16, Co == 32, Ci == 16 or 32 (the stage-1 32->32 layers), and Ci ==
@@ -120,13 +122,15 @@
 //     bytes a warp) or NCDHW (`y_cl` = 0, for a caller that asks for it;
 //     the forward's layers all write channels-last: 2-byte stores, eight
 //     lanes on eight consecutive pixels of one channel).
-// * bf16, Ci == 1, Co == 32 or 8 (the three stages' entries, 1->32 at
-//   stage 1, 1->8 at stages 2-3, layer 0's BN + ReLU fused): `c1` below,
-//   the 3D counterpart of dense3x3's narrow entry (`dense3x3_entry.cuh`).
+// * bf16, Ci == 1, Co == 4, 8, 16, 32 or 64 (the stages' entries: 1->32
+//   at stage 1, 1->8 at stages 2-3; AnyNet's 1->16 and 1->4, a 64-channel
+//   filter's 1->64; layer 0's BN + ReLU fused): `c1` below, the 3D
+//   counterpart of dense3x3's narrow entry (`dense3x3_entry.cuh`).
 //   - Persistent blocks of one warpgroup, five an SM (at most 102
 //     registers a thread), each walking tiles of TD = 3 depths x TH = 4
 //     rows x 64 pixels of one batch image (D = 9 and 24 split with no
-//     tail); tile indices split by multiply and shift (`Div`).
+//     tail; at D = 5 the sixth depth is neither multiplied nor stored);
+//     tile indices split by multiply and shift (`Div`).
 //   - Set-up, while the first tile's values fly: the shift, (a0, b0), and
 //     the B images (below), which each block gathers from the weights as
 //     the caller holds them, so the wrapper prepares nothing.
@@ -135,31 +139,50 @@
 //     halo pixel), in coalesced 2-byte loads, all issued before any is
 //     used: the next tile's while this tile multiplies (a register
 //     prefetch). Each value goes to the one staging buffer as act inside
-//     the volume and as 0 outside it. The rows' pitch, 74 pixels, spreads
-//     the A reads below over the banks without a conflict (72 would cost
-//     about 2 wavefronts a read: tests/test_torch_costfilter_entry.py).
-//   - Products: G output rows of one depth (G = 4 at Co = 8, 2 at 32) in
-//     one product group, the rows on N: N = G x Co = 32 or 64, column (r,
-//     co). K is the group's 9 (G + 2) staged values a pixel, k = (kd (G +
-//     2) + sh) 3 + kw, zero-padded to KC = 4 or 3 slices of 16, and B[k,
-//     (r, co)] = wt[co, kd, sh - r, kw] where 0 <= sh - r <= 2 (else 0):
-//     KC wgmma m64n32k16 or m64n64k16 a group. Per-row products (K = 27
-//     taps, N = Co: four times the wgmma at Co = 8 and twice the A reads)
-//     ran slower on the H100. Each thread holds the register A
-//     of its pixels (16w + l/4, + 8) read straight from the staged rows at
-//     offsets computed once a launch; columns beyond K read nothing. The
-//     accumulators start at the shift. The bf16 products are exact in
-//     float32; only the order of the float32 sums differs from the plain
-//     version.
-//   - Epilogue: relu and one bf16 rounding in one cvt a pair. Co = 32:
-//     `tc::store_row`'s quad transpose and 16-byte channels-last stores.
-//     Co = 8 channels-last: stmatrix into a shared buffer laid out as the
-//     group's box of y (4 rows x 64 pixels x 16 bytes), then one TMA copy
-//     of 1 KB runs (16-byte runs made TMA slow on the H100); two buffers
-//     in turn. Co = 8 NCDHW (not on the forward): 2-byte lane stores.
+//     the volume and as 0 outside it. The rows' pitch, 74 pixels (82 at
+//     Co = 4, whose A rows pair pixels), spreads the A reads below over
+//     the banks without a conflict (72 would cost about 2 wavefronts a
+//     read: tests/test_torch_costfilter_entry.py).
+//   - Products: G output rows of one depth in one product group, the rows
+//     on N: N = G x Co, column (r, co). K is the group's 9 (G + 2) staged
+//     values a pixel, k = (kd (G + 2) + sh) 3 + kw, zero-padded to KC
+//     slices of 16, and B[k, (r, co)] = wt[co, kd, sh - r, kw] where 0 <=
+//     sh - r <= 2 (else 0): KC wgmma m64nNk16 a group. G is what keeps N
+//     a wgmma width the registers hold and K short:
+//       Co =  4: G = 4, N = 16, K = 54 in 4 slices, 3 groups a tile;
+//       Co =  8: G = 4, N = 32, K = 54 in 4 slices, 3 groups;
+//       Co = 16: G = 4, N = 64, K = 54 in 4 slices, 3 groups (G = 2, N =
+//                32, would take 18 products and 72 A words a tile for 12
+//                and 48);
+//       Co = 32: G = 2, N = 64, K = 36 in 3 slices, 6 groups;
+//       Co = 64: G = 1, N = 64, K = 27 in 2 slices (k = 27 .. 31 zero),
+//                12 groups (G = 2, N = 128, needs 64 accumulator
+//                registers a thread, over the 102 of five blocks an SM).
+//     Per-row products (K = 27 taps, N = Co: four times the wgmma at Co =
+//     8 and twice the A reads) ran slower on the H100. Each thread holds
+//     the register A of its pixels (16w + l/4, + 8; at Co = 4 16w + 2(l/4),
+//     + 1) read straight from the staged rows at offsets computed once a
+//     launch; columns beyond K read nothing (a test on l % 4 in the slice
+//     that K cuts). The accumulators start at the shift (at Co = 64 read
+//     from shared memory, the registers going to the accumulator). The
+//     bf16 products are exact in float32; only the order of the float32
+//     sums differs from the plain version. Registers (ptxas on the H100):
+//     96 a thread at Co = 16, 32 and 64, 90 at 4 and 8, no spills.
+//   - Epilogue: relu and one bf16 rounding in one cvt a pair. Co = 16, 32
+//     and 64: `tc::store_row`'s quad transpose over each four 8-column
+//     blocks and 16-byte channels-last stores (a quad writes a pixel's 32
+//     channels, half of its 64, or two rows' 16). Co = 8 channels-last:
+//     stmatrix into a shared buffer laid out as the group's box of y (4
+//     rows x 64 pixels x 16 bytes), then one TMA copy of 1 KB runs
+//     (16-byte runs made TMA slow on the H100); two buffers in turn. Co =
+//     4, NCDHW only (the layout of AnyNet's 4 -> 4 layers): each lane holds
+//     a pixel pair of two rows x two channels, one 4-byte store a pair (two
+//     2-byte stores where W is odd), as `c4` does; no TMA, whose strides
+//     must be multiples of 16 bytes (a stage-2 row is 616). Co = 8 NCDHW
+//     (not on the forward): 2-byte lane stores.
 // * bf16, Ci == Co == 4 (AnyNet's stage-2/3 layers, D = 5): `c4` below,
-//   NCDHW in and out (the layout of the 1->4 entry and of the fused 4->1
-//   last layer, both on the CUDA cores). On the CUDA cores one thread a
+//   NCDHW in and out (the layout of the 1->4 entry, `c1`, and of the
+//   fused 4->1 last layer, on the CUDA cores). On the CUDA cores one thread a
 //   pixel made 108 scalar 2-byte loads, each input value loaded 27 times,
 //   and 432 float32 FMAs a voxel: 47 us a launch at stage 3, 17x its
 //   bytes bound (PERF.md §6 splits it).
@@ -191,12 +214,11 @@
 //     accumulators start at the shift, relu and one bf16 rounding in one
 //     cvt a pair, one 4-byte store a channel (two 2-byte where W is odd).
 // * otherwise (float32 at every width; bf16 at every width but those
-//   above, e.g. 3 channels and the 1->4, 1->16 and 1->64 entries): the CUDA
-//   cores, any Ci, Co >= 1, NCDHW in. A block takes an 8 x 32 pixel tile
-//   of one (b, d) slice, one pixel per thread, with CO_T output channels
-//   in float32 registers: 32, 16, 8 or 4, the widest that divides Co (4
-//   where none does, the last tile's extra channels zero-weighted and not
-//   stored). Weights go through shared memory in chunks of CI_CHUNK input
+//   above, e.g. 3 channels): the CUDA cores, any Ci, Co >= 1, NCDHW in.
+//   A block takes an 8 x 32 pixel tile of one (b, d) slice, one pixel per
+//   thread, with CO_T output channels in float32 registers: 32, 16, 8 or
+//   4, the widest that divides Co (4 where none does, the last tile's
+//   extra channels zero-weighted and not stored). Weights go through shared memory in chunks of CI_CHUNK input
 //   channels (27 * 8 * 32 floats = 27 KB); input taps are read straight
 //   from global memory, each voxel's 27 uses within a block hitting L1,
 //   the entry's act applied at the load (out-of-volume taps are skipped,
@@ -333,13 +355,14 @@ constexpr int SMEM_MAX = 232448;             // per block, opted in
 
 // The tensor-core routes (mirrored by `conv3d_tensor_core_route` in
 // ops/cuda/costfilter.py): 32 -> 32 (or 16 -> 32), 16 -> 16 and 64 -> 64,
-// 8 -> 8, 4 -> 4 and the entries 1 -> 32, 1 -> 8.
+// 8 -> 8, 4 -> 4 and the entries 1 -> 4, 8, 16, 32 and 64.
 bool use_tc(int elem_bytes, int Ci, int Co) {
   return elem_bytes == 2 &&
          ((Co == tc::N && (Ci == 16 || Ci == 32)) ||
           (Ci == Co && (Ci == 16 || Ci == 64)) ||
           (Ci == Co && (Ci == 8 || Ci == 4)) ||
-          (Ci == 1 && (Co == tc::N || Co == 8)));
+          (Ci == 1 && (Co == 4 || Co == 8 || Co == 16 || Co == tc::N ||
+                       Co == 64)));
 }
 
 template <int SC>
@@ -740,28 +763,41 @@ constexpr int TD = 3, TH = 4, TW = 64;   // output tile
 constexpr int SD = TD + 2, SH = TH + 2;  // staged depths and rows
 constexpr int SW = TW + 2;               // staged pixels a row
 constexpr int P = 74;                    // their pitch, elements
-constexpr int PLANE = SH * P;            // one staged depth
-constexpr int BUF = SD * PLANE;          // the staging buffer
+constexpr int P_PAIRS = 82;              // the pitch where A's rows pair
 constexpr int THREADS = 128;             // one warpgroup
 constexpr int MIN_BLOCKS = 5;            // an SM: at most 102 registers
 constexpr bool STREAM = false;           // evict-first output copies
 constexpr int OBUFS = 2;                 // output buffers a block
 
-// The products of CO = 8 or 32 output channels: G output rows (oh0 ..
-// oh0 + G - 1 of one depth) a product group, as N = G x CO columns, (r,
-// co) at n = r CO + co; K = the group's KT = 9 (G + 2) staged values a
-// pixel, k = (kd (G + 2) + sh) 3 + kw (staged depth od + kd, row oh0 +
-// sh, pixel p + kw), zero-padded to KC slices of 16; B[k, (r, co)] =
-// wt[co, kd, sh - r, kw] where 0 <= sh - r <= 2, else 0.
+// The products of CO = 4, 8, 16, 32 or 64 output channels: G output rows
+// (oh0 .. oh0 + G - 1 of one depth) a product group, as N = G x CO
+// columns, (r, co) at n = r CO + co; K = the group's KT = 9 (G + 2)
+// staged values a pixel, k = (kd (G + 2) + sh) 3 + kw (staged depth od +
+// kd, row oh0 + sh, pixel p + kw), zero-padded to KC slices of 16; B[k,
+// (r, co)] = wt[co, kd, sh - r, kw] where 0 <= sh - r <= 2, else 0.
+// PAIRS (CO = 4, written NCDHW): A's rows are the pixels in pairs, row
+// 16w + g pixel 16w + 2g and row 16w + g + 8 pixel 16w + 2g + 1, so that
+// a lane's two accumulator rows are adjacent pixels of y; the staged rows
+// are then P_PAIRS apart, where the A reads meet no bank conflict.
 template <int CO>
 struct Shape {
-  static constexpr int G = CO == 8 ? 4 : 2;
-  static constexpr int N = G * CO;         // 32 or 64
-  static constexpr int KT = 9 * (G + 2);   // 54 or 36
-  static constexpr int KC = (KT + 15) / 16;  // 4 or 3
-  static constexpr int SLICE = 16 * N * 2;   // bytes of a K = 16 slice
-  static constexpr int GROUPS = TD * TH / G;  // 3 or 6 a tile
-  static_assert(TH % G == 0 && KT % 2 == 0, "groups");
+  static constexpr int G = CO == 64 ? 1 : CO == 32 ? 2 : 4;
+  static constexpr int N = G * CO;            // 16, 32 or 64
+  static constexpr int KT = 9 * (G + 2);      // 27, 36 or 54
+  static constexpr int KC = (KT + 15) / 16;   // 2, 3 or 4
+  static constexpr int SLICE = 16 * N * 2;    // bytes of a K = 16 slice
+  static constexpr int GROUPS = TD * TH / G;  // 12, 6 or 3 a tile
+  static constexpr bool PAIRS = CO == 4;
+  static constexpr int PITCH = PAIRS ? P_PAIRS : P;
+  static constexpr int PLANE = SH * PITCH;    // one staged depth
+  static constexpr int BUF = SD * PLANE;      // the staging buffer
+  static_assert(TH % G == 0 && N % 16 == 0, "groups");
+};
+
+// A 64 x 16 float32 accumulator, laid out as tc::Acc over 2 column
+// blocks.
+struct Acc16 {
+  float v[8];
 };
 
 // A 64 x 64 float32 accumulator, laid out as tc::Acc over 8 column
@@ -770,12 +806,30 @@ struct Acc64 {
   float v[32];
 };
 
+__device__ __forceinline__ void fence_operand(Acc16& a) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+f"(a.v[i])::"memory");
+}
 __device__ __forceinline__ void fence_operand(Acc64& a) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(a.v[i])::"memory");
 }
 
 // d += a (64 x 16, registers, across the warpgroup) * b (16 x N, shared).
+__device__ __forceinline__ void mma(Acc16& d, const uint32_t (&a)[4],
+                                    uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n"
+      "}\n"
+      : "+f"(d.v[0]), "+f"(d.v[1]), "+f"(d.v[2]), "+f"(d.v[3]),
+        "+f"(d.v[4]), "+f"(d.v[5]), "+f"(d.v[6]), "+f"(d.v[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
 __device__ __forceinline__ void mma(tc::Acc& d, const uint32_t (&a)[4],
                                     uint64_t b) {
   tc::wgmma_m64n32k16(d, a, b);
@@ -984,30 +1038,34 @@ __device__ __forceinline__ uint16_t staged_value(const Args& a, uint32_t u,
       from_f<bf16>(act<bf16>(__uint_as_float(u << 16), a0, b0)));
 }
 
-// Tile t's loaded values into staging buffer s.
+// Tile t's loaded values into staging buffer s, rows PITCH elements apart.
+template <int PITCH>
 __device__ __forceinline__ void store_tile(const uint32_t (&v)[NL],
                                            const Args& a, uint16_t* s,
                                            float a0, float b0) {
   const int r0 = threadIdx.x < TW ? 0 : RH, c = threadIdx.x % TW + 1;
 #pragma unroll
   for (int i = 0; i < RH; ++i)
-    s[(r0 + i) * P + c] = staged_value(a, v[i], a0, b0);
+    s[(r0 + i) * PITCH + c] = staged_value(a, v[i], a0, b0);
   if (threadIdx.x < 2 * SD * SH)
-    s[threadIdx.x / 2 * P + halo_col()] = staged_value(a, v[RH], a0, b0);
+    s[threadIdx.x / 2 * PITCH + halo_col()] =
+        staged_value(a, v[RH], a0, b0);
 }
 
-// CO = 32 or 8 output channels, y channels-last (or, at CO = 8, NCDHW
-// where y_cl is 0). Shared memory: the KC slices of the B images, the
-// staging buffer and, at CO = 8, the output buffers.
+// CO = 4, 8, 16, 32 or 64 output channels; y channels-last at 16, 32 and
+// 64, NCDHW at 4, either at 8 (NCDHW where y_cl is 0). Shared memory: the
+// KC slices of the B images, the staging buffer, at CO = 64 the shift, and
+// at CO = 8 the output buffers.
 template <int CO>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     conv3d_bn_relu_entry_kernel(Args a,
                                 const __grid_constant__ CUtensorMap map_y) {
   using S = Shape<CO>;
-  using Acc = std::conditional_t<S::N == tc::N, tc::Acc, Acc64>;
-  constexpr int G = S::G, KC = S::KC;
+  using Acc = std::conditional_t<
+      S::N == 16, Acc16, std::conditional_t<S::N == tc::N, tc::Acc, Acc64>>;
+  constexpr int G = S::G, KC = S::KC, PITCH = S::PITCH, PLANE = S::PLANE;
   __shared__ __align__(128) unsigned char wsm[KC * S::SLICE];
-  __shared__ __align__(16) uint16_t stage[BUF];
+  __shared__ __align__(16) uint16_t stage[S::BUF];
   // At CO = 8 written channels-last, a group's output goes to y by TMA
   // from one of OBUFS shared buffers in turn.
   constexpr int OGROUP = G * TW * CO * 2;
@@ -1024,11 +1082,21 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const float b0 = a.aff != nullptr ? a.aff[1] : 0.f;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q = lane % 4, p0 = warp * 16 + lane / 4;
-  float sh[CO / 4];  // this lane's output channels 8j + 2q + {0, 1}
+  // This lane's output channels (8j + 2q) % CO + {0, 1}, j < CP: registers
+  // at CO <= 32; at 64 (16 of them, where the registers are spent on the
+  // accumulator) in shared memory, read by `init`.
+  constexpr int CP = CO >= 8 ? CO / 8 : 1;
+  constexpr bool SH_SMEM = CO == 64;
+  __shared__ float shs[SH_SMEM ? CO : 1];
+  float sh[SH_SMEM ? 1 : 2 * CP];
+  if constexpr (SH_SMEM) {
+    if (threadIdx.x < CO) shs[threadIdx.x] = a.shift[threadIdx.x];
+  } else {
 #pragma unroll
-  for (int j = 0; j < CO / 8; ++j) {
-    sh[2 * j] = a.shift[8 * j + 2 * q];
-    sh[2 * j + 1] = a.shift[8 * j + 2 * q + 1];
+    for (int j = 0; j < CP; ++j) {
+      sh[2 * j] = a.shift[(8 * j + 2 * q) % CO];
+      sh[2 * j + 1] = a.shift[(8 * j + 2 * q) % CO + 1];
+    }
   }
 
   // The B images (tc.cuh): element (k, n) of slice k / 16 at (n / 8) 256
@@ -1064,9 +1132,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   tc::fence_proxy_async();  // generic stores before wgmma reads them
 
   // Offsets of this thread's columns k = kc * 16 + j / 2 * 8 + 2q + j % 2
-  // in a staged buffer, for group 0 and pixel 0. In the last slice the
-  // columns of j >= 2 are all beyond KT (zeros, not read), those of j < 2
-  // inside it where 2q < KT - 16 (KC - 1).
+  // in a staged buffer, for group 0 and pixel 0 (columns beyond KT read
+  // nothing: zeros).
   int off[KC][4];
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc)
@@ -1074,70 +1141,106 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     for (int j = 0; j < 4; ++j) {
       const int k = kc * 16 + j / 2 * 8 + 2 * q + j % 2;
       off[kc][j] = k < S::KT ? k / (3 * (G + 2)) * PLANE +
-                                   k / 3 % (G + 2) * P + k % 3
+                                   k / 3 % (G + 2) * PITCH + k % 3
                              : 0;
     }
-  static_assert(S::KT - 16 * (KC - 1) <= 8, "last slice: j < 2 only");
-  const bool last_ok = 2 * q < S::KT - 16 * (KC - 1);
   const uint64_t desc0 = tc::b_desc(tc::smem_addr(wsm));
 
+  // Whether column kc * 16 + j / 2 * 8 + 2q + j % 2 lies within KT: a
+  // constant but in a slice that KT cuts, where the test is on q.
+  auto live = [&](int kc, int j) {
+    const int k0 = kc * 16 + j / 2 * 8 + j % 2;
+    return k0 + 6 < S::KT || (k0 < S::KT && 2 * q < S::KT - k0);
+  };
   // The register A of group g (depth g / (TH / G), rows from oh0 = g %
-  // (TH / G) * G) from the staging buffer.
+  // (TH / G) * G) from the staging buffer: row i % 2 of this lane's pair
+  // is pixel p0 + 8 (i % 2), or at PAIRS 16 warp + 2 (lane / 4) + i % 2.
   auto load_a = [&](uint32_t (&af)[KC][4], int g) {
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // i: pixel half i % 2, k pair i / 2
+        const int px = S::PAIRS ? warp * 16 + 2 * (lane / 4) + i % 2
+                                : p0 + 8 * (i % 2);
         const uint16_t* sp = stage + g / (TH / G) * PLANE +
-                             g % (TH / G) * G * P + p0 + 8 * (i % 2);
+                             g % (TH / G) * G * PITCH + px;
         const int j = i / 2 * 2;
-        if (kc == KC - 1 && j == 2) {
-          af[kc][i] = 0u;
-        } else if (kc == KC - 1) {
-          af[kc][i] = last_ok ? (uint32_t)sp[off[kc][j]] |
-                                    (uint32_t)sp[off[kc][j + 1]] << 16
-                              : 0u;
-        } else {
-          af[kc][i] = (uint32_t)sp[off[kc][j]] |
-                      (uint32_t)sp[off[kc][j + 1]] << 16;
-        }
+        const uint32_t lo = live(kc, j) ? (uint32_t)sp[off[kc][j]] : 0u;
+        const uint32_t hi =
+            live(kc, j + 1) ? (uint32_t)sp[off[kc][j + 1]] : 0u;
+        af[kc][i] = lo | hi << 16;
       }
   };
   // A group's accumulators start at the shift of their columns (column
-  // 8 (e / 4) + 2q + e % 2 of v[e] is channel 8 (e / 4 % (CO / 8)) + 2q +
-  // e % 2), so that the epilogue is relu and one bf16 rounding, which
-  // commute: relu(bf16(x)) = bf16(relu(x)).
+  // 8 (e / 4) + 2q + e % 2 of v[e] is channel (8 (e / 4) + 2q) % CO + e %
+  // 2, that of sh[2 (e / 4 % CP) + e % 2]), so that the epilogue is relu
+  // and one bf16 rounding, which commute: relu(bf16(x)) = bf16(relu(x)).
   auto init = [&](Acc& acc) {
 #pragma unroll
     for (int e = 0; e < S::N / 2; ++e)
-      acc.v[e] = sh[2 * (e / 4 % (CO / 8)) + e % 2];
+      if constexpr (SH_SMEM)
+        acc.v[e] = shs[8 * (e / 4) + 2 * q + e % 2];
+      else
+        acc.v[e] = sh[2 * (e / 4 % CP) + e % 2];
   };
   // Group g of tile tt to y.
   auto store = [&](Acc& acc, const Tile& tt, int g) {
     fence_operand(acc);
     const int dz = tt.d0 + g / (TH / G), h0 = tt.h0 + g % (TH / G) * G;
-    if (dz >= a.D) return;
-    if constexpr (CO == tc::N) {
-      // Row r is accumulator columns 32r ..: per pixel half, lane q holds
-      // word q of each 8-channel block j; a quad transpose gives it block
-      // q, one 16-byte store (tc::store_row's epilogue, with the relu).
+    if constexpr (CO >= 16) {
+      // Per pixel half, lane q holds word q of each 8-column block j
+      // (column 8j + 2q ..); a quad transpose of blocks 4c .. 4c + 3 gives
+      // it block 4c + q, columns n = 32c + 8q .., i.e. 8 channels of row
+      // n / CO from n % CO: one 16-byte channels-last store
+      // (tc::store_row's epilogue, with the relu). A quad writes a pixel's
+      // 32 channels at CO = 32, half of its 64 at CO = 64, two rows' 16 at
+      // CO = 16.
       const size_t plane = ((size_t)tt.b * a.D + dz) * a.H;
 #pragma unroll
-      for (int r = 0; r < G; ++r)
+      for (int c = 0; c < S::N / 32; ++c)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           uint32_t wd[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            wd[j] = relu_bf16x2(acc.v[16 * r + 4 * j + 2 * half],
-                                acc.v[16 * r + 4 * j + 2 * half + 1]);
+            wd[j] = relu_bf16x2(acc.v[16 * c + 4 * j + 2 * half],
+                                acc.v[16 * c + 4 * j + 2 * half + 1]);
           tc::quad_transpose(wd);
+          const int n = 32 * c + 8 * q, r = n / CO;
           const int w = tt.w0 + p0 + 8 * half;
           if (h0 + r < a.H && w < a.W)
             tc::store16(reinterpret_cast<uint4*>(
-                            a.y + ((plane + h0 + r) * a.W + w) * CO + 8 * q),
+                            a.y + ((plane + h0 + r) * a.W + w) * CO +
+                            n % CO),
                         make_uint4(wd[0], wd[1], wd[2], wd[3]), STREAM);
         }
+    } else if constexpr (CO == 4) {
+      // NCDHW: A's rows are pixel pairs, so v[4j + 2 half + e] is pixel
+      // 2 (lane / 4) + half of column 8j + 2q + e: row 2j + q / 2, channel
+      // 2 (q % 2) + e. Per (j, e) one 4-byte store of the pixel pair (two
+      // 2-byte stores where W is odd), 32 contiguous bytes a quad column.
+      const size_t vol = (size_t)a.D * a.H * a.W;
+      const int w = tt.w0 + warp * 16 + 2 * (lane / 4);
+      if (w >= a.W) return;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int h = h0 + 2 * j + q / 2;
+        if (h >= a.H) continue;
+        bf16* py = a.y + ((size_t)tt.b * 4 + 2 * (q % 2)) * vol +
+                   ((size_t)dz * a.H + h) * a.W + w;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t u =
+              relu_bf16x2(acc.v[4 * j + e], acc.v[4 * j + 2 + e]);
+          uint16_t* p = reinterpret_cast<uint16_t*>(py + e * vol);
+          if (a.W % 2 == 0) {
+            *reinterpret_cast<uint32_t*>(p) = u;
+          } else {
+            p[0] = (uint16_t)u;
+            if (w + 1 < a.W) p[1] = (uint16_t)(u >> 16);
+          }
+        }
+      }
     } else if (a.y_cl) {
       // The group's G rows x 64 pixels x 8 channels into a shared buffer
       // as y's TMA box lays them out, (r TW + p) 16 bytes: matrix m = 2r
@@ -1167,7 +1270,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         bulk_commit();
       }
       obuf = obuf + 1 == OBUFS ? 0 : obuf + 1;
-    } else if constexpr (CO == 8) {  // NCDHW: channel planes 2q, 2q + 1
+    } else {  // CO = 8, NCDHW: channel planes 2q, 2q + 1
       const size_t vol = (size_t)a.D * a.H * a.W;
 #pragma unroll
       for (int r = 0; r < G; ++r) {
@@ -1189,12 +1292,15 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   // before the stores of each tile after the first (its A reads done).
   for (bool first = true; t < ntiles; t += gridDim.x, first = false) {
     if (!first) __syncthreads();
-    store_tile(v, a, stage, a0, b0);
+    store_tile<PITCH>(v, a, stage, a0, b0);
     const Tile next = tile_of(a, t + gridDim.x);
     if (t + (int)gridDim.x < ntiles) load_tile(a, next, v);
     __syncthreads();  // the tile staged (and, first, the weights)
 #pragma unroll
     for (int g = 0; g < S::GROUPS; ++g) {
+      // a depth beyond D (D not a multiple of TD: AnyNet's D = 5) is
+      // neither multiplied nor stored
+      if (tt.d0 + g / (TH / G) >= a.D) continue;
       uint32_t af[KC][4];
       Acc acc;
       load_a(af, g);
@@ -1530,23 +1636,30 @@ int launch(const void* x, const void* wt, const void* shift, const void* aff,
   if (aff != nullptr && Ci != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (use_tc(sizeof(T), Ci, Co)) {
-    // The 4 -> 4 route reads and writes NCDHW only. The others write
-    // channels-last only at 16, 32 and 64 channels, either layout at 8.
-    // The entries' one input channel lies the same in both layouts; the
-    // other routes read channels-last only. The entries take wt as (Co, 1,
-    // 3, 3, 3), the others the B images the wrapper lays out.
+    // The 4 -> 4 route reads and writes NCDHW only, the 1 -> 4 entry
+    // writes it only. The others write channels-last only at 16, 32 and
+    // 64 channels, either layout at 8. The entries' one input channel lies
+    // the same in both layouts; the other routes read channels-last only.
+    // The entries take wt as (Co, 1, 3, 3, 3), the others the B images the
+    // wrapper lays out.
     if (Ci == 4) {
       if (x_cl || y_cl) return (int)cudaErrorInvalidValue;
       return c4::launch(c4::Args{(const uint16_t*)x, (const uint32_t*)wt,
                                  (const float*)shift, (bf16*)y, B, D, H, W},
                         s);
     }
-    if (Co != 8 && !y_cl) return (int)cudaErrorInvalidValue;
+    if (Co == 4 ? y_cl : Co != 8 && !y_cl) return (int)cudaErrorInvalidValue;
     if (Ci == 1) {
       const c1::Args a{(const uint16_t*)x, (const uint16_t*)wt,
                        (const float*)shift, (const float*)aff, (bf16*)y,
                        B, D, H, W, y_cl};
-      return Co == tc::N ? c1::launch<32>(a, s) : c1::launch<8>(a, s);
+      switch (Co) {
+        case 4: return c1::launch<4>(a, s);
+        case 8: return c1::launch<8>(a, s);
+        case 16: return c1::launch<16>(a, s);
+        case 32: return c1::launch<32>(a, s);
+        default: return c1::launch<64>(a, s);
+      }
     }
     if (!x_cl) return (int)cudaErrorInvalidValue;
     if (Co == 8) return c8::launch(x, wt, shift, y, B, D, H, W, y_cl, s);

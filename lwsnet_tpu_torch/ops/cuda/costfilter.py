@@ -22,20 +22,20 @@ its plain PyTorch version, beside it here, for a CPU tensor.
 
 Routes and layouts on the card (`filter_routes`, the one rule that the
 wrappers, `filter_soft_argmin`, chip_smoke.py and `tools.parity_layers`
-consult): a bf16 stage of 32, 16, 64 or 8 channels runs its C -> C layers
-on the tensor cores and its activations lie channels-last-3d in memory,
-(B, D, H, W, C) under the logical (B, C, D, H, W) shape, because those
-routes of `conv3d_bn_relu` (`conv3d_reads_channels_last`) read it so. The
-1 -> C entry writes it (its one input channel, the raw volume, lies the
-same in both layouts; at 16 and 64 channels from the CUDA cores), the
+consult): a bf16 stage of 32, 16, 64 or 8 channels runs its 1 -> C
+entry and its C -> C layers on the tensor cores and its activations lie
+channels-last-3d in memory, (B, D, H, W, C) under the logical
+(B, C, D, H, W) shape, because those routes of `conv3d_bn_relu`
+(`conv3d_reads_channels_last`) read it so. The entry writes it (its one
+input channel, the raw volume, lies the same in both layouts), the
 C -> C layers read and write it, and the fused last layer reads it on
 the tensor cores, at any D. A bf16 stage of 4 channels (AnyNet's stages
-2-3) runs its 4 -> 4 layers on the tensor cores in the default layout,
-which its entry and fused last layer, on the CUDA cores, write and read.
-Every other stage, float32 at any width and bf16 at any other width, and
-any D, runs on the CUDA cores in the default layout. No filter makes a
-layout copy. A copy, where a caller hands a kernel the other layout, is
-`build.in_layout`'s, counted.
+2-3) runs its entry and its 4 -> 4 layers on the tensor cores in the
+default layout, which they write and its fused last layer, on the CUDA
+cores, reads. Every other stage, float32 at any width and bf16 at any
+other width, and any D, runs on the CUDA cores in the default layout. No
+filter makes a layout copy. A copy, where a caller hands a kernel the
+other layout, is `build.in_layout`'s, counted.
 """
 
 from __future__ import annotations
@@ -61,11 +61,13 @@ def conv3d_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int) -> bool:
     64 -> 64, which read and write channels-last only; bf16 8 -> 8, which
     reads channels-last and writes either layout; bf16 4 -> 4 (`c4`,
     mma.sync), which reads and writes NCDHW only; and the bf16 entries
-    1 -> 32 and 1 -> 8 (`c1`), whose one input channel lies the same in
-    either layout, writing channels-last (either layout at 8 channels)."""
+    1 -> 4, 8, 16, 32 and 64 (`c1`, wgmma), whose one input channel lies
+    the same in either layout, writing channels-last at 16, 32 and 64
+    channels, NCDHW at 4 and either layout at 8."""
     return dtype == torch.bfloat16 and (
         (Co == 32 and Ci in (1, 16, 32)) or (Ci == Co and Ci in (16, 64))
-        or (Co == 8 and Ci in (1, 8)) or Ci == Co == 4)
+        or (Co == 8 and Ci in (1, 8)) or Ci == Co == 4
+        or (Ci == 1 and Co in (4, 16, 64)))
 
 
 def conv3d_reads_channels_last(dtype: torch.dtype, Ci: int,
@@ -78,7 +80,7 @@ def conv3d_reads_channels_last(dtype: torch.dtype, Ci: int,
 
 def conv3d_writes_ncdhw(dtype: torch.dtype, Ci: int, Co: int) -> bool:
     """Whether `conv3d_bn_relu` can write NCDHW: every route but the
-    tensor-core ones of 16, 32 and 64 outputs."""
+    tensor-core ones of 16, 32 and 64 outputs (the entries among them)."""
     return not (conv3d_tensor_core_route(dtype, Ci, Co)
                 and Co in (16, 32, 64))
 
@@ -86,8 +88,9 @@ def conv3d_writes_ncdhw(dtype: torch.dtype, Ci: int, Co: int) -> bool:
 def conv3d_writes_channels_last(dtype: torch.dtype, Ci: int,
                                 Co: int) -> bool:
     """Whether `conv3d_bn_relu` can write channels-last: every route but
-    the 4 -> 4 tensor-core route (`c4`)."""
-    return not (conv3d_tensor_core_route(dtype, Ci, Co) and Ci == Co == 4)
+    the tensor-core ones of 4 outputs, the 4 -> 4 route (`c4`) and the
+    1 -> 4 entry (`c1`)."""
+    return not (conv3d_tensor_core_route(dtype, Ci, Co) and Co == 4)
 
 
 class LaunchRoute(NamedTuple):
@@ -111,12 +114,11 @@ class StageRoutes(NamedTuple):
 def filter_routes(dtype: torch.dtype, channels: int, D: int) -> StageRoutes:
     """The route and layouts of each launch of a stage's filter of width
     `channels` over D costs a pixel, in `dtype` (float32 or bf16): for
-    bf16 at 32, 16, 64 or 8 channels the C -> C layers and the fused last
-    layer on the tensor cores at any D, and every activation channels-last
-    (the entry at 16 and 64 on the CUDA cores, writing channels-last); for
-    bf16 at 4 channels the 4 -> 4 layers on the tensor cores, the entry
-    and the fused last layer on the CUDA cores, every activation NCDHW;
-    the CUDA cores and NCDHW otherwise. Each launch reads what the one
+    bf16 at 32, 16, 64 or 8 channels every launch on the tensor cores at
+    any D, and every activation channels-last; for bf16 at 4 channels the
+    entry and the 4 -> 4 layers on the tensor cores, the fused last layer
+    on the CUDA cores, every activation NCDHW; the CUDA cores and NCDHW
+    otherwise. Each launch reads what the one
     before it writes. Mirrors `use_tc` in csrc/conv3d_bn_relu.cu and the
     bf16 entry of csrc/conv3d_skip_softargmin.cu."""
     if channels < 1 or D < 1:
@@ -212,7 +214,8 @@ def conv3d_bn_relu(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
     The result lies channels-last where asked (`channels_last`) or, by
     default, where a filter of its width reads it so (`filter_routes`:
     bf16, 32, 16, 64 or 8 channels); the tensor-core routes of 16, 32 and
-    64 outputs write nothing else, `c4` nothing but NCDHW."""
+    64 outputs write nothing else, those of 4 (`c4` and the 1 -> 4 entry)
+    nothing but NCDHW."""
     if not on_card(x):
         return conv3d_bn_relu_plain(x, wt, shift)
     return _launch(x, wt, shift, None, channels_last)
@@ -232,12 +235,13 @@ def conv3d_entry_plain(vol: torch.Tensor, a0b0: torch.Tensor,
 def conv3d_entry(vol: torch.Tensor, a0b0: torch.Tensor, wt: torch.Tensor,
                  shift: torch.Tensor) -> torch.Tensor:
     """A stage's entry in one launch; see `conv3d_entry_plain`. On the card
-    bf16 at 32 or 8 outputs takes the tensor-core entry (`c1` in
-    csrc/conv3d_bn_relu.cu), float32 and every other width the CUDA
-    cores, each applying the affine to the values it reads inside the
+    bf16 at 4, 8, 16, 32 or 64 outputs takes the tensor-core entry
+    (`c1` in csrc/conv3d_bn_relu.cu), float32 and every other width the
+    CUDA cores, each applying the affine to the values it reads inside the
     volume; a0b0 stays on the device (no host sync). The result lies as
-    `conv3d_bn_relu`'s default (`filter_routes`): channels-last where the
-    entry takes the tensor cores, NCDHW otherwise."""
+    `conv3d_bn_relu`'s default (`filter_routes`): channels-last at bf16 8,
+    16, 32 and 64 outputs, NCDHW otherwise (the 1 -> 4 entry writes
+    nothing else)."""
     if not on_card(vol):
         return conv3d_entry_plain(vol, a0b0, wt, shift)
     if vol.dim() != 4:
@@ -266,7 +270,8 @@ def _launch(x: torch.Tensor, wt: torch.Tensor, shift: torch.Tensor,
         raise ValueError("the tensor-core routes of 16, 32 and 64 outputs "
                          "write channels-last only")
     if y_cl and not conv3d_writes_channels_last(x.dtype, Ci, Co):
-        raise ValueError("the 4 -> 4 tensor-core route writes NCDHW only")
+        raise ValueError("the tensor-core routes of 4 outputs write NCDHW "
+                         "only")
     check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, x_cl)
     check(wt, "wt", (Co, Ci, 3, 3, 3), x.dtype, x.device)
     check(shift, "shift", (Co,), torch.float32, x.device)

@@ -45,7 +45,7 @@ BF = torch.bfloat16
 @pytest.mark.parametrize("dtype,ci,co,tc,reads_cl,ncdhw,cl_out", [
     (BF, 4, 4, True, False, True, False),      # c4: NCDHW in and out
     (BF, 8, 8, True, True, True, True),        # c8: either layout out
-    (BF, 1, 4, False, False, True, True),      # the 1 -> 4 entry: CUDA cores
+    (BF, 1, 4, True, False, True, False),      # the 1 -> 4 entry: c1, NCDHW
     (BF, 3, 3, False, False, True, True),
     (BF, 4, 8, False, False, True, True),
     (BF, 8, 4, False, False, True, True),
@@ -189,10 +189,10 @@ def test_c4_tile_walk_emulation_matches_plain(B, D, H, W):
 def test_filter_soft_argmin_c4_layouts_match_jax(monkeypatch):
     """AnyNet's stage-2/3 filter (four mid layers of 4 channels, D = 5,
     residual bins from -2), each launch handing on the layout the bf16
-    routes use on the card (`filter_routes`): the 1 -> 4 entry writes
-    NCDHW, every 4 -> 4 layer (the tensor cores, `c4`) reads and writes
-    it, and the fused last layer (the CUDA cores) reads it. The result
-    matches the JAX package's."""
+    routes use on the card (`filter_routes`): the 1 -> 4 entry (the
+    tensor cores, `c1`) writes NCDHW, every 4 -> 4 layer (the tensor
+    cores, `c4`) reads and writes it, and the fused last layer (the CUDA
+    cores) reads it. The result matches the JAX package's."""
     B, H, W, D, layers, channels, start = 1, 6, 10, 5, 4, 4, -2
     rng = np.random.default_rng(12)
     cost = rng.standard_normal((B, H, W, D)).astype(np.float32)
@@ -207,7 +207,8 @@ def test_filter_soft_argmin_c4_layouts_match_jax(monkeypatch):
 
     routes = tcf.filter_routes(BF, channels, D)
     assert routes.layer.route == tcf.TENSOR_CORES
-    assert routes.entry.route == routes.skip.route == tcf.CUDA_CORES
+    assert routes.entry.route == tcf.TENSOR_CORES
+    assert routes.skip.route == tcf.CUDA_CORES
     seen = []
     plain_entry, plain_layer = tcf.conv3d_entry, tcf.conv3d_bn_relu
     plain_last = tcf.conv3d_skip_softargmin

@@ -47,12 +47,14 @@ def test_every_width_and_d_has_a_chained_route(dtype):
     """Every (dtype, channels 1-64, D) has a route for each launch, and
     each launch reads the layout the one before it writes: the entry's
     output, each C -> C layer's input and output and the fused last
-    layer's input lie alike. The tensor cores take the bf16 C -> C layers
-    at 32, 16, 64, 8 or 4 channels (at every D), the fused last layer at
-    32, 16, 64 or 8, the entries at 32 or 8, the CUDA cores everything
-    else; the activations lie channels-last where the fused last layer
-    takes the tensor cores (bf16 4 -> 4 reads and writes NCDHW, as its
-    entry and fused last layer on the CUDA cores do)."""
+    layer's input lie alike. The tensor cores take the bf16 entries and
+    C -> C layers at 32, 16, 64, 8 or 4 channels (at every D), the fused
+    last layer at 32, 16, 64 or 8, the CUDA cores everything else; the
+    activations lie channels-last where the fused last layer takes the
+    tensor cores (at bf16 4 the entry writes and the 4 -> 4 layers read and
+    write NCDHW, as the fused last layer on the CUDA cores reads it). The
+    entries at 4 write nothing but NCDHW, those at 16, 32 and 64 nothing
+    but channels-last, at 8 either layout."""
     bf = dtype == torch.bfloat16
     for C in range(1, 65):
         for D in D_COUNTS:
@@ -63,7 +65,7 @@ def test_every_width_and_d_has_a_chained_route(dtype):
                 r.layer.writes_cl == r.skip.reads_cl, (C, D)
             cl = bf and C in (8, 16, 32, 64)
             tc = bf and C in (4, 8, 16, 32, 64)
-            ends = bf and C in (8, 32)
+            ends = tc
             assert r.layer.reads_cl == cl, (C, D)
             assert (r.entry.route == tcf.TENSOR_CORES) == ends
             assert (r.layer.route == tcf.TENSOR_CORES) == tc
@@ -72,6 +74,10 @@ def test_every_width_and_d_has_a_chained_route(dtype):
             assert tcf.conv3d_tensor_core_route(dtype, C, C) == tc
             assert tcf.conv3d_reads_channels_last(dtype, C, C) == cl
             assert tcf.conv3d_tensor_core_route(dtype, 1, C) == ends
+            assert tcf.conv3d_writes_ncdhw(dtype, 1, C) == (
+                not ends or C in (4, 8)), (C, D)
+            assert tcf.conv3d_writes_channels_last(dtype, 1, C) == (
+                not ends or C != 4), (C, D)
             assert tcf.skip_tensor_core_route(dtype, C) == cl
     with pytest.raises(ValueError):
         tcf.filter_routes(dtype, 0, 5)

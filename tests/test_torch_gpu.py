@@ -235,17 +235,31 @@ def _entry_operands(rnd, B, Co, D, H, W, dtype):
     (1, 8, 9, 184, 616),    # stage 3
     (2, 8, 7, 11, 37),      # ragged: no dimension a multiple of 3 x 4 x 64
     (2, 32, 7, 11, 37),
+    (1, 16, 12, 46, 154),   # AnyNet's stage 1 (parity_layers.ANYNET)
+    (1, 4, 5, 92, 308),     # its stage 2: 616-byte NCDHW rows
+    (1, 4, 5, 184, 616),    # its stage 3
+    (1, 64, 72, 46, 154),   # a 64-channel filter over D = 72
+    (2, 4, 5, 11, 37),      # ragged at D = 5 (a sixth depth idle) and 7
+    (2, 4, 7, 11, 37),
+    (2, 16, 5, 11, 37),
+    (2, 16, 7, 11, 37),
+    (2, 64, 5, 11, 37),
+    (2, 64, 7, 11, 37),
 ])
 def test_conv3d_entry_route_on_card(rnd, shape, dtype):
     """A stage's entry, layer 0's BN + ReLU fused (conv3d_entry): bf16 on
-    the tensor-core entry route, within two rounding steps of
-    conv3d_entry_plain and channels-last; float32 on the CUDA cores, atol
-    2e-4 / rtol 1e-3, NCDHW. One launch each, counted as the "entry"
-    route, no layout copy."""
+    the tensor-core entry route (`c1`) at 4, 8, 16, 32 and 64 outputs,
+    within two rounding steps of conv3d_entry_plain, channels-last but at
+    4 outputs (NCDHW); float32 on the CUDA cores, atol 2e-4 / rtol 1e-3,
+    NCDHW. One launch each, counted as the "entry" route, no layout copy.
+    In bf16 the 1 -> 4 entry refuses a channels-last output and the
+    1 -> 16 / 1 -> 64 entries refuse NCDHW."""
     B, Co, D, H, W = shape
     vol, a0b0, wt, shift = _entry_operands(rnd, B, Co, D, H, W, dtype)
     assert tcf.conv3d_tensor_core_route(dtype, 1, Co) == (
         dtype == torch.bfloat16)
+    assert tcf.filter_routes(dtype, Co, D).entry.route == (
+        tcf.TENSOR_CORES if dtype == torch.bfloat16 else tcf.CUDA_CORES)
     build.reset_launch_counts()
     got = tcf.conv3d_entry(vol, a0b0, wt, shift)
     torch.cuda.synchronize()
@@ -255,8 +269,16 @@ def test_conv3d_entry_route_on_card(rnd, shape, dtype):
     want = tcf.conv3d_entry_plain(vol, a0b0, wt, shift)
     assert got.shape == want.shape == (B, Co, D, H, W)
     if dtype == torch.bfloat16:
-        assert build.lies_channels_last(got)
+        assert build.lies_channels_last(got) == (Co != 4)
+        assert got.is_contiguous() == (Co == 4)
         _assert_two_steps(got, want)
+        x = vol[:, None]
+        if Co == 4:
+            with pytest.raises(ValueError, match="NCDHW only"):
+                tcf.conv3d_bn_relu(x, wt, shift, channels_last=True)
+        elif Co != 8:
+            with pytest.raises(ValueError, match="channels-last only"):
+                tcf.conv3d_bn_relu(x, wt, shift, channels_last=False)
     else:
         assert got.is_contiguous()
         torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
@@ -371,26 +393,35 @@ WIDTH_SHAPES = [
     (2, 3, 7, 11, 37, -3),
     (1, 64, 72, 46, 154, 0),    # wide
 ]
+# Ragged entries of the tensor-core widths at D = 5 (AnyNet's stages 2-3:
+# a depth tile's third depth idle) and 7.
+ENTRY_D5_SHAPES = [
+    (2, 4, 5, 11, 37, 0),
+    (2, 16, 5, 11, 37, -3),
+    (2, 64, 5, 11, 37, 0),
+    (2, 64, 7, 11, 37, -3),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", WIDTH_SHAPES)
+@pytest.mark.parametrize("shape", WIDTH_SHAPES + ENTRY_D5_SHAPES)
 def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
-    """conv3d_bn_relu's entries at widths no tensor-core entry takes (the
-    1 -> C entry with layer 0's BN + ReLU, on the CUDA cores) and a C -> C
-    layer on the route `filter_routes` gives: the CUDA cores in float32
-    and at 3 channels, NCDHW in and out; the tensor cores at bf16 16 and
-    64, the entry writing channels-last and the layer reading and writing
-    it, and at bf16 4 (`c4`), NCDHW in and out. No layout copy, each
-    launch counted on its route ("entry", "cores" for the CUDA-core
-    layer); float32 at atol 2e-4 / rtol 1e-3, bf16 within two rounding
-    steps of the plain versions."""
+    """conv3d_bn_relu's entries off the shipped widths (the 1 -> C entry
+    with layer 0's BN + ReLU) and a C -> C layer on the route
+    `filter_routes` gives: the CUDA cores in float32 and at 3 channels,
+    NCDHW in and out; the tensor cores at bf16 16 and 64, the entry
+    (`c1`) writing channels-last and the layer reading and writing it,
+    and at bf16 4 (the entry, `c1`, and the layer, `c4`), NCDHW in and
+    out. No layout copy, each launch counted on its route ("entry",
+    "cores" for the CUDA-core layer); float32 at atol 2e-4 / rtol 1e-3,
+    bf16 within two rounding steps of the plain versions."""
     B, C, D, H, W, _ = shape
     vol, a0b0, wt, shift = _entry_operands(rnd, B, C, D, H, W, dtype)
     routes = tcf.filter_routes(dtype, C, D)
     tc = dtype == torch.bfloat16 and C in (4, 16, 64)
     cl = dtype == torch.bfloat16 and C in (16, 64)
-    assert routes.entry.route == tcf.CUDA_CORES
+    assert routes.entry.route == (tcf.TENSOR_CORES if tc
+                                  else tcf.CUDA_CORES)
     assert routes.layer.route == (tcf.TENSOR_CORES if tc else tcf.CUDA_CORES)
     build.reset_launch_counts()
     y = tcf.conv3d_entry(vol, a0b0, wt, shift)

@@ -119,8 +119,9 @@ def test_tensor_core_route_rules():
     assert tcf.conv3d_tensor_core_route(bf, 8, 8)   # stages 2-3's 8 -> 8
     assert tcf.conv3d_tensor_core_route(bf, 1, 32)  # the stage-1 entry
     assert tcf.conv3d_tensor_core_route(bf, 1, 8)   # stages 2-3's entries
-    for args in ((f32, 1, 32), (f32, 32, 32), (bf, 64, 32), (bf, 1, 16),
-                 (f32, 8, 8), (bf, 8, 1), (f32, 1, 8)):
+    assert tcf.conv3d_tensor_core_route(bf, 1, 16)  # AnyNet's stage-1 entry
+    for args in ((f32, 1, 32), (f32, 32, 32), (bf, 64, 32), (bf, 1, 3),
+                 (f32, 8, 8), (bf, 8, 1), (f32, 1, 8), (f32, 1, 16)):
         assert not tcf.conv3d_tensor_core_route(*args)
 
 
