@@ -31,8 +31,9 @@ failure exits non-zero:
      b0 > 0; 4 -> 4, NCDHW in and out, at AnyNet's stage-2 and stage-3
      shapes too; the entries 1 -> 4 (NCDHW), 1 -> 16 and 1 -> 64 at a
      ragged shape over D = 7 and 5) and conv3d_skip_softargmin (32 and 8
-     channels; 16 and 64, two and three chunks of costs past D = 64) at
-     ragged shapes from
+     channels; 16 and 64, two and three chunks of costs past D = 64; 4,
+     NCDHW, at AnyNet's stage-2 and stage-3 shapes, over D = 7 at odd W
+     and over D = 65) at ragged shapes from
      both layouts (NCHW / channels-last), in float32 (TF32 off; atol
      2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain output's
      span; chain3x3, the 8- and 4-channel conv3d_bn_relu layers and the
@@ -42,8 +43,9 @@ failure exits non-zero:
      picks (`dense_route`), each conv3d_bn_relu entry counted as the
      "entry" route and no other call;
      conv3d_skip_softargmin's copies: none for bf16 channels-last input,
-     one to channels-last for bf16 NCDHW, one to the default layout for
-     float32 channels-last (its CUDA-core kernel reads NCDHW);
+     one to channels-last for bf16 NCDHW (at 4 channels: none for NCDHW,
+     one to it for channels-last), one to the default layout for float32
+     channels-last (its CUDA-core kernel reads NCDHW);
   4. for each engine, the full forward through `make_forward` (kernels)
      and the module path on the card, each held against the module path
      in float64 (the reference): per stage and dtype the kernel path's
@@ -233,16 +235,16 @@ failure exits non-zero:
      ragged shape, and of the bf16 fused last layer past D = 64 at 32, 8,
      16 and 64 channels, each on the route `costfilter.filter_routes`
      gives (bf16 entries at 4, 16 and 64 channels, 16 -> 16 and 64 -> 64
-     and the fused last layer at 8, 16, 32 and 64 channels, any D, on the
-     tensor cores); of every dw-sep
+     and the fused last layer at 4, 8, 16, 32 and 64 channels, any D, on
+     the tensor cores); of every dw-sep
      call of the forward at widths 48 and 20, in the layout the path hands it
      (`refine_kernels.refine_routes`); and of dwsep3x3 solo and pair at
      48, 20 and 64 channels at a ragged shape writing either layout; (b)
      phase 4's forward check under "mxu" at AnyNet's settings with its
      launch counts (conv3d_bn_relu 15, conv3d_skip_softargmin 3, dense3x3
      11), route launches (`want_routes`: stage 1's four 16 -> 16 layers and
-     its fused last layer and the 8 4 -> 4 layers (`c4`, NCDHW) on the
-     tensor cores, the 2 4-channel fused last layers on the CUDA cores),
+     its fused last layer, the 8 4 -> 4 layers (`c4`, NCDHW) and the 2
+     4-channel fused last layers (`s4`, NCDHW) on the tensor cores),
      each stage's entry on the tensor cores (`filter_routes`: `c1`, the
      1 -> 4 entries writing NCDHW) and no layout copy, and under
      every engine at each refinement width in bf16 and float32 (launch
@@ -251,7 +253,8 @@ failure exits non-zero:
      settings at num_stages 1..4; (c) phase 4b on AnyNet's settings
      ("mxu") and on each refinement width (every engine), bf16 and
      float32, and a x1.01 weight fault planted in each route the shipped
-     configuration does not run, caught at that launch alone; (d)
+     configuration does not run, caught at that launch alone (`skip-4`:
+     at stage 2 and, alone, at stage 3, `PLANT_AGAIN`); (d)
      `cli.infer` with the four flags on one pair; (e) each bf16 launch of
      AnyNet's filters, the wide filter's, the fused last layer past D = 64
      at 32 and 8 channels (`PAST_D64`) and the "vpu" engines' dw-sep
@@ -693,10 +696,11 @@ def ragged_calls():
     """Phase 3 only: the tensor-core routes of dense3x3 (32 outputs, the
     narrow entry and the narrow output), dwsep3x3 (solo and
     pair), chain3x3, conv3d_bn_relu (with its entries 1 -> 8 and 1 -> 32;
-    4 -> 4 also at AnyNet's stage-2 and stage-3 shapes; last, the entries
-    1 -> 4, 1 -> 16 and 1 -> 64 over D = 7 and 5, appended so that every
-    earlier call keeps its seed)
-    and conv3d_skip_softargmin at shapes no tile divides (W = 150, 75, 70
+    4 -> 4 also at AnyNet's stage-2 and stage-3 shapes; the entries
+    1 -> 4, 1 -> 16 and 1 -> 64 over D = 7 and 5) and
+    conv3d_skip_softargmin (last, its 4-channel route at AnyNet's stage-2
+    and stage-3 shapes and over D = 7 and 65; each later route appended so
+    that every earlier call keeps its seed) at shapes no tile divides (W = 150, 75, 70
     and 37, H = 37, 29, 11 and 5 not a multiple of R * d = 4d, of the skip
     route's two rows or of the entries' four, D = 7), two
     weight groups at batch 2, C = 16 -> 32 dw-sep layers, the two-input
@@ -800,6 +804,18 @@ def ragged_calls():
                           f"ragged 1->{co} entry B=2 {d}x11x37",
                           dict(B=2, Ci=1, Co=co, D=d, H=11, W=37,
                                entry=True), 0, None))
+    # the fused last layer's 4-channel route (`s4`, NCDHW) at AnyNet's
+    # stage-2 and stage-3 shapes, over two depth tiles at odd W (2-byte
+    # loads) and over 13 at D = 65, from NCDHW and (one counted copy)
+    # channels-last input
+    for cl in (False, True):
+        tag = "channels-last" if cl else "NCHW"
+        for b, d, h, w in ((1, 5, H // 4, W // 4), (1, 5, H // 2, W // 2),
+                           (2, 7, 11, 37), (2, 65, 5, 37)):
+            calls.append(("conv3d_skip_softargmin",
+                          f"4->1 B={b} {d}x{h}x{w} {tag}",
+                          dict(B=b, Ci=4, D=d, H=h, W=w, cl=cl,
+                               start=-(d // 2)), 0, None))
     return calls
 
 
@@ -2718,6 +2734,10 @@ WIDE_FILTER = dict(B=1, C=64, D=72, H=H // 8, W=W // 8)
 PAST_D64 = ("32->1 D=72 channels-last", "8->1 B=2 D=65 5x37 channels-last")
 REFINE_WIDTHS = (48, 20)
 DWSEP_WIDTHS = (48, 20, 64)
+# Routes planted again at a later launch in phase 14c, by the launch's
+# index among the route's: AnyNet's 4-channel fused last layer at stage 3
+# (its first launch, planted too, is stage 2's).
+PLANT_AGAIN = {"skip-4": 1}
 
 
 def config_calls(fields):
@@ -2802,8 +2822,9 @@ def per_launch_phase(dev, fields, engines, zero, tag):
     each of `engines` in bf16 and float32 (the seed-0 set, every launch
     held, kernel launches as `want_counts`), then a x1.01 weight error
     planted in the first launch of each route of the configuration that
-    the shipped one does not run (`parity_layers.ROUTES`), caught there
-    alone. Returns (failures, report)."""
+    the shipped one does not run (`parity_layers.ROUTES`), and in the
+    launches of `PLANT_AGAIN`, each caught there alone. Returns (failures,
+    report)."""
     import torch
     from lwsnet_tpu_torch import ModelConfig
     from lwsnet_tpu_torch.tools import parity_layers as PL
@@ -2830,9 +2851,11 @@ def per_launch_phase(dev, fields, engines, zero, tag):
              for e in engines}
     new = sorted({L.route for plan in plans.values() for L in plan}
                  - set(PL.ROUTES))
-    for route in new:
+    plants = [(r, 0) for r in new] + [(r, n) for r, n in PLANT_AGAIN.items()
+                                      if r in new]
+    for route, nth in plants:
         res = PL.check_plant(route, H, W, dev, log=lambda _: None,
-                             fields=fields)
+                             fields=fields, nth=nth)
         at = res["planted_at"]
         engine = PL.ROUTES.get(PL.shipped_route(route), "mxu")
         got = next(row for row in res["rows"] if row["index"] == at)
@@ -2840,16 +2863,16 @@ def per_launch_phase(dev, fields, engines, zero, tag):
         exact = ("" if "exact_ratio" not in got else
                  f", exact {got['exact_ratio']:.3f} against "
                  f"{ref['exact_ratio']:.3f}")
-        print(f"[{tag}] planted x{PL.PLANT_SCALE} {route} ({engine} #{at}, "
-              f"{got['where']}): ratio {got['mean_ratio']:.3f} (max "
+        print(f"[{tag}] planted x{PL.PLANT_SCALE} {route} launch {nth} "
+              f"({engine} #{at}, {got['where']}): ratio {got['mean_ratio']:.3f} (max "
               f"{got['max_ratio']:.3f}) against sound "
               f"{ref['mean_ratio']:.3f} (max {ref['max_ratio']:.3f})"
               f"{exact}, bar {PL.bars(torch.bfloat16, route)[0]}; "
               f"launches that missed: {res['missed']}")
         if not res["caught"]:
-            failures.append(f"planted {route}: missed at {res['missed']}, "
-                            f"want [{at}] alone")
-        report["planted"][route] = {
+            failures.append(f"planted {route} launch {nth}: missed at "
+                            f"{res['missed']}, want [{at}] alone")
+        report["planted"][route if nth == 0 else f"{route} launch {nth}"] = {
             k: res[k] for k in ("planted_at", "missed", "caught")}
     print(f"[{tag}] per-launch check of {fields}: {len(failures)} misses")
     return failures, report

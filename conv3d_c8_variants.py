@@ -2,12 +2,14 @@
 """Variants of conv3d_bn_relu's 8 -> 8 tensor-core route (with --skip, of
 conv3d_skip_softargmin's; with --entry, of conv3d_bn_relu's 1 -> C entry
 route; with --dwsep, of dwsep3x3's tile body; with --c4, of the 4 -> 4
-route and of the CUDA-core kernel it replaced), timed on one GPU.
+route and of the CUDA-core kernel it replaced; with --skip4, of the fused
+last layer's 4-channel route and of the CUDA-core kernel it replaced),
+timed on one GPU.
 
 Run from the repository root on a machine with a card:
 
-    python3 conv3d_c8_variants.py [--skip | --entry | --dwsep | --c4]
-                                  [--json PATH]
+    python3 conv3d_c8_variants.py [--skip | --entry | --dwsep | --c4 |
+                                   --skip4] [--json PATH]
 
 Each variant is `lwsnet_tpu_torch/csrc/conv3d_bn_relu.cu` with a few
 textual changes to its `c8` namespace, written beside copies of the
@@ -150,6 +152,32 @@ Co) weights, NCDHW in and out):
                       kept): the time without the 108 loads a thread;
   cores_nofma         each tap's 4 FMAs cut to one (its loads kept): the
                       time without three quarters of the FMAs.
+
+--skip4 times conv3d_skip_softargmin's 4-channel route instead (its `s4`
+namespace in `csrc/conv3d_skip_softargmin.cu`), each variant held against
+`conv3d_skip_softargmin_plain` (every element within two bf16 rounding
+steps) and timed alone on the device at the stage-2 and stage-3 geometry
+of SHAPES with 4 channels and D = 5 (AnyNet's settings), NCDHW in, beside
+the CUDA-core kernel that took bf16 Ci = 4 before it
+(`skip_softargmin_kernel<bf16>`, built with the dispatcher's `case 4`
+removed and called with (1, 4, 3, 3, 3) weights):
+
+  blocks1, blocks3    one or three blocks an SM (at most 255 or 85
+                      registers; the route has two, at most 128);
+  clock               clock64() of thread 0 of each block: set-up (the B
+                      fragments, the first tile's loads issued), the first
+                      tile's staging (the wait for its loads and its
+                      stores), later tiles' staging (barriers, stores, the
+                      next tile's loads issued), products (A reads,
+                      mma.sync, the kd exchange), epilogue (skip,
+                      soft-argmin, fold, store), tiles a block and the
+                      block's total (medians over the blocks, in clocks);
+  cores               the CUDA-core kernel as it was;
+  cores_clock         its clock64() split, thread 0 of each block: the
+                      weights staged (two block barriers), the taps
+                      (loads and FMAs), the costs and volume into shared
+                      memory (with the barrier after), warp 0's
+                      soft-argmin, the block's total.
 
 Exits 1 without CUDA, 2 if a variant fails to build or its check.
 """
@@ -558,11 +586,12 @@ def write_variant(name, edits, out_dir, source="conv3d_bn_relu",
     """The variant's sources in out_dir; raises where an edit's anchor is
     not found exactly once in the route's namespace (from its opening line
     to its closing "}  // namespace" line, so that an anchor of the c8
-    route does not also match the c1 route after it). `tail` is appended
-    to the file."""
+    route does not also match the c1 route after it; None: the whole
+    file). `tail` is appended to the file."""
     csrc = os.path.join(ROOT, "lwsnet_tpu_torch", "csrc")
     src = open(os.path.join(csrc, f"{source}.cu")).read()
-    head, body, rest = namespace_body(src, namespace)
+    head, body, rest = (("", src, "") if namespace is None
+                        else namespace_body(src, namespace))
     for old, new in edits:
         if body.count(old) != 1:
             raise RuntimeError(f"{name}: anchor found {body.count(old)} "
@@ -576,9 +605,11 @@ def write_variant(name, edits, out_dir, source="conv3d_bn_relu",
         f.write(head + body + rest + tail)
 
 
-def build_variants(variants, base, source, namespace, tails):
+def build_variants(variants, base, source, namespace, tails, kernel=None):
     """Write and build every variant at once; {name: CDLL} (and "repo":
-    None) and rc 2 if a build failed."""
+    None) and rc 2 if a build failed. `kernel`: a substring of kernel
+    names whose ptxas register, shared-memory and spill lines are printed
+    for each variant."""
     from lwsnet_tpu_torch.ops.cuda import build
     jobs = {}
     for name, edits in variants.items():
@@ -596,6 +627,12 @@ def build_variants(variants, base, source, namespace, tails):
             print(f"{name}: build failed\n{out}")
             rc = 2
             continue
+        lines = out.splitlines()
+        for i, line in enumerate(lines):
+            if kernel and "Compiling entry" in line and kernel in line:
+                print(f"{name}: ptxas {line.split()[-3]}: "
+                      + "; ".join(x.split(":", 1)[-1].strip()
+                                  for x in lines[i + 2:i + 4]))
         libs[name] = ctypes.CDLL(so)
     return libs, rc
 
@@ -869,9 +906,9 @@ C4_VARIANTS = {
     "blocks1": [("constexpr int MIN_BLOCKS = 2;",
                  "constexpr int MIN_BLOCKS = 1;")],
     "clock": [
-        ("constexpr int TD = 5, TH = 4, TW = 64;",
+        ("constexpr int MIN_BLOCKS = 2;",
          "__device__ long long clk[4096][8];\n"
-         "constexpr int TD = 5, TH = 4, TW = 64;"),
+         "constexpr int MIN_BLOCKS = 2;"),
         ("  const int ntiles = tiles(a);\n  int t = blockIdx.x;",
          "  const long long c_start = clock64();\n"
          "  long long c_stage = 0, c_prod = 0, c_epi = 0, c_first = 0;\n"
@@ -989,6 +1026,225 @@ CORES_ROLES = {"weights": 0, "taps": 1, "stores": 2}
 C4_SHAPES = {k: (B, 5, H, W) for k, (B, _, H, W) in SHAPES.items()}
 
 
+
+# The --skip4 family: the fused last layer's 4-channel route (`s4` in
+# csrc/conv3d_skip_softargmin.cu) and the CUDA-core kernel it replaced,
+# whose variants send Ci = 4 back to the CUDA cores by removing the
+# dispatcher's `case 4` (edits anywhere in the file: namespace None).
+_NO_S4 = ("    case 4:\n"
+          "      return s4::launch(x, wt, vol, out, B, D, H, W, start, s);\n",
+          "")
+# s4's blocks an SM (launch bounds)
+_S4_BLOCKS = ("constexpr int MIN_BLOCKS = 2;  // an SM: at most 128 registers\n"
+              "\nstruct Args {\n  const uint16_t* x;    // (B, 4, D, H, W)\n")
+SKIP4_VARIANTS = {
+    **{f"blocks{n}": [(_S4_BLOCKS, _S4_BLOCKS.replace("2;", f"{n};"))]
+       for n in (1, 3, 4)},
+    "clock": [
+        (_S4_BLOCKS, "__device__ long long clk[4096][16];\n" + _S4_BLOCKS),
+        ("  const int ncols = columns(a), nd = ceil_div(a.D, TD);\n",
+         "  const long long c_start = clock64();\n"
+         "  long long c_stage = 0, c_prod = 0, c_epi = 0, c_first = 0;\n"
+         "  int c_tiles = 0;\n"
+         "  const int ncols = columns(a), nd = ceil_div(a.D, TD);\n"),
+        ("  uint32_t vnext[TD];\n  if (t < ncols) {\n",
+         "  uint32_t vnext[TD];\n"
+         "  const long long c_ix = clock64() - c_start;\n"
+         "  if (t < ncols) {\n"),
+        ("    load_volume(a, tt, orow, opix, vnext);\n  }\n",
+         "    load_volume(a, tt, orow, opix, vnext);\n  }\n"
+         "  const long long c_issued = clock64() - c_start;\n"),
+        ("  while (t < ncols) {\n    __syncthreads();  // the last tile's A "
+         "reads done\n",
+         "  const long long c_setup = clock64() - c_start;\n"
+         "  while (t < ncols) {\n    const long long c_top = clock64();\n"
+         "    __syncthreads();  // the last tile's A reads done\n"),
+        ("    __syncthreads();  // the tile staged\n",
+         "    __syncthreads();  // the tile staged\n"
+         "    const long long c_staged = clock64();\n"
+         "    if (c_tiles == 0) c_first = c_staged - c_top;\n"
+         "    else c_stage += c_staged - c_top;\n"),
+        ("    // the skip, then this tile's depths into the running "
+         "soft-argmin\n",
+         "    const long long c_prods = clock64();\n"
+         "    c_prod += c_prods - c_staged;\n"
+         "    // the skip, then this tile's depths into the running "
+         "soft-argmin\n"),
+        ("      a.out[((size_t)cur.b * a.H + h) * a.W + w] = run_num / "
+         "run_den;\n  }\n}\n",
+         "      a.out[((size_t)cur.b * a.H + h) * a.W + w] = run_num / "
+         "run_den;\n"
+         "    c_epi += clock64() - c_prods;\n    ++c_tiles;\n  }\n"
+         "  if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
+         "    long long* ck = clk[blockIdx.x];\n"
+         "    ck[0] = c_stage; ck[1] = c_prod; ck[2] = c_epi;\n"
+         "    ck[3] = c_setup; ck[4] = c_tiles; ck[5] = clock64() - c_start;\n"
+         "    ck[6] = 1; ck[7] = c_first; ck[8] = c_ix; ck[9] = c_issued;\n"
+         "  }\n}\n"),
+    ],
+    "cores": [_NO_S4],
+    "cores_clock": [
+        _NO_S4,
+        ("constexpr int CI_CHUNK = 32;  // input channels whose weights a "
+         "block stages\n",
+         "constexpr int CI_CHUNK = 32;  // input channels whose weights a "
+         "block stages\n__device__ long long clk[4096][8];\n"),
+        ("  float run_m = 0.f, run_den = 0.f, run_num = 0.f;\n"
+         "  for (int d0 = 0; d0 < D; d0 += D_CHUNK) {\n",
+         "  float run_m = 0.f, run_den = 0.f, run_num = 0.f;\n"
+         "  const long long c_start = clock64();\n"
+         "  long long c_w = 0, c_taps = 0, c_skip = 0, c_soft = 0;\n"
+         "  for (int d0 = 0; d0 < D; d0 += D_CHUNK) {\n"),
+        ("      __syncthreads();  // the last chunk's weights and costs read\n",
+         "      const long long cw0 = clock64();\n"
+         "      __syncthreads();  // the last chunk's weights and costs read\n"),
+        ("      __syncthreads();\n      if (w >= W) continue;\n",
+         "      __syncthreads();\n      c_w += clock64() - cw0;\n"
+         "      if (w >= W) continue;\n"
+         "      const long long ct0 = clock64();\n"),
+        ("        acc[k] = a;\n      }\n",
+         "        acc[k] = a;\n      }\n      c_taps += clock64() - ct0;\n"),
+        ("    if (w < W) {\n#pragma unroll\n      for (int k = 0; k < D_PER; "
+         "++k) {\n        const int dl = ty + k * D_LANES;\n",
+         "    const long long cs0 = clock64();\n"
+         "    if (w < W) {\n#pragma unroll\n      for (int k = 0; k < D_PER; "
+         "++k) {\n        const int dl = ty + k * D_LANES;\n"),
+        ("    __syncthreads();\n    if (ty != 0 || w >= W) continue;\n",
+         "    __syncthreads();\n    c_skip += clock64() - cs0;\n"
+         "    if (ty != 0 || w >= W) continue;\n"
+         "    const long long cm0 = clock64();\n"),
+        ("      run_m = mm;\n    }\n  }\n  if (ty == 0 && w < W)",
+         "      run_m = mm;\n    }\n    c_soft += clock64() - cm0;\n  }\n"
+         "  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x"
+         " + blockIdx.x;\n"
+         "  if (threadIdx.x == 0 && blk < 4096) {\n"
+         "    clk[blk][0] = c_w; clk[blk][1] = c_taps; clk[blk][2] = c_skip;\n"
+         "    clk[blk][3] = c_soft; clk[blk][5] = clock64() - c_start;\n"
+         "    clk[blk][6] = 1;\n  }\n"
+         "  if (ty == 0 && w < W)"),
+    ],
+}
+_SKIP4_CLOCK = _C4_CLOCK.replace("c4_clock", "skip4_clock").replace(
+    "c4::clk", "s4::clk")
+_SKIP4_CORES_CLOCK = _CORES_CLOCK
+# The slots of a block in `s4::clk` (the clock variant): thread 0's
+# staging of later tiles (barrier, stores, the next tile's loads issued,
+# barrier), products (A reads, mma.sync and the kd exchange), epilogue
+# (skip, soft-argmin, fold, store), set-up (B fragments, the first tile's
+# loads issued), tiles a block, the block's total, and the first tile's
+# staging (the wait for its loads, issued in the set-up, and its stores).
+SKIP4_ROLES = {"staging": 0, "products": 1, "epilogue": 2, "setup": 3,
+               "tiles": 4, "block": 5, "first_tile": 7, "indices_at": 8,
+               "loads_issued_at": 9}
+# ... and in the CUDA-core kernel's `clk` (cores_clock): the weights staged
+# (two block barriers), the taps (loads and FMAs of thread 0's depths),
+# the costs and the volume into shared memory with the barrier after, and
+# warp 0's soft-argmin, each summed over the chunks; the block's total.
+SKIP4_CORES_ROLES = {"weights": 0, "taps": 1, "skip": 2, "soft_argmin": 3,
+                     "block": 5}
+# (B, D, H, W, start) of AnyNet's 4 -> 1 layers: SHAPES' geometry at D = 5,
+# residual bins from -2.
+SKIP4_SHAPES = {k: (B, 5, H, W, -2) for k, (B, _, H, W) in SHAPES.items()}
+
+
+def skip4_variants(dev, report):
+    """The --skip4 family: each variant of the 4-channel route (`s4`) and
+    of the CUDA-core kernel it replaced, checked (every element within two
+    bf16 rounding steps of `conv3d_skip_softargmin_plain`) and timed alone
+    on the device at SKIP4_SHAPES, NCDHW in; the clock variants' splits
+    (medians over the blocks, thread 0, in clocks). rc 2 if a build or a
+    check failed."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    libs, rc = build_variants(
+        SKIP4_VARIANTS, os.path.join(ROOT, "build", "skip4_variants"),
+        "conv3d_skip_softargmin", None,
+        {"clock": _SKIP4_CLOCK, "cores_clock": _SKIP4_CORES_CLOCK},
+        kernel="c4_kernel")
+
+    def operands(B, D, H, W):
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(np.maximum(rng.standard_normal((B, 4, D, H, W)),
+                                       0), dtype=torch.float32)
+        wt = torch.as_tensor(rng.standard_normal((1, 4, 3, 3, 3))
+                             * np.sqrt(2 / 108), dtype=torch.float32)
+        vol = torch.as_tensor(rng.standard_normal((B, D, H, W)) * 2,
+                              dtype=torch.float32)
+        return (x.to(dev, torch.bfloat16), wt.to(dev, torch.bfloat16),
+                vol.to(dev, torch.bfloat16))
+
+    def cores_call(lib, x, wt, vol, start):
+        """The CUDA-core kernel of `lib` at bf16 4 -> 1, NCDHW in, the
+        weights as (1, 4, 3, 3, 3); a fn of no arguments."""
+        fn = lib.conv3d_skip_softargmin_bf16
+        fn.argtypes = build.CONV3D_SKIP_SOFTARGMIN.argtypes
+        fn.restype = ctypes.c_int
+        B, _, D, H, W = x.shape
+        out = torch.empty((B, H, W), dtype=torch.float32, device=x.device)
+
+        def run():
+            rc = fn(x.data_ptr(), wt.data_ptr(), vol.data_ptr(),
+                    out.data_ptr(), B, 4, D, H, W, float(start),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"cudaError {rc}")
+            return out
+        return run
+
+    def split(read, reset, fn, roles, slots):
+        torch.cuda.synchronize()
+        reset()
+        fn()
+        torch.cuda.synchronize()
+        clk = np.zeros(4096 * slots, np.int64)
+        read(ctypes.c_void_p(clk.ctypes.data))
+        c = clk.reshape(4096, slots)
+        c = c[c[:, 6] == 1]
+        out = {r: float(np.median(c[:, k])) for r, k in roles.items()}
+        out["blocks"] = int(len(c))
+        return out
+
+    kern = build.CONV3D_SKIP_SOFTARGMIN
+    kern._fn("conv3d_skip_softargmin_bf16")  # loads the library
+    repo_lib = kern._lib
+    for name, lib in libs.items():
+        on_s4 = not name.startswith("cores")
+        kern._lib = repo_lib if lib is None else lib
+        kern._fns = {}
+        row = {}
+        for shape, (B, D, H, W, start) in SKIP4_SHAPES.items():
+            x, wt, vol = operands(B, D, H, W)
+            fn = ((lambda: CF.conv3d_skip_softargmin(x, wt, vol, start))
+                  if on_s4 else cores_call(lib, x, wt, vol, start))
+            want = CF.conv3d_skip_softargmin_plain(x, wt, vol, start)
+            got = fn()
+            tol = 2 * 2.0 ** -8 * want.abs() + 2e-2 * want.abs().max()
+            bad = int(((got - want).abs() > tol).sum())
+            if bad:
+                print(f"{name}: {shape}: {bad} elements beyond two rounding "
+                      f"steps")
+                rc = 2
+            ms = cs.kernel_device_ms(fn, "skip_softargmin")
+            row[shape] = ms
+            print(f"{name}: {shape} 4->1: "
+                  f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+            if name in ("clock", "cores_clock"):
+                prefix = "skip4" if name == "clock" else "cores"
+                row[f"{shape} clock64"] = out = split(
+                    getattr(lib, f"{prefix}_clock_read"),
+                    getattr(lib, f"{prefix}_clock_reset"), fn,
+                    *((SKIP4_ROLES, 16) if name == "clock"
+                      else (SKIP4_CORES_ROLES, 8)))
+                print(f"{name}: {shape} clock64 medians over the blocks "
+                      f"(thread 0, clocks): {out}")
+        report["variants"][name] = row
+    kern._lib = repo_lib
+    kern._fns = {}
+    return rc
+
 def c4_variants(dev, report):
     """The --c4 family: each variant of the 4 -> 4 route and of the
     CUDA-core kernel it replaced, checked and timed at C4_SHAPES, the clock
@@ -1098,6 +1354,7 @@ def main(argv=None):
     family.add_argument("--entry", action="store_true")
     family.add_argument("--dwsep", action="store_true")
     family.add_argument("--c4", action="store_true")
+    family.add_argument("--skip4", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -1114,9 +1371,10 @@ def main(argv=None):
     print(f"card: {card()}")
     build.build_all()
     report = {"card": card(), "variants": {}}
-    if args.skip or args.entry or args.dwsep or args.c4:
+    if args.skip or args.entry or args.dwsep or args.c4 or args.skip4:
         rc = (skip_variants if args.skip else entry_variants if args.entry
-              else dwsep_variants if args.dwsep else c4_variants)(dev, report)
+              else dwsep_variants if args.dwsep else c4_variants if args.c4
+              else skip4_variants)(dev, report)
         if args.json:
             os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
             with open(args.json, "w") as f:

@@ -182,7 +182,9 @@
 //     (not on the forward): 2-byte lane stores.
 // * bf16, Ci == Co == 4 (AnyNet's stage-2/3 layers, D = 5): `c4` below,
 //   NCDHW in and out (the layout of the 1->4 entry, `c1`, and of the
-//   fused 4->1 last layer, on the CUDA cores). On the CUDA cores one thread a
+//   fused 4->1 last layer, `s4` in conv3d_skip_softargmin.cu, which
+//   shares this route's tile, staging and A: `stage4.cuh`). On the CUDA
+//   cores one thread a
 //   pixel made 108 scalar 2-byte loads, each input value loaded 27 times,
 //   and 432 float32 FMAs a voxel: 47 us a launch at stage 3, 17x its
 //   bytes bound (PERF.md §6 splits it).
@@ -230,6 +232,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "stage4.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -1364,19 +1367,21 @@ int launch(const Args& a, cudaStream_t stream) {
 
 namespace c4 {
 
-constexpr int TD = 5, TH = 4, TW = 64;  // output tile
-constexpr int SH = TH + 2;              // staged rows a depth
-constexpr int SROWS = (TD + 2) * SH;    // 42 staged (depth, row) rows
-constexpr int PX = TW + 4;              // their pixels: w0 - 2 .. w0 + 65
-constexpr int PW = 2 * PX;              // 32-bit words a row (8-byte voxels)
-constexpr int THREADS = 256;            // 4 pixel blocks x 2 row pairs
-constexpr int MIN_BLOCKS = 2;           // an SM: at most 128 registers
-// Staging: thread t loads pixel pair k = t % 32 (pixels w0 - 2 + 2k, + 1)
-// of rows t / 32 + 8i, i < RI, and, below 2 SROWS, pair 32 + t % 2 of row
-// t / 2: the PX / 2 = 34 pairs of every row.
-constexpr int RI = (SROWS + 7) / 8;
-static_assert(THREADS == 8 * 32 && PX == 2 * 34 && 2 * SROWS <= THREADS,
-              "staging");
+// the tile, its staging and mma.sync (stage4.cuh)
+using stage4::load_tile;
+using stage4::mma;
+using stage4::PW;
+using stage4::SH;
+using stage4::SROWS;
+using stage4::Staged;
+using stage4::store_tile;
+using stage4::TD;
+using stage4::TH;
+using stage4::THREADS;
+using stage4::Tile;
+using stage4::TW;
+
+constexpr int MIN_BLOCKS = 2;  // an SM: at most 128 registers
 
 struct Args {
   const uint16_t* x;   // (B, 4, D, H, W)
@@ -1384,10 +1389,6 @@ struct Args {
   const float* shift;  // (4,)
   bf16* y;             // (B, 4, D, H, W)
   int B, D, H, W;
-};
-
-struct Tile {
-  int b, d0, h0, w0;
 };
 
 __host__ __device__ inline int tiles(const Args& a) {
@@ -1405,95 +1406,6 @@ __device__ __forceinline__ Tile tile_of(const Args& a, int t) {
   r.d0 = t % nd * TD;
   r.b = t / nd;
   return r;
-}
-
-// A thread's staged values of a tile: per (row, channel) a pixel pair,
-// 0 outside the volume. EVEN (W even: a pair lies in or out of the volume
-// whole and starts 4-byte aligned): one 4-byte load, two bf16 in a
-// register; else two 2-byte loads, each in a register of its own. Nothing
-// is used here, so the loads are all in flight together.
-template <bool EVEN>
-struct Staged {
-  static constexpr int N = EVEN ? 1 : 2;
-  uint32_t v[RI + 1][4][N];  // [RI]: the extra pair
-};
-
-template <bool EVEN>
-__device__ __forceinline__ void load_pair(const Args& a, const Tile& tt,
-                                          int r, int k, bool row_ok,
-                                          uint32_t (&v)[4][Staged<EVEN>::N]) {
-  const size_t vol = (size_t)a.D * a.H * a.W;
-  const int dd = tt.d0 - 1 + r / SH, hh = tt.h0 - 1 + r % SH;
-  const int w = tt.w0 - 2 + 2 * k;
-  const bool in = row_ok && (unsigned)dd < (unsigned)a.D &&
-                  (unsigned)hh < (unsigned)a.H;
-  const uint16_t* p =
-      a.x + (((size_t)tt.b * 4 * a.D + dd) * a.H + hh) * a.W + w;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if constexpr (EVEN) {
-      v[c][0] = in && (unsigned)w < (unsigned)a.W
-                    ? __ldg(reinterpret_cast<const uint32_t*>(p + c * vol))
-                    : 0u;
-    } else {
-      v[c][0] = in && (unsigned)w < (unsigned)a.W ? __ldg(p + c * vol) : 0u;
-      v[c][1] = in && (unsigned)(w + 1) < (unsigned)a.W
-                    ? __ldg(p + c * vol + 1)
-                    : 0u;
-    }
-  }
-}
-
-template <bool EVEN>
-__device__ __forceinline__ void load_tile(const Args& a, const Tile& tt,
-                                          Staged<EVEN>& s) {
-  const int k = threadIdx.x % 32, q = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-    load_pair<EVEN>(a, tt, q + 8 * i, k, q + 8 * i < SROWS, s.v[i]);
-  if (threadIdx.x < 2 * SROWS)
-    load_pair<EVEN>(a, tt, threadIdx.x / 2, 32 + threadIdx.x % 2, true,
-                    s.v[RI]);
-}
-
-// Pair k of staged row r to the staging buffer: its two voxels,
-// channels-last (staged pixel j = pixel - (w0 - 2) at words 2j, 2j + 1),
-// one 16-byte store.
-template <bool EVEN>
-__device__ __forceinline__ void store_pair(
-    const uint32_t (&v)[4][Staged<EVEN>::N], uint32_t* stage, int r, int k) {
-  uint32_t c[4];  // channel c's pixels: lo the first, hi the second
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (EVEN)
-      c[i] = v[i][0];
-    else
-      c[i] = v[i][0] | v[i][1] << 16;
-  }
-  *reinterpret_cast<uint4*>(stage + r * PW + 4 * k) = make_uint4(
-      __byte_perm(c[0], c[1], 0x5410), __byte_perm(c[2], c[3], 0x5410),
-      __byte_perm(c[0], c[1], 0x7632), __byte_perm(c[2], c[3], 0x7632));
-}
-
-template <bool EVEN>
-__device__ __forceinline__ void store_tile(const Staged<EVEN>& s,
-                                           uint32_t* stage) {
-  const int k = threadIdx.x % 32, q = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-    if (q + 8 * i < SROWS) store_pair<EVEN>(s.v[i], stage, q + 8 * i, k);
-  if (threadIdx.x < 2 * SROWS)
-    store_pair<EVEN>(s.v[RI], stage, threadIdx.x / 2, 32 + threadIdx.x % 2);
-}
-
-// d += a (16 pixels x 16, row-major) * b (16 x 8, col-major), float32.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Persistent blocks walk the tiles; each stages a tile's 42 rows of 68
@@ -1520,7 +1432,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   int t = blockIdx.x;
   Tile tt = tile_of(a, t);
   Staged<EVEN> s;
-  if (t < ntiles) load_tile<EVEN>(a, tt, s);
+  if (t < ntiles) load_tile<EVEN>(a.x, a.D, a.H, a.W, tt, s);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4, pb = warp % 4, rg = warp / 4;
@@ -1543,7 +1455,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const Tile cur = tt;
     if (t + (int)gridDim.x < ntiles) {
       tt = tile_of(a, t + gridDim.x);
-      load_tile<EVEN>(a, tt, s);
+      load_tile<EVEN>(a.x, a.D, a.H, a.W, tt, s);
     }
     __syncthreads();  // the tile staged
 

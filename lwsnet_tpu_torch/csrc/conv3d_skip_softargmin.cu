@@ -19,7 +19,7 @@
 // the tensor cores, where they cost next to nothing. A 64-channel
 // filter's last layer over D = 72 at 46x154 reads 66.3 MB: 19.8 us.
 //
-// Two routes, picked by dtype and width (`costfilter.filter_routes`):
+// Three routes, picked by dtype and width (`costfilter.filter_routes`):
 // * bf16, Ci == 64, 32 (stage 1; 16 in AnyNet's stage 1) or 8 (stages
 //   2-3), any D, channels-last (B, D, H, W, C) in, as the stage's
 //   tensor-core layers write it: tensor cores (`tcr` below, helpers in
@@ -97,10 +97,40 @@
 //     the staging warp (5-9 % slower at the shipped shapes than one bulk
 //     copy); at Ci = 16 / 64 and past D = 64 the CUDA cores below, which
 //     lose 16.3x to cuDNN at Ci = 64, D = 72 (4.67 ms).
-// * otherwise (float32 at every width; bf16 at every other width, e.g.
-//   AnyNet's 4 channels or a ragged 3): the CUDA cores, any Ci and D,
-//   NCDHW in. A block takes 32 pixels of one image row and walks D in
-//   chunks of 64. Its 8 warps split a chunk's disparities between them:
+// * bf16, Ci == 4 (AnyNet's stages 2-3, D = 5), any D, NCDHW in, as the
+//   stage's 4 -> 4 layers (conv3d_bn_relu's `c4`) write it: tensor cores
+//   by mma.sync (`s4` below). On the CUDA cores (the route after it) a block
+//   took 32 pixels of one row, three of its eight warps idle at D = 5,
+//   and each input value was loaded 27 times: 39 us a stage-3 launch, 5 %
+//   of its bytes bound (PERF.md §6).
+//   - Persistent blocks of 256 threads, two an SM, walk columns of tiles
+//     (b, 4 rows, 64 pixels), each over its depth tiles of TD = 5 (one at
+//     D = 5); ragged D, H and W are masked.
+//   - Staging as `c4`'s (`stage4.cuh`): the tile's 7 x 6 = 42 rows of 68
+//     voxels (w0 - 2 .. w0 + 65), read from the four channel planes by
+//     coalesced 4-byte loads of pixel pairs where W is even (2-byte loads
+//     where it is odd), the next tile's issued before this tile's products
+//     (a register prefetch, the volume at each lane's output pixel for the
+//     tile's depths with them), written channels-last as 8-byte voxels by
+//     16-byte stores, zeros outside the volume. No TMA: a map's strides
+//     must be multiples of 16 bytes, and a stage-2 row is 616.
+//   - Products, no im2col: A as `c4`'s (a staged row's 16 elements from
+//     pixel p on are taps kw = 0, 1, 2 of output pixel p and a fourth of
+//     zero weight; its rows the pixels in pairs). The one output channel
+//     frees B's 8 columns for (output row r, kd): warp (pb, rg) takes 16
+//     pixels of output rows 2 rg and 2 rg + 1, and per staged (depth,
+//     row) one A fragment and one mma.sync m16n8k16 against the staged
+//     row's resident slice (4 slices, 8 registers,
+//     `costfilter.skip_c4_images`): 28 products a warp a tile, each
+//     staged depth's four summed, column (r, kd) going to output depth sd
+//     - kd after one exchange of lane pairs (two shuffles).
+//   - Epilogue: each lane ends with one (row, pixel)'s TD costs; the skip,
+//     the two-pass soft-argmin of the tile's depths folded into a running
+//     one past the first depth tile, as above; float32 out.
+// * otherwise (float32 at every width; bf16 at every other width, e.g. a
+//   ragged 3): the CUDA cores, any Ci and D, NCDHW in. A block takes 32
+//   pixels of one image row and walks D in chunks of 64. Its 8 warps
+//   split a chunk's disparities between them:
 //   each thread forms one pixel's cost at its disparities (reads coalesced
 //   along W) into shared memory, the weights staged 32 input channels at a
 //   time; then one warp runs the chunk's soft-argmin, the least cost and
@@ -108,6 +138,9 @@
 //   (both sums rescaled to the lesser least cost), so D is unbounded. At
 //   D <= 64 and Ci <= 32 (one chunk of each) it sums in the order of the
 //   single-pass kernel it replaces. Bound: the bytes, as above; not tuned.
+#include <algorithm>
+
+#include "stage4.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -703,6 +736,225 @@ int launch(const void* x, const void* wt, const void* vol, void* out, int B,
 
 }  // namespace tcr
 
+// ---- the bf16 4-channel tensor-core route ----------------------------------
+
+namespace s4 {
+
+// the tile, its staging and mma.sync (stage4.cuh)
+using stage4::load_tile;
+using stage4::mma;
+using stage4::PW;
+using stage4::SH;
+using stage4::SROWS;
+using stage4::Staged;
+using stage4::store_tile;
+using stage4::TD;
+using stage4::TH;
+using stage4::THREADS;
+using stage4::Tile;
+using stage4::TW;
+
+constexpr int MIN_BLOCKS = 2;  // an SM: at most 128 registers
+
+struct Args {
+  const uint16_t* x;    // (B, 4, D, H, W)
+  const uint32_t* wk;   // the 4 B slices (`costfilter.skip_c4_images`)
+  const uint16_t* vol;  // (B, D, H, W)
+  float* out;           // (B, H, W)
+  int B, D, H, W;
+  float start;
+};
+
+// Columns of tiles: (b, h0, w0), each walked over its depth tiles.
+__host__ __device__ inline int columns(const Args& a) {
+  return a.B * ceil_div(a.H, TH) * ceil_div(a.W, TW);
+}
+
+__device__ __forceinline__ Tile tile_of(const Args& a, int t, int dt) {
+  const int ncx = ceil_div(a.W, TW), nh = ceil_div(a.H, TH);
+  Tile r;
+  r.w0 = t % ncx * TW;
+  t /= ncx;
+  r.h0 = t % nh * TH;
+  r.b = t / nh;
+  r.d0 = dt * TD;
+  return r;
+}
+
+// The volume at output row `orow`, pixel `opix` of tile `tt` for each of
+// its depths, 0 outside; loaded with the tile's staged values, in flight
+// together.
+__device__ __forceinline__ void load_volume(const Args& a, const Tile& tt,
+                                            int orow, int opix,
+                                            uint32_t (&v)[TD]) {
+  const int h = tt.h0 + orow, w = tt.w0 + opix;
+  const bool in = h < a.H && w < a.W;
+  const uint16_t* p =
+      a.vol + (((size_t)tt.b * a.D + tt.d0) * a.H + h) * a.W + w;
+#pragma unroll
+  for (int od = 0; od < TD; ++od)
+    v[od] = in && tt.d0 + od < a.D ? __ldg(p + (size_t)od * a.H * a.W) : 0u;
+}
+
+// Persistent blocks walk columns of tiles, each column over its depth
+// tiles; a tile's 42 rows of 68 voxels are staged channels-last while the
+// next tile's pairs and volume fly (a register prefetch), then warp (pb,
+// rg) = (warp % 4, warp / 4) multiplies pixels 16 pb .. + 15 of output
+// rows 2 rg, 2 rg + 1. A's rows are the pixels in pairs (row g pixel 2g,
+// row g + 8 pixel 2g + 1), its 16 columns the elements from each pixel's
+// staged voxel on (taps kw = 0, 1, 2 and a fourth of zero weight), as in
+// `c4`. The one output channel frees B's columns for the depth taps: per
+// staged row sh (0 .. 3 from row 2 rg) one resident slice whose column
+// n = 4 r + kd holds output row r's tap (kd, kh = sh - r) (zero where kh
+// falls outside 0 .. 2, and at kd = 3). So per staged (depth, row) one A
+// fragment and one product, 28 a warp a tile, summed over the four rows
+// into P of staged depth sd: column (r, kd) belongs to output depth sd -
+// kd. Lane (g, t) holds columns 2t, 2t + 1 of pixels 2g and 2g + 1; one
+// exchange with lane t ^ 1 (two shuffles) leaves lane (g, t) all three kd
+// terms of output row t / 2, pixel 2g + t % 2. Then the skip, and the
+// soft-argmin of the tile's depths (the least cost, then the sums in
+// order of d) folded into the lane's running one, both sums rescaled to
+// the lesser least cost, as the other routes do; at D <= TD that is the
+// single two-pass soft-argmin. The column's last depth tile writes
+// float32, ragged H and W masked.
+template <bool EVEN>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    skip_softargmin_c4_kernel(Args a) {
+  __shared__ __align__(16) uint32_t stage[SROWS * PW];
+
+  const int ncols = columns(a), nd = ceil_div(a.D, TD);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4, pb = warp % 4, rg = warp / 4;
+  const bool odd = q & 1;
+  // this lane's output once exchanged: row orow, pixel opix of the tile
+  const int orow = 2 * rg + q / 2, opix = pb * 16 + 2 * g + (q & 1);
+  int t = blockIdx.x, dt = 0;
+  Tile tt = tile_of(a, t, 0);
+  Staged<EVEN> s;
+  uint32_t vnext[TD];
+  if (t < ncols) {
+    load_tile<EVEN>(a.x, a.D, a.H, a.W, tt, s);
+    load_volume(a, tt, orow, opix, vnext);
+  }
+
+  uint32_t bw[4][2];  // B of staged row sh: k = 2q + {0, 1} (+ 8), column g
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bw[i][0] = __ldg(a.wk + (i * 8 + g) * 8 + q);
+    bw[i][1] = __ldg(a.wk + (i * 8 + g) * 8 + q + 4);
+  }
+  // this lane's A words: pixel 16 pb + 2g (+ 1) from its staged pixel on
+  const int aoff = 2 * (pb * 16 + 2 * g + 1) + q;
+  // the running soft-argmin of this lane's pixel over the column's depth
+  // tiles so far: the least cost, and the sums of exp(least - cost) and of
+  // that times the bin
+  float run_m = 0.f, run_den = 0.f, run_num = 0.f;
+
+  while (t < ncols) {
+    __syncthreads();  // the last tile's A reads done
+    store_tile<EVEN>(s, stage);
+    uint32_t vraw[TD];
+#pragma unroll
+    for (int od = 0; od < TD; ++od) vraw[od] = vnext[od];
+    const Tile cur = tt;
+    const bool last = dt == nd - 1;
+    if (last) {
+      dt = 0;
+      t += gridDim.x;
+    } else {
+      ++dt;
+    }
+    if (t < ncols) {
+      tt = tile_of(a, t, dt);
+      load_tile<EVEN>(a.x, a.D, a.H, a.W, tt, s);
+      load_volume(a, tt, orow, opix, vnext);
+    }
+    __syncthreads();  // the tile staged
+
+    float cost[TD];
+#pragma unroll
+    for (int od = 0; od < TD; ++od) cost[od] = 0.f;
+#pragma unroll
+    for (int sd = 0; sd < TD + 2; ++sd) {
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int sh = 0; sh < 4; ++sh) {
+        const uint32_t* ap = stage + (sd * SH + 2 * rg + sh) * PW + aoff;
+        const uint32_t af[4] = {ap[0], ap[2], ap[4], ap[6]};
+        mma(p, af, bw[sh]);
+      }
+      // even lanes hold (kd 0, kd 1) of row t / 2, odd lanes (kd 2, 0):
+      // the even lane sends pixel 2g + 1's kd 0 and kd 1, the odd lane
+      // pixel 2g's kd 2
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? p[0] : p[2], 1);
+      const float r2 = __shfl_xor_sync(0xffffffffu, p[3], 1);
+      const float k0 = odd ? r1 : p[0], k1 = odd ? r2 : p[1];
+      const float k2 = odd ? p[2] : r1;
+      if (sd < TD) cost[sd] += k0;
+      if (sd >= 1 && sd - 1 < TD) cost[sd - 1] += k1;
+      if (sd >= 2) cost[sd - 2] += k2;
+    }
+
+    // the skip, then this tile's depths into the running soft-argmin
+    const int dn = min(TD, a.D - cur.d0);
+#pragma unroll
+    for (int od = 0; od < TD; ++od)
+      cost[od] += __uint_as_float(vraw[od] << 16);
+    float m = cost[0];
+#pragma unroll
+    for (int od = 1; od < TD; ++od)
+      if (od < dn) m = fminf(m, cost[od]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int od = 0; od < TD; ++od) {
+      if (od >= dn) break;
+      const float e = expf(m - cost[od]);
+      den += e;
+      num = fmaf(e, a.start + (float)(cur.d0 + od), num);
+    }
+    if (cur.d0 == 0) {
+      run_m = m;
+      run_den = den;
+      run_num = num;
+    } else {  // both sums rescaled to the lesser of the two least costs
+      const float mm = fminf(run_m, m);
+      const float s_run = expf(mm - run_m), s_new = expf(mm - m);
+      run_den = run_den * s_run + den * s_new;
+      run_num = run_num * s_run + num * s_new;
+      run_m = mm;
+    }
+    const int h = cur.h0 + orow, w = cur.w0 + opix;
+    if (last && h < a.H && w < a.W)
+      a.out[((size_t)cur.b * a.H + h) * a.W + w] = run_num / run_den;
+  }
+}
+
+// Persistent blocks, as many as fit (the occupancy, queried once), at most
+// one a column.
+template <bool EVEN>
+int launch_w(const Args& a, cudaStream_t s) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, skip_softargmin_c4_kernel<EVEN>, THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (per_sm < 1 || tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
+  const int grid = std::min(columns(a), per_sm * tc::sm_count());
+  if (grid < 1) return (int)cudaSuccess;
+  skip_softargmin_c4_kernel<EVEN><<<grid, THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* x, const void* wt, const void* vol, void* out, int B,
+           int D, int H, int W, float start, cudaStream_t s) {
+  const Args a{(const uint16_t*)x, (const uint32_t*)wt,
+               (const uint16_t*)vol, (float*)out, B, D, H, W, start};
+  return W % 2 == 0 ? launch_w<true>(a, s) : launch_w<false>(a, s);
+}
+
+}  // namespace s4
+
 }  // namespace
 
 // x NCDHW; wt (1, Ci, 3, 3, 3).
@@ -715,9 +967,11 @@ extern "C" int conv3d_skip_softargmin_f32(const void* x, const void* wt,
                              (cudaStream_t)stream);
 }
 
-// The tensor-core route where it takes the width (x channels-last, wt the
-// B images of `costfilter.skip_images`), else the CUDA cores (x NCDHW, wt
-// (1, Ci, 3, 3, 3)). Mirrored by `costfilter.skip_tensor_core_route`.
+// The tensor-core routes where they take the width (`tcr`: x
+// channels-last, wt the B images of `costfilter.skip_images`; `s4`, Ci =
+// 4: x NCDHW, wt the B slices of `costfilter.skip_c4_images`), else the
+// CUDA cores (x NCDHW, wt (1, Ci, 3, 3, 3)). Mirrored by
+// `costfilter.skip_tensor_core_route`.
 extern "C" int conv3d_skip_softargmin_bf16(const void* x, const void* wt,
                                            const void* vol, void* out, int B,
                                            int Ci, int D, int H, int W,
@@ -733,6 +987,8 @@ extern "C" int conv3d_skip_softargmin_bf16(const void* x, const void* wt,
       return tcr::launch<16>(x, wt, vol, out, B, D, H, W, start, s);
     case 8:
       return tcr::launch<8>(x, wt, vol, out, B, D, H, W, start, s);
+    case 4:
+      return s4::launch(x, wt, vol, out, B, D, H, W, start, s);
   }
   return launch_cores<bf16>(x, wt, vol, out, B, Ci, D, H, W, start, s);
 }

@@ -30,10 +30,11 @@ channels-last-3d in memory, (B, D, H, W, C) under the logical
 input channel, the raw volume, lies the same in both layouts), the
 C -> C layers read and write it, and the fused last layer reads it on
 the tensor cores, at any D. A bf16 stage of 4 channels (AnyNet's stages
-2-3) runs its entry and its 4 -> 4 layers on the tensor cores in the
-default layout, which they write and its fused last layer, on the CUDA
-cores, reads. Every other stage, float32 at any width and bf16 at any
-other width, and any D, runs on the CUDA cores in the default layout. No
+2-3) runs every launch on the tensor cores in the default layout, NCDHW,
+which its entry and its 4 -> 4 layers write and its 4 -> 4 layers and
+fused last layer read, at any D. Every other stage, float32 at any width
+and bf16 at any other width, and any D, runs on the CUDA cores in the
+default layout. No
 filter makes a layout copy. A copy, where a caller hands a kernel the
 other layout, is `build.in_layout`'s, counted.
 """
@@ -115,12 +116,11 @@ def filter_routes(dtype: torch.dtype, channels: int, D: int) -> StageRoutes:
     """The route and layouts of each launch of a stage's filter of width
     `channels` over D costs a pixel, in `dtype` (float32 or bf16): for
     bf16 at 32, 16, 64 or 8 channels every launch on the tensor cores at
-    any D, and every activation channels-last; for bf16 at 4 channels the
-    entry and the 4 -> 4 layers on the tensor cores, the fused last layer
-    on the CUDA cores, every activation NCDHW; the CUDA cores and NCDHW
-    otherwise. Each launch reads what the one
-    before it writes. Mirrors `use_tc` in csrc/conv3d_bn_relu.cu and the
-    bf16 entry of csrc/conv3d_skip_softargmin.cu."""
+    any D, and every activation channels-last; for bf16 at 4 channels
+    every launch on the tensor cores at any D, and every activation
+    NCDHW; the CUDA cores and NCDHW otherwise. Each launch reads what the
+    one before it writes. Mirrors `use_tc` in csrc/conv3d_bn_relu.cu and
+    the bf16 entry of csrc/conv3d_skip_softargmin.cu."""
     if channels < 1 or D < 1:
         raise ValueError(f"a filter of {channels} channels over {D} costs")
     tc = conv3d_tensor_core_route(dtype, channels, channels)
@@ -172,12 +172,28 @@ def tc_images(wt: torch.Tensor) -> torch.Tensor:
 
 
 def skip_tensor_core_route(dtype: torch.dtype, Ci: int) -> bool:
-    """Whether `conv3d_skip_softargmin` runs its wgmma route (`tcr` in
-    csrc/conv3d_skip_softargmin.cu), which reads channels-last, at any D:
-    bf16 at 64, 32 (stage 1), 16 (AnyNet's stage 1) or 8 (stages 2-3)
-    input channels, the widths whose C -> C layers write channels-last.
-    Other bf16 widths and float32 take the CUDA cores (`filter_routes`)."""
-    return dtype == torch.bfloat16 and Ci in (8, 16, 32, 64)
+    """Whether `conv3d_skip_softargmin` runs a tensor-core route at any D:
+    the wgmma route (`tcr` in csrc/conv3d_skip_softargmin.cu), which reads
+    channels-last, at bf16 64, 32 (stage 1), 16 (AnyNet's stage 1) or 8
+    (stages 2-3) input channels, the widths whose C -> C layers write
+    channels-last; the mma.sync route (`s4`), which reads NCDHW, at bf16
+    4 (AnyNet's stages 2-3), as its 4 -> 4 layers write it. Other bf16
+    widths and float32 take the CUDA cores (`filter_routes`)."""
+    return dtype == torch.bfloat16 and Ci in (4, 8, 16, 32, 64)
+
+
+def skip_c4_images(wt: torch.Tensor) -> torch.Tensor:
+    """(1, 4, 3, 3, 3) -> the 4 -> 1 route's register-resident B slices:
+    per sh = 0 .. 3, a warp's staged row from its first output row on, a
+    16 x 8 slice whose column n = 4 r + kd holds output row r's tap (kd,
+    kh = sh - r) (zero where kh falls outside 0 .. 2, and at kd = 3);
+    k = 4 kw + ci (zero for kw = 3), K contiguous a column, as (sh, r, kd,
+    kw, ci): the mma.sync B fragment of lane (g, t) is words (sh 8 + g) 8
+    + t and + 4 (csrc/conv3d_skip_softargmin.cu, `s4`). One pad and one
+    copy: the windows of 2 over kh padded by a zero row on each side,
+    taken in reverse (r = 0 reads the lower row of a window)."""
+    w = F.pad(wt[0].permute(2, 1, 3, 0), (0, 0, 0, 1, 0, 1, 1, 1))
+    return w.unfold(0, 2, 1).flip(-1).permute(0, 4, 1, 2, 3).contiguous()
 
 
 def skip_images(wt: torch.Tensor) -> torch.Tensor:
@@ -313,10 +329,11 @@ def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
                            vol: torch.Tensor, start: int) -> torch.Tensor:
     """Fused last layer + skip + soft-argmin; see the plain version. On the
     card it reads the layout of its stage's layers (`filter_routes`:
-    channels-last for bf16 at 8, 16, 32 or 64 channels, where it runs on
-    the tensor cores; NCDHW on the CUDA cores at every other width and in
-    float32; x is copied where it lies otherwise) and takes any Ci and D.
-    Launches on the CUDA cores count as route "cores"."""
+    channels-last for bf16 at 8, 16, 32 or 64 channels, on the tensor
+    cores; NCDHW for bf16 at 4, on the tensor cores, and on the CUDA cores
+    at every other width and in float32; x is copied where it lies
+    otherwise) and takes any Ci and D. Launches on the CUDA cores count as
+    route "cores"."""
     if not on_card(x):
         return conv3d_skip_softargmin_plain(x, wt, vol, start)
     B, Ci, D, H, W = x.shape
@@ -326,7 +343,8 @@ def conv3d_skip_softargmin(x: torch.Tensor, wt: torch.Tensor,
     check(x, "x", (B, Ci, D, H, W), x.dtype, x.device, route.reads_cl)
     check(wt, "wt", (1, Ci, 3, 3, 3), x.dtype, x.device)
     check(vol, "vol", (B, D, H, W), x.dtype, x.device)
-    wk = skip_images(wt) if tensor_core else wt
+    wk = (skip_c4_images(wt) if tensor_core and Ci == 4
+          else skip_images(wt) if tensor_core else wt)
     out = torch.empty((B, H, W), dtype=torch.float32, device=x.device)
     CONV3D_SKIP_SOFTARGMIN.launch(
         f"conv3d_skip_softargmin_{symbol_suffix(x.dtype)}", x.device,
@@ -369,8 +387,8 @@ def filter_soft_argmin(cost: torch.Tensor, params: Dict[str, torch.Tensor],
     vol = cost.permute(0, 3, 1, 2).to(dtype).contiguous()  # (B, D, H, W)
     # Every layer hands on the layout the next one reads: each wrapper's
     # default, from `filter_routes` (channels-last for bf16 at 8, 16, 32
-    # or 64 channels, NCDHW otherwise). The entry applies layer 0's BN +
-    # ReLU.
+    # or 64 channels, NCDHW otherwise, the tensor cores' 4 channels
+    # among them). The entry applies layer 0's BN + ReLU.
     for i in range(n - 1):
         a_next, b_next = affs[i + 1]
         wt = (params[f"BNReLUConv3D_{i}.weight"].float()

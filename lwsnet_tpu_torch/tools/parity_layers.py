@@ -547,17 +547,20 @@ class Recorder:
     call takes the next launch of `plan`, calls the kernel, and, where
     `held` says so, holds its output against the launch's references on
     `model` (the launch's dtype) and `truth` (float64). `plant`: the route
-    whose first launch gets its weights scaled by PLANT_SCALE."""
+    whose launch `nth` (0: the first) gets its weights scaled by
+    PLANT_SCALE."""
 
     def __init__(self, model, truth, plan: Sequence[Launch],
                  held: Callable[[Launch], bool],
                  plant: Optional[str] = None,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, nth: int = 0):
         self.model, self.truth, self.plan = model, truth, list(plan)
         self.held, self.plant, self.log = held, plant, log
+        self.nth = nth
         self.dtype = model.cfg.dtype
         self.rows: List[Dict] = []
         self.launches = 0
+        self.plant_seen = 0  # launches of the planted route so far
         self.planted_at: Optional[int] = None
 
     def call(self, fn: str, original: Callable, args, kwargs):
@@ -575,7 +578,10 @@ class Recorder:
                               f"takes {launch.channels}")
         self.launches += 1
         kargs = list(args)
-        planted = launch.route == self.plant and self.planted_at is None
+        planted = False
+        if launch.route == self.plant:
+            planted = self.plant_seen == self.nth
+            self.plant_seen += 1
         if planted:
             self.planted_at = i
             for j in PLANT_ARGS[fn]:
@@ -711,10 +717,11 @@ def build(engine: str, dtype: str, state, device,
 
 def run_engine(model, truth, left, right, engine: str, *,
                hold_filters: bool = True, plant: Optional[str] = None,
-               log: Callable[[str], None] = print) -> Dict:
+               log: Callable[[str], None] = print, nth: int = 0) -> Dict:
     """One 4-stage kernel forward of `model` under `engine`, every launch
     recorded, under `cudnn_deterministic`: the cost filters' launches held
-    where `hold_filters`, every stage-4 launch held. Returns the held rows, the number of launches,
+    where `hold_filters`, every stage-4 launch held; `plant`'s launch
+    `nth` planted (`Recorder`). Returns the held rows, the number of launches,
     each matched to a reference, and, on the card, the launch counts the
     kernels made (set to 0 just before the forward)."""
     from lwsnet_tpu_torch import make_forward
@@ -725,7 +732,7 @@ def run_engine(model, truth, left, right, engine: str, *,
     plan = filter_plan(cfg) + refine_plan(cfg, engine, h, w)
     rec = Recorder(model, truth, plan,
                    lambda L: hold_filters or L.fn not in FILTER_FNS,
-                   plant=plant, log=log)
+                   plant=plant, log=log, nth=nth)
     dev = left.device
     kbuild.reset_launch_counts()
     with recording(rec), cudnn_deterministic():
@@ -772,17 +779,18 @@ def check_set(set_name: str, dtype: str, engines: Sequence[str], h: int,
 
 def check_plant(route: str, h: int, w: int, device,
                 log: Callable[[str], None] = print,
-                fields: Optional[Dict] = None) -> Dict:
-    """`route`'s first launch planted (weights x PLANT_SCALE, kernel side)
-    on the seed-0 set in bf16 under the engine of ROUTES ("mxu" for a
-    cost-filter route of another width), every launch held; `fields`:
-    further ModelConfig fields. Returns run_engine's result without the
-    outputs, with "caught": the planted launch alone missed its bar."""
+                fields: Optional[Dict] = None, nth: int = 0) -> Dict:
+    """`route`'s launch `nth` (0: the first) planted (weights x
+    PLANT_SCALE, kernel side) on the seed-0 set in bf16 under the engine
+    of ROUTES ("mxu" for a cost-filter route of another width), every
+    launch held; `fields`: further ModelConfig fields. Returns run_engine's
+    result without the outputs, with "caught": the planted launch alone
+    missed its bar."""
     engine = ROUTES.get(shipped_route(route), "mxu")
     model = build(engine, "bfloat16", None, device, fields)
     left, right = set_pair("seed0", h, w, device)
     res = run_engine(model, float64_copy(model), left, right, engine,
-                     plant=route, log=log)
+                     plant=route, log=log, nth=nth)
     res.pop("outputs")
     if res["planted_at"] is None:
         raise LookupError(f"{route}: no launch of the route under {engine}")

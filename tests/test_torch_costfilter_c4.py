@@ -34,8 +34,8 @@ from lwsnet_tpu_torch.ops.cuda import build  # noqa: E402
 from lwsnet_tpu_torch.ops.cuda import costfilter as tcf  # noqa: E402
 from test_torch_model import jitter  # noqa: E402
 
-# The route's tile, staged rows and block (csrc/conv3d_bn_relu.cu,
-# namespace c4).
+# The route's tile, staged rows and block (csrc/stage4.cuh, shared with
+# the fused last layer's 4-channel route).
 TD, TH, TW, PX, THREADS = 5, 4, 64, 68, 256
 SH = TH + 2
 SROWS, RI = (TD + 2) * SH, ((TD + 2) * SH + 7) // 8
@@ -191,8 +191,8 @@ def test_filter_soft_argmin_c4_layouts_match_jax(monkeypatch):
     residual bins from -2), each launch handing on the layout the bf16
     routes use on the card (`filter_routes`): the 1 -> 4 entry (the
     tensor cores, `c1`) writes NCDHW, every 4 -> 4 layer (the tensor
-    cores, `c4`) reads and writes it, and the fused last layer (the CUDA
-    cores) reads it. The result matches the JAX package's."""
+    cores, `c4`) reads and writes it, and the fused last layer (the tensor
+    cores, `s4`) reads it. The result matches the JAX package's."""
     B, H, W, D, layers, channels, start = 1, 6, 10, 5, 4, 4, -2
     rng = np.random.default_rng(12)
     cost = rng.standard_normal((B, H, W, D)).astype(np.float32)
@@ -208,7 +208,7 @@ def test_filter_soft_argmin_c4_layouts_match_jax(monkeypatch):
     routes = tcf.filter_routes(BF, channels, D)
     assert routes.layer.route == tcf.TENSOR_CORES
     assert routes.entry.route == tcf.TENSOR_CORES
-    assert routes.skip.route == tcf.CUDA_CORES
+    assert routes.skip.route == tcf.TENSOR_CORES
     seen = []
     plain_entry, plain_layer = tcf.conv3d_entry, tcf.conv3d_bn_relu
     plain_last = tcf.conv3d_skip_softargmin

@@ -48,11 +48,11 @@ def test_every_width_and_d_has_a_chained_route(dtype):
     each launch reads the layout the one before it writes: the entry's
     output, each C -> C layer's input and output and the fused last
     layer's input lie alike. The tensor cores take the bf16 entries and
-    C -> C layers at 32, 16, 64, 8 or 4 channels (at every D), the fused
-    last layer at 32, 16, 64 or 8, the CUDA cores everything else; the
-    activations lie channels-last where the fused last layer takes the
-    tensor cores (at bf16 4 the entry writes and the 4 -> 4 layers read and
-    write NCDHW, as the fused last layer on the CUDA cores reads it). The
+    C -> C layers and the fused last layer at 32, 16, 64, 8 or 4 channels
+    (at every D), the CUDA cores everything else; the activations lie
+    channels-last where the fused last layer takes the wgmma route (at
+    bf16 4 the entry writes and the 4 -> 4 layers read and write NCDHW, as
+    the fused last layer's mma.sync route reads it). The
     entries at 4 write nothing but NCDHW, those at 16, 32 and 64 nothing
     but channels-last, at 8 either layout."""
     bf = dtype == torch.bfloat16
@@ -69,7 +69,7 @@ def test_every_width_and_d_has_a_chained_route(dtype):
             assert r.layer.reads_cl == cl, (C, D)
             assert (r.entry.route == tcf.TENSOR_CORES) == ends
             assert (r.layer.route == tcf.TENSOR_CORES) == tc
-            assert (r.skip.route == tcf.TENSOR_CORES) == cl, (C, D)
+            assert (r.skip.route == tcf.TENSOR_CORES) == tc, (C, D)
             # the per-launch rules of the two kernels agree with it
             assert tcf.conv3d_tensor_core_route(dtype, C, C) == tc
             assert tcf.conv3d_reads_channels_last(dtype, C, C) == cl
@@ -78,7 +78,7 @@ def test_every_width_and_d_has_a_chained_route(dtype):
                 not ends or C in (4, 8)), (C, D)
             assert tcf.conv3d_writes_channels_last(dtype, 1, C) == (
                 not ends or C != 4), (C, D)
-            assert tcf.skip_tensor_core_route(dtype, C) == cl
+            assert tcf.skip_tensor_core_route(dtype, C) == tc
     with pytest.raises(ValueError):
         tcf.filter_routes(dtype, 0, 5)
     with pytest.raises(ValueError):

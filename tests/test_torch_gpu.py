@@ -356,10 +356,10 @@ def test_skip_softargmin_wgmma_route_on_card(rnd, shape, channels_last):
 
 def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
     """float32 stays on the CUDA cores, which read NCDHW: a channels-last
-    input is copied once to the default layout. bf16 at a width the
-    tensor-core route does not take (4) runs on the CUDA cores from NCDHW
-    too, as its stage's layers write it, within two rounding steps of the
-    plain version."""
+    input is copied once to the default layout. bf16 at a width no
+    tensor-core route takes (3) runs on the CUDA cores from NCDHW too, as
+    its stage's layers write it, within two rounding steps of the plain
+    version."""
     build.reset_launch_counts()
     x = _channels_last(rnd(1, 32, 24, 5, 70).relu(), True)
     wt, vol = rnd(1, 32, 3, 3, 3) * 0.05, rnd(1, 24, 5, 70)
@@ -371,9 +371,9 @@ def test_skip_softargmin_off_the_tensor_cores_on_card(rnd):
     torch.cuda.synchronize()
     assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
     bf = torch.bfloat16
-    assert not tcf.filter_routes(bf, 4, 9).skip.reads_cl
-    xb = rnd(1, 4, 9, 5, 70, dtype=bf).relu()
-    wb, vb = rnd(1, 4, 3, 3, 3, dtype=bf), rnd(1, 9, 5, 70, dtype=bf)
+    assert tcf.filter_routes(bf, 3, 9).skip == (tcf.CUDA_CORES, False, False)
+    xb = rnd(1, 3, 9, 5, 70, dtype=bf).relu()
+    wb, vb = rnd(1, 3, 3, 3, 3, dtype=bf), rnd(1, 9, 5, 70, dtype=bf)
     _assert_two_steps(tcf.conv3d_skip_softargmin(xb, wb, vb, 0),
                       tcf.conv3d_skip_softargmin_plain(xb, wb, vb, 0))
     assert build.launch_counts()["conv3d_skip_softargmin"] == 2
@@ -446,10 +446,10 @@ def test_conv3d_cuda_core_widths_on_card(rnd, shape, dtype):
 
 
 # The CUDA-core route's widths and D among them: float32 at each, bf16 at
-# 4 and 3 channels (at 16 and 64 the tensor cores take bf16).
+# 3 channels (at 4, 16 and 64 the tensor cores take bf16).
 CORE_CASES = [(shape, dtype) for shape in WIDTH_SHAPES
               for dtype in (torch.bfloat16, torch.float32)
-              if dtype == torch.float32 or shape[1] not in (16, 64)]
+              if dtype == torch.float32 or shape[1] not in (4, 16, 64)]
 
 
 @pytest.mark.parametrize("shape,dtype", CORE_CASES)
@@ -532,6 +532,96 @@ def test_skip_softargmin_wgmma_widths_on_card(rnd, C, D):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
 
 
+# The fused last layer's 4-channel route (`s4`): AnyNet's stage-2 and
+# stage-3 shapes at 368x1232, ragged H and odd W over two depth tiles,
+# D = 5 at B = 2 with H and W ragged, and D = 65 (13 depth tiles).
+SKIP_C4_SHAPES = [
+    (1, 5, 92, 308, -2),     # stage 2: 23 x 5 columns, one tile each
+    (1, 5, 184, 616, -2),    # stage 3: 460 columns
+    (2, 7, 11, 37, 0),       # odd W (2-byte loads), two depth tiles
+    (2, 5, 13, 70, -2),      # two W tiles, the last of 6 pixels
+    (2, 65, 5, 37, -32),     # a last depth tile of one depth
+]
+
+
+@pytest.mark.parametrize("shape", SKIP_C4_SHAPES)
+def test_skip_softargmin_c4_route_on_card(rnd, shape):
+    """The bf16 4 -> 1 route of conv3d_skip_softargmin (`s4`, mma.sync),
+    reading the NCDHW its stage's 4 -> 4 layers write: one launch, no
+    route counted (not "cores"), no layout copy; within two bf16 rounding
+    steps of the plain version and atol 1e-3 / rtol 1e-4 of it (both sum
+    float32 from the same bf16 operands), and of the exact reference (the
+    same operands in float64); a channels-last input is copied once and
+    gives the same result."""
+    B, D, H, W, start = shape
+    bf = torch.bfloat16
+    assert tcf.filter_routes(bf, 4, D).skip == (tcf.TENSOR_CORES, False,
+                                                False)
+    x = rnd(B, 4, D, H, W, dtype=bf).relu()
+    wt = (rnd(1, 4, 3, 3, 3) * (2 / 108) ** 0.5).to(bf)
+    vol = (rnd(B, D, H, W) * 2).to(bf)
+    build.reset_launch_counts()
+    got = tcf.conv3d_skip_softargmin(x, wt, vol, start)
+    torch.cuda.synchronize()
+    assert build.launch_counts()["conv3d_skip_softargmin"] == 1
+    assert build.route_counts() == {}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    assert got.shape == (B, H, W) and got.dtype == torch.float32
+    want = tcf.conv3d_skip_softargmin_plain(x, wt, vol, start)
+    _assert_two_steps(got, want)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    cost = torch.nn.functional.conv3d(x.double(), wt.double(),
+                                      padding=1)[:, 0] + vol.double()
+    bins = torch.arange(start, start + D, dtype=torch.float64,
+                        device=x.device)
+    exact = (torch.softmax(-cost, 1) * bins.view(1, D, 1, 1)).sum(1)
+    torch.testing.assert_close(got.double(), exact, atol=1e-3, rtol=1e-4)
+    again = tcf.conv3d_skip_softargmin(_channels_last(x, True), wt, vol,
+                                       start)
+    torch.cuda.synchronize()
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 1}
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("D", [5, 7])
+def test_filter_soft_argmin_c4_on_card(rnd, D):
+    """AnyNet's stage-2/3 filter (four 4 -> 4 layers) over D = 5 at its
+    stage-3 shape and over D = 7 at a ragged one, through
+    `filter_soft_argmin` in bf16: every launch on the tensor cores (the
+    entry counted as "entry", nothing as "cores"), the fused last layer
+    once, no layout copy; against the same filter of plain versions on the
+    CPU, mean |delta| under 2 % of the output's span (phase 3's bar for
+    several bf16 layers)."""
+    import numpy as np
+    from lwsnet_tpu_torch.models.blocks import CostFilter3D, init_params
+    B, H, W = (1, 184, 616) if D == 5 else (2, 11, 37)
+    port = CostFilter3D(4, 4)
+    init_params(port, torch.Generator().manual_seed(0))
+    params = dict(port.named_parameters())
+    stats = dict(port.named_buffers())
+    cost = torch.as_tensor(np.random.default_rng(D).standard_normal(
+        (B, H, W, D)), dtype=torch.float32)
+    kw = dict(layers=4, channels=4, start=-(D // 2), dtype=torch.bfloat16)
+
+    def on(dev, d):
+        return {k: v.detach().to(dev) for k, v in d.items()}
+
+    build.reset_launch_counts()
+    got = tcf.filter_soft_argmin(cost.cuda(), on("cuda", params),
+                                 on("cuda", stats), **kw)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in build.launch_counts().items() if v}
+    assert counts == {"conv3d_bn_relu": 5, "conv3d_skip_softargmin": 1}
+    assert build.route_counts() == {"conv3d_bn_relu[entry]": 1}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+    want = tcf.filter_soft_argmin(cost, on("cpu", params), on("cpu", stats),
+                                  **kw)
+    assert got.shape == want.shape == (B, H, W, 1)
+    assert torch.isfinite(got).all()
+    delta = (got.cpu() - want).abs()
+    assert delta.mean() < 0.02 * (want.max() - want.min())
+
+
 def test_anynet_forward_on_card(rnd):
     """The 368x1232 forward at AnyNet's cost-filter settings (seed-0
     weights, jittered batch norms) through `make_forward`: in bf16 and
@@ -540,8 +630,8 @@ def test_anynet_forward_on_card(rnd):
     float32 max at most 2 x), the bf16 forward launching conv3d_bn_relu 15,
     conv3d_skip_softargmin 3 and dense3x3 11 times, stage 1's four
     16 -> 16 layers and its fused last layer and stages 2-3's eight
-    4 -> 4 layers (`c4`, NCDHW) on the tensor cores, their 2 fused last
-    layers on the CUDA cores, no layout copy."""
+    4 -> 4 layers (`c4`, NCDHW) and their 2 fused last layers (`s4`,
+    NCDHW) on the tensor cores, no layout copy."""
     import numpy as np
     from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
     from lwsnet_tpu_torch.tools.parity_layers import (ANYNET, MAX_RATIO,
@@ -570,8 +660,7 @@ def test_anynet_forward_on_card(rnd):
                           "dense3x3": 11, "dense3x3[dual]": 1}, dtype
         if dtype == "bfloat16":
             assert build.route_counts() == {
-                "conv3d_bn_relu[entry]": 3,
-                "conv3d_skip_softargmin[cores]": 2, "dense3x3[entry]": 1,
+                "conv3d_bn_relu[entry]": 3, "dense3x3[entry]": 1,
                 "dense3x3[output]": 1}
         assert build.LAYOUT_COPIES == {"to channels-last": 0,
                                        "to contiguous": 0}

@@ -185,9 +185,8 @@ def anynet_sound():
 def test_anynet_launches_meet_their_bar(anynet_sound, dtype):
     """At AnyNet's settings every launch has a reference of its own width
     (routes cf-entry-16, cf-16, skip-16, cf-entry-4, cf-4, skip-4), on
-    the card on the CUDA cores but the bf16 entries, 16 -> 16 and 4 -> 4
-    layers and stage 1's bf16 fused last layer (the tensor cores), and
-    meets its bar; in bf16
+    the card on the tensor cores in bf16 and on the CUDA cores in
+    float32, and meets its bar; in bf16
     the fused last layers read their exact reference (the kernel's own
     arithmetic) to within the order of the sums."""
     res = anynet_sound[dtype]
@@ -195,12 +194,10 @@ def test_anynet_launches_meet_their_bar(anynet_sound, dtype):
     routes = [r["route"] for r in res["rows"][:18]]
     assert routes == (["cf-entry-16"] + ["cf-16"] * 4 + ["skip-16"]
                       + (["cf-entry-4"] + ["cf-4"] * 4 + ["skip-4"]) * 2)
-    # each on its route on the card (`filter_routes`): in bf16 the entries,
-    # the 16 -> 16 and 4 -> 4 layers and the 16 -> 1 fused last layer on
-    # the tensor cores
+    # each on its route on the card (`filter_routes`): in bf16 every
+    # launch of the three filters on the tensor cores
     tc = "tensor cores" if dtype == "bfloat16" else "CUDA cores"
-    assert [r["kernel_route"] for r in res["rows"][:18]] == (
-        [tc] * 6 + ([tc] * 5 + ["CUDA cores"]) * 2)
+    assert [r["kernel_route"] for r in res["rows"][:18]] == [tc] * 18
     for row in res["rows"]:
         assert row["ok"], row
         if dtype == "bfloat16" and row["route"].startswith("skip"):

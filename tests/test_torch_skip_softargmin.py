@@ -56,7 +56,7 @@ PER_ROW = {64: 9, 32: 9, 16: 9, 8: 6}
     (torch.bfloat16, 8, True),     # stages 2-3
     (torch.bfloat16, 16, True),    # AnyNet's stage 1
     (torch.bfloat16, 64, True),    # a 64-channel filter
-    (torch.bfloat16, 4, False),    # the CUDA cores (`filter_routes`)
+    (torch.bfloat16, 4, True),     # AnyNet's stages 2-3 (`s4`, NCDHW)
     (torch.float32, 32, False),    # the CUDA cores, NCDHW
     (torch.float32, 8, False),
 ])
