@@ -34,13 +34,17 @@ failure exits non-zero:
      channels; 16 and 64, two and three chunks of costs past D = 64; 4,
      NCDHW, at AnyNet's stage-2 and stage-3 shapes, over D = 7 at odd W
      and over D = 65) at ragged shapes from
-     both layouts (NCHW / channels-last), in float32 (TF32 off; atol
+     both layouts (NCHW / channels-last), and dense3x3's float32 route
+     (32 outputs: every tower and head dilation, two weight groups, the
+     two-input form, 16 and 24 input channels, either layout out), in
+     float32 (TF32 off; atol
      2e-4, rtol 1e-3) and bf16 (mean |delta| < 2 % of the plain output's
      span; chain3x3, the 8- and 4-channel conv3d_bn_relu layers and the
      entries, conv3d_skip_softargmin and dense3x3's narrow routes also
      every element within two rounding steps, or, writing float32, atol
-     2e-4 / rtol 1e-3); each bf16 dense3x3 call on the route its shape
-     picks (`dense_route`), each conv3d_bn_relu entry counted as the
+     2e-4 / rtol 1e-3); each dense3x3 call on the route its shape
+     picks (`dense_route`: the float32 route counted as "f32"), each
+     conv3d_bn_relu entry counted as the
      "entry" route and no other call;
      conv3d_skip_softargmin's copies: none for bf16 channels-last input,
      one to channels-last for bf16 NCDHW (at 4 channels: none for NCDHW,
@@ -58,7 +62,11 @@ failure exits non-zero:
      refinement's from its route rule, `refine_launches`), its route
      launches `want_routes` (dense3x3's narrow routes, and the three cost
      filters' entries on conv3d_bn_relu's), and the wrappers' layout
-     copies `WANT_COPIES` (none on any path); then the
+     copies `WANT_COPIES` (none on any path); the float32 kernel run's
+     launch counts `want_counts` in float32, its route launches
+     `want_routes` in float32 (dense3x3's float32 route: 9 under the
+     shipped engine; the cost filters' CUDA-core launches, dwsep3x3's
+     float32 body), and its layout copies `WANT_COPIES`; then the
      "layers" refinement alone at 96x3712, where the (8, 16) tower pair
      splits into two solo layers, against the module path's towers + head
      at the same bars, with its own launch counts;
@@ -75,7 +83,9 @@ failure exits non-zero:
      as many as `want_counts` holds, and its kernel launches equal to
      `want_counts`; then a x1.01 weight
      error planted in each route's first launch (`parity_layers.ROUTES`,
-     seed-0, bf16, kernel side) must miss at that launch and no other,
+     seed-0, bf16, kernel side), and in float32 in the first launch of
+     each route on dense3x3's float32 route (`F32_PLANTS`), must miss at
+     that launch and no other,
      printed beside the sound reading; its time printed, every reading in
      chiprun_out/parity_layers.json;
   5. `InferenceEngine` answers 4 seeded requests at num_stages 1..4 under
@@ -285,6 +295,9 @@ from lwsnet_tpu_torch.tools.parity_layers import (ENGINES, MAX_RATIO,
 H, W = 368, 1232          # KITTI eval window
 WIDE_H, WIDE_W = 96, 3712  # a width where the layers path splits a pair
 PEAK_BF16 = 989e12        # H100 SXM dense tensor-core FLOP/s (data sheet)
+# H100 SXM float32 FLOP/s on the CUDA cores: 132 SMs x 128 lanes x 2 x
+# 1.98 GHz (the float32 routes' products are float32 FMAs, not TF32)
+PEAK_FP32 = 66.9e12
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 
 
@@ -316,26 +329,30 @@ DUAL = {"mxu": "dense3x3[dual]", "vpu-paired": "dense3x3[dual]",
         "layers": None}
 
 
-def refine_launches(engine, fields=None, h=H, w=W):
-    """(launches, route launches) of the bf16 refinement under `engine` of
-    ModelConfig(**fields) at h x w, from its route rule
-    (`refine_kernels.refine_routes`): launches by kernel, its two-input
-    one as "[dual]"; dense3x3's narrow routes and dwsep3x3's tile body as
-    `build.route_counts()` counts them ("dense3x3[entry]",
-    "dense3x3[output]", "dwsep3x3[mma]", "dwsep3x3_pair[mma]")."""
+def refine_launches(engine, fields=None, h=H, w=W, dtype=None):
+    """(launches, route launches) of the refinement in `dtype` (default
+    bf16) under `engine` of ModelConfig(**fields) at h x w, from its route
+    rule (`refine_kernels.refine_routes`): launches by kernel, its
+    two-input one as "[dual]"; dense3x3's narrow routes and float32 route
+    and dwsep3x3's tile body as `build.route_counts()` counts them
+    ("dense3x3[entry]", "dense3x3[output]", "dense3x3[f32]",
+    "dwsep3x3[mma]", "dwsep3x3_pair[mma]", in float32 "[cores]")."""
     import torch
     from lwsnet_tpu_torch import ModelConfig
     from lwsnet_tpu_torch.models import refine_kernels as RK
-    from lwsnet_tpu_torch.ops.cuda.refine_rows import MMA
+    from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
     engine = engine.replace("layers-wide", "layers")
     launches, routes = {}, {}
-    for L in RK.refine_routes(torch.bfloat16, engine,
+    for L in RK.refine_routes(dtype or torch.bfloat16, engine,
                               ModelConfig(**(fields or {})).refine_channels,
                               h, w):
         launches[L.kernel] = launches.get(L.kernel, 0) + 1
-        if (L.kernel == "dense3x3" and L.route in (RK.ENTRY, RK.OUTPUT)
-                or L.route == MMA):
-            key = f"{L.kernel}[{L.route}]"
+        name = (L.route if L.kernel == "dense3x3" and L.route in (
+            RK.ENTRY, RK.OUTPUT, getattr(RR, "F32", None)) else
+            RR.dwsep_counted(L.route) if L.kernel.startswith("dwsep")
+            else None)
+        if name:
+            key = f"{L.kernel}[{name}]"
             routes[key] = routes.get(key, 0) + 1
     if DUAL[engine]:
         launches[DUAL[engine]] = 1
@@ -343,6 +360,9 @@ def refine_launches(engine, fields=None, h=H, w=W):
 
 
 FILTER_KERNELS = ("conv3d_bn_relu", "conv3d_skip_softargmin")
+# The routes of `parity_layers.ROUTES` that dense3x3's float32 route runs
+# in a float32 forward, each planted again in float32 in phase 4b.
+F32_PLANTS = ("dense-32", "dense-two-input")
 # The path whose run gives each kernel's launches on the kernels line.
 ENGINE_OF = {"conv3d_bn_relu": "mxu", "conv3d_skip_softargmin": "mxu",
              "dense3x3": "mxu", "dwsep3x3": "vpu-unpaired",
@@ -372,7 +392,8 @@ REPLACES = {
 def dense_route(p, dtype):
     """The route dense3x3 takes for call `p` in `dtype` (its C++ rule,
     mirrored by the predicates of ops/cuda/refine_rows.py): "entry",
-    "output", "tensor cores" or "CUDA cores"."""
+    "output", "f32" (the float32 route), "tensor cores" or "CUDA
+    cores"."""
     from lwsnet_tpu_torch.ops.cuda import refine_rows as RR
     args = (dtype, p["Ci"], p["Co"], p["d"], 2 if p.get("dual") else 1,
             p["G"])
@@ -380,37 +401,40 @@ def dense_route(p, dtype):
         return "entry"
     if RR.dense_output_route(*args):
         return "output"
+    if getattr(RR, "dense_f32_route", None) and RR.dense_f32_route(*args):
+        return RR.F32
     return ("tensor cores" if RR.dense_tensor_core_route(*args)
             else "CUDA cores")
 
 
-def want_routes(engine, fields=None):
-    """Route launches of one bf16 forward under `engine` of
-    ModelConfig(**fields): the refinement's narrow routes
+def want_routes(engine, fields=None, dtype=None):
+    """Route launches of one forward in `dtype` (default bf16) under
+    `engine` of ModelConfig(**fields): the refinement's counted routes
     (`refine_launches`), the three cost filters' entries
     ("conv3d_bn_relu[entry]", at every width), and each other cost-filter
     launch off the tensor cores as "cores" (`filter_routes`)."""
     import torch
     from lwsnet_tpu_torch import ModelConfig
-    want = dict(refine_launches(engine, fields)[1])
+    dtype = dtype or torch.bfloat16
+    want = dict(refine_launches(engine, fields, dtype=dtype)[1])
     want["conv3d_bn_relu[entry]"] = 3
     cfg = ModelConfig(**(fields or {}))
-    for kernel, _, p, n, _ in main_path_calls(cfg):
+    for kernel, _, p, n, _ in main_path_calls(cfg, dtype):
         if kernel in FILTER_KERNELS and not p.get("entry"):
             for route, k in filter_route_launches(kernel, p,
-                                                  torch.bfloat16).items():
+                                                  dtype).items():
                 want[route] = want.get(route, 0) + k * n
     return want
 
 
-def want_counts(engine, zero, fields=None):
-    """Launch counts of one bf16 forward under `engine` of
-    ModelConfig(**fields) at H x W: conv3d_bn_relu 15 and
+def want_counts(engine, zero, fields=None, dtype=None):
+    """Launch counts of one forward in `dtype` (default bf16) under
+    `engine` of ModelConfig(**fields) at H x W: conv3d_bn_relu 15 and
     conv3d_skip_softargmin 3, and the refinement's (`refine_launches`);
     `zero` holds every counter's name."""
     counts = dict.fromkeys(zero, 0)
     counts.update(conv3d_bn_relu=15, conv3d_skip_softargmin=3)
-    counts.update(refine_launches(engine, fields)[0])
+    counts.update(refine_launches(engine, fields, dtype=dtype)[0])
     return counts
 
 
@@ -558,15 +582,17 @@ def host_us(fn, reps=50):
 
 # --- the kernels' main-path calls ------------------------------------------
 
-def main_path_calls(cfg):
-    """Every distinct kernel call of the 368x1232 batch-1 forward:
-    (kernel, label, shape dict, launches per forward, engine). `cl`: the
-    input lies channels-last, as the path hands it over; `cl_out`: the
-    kernel is asked to write channels-last (`ncdhw_out`, in the ragged
-    checks only: NCDHW); `entry`: a stage's 1 -> C entry, layer 0's BN +
-    ReLU fused (`conv3d_entry`), which writes what the next layer reads."""
+def main_path_calls(cfg, dtype=None):
+    """Every distinct kernel call of the 368x1232 batch-1 forward in
+    `dtype` (default bf16): (kernel, label, shape dict, launches per
+    forward, engine). `cl`: the input lies channels-last, as the path
+    hands it over in `dtype`; `cl_out`: the kernel is asked to write
+    channels-last (`ncdhw_out`, in the ragged checks only: NCDHW);
+    `entry`: a stage's 1 -> C entry, layer 0's BN + ReLU fused
+    (`conv3d_entry`), which writes what the next layer reads."""
     import torch
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    dtype = dtype or torch.bfloat16
     calls = []
     for s in range(3):
         h, w = H // 8 * 2 ** s, W // 8 * 2 ** s
@@ -575,19 +601,19 @@ def main_path_calls(cfg):
         geo = dict(B=1, D=D, H=h, W=w)
         calls.append(("conv3d_bn_relu", f"stage{s + 1} 1->{C} entry",
                       dict(geo, Ci=1, Co=C, entry=True), 1, "mxu"))
-        # the C -> C layers read and write the layout of the bf16 path
-        # (`filter_routes`: channels-last at 32 or 8 channels), and the
-        # fused last layer reads it (a checkout from before the rule:
+        # the C -> C layers read and write the layout of the path
+        # (`filter_routes`: in bf16 channels-last at 32 or 8 channels), and
+        # the fused last layer reads it (a checkout from before the rule:
         # channels-last, at the shipped widths)
         routes = getattr(CF, "filter_routes", None)
-        cl = routes(torch.bfloat16, C, D).layer.reads_cl if routes else True
+        cl = routes(dtype, C, D).layer.reads_cl if routes else True
         calls.append(("conv3d_bn_relu", f"stage{s + 1} {C}->{C}",
                       dict(geo, Ci=C, Co=C, cl=cl), cfg.layers_3d, "mxu"))
         calls.append(("conv3d_skip_softargmin", f"stage{s + 1} {C}->1",
                       dict(geo, Ci=C, cl=cl, start=0 if s == 0 else
                            -cfg.max_disp_list[s] + 1), 1, "mxu"))
     c = cfg.refine_channels
-    reads = refine_reads(cfg, "mxu")
+    reads = refine_reads(cfg, "mxu", dtype=dtype)
     geo = dict(H=H, W=W)
     calls.append(("dense3x3", f"tower entry 3->{c} G=2",
                   dict(geo, B=2, G=2, Ci=3, Co=c, d=1, aff=False,
@@ -609,16 +635,16 @@ def main_path_calls(cfg):
     return calls
 
 
-def refine_reads(cfg, engine, h=H, w=W):
-    """Whether each launch of `engine`'s bf16 refinement of `cfg` at h x w
-    reads channels-last, in order (`refine_kernels.refine_routes`); in a
-    checkout from before that rule, the shipped path's: all but the
-    tower entries."""
+def refine_reads(cfg, engine, h=H, w=W, dtype=None):
+    """Whether each launch of `engine`'s refinement of `cfg` in `dtype`
+    (default bf16) at h x w reads channels-last, in order
+    (`refine_kernels.refine_routes`); in a checkout from before that rule,
+    the shipped path's: all but the tower entries."""
     import torch
     from lwsnet_tpu_torch.models import refine_kernels as RK
     routes = getattr(RK, "refine_routes", None)
     if routes is not None:
-        return [L.reads_cl for L in routes(torch.bfloat16, engine,
+        return [L.reads_cl for L in routes(dtype or torch.bfloat16, engine,
                                            cfg.refine_channels, h, w)]
     entries = {"layers": (0, 3), "chain": (0,)}.get(engine, (0,))
     return [i not in entries for i in range(11)]
@@ -816,6 +842,34 @@ def ragged_calls():
                           f"4->1 B={b} {d}x{h}x{w} {tag}",
                           dict(B=b, Ci=4, D=d, H=h, W=w, cl=cl,
                                start=-(d // 2)), 0, None))
+    # dense3x3's float32 route (`refine_rows.dense_f32_route`; bf16 runs
+    # the same calls on its own routes) at every tower and head dilation
+    # of the path, two weight groups, the two-input form, one- and
+    # three-slab widths (16 and 24 input channels), channels-last and
+    # NCHW out, at planes no tile divides
+    for d in TOWER_DILATIONS:
+        calls.append(("dense3x3", f"32->32 d={d} G=2 37x75 to channels-last",
+                      dict(H=37, W=75, B=2, G=2, Ci=32, Co=32, d=d, aff=True,
+                           cl=True, cl_out=True), 0, None))
+    for d in HEAD_DILATIONS:
+        calls.append(("dense3x3", f"32->32 d={d} 29x150 to NCHW",
+                      dict(H=29, W=150, B=1, G=1, Ci=32, Co=32, d=d,
+                           aff=True, cl=True), 0, None))
+    calls.append(("dense3x3", "2x32->32 d=8 (dual) 11x70 to channels-last",
+                  dict(H=11, W=70, B=1, G=1, Ci=32, Co=32, d=8, aff=True,
+                       dual=True, cl=True, cl_out=True), 0, None))
+    for ci in (16, 24):
+        calls.append(("dense3x3", f"{ci}->32 d=3 G=2 13x37 to channels-last",
+                      dict(H=13, W=37, B=2, G=2, Ci=ci, Co=32, d=3, aff=True,
+                           cl=True, cl_out=True), 0, None))
+    # rings one stage longer than a tile's jobs (`refine_rows.ring_stages`:
+    # 5 stages for 4 slabs of 16, 8 for 7 slabs of 8)
+    calls.append(("dense3x3", "64->32 d=8 29x150 to channels-last",
+                  dict(H=29, W=150, B=1, G=1, Ci=64, Co=32, d=8, aff=True,
+                       cl=True, cl_out=True), 0, None))
+    calls.append(("dense3x3", "56->32 d=16 9x70 to NCHW",
+                  dict(H=9, W=70, B=1, G=1, Ci=56, Co=32, d=16, aff=True,
+                       cl=True), 0, None))
     return calls
 
 
@@ -1152,7 +1206,9 @@ def check_calls(calls, dev, tag, seed=1000):
             if kernel == "dense3x3":
                 route = dense_route(p, dtype)
                 narrow = route if route in ("entry", "output") else None
-                require(routes == ({f"dense3x3[{narrow}]": 1} if narrow
+                counted = route if route in ("entry", "output", "f32") \
+                    else None
+                require(routes == ({f"dense3x3[{counted}]": 1} if counted
                                    else {}),
                         f"{what}: route launches {routes}, want {route}")
             if kernel in ("conv3d_bn_relu", "conv3d_skip_softargmin"):
@@ -1281,7 +1337,7 @@ def forward_phase(dev, engines=None, fields=None, phase="4"):
     build.reset_launch_counts()
     zero = build.launch_counts()
     counts, copies, routes, failures = {}, {}, {}, []
-    forward_report = {}
+    counts_f32, copies_f32, routes_f32, forward_report = {}, {}, {}, {}
     for dt in ("bfloat16", "float32"):
         plain = None
         for engine, engine_fields in engines.items():
@@ -1299,6 +1355,10 @@ def forward_phase(dev, engines=None, fields=None, phase="4"):
                 counts[engine] = build.launch_counts()
                 copies[engine] = dict(build.LAYOUT_COPIES)
                 routes[engine] = build.route_counts()
+            else:
+                counts_f32[engine] = build.launch_counts()
+                copies_f32[engine] = dict(build.LAYOUT_COPIES)
+                routes_f32[engine] = build.route_counts()
             forward_report[f"{dt} {engine}"] = [
                 dict(stage=s + 1, **compare(f"{dt} {engine} stage {s + 1}",
                                             t, a, b, dt, (1, H, W, 1),
@@ -1323,6 +1383,24 @@ def forward_phase(dev, engines=None, fields=None, phase="4"):
               f"forward: {copies[engine]}")
         require(copies[engine] == WANT_COPIES[engine],
                 f"{engine} layout copies {copies[engine]} != "
+                f"{WANT_COPIES[engine]}")
+        want = want_counts(engine, zero, fields, torch.float32)
+        print(f"[{phase}] launch counts of the float32 {engine} kernel "
+              f"forward: {counts_f32[engine]}")
+        require(counts_f32[engine] == want,
+                f"float32 {engine} launch counts {counts_f32[engine]} != "
+                f"{want}")
+        print(f"[{phase}] route launches of the float32 {engine} kernel "
+              f"forward (dense3x3's float32 route among them): "
+              f"{routes_f32[engine]}")
+        want = want_routes(engine, fields, torch.float32)
+        require(routes_f32[engine] == want,
+                f"float32 {engine} route launches {routes_f32[engine]} != "
+                f"{want}")
+        print(f"[{phase}] layout copies of the float32 {engine} kernel "
+              f"forward: {copies_f32[engine]}")
+        require(copies_f32[engine] == WANT_COPIES[engine],
+                f"float32 {engine} layout copies {copies_f32[engine]} != "
                 f"{WANT_COPIES[engine]}")
     if "layers" not in engines or fields:
         require(not failures, "; ".join(failures))
@@ -1390,7 +1468,8 @@ def layer_phase(dev, zero):
     as many as `want_counts` holds (`zero`: every counter's name), and its
     kernels' launch counts equal to it; then each route of
     `parity_layers.ROUTES` planted (weights x1.01, kernel side, seed-0,
-    bf16), which must miss at its launch and nowhere else. Fails after
+    bf16), and each of F32_PLANTS in float32, which must miss at its
+    launch and nowhere else. Fails after
     printing every reading if any missed. Returns the phase's report."""
     import torch
     from lwsnet_tpu_torch.tools import parity_layers as PL
@@ -1443,6 +1522,25 @@ def layer_phase(dev, zero):
                 failures.append(f"planted {route}: missed at {res['missed']}"
                                 f", want [{at}] alone")
             report["planted"][route] = res
+        # float32: the routes on dense3x3's float32 route
+        sound = report["sound"]["seed0 float32"]
+        for route in F32_PLANTS:
+            res = PL.check_plant(route, H, W, dev, log=lambda _: None,
+                                 dtype="float32")
+            at = res["planted_at"]
+            engine = PL.ROUTES[route]
+            got = next(r for r in res["rows"] if r["index"] == at)
+            ref = next(r for r in sound[engine]["rows"] if r["index"] == at)
+            log(f"planted x{PL.PLANT_SCALE} float32 {route} ({engine} #{at}, "
+                f"{got['where']}): ratio {got['mean_ratio']:.3f} (max "
+                f"{got['max_ratio']:.3f}) against sound "
+                f"{ref['mean_ratio']:.3f} (max {ref['max_ratio']:.3f}), bars "
+                f"{PL.bars(torch.float32, route)}; launches that missed: "
+                f"{res['missed']}")
+            if not res["caught"]:
+                failures.append(f"planted float32 {route}: missed at "
+                                f"{res['missed']}, want [{at}] alone")
+            report["planted"][f"float32 {route}"] = res
     report["seconds"] = time.time() - t0
     with open(os.path.join("chiprun_out", "parity_layers.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2878,59 +2976,76 @@ def per_launch_phase(dev, fields, engines, zero, tag):
     return failures, report
 
 
-def timing_rows(calls, dev, smi, tag, seed):
-    """Phase 14e: each call of `calls` in bf16 on seeded operands (call i
-    from default_rng(seed + i)): events, the kernel alone on the device
-    (profiler, after every event timing), the plain version, one library
-    call of the same function (cuDNN; a dw-sep pair has none, and the sum
-    of one cuDNN call a layer stands beside it) and its bound."""
+def timing_rows(calls, dev, smi, tag, seed, dtype=None, nchw=False):
+    """Phase 14e: each call of `calls` in `dtype` (default bf16) on seeded
+    operands (call i from default_rng(seed + i)): events, the kernel alone
+    on the device (profiler, after every event timing), the plain version,
+    one library call of the same function (cuDNN, in float32 with TF32
+    off, so that it does the same float32 work; a dw-sep pair has none,
+    and the sum of one cuDNN call a layer stands beside it) and its bound
+    (float32 operations at PEAK_FP32, bf16 at PEAK_BF16). `nchw`: also
+    the library call on NCHW copies of channels-last inputs, on the
+    device ("library_nchw_device_ms", None where the input is NCHW)."""
     import torch
     from lwsnet_tpu_torch.ops.cuda import costfilter as CF
+    from lwsnet_tpu_torch.tools.parity import tf32_off
     from lwsnet_tpu_torch.utils.timing import event_ms
+    dtype = dtype or torch.bfloat16
+    peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
 
     def route_of(kernel, p):
+        if kernel == "dense3x3":
+            return dense_route(p, dtype)
         if kernel in FILTER_KERNELS:
-            stage = CF.filter_routes(torch.bfloat16, p["Co"] if p.get(
+            stage = CF.filter_routes(dtype, p["Co"] if p.get(
                 "entry") else p["Ci"], p["D"])
             return (stage.entry if p.get("entry") else stage.layer
                     if kernel == "conv3d_bn_relu" else stage.skip).route
-        return dwsep_route(p, torch.bfloat16)
+        return dwsep_route(p, dtype)
 
     rows = []
-    for i, (kernel, label, p, n, _) in calls:
-        c = make_call(kernel, p, torch.bfloat16,
-                      np.random.default_rng(seed + i), dev)
-        t_bytes = c["bytes"] / PEAK_BYTES * 1e3
-        t_ops = c["ops"] / PEAK_BF16 * 1e3
-        lib = c["library"] or c["layers"]
-        rows.append(dict(kernel=kernel, label=label, launches=n,
-                         route=route_of(kernel, p),
-                         ms=event_ms(c["kernel"]),
-                         plain_ms=event_ms(c["plain"]),
-                         library=("one call" if c["library"]
-                                  else "per layer"),
-                         library_ms=event_ms(lib),
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations"))
-        del c
-    for (i, (kernel, label, p, n, _)), row in zip(calls, rows):
-        c = make_call(kernel, p, torch.bfloat16,
-                      np.random.default_rng(seed + i), dev)
-        row["device_ms"] = kernel_device_ms(c["kernel"], KERNEL_NAMES[kernel])
-        row["library_device_ms"] = kernel_device_ms(
-            c["library"] or c["layers"], "")
-        del c
-        dev_ms, lib_ms = (("not measured" if v is None else f"{v:.4f} ms")
-                          for v in (row["device_ms"],
-                                    row["library_device_ms"]))
-        lib = "cuDNN" if row["library"] == "one call" else \
-            "cuDNN one call a layer (no one call)"
-        print(f"[{tag}] {kernel} [{label}] ({row['route']}) x{n}: device "
-              f"{dev_ms}, events {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, {lib} {lib_ms} (events "
-              f"{row['library_ms']:.4f} ms), bound "
-              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) ({smi})")
+    with tf32_off():
+        for i, (kernel, label, p, n, _) in calls:
+            c = make_call(kernel, p, dtype, np.random.default_rng(seed + i),
+                          dev)
+            t_bytes = c["bytes"] / PEAK_BYTES * 1e3
+            t_ops = c["ops"] / peak * 1e3
+            lib = c["library"] or c["layers"]
+            rows.append(dict(kernel=kernel, label=label, launches=n,
+                             route=route_of(kernel, p),
+                             ms=event_ms(c["kernel"]),
+                             plain_ms=event_ms(c["plain"]),
+                             library=("one call" if c["library"]
+                                      else "per layer"),
+                             library_ms=event_ms(lib),
+                             bound_ms=max(t_bytes, t_ops),
+                             bound_by="bytes" if t_bytes >= t_ops
+                             else "operations"))
+            del c
+        for (i, (kernel, label, p, n, _)), row in zip(calls, rows):
+            c = make_call(kernel, p, dtype, np.random.default_rng(seed + i),
+                          dev)
+            row["device_ms"] = kernel_device_ms(c["kernel"],
+                                                KERNEL_NAMES[kernel])
+            row["library_device_ms"] = kernel_device_ms(
+                c["library"] or c["layers"], "")
+            if nchw:
+                row["library_nchw_device_ms"] = (
+                    None if c["library_nchw"] is None
+                    else kernel_device_ms(c["library_nchw"], ""))
+            del c
+            dev_ms, lib_ms = (("not measured" if v is None
+                               else f"{v:.4f} ms")
+                              for v in (row["device_ms"],
+                                        row["library_device_ms"]))
+            lib = "cuDNN" if row["library"] == "one call" else \
+                "cuDNN one call a layer (no one call)"
+            print(f"[{tag}] {kernel} [{label}] ({row['route']}) x{n}: "
+                  f"device {dev_ms}, events {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, {lib} {lib_ms} (events "
+                  f"{row['library_ms']:.4f} ms), bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) "
+                  f"({smi})")
     return rows
 
 

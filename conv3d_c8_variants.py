@@ -3,13 +3,13 @@
 conv3d_skip_softargmin's; with --entry, of conv3d_bn_relu's 1 -> C entry
 route; with --dwsep, of dwsep3x3's tile body; with --c4, of the 4 -> 4
 route and of the CUDA-core kernel it replaced; with --skip4, of the fused
-last layer's 4-channel route and of the CUDA-core kernel it replaced),
-timed on one GPU.
+last layer's 4-channel route and of the CUDA-core kernel it replaced;
+with --dense32, of dense3x3's float32 route), timed on one GPU.
 
 Run from the repository root on a machine with a card:
 
     python3 conv3d_c8_variants.py [--skip | --entry | --dwsep | --c4 |
-                                   --skip4] [--json PATH]
+                                   --skip4 | --dense32] [--json PATH]
 
 Each variant is `lwsnet_tpu_torch/csrc/conv3d_bn_relu.cu` with a few
 textual changes to its `c8` namespace, written beside copies of the
@@ -178,6 +178,23 @@ removed and called with (1, 4, 3, 3, 3) weights):
                       (loads and FMAs), the costs and volume into shared
                       memory (with the barrier after), warp 0's
                       soft-argmin, the block's total.
+
+--dense32 splits dense3x3's float32 route instead (`csrc/dense3x3_f32.cuh`,
+built from `csrc/dense3x3.cu` with DENSE_F32_CLOCK defined 1), held
+against `dense3x3_plain` (TF32 off, atol 2e-4 / rtol 1e-3) and timed
+alone on the device beside the route as built, at the float32 "mxu"
+forward's launches of the route at 368x1232 (the tower layers at B = 2,
+the head's two-input entry, the head layers):
+
+  clock               clock64() of a block: its copy thread's waits for
+                      free stages and the rest of its loop (jobs decoded,
+                      copies issued); its first activating thread's waits
+                      for landed jobs and its activation; thread 0 of its
+                      first consumer group: the set-up up to the weights'
+                      arrival, waits for activated jobs, products,
+                      epilogue, tiles and its whole run (medians over the
+                      blocks of one launch, in clocks, and each of the
+                      consumer's phases' share of its run).
 
 Exits 1 without CUDA, 2 if a variant fails to build or its check.
 """
@@ -902,6 +919,89 @@ def dwsep_variants(dev, report):
     return rc
 
 
+DENSE32_VARIANTS = {
+    "clock": [('#include "dense3x3_entry.cuh"',
+               '#define DENSE_F32_CLOCK 1\n#include "dense3x3_entry.cuh"')],
+}
+_DENSE32_CLOCK = '''
+extern "C" int dense32_clock_read(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, dense_f32::clk, sizeof(dense_f32::clk));
+}
+extern "C" int dense32_clock_reset() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, dense_f32::clk);
+  return e != cudaSuccess ? (int)e
+                          : (int)cudaMemset(p, 0, sizeof(dense_f32::clk));
+}
+'''
+# The slots of a block in `dense_f32::clk` (csrc/dense3x3_f32.cuh: Slot).
+DENSE32_SLOTS = ("free_wait", "issue", "landed_wait", "activation", "setup",
+                 "full_wait", "products", "epilogue", "tiles", "total")
+
+
+def dense32_variants(dev, report):
+    """The --dense32 family: each variant checked and timed at the float32
+    "mxu" forward's launches of dense3x3's float32 route, the clock
+    variant's split of each; rc 2 if a build or a check failed."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from lwsnet_tpu_torch import ModelConfig
+    from lwsnet_tpu_torch.ops.cuda import build
+    from lwsnet_tpu_torch.tools.parity import tf32_off
+    libs, rc = build_variants(
+        DENSE32_VARIANTS, os.path.join(ROOT, "build", "dense32_variants"),
+        "dense3x3", None, {"clock": _DENSE32_CLOCK}, kernel="dense_f32")
+    calls = [c for c in cs.main_path_calls(ModelConfig(), torch.float32)
+             if c[0] == "dense3x3"
+             and cs.dense_route(c[2], torch.float32) == "f32"]
+    build.DENSE3X3._fn("dense3x3_f32")  # loads the library
+    repo_lib = build.DENSE3X3._lib
+    with tf32_off():
+        for name, lib in libs.items():
+            build.DENSE3X3._lib = repo_lib if lib is None else lib
+            build.DENSE3X3._fns = {}
+            row = {}
+            for i, (kernel, label, p, n, _) in enumerate(calls):
+                c = cs.make_call(kernel, p, torch.float32,
+                                 np.random.default_rng(7000 + i), dev)
+                want, got = c["plain"](), c["kernel"]()
+                bad = int((~torch.isclose(got, want, atol=2e-4,
+                                          rtol=1e-3)).sum())
+                if bad:
+                    print(f"{name}: {label}: {bad} elements beyond atol "
+                          f"2e-4 / rtol 1e-3")
+                    rc = 2
+                ms = cs.kernel_device_ms(c["kernel"], "dense3x3")
+                row[label] = dict(device_ms=ms, launches=n)
+                print(f"{name}: {label} x{n}: "
+                      f"{'not measured' if ms is None else f'{ms:.4f} ms'}")
+                if name == "clock":
+                    torch.cuda.synchronize()
+                    lib.dense32_clock_reset()
+                    c["kernel"]()
+                    torch.cuda.synchronize()
+                    k = len(DENSE32_SLOTS)
+                    clk = np.zeros(132 * k, np.int64)
+                    lib.dense32_clock_read(ctypes.c_void_p(clk.ctypes.data))
+                    ck = clk.reshape(132, k)
+                    ck = ck[ck[:, DENSE32_SLOTS.index("tiles")] > 0]
+                    split = {s: float(np.median(ck[:, j]))
+                             for j, s in enumerate(DENSE32_SLOTS)}
+                    split["share"] = {
+                        s: round(split[s] / split["total"], 4)
+                        for s in DENSE32_SLOTS[4:8]}
+                    split["blocks"] = int(len(ck))
+                    row[f"{label} clock64"] = split
+                    print(f"{name}: {label} clock64 medians over the blocks "
+                          f"(clocks): {split}")
+                del c
+            report["variants"][name] = row
+    build.DENSE3X3._lib = repo_lib
+    build.DENSE3X3._fns = {}
+    return rc
+
+
 C4_VARIANTS = {
     "blocks1": [("constexpr int MIN_BLOCKS = 2;",
                  "constexpr int MIN_BLOCKS = 1;")],
@@ -1355,6 +1455,7 @@ def main(argv=None):
     family.add_argument("--dwsep", action="store_true")
     family.add_argument("--c4", action="store_true")
     family.add_argument("--skip4", action="store_true")
+    family.add_argument("--dense32", action="store_true")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -1371,9 +1472,11 @@ def main(argv=None):
     print(f"card: {card()}")
     build.build_all()
     report = {"card": card(), "variants": {}}
-    if args.skip or args.entry or args.dwsep or args.c4 or args.skip4:
+    if (args.skip or args.entry or args.dwsep or args.c4 or args.skip4
+            or args.dense32):
         rc = (skip_variants if args.skip else entry_variants if args.entry
               else dwsep_variants if args.dwsep else c4_variants if args.c4
+              else dense32_variants if args.dense32
               else skip4_variants)(dev, report)
         if args.json:
             os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)

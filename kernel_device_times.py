@@ -5,6 +5,7 @@ Run from the repository root on a machine with a card:
 
     python3 kernel_device_times.py [--package-root DIR] [--nchw]
                                    [--forwards] [--configs] [--widths]
+                                   [--dtype {bfloat16,float32}]
                                    [--json PATH]
 
 For every kernel call of `chip_smoke.py` (phases 3 and 6: the 368x1232
@@ -51,6 +52,18 @@ launches of a 368x1232 forward at each of `chip_smoke.DWSEP_WIDTHS` (48,
 its cuDNN call (one conv2d of the composed kernel, or for a dw-sep pair
 one such conv a layer), events, the plain version and the bound.
 
+--dtype float32 times, in place of all that, each launch group of the
+shipped "mxu" forward (`chip_smoke.main_path_calls` in float32: rows 1a-5
+of PERF.md's kernel table, 15 / 3 / 11 launches, each input in the layout
+its tree's route rules give the float32 path) as phase 14e times a call
+(`chip_smoke.timing_rows` in float32: the kernel alone on the device,
+events, the plain version, the same cuDNN conv in float32 with TF32 off,
+and the bound at float32's CUDA-core rate `chip_smoke.PEAK_FP32` or the
+bytes), with each group's sum over a forward and its share of the bound;
+with --forwards also the device busy of the float32 4-stage "mxu" forward
+on the kernel path and on the module path. The default, bfloat16, prints
+what it printed before the option.
+
 --package-root DIR imports `lwsnet_tpu_torch` from another checkout (for
 instance the parent commit unpacked with `git archive`), so two trees can
 be compared on one card in one run (this checkout's `chip_smoke.py`
@@ -76,6 +89,8 @@ def main(argv=None):
     ap.add_argument("--forwards", action="store_true")
     ap.add_argument("--configs", action="store_true")
     ap.add_argument("--widths", action="store_true")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     import numpy as np
@@ -107,6 +122,8 @@ def main(argv=None):
     print(f"card: {card()}; package {root}")
     if args.configs or args.widths:
         return config_times(cs, args, dev)
+    if args.dtype == "float32":
+        return float32_times(cs, args, dev)
     for i, (kernel, label, p, n, engine) in enumerate(calls):
         if args.nchw:
             p = {k: v for k, v in p.items()
@@ -221,6 +238,61 @@ def config_times(cs, args, dev):
         with open(args.json, "w") as f:
             json.dump(dict(card=card(), rows=rows, totals=totals), f,
                       indent=1)
+    return 0
+
+
+def float32_times(cs, args, dev):
+    """--dtype float32: each launch group of the float32 "mxu" forward as
+    `chip_smoke.timing_rows` times it, with its launches' sum and bound
+    share; with --forwards the float32 4-stage forward's device busy on
+    the kernel and the module path (`chip_smoke.device_profile`)."""
+    import numpy as np
+    import torch
+    from lwsnet_tpu_torch import LWSNet, ModelConfig, make_forward
+    from lwsnet_tpu_torch.tools.parity import tf32_off
+    from lwsnet_tpu_torch.utils.timing import card
+    smi = card()
+    calls = list(enumerate(cs.main_path_calls(ModelConfig(), torch.float32)))
+    rows = cs.timing_rows(calls, dev, smi, "kdt f32", 2000, torch.float32,
+                          nchw=True)
+    for r in rows:
+        n, ms, bound = r["launches"], r["device_ms"], r["bound_ms"]
+        lib, lib_nchw = r["library_device_ms"], r["library_nchw_device_ms"]
+        print(f"float32 {r['kernel']} [{r['label']}] ({r['route']}) x{n} a "
+              f"forward: device " + (
+                  "not measured" if ms is None else
+                  f"{ms * n:.4f} ms, {100 * bound / ms:.1f} % of its bound")
+              + f", bound {bound * n:.4f} ms ({r['bound_by']}), cuDNN "
+              + ("not measured" if lib is None else f"{lib * n:.4f} ms")
+              + ("" if lib_nchw is None else
+                 f" (on NCHW copies {lib_nchw * n:.4f} ms)")
+              + f", events {r['ms'] * n:.4f} ms, plain "
+              f"{r['plain_ms'] * n:.4f} ms ({smi})")
+    forwards = {}
+    if args.forwards:
+        rng = np.random.default_rng(1)
+        left, right = (torch.as_tensor(rng.standard_normal((1, cs.H, cs.W, 3)),
+                                       dtype=torch.float32, device=dev)
+                       for _ in range(2))
+        model = LWSNet(ModelConfig(compute_dtype="float32"), device=dev,
+                       seed=0)
+        cs.jitter_batchnorm(model, np.random.default_rng(3))
+        with tf32_off():
+            for path, pallas in (("kernel", True), ("module", False)):
+                fwd = make_forward(model, use_pallas=pallas, device=dev)
+                prof = cs.device_profile(lambda: fwd(left, right))
+                forwards[path] = prof
+                print(f"4-stage float32 mxu forward, {path} path: " + (
+                    "device busy not measured" if prof is None else
+                    f"device busy {prof['busy_ms']:.4f} ms, of which the "
+                    f"port's kernels {prof['port_kernels_ms']:.4f} ms") +
+                    f" ({smi})")
+        del model
+    if args.json:
+        os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(dict(card=smi, dtype="float32", rows=rows,
+                           forwards=forwards), f, indent=1)
     return 0
 
 

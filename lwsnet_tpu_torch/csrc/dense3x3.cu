@@ -12,7 +12,7 @@
 // Bound on the H100: memory for every refinement layer at 368x1232 (the
 // 32->32 tower layer moves 116 MB for 16.7 GFLOP).
 //
-// Four routes, picked by shape:
+// Five routes, picked by shape:
 // * bf16 32->32 layers (`dense_tc::use`): `dense3x3_tc.cuh`, wgmma tensor
 //   cores on channels-last activations with resident weights, multi-row
 //   tiles and a ring of TMA-staged rows; x, x2 and y channels-last.
@@ -22,10 +22,16 @@
 // * bf16 narrow entries, Ci x 9 <= 32 (`dense_entry::use`: the 3- and
 //   1-channel tower entries): `dense3x3_entry.cuh`, the taps of NCHW x as
 //   the K of one or two wgmma m64n32k16; y channels-last.
-// * everything else (float32 above all): the CUDA-core tiles of
-//   `dense3x3.cuh`, one block per 8 x 32 pixel tile, reading and writing
-//   NCHW or channels-last.
+// * float32 32-output layers, Ci % 8 == 0 (`dense_f32::use`: the
+//   refinement's float32 32 -> 32 layers and its two-input head entry):
+//   `dense3x3_f32.cuh`, CUDA-core FMAs on a register micro-tile of 8
+//   pixels x 8 outputs a lane, from TMA-staged channels-last rows with
+//   resident weights; x and x2 channels-last, y either layout.
+// * everything else (float32's narrow entries and outputs): the CUDA-core
+//   tiles of `dense3x3.cuh`, one block per 8 x 32 pixel tile, reading and
+//   writing NCHW or channels-last.
 #include "dense3x3_entry.cuh"
+#include "dense3x3_f32.cuh"
 #include "dense3x3_tc.cuh"
 
 namespace {
@@ -74,6 +80,11 @@ int launch(const Args& a, void* stream) {
       if (a.x_cl || !a.y_cl) return (int)cudaErrorInvalidValue;
       return dense_entry::launch<TO>(a, s);
     }
+  } else if (dense_f32::use(4, a.Ci, a.Co, a.d, dense_tc::inputs(a), a.G)) {
+    // Channels-last in only.
+    if (!a.x_cl) return (int)cudaErrorInvalidValue;
+    return dense_f32::slab(a.Ci) == 16 ? dense_f32::launch<16>(a, s)
+                                       : dense_f32::launch<8>(a, s);
   }
   if (!a.x_cl) {
     launch_cuda<T, TO, false>(a, s);

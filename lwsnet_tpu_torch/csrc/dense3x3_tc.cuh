@@ -96,24 +96,6 @@ __host__ __device__ inline int inputs(const Args& a) {
   return a.x2 != nullptr ? 2 : 1;
 }
 
-// The route's shapes; everything else takes dense3x3's other routes.
-__host__ __device__ inline bool use(int elem_bytes, int Ci, int Co, int d,
-                                    int nin, int G) {
-  return elem_bytes == 2 && Co == tc::N && Ci % 16 == 0 && d >= 1 &&
-         d <= MAX_D && Ci * nin * G <= MAX_K;
-}
-
-// The narrow-output shapes (mirrored by `dense_output_route` in
-// ops/cuda/refine_rows.py): one input, at most 8 outputs (the
-// refinement's 32 -> 1), the same body on m64n8k16 with the B images
-// zero-padded to 8 outputs (`layout_narrow_weights`), y written
-// (B, Co, H, W).
-__host__ __device__ inline bool use_narrow(int elem_bytes, int Ci, int Co,
-                                           int d, int nin, int G) {
-  return nin == 1 && Co >= 1 && Co <= 8 &&
-         use(elem_bytes, Ci, tc::N, d, nin, G);
-}
-
 __host__ __device__ inline int row_tiles(const Args& a) {
   return ceil_div(ceil_div(a.H, a.d), R);
 }
@@ -128,36 +110,87 @@ __host__ __device__ inline int tiles(const Args& a) {
 __host__ __device__ inline int row_pixels(int d) {
   return (TW + 2 * d + 7) / 8 * 8;
 }
-template <int SC>
+// A staged job's bytes: R + 2 rows of SC channels of EB-byte elements.
+template <int SC, int EB = 2>
 __host__ __device__ inline int stage_bytes(int d) {
-  return (R + 2) * row_pixels(d) * SC * 2;
+  return (R + 2) * row_pixels(d) * SC * EB;
 }
+
+// The ring of staged jobs, shared with dense3x3_f32.cuh's float32 route.
+// Its shared memory before the stages: `wbytes` of resident weights,
+// `afloats` float32 affines, 3 x MAX_STAGES + 1 mbarriers (256 B) and a
+// Job per stage (256 B); the stages start at the next 1024-byte boundary.
+__host__ __device__ inline int ring_fixed_bytes(int wbytes, int afloats) {
+  return wbytes + afloats * 4 + 512;
+}
+// The ring's stages beside `fixed` bytes: as many as fit, up to
+// MAX_STAGES; none (0) with fewer than `min_stages`, or with no more than
+// a tile's `jobs`. The two product groups take alternate tiles and wait
+// each job's mbarriers by the parity of its lap of the ring. That parity
+// names the right phase only if the stage's previous lap is done when
+// the group waits: a group reaches its tile's first job n having read
+// every job of its previous tile, up to n - jobs - 1, so job n - S must
+// be among them, S > jobs. (With S <= jobs the wait may pass on the
+// previous lap, or wait on the wrong one.)
+__host__ __device__ inline int ring_stages(int fixed, int sbytes,
+                                           int min_stages, int jobs) {
+  int n = (SMEM_MAX - fixed - 1024) / sbytes;
+  if (n > MAX_STAGES) n = MAX_STAGES;
+  return n < min_stages || n <= jobs ? 0 : n;
+}
+
 // Output channels of the B images: 32, or 8 for a narrow layer (Co <= 8,
 // zero-padded by the chain's wrapper, or by the block on dense3x3's
 // narrow-output route).
-__host__ __device__ inline int image_n(const Args& a) {
-  return a.Co <= 8 ? 8 : tc::N;
-}
+__host__ __device__ inline int image_n(int Co) { return Co <= 8 ? 8 : tc::N; }
+__host__ __device__ inline int image_n(const Args& a) { return image_n(a.Co); }
 // Bytes of one 16-deep slice of B.
 __host__ __device__ inline int slice_bytes(const Args& a) {
   return 16 * image_n(a) * 2;
 }
+__host__ __device__ inline int weight_bytes(int Ci, int Co, int nin, int G) {
+  return G * nin * 9 * Ci / 16 * (16 * image_n(Co) * 2);
+}
 __host__ __device__ inline int weight_bytes(const Args& a) {
-  return a.G * inputs(a) * 9 * a.Ci / 16 * slice_bytes(a);
+  return weight_bytes(a.Ci, a.Co, inputs(a), a.G);
 }
 __host__ __device__ inline int affine_floats(const Args& a) {
   return a.G * inputs(a) * 2 * a.Ci;
 }
-// Weights, affines, 3 x MAX_STAGES + 1 mbarriers (256 B), a Job per stage
-// (256 B); the stage ring starts at the next 1024-byte boundary.
 __host__ __device__ inline int fixed_bytes(const Args& a) {
-  return weight_bytes(a) + affine_floats(a) * 4 + 512;
+  return ring_fixed_bytes(weight_bytes(a), affine_floats(a));
 }
-// As many stages as fit, up to MAX_STAGES (fewer than MIN_STAGES: none).
+// The ring's stages at a shape, slabs of SC channels (0: refused).
+__host__ __device__ inline int stages(int SC, int Ci, int Co, int d, int nin,
+                                      int G) {
+  return ring_stages(
+      ring_fixed_bytes(weight_bytes(Ci, Co, nin, G), G * nin * 2 * Ci),
+      SC == 32 ? stage_bytes<32>(d) : stage_bytes<16>(d), MIN_STAGES,
+      nin * Ci / SC);
+}
 template <int SC>
 __host__ __device__ inline int stages(const Args& a) {
-  const int n = (SMEM_MAX - fixed_bytes(a) - 1024) / stage_bytes<SC>(a.d);
-  return n < MIN_STAGES ? 0 : (n > MAX_STAGES ? MAX_STAGES : n);
+  return stages(SC, a.Ci, a.Co, a.d, inputs(a), a.G);
+}
+
+// The route's shapes; everything else takes dense3x3's other routes.
+// Slabs of 32 channels where Ci allows, else 16.
+__host__ __device__ inline bool use(int elem_bytes, int Ci, int Co, int d,
+                                    int nin, int G) {
+  return elem_bytes == 2 && Co == tc::N && Ci % 16 == 0 && d >= 1 &&
+         d <= MAX_D && Ci * nin * G <= MAX_K &&
+         stages(Ci % 32 == 0 ? 32 : 16, Ci, Co, d, nin, G) > 0;
+}
+
+// The narrow-output shapes (mirrored by `dense_output_route` in
+// ops/cuda/refine_rows.py): one input, at most 8 outputs (the
+// refinement's 32 -> 1), the same body on m64n8k16 with the B images
+// zero-padded to 8 outputs (`layout_narrow_weights`), y written
+// (B, Co, H, W).
+__host__ __device__ inline bool use_narrow(int elem_bytes, int Ci, int Co,
+                                           int d, int nin, int G) {
+  return nin == 1 && Co >= 1 && Co <= 8 &&
+         use(elem_bytes, Ci, tc::N, d, nin, G);
 }
 
 // One staged job: tile (batch b, row class c = h mod d, row tile k in the
@@ -190,13 +223,15 @@ __device__ __forceinline__ int image_row(const Args& a, const Job& t, int r) {
 }
 
 // Every group's weights of every input into shared memory by bulk copies on
-// `bar` (one thread), as B images (g, i, ci / 16, tap): a.wt / a.wt2 hold
-// (G, Ci / 16, 9) images each (`_wgmma_images` in ops/cuda/refine_rows.py).
-// The affines (g, i, {scale, shift}, ci) by every thread.
-__device__ __forceinline__ void load_weights(const Args& a, uint32_t wsm,
-                                             float* asm_, uint32_t bar) {
+// `bar` (one thread), `set` bytes for one group of one input, as a.wt /
+// a.wt2 hold them: here (G, Ci / 16, 9) B images each (`_wgmma_images` in
+// ops/cuda/refine_rows.py). The affines (g, i, {scale, shift}, ci) by
+// every thread of the block's NT.
+template <int NT = THREADS>
+__device__ __forceinline__ void load_weights(const Args& a, int set,
+                                             uint32_t wsm, float* asm_,
+                                             uint32_t bar) {
   const int nin = inputs(a), Ci = a.Ci;
-  const int set = Ci / 16 * 9 * slice_bytes(a);  // one group of one input
   if (threadIdx.x == 0) {
     tc::mbar_expect_tx(bar, a.G * nin * set);
     for (int gi = 0; gi < a.G * nin; ++gi)
@@ -208,7 +243,7 @@ __device__ __forceinline__ void load_weights(const Args& a, uint32_t wsm,
   for (int gi = 0; gi < a.G * nin; ++gi) {
     const float* aff = gi % nin ? a.aff2 : a.aff;
     if (aff != nullptr)
-      for (int e = threadIdx.x; e < 2 * Ci; e += THREADS)
+      for (int e = threadIdx.x; e < 2 * Ci; e += NT)
         asm_[gi * 2 * Ci + e] = aff[(size_t)(gi / nin) * 2 * Ci + e];
   }
 }
@@ -266,9 +301,9 @@ __device__ __forceinline__ void activate_job(const Args& a, const Job& t,
 
 // One layer's shared memory, from the base of the block's dynamic shared
 // memory: weights, affines, the mbarriers, a Job per stage, then the ring
-// of S stages at the next 1024-byte boundary. Per stage three mbarriers:
-// copies landed, staged (activated), read by the products; and one more
-// for the weights.
+// of S stages at the next 1024-byte boundary (`ring_fixed_bytes`). Per
+// stage three mbarriers: copies landed, staged (activated), read by the
+// products; and one more for the weights.
 struct Ring {
   unsigned char* stage0_p;  // the first stage (generic address)
   float* asm_;              // the affines
@@ -292,17 +327,34 @@ struct Ring {
   }
 };
 
-__device__ __forceinline__ Ring ring(const Args& a, unsigned char* smem,
-                                     int S) {
+__device__ __forceinline__ Ring make_ring(unsigned char* smem, int wbytes,
+                                          int afloats, int S) {
   Ring r;
-  r.asm_ = (float*)(smem + weight_bytes(a));
-  r.jobs = (Job*)(r.asm_ + affine_floats(a) + 64);
+  r.asm_ = (float*)(smem + wbytes);
+  r.jobs = (Job*)(r.asm_ + afloats + 64);
   r.wbase = tc::smem_addr(smem);
-  r.bars = tc::smem_addr(r.asm_ + affine_floats(a));
-  r.stage0 = (r.wbase + fixed_bytes(a) + 1023) & ~1023u;
+  r.bars = tc::smem_addr(r.asm_ + afloats);
+  r.stage0 = (r.wbase + ring_fixed_bytes(wbytes, afloats) + 1023) & ~1023u;
   r.stage0_p = smem + (r.stage0 - r.wbase);
   r.S = S;
   return r;
+}
+__device__ __forceinline__ Ring ring(const Args& a, unsigned char* smem,
+                                     int S) {
+  return make_ring(smem, weight_bytes(a), affine_floats(a), S);
+}
+
+// Thread 0: the ring's mbarriers initialised, `full_arrivals` a stage's
+// activation (its activating threads), 128 its read (a product group).
+__device__ __forceinline__ void init_ring(const Ring& r, int full_arrivals) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < r.S; ++s) {
+      tc::mbar_init(r.landed(s), 1);
+      tc::mbar_init(r.full(s), full_arrivals);
+      tc::mbar_init(r.empty(s), 128);
+    }
+    tc::mbar_init(r.weights(), 1);
+  }
 }
 
 // Every thread of a narrow layer's block (one input, Co <= 8): its B
@@ -340,14 +392,7 @@ __device__ __forceinline__ void layout_narrow_weights(const Args& a,
 // affines in shared memory.
 __device__ __forceinline__ void begin_layer(const Args& a, const Ring& r,
                                             bool narrow = false) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < r.S; ++s) {
-      tc::mbar_init(r.landed(s), 1);
-      tc::mbar_init(r.full(s), WORKERS);
-      tc::mbar_init(r.empty(s), 128);
-    }
-    tc::mbar_init(r.weights(), 1);
-  }
+  init_ring(r, WORKERS);
   tc::cta_sync();
   if (narrow) {
     layout_narrow_weights(a, (unsigned char*)r.asm_ - weight_bytes(a));
@@ -355,7 +400,8 @@ __device__ __forceinline__ void begin_layer(const Args& a, const Ring& r,
       for (int e = threadIdx.x; e < a.G * 2 * a.Ci; e += THREADS)
         r.asm_[e] = a.aff[e];
   } else {
-    load_weights(a, r.wbase, r.asm_, r.weights());
+    load_weights(a, a.Ci / 16 * 9 * slice_bytes(a), r.wbase, r.asm_,
+                 r.weights());
   }
   tc::cta_sync();  // the affines (and a narrow layer's weights)
   if (narrow && threadIdx.x == 0) tc::mbar_arrive(r.weights());
@@ -384,23 +430,32 @@ __device__ __forceinline__ int block_tiles(const Args& a) {
              : 0;
 }
 
-// The staging role (threads 0 .. STAGERS-1, STAGER_REGS registers): the
-// copy warp, whose one thread keeps the TMA copies of every job in flight
-// as soon as its stage is free, and the activating warps, which take their
-// share of job n once its copies have landed (the product warpgroup that
-// takes the job does the rest). map_x / map_x2: TMA maps of the inputs.
-template <int SC>
-__device__ __forceinline__ void stage_layer(const CUtensorMap* map_x,
-                                            const CUtensorMap* map_x2,
-                                            const Args& a, const Ring& r) {
+// The staging roles over this block's jobs, shared with dense3x3_f32.cuh
+// (EB-byte elements). Thread 0 of warp 0, the copy thread, keeps the TMA
+// copies of every job in flight as soon as its stage is free: the job
+// decoded once into its stage's Job slot, one box per staged row. Every
+// other thread that calls it activates: it takes each job once its copies
+// have landed, calls `activate(job, stage)` where the layer has an affine,
+// and arrives on the job's `full`. `mark(m)` closes a span of a clock64()
+// split (the float32 route's; a no-op here): the wait for a free stage
+// (FREED), the copy thread's other work (ISSUED), an activating thread's
+// wait for copies (LANDED) and its activation (STAGED).
+enum StageMark { FREED, ISSUED, LANDED, STAGED };
+template <int SC, int EB = 2, typename Activate, typename Mark>
+__device__ __forceinline__ void stage_jobs(const CUtensorMap* map_x,
+                                           const CUtensorMap* map_x2,
+                                           const Args& a, const Ring& r,
+                                           Activate&& activate, Mark&& mark) {
   const int d = a.d, S = r.S;
-  const int ROW = row_pixels(d) * SC * 2, sbytes = stage_bytes<SC>(d);
+  const int ROW = row_pixels(d) * SC * EB, sbytes = stage_bytes<SC, EB>(d);
   const int nslab = a.Ci / SC, jobs = inputs(a) * nslab;
   const int njobs = block_tiles(a) * jobs;
   if (threadIdx.x < 32) {
     if (threadIdx.x == 0)
       for (int n = 0; n < njobs; ++n) {
+        mark(ISSUED);
         if (n >= S) tc::mbar_wait(r.empty(n), ((n / S) & 1) ^ 1);
+        mark(FREED);
         const Job t =
             job_of(a, blockIdx.x + n / jobs * gridDim.x, n % jobs, nslab);
         r.jobs[n % S] = t;  // published by the arrive below
@@ -415,12 +470,29 @@ __device__ __forceinline__ void stage_layer(const CUtensorMap* map_x,
   }
   for (int n = 0; n < njobs; ++n) {
     tc::mbar_wait(r.landed(n), (n / S) & 1);
+    mark(LANDED);
     const Job t = r.jobs[n % S];
     if ((t.i ? a.aff2 : a.aff) != nullptr)
-      activate_job<SC>(a, t, r.asm_, r.stage0_p + (n % S) * sbytes,
-                       threadIdx.x - 32);
+      activate(t, r.stage0_p + (n % S) * sbytes);
     tc::mbar_arrive(r.full(n));
+    mark(STAGED);
   }
+}
+
+// The staging role (threads 0 .. STAGERS-1, STAGER_REGS registers): the
+// copy warp and the activating warps of `stage_jobs` (the product
+// warpgroup that takes a job does the rest of its activation). map_x /
+// map_x2: TMA maps of the inputs.
+template <int SC>
+__device__ __forceinline__ void stage_layer(const CUtensorMap* map_x,
+                                            const CUtensorMap* map_x2,
+                                            const Args& a, const Ring& r) {
+  stage_jobs<SC>(
+      map_x, map_x2, a, r,
+      [&](const Job& t, unsigned char* buf) {
+        activate_job<SC>(a, t, r.asm_, buf, threadIdx.x - 32);
+      },
+      [](StageMark) {});
 }
 
 // The product role (threads STAGERS .. THREADS-1, PRODUCT_REGS registers):
@@ -550,6 +622,34 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+}  // namespace dense_tc
+
+namespace {
+
+// The shared-memory opt-in of `kernel`, once per device and size (host
+// time a call). Internal linkage: a function-local static of a template
+// of external linkage is one object across every library loaded in the
+// process, so a copy of these sources built as a second library
+// (conv3d_c8_variants.py) would skip its own opt-in.
+template <auto kernel>
+cudaError_t opt_in(int smem) {
+  static int opted[16];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || opted[dev] < smem) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) opted[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+namespace dense_tc {
+
 // Launch on `stream`: one persistent block per SM, at most one per tile,
 // with all the shared memory a block may have. Returns a cudaError_t (or
 // the CUresult of a refused TMA map).
@@ -568,17 +668,8 @@ int launch(const Args& a, cudaStream_t stream) {
     if (rc != 0) return rc;
   }
   if (inputs(a) == 1) maps[1] = maps[0];
-  // The shared-memory opt-in, once per device and size (host time a call).
-  static int opted[16];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = opt_in<dense3x3_tc_kernel<SC, TO, N>>(smem);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 16 || opted[dev] < smem) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 16) opted[dev] = smem;
-  }
   if (tc::sm_count() < 1) return (int)cudaErrorInvalidValue;
   const int grid = std::min(tiles(a), tc::sm_count());
   kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], a, S);

@@ -442,27 +442,31 @@ inline EncodeTiled encode_tiled() {
   return encode;
 }
 
-// A TMA map of a channels-last bf16 tensor whose dims[0] = C channels
-// are innermost (dims and byte strides innermost first, `rank` <= 5):
-// boxes of SC channels x `pixels` pixels x `rows` of dims[2] x 1 of every
-// outer dim, swizzled as the staged rows are (see the note at the top),
-// zeros outside the tensor. Returns a CUresult.
+// A TMA map of a channels-last tensor whose dims[0] = C channels are
+// innermost (dims and byte strides innermost first, `rank` <= 5), of bf16
+// or, with `elem_bytes` 4, float32 elements: boxes of SC channels x
+// `pixels` pixels x `rows` of dims[2] x 1 of every outer dim, swizzled as
+// the staged rows are (see the note at the top; a pixel of SC x
+// `elem_bytes` = 64 bytes takes the 64-byte swizzle, of 32 the 32-byte
+// one), zeros outside the tensor. Returns a CUresult.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const cuuint64_t* dims, int SC, int pixels,
-                    int rows = 1) {
+                    int rows = 1, int elem_bytes = 2) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t strides[4];
-  cuuint64_t stride = 2;
+  cuuint64_t stride = elem_bytes;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
   const cuuint32_t box[5] = {(cuuint32_t)SC, (cuuint32_t)pixels,
                              (cuuint32_t)rows, 1, 1};
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                     const_cast<void*>(base), dims, strides, box, ones,
+  return (int)encode(map,
+                     elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     rank, const_cast<void*>(base), dims, strides, box, ones,
                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                     SC == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                              : CU_TENSOR_MAP_SWIZZLE_32B,
+                     SC * elem_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

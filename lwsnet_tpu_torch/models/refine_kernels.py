@@ -22,8 +22,10 @@ Counterpart of the JAX package's `models/refine_pallas.py` under
 Every engine runs at any `refine_channels`, as the JAX kernels do. Its
 one route rule, `refine_routes` (as `costfilter.filter_routes` is the cost
 filters'), gives each launch's route and layouts from (dtype, engine,
-width): at bf16 32 channels the tensor-core and narrow routes above; at
-every other width and in float32 the CUDA cores (`dwsep3x3`'s tile body
+width): at bf16 32 channels the tensor-core and narrow routes above; in
+float32 the 32-output layers on dense3x3's float32 route (channels-last
+in, so the float32 "mxu" entry writes channels-last); at every other
+width and in float32 otherwise the CUDA cores (`dwsep3x3`'s tile body
 in bf16: its pointwise product on mma.sync, route `refine_rows.MMA`),
 each launch asked to write the layout its reader takes (channels-last
 only into a narrow output conv, at widths that are multiples of 16), so
@@ -64,9 +66,9 @@ from lwsnet_tpu_torch.ops.cuda.costfilter import CUDA_CORES, TENSOR_CORES
 from lwsnet_tpu_torch.ops.cuda.refine import (fused_dense, fused_dwsep,
                                               fused_dwsep2, layer_plan)
 from lwsnet_tpu_torch.ops.cuda.refine_rows import (
-    chain_layer, chain_tensor_core_route, dense2_layer, dense_entry_route,
-    dense_layer, dense_output_route, dense_tensor_core_route, dwsep2_layer,
-    dwsep_layer, dwsep_route)
+    F32, chain_layer, chain_tensor_core_route, dense2_layer,
+    dense_entry_route, dense_f32_route, dense_layer, dense_output_route,
+    dense_tensor_core_route, dwsep2_layer, dwsep_layer, dwsep_route)
 
 ENGINES = ("mxu", "vpu", "chain")
 # The refinement's engines by name: the "rows" engines ("vpu" paired and
@@ -78,8 +80,9 @@ ENTRY, OUTPUT = "entry", "output"
 
 class RefineLaunch(NamedTuple):
     """One launch of the refinement on the card: its kernel, its route
-    (ENTRY, OUTPUT: dense3x3's narrow routes; TENSOR_CORES; CUDA_CORES;
-    `refine_rows.MMA`: dwsep3x3's bf16 tile body, `dwsep_route`),
+    (ENTRY, OUTPUT: dense3x3's narrow routes; `refine_rows.F32`: its
+    float32 route; TENSOR_CORES; CUDA_CORES; `refine_rows.MMA`:
+    dwsep3x3's bf16 tile body, `dwsep_route`),
     whether the activation it reads / writes lies channels-last, and the
     launches whose outputs it reads (indices; none: the forward's NCHW
     input)."""
@@ -109,7 +112,8 @@ def refine_routes(dtype: torch.dtype, engine: str, channels: int,
 
     A route fixes what it reads and writes: dense3x3's narrow entry reads
     NCHW and writes channels-last, its narrow output reads channels-last
-    and writes (B, Co, H, W), the tensor-core routes of `dense3x3`,
+    and writes (B, Co, H, W), its float32 route reads channels-last and
+    writes what its readers read, the tensor-core routes of `dense3x3`,
     `dwsep3x3` and `chain3x3` (tower: NCHW in) read and write
     channels-last; `dwsep3x3`'s tile body (`refine_rows.MMA` in bf16,
     CUDA_CORES in float32) and the CUDA cores of `chain3x3` read NCHW,
@@ -141,6 +145,8 @@ def refine_routes(dtype: torch.dtype, engine: str, channels: int,
             return add("dense3x3", OUTPUT, True, False, feeders)
         if dense_tensor_core_route(*args):
             return add("dense3x3", TENSOR_CORES, True, True, feeders)
+        if dense_f32_route(*args):
+            return add("dense3x3", F32, True, None, feeders)
         return add("dense3x3", CUDA_CORES, None if ci % 8 == 0 else False,
                    None, feeders)
 

@@ -17,9 +17,10 @@ Layout on the card: the tensor-core routes of `dense3x3`
 read and write channels-last memory, (B, H, W, C) under the logical
 (B, C, H, W) shape; `dense3x3`'s narrow-entry route (`dense_entry_route`)
 reads NCHW and writes channels-last, its narrow-output route
-(`dense_output_route`) reads channels-last and writes (B, Co, H, W), and
-its CUDA-core route reads either layout (channels-last where Ci % 8 == 0)
-and writes channels-last when asked. The tile body of `dwsep` / `dwsep2`
+(`dense_output_route`) reads channels-last and writes (B, Co, H, W), its
+float32 route (`dense_f32_route`) reads channels-last and writes either
+layout, and its CUDA-core route reads either layout (channels-last where
+Ci % 8 == 0) and writes channels-last when asked. The tile body of `dwsep` / `dwsep2`
 (any width, `dwsep_route`) reads the default layout and writes
 channels-last when asked; `chain`'s read and write the default layout.
 The refinement's route rule (`models/refine_kernels.refine_routes`) says
@@ -49,6 +50,32 @@ from lwsnet_tpu_torch.ops.cuda.costfilter import CUDA_CORES, TENSOR_CORES
 # count as "dwsep3x3[mma]" / "dwsep3x3_pair[mma]", the float32 body's as
 # "[cores]".
 MMA = "mma"
+# `dense3x3`'s float32 route (`dense_f32_route`): its launches count as
+# "dense3x3[f32]".
+F32 = "f32"
+
+
+def ring_stages(elem_bytes: int, Ci: int, dilation: int, inputs: int,
+                groups: int) -> int:
+    """The stages of the ring of staged jobs that `dense3x3`'s bf16
+    tensor-core route (elem_bytes 2) and its float32 route (4) keep beside
+    their resident weights (`dense_tc::ring_stages` in
+    csrc/dense3x3_tc.cuh), at 32 outputs; 0 where the route refuses the
+    shape: fewer stages than it needs (4 / 2), or no more than a tile has
+    jobs (inputs x channel slabs), which its two product groups' waits
+    need."""
+    r, tw, smem_max, max_stages = 4, 64, 232448, 8
+    if elem_bytes == 2:
+        sc, wbytes, min_stages = (32 if Ci % 32 == 0 else 16,
+                                  9 * Ci // 16 * 16 * 32 * 2, 4)
+    else:
+        sc, wbytes, min_stages = 16 if Ci % 16 == 0 else 8, Ci * 9 * 32 * 4, 2
+    sets = groups * inputs
+    fixed = sets * (wbytes + 2 * Ci * 4) + 512
+    row = (tw + 2 * dilation + 7) // 8 * 8
+    n = min((smem_max - fixed - 1024) // ((r + 2) * row * sc * elem_bytes),
+            max_stages)
+    return 0 if n < min_stages or n <= inputs * Ci // sc else n
 
 
 def dense_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int,
@@ -57,9 +84,26 @@ def dense_tensor_core_route(dtype: torch.dtype, Ci: int, Co: int,
     """Whether `dense3x3` runs its wgmma route, which reads and writes
     channels-last only (`dense_tc::use` in csrc/dense3x3_tc.cuh): bf16,
     32 output channels, whole 16-channel chunks, a dilation the staged halo
-    holds, and weights that stay resident in shared memory."""
+    holds, weights that stay resident in shared memory, and a ring of
+    staged jobs beside them (`ring_stages`)."""
     return (dtype == torch.bfloat16 and Co == 32 and Ci % 16 == 0
-            and 1 <= dilation <= 16 and Ci * inputs * groups <= 128)
+            and 1 <= dilation <= 16 and Ci * inputs * groups <= 128
+            and ring_stages(2, Ci, dilation, inputs, groups) > 0)
+
+
+def dense_f32_route(dtype: torch.dtype, Ci: int, Co: int, dilation: int,
+                    inputs: int = 1, groups: int = 1) -> bool:
+    """Whether `dense3x3` runs its float32 route, which reads channels-last
+    and writes either layout (`dense_f32::use` in csrc/dense3x3_f32.cuh):
+    float32, 32 output channels, whole 8-channel slabs, a dilation the
+    staged rows hold, one or two inputs, at most two weight groups,
+    weights that stay resident in shared memory, and a ring of staged jobs
+    beside them (`ring_stages`). Float32 FMAs on the CUDA cores, not
+    TF32."""
+    return (dtype == torch.float32 and Co == 32 and Ci >= 8 and Ci % 8 == 0
+            and 1 <= dilation <= 16 and 1 <= inputs <= 2
+            and 1 <= groups <= 2 and Ci * inputs * groups <= 128
+            and ring_stages(4, Ci, dilation, inputs, groups) > 0)
 
 
 def dense_entry_route(dtype: torch.dtype, Ci: int, Co: int, dilation: int,
@@ -199,7 +243,7 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
              out_dtype: Optional[torch.dtype] = None,
              channels_last: bool = False) -> torch.Tensor:
     """The dense3x3 kernel; arguments as `dense3x3_plain`. On the card the
-    tensor-core and narrow-output routes read channels-last, the
+    tensor-core, narrow-output and float32 routes read channels-last, the
     narrow-entry route NCHW, the CUDA cores x's layout where Ci % 8 == 0
     and NCHW otherwise (x and x2 are copied where they lie otherwise); the
     result lies channels-last where the tensor-core or narrow-entry route
@@ -219,12 +263,15 @@ def dense3x3(x: torch.Tensor, wt: torch.Tensor, *, dilation: int,
     tensor_core = dense_tensor_core_route(dt, Ci, Co, dilation, inputs, G)
     output = dense_output_route(dt, Ci, Co, dilation, inputs, G)
     entry = dense_entry_route(dt, Ci, Co, dilation, inputs, G)
+    f32 = dense_f32_route(dt, Ci, Co, dilation, inputs, G)
     if output and channels_last and Co > 1:
         raise ValueError("dense3x3: the narrow-output route writes "
                          "(B, Co, H, W) only")
-    x_cl = tensor_core or output or (Ci % 8 == 0 and lies_channels_last(x))
+    x_cl = (tensor_core or output or f32
+            or (Ci % 8 == 0 and lies_channels_last(x)))
     y_cl = tensor_core or entry or (channels_last and not output)
-    route = "entry" if entry else "output" if output else None
+    route = ("entry" if entry else "output" if output else F32 if f32
+             else None)
 
     def operands(xi, wi, ai, name):
         """The tensors (x in the route's layout, the weight re-laid for

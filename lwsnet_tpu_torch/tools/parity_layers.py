@@ -779,15 +779,16 @@ def check_set(set_name: str, dtype: str, engines: Sequence[str], h: int,
 
 def check_plant(route: str, h: int, w: int, device,
                 log: Callable[[str], None] = print,
-                fields: Optional[Dict] = None, nth: int = 0) -> Dict:
+                fields: Optional[Dict] = None, nth: int = 0,
+                dtype: str = "bfloat16") -> Dict:
     """`route`'s launch `nth` (0: the first) planted (weights x
-    PLANT_SCALE, kernel side) on the seed-0 set in bf16 under the engine
-    of ROUTES ("mxu" for a cost-filter route of another width), every
-    launch held; `fields`: further ModelConfig fields. Returns run_engine's
-    result without the outputs, with "caught": the planted launch alone
-    missed its bar."""
+    PLANT_SCALE, kernel side) on the seed-0 set in `dtype` under the
+    engine of ROUTES ("mxu" for a cost-filter route of another width),
+    every launch held; `fields`: further ModelConfig fields. Returns
+    run_engine's result without the outputs, with "caught": the planted
+    launch alone missed its bar."""
     engine = ROUTES.get(shipped_route(route), "mxu")
-    model = build(engine, "bfloat16", None, device, fields)
+    model = build(engine, dtype, None, device, fields)
     left, right = set_pair("seed0", h, w, device)
     res = run_engine(model, float64_copy(model), left, right, engine,
                      plant=route, log=log, nth=nth)

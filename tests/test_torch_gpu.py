@@ -42,7 +42,8 @@ def rnd():
 
 
 def test_kernels_match_plain_on_card(rnd):
-    """float32, the CUDA-core routes, and each launch counted."""
+    """float32: the cost filters' CUDA-core routes and dense3x3's float32
+    route (its NCHW inputs copied once), and each launch counted."""
     build.reset_launch_counts()
     x = rnd(1, 8, 9, 12, 20).relu()
     w, shift = rnd(8, 8, 3, 3, 3) * 0.2, rnd(8)
@@ -705,10 +706,10 @@ def test_channels_last_cuda_core_routes_on_card(rnd):
     asked, against the plain versions: the bf16 3 -> 32 entry (the
     narrow-entry route: NCHW in, channels-last out) and 32 -> 1 output conv
     (the narrow-output route: channels-last in); the same two shapes in
-    float32 and a float32 32 -> 32 layer, which stay on the CUDA-core
-    tiles (the entry writing channels-last where asked, the output reading
-    it); and the 1 -> 32 entry of conv3d_bn_relu (its tensor-core route,
-    no affine)."""
+    float32, which stay on the CUDA-core tiles (the entry writing
+    channels-last where asked, the output reading it), and a float32
+    32 -> 32 layer (the float32 route, channels-last in); and the 1 -> 32
+    entry of conv3d_bn_relu (its tensor-core route, no affine)."""
     build.reset_launch_counts()
     for dt in (torch.bfloat16, torch.float32):
         x3 = rnd(2, 3, 29, 70, dtype=dt)
@@ -818,8 +819,9 @@ def test_layers_dense_shapes_match_plain_on_card(rnd, dtype):
     d = 8, with affine) and the 32 -> 1 output conv in the compute dtype.
     bf16 runs the entries on the narrow-entry route, the head half on the
     32-output tensor-core route and the output on the narrow-output route;
-    float32 runs all four on the CUDA-core tiles (the entries' channel loop
-    with a 1-channel tail)."""
+    float32 runs the head half on the float32 route (its NCHW input copied
+    once) and the other three on the CUDA-core tiles (the entries' channel
+    loop with a 1-channel tail)."""
     build.reset_launch_counts()
     for ci, co, d, aff in ((1, 32, 1, False), (3, 32, 1, False),
                            (32, 32, 8, True), (32, 1, 1, False)):
@@ -836,7 +838,7 @@ def test_layers_dense_shapes_match_plain_on_card(rnd, dtype):
     assert build.launch_counts()["dense3x3"] == 4
     assert build.route_counts() == (
         {"dense3x3[entry]": 2, "dense3x3[output]": 1}
-        if dtype == torch.bfloat16 else {})
+        if dtype == torch.bfloat16 else {"dense3x3[f32]": 1})
 
 
 @pytest.mark.parametrize("d", [1, 16])
@@ -915,6 +917,107 @@ def test_dense_output_route_on_card(rnd, co, B, G, d, channels_last):
     if co > 1:
         with pytest.raises(ValueError, match="narrow-output route"):
             trr.dense3x3(x, wt, dilation=d, channels_last=True)
+
+
+# dense3x3's float32 route: (B, G, Ci, d, H, W, inputs, affine,
+# channels-last out). The float32 "mxu" forward's launches of it at
+# 368 x 1232 (each tower layer, B = 2 with two weight groups; the head's
+# two-input entry; each head layer), then ragged planes (no multiple of a
+# 64-pixel tile or of R x d = 4d rows), NCHW out, no affine, and 24- and
+# 16-channel inputs (three slabs of 8, one of 16); last, shapes whose ring
+# holds one stage more than a tile has jobs (`refine_rows.ring_stages`:
+# 64 channels at d = 8, 5 stages for 4 jobs; 48 channels, two groups, 4
+# for 3; 56 channels at d = 16, 8 for 7 slabs of 8).
+F32_ROUTE_CASES = (
+    [(2, 2, 32, d, 368, 1232, 1, True, True) for d in (2, 4, 8, 16)]
+    + [(1, 1, 32, 8, 368, 1232, 2, True, True)]
+    + [(1, 1, 32, d, 368, 1232, 1, True, True) for d in (8, 4, 2, 1)]
+    + [(2, 2, 32, 2, 37, 75, 1, True, False),
+       (2, 2, 32, 16, 29, 150, 1, True, True),
+       (1, 1, 32, 8, 11, 70, 2, True, False),
+       (1, 1, 32, 1, 5, 37, 1, False, True),
+       (2, 1, 24, 4, 13, 130, 1, True, True),
+       (1, 1, 16, 2, 9, 64, 2, True, True),
+       (1, 1, 64, 8, 29, 150, 1, True, True),
+       (2, 2, 48, 4, 13, 75, 1, True, False),
+       (1, 1, 56, 16, 9, 70, 1, True, True)])
+
+
+@pytest.mark.parametrize("case", F32_ROUTE_CASES, ids=[
+    f"B{c[0]}-G{c[1]}-C{c[2]}-d{c[3]}-{c[4]}x{c[5]}-in{c[6]}"
+    f"{'-aff' if c[7] else ''}-{'cl' if c[8] else 'nchw'}"
+    for c in F32_ROUTE_CASES])
+def test_dense_f32_route_on_card(rnd, case):
+    """dense3x3's float32 route against its plain version, TF32 off, at
+    atol 2e-4 / rtol 1e-3 (float32 FMAs: the same products, summed in
+    another order): channels-last in as it lies, the output in the layout
+    asked for, the launch counted on the route, no layout copy."""
+    B, G, Ci, d, H, W, nin, aff, out_cl = case
+    assert trr.dense_f32_route(torch.float32, Ci, 32, d, nin, G)
+
+    def operands():
+        x = _channels_last(rnd(B, Ci, H, W), True)
+        wt = rnd(G, 32, Ci, 3, 3) * (2 / (9 * Ci * nin)) ** 0.5
+        a = (torch.stack([rnd(G, Ci).abs() + 0.5, rnd(G, Ci)], 1)
+             if aff else None)
+        return x, wt, a
+
+    x, wt, a = operands()
+    kw = dict(dilation=d, affine=a)
+    if nin == 2:
+        x2, wt2, a2 = operands()
+        kw.update(x2=x2, wt2=wt2, affine2=a2)
+    build.reset_launch_counts()
+    got = trr.dense3x3(x, wt, channels_last=out_cl, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 32, H, W) and got.dtype == torch.float32
+    assert got.is_contiguous(memory_format=torch.channels_last if out_cl
+                             else torch.contiguous_format)
+    torch.testing.assert_close(got, trr.dense3x3_plain(x, wt, **kw),
+                               atol=2e-4, rtol=1e-3)
+    assert build.launch_counts()["dense3x3"] == 1
+    assert build.route_counts() == {"dense3x3[f32]": 1}
+    assert build.LAYOUT_COPIES == {"to channels-last": 0, "to contiguous": 0}
+
+
+# 32-output shapes whose ring of staged jobs would hold no more stages than
+# a tile has jobs (`refine_rows.ring_stages`), which the two product
+# groups' waits cannot take: (dtype, Ci, d, inputs). The float32 route
+# refuses two inputs past d = 8, 64 channels past d = 8 and 128 channels;
+# the bf16 tensor-core route 64 channels with two inputs and 128 channels
+# past d = 8. The CUDA-core tiles take them.
+RING_REFUSED = [(torch.float32, 32, 16, 2), (torch.float32, 64, 16, 1),
+                (torch.float32, 128, 1, 1), (torch.bfloat16, 64, 16, 2),
+                (torch.bfloat16, 128, 9, 1)]
+
+
+@pytest.mark.parametrize("case", RING_REFUSED, ids=[
+    f"{str(c[0])[6:]}-C{c[1]}-d{c[2]}-in{c[3]}" for c in RING_REFUSED])
+def test_dense_ring_refused_shapes_on_card(rnd, case):
+    """A shape the rings refuse runs on the CUDA-core tiles, channels-last
+    in as it lies, against its plain version (`_check`), counted on no
+    route."""
+    dtype, Ci, d, nin = case
+    assert not trr.dense_f32_route(dtype, Ci, 32, d, nin)
+    assert not trr.dense_tensor_core_route(dtype, Ci, 32, d, nin)
+
+    def operands():
+        x = _channels_last(rnd(1, Ci, 29, 75, dtype=dtype), True)
+        wt = (rnd(1, 32, Ci, 3, 3) * (2 / (9 * Ci * nin)) ** 0.5).to(dtype)
+        return x, wt, torch.stack([rnd(1, Ci).abs() + 0.5, rnd(1, Ci)], 1)
+
+    x, wt, a = operands()
+    kw = dict(dilation=d, affine=a)
+    if nin == 2:
+        x2, wt2, a2 = operands()
+        kw.update(x2=x2, wt2=wt2, affine2=a2)
+    build.reset_launch_counts()
+    got = trr.dense3x3(x, wt, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 32, 29, 75) and got.dtype == dtype
+    _check(got, trr.dense3x3_plain(x, wt, **kw), dtype)
+    assert build.launch_counts()["dense3x3"] == 1
+    assert build.route_counts() == {}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -93,6 +93,8 @@ def _route(dtype, name, args, kwargs):
         return RK.ENTRY
     if trr.dense_output_route(*rule):
         return RK.OUTPUT
+    if trr.dense_f32_route(*rule):
+        return trr.F32
     return (tcf.TENSOR_CORES if trr.dense_tensor_core_route(*rule)
             else tcf.CUDA_CORES)
 
